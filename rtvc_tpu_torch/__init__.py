@@ -1,0 +1,31 @@
+"""rtvc_tpu_torch — the SV2TTS voice-clone path in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper.
+
+A port of ``rtvc_tpu`` (JAX/Pallas), which stays the numerical reference.
+The clone path runs speaker encoder → Tacotron → WaveRNN:
+
+=========  ===========================================================
+subpkg     role
+=========  ===========================================================
+ops        DSP on tensors (encoder mel, mu-law, de-emphasis), numpy host
+           DSP (VAD, resample, mel filterbank), and the kernel wrappers
+           ``lstm_seq`` (K3), ``tacotron_decode`` (K2),
+           ``wavernn_generate`` (K1)
+csrc       the CUDA C++ sources of those kernels (built by ``_build``)
+models     nn.Modules under the reference's torch state-dict names
+inference  encoder / synthesizer / vocoder public API
+bridge     JAX variables → state_dicts of this package's modules
+=========  ===========================================================
+
+Each kernel wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch twin for CPU tensors; nothing selects a backend otherwise.
+
+The JAX reference computes in float32, so TF32 is switched off for matrix
+products and cuDNN convolutions when this package is imported.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

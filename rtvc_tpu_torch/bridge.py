@@ -1,0 +1,114 @@
+"""JAX variables → state_dicts of this package's modules.
+
+The inverse of the JAX package's three ``import_torch_state`` functions
+(``models/speaker_encoder.py``, ``models/tacotron.py``, ``models/wavernn.py``):
+the input is a variables tree as nested dicts (and lists) of arrays — numpy,
+or anything ``np.asarray`` accepts — and the output is a state_dict under the
+reference's torch names, which the port's modules load with
+``load_state_dict(strict=True)``. No JAX import is needed.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def _put(sd: StateDict, prefix: str, tree: Mapping) -> None:
+    """Copy a flat {name: array} dict under ``prefix``."""
+    for name, v in tree.items():
+        sd[prefix + name] = _t(v)
+
+
+def speaker_encoder_state(variables: Mapping) -> StateDict:
+    """{"params": {"lstm", "linear"}, optional "similarity"} → SpeakerEncoder
+    state_dict. The GE2E scale defaults to the reference's w=10, b=-5."""
+    p = variables["params"]
+    sd: StateDict = OrderedDict()
+    _put(sd, "lstm.", p["lstm"])
+    _put(sd, "linear.", p["linear"])
+    sim = variables.get("similarity") or {}
+    sd["similarity_weight"] = _t(sim.get("similarity_weight", [10.0]))
+    sd["similarity_bias"] = _t(sim.get("similarity_bias", [-5.0]))
+    return sd
+
+
+def _cbhg(sd: StateDict, prefix: str, params: Mapping, stats: Mapping) -> None:
+    for name, p in params.items():
+        if name.startswith(("conv1d_bank_", "conv_project")):
+            torch_name = (f"conv1d_bank.{name.rsplit('_', 1)[1]}"
+                          if name.startswith("conv1d_bank_") else name)
+            sd[f"{prefix}{torch_name}.conv.weight"] = _t(p["conv"]["weight"])
+            _put(sd, f"{prefix}{torch_name}.bnorm.", p["bnorm"])
+            _put(sd, f"{prefix}{torch_name}.bnorm.", stats[name]["bnorm"])
+        elif name == "pre_highway":
+            _put(sd, f"{prefix}pre_highway.", p)
+        elif name.startswith("highways_"):
+            i = name.rsplit("_", 1)[1]
+            _put(sd, f"{prefix}highways.{i}.W1.", p["W1"])
+            _put(sd, f"{prefix}highways.{i}.W2.", p["W2"])
+        elif name == "rnn":
+            _put(sd, f"{prefix}rnn.", p)
+        else:
+            raise KeyError(f"unexpected CBHG entry {name!r}")
+
+
+def tacotron_state(variables: Mapping) -> StateDict:
+    """{"params", "batch_stats"} (``init_tacotron`` layout) → Tacotron
+    state_dict."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: StateDict = OrderedDict()
+    _put(sd, "encoder.embedding.", p["embedding"])
+    for fc in ("fc1", "fc2"):
+        _put(sd, f"encoder.pre_net.{fc}.", p["enc_prenet"][fc])
+    _cbhg(sd, "encoder.cbhg.", p["enc_cbhg"], s["enc_cbhg"])
+    _put(sd, "encoder_proj.", p["encoder_proj"])
+    for fc in ("fc1", "fc2"):
+        _put(sd, f"decoder.prenet.{fc}.", p["dec_prenet"][fc])
+    _put(sd, "decoder.attn_net.conv.", p["lsa_conv"])
+    _put(sd, "decoder.attn_net.L.", p["lsa_L"])
+    _put(sd, "decoder.attn_net.W.", p["lsa_W"])
+    _put(sd, "decoder.attn_net.v.", p["lsa_v"])
+    _put(sd, "decoder.attn_rnn.", p["attn_rnn"])
+    _put(sd, "decoder.rnn_input.", p["rnn_input"])
+    _put(sd, "decoder.res_rnn1.", p["res_rnn1"])
+    _put(sd, "decoder.res_rnn2.", p["res_rnn2"])
+    _put(sd, "decoder.mel_proj.", p["mel_proj"])
+    _put(sd, "decoder.stop_proj.", p["stop_proj"])
+    _cbhg(sd, "postnet.", p["postnet"], s["postnet"])
+    _put(sd, "post_proj.", p["post_proj"])
+    return sd
+
+
+def wavernn_state(variables: Mapping) -> StateDict:
+    """{"params", "batch_stats"} (``init_wavernn`` layout, runtimeracer) →
+    WaveRNN state_dict."""
+    p, s = variables["params"], variables["batch_stats"]
+    up, ups = p["upsample"], s["upsample"]
+    rp, rs = up["resnet"], ups["resnet"]
+    sd: StateDict = OrderedDict()
+    pre = "upsample.resnet."
+    sd[pre + "conv_in.weight"] = _t(rp["conv_in"]["weight"])
+    _put(sd, pre + "batch_norm.", rp["batch_norm"])
+    _put(sd, pre + "batch_norm.", rs["batch_norm"])
+    for i, (lp, ls) in enumerate(zip(rp["layers"], rs["layers"])):
+        lpre = f"{pre}layers.{i}."
+        sd[lpre + "conv1.weight"] = _t(lp["conv1"]["weight"])
+        sd[lpre + "conv2.weight"] = _t(lp["conv2"]["weight"])
+        for bn in ("batch_norm1", "batch_norm2"):
+            _put(sd, f"{lpre}{bn}.", lp[bn])
+            _put(sd, f"{lpre}{bn}.", ls[bn])
+    _put(sd, pre + "conv_out.", rp["conv_out"])
+    for i, w in enumerate(up["up_convs"]):
+        sd[f"upsample.up_layers.{2 * i + 1}.weight"] = _t(w)
+    for name in ("I", "rnn1", "rnn2", "rnn3", "rnn4", "fc1", "fc2", "fc3", "fc4", "fc5"):
+        _put(sd, f"{name}.", p[name])
+    return sd
