@@ -14,12 +14,22 @@
    with seeded random weights: preprocess_wav → embed_utterance →
    synthesize_spectrograms → infer_waveform, and checks the outputs and
    that every kernel of the path was launched.
+4. Holds the training kernels against autograd through their plain
+   versions and times both: K3 forward with residuals and backward at the
+   GE2E training shape (640 x 160 x 768), K4 forward and backward at the
+   runtimeracer training shape (40 x 1000 x 256).
+5. Trains at full width with seeded random weights: ``train_encoder`` for 3
+   GE2E steps on (640, 160, 40) partials, then resumes from its checkpoint
+   for a 4th; ``train_vocoder("runtimeracer-wavernn")`` for 5 steps on one
+   batch of 40 x 1000 samples. Checks finite losses, the EER, the resume
+   step, a falling vocoder loss, and each path's kernel launch counts.
 
 Prints the card, each phase, one JSON line describing the kernels, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, without a CUDA device or if any phase fails.
 """
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -262,6 +272,201 @@ def phase_clone(dev, syn, voc):
     return counts
 
 
+def grads_of(fn, leaves, cotangents):
+    """Gradients of ``fn(*leaves)`` against ``cotangents``, on fresh leaves."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    out = fn(*leaves)
+    torch.autograd.backward(out if isinstance(out, tuple) else (out,), cotangents)
+    return [t.grad for t in leaves]
+
+
+def phase_lstm_train(dev):
+    """K3's training halves at the GE2E training shape: the forward with
+    residuals and the backward, against autograd through the plain forward
+    (tolerance 1e-4 of the reference's largest entry: f32 sums over T are
+    taken in another order)."""
+    import torch
+
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops.lstm_seq import (
+        LSTMSeqFn,
+        lstm_seq_bwd,
+        lstm_seq_bwd_plain,
+        lstm_seq_fwd_train,
+        lstm_seq_fwd_train_plain,
+        lstm_seq_plain,
+    )
+
+    B, T, H = 640, 160, 768
+    g = torch.Generator().manual_seed(4)
+    xg = torch.randn(B, T, 4 * H, generator=g).to(dev)
+    w_hh = ((torch.rand(4 * H, H, generator=g) * 2 - 1) * H ** -0.5).to(dev)
+    h0, c0, dhT, dcT = ((torch.randn(B, H, generator=g) * 0.5).to(dev) for _ in range(4))
+    dys = torch.randn(B, T, H, generator=g).to(dev)
+    got = lstm_seq_fwd_train(xg, w_hh, h0, c0)
+    ref = lstm_seq_fwd_train_plain(xg, w_hh, h0, c0)
+    torch.cuda.synchronize()
+    fwd_err = max(rel_err(a, b) for a, b in zip(got, ref))
+    check(fwd_err <= 1e-4, f"K3 forward with residuals differs from its plain version: {fwd_err}")
+    _, _, _, cs, gates = ref
+    k_grads = grads_of(LSTMSeqFn.apply, (xg, w_hh, h0, c0), (dys, dhT, dcT))
+    p_grads = grads_of(lstm_seq_plain, (xg, w_hh, h0, c0), (dys, dhT, dcT))
+    torch.cuda.synchronize()
+    errs = {n: rel_err(a, b) for n, a, b in zip(("dxg", "dW_hh", "dh0", "dc0"), k_grads, p_grads)}
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(k_grads, p_grads))
+    check(max(errs.values()) <= 1e-4, f"K3 backward differs from autograd: {errs}")
+    fwd_ms = cuda_ms(lambda: lstm_seq_fwd_train(xg, w_hh, h0, c0))
+    fwd_plain_ms = cuda_ms(lambda: lstm_seq_fwd_train_plain(xg, w_hh, h0, c0))
+    bwd_args = (dys, dhT, dcT, gates, cs, c0, w_hh)
+    ms = cuda_ms(lambda: lstm_seq_bwd(*bwd_args))
+    plain_ms = cuda_ms(lambda: lstm_seq_bwd_plain(*bwd_args))
+    print(f"K3 lstm_seq training B={B} T={T} H={H}: forward with residuals rel err "
+          f"{fwd_err:.3e}, kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms; backward rel "
+          f"errs " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (tol 1e-4), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return {"name": "lstm_seq_bwd", "source": "rtvc_tpu_torch/csrc/lstm_seq.cu",
+            "replaces": "rtvc_tpu/ops/pallas/lstm_train_kernel.py:158",
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "fwd_train_ms": fwd_ms, "fwd_train_plain_ms": fwd_plain_ms}
+
+
+def phase_gru(dev):
+    """K4 forward and backward at the runtimeracer training shape, against
+    autograd through the plain forward (tolerance as for K3)."""
+    import torch
+
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops.gru_seq import (
+        GRUSeqFn,
+        gru_seq_bwd,
+        gru_seq_bwd_plain,
+        gru_seq_fwd,
+        gru_seq_fwd_plain,
+    )
+
+    B, T, H = 40, 1000, 256
+    g = torch.Generator().manual_seed(5)
+    s = H ** -0.5
+    xg = torch.randn(B, T, 3 * H, generator=g).to(dev)
+    w_hh = ((torch.rand(3 * H, H, generator=g) * 2 - 1) * s).to(dev)
+    b_hh = ((torch.rand(3 * H, generator=g) * 2 - 1) * s).to(dev)
+    dys = torch.randn(B, T, H, generator=g).to(dev)
+    ys, gates = gru_seq_fwd(xg, w_hh, b_hh)
+    p_ys, p_gates = gru_seq_fwd_plain(xg, w_hh, b_hh)
+    torch.cuda.synchronize()
+    fwd_err = max(rel_err(ys, p_ys), rel_err(gates, p_gates))
+    fwd_abs = max(float((ys - p_ys).abs().max()), float((gates - p_gates).abs().max()))
+    check(fwd_err <= 1e-4, f"K4 forward differs from its plain version: {fwd_err}")
+    k_grads = grads_of(GRUSeqFn.apply, (xg, w_hh, b_hh), (dys,))
+    p_grads = grads_of(lambda *a: gru_seq_fwd_plain(*a)[0], (xg, w_hh, b_hh), (dys,))
+    torch.cuda.synchronize()
+    errs = {n: rel_err(a, b) for n, a, b in zip(("dxg", "dW_hh", "db_hh"), k_grads, p_grads)}
+    bwd_abs = max(float((a - b).abs().max()) for a, b in zip(k_grads, p_grads))
+    check(max(errs.values()) <= 1e-4, f"K4 backward differs from autograd: {errs}")
+    ms = cuda_ms(lambda: gru_seq_fwd(xg, w_hh, b_hh))
+    plain_ms = cuda_ms(lambda: gru_seq_fwd_plain(xg, w_hh, b_hh), reps=2)
+    bwd_ms = cuda_ms(lambda: gru_seq_bwd(dys, p_gates, p_ys, w_hh))
+    bwd_plain_ms = cuda_ms(lambda: gru_seq_bwd_plain(dys, p_gates, p_ys, w_hh), reps=2)
+    print(f"K4 gru_seq B={B} T={T} H={H}: forward rel err {fwd_err:.3e}, kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms; backward rel errs "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (tol 1e-4), kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms")
+    return [{"name": "gru_seq", "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
+             "replaces": "rtvc_tpu/ops/pallas/gru_train_kernel.py:71",
+             "max_abs_err": fwd_abs, "ms": ms, "plain_ms": plain_ms},
+            {"name": "gru_seq_bwd", "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
+             "replaces": "rtvc_tpu/ops/pallas/gru_train_kernel.py:111",
+             "max_abs_err": bwd_abs, "ms": bwd_ms, "plain_ms": bwd_plain_ms}]
+
+
+def phase_train_encoder(dev, runs_dir):
+    """GE2E training at full width (64 speakers x 10 utterances x 160 frames,
+    3 x LSTM-768): 3 steps, then a resume from the checkpoint for a 4th."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.train.trainer import train_encoder
+
+    S, U, T, steps = 64, 10, 160, 3
+
+    def partials(seed, n):
+        # speakers scatter around signatures of their own, as real partials do
+        g = torch.Generator().manual_seed(seed)
+        for _ in range(n):
+            base = torch.rand(S, 1, 1, 40, generator=g)
+            yield (base + 0.1 * torch.randn(S, U, T, 40, generator=g)).clamp(0, 1).reshape(
+                S * U, T, 40)
+
+    kw = dict(speakers_per_batch=S, utterances_per_speaker=U, learning_rate=1e-4,
+              eer_every=steps, save_every=0, device=dev, seed=0)
+    _build.launch_counts.clear()
+    out = train_encoder("encoder", partials(6, steps), runs_dir, total_steps=steps, **kw)
+    counts = dict(_build.launch_counts)
+    print(f"launches in the encoder training run: {counts}")
+    check(out["step"] == steps, f"encoder run ended at step {out['step']}")
+    check(all(np.isfinite(out["losses"])) and np.isfinite(out["grad_norm"]),
+          f"encoder loss or grad norm not finite: {out['losses']}, {out['grad_norm']}")
+    check(0.0 <= out["eer"] <= 1.0, f"encoder EER {out['eer']}")
+    for name in ("lstm_seq", "lstm_seq_bwd"):
+        check(counts.get(name, 0) == 3 * steps,
+              f"{name} launched {counts.get(name, 0)} times in {steps} encoder steps, "
+              f"want {3 * steps}")
+    resumed = train_encoder("encoder", partials(7, 1), runs_dir, total_steps=steps + 1, **kw)
+    check(resumed["step"] == steps + 1 and len(resumed["losses"]) == 1,
+          f"resume did not start at step {steps}: {resumed['step']}, {resumed['losses']}")
+    check(np.isfinite(resumed["losses"][0]), "resumed encoder loss not finite")
+    # the first step includes the first launch's set-up
+    print(f"encoder training {S * U} x {T} x 40: losses {out['losses']} then "
+          f"{resumed['losses']} after the resume, grad norm {out['grad_norm']:.4f}, "
+          f"EER {out['eer']:.4f}; ms per step {[round(m, 1) for m in out['step_ms']]}, "
+          f"after the resume {round(resumed['step_ms'][0], 1)}")
+    return counts, out["step_ms"]
+
+
+def phase_train_vocoder(dev, runs_dir):
+    """runtimeracer WaveRNN training at full width (batch 40, seq_len 1000,
+    four GRUs of 256) for 5 steps on one seeded batch repeated."""
+    from rtvc_tpu.config.signal import sp
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.train.trainer import train_vocoder
+
+    model_type, steps = factories.MODEL_TYPE_RUNTIMERACER, 5
+    cfg = factories.default_config(model_type)
+    B, hop = int(cfg.voc_tts_schedule[0][3]), sp.hop_size
+    L, C = cfg.seq_len, 2 ** cfg.bits
+    rng = np.random.default_rng(8)
+    # keys and shapes of rtvc_tpu.data.vocoder_dataset.batch_iterator: tones
+    # quantised to C classes; x is the previous sample's class in [-1, 1]
+    t = np.arange(L + 1)
+    wav = 0.8 * np.sin(2 * np.pi * rng.uniform(100, 400, (B, 1)) * t / sp.sample_rate
+                       + rng.uniform(0, 6.3, (B, 1)))
+    labels = np.round((wav + 1) * (C - 1) / 2).astype(np.int64)
+    batch = {"x": (labels[:, :-1] * 2.0 / (C - 1) - 1).astype(np.float32),
+             "y": labels[:, 1:],
+             "y_float": (labels[:, 1:] * 2.0 / (C - 1) - 1).astype(np.float32),
+             "mels": rng.uniform(0, 1, (B, sp.num_mels, L // hop + 2 * cfg.pad)).astype(
+                 np.float32)}
+    _build.launch_counts.clear()
+    out = train_vocoder("vocoder", model_type, runs_dir, lambda session: [batch] * steps,
+                        max_steps=steps, save_every=0, device=dev, seed=0)
+    counts = dict(_build.launch_counts)
+    print(f"launches in the vocoder training run: {counts}")
+    losses = out["losses"]
+    check(out["step"] == steps and len(losses) == steps, f"vocoder run ended at {out['step']}")
+    check(all(np.isfinite(losses)), f"vocoder loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"vocoder loss did not fall: {losses}")
+    for name in ("gru_seq", "gru_seq_bwd"):
+        check(counts.get(name, 0) == 4 * steps,
+              f"{name} launched {counts.get(name, 0)} times in {steps} vocoder steps, "
+              f"want {4 * steps}")
+    print(f"vocoder training {B} x {L}: losses {[round(v, 4) for v in losses]}; ms per step "
+          f"{[round(m, 1) for m in out['step_ms']]}")
+    return counts, out["step_ms"]
+
+
 def main() -> int:
     import torch
 
@@ -295,10 +500,22 @@ def main() -> int:
 
     kernels = [phase_lstm(dev), phase_tacotron(dev, syn), phase_wavernn(dev, voc)]
     counts = phase_clone(dev, syn, voc)
+    kernels += [phase_lstm_train(dev), *phase_gru(dev)]
+    runs_dir = _build.BUILD_DIR / "smoke_runs"
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    try:
+        enc_counts, _ = phase_train_encoder(dev, runs_dir)
+        voc_counts, _ = phase_train_vocoder(dev, runs_dir)
+    finally:
+        shutil.rmtree(runs_dir, ignore_errors=True)
     check("jax" not in sys.modules, "the port imported jax")
+    # each kernel's launches on the path that runs it: the clone path for the
+    # inference kernels, the trainers for the training ones
+    path_counts = {**counts, "lstm_seq_bwd": enc_counts["lstm_seq_bwd"],
+                   "gru_seq": voc_counts["gru_seq"], "gru_seq_bwd": voc_counts["gru_seq_bwd"]}
     for k in kernels:
         k["route"] = "cuda"
-        k["launches"] = counts[k["name"]]
+        k["launches"] = path_counts[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,14 @@ subpkg     role
 =========  ===========================================================
 ops        DSP on tensors (encoder mel, mu-law, de-emphasis), numpy host
            DSP (VAD, resample, mel filterbank), and the kernel wrappers
-           ``lstm_seq`` (K3), ``tacotron_decode`` (K2),
+           ``lstm_seq`` (K3), ``gru_seq`` (K4), ``tacotron_decode`` (K2),
            ``wavernn_generate`` (K1)
 csrc       the CUDA C++ sources of those kernels (built by ``_build``)
 models     nn.Modules under the reference's torch state-dict names
 inference  encoder / synthesizer / vocoder public API
+train      GE2E encoder and WaveRNN training steps, trainers, checkpoints
+           (entry points ``python -m rtvc_tpu_torch.encoder_train`` and
+           ``python -m rtvc_tpu_torch.vocoder_train``)
 bridge     JAX variables → state_dicts of this package's modules
 =========  ===========================================================
 

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 The kernels are plain CUDA C++ with a C interface (``csrc/*.cu``). On first
-use they are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library under ``rtvc_tpu_torch/build/`` and loaded with ``ctypes``; a source
-hash in the library's file name triggers a rebuild when any source changes.
-A file with a C interface builds in seconds, where an extension that
-includes PyTorch's headers takes minutes.
+use each source is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all
+started together, and the objects are linked into one shared library under
+``rtvc_tpu_torch/build/`` that is loaded with ``ctypes``; a source hash in
+the library's file name triggers a rebuild when any source changes. A file
+with a C interface builds in seconds, where an extension that includes
+PyTorch's headers takes minutes.
 
 Nothing here runs at import time: the CPU path of every wrapper never
 touches this module's build.
@@ -26,7 +27,7 @@ BUILD_DIR = _PKG / "build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -38,8 +39,15 @@ _U64 = ctypes.c_ulonglong
 # C entry points and their argument types. Every entry returns the
 # cudaError_t of its launch (0 on success).
 SIGNATURES = {
-    # xg, w_hh, h0, c0, ys, hT, cT, B, T, H, stream
-    "rtvc_lstm_seq_fwd": [_P] * 7 + [_I] * 3 + [_P],
+    # xg, w_hh, h0, c0, ys, hT, cT, cs (or null), gates (or null), B, T, H,
+    # stream
+    "rtvc_lstm_seq_fwd": [_P] * 9 + [_I] * 3 + [_P],
+    # dys, dhT, dcT, gates, cs, c0, w_hh_t, dxg, dh0, dc0, B, T, H, stream
+    "rtvc_lstm_seq_bwd": [_P] * 10 + [_I] * 3 + [_P],
+    # xg, w_hh, b_hh, ys, gates, B, T, H, stream
+    "rtvc_gru_seq_fwd": [_P] * 5 + [_I] * 3 + [_P],
+    # dys, gates, ys, w_hh_t, dxg, B, T, H, stream
+    "rtvc_gru_seq_bwd": [_P] * 5 + [_I] * 3 + [_P],
     # weights, dims, seed, enc_seq, enc_proj, char_mask, mel, attn, stops,
     # work, stream
     "rtvc_tacotron_decode": [_PP, _IP, _U64] + [_P] * 7 + [_P],
@@ -89,14 +97,29 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    nvcc = _nvcc()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp),
-           *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    objs = [tmp.with_name(f"{tmp.name}.{f.stem}.o") for f in cu]
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c",
+                                   "-o", str(o), str(f)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for f, o in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        for f, p, log in zip(cu, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {f.name} ({p.returncode}):\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 
@@ -117,6 +140,19 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
+
+
+def check_tensors(fn: str, device, **specs) -> None:
+    """Raise ValueError unless every ``name=(tensor, shape)`` is a
+    contiguous f32 tensor of that shape on ``device``."""
+    import torch
+
+    for name, (t, shape) in specs.items():
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"{fn}: {name} must be f32 on {device}")
+        if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
 
 
 def stream_handle(device) -> int:

@@ -6,6 +6,12 @@ the input is a variables tree as nested dicts (and lists) of arrays — numpy,
 or anything ``np.asarray`` accepts — and the output is a state_dict under the
 reference's torch names, which the port's modules load with
 ``load_state_dict(strict=True)``. No JAX import is needed.
+
+The same functions map a JAX gradient tree (``jax.grad`` of a training
+loss over the same variables) to the names of the port's parameters, so a
+test can compare gradients name by name: the encoder's takes the training
+step's ``{"model", "similarity"}`` layout, and the WaveRNN's a tree without
+``batch_stats``.
 """
 from __future__ import annotations
 
@@ -30,8 +36,10 @@ def _put(sd: StateDict, prefix: str, tree: Mapping) -> None:
 
 def speaker_encoder_state(variables: Mapping) -> StateDict:
     """{"params": {"lstm", "linear"}, optional "similarity"} → SpeakerEncoder
-    state_dict. The GE2E scale defaults to the reference's w=10, b=-5."""
-    p = variables["params"]
+    state_dict. The GE2E scale defaults to the reference's w=10, b=-5. The
+    training step's layout, {"model": {"lstm", "linear"}, "similarity"}, maps
+    the same way."""
+    p = variables["params"] if "params" in variables else variables["model"]
     sd: StateDict = OrderedDict()
     _put(sd, "lstm.", p["lstm"])
     _put(sd, "linear.", p["linear"])
@@ -90,22 +98,26 @@ def tacotron_state(variables: Mapping) -> StateDict:
 
 def wavernn_state(variables: Mapping) -> StateDict:
     """{"params", "batch_stats"} (``init_wavernn`` layout, runtimeracer) →
-    WaveRNN state_dict."""
-    p, s = variables["params"], variables["batch_stats"]
-    up, ups = p["upsample"], s["upsample"]
-    rp, rs = up["resnet"], ups["resnet"]
+    WaveRNN state_dict. Without "batch_stats" (a gradient tree) only the
+    parameters are mapped."""
+    p = variables["params"]
+    up = p["upsample"]
+    rp = up["resnet"]
+    rs = variables["batch_stats"]["upsample"]["resnet"] if "batch_stats" in variables else None
     sd: StateDict = OrderedDict()
     pre = "upsample.resnet."
     sd[pre + "conv_in.weight"] = _t(rp["conv_in"]["weight"])
     _put(sd, pre + "batch_norm.", rp["batch_norm"])
-    _put(sd, pre + "batch_norm.", rs["batch_norm"])
-    for i, (lp, ls) in enumerate(zip(rp["layers"], rs["layers"])):
+    if rs is not None:
+        _put(sd, pre + "batch_norm.", rs["batch_norm"])
+    for i, lp in enumerate(rp["layers"]):
         lpre = f"{pre}layers.{i}."
         sd[lpre + "conv1.weight"] = _t(lp["conv1"]["weight"])
         sd[lpre + "conv2.weight"] = _t(lp["conv2"]["weight"])
         for bn in ("batch_norm1", "batch_norm2"):
             _put(sd, f"{lpre}{bn}.", lp[bn])
-            _put(sd, f"{lpre}{bn}.", ls[bn])
+            if rs is not None:
+                _put(sd, f"{lpre}{bn}.", rs["layers"][i][bn])
     _put(sd, pre + "conv_out.", rp["conv_out"])
     for i, w in enumerate(up["up_convs"]):
         sd[f"upsample.up_layers.{2 * i + 1}.weight"] = _t(w)

@@ -105,6 +105,13 @@ __device__ void matvec(const float* __restrict__ W, int ldw, int rows,
   }
 }
 
+// Lets `kernel` take `smem` bytes of dynamic shared memory: past the
+// default 48 KB a launch needs the opt-in attribute.
+inline cudaError_t allow_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 // Philox-4x32-10 (Salmon et al., SC'11): a counter-based generator, so a
 // draw depends only on (key, counter) and needs no state between steps.
 __device__ __forceinline__ uint4 philox4x32(uint4 c, uint2 k) {

@@ -191,11 +191,8 @@ extern "C" int rtvc_wavernn_generate(const void* const* weights, const void* con
             static_cast<const float*>(streams[2]), static_cast<const float*>(streams[3])};
   const int B = dims[0], T = dims[1], R = dims[2], Fd = dims[3], C = dims[4];
   const size_t smem = (size_t)(11 * R + 2 * Fd + C + 32 + 32 + 4) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(wavernn_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = rtvc::allow_smem((const void*)wavernn_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   const uint2 key = make_uint2((uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32));
   wavernn_kernel<<<B, 1024, smem, static_cast<cudaStream_t>(stream)>>>(
       w, s, T, R, Fd, C, argmax, key, out, logits_out);

@@ -6,20 +6,22 @@ PyTorch's (B, C, T) inside. Parameters carry the reference's torch
 state-dict names (``weight_ih_l0``, ``conv1d_bank.3.bnorm.running_var``, ...).
 
 Recurrences: :class:`LSTM` hoists the input projection for the whole
-sequence into one ``torch.matmul`` and runs the recurrence through the K3
-kernel wrapper (``ops.lstm_seq``). :class:`GRU` stays a plain PyTorch loop:
-no kernel runs it on the inference path (the Tacotron CBHG's BiGRU has a
-hidden width of 64).
+sequence into one ``torch.matmul`` and runs the recurrence through K3: the
+inference kernel (``ops.lstm_seq.lstm_seq``) under no grad, and
+``LSTMSeqFn`` (forward with residuals, backward kernel) when a gradient is
+needed. :class:`GRU` stays a plain PyTorch loop: no kernel runs it on the
+inference path (the Tacotron CBHG's BiGRU has a hidden width of 64); the
+WaveRNN trainer's GRUs go through K4 (``models.wavernn.gru_seq``).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rtvc_tpu_torch.ops.lstm_seq import lstm_seq
+from rtvc_tpu_torch.ops.lstm_seq import LSTMSeqFn, lstm_seq
 
 Tensor = torch.Tensor
 
@@ -80,13 +82,14 @@ class LSTM(nn.Module):
     def forward(self, x: Tensor) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
         """Zero initial state → (ys, (h_T, c_T) stacked over layers)."""
         h0 = x.new_zeros((x.shape[0], self.hidden_size))
+        seq = LSTMSeqFn.apply if torch.is_grad_enabled() else lstm_seq
         h_last, c_last = [], []
         for k in range(self.num_layers):
             w_ih = getattr(self, f"weight_ih_l{k}")
             w_hh = getattr(self, f"weight_hh_l{k}")
             b = getattr(self, f"bias_ih_l{k}") + getattr(self, f"bias_hh_l{k}")
             xg = x @ w_ih.t() + b  # (B, T, 4H), hoisted out of the recurrence
-            x, h_T, c_T = lstm_seq(xg.contiguous(), w_hh.contiguous(), h0, h0)
+            x, h_T, c_T = seq(xg.contiguous(), w_hh.contiguous(), h0, h0)
             h_last.append(h_T)
             c_last.append(c_T)
         return x, (torch.stack(h_last), torch.stack(c_last))
@@ -162,8 +165,11 @@ class Conv1d(nn.Conv1d):
 
 
 class BatchNorm1d(nn.Module):
-    """Inference BatchNorm over the channel (last) axis of (B, T, C), with
-    running statistics as buffers."""
+    """BatchNorm over the channel (last) axis of (B, T, C), with running
+    statistics as buffers. ``forward`` normalises with the running
+    statistics; ``forward_train`` with the batch's, and returns the updated
+    running statistics instead of writing them (the training step installs
+    them), as ``rtvc_tpu/models/wavernn.py:_bn`` does."""
 
     def __init__(self, features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -176,6 +182,22 @@ class BatchNorm1d(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         inv = torch.rsqrt(self.running_var + self.eps)
         return (x - self.running_mean) * inv * self.weight + self.bias
+
+    def forward_train(self, x: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """Batch statistics in f32 → (y, {"running_mean", "running_var"})
+        with momentum 0.1; the running variance takes the unbiased batch
+        variance n/(n-1)."""
+        xf = x.float()
+        axes = tuple(range(x.ndim - 1))
+        mean = xf.mean(dim=axes)
+        var = xf.var(dim=axes, unbiased=False)
+        n = x.numel() / x.shape[-1]
+        m = 0.1
+        with torch.no_grad():
+            new = {"running_mean": (1 - m) * self.running_mean + m * mean,
+                   "running_var": (1 - m) * self.running_var + m * var * n / max(n - 1, 1)}
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(x.dtype), new
 
 
 # ---------------------------------------------------------------------------

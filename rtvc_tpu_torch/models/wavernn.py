@@ -7,6 +7,11 @@ every conditioning projection into full-sequence matmuls, run the
 autoregressive sample loop through the K1 kernel (``ops.wavernn_generate``),
 then cross-fade the folds back together, mu-law decode and de-emphasise.
 
+Training: ``wavernn_forward`` is the teacher-forced forward over the
+previous samples; its four GRUs run through the K4 kernels
+(``ops.gru_seq.GRUSeqFn``), and its BatchNorms use batch statistics and
+return the updated running statistics.
+
 The fatchord and geneing variants and the MoL and beta heads belong to a
 later slice and raise NotImplementedError.
 """
@@ -22,6 +27,7 @@ from torch import nn
 from rtvc_tpu.config.vocoder import MODE_MOL, MODE_RAW, WaveRNNParams
 from rtvc_tpu_torch.models.layers import GRU, BatchNorm1d, Linear
 from rtvc_tpu_torch.ops import audio as audio_ops
+from rtvc_tpu_torch.ops.gru_seq import GRUSeqFn
 from rtvc_tpu_torch.ops.wavernn_generate import wavernn_generate_core
 
 Tensor = torch.Tensor
@@ -160,19 +166,32 @@ class WaveRNN(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def upsample_forward(model: WaveRNN, d: WaveRNNDims, mels: Tensor
-                     ) -> Tuple[Tensor, Tensor]:
-    """mels (B, n_mels, n_frames) → (mels_up (B, T, feat), aux (B, T, res_out))
-    with T = (n_frames - 2·pad)·total_scale."""
+def upsample_forward(model: WaveRNN, d: WaveRNNDims, mels: Tensor, train: bool = False
+                     ) -> Tuple[Tensor, Tensor, Dict[str, Tensor]]:
+    """mels (B, n_mels, n_frames) → (mels_up (B, T, feat), aux (B, T, res_out),
+    new_stats) with T = (n_frames - 2·pad)·total_scale. With ``train`` the
+    BatchNorms use batch statistics and ``new_stats`` maps each running
+    statistic's state-dict name to its update; otherwise it is empty."""
     up = model.upsample
     rn = up.resnet
+    new_stats: Dict[str, Tensor] = {}
+
+    def bn(norm: BatchNorm1d, name: str, v: Tensor) -> Tensor:
+        if not train:
+            return norm(v)
+        v, stats = norm.forward_train(v)
+        new_stats.update({f"upsample.resnet.{name}.{k}": s for k, s in stats.items()})
+        return v
+
     x = mels.transpose(1, 2)  # (B, n_frames, n_mels)
     h = F.conv1d(mels, rn.conv_in.weight).transpose(1, 2)
-    h = torch.relu(rn.batch_norm(h))
-    for layer in rn.layers:
+    h = torch.relu(bn(rn.batch_norm, "batch_norm", h))
+    for i, layer in enumerate(rn.layers):
         residual = h
-        y = torch.relu(layer.batch_norm1(h @ layer.conv1.weight[:, :, 0].t()))
-        y = layer.batch_norm2(y @ layer.conv2.weight[:, :, 0].t())
+        y = torch.relu(bn(layer.batch_norm1, f"layers.{i}.batch_norm1",
+                          h @ layer.conv1.weight[:, :, 0].t()))
+        y = bn(layer.batch_norm2, f"layers.{i}.batch_norm2",
+               y @ layer.conv2.weight[:, :, 0].t())
         h = y + residual
     aux = h @ rn.conv_out.weight[:, :, 0].t() + rn.conv_out.bias
     aux = aux.repeat_interleave(d.total_scale, dim=1)
@@ -183,7 +202,42 @@ def upsample_forward(model: WaveRNN, d: WaveRNNDims, mels: Tensor
         m = F.conv2d(m, up.up_layers[2 * i + 1].weight, padding=(0, scale))
     m = m[:, 0].transpose(1, 2)
     indent = d.pad * d.total_scale
-    return m[:, indent:-indent, :], aux
+    return m[:, indent:-indent, :], aux, new_stats
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forced forward (training)
+# ---------------------------------------------------------------------------
+
+
+def gru_seq(gru: GRU, x: Tensor) -> Tensor:
+    """A single-layer GRU module over (B, T, I) from a zero state, through K4:
+    the input projection is one matmul, the recurrence ``GRUSeqFn``."""
+    xg = x @ gru.weight_ih_l0.t() + gru.bias_ih_l0
+    return GRUSeqFn.apply(xg.contiguous(), gru.weight_hh_l0.contiguous(),
+                          gru.bias_hh_l0.contiguous())
+
+
+def wavernn_forward(model: WaveRNN, d: WaveRNNDims, x: Tensor, mels: Tensor
+                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Teacher-forced runtimeracer forward: x (B, T) previous samples in
+    [-1, 1], mels (B, n_mels, T / hop + 2·pad) → (logits (B, T, n_classes),
+    new_stats) with the BatchNorms on batch statistics
+    (``rtvc_tpu/models/wavernn.py:wavernn_forward``)."""
+    check_supported(d)
+    A = d.aux_dims
+    mels_up, aux, new_stats = upsample_forward(model, d, mels, train=True)
+    splits = [aux[:, :, A * i:A * (i + 1)] for i in range(d.n_aux_splits)]
+    h = model.I(torch.cat([x[:, :, None], mels_up, splits[0][:, :, :-1]], dim=2))
+    h = gru_seq(model.rnn1, h) + h
+    h = gru_seq(model.rnn2, h) + h
+    h = gru_seq(model.rnn3, torch.cat([h, splits[1]], dim=2)) + h
+    h = gru_seq(model.rnn4, h) + h
+    h = model.fc1(torch.cat([h, splits[2]], dim=2))
+    h = torch.relu(model.fc2(h))
+    h = model.fc3(torch.cat([h, splits[3]], dim=2))
+    h = torch.relu(model.fc4(h))
+    return model.fc5(h), new_stats
 
 
 def fold_with_overlap(x: Tensor, target: int, overlap: int) -> Tuple[Tensor, int]:
@@ -305,7 +359,7 @@ def wavernn_generate(model: WaveRNN, d: WaveRNNDims, mels, seed: int,
     bucket = -(-n_frames // _FRAME_BUCKET) * _FRAME_BUCKET
     mels = F.pad(mels, (0, bucket - n_frames), value=-1.0)
     mels = F.pad(mels, (d.pad, d.pad))
-    mels_up, aux = upsample_forward(model, d, mels)
+    mels_up, aux, _ = upsample_forward(model, d, mels)
     if batched:
         mels_up, _ = fold_with_overlap(mels_up, target, overlap)
         aux, _ = fold_with_overlap(aux, target, overlap)

@@ -1,0 +1,140 @@
+"""Where a full-width training step spends its time on one NVIDIA GPU.
+
+    python -m rtvc_tpu_torch.profile_train
+
+Takes GE2E steps (64 speakers x 10 utterances x 160 frames, 3 x LSTM-768)
+and runtimeracer WaveRNN steps (batch 40 x 1000 samples) with seeded random
+weights and synthetic batches. For each it prints the wall time of three
+steps ending in a device sync, the peak device memory, and a
+``torch.profiler`` table of device time by kernel over a few more steps,
+with the idle share 1 - (summed device self time / profiled wall time).
+Then it times the recurrences alone, forward plus backward at the same
+shapes, through ``LSTMSeqFn`` / ``GRUSeqFn`` and through cuDNN's
+``nn.LSTM`` / ``nn.GRU`` (TF32 off) as a bar to measure against.
+
+Exits 1 without a CUDA device.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from rtvc_tpu.config.signal import sp
+from rtvc_tpu_torch.models import factories
+from rtvc_tpu_torch.ops.gru_seq import GRUSeqFn
+from rtvc_tpu_torch.ops.lstm_seq import LSTMSeqFn
+from rtvc_tpu_torch.train import steps, trainer
+
+
+def profile_step(name, step, batch, n):
+    """Wall ms of 3 synced steps, peak memory, then a profiler table."""
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    print(f"{name}: wall ms per step {walls}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    table = prof.key_averages()
+    # kernels only, as the table's own total counts them: an autograd
+    # Function's annotation row repeats the device time of its kernels
+    device = sum(e.self_device_time_total for e in table
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    print(f"{name}: {n} steps profiled, wall {wall:.1f} ms, summed device self time "
+          f"{device:.1f} ms, idle share {1 - device / wall:.4f}")
+    print(table.table(sort_by="self_device_time_total", row_limit=12, max_name_column_width=60))
+
+
+def fwd_bwd_ms(fn, args, reps=5):
+    """CUDA-event mean ms of ``fn(*args)`` and a backward from its first
+    output, after one warm-up call."""
+    def once():
+        out = fn(*args)
+        y = out[0] if isinstance(out, tuple) else out
+        y.backward(torch.ones_like(y))
+
+    once()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        once()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def encoder_step(dev):
+    S, U, T = 64, 10, 160
+    model = factories.init_encoder_model(seed=0, device=dev).train()
+    step = steps.make_encoder_train_step(
+        model, trainer.make_optimizer(model.parameters(), 1e-4), S, U)
+    g = torch.Generator().manual_seed(6)
+    base = torch.rand(S, 1, 1, 40, generator=g)
+    x = (base + 0.1 * torch.randn(S, U, T, 40, generator=g)).clamp(0, 1)
+    return step, x.reshape(S * U, T, 40).to(dev)
+
+
+def vocoder_step(dev):
+    cfg = factories.default_config(factories.MODEL_TYPE_RUNTIMERACER)
+    d = factories.wavernn_dims(factories.MODEL_TYPE_RUNTIMERACER, cfg)
+    model = factories.init_wavernn(d, seed=0, device=dev).train()
+    step = steps.make_wavernn_train_step(
+        model, d, trainer.make_optimizer(model.parameters(), 1e-3))
+    B, L = int(cfg.voc_tts_schedule[0][3]), cfg.seq_len
+    rng = np.random.default_rng(8)
+    batch = {"x": rng.uniform(-1, 1, (B, L)).astype(np.float32),
+             "y": rng.integers(0, 2 ** cfg.bits, (B, L)),
+             "mels": rng.uniform(0, 1, (B, sp.num_mels, L // sp.hop_size + 2 * cfg.pad)
+                                 ).astype(np.float32)}
+    return step, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    profile_step("GE2E step 640 x 160 x 40", *encoder_step(dev), n=2)
+    profile_step("WaveRNN step 40 x 1000", *vocoder_step(dev), n=3)
+
+    def leaf(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev) * scale).requires_grad_()
+
+    H = 768
+    zero = torch.zeros(640, H, device=dev)
+    port = fwd_bwd_ms(LSTMSeqFn.apply,
+                      (leaf(640, 160, 4 * H), leaf(4 * H, H, scale=H ** -0.5), zero, zero))
+    cudnn = fwd_bwd_ms(torch.nn.LSTM(H, H, batch_first=True, device=dev), (leaf(640, 160, H),))
+    print(f"fwd+bwd 640 x 160, H {H}: LSTMSeqFn {port:.3f} ms (recurrence only), "
+          f"cuDNN nn.LSTM {cudnn:.3f} ms (input projection included)")
+    H = 256
+    port = fwd_bwd_ms(GRUSeqFn.apply,
+                      (leaf(40, 1000, 3 * H), leaf(3 * H, H, scale=H ** -0.5), leaf(3 * H)))
+    cudnn = fwd_bwd_ms(torch.nn.GRU(H, H, batch_first=True, device=dev), (leaf(40, 1000, H),))
+    print(f"fwd+bwd 40 x 1000, H {H}: GRUSeqFn {port:.3f} ms (recurrence only), "
+          f"cuDNN nn.GRU {cudnn:.3f} ms (input projection included)")
+    print(f"jax imported: {'jax' in sys.modules}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,89 @@
+"""Train a WaveRNN vocoder on one GPU:
+
+    python -m rtvc_tpu_torch.vocoder_train <run_id> [model_type] <datasets_root> [options]
+
+The arguments are those of the JAX package's ``vocoder_train.py`` except
+its dashboard and multi-process launch options, plus ``--device`` and
+``--seed``. Only ``runtimeracer-wavernn`` (RAW head) is ported, so it is
+the default model type; any other stops with NotImplementedError before
+any data is read. The dataset is the one
+the vocoder preprocessing writes (GTA mels, or ground-truth mels with
+``-g``), read through ``rtvc_tpu.data.vocoder_dataset``. Checkpoint-time
+sample generation is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+from rtvc_tpu.config import synthesizer_paths
+from rtvc_tpu.config import vocoder as voc_cfg
+from rtvc_tpu_torch.models.wavernn import VOC_FATCHORD, VOC_GENEING, VOC_RUNTIMERACER
+
+CONFIGS = {
+    VOC_FATCHORD: voc_cfg.wavernn_fatchord,
+    VOC_GENEING: voc_cfg.wavernn_geneing,
+    VOC_RUNTIMERACER: voc_cfg.wavernn_runtimeracer,
+}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    parser.add_argument("run_id", type=str)
+    parser.add_argument("model_type", type=str, nargs="?", default=VOC_RUNTIMERACER,
+                        choices=list(CONFIGS))
+    parser.add_argument("datasets_root", type=Path)
+    parser.add_argument("--syn_dir", type=Path, default=None)
+    parser.add_argument("--voc_dir", type=Path, default=None)
+    parser.add_argument("-m", "--models_dir", type=Path, default=Path("saved_models"))
+    parser.add_argument("-g", "--ground_truth", action="store_true",
+                        help="Train on ground-truth mels instead of GTA mels.")
+    parser.add_argument("-s", "--save_every", type=int, default=1000)
+    parser.add_argument("-b", "--backup_every", type=int, default=25000)
+    parser.add_argument("--max_steps", type=int, default=None)
+    parser.add_argument("--compute_dtype", choices=["auto", "f32", "bf16"], default="auto",
+                        help="auto and f32 train in f32; bf16 is not ported yet.")
+    parser.add_argument("-f", "--force_restart", action="store_true",
+                        help="Ignore any saved model for this run_id and restart from scratch.")
+    parser.add_argument("--device", default="cuda", help="The torch device to train on.")
+    parser.add_argument("--seed", type=int, default=0, help="Seed of the initial weights.")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from rtvc_tpu.data.vocoder_dataset import VocoderDataset, batch_iterator
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.models.wavernn import check_supported
+    from rtvc_tpu_torch.train.steps import check_compute_dtype
+    from rtvc_tpu_torch.train.trainer import train_vocoder
+
+    cfg = CONFIGS[args.model_type]
+    check_supported(factories.wavernn_dims(args.model_type, cfg))
+    check_compute_dtype(args.compute_dtype)
+    syn_dir = args.syn_dir or args.datasets_root / "SV2TTS" / "synthesizer"
+    voc_dir = args.voc_dir or args.datasets_root / "SV2TTS" / "vocoder"
+    if args.ground_truth:
+        metadata = syn_dir / synthesizer_paths.metadata_file
+        mel_dir = syn_dir / synthesizer_paths.mel_dir
+    else:
+        metadata = voc_dir / synthesizer_paths.gta_metadata_file
+        mel_dir = voc_dir / synthesizer_paths.gta_mel_dir
+    dataset = VocoderDataset(metadata, mel_dir, syn_dir / synthesizer_paths.wav_dir, cfg)
+    print(dataset.get_logs())
+
+    def epoch_batches(session_idx):
+        batch_size = int(cfg.voc_tts_schedule[session_idx][3])
+        return batch_iterator(dataset, batch_size, cfg, seed=session_idx,
+                              process_index=0, process_count=1)
+
+    return train_vocoder(
+        args.run_id, args.model_type, args.models_dir, epoch_batches,
+        save_every=args.save_every, backup_every=args.backup_every,
+        max_steps=args.max_steps, resume=not args.force_restart,
+        compute_dtype=args.compute_dtype, device=args.device, seed=args.seed,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
-small widths (both on the GPU, f32). Every test needs an NVIDIA GPU and
+small widths and, for the training kernels, at the trainers' shapes (both
+on the GPU, f32). Every test needs an NVIDIA GPU and
 skips without one. This file imports no JAX, so it runs on a machine that
 has only PyTorch:
 
@@ -14,7 +15,23 @@ from rtvc_tpu_torch import _build
 from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.models import tacotron as tt
 from rtvc_tpu_torch.models import wavernn as tw
-from rtvc_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_plain
+from rtvc_tpu_torch.ops import rel_err
+from rtvc_tpu_torch.ops.gru_seq import (
+    GRUSeqFn,
+    gru_seq_bwd,
+    gru_seq_bwd_plain,
+    gru_seq_fwd,
+    gru_seq_fwd_plain,
+)
+from rtvc_tpu_torch.ops.lstm_seq import (
+    LSTMSeqFn,
+    lstm_seq,
+    lstm_seq_bwd,
+    lstm_seq_bwd_plain,
+    lstm_seq_fwd_train,
+    lstm_seq_fwd_train_plain,
+    lstm_seq_plain,
+)
 from rtvc_tpu_torch.ops.tacotron_decode import tacotron_decode, tacotron_decode_plain
 from rtvc_tpu_torch.ops.wavernn_generate import (
     wavernn_generate_core,
@@ -64,6 +81,73 @@ def test_lstm_seq_kernel_rejects_bad_input(dev):
     h = torch.zeros(2, 16, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         lstm_seq(xg, w, h, h)
+
+
+def _counted(name, fn):
+    before = _build.launch_counts[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    return out
+
+
+# small widths, odd widths (the kernels' scalar path), and the encoder
+# training shape (B 640, T 160, H 768)
+@pytest.mark.parametrize("B,T,H", [(3, 20, 128), (2, 9, 13), (640, 160, 768)])
+def test_lstm_train_kernels_match_plain(dev, B, T, H):
+    g = torch.Generator().manual_seed(0)
+    xg = torch.randn(B, T, 4 * H, generator=g).to(dev)
+    w = ((torch.rand(4 * H, H, generator=g) - 0.5) * 2 * H ** -0.5).to(dev)
+    h0, c0, dhT, dcT = (torch.randn(B, H, generator=g).to(dev) * 0.5 for _ in range(4))
+    dys = torch.randn(B, T, H, generator=g).to(dev)
+    got = _counted("lstm_seq", lambda: lstm_seq_fwd_train(xg, w, h0, c0))
+    want = lstm_seq_fwd_train_plain(xg, w, h0, c0)
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= 1e-5
+    ys, hT, cT, cs, gates = want
+    got = _counted("lstm_seq_bwd", lambda: lstm_seq_bwd(dys, dhT, dcT, gates, cs, c0, w))
+    for a, b in zip(got, lstm_seq_bwd_plain(dys, dhT, dcT, gates, cs, c0, w)):
+        assert rel_err(a, b) <= 1e-4
+    leaves = [t.clone().requires_grad_() for t in (xg, w, h0, c0)]
+    torch.autograd.backward(LSTMSeqFn.apply(*leaves), (dys, dhT, dcT))
+    ref = [t.clone().requires_grad_() for t in (xg, w, h0, c0)]
+    torch.autograd.backward(lstm_seq_plain(*ref), (dys, dhT, dcT))
+    for a, b in zip(leaves, ref):
+        assert rel_err(a.grad, b.grad) <= 1e-4
+
+
+# small widths, odd widths, and the runtimeracer training shape (B 40,
+# seq_len 1000, H 256)
+@pytest.mark.parametrize("B,T,H", [(3, 20, 128), (2, 9, 13), (40, 1000, 256)])
+def test_gru_kernels_match_plain(dev, B, T, H):
+    g = torch.Generator().manual_seed(1)
+    s = H ** -0.5
+    xg = torch.randn(B, T, 3 * H, generator=g).to(dev)
+    w = ((torch.rand(3 * H, H, generator=g) - 0.5) * 2 * s).to(dev)
+    b = ((torch.rand(3 * H, generator=g) - 0.5) * 2 * s).to(dev)
+    dys = torch.randn(B, T, H, generator=g).to(dev)
+    got = _counted("gru_seq", lambda: gru_seq_fwd(xg, w, b))
+    ys, gates = gru_seq_fwd_plain(xg, w, b)
+    assert rel_err(got[0], ys) <= 1e-5 and rel_err(got[1], gates) <= 1e-5
+    dxg = _counted("gru_seq_bwd", lambda: gru_seq_bwd(dys, gates, ys, w))
+    assert rel_err(dxg, gru_seq_bwd_plain(dys, gates, ys, w)) <= 1e-4
+    leaves = [t.clone().requires_grad_() for t in (xg, w, b)]
+    GRUSeqFn.apply(*leaves).backward(dys)
+    ref = [t.clone().requires_grad_() for t in (xg, w, b)]
+    gru_seq_fwd_plain(*ref)[0].backward(dys)
+    for a, r in zip(leaves, ref):
+        assert rel_err(a.grad, r.grad) <= 1e-4
+
+
+def test_train_kernels_reject_bad_input(dev):
+    h = torch.zeros(2, 16, device=dev)
+    with pytest.raises(ValueError, match="w_hh_t"):
+        lstm_seq_bwd(torch.zeros(2, 5, 16, device=dev), h, h,
+                     torch.zeros(2, 5, 64, device=dev), torch.zeros(2, 5, 16, device=dev),
+                     h, torch.zeros(64, 15, device=dev))
+    with pytest.raises(ValueError, match="f32"):
+        gru_seq_fwd(torch.zeros(2, 5, 48, device=dev, dtype=torch.float64),
+                    torch.zeros(48, 16, device=dev), torch.zeros(48, device=dev))
 
 
 def _taco(dev, B, T=16):
@@ -122,7 +206,7 @@ def _voc(dev, B=3, T=300):
     g = torch.Generator().manual_seed(2)
     mels = (torch.rand(1, 10, 14, generator=g) * 2 - 1).to(dev)
     with torch.no_grad():
-        mu, aux = tw.upsample_forward(model, d, mels)
+        mu, aux, _ = tw.upsample_forward(model, d, mels)
         mu = mu.repeat(B, 2, 1)[:, :T].contiguous()
         aux = aux.repeat(B, 2, 1)[:, :T].contiguous()
         streams = {k: v.contiguous() for k, v in tw.hoist_aux(model, d, mu, aux).items()}

@@ -48,7 +48,7 @@ def _upsampled(setup, seed=0):
     jmu, jaux, _ = jw.upsample_forward(v["params"]["upsample"], v["batch_stats"]["upsample"],
                                        jd, jnp.asarray(mels), train=False)
     with torch.no_grad():
-        tmu, taux = tw.upsample_forward(model, td, torch.from_numpy(mels))
+        tmu, taux, _ = tw.upsample_forward(model, td, torch.from_numpy(mels))
     return jmu, jaux, tmu, taux
 
 
