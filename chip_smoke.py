@@ -18,11 +18,24 @@
    versions and times both: K3 forward with residuals and backward at the
    GE2E training shape (640 x 160 x 768), K4 forward and backward at the
    runtimeracer training shape (40 x 1000 x 256).
+   K5, the teacher-forced Tacotron decoder chain, forward and backward at the
+   Tacotron training shape (112 rows x 86 iterations x 160 characters,
+   D 256 / L 512 / E 896, zoneout masks at p 0.1, padded char mask); two
+   runs of its backward must give equal bits.
 5. Trains at full width with seeded random weights: ``train_encoder`` for 3
    GE2E steps on (640, 160, 40) partials, then resumes from its checkpoint
    for a 4th; ``train_vocoder("runtimeracer-wavernn")`` for 5 steps on one
-   batch of 40 x 1000 samples. Checks finite losses, the EER, the resume
-   step, a falling vocoder loss, and each path's kernel launch counts.
+   batch of 40 x 1000 samples; ``train_synthesizer("tacotron")`` for 3 steps
+   of its first session (r 7, batch 112, 602 frames, 160 characters) on one
+   synthetic batch, then a resume for a 4th. Checks finite losses, the EER,
+   the resume steps, falling vocoder and synthesizer losses, and each path's
+   kernel launch counts.
+
+Beside each kernel's time it gives the least time the card could take for the
+same work (``bound_ms``: the larger of the bytes the function must move, each
+input read once and each output written once, over the card's memory rate, and
+its operations over the card's f32 rate), and where one PyTorch call computes
+the same function (cuDNN's ``nn.LSTM`` / ``nn.GRU``) that call's time.
 
 Prints the card, each phase, one JSON line describing the kernels, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -62,6 +75,43 @@ def cuda_ms(fn, reps=3):
     return start.elapsed_time(stop) / reps
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet): f32 outside the tensor
+# cores, and device memory. Every kernel here computes in f32.
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, flops):
+    """The least milliseconds the card could take, and which side sets it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations"}
+
+
+def cudnn_rnn_ms(rnn, B, T, H, dev, backward=True):
+    """(forward ms, backward ms) of a cuDNN recurrence over (B, T, H) inputs
+    in f32 (``rtvc_tpu_torch`` switches TF32 off when it is imported), as the
+    yardstick beside K3 and K4; it includes the input projection, which the
+    kernels leave to a matmul outside. The backward is the time of forward
+    plus backward less the forward's; with ``backward=False`` the forward
+    runs without a graph and the second value is None."""
+    import torch
+
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn(B, T, H, generator=g).to(dev).requires_grad_(backward)
+    dys = torch.randn(B, T, H, generator=g).to(dev)
+    rnn = rnn.to(dev).train(backward)
+    with torch.set_grad_enabled(backward):
+        fwd = cuda_ms(lambda: rnn(x))
+    if not backward:
+        return fwd, None
+    return fwd, cuda_ms(lambda: rnn(x)[0].backward(dys)) - fwd
+
+
 def phase_lstm(dev):
     import torch
 
@@ -80,11 +130,15 @@ def phase_lstm(dev):
     check(err <= 1e-4, f"K3 lstm_seq differs from its plain version: {err}")
     ms = cuda_ms(lambda: lstm_seq(xg, w_hh, h0, c0))
     plain_ms = cuda_ms(lambda: lstm_seq_plain(xg, w_hh, h0, c0))
+    library_ms, _ = cudnn_rnn_ms(torch.nn.LSTM(H, H, batch_first=True), B, T, H, dev,
+                                 backward=False)
+    b = bound(nbytes(xg, w_hh, h0, c0, *got), 2 * B * T * 4 * H * H)
     print(f"K3 lstm_seq B={B} T={T} H={H}: max_abs_err {err:.3e} (tol 1e-4), "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, nn.LSTM {library_ms:.3f} ms, "
+          f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {"name": "lstm_seq", "source": "rtvc_tpu_torch/csrc/lstm_seq.cu",
             "replaces": "rtvc_tpu/ops/pallas/lstm_train_kernel.py:300",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}
 
 
 def phase_tacotron(dev, syn):
@@ -131,11 +185,26 @@ def phase_tacotron(dev, syn):
         check(not torch.equal(a1, b1), "K2 dropout: two seeds give the same mel")
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(plain, reps=2)
+    # the iterations this run took (n_k), each weight applied once to each of
+    # the B rows; of mel_proj only the r frames' rows are read
+    dec = model.decoder
+    B, T = mask.shape
+    mats = [dec.prenet.fc1.weight, dec.prenet.fc2.weight, dec.attn_rnn.weight_ih,
+            dec.attn_rnn.weight_hh, dec.attn_net.W.weight, dec.rnn_input.weight,
+            dec.res_rnn1.weight_ih, dec.res_rnn1.weight_hh, dec.res_rnn2.weight_ih,
+            dec.res_rnn2.weight_hh, dec.stop_proj.weight]
+    mel_rows = r * d.n_mels * d.lstm_dims
+    NF, _, KS = dec.attn_net.conv.weight.shape
+    attention = T * (NF * KS + d.decoder_dims * NF + d.decoder_dims + d.enc_out_dims)
+    flops = 2 * n_k * B * (sum(m.numel() for m in mats) + mel_rows + attention)
+    b = bound(nbytes(*mats, seq, proj, mask, km, ka, ks) + 4 * mel_rows, flops)
     print(f"K2 dropout seeded: repeat ok, seeds differ; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms for {ks.shape[1]} iterations")
+          f"plain {plain_ms:.3f} ms for {ks.shape[1]} iterations, bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {"name": "tacotron_decode", "source": "rtvc_tpu_torch/csrc/tacotron_decode.cu",
             "replaces": "rtvc_tpu/ops/pallas/tacotron_kernel.py:427",
-            "max_abs_err": max(err_mel, err_attn), "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max(err_mel, err_attn), "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
 def phase_wavernn(dev, voc):
@@ -190,9 +259,12 @@ def phase_wavernn(dev, voc):
         ms = cuda_ms(lambda: wavernn_generate_core(w, streams, 0, argmax=True))
         plain_ms = cuda_ms(lambda: wavernn_generate_core_plain(w, streams, 0, argmax=True),
                            reps=1)
+        flops = 2 * B * T * sum(v.numel() for v in w.values() if v.ndim == 2)
+        k1_bound = bound(nbytes(*w.values(), *streams.values(), got), flops)
         print(f"K1 wavernn_generate greedy {B} folds x {T} steps: labels equal "
               f"({flips} folds cut at a near-tie), logit max_abs_err {err:.3e} (tol 1e-4), "
-              f"sample err {sample_err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+              f"sample err {sample_err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {k1_bound['bound_ms']:.4f} ms by {k1_bound['bound_by']}")
 
         bias = torch.randn(C, generator=torch.Generator().manual_seed(3)) * 1.5
         w_fixed = dict(w, fc5_w=torch.zeros_like(w["fc5_w"]), fc5_b=bias.to(dev))
@@ -211,7 +283,8 @@ def phase_wavernn(dev, voc):
     check(pvalue > 1e-3, f"K1 sampler fails the chi-square test: p = {pvalue}")
     return {"name": "wavernn_generate", "source": "rtvc_tpu_torch/csrc/wavernn_generate.cu",
             "replaces": "rtvc_tpu/ops/pallas/wavernn_kernel.py:309",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **k1_bound,
+            "library_ms": None}
 
 
 def prompt(seed, seconds=3.0, sr=16000):
@@ -322,14 +395,22 @@ def phase_lstm_train(dev):
     bwd_args = (dys, dhT, dcT, gates, cs, c0, w_hh)
     ms = cuda_ms(lambda: lstm_seq_bwd(*bwd_args))
     plain_ms = cuda_ms(lambda: lstm_seq_bwd_plain(*bwd_args))
+    lib_fwd_ms, lib_bwd_ms = cudnn_rnn_ms(torch.nn.LSTM(H, H, batch_first=True), B, T, H, dev)
+    flops = 2 * B * T * 4 * H * H
+    b = bound(nbytes(*bwd_args, k_grads[0], dhT, dcT), flops)
+    fwd_b = bound(nbytes(xg, w_hh, h0, c0, *ref), flops)
     print(f"K3 lstm_seq training B={B} T={T} H={H}: forward with residuals rel err "
-          f"{fwd_err:.3e}, kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms; backward rel "
-          f"errs " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-          + f" (tol 1e-4), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"{fwd_err:.3e}, kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, nn.LSTM "
+          f"{lib_fwd_ms:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by {fwd_b['bound_by']}; "
+          f"backward rel errs " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (tol 1e-4), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, nn.LSTM "
+          f"{lib_bwd_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {"name": "lstm_seq_bwd", "source": "rtvc_tpu_torch/csrc/lstm_seq.cu",
             "replaces": "rtvc_tpu/ops/pallas/lstm_train_kernel.py:158",
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-            "fwd_train_ms": fwd_ms, "fwd_train_plain_ms": fwd_plain_ms}
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": lib_bwd_ms, "fwd_train_ms": fwd_ms,
+            "fwd_train_plain_ms": fwd_plain_ms, "fwd_train_bound_ms": fwd_b["bound_ms"],
+            "fwd_train_library_ms": lib_fwd_ms}
 
 
 def phase_gru(dev):
@@ -369,16 +450,112 @@ def phase_gru(dev):
     plain_ms = cuda_ms(lambda: gru_seq_fwd_plain(xg, w_hh, b_hh), reps=2)
     bwd_ms = cuda_ms(lambda: gru_seq_bwd(dys, p_gates, p_ys, w_hh))
     bwd_plain_ms = cuda_ms(lambda: gru_seq_bwd_plain(dys, p_gates, p_ys, w_hh), reps=2)
+    lib_fwd_ms, lib_bwd_ms = cudnn_rnn_ms(torch.nn.GRU(H, H, batch_first=True), B, T, H, dev)
+    flops = 2 * B * T * 3 * H * H
+    fwd_b = bound(nbytes(xg, w_hh, b_hh, ys, gates), flops)
+    bwd_b = bound(nbytes(dys, p_gates, p_ys, w_hh, k_grads[0]), flops)
     print(f"K4 gru_seq B={B} T={T} H={H}: forward rel err {fwd_err:.3e}, kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms; backward rel errs "
+          f"plain {plain_ms:.3f} ms, nn.GRU {lib_fwd_ms:.3f} ms, bound "
+          f"{fwd_b['bound_ms']:.4f} ms by {fwd_b['bound_by']}; backward rel errs "
           + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-          + f" (tol 1e-4), kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms")
+          + f" (tol 1e-4), kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, nn.GRU "
+          f"{lib_bwd_ms:.3f} ms, bound {bwd_b['bound_ms']:.4f} ms by {bwd_b['bound_by']}")
     return [{"name": "gru_seq", "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
              "replaces": "rtvc_tpu/ops/pallas/gru_train_kernel.py:71",
-             "max_abs_err": fwd_abs, "ms": ms, "plain_ms": plain_ms},
+             "max_abs_err": fwd_abs, "ms": ms, "plain_ms": plain_ms, **fwd_b,
+             "library_ms": lib_fwd_ms},
             {"name": "gru_seq_bwd", "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
              "replaces": "rtvc_tpu/ops/pallas/gru_train_kernel.py:111",
-             "max_abs_err": bwd_abs, "ms": bwd_ms, "plain_ms": bwd_plain_ms}]
+             "max_abs_err": bwd_abs, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_b,
+             "library_ms": lib_bwd_ms}]
+
+
+def phase_taco_train_kernel(dev):
+    """K5 forward and backward at the Tacotron training shape (the first
+    session of the schedule: batch 112, r 7, 602 frames → 86 iterations; 160
+    characters), each against its plain version: every output within 1e-4 of
+    the reference's largest entry (f32 sums taken in another order, carried
+    through 86 steps). The backward runs on the plain forward's residuals,
+    and twice: it uses no atomics, so the two runs' bits are equal."""
+    import torch
+
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops import tacotron_train as tk
+
+    B, n, T, D, L, E, KS = 112, 86, 160, 256, 512, 896, 31
+    g = torch.Generator().manual_seed(11)
+
+    def u(*shape, fan):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * fan ** -0.5).to(dev)
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+
+    w = tk.TrainWeights(
+        gwh=u(D, 3 * D, fan=D), gbh=u(3 * D, fan=D), wq=u(D, D, fan=D), bq=u(D, fan=D),
+        mloc=r(KS, D, s=0.1), vv=u(D, fan=D), wri=u(E + D, L, fan=E + D), bri=u(L, fan=E + D),
+        l1wi=u(L, 4 * L, fan=L), l1wh=u(L, 4 * L, fan=L), l1b=u(4 * L, fan=L),
+        l2wi=u(L, 4 * L, fan=L), l2wh=u(L, 4 * L, fan=L), l2b=u(4 * L, fan=L),
+        gwi_ctx=u(E, 3 * D, fan=E))
+    lens = torch.randint(T // 2, T + 1, (B,), generator=g)
+    x = dict(xg_pre=r(n, B, 3 * D), enc_seq=r(B, T, E, s=0.5), enc_proj=r(B, T, D, s=0.5),
+             char_mask=(torch.arange(T)[None, :] < lens[:, None]).float().to(dev),
+             zo1=(torch.rand(n, B, L, generator=g) < 0.1).float().to(dev),
+             zo2=(torch.rand(n, B, L, generator=g) < 0.1).float().to(dev))
+    cots = [r(n, B, L), r(n, B, E), r(n, B, T)]
+
+    x_all, res = tk.taco_train_fwd(w, **x)
+    p_x, p_res = tk.taco_train_fwd_plain(w, **x)
+    torch.cuda.synchronize()
+    fwd_errs = {"x_all": rel_err(x_all, p_x),
+                **{k: rel_err(a, c) for k, a, c in zip(res._fields, res, p_res)}}
+    fwd_abs = max(float((x_all - p_x).abs().max()),
+                  *(float((a - c).abs().max()) for a, c in zip(res, p_res)))
+    check(max(fwd_errs.values()) <= 1e-4, f"K5 forward differs from its plain version: {fwd_errs}")
+    args = (p_res, x["enc_seq"], x["enc_proj"], x["char_mask"], x["zo1"], x["zo2"], *cots)
+    got, again = tk.taco_train_bwd(w, *args), tk.taco_train_bwd(w, *args)
+    want = tk.taco_train_bwd_plain(w, *args)
+    torch.cuda.synchronize()
+    bwd_errs = {k: rel_err(a, c) for k, a, c in zip(got._fields, got, want)}
+    bwd_abs = max(float((a - c).abs().max()) for a, c in zip(got, want))
+    check(max(bwd_errs.values()) <= 1e-4, f"K5 backward differs from its plain version: {bwd_errs}")
+    check(all(torch.equal(a, c) for a, c in zip(got, again)),
+          "K5 backward: two runs on the same inputs differ in their bits")
+    ms = cuda_ms(lambda: tk.taco_train_fwd(w, **x))
+    plain_ms = cuda_ms(lambda: tk.taco_train_fwd_plain(w, **x), reps=2)
+    bwd_ms = cuda_ms(lambda: tk.taco_train_bwd(w, *args))
+    bwd_plain_ms = cuda_ms(lambda: tk.taco_train_bwd_plain(w, *args), reps=2)
+
+    # per row and iteration: the eight products, then the attention: the
+    # location term (T·D·KS), energies, scores and context in the forward;
+    # in the backward also the query again, the location term's two adjoints
+    # and the attention memory's two passes
+    mats = D * 3 * D + D * D + (E + D) * L + 4 * L * 4 * L + E * 3 * D
+    fwd_flops = 2 * n * B * (mats + T * D * KS + 2 * T * D + T * E)
+    bwd_flops = 2 * n * B * (mats + D * D + 3 * T * D * KS + 3 * T * D + 2 * T * E)
+    fwd_b = bound(nbytes(*w, *x.values(), x_all, *res), fwd_flops)
+    # the backward reads nine matrices (lsa_W both ways), three vectors, the
+    # cotangents, eight residual streams, the masks and the attention memory;
+    # it writes dv and dmloc once per batch row
+    read = [w.gwh, w.wq, w.wq, w.wri, w.l1wi, w.l1wh, w.l2wi, w.l2wh, w.gwi_ctx, w.bq, w.mloc,
+            w.vv, p_res.ah, p_res.g4, p_res.gates1, p_res.c1, p_res.gates2, p_res.c2,
+            p_res.scores, p_res.cum_T, *args[1:]]
+    bwd_b = bound(nbytes(*read, *got) + 4 * (B - 1) * (D + KS * D), bwd_flops)
+    print(f"K5 tacotron_train B={B} n_iters={n} T={T} D={D} L={L} E={E}: forward rel errs "
+          f"max {max(fwd_errs.values()):.3e} ({max(fwd_errs, key=fwd_errs.get)}), kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by "
+          f"{fwd_b['bound_by']}; backward rel errs "
+          + ", ".join(f"{k} {e:.3e}" for k, e in bwd_errs.items())
+          + f" (tol 1e-4), bits repeat, kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, "
+          f"bound {bwd_b['bound_ms']:.4f} ms by {bwd_b['bound_by']}")
+    return [{"name": "tacotron_train_fwd", "source": "rtvc_tpu_torch/csrc/tacotron_train.cu",
+             "replaces": "rtvc_tpu/ops/pallas/tacotron_train_kernel.py:109",
+             "max_abs_err": fwd_abs, "ms": ms, "plain_ms": plain_ms, **fwd_b,
+             "library_ms": None},
+            {"name": "tacotron_train_bwd", "source": "rtvc_tpu_torch/csrc/tacotron_train.cu",
+             "replaces": "rtvc_tpu/ops/pallas/tacotron_train_kernel.py:228",
+             "max_abs_err": bwd_abs, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_b,
+             "library_ms": None}]
 
 
 def phase_train_encoder(dev, runs_dir):
@@ -428,7 +605,7 @@ def phase_train_encoder(dev, runs_dir):
 def phase_train_vocoder(dev, runs_dir):
     """runtimeracer WaveRNN training at full width (batch 40, seq_len 1000,
     four GRUs of 256) for 5 steps on one seeded batch repeated."""
-    from rtvc_tpu.config.signal import sp
+    from rtvc_tpu_torch.config.signal import sp
     from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.models import factories
     from rtvc_tpu_torch.train.trainer import train_vocoder
@@ -438,7 +615,7 @@ def phase_train_vocoder(dev, runs_dir):
     B, hop = int(cfg.voc_tts_schedule[0][3]), sp.hop_size
     L, C = cfg.seq_len, 2 ** cfg.bits
     rng = np.random.default_rng(8)
-    # keys and shapes of rtvc_tpu.data.vocoder_dataset.batch_iterator: tones
+    # keys and shapes of rtvc_tpu_torch.data.vocoder_dataset.batch_iterator: tones
     # quantised to C classes; x is the previous sample's class in [-1, 1]
     t = np.arange(L + 1)
     wav = 0.8 * np.sin(2 * np.pi * rng.uniform(100, 400, (B, 1)) * t / sp.sample_rate
@@ -464,6 +641,55 @@ def phase_train_vocoder(dev, runs_dir):
               f"want {4 * steps}")
     print(f"vocoder training {B} x {L}: losses {[round(v, 4) for v in losses]}; ms per step "
           f"{[round(m, 1) for m in out['step_ms']]}")
+    return counts, out["step_ms"]
+
+
+def phase_train_synthesizer(dev, runs_dir):
+    """Tacotron training at full width (the config's defaults: decoder 256,
+    LSTM 512, encoder 128 + the 768-d speaker embedding) in the first session
+    of its schedule (r 7, batch 112, lr 1e-3 falling) on one synthetic batch
+    shaped like ``collate_synthesizer``'s: 3 steps, then a resume from the
+    checkpoint for a 4th."""
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.profile_train import synthetic_tacotron_batch
+    from rtvc_tpu_torch.train.trainer import train_synthesizer
+
+    model_type, steps = factories.MODEL_TYPE_TACOTRON, 3
+    cfg = factories.default_config(model_type)
+    r, _, B, _, _ = cfg.tts_schedule[0]
+    T, frames = 160, 86 * r
+    batch = synthetic_tacotron_batch(B, T, frames, seed=12)
+
+    def epochs(session, r):
+        return [batch] * 12  # the session's length: its learning rate falls over 12 steps
+
+    kw = dict(save_every=0, device=dev, seed=0)
+    _build.launch_counts.clear()
+    out = train_synthesizer("synthesizer", model_type, runs_dir, epochs, max_steps=steps,
+                            **kw)
+    counts = dict(_build.launch_counts)
+    print(f"launches in the synthesizer training run: {counts}")
+    losses = out["losses"]
+    check(out["step"] == steps and len(losses) == steps, f"synthesizer run ended at {out['step']}")
+    check(all(np.isfinite(losses)) and np.isfinite(out["grad_norm"]),
+          f"synthesizer loss or grad norm not finite: {losses}, {out['grad_norm']}")
+    check(losses[-1] < losses[0], f"synthesizer loss did not fall on a repeated batch: {losses}")
+    for name in ("tacotron_train_fwd", "tacotron_train_bwd"):
+        check(counts.get(name, 0) == steps,
+              f"{name} launched {counts.get(name, 0)} times in {steps} synthesizer steps")
+    resumed = train_synthesizer("synthesizer", model_type, runs_dir, epochs,
+                                max_steps=steps + 1, **kw)
+    check(resumed["step"] == steps + 1 and len(resumed["losses"]) == 1,
+          f"resume did not start at step {steps}: {resumed['step']}, {resumed['losses']}")
+    check(np.isfinite(resumed["losses"][0]) and resumed["lrs"][0] < out["lrs"][-1],
+          f"resumed synthesizer step: loss {resumed['losses']}, lr {resumed['lrs']} after "
+          f"{out['lrs']}")
+    print(f"synthesizer training {B} x {frames} frames x {T} chars, r {r}: losses "
+          f"{[round(v, 4) for v in losses]} then {[round(v, 4) for v in resumed['losses']]} "
+          f"after the resume, grad norm {out['grad_norm']:.4f}; ms per step "
+          f"{[round(m, 1) for m in out['step_ms']]}, after the resume "
+          f"{round(resumed['step_ms'][0], 1)}")
     return counts, out["step_ms"]
 
 
@@ -500,19 +726,22 @@ def main() -> int:
 
     kernels = [phase_lstm(dev), phase_tacotron(dev, syn), phase_wavernn(dev, voc)]
     counts = phase_clone(dev, syn, voc)
-    kernels += [phase_lstm_train(dev), *phase_gru(dev)]
+    kernels += [phase_lstm_train(dev), *phase_gru(dev), *phase_taco_train_kernel(dev)]
     runs_dir = _build.BUILD_DIR / "smoke_runs"
     shutil.rmtree(runs_dir, ignore_errors=True)
     try:
         enc_counts, _ = phase_train_encoder(dev, runs_dir)
         voc_counts, _ = phase_train_vocoder(dev, runs_dir)
+        syn_counts, _ = phase_train_synthesizer(dev, runs_dir)
     finally:
         shutil.rmtree(runs_dir, ignore_errors=True)
     check("jax" not in sys.modules, "the port imported jax")
     # each kernel's launches on the path that runs it: the clone path for the
     # inference kernels, the trainers for the training ones
     path_counts = {**counts, "lstm_seq_bwd": enc_counts["lstm_seq_bwd"],
-                   "gru_seq": voc_counts["gru_seq"], "gru_seq_bwd": voc_counts["gru_seq_bwd"]}
+                   "gru_seq": voc_counts["gru_seq"], "gru_seq_bwd": voc_counts["gru_seq_bwd"],
+                   "tacotron_train_fwd": syn_counts["tacotron_train_fwd"],
+                   "tacotron_train_bwd": syn_counts["tacotron_train_bwd"]}
     for k in kernels:
         k["route"] = "cuda"
         k["launches"] = path_counts[k["name"]]

@@ -1,8 +1,11 @@
 """rtvc_tpu_torch — the SV2TTS voice-clone path in PyTorch, with hand-written
 CUDA kernels for NVIDIA Hopper.
 
-A port of ``rtvc_tpu`` (JAX/Pallas), which stays the numerical reference.
-The clone path runs speaker encoder → Tacotron → WaveRNN:
+A port of ``rtvc_tpu`` (JAX/Pallas), which stays the numerical reference;
+this package imports nothing of it and keeps its own copies of the modules
+it shares (``config``, ``text``, ``data``, ``utils.metrics``,
+``utils.profiler``). The clone path runs speaker encoder → Tacotron →
+WaveRNN, and all three models train here:
 
 =========  ===========================================================
 subpkg     role
@@ -10,18 +13,22 @@ subpkg     role
 ops        DSP on tensors (encoder mel, mu-law, de-emphasis), numpy host
            DSP (VAD, resample, mel filterbank), and the kernel wrappers
            ``lstm_seq`` (K3), ``gru_seq`` (K4), ``tacotron_decode`` (K2),
-           ``wavernn_generate`` (K1)
+           ``tacotron_train`` (K5), ``wavernn_generate`` (K1)
 csrc       the CUDA C++ sources of those kernels (built by ``_build``)
 models     nn.Modules under the reference's torch state-dict names
 inference  encoder / synthesizer / vocoder public API
-train      GE2E encoder and WaveRNN training steps, trainers, checkpoints
-           (entry points ``python -m rtvc_tpu_torch.encoder_train`` and
-           ``python -m rtvc_tpu_torch.vocoder_train``)
+train      GE2E encoder, Tacotron and WaveRNN training steps, trainers,
+           checkpoints (entry points ``python -m rtvc_tpu_torch.encoder_train``,
+           ``.synthesizer_train`` and ``.vocoder_train``)
+config     typed hyper-parameters (the JAX package's, copied)
+text       symbols, cleaners, number expansion (copied)
+data       numpy datasets and samplers of the three trainers (copied)
 bridge     JAX variables → state_dicts of this package's modules
 =========  ===========================================================
 
 Each kernel wrapper launches its kernel for CUDA tensors and runs its plain
-PyTorch twin for CPU tensors; nothing selects a backend otherwise.
+PyTorch twin for CPU tensors; nothing selects a backend otherwise. Models
+are built on the card unless the caller names another device.
 
 The JAX reference computes in float32, so TF32 is switched off for matrix
 products and cuDNN convolutions when this package is imported.

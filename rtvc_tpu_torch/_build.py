@@ -55,6 +55,11 @@ SIGNATURES = {
     "rtvc_tacotron_workspace": [_IP],
     # weights, streams, dims, argmax, seed, out, logits_out (or null), stream
     "rtvc_wavernn_generate": [_PP, _PP, _IP, _I, _U64, _P, _P, _P],
+    # weights, inputs, outputs, dims (n, B, T, D, L, E, KS), stream
+    "rtvc_tacotron_train_fwd": [_PP, _PP, _PP, _IP, _P],
+    "rtvc_tacotron_train_bwd": [_PP, _PP, _PP, _IP, _P],
+    # dims, backward (0 or 1) → bytes of shared memory a CTA takes
+    "rtvc_tacotron_train_smem": [_IP, _I],
 }
 
 # Launches per kernel since the last reset; each wrapper adds one where it

@@ -10,13 +10,14 @@ reference's torch names, which the port's modules load with
 The same functions map a JAX gradient tree (``jax.grad`` of a training
 loss over the same variables) to the names of the port's parameters, so a
 test can compare gradients name by name: the encoder's takes the training
-step's ``{"model", "similarity"}`` layout, and the WaveRNN's a tree without
-``batch_stats``.
+step's ``{"model", "similarity"}`` layout, and Tacotron's and the WaveRNN's
+a tree without ``batch_stats``. The way back, a state_dict → JAX variables,
+is the JAX package's own ``import_torch_state``.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -49,14 +50,15 @@ def speaker_encoder_state(variables: Mapping) -> StateDict:
     return sd
 
 
-def _cbhg(sd: StateDict, prefix: str, params: Mapping, stats: Mapping) -> None:
+def _cbhg(sd: StateDict, prefix: str, params: Mapping, stats: Optional[Mapping]) -> None:
     for name, p in params.items():
         if name.startswith(("conv1d_bank_", "conv_project")):
             torch_name = (f"conv1d_bank.{name.rsplit('_', 1)[1]}"
                           if name.startswith("conv1d_bank_") else name)
             sd[f"{prefix}{torch_name}.conv.weight"] = _t(p["conv"]["weight"])
             _put(sd, f"{prefix}{torch_name}.bnorm.", p["bnorm"])
-            _put(sd, f"{prefix}{torch_name}.bnorm.", stats[name]["bnorm"])
+            if stats is not None:
+                _put(sd, f"{prefix}{torch_name}.bnorm.", stats[name]["bnorm"])
         elif name == "pre_highway":
             _put(sd, f"{prefix}pre_highway.", p)
         elif name.startswith("highways_"):
@@ -71,8 +73,10 @@ def _cbhg(sd: StateDict, prefix: str, params: Mapping, stats: Mapping) -> None:
 
 def tacotron_state(variables: Mapping) -> StateDict:
     """{"params", "batch_stats"} (``init_tacotron`` layout) → Tacotron
-    state_dict."""
-    p, s = variables["params"], variables["batch_stats"]
+    state_dict. Without "batch_stats" (a gradient tree) only the parameters
+    are mapped."""
+    p = variables["params"]
+    s = variables.get("batch_stats") or {"enc_cbhg": None, "postnet": None}
     sd: StateDict = OrderedDict()
     _put(sd, "encoder.embedding.", p["embedding"])
     for fc in ("fc1", "fc2"):

@@ -5,14 +5,14 @@
 The arguments are those of the JAX package's ``encoder_train.py`` except
 its dashboard and multi-process launch options, plus ``--device``. The
 dataset is the one ``encoder_preprocess.py`` writes, read through
-``rtvc_tpu.data.ge2e_sampler``.
+``rtvc_tpu_torch.data.ge2e_sampler``.
 """
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
 
-from rtvc_tpu.config.encoder import encoder_model
+from rtvc_tpu_torch.config.encoder import encoder_model
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -43,7 +43,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None):
     args = parse_args(argv)
-    from rtvc_tpu.data.ge2e_sampler import SpeakerVerificationDataset, speaker_batch_iterator
+    from rtvc_tpu_torch.data.ge2e_sampler import SpeakerVerificationDataset, speaker_batch_iterator
     from rtvc_tpu_torch.train.steps import check_compute_dtype
     from rtvc_tpu_torch.train.trainer import train_encoder
 

@@ -17,7 +17,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from rtvc_tpu.config.encoder import EncoderDataParams, EncoderModelParams
+from rtvc_tpu_torch.config.encoder import EncoderDataParams, EncoderModelParams
 from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.models.speaker_encoder import SpeakerEncoder
 from rtvc_tpu_torch.ops.audio import encoder_mel_spectrogram, normalize_volume
@@ -34,7 +34,8 @@ def load_state(state_dict: dict, device=None,
                model_cfg: EncoderModelParams = EncoderModelParams(),
                data_cfg: EncoderDataParams = EncoderDataParams()) -> SpeakerEncoder:
     """Install an encoder from a state_dict under the reference's names
-    (for example ``bridge.speaker_encoder_state``)."""
+    (for example ``bridge.speaker_encoder_state``), on the card unless
+    ``device`` names another (RuntimeError without a card)."""
     global _model, _model_cfg, _data
     model = factories.empty_on_device(lambda: SpeakerEncoder(model_cfg, data_cfg), device)
     model.load_state_dict(state_dict, strict=True)
@@ -43,7 +44,8 @@ def load_state(state_dict: dict, device=None,
 
 
 def init_random_model(seed: int = 0, device=None) -> SpeakerEncoder:
-    """Install an encoder with random weights (self-tests, benchmarks)."""
+    """Install an encoder with random weights (self-tests, benchmarks), on
+    the card unless ``device`` names another."""
     global _model
     _model = factories.init_encoder_model(seed, device, _model_cfg, _data)
     return _model

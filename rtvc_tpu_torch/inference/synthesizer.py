@@ -21,8 +21,8 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from rtvc_tpu.config import preprocessing, sp
-from rtvc_tpu.text import text_to_sequence
+from rtvc_tpu_torch.config import preprocessing, sp
+from rtvc_tpu_torch.text import text_to_sequence
 from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.models import tacotron as taco
 from rtvc_tpu_torch.ops.tacotron_decode import tacotron_decode

@@ -13,7 +13,7 @@ from typing import Optional
 
 import numpy as np
 
-from rtvc_tpu.config import signal as _sig
+from rtvc_tpu_torch.config import signal as _sig
 from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.models.wavernn import wavernn_generate
 

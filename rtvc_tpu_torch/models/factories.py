@@ -2,8 +2,10 @@
 ported slice: Tacotron and the runtimeracer WaveRNN, plus the speaker
 encoder. Random weights come from a ``torch.Generator`` seeded by ``seed``;
 modules are built on the meta device and filled once, so no global RNG is
-touched. The distributions follow the JAX package's initialisers, but the
-numbers differ: tests carry JAX weights across through ``bridge``.
+touched. Every factory builds on the card when ``device`` is left out and
+raises without one; ``device="cpu"`` asks for the CPU. The distributions
+follow the JAX package's initialisers, but the numbers differ: tests carry
+JAX weights across through ``bridge``.
 """
 from __future__ import annotations
 
@@ -13,17 +15,20 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch import nn
 
-from rtvc_tpu.config import signal as _sig
-from rtvc_tpu.config import synthesizer as _syn_cfg
-from rtvc_tpu.config import vocoder as _voc_cfg
-from rtvc_tpu.config.encoder import EncoderDataParams, EncoderModelParams
-from rtvc_tpu.text.symbols import symbols
+from rtvc_tpu_torch.config import signal as _sig
+from rtvc_tpu_torch.config import synthesizer as _syn_cfg
+from rtvc_tpu_torch.config import vocoder as _voc_cfg
+from rtvc_tpu_torch.config.encoder import EncoderDataParams, EncoderModelParams
+from rtvc_tpu_torch.text.symbols import symbols
 from rtvc_tpu_torch.models import layers
 from rtvc_tpu_torch.models.speaker_encoder import SpeakerEncoder
 from rtvc_tpu_torch.models.tacotron import Tacotron, TacotronDims
 from rtvc_tpu_torch.models.wavernn import WaveRNN, WaveRNNDims
 
 MODEL_TYPE_TACOTRON = "tacotron"
+MODEL_TYPE_FORWARD_TACOTRON = "forward-tacotron"
+MODEL_TYPE_FASTPITCH = "fast-pitch"
+SYN_MODEL_TYPES = (MODEL_TYPE_TACOTRON, MODEL_TYPE_FORWARD_TACOTRON, MODEL_TYPE_FASTPITCH)
 MODEL_TYPE_RUNTIMERACER = "runtimeracer-wavernn"
 
 _LATER = ("{} is not ported to rtvc_tpu_torch yet: the non-autoregressive "
@@ -81,12 +86,25 @@ def _init_(module: nn.Module, g: torch.Generator) -> None:
             m.weight.copy_(torch.randn(m.weight.shape, generator=g))
 
 
-def empty_on_device(module_fn, device) -> nn.Module:
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card: ``cuda``, and RuntimeError when there is none.
+    Nothing carries on on the CPU because it found no GPU; a caller that
+    wants the CPU (the tests do) names it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: rtvc_tpu_torch builds its models on the "
+                           "card unless the caller passes device='cpu'")
+    return torch.device("cuda")
+
+
+def empty_on_device(module_fn, device=None) -> nn.Module:
     """Build a module on the meta device, then allocate it (uninitialised)
-    on ``device``."""
+    on ``device`` (``None``: the card, see :func:`resolve_device`)."""
+    device = resolve_device(device)
     with torch.device("meta"):
         module = module_fn()
-    return module.to_empty(device=torch.device(device or "cpu"))
+    return module.to_empty(device=device)
 
 
 def init_encoder_model(seed: int = 0, device=None,
@@ -107,6 +125,13 @@ def tacotron_dims(cfg) -> TacotronDims:
     return TacotronDims.from_config(cfg, num_chars=len(symbols), n_mels=sp.num_mels,
                                     fft_bins=sp.num_mels,
                                     spk=_sig.sv2tts.speaker_embedding_size)
+
+
+def get_model_train_elements(model_type: str) -> list:
+    """The dataset elements a synthesizer's training needs."""
+    if model_type == MODEL_TYPE_TACOTRON:
+        return ["mel", "embed"]
+    raise NotImplementedError(_LATER.format(model_type))
 
 
 def init_syn_model(model_type: str, seed: int = 0, override_hp=None,

@@ -10,8 +10,10 @@ sequence into one ``torch.matmul`` and runs the recurrence through K3: the
 inference kernel (``ops.lstm_seq.lstm_seq``) under no grad, and
 ``LSTMSeqFn`` (forward with residuals, backward kernel) when a gradient is
 needed. :class:`GRU` stays a plain PyTorch loop: no kernel runs it on the
-inference path (the Tacotron CBHG's BiGRU has a hidden width of 64); the
-WaveRNN trainer's GRUs go through K4 (``models.wavernn.gru_seq``).
+inference path (the Tacotron CBHG's BiGRU has a hidden width of 64, where
+the JAX package runs its scan too), and the Tacotron trainer differentiates
+the same loop; the WaveRNN trainer's GRUs go through K4
+(``models.wavernn.gru_seq``).
 """
 from __future__ import annotations
 
@@ -253,11 +255,19 @@ class BatchNormConv(nn.Module):
                            padding=kernel_size // 2, bias=False, device=device)
         self.bnorm = BatchNorm1d(out_channels, device=device)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, new_stats: Optional[Dict[str, Tensor]] = None,
+                prefix: str = "") -> Tensor:
+        """With ``new_stats`` (training) the BatchNorm uses the batch's
+        statistics and leaves its new running statistics there, under
+        ``prefix`` + the buffers' names."""
         x = self.conv(x)
         if self.relu:
             x = torch.relu(x)
-        return self.bnorm(x)
+        if new_stats is None:
+            return self.bnorm(x)
+        x, stats = self.bnorm.forward_train(x)
+        new_stats.update({f"{prefix}bnorm.{k}": v for k, v in stats.items()})
+        return x
 
 
 class CBHG(nn.Module):
@@ -285,10 +295,13 @@ class CBHG(nn.Module):
             HighwayNetwork(channels, device=device) for _ in range(num_highways))
         self.rnn = GRU(channels, channels // 2, bidirectional=True, device=device)
 
-    def forward(self, x: Tensor, lengths: Optional[Tensor] = None) -> Tensor:
+    def forward(self, x: Tensor, lengths: Optional[Tensor] = None,
+                new_stats: Optional[Dict[str, Tensor]] = None, prefix: str = "") -> Tensor:
         # ``lengths`` (B,): every stage re-zeroes pad frames and the BiGRU
         # masks its carries, so padded input gives each sequence's unpadded
-        # result.
+        # result. ``new_stats`` (training): every BatchNorm uses the batch's
+        # statistics and leaves its new running statistics there under
+        # ``prefix`` + the buffers' names; the step installs them.
         if lengths is not None:
             fmask = (torch.arange(x.shape[1], device=x.device)[None, :]
                      < lengths[:, None]).to(x.dtype)[..., None]
@@ -302,13 +315,14 @@ class CBHG(nn.Module):
         x = remask(x)
         residual = x
         seq_len = x.shape[1]
-        bank = torch.cat([remask(conv(x)[:, :seq_len]) for conv in self.conv1d_bank],
-                         dim=-1)
+        bank = torch.cat(
+            [remask(conv(x, new_stats, f"{prefix}conv1d_bank.{i}.")[:, :seq_len])
+             for i, conv in enumerate(self.conv1d_bank)], dim=-1)
         # MaxPool1d(2, stride 1, padding 1) trimmed to seq_len: max over [t-1, t]
         pooled = F.max_pool1d(bank.transpose(1, 2), 2, stride=1, padding=1)
         pooled = remask(pooled[:, :, :seq_len].transpose(1, 2))
-        x = remask(self.conv_project1(pooled))
-        x = remask(self.conv_project2(x))
+        x = remask(self.conv_project1(pooled, new_stats, f"{prefix}conv_project1."))
+        x = remask(self.conv_project2(x, new_stats, f"{prefix}conv_project2."))
         x = x + residual
         if self.pre_highway is not None:
             x = self.pre_highway(x)

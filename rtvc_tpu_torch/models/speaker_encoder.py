@@ -9,7 +9,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from rtvc_tpu.config.encoder import EncoderDataParams, EncoderModelParams
+from rtvc_tpu_torch.config.encoder import EncoderDataParams, EncoderModelParams
 from rtvc_tpu_torch.models.layers import LSTM, Linear
 
 

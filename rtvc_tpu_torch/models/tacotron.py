@@ -9,16 +9,19 @@ Postnet: CBHG → linear projection.
 
 ``decode_loop`` is the plain decoder (a Python loop of :func:`decoder_step`);
 the generate path of the package runs the K2 kernel through
-``ops.tacotron_decode`` instead.
+``ops.tacotron_decode`` instead. :func:`tacotron_forward` is the
+teacher-forced training pass: everything that does not depend on the
+recurrent state is hoisted out of the decoder loop, and the loop itself is
+K5 (``ops.tacotron_train``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
-from rtvc_tpu.config.synthesizer import TacotronParams
+from rtvc_tpu_torch.config.synthesizer import TacotronParams
 from rtvc_tpu_torch.models.layers import (
     CBHG,
     Conv1d,
@@ -28,6 +31,7 @@ from rtvc_tpu_torch.models.layers import (
     gru_step,
     lstm_cell_step,
 )
+from rtvc_tpu_torch.ops.tacotron_train import prepare_train_weights, taco_decoder_train
 
 Tensor = torch.Tensor
 
@@ -270,3 +274,87 @@ def tacotron_generate(model: Tacotron, d: TacotronDims, chars: Tensor,
         lengths = torch.full((chars.shape[0],), n_valid, device=chars.device)
         linear = postnet(model, mel, lengths=lengths).transpose(1, 2)
     return mel, linear, attn, n_valid
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forced training pass
+# ---------------------------------------------------------------------------
+
+# Zoneout probability of the residual LSTMs' hidden states in training.
+ZONEOUT_P = 0.1
+
+
+def draw_zoneout_masks(n_iters: int, batch: int, lstm_dims: int, device,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Tuple[Tensor, Tensor]:
+    """Two (n_iters, B, L) masks in {0, 1}: 1 (probability ``ZONEOUT_P``)
+    keeps the previous hidden."""
+    u = torch.rand((2, n_iters, batch, lstm_dims), generator=generator, device=device)
+    zo = (u < ZONEOUT_P).to(torch.float32)
+    return zo[0], zo[1]
+
+
+def tacotron_forward(model: Tacotron, d: TacotronDims, chars: Tensor, mels: Tensor,
+                     speaker_embedding: Tensor, r: int,
+                     generator: Optional[torch.Generator] = None,
+                     prenet_dropout: bool = True,
+                     zoneout_masks: Optional[Tuple[Tensor, Tensor]] = None
+                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Dict[str, Tensor]]:
+    """Teacher-forced pass (``rtvc_tpu/models/tacotron.py:tacotron_forward``,
+    its hoisted path). chars (B, T_text) int; mels (B, n_mels, steps) with
+    steps % r == 0. Returns (mel_out (B, n_mels, steps), linear
+    (B, fft_bins, steps), attn (B, steps // r, T_text), stop (B, steps),
+    new_stats).
+
+    The prenet runs over all teacher frames at once, the prenet half of the
+    attention GRU's input projection is one matmul (``xg_pre``), and the mel
+    and stop projections are applied to the stacked decoder states, the mel
+    projection sliced to the ``r`` columns kept. What stays serial, attention
+    and the three recurrent cells, is K5: the kernels on CUDA tensors, their
+    plain versions on CPU tensors.
+
+    The BatchNorms use batch statistics and ``new_stats`` maps each
+    running-statistics buffer's name to its new value (the training step
+    installs them). Zoneout masks (p = ``ZONEOUT_P``) are drawn from
+    ``generator`` outside the kernel unless ``zoneout_masks`` gives them.
+    The encoder prenet's dropout is always on; ``prenet_dropout=False`` turns
+    the decoder prenet's off (a deterministic test hook).
+    """
+    B, _, steps = mels.shape
+    n_iters = steps // r
+    enc, dec = model.encoder, model.decoder
+    new_stats: Dict[str, Tensor] = {}
+    x = enc.pre_net(enc.embedding(chars.long()), generator)
+    x = enc.cbhg(x, new_stats=new_stats, prefix="encoder.cbhg.")
+    if speaker_embedding.ndim == 1:
+        speaker_embedding = speaker_embedding[None, :]
+    e = speaker_embedding[:, None, :].expand(x.shape[0], x.shape[1], -1)
+    encoder_seq = torch.cat([x, e], dim=-1)
+    encoder_seq_proj = model.encoder_proj(encoder_seq)
+    char_mask = (chars != 0).to(torch.float32)
+
+    # teacher inputs: frame t-1 for t = 0, r, 2r, ... (a zero frame at t = 0)
+    teacher_idx = torch.arange(1, n_iters, device=mels.device) * r - 1
+    teacher = torch.cat([mels.new_zeros((B, 1, d.n_mels)),
+                         mels[:, :, teacher_idx].transpose(1, 2)], dim=1)
+    prenet_all = dec.prenet(teacher, generator, dropout=prenet_dropout)
+    E = encoder_seq.shape[-1]
+    cell = dec.attn_rnn
+    xg_pre = prenet_all @ cell.weight_ih[:, E:].t() + cell.bias_ih  # (B, n_iters, 3D)
+
+    if zoneout_masks is None:
+        zoneout_masks = draw_zoneout_masks(n_iters, B, d.lstm_dims, mels.device, generator)
+    x_all, ctx_all, attn = taco_decoder_train(
+        prepare_train_weights(dec, E), xg_pre.transpose(0, 1), encoder_seq, encoder_seq_proj,
+        char_mask, *zoneout_masks)
+
+    # mel_proj keeps only the columns j with j % max_r < r
+    keep = (torch.arange(d.n_mels, device=mels.device)[:, None] * d.max_r
+            + torch.arange(r, device=mels.device)).reshape(-1)
+    mel_steps = (x_all @ dec.mel_proj.weight[keep].t()).reshape(n_iters, B, d.n_mels, r)
+    stops = torch.sigmoid(dec.stop_proj(torch.cat([x_all, ctx_all], dim=-1)))  # (n_iters, B, 1)
+    mel_out = mel_steps.permute(1, 2, 0, 3).reshape(B, d.n_mels, steps)
+    stop_out = stops[..., 0].transpose(0, 1).repeat_interleave(r, dim=1)
+    post = model.postnet(mel_out.transpose(1, 2), new_stats=new_stats, prefix="postnet.")
+    linear = model.post_proj(post).transpose(1, 2)
+    return mel_out, linear, attn.transpose(0, 1), stop_out, new_stats

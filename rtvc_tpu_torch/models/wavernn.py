@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rtvc_tpu.config.vocoder import MODE_MOL, MODE_RAW, WaveRNNParams
+from rtvc_tpu_torch.config.vocoder import MODE_MOL, MODE_RAW, WaveRNNParams
 from rtvc_tpu_torch.models.layers import GRU, BatchNorm1d, Linear
 from rtvc_tpu_torch.ops import audio as audio_ops
 from rtvc_tpu_torch.ops.gru_seq import GRUSeqFn

@@ -1,6 +1,6 @@
 """Ops: DSP on tensors (``audio``), numpy host DSP (``vad``, ``resample``,
 ``mel``) and the kernel wrappers (``lstm_seq``, ``gru_seq``,
-``tacotron_decode``, ``wavernn_generate``). Import the submodule you need."""
+``tacotron_decode``, ``tacotron_train``, ``wavernn_generate``). Import the submodule you need."""
 import torch
 
 

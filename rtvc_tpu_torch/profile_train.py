@@ -2,10 +2,11 @@
 
     python -m rtvc_tpu_torch.profile_train
 
-Takes GE2E steps (64 speakers x 10 utterances x 160 frames, 3 x LSTM-768)
-and runtimeracer WaveRNN steps (batch 40 x 1000 samples) with seeded random
-weights and synthetic batches. For each it prints the wall time of three
-steps ending in a device sync, the peak device memory, and a
+Takes GE2E steps (64 speakers x 10 utterances x 160 frames, 3 x LSTM-768),
+runtimeracer WaveRNN steps (batch 40 x 1000 samples) and Tacotron steps (the
+first session of its schedule: r 7, batch 112, 602 frames, 160 characters)
+with seeded random weights and synthetic batches. For each it prints the
+wall time of three steps ending in a device sync, the peak device memory, and a
 ``torch.profiler`` table of device time by kernel over a few more steps,
 with the idle share 1 - (summed device self time / profiled wall time).
 Then it times the recurrences alone, forward plus backward at the same
@@ -25,7 +26,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from rtvc_tpu.config.signal import sp
+from rtvc_tpu_torch.config.signal import sp
 from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.ops.gru_seq import GRUSeqFn
 from rtvc_tpu_torch.ops.lstm_seq import LSTMSeqFn
@@ -106,6 +107,40 @@ def vocoder_step(dev):
     return step, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
+def synthetic_tacotron_batch(batch_size, n_chars, frames, seed, speaker_dims=768):
+    """One batch shaped like ``collate_synthesizer``'s: chars (B, n_chars) int
+    with zero-padded tails, mels (B, num_mels, frames) a model can learn from
+    (smooth in time and across bins, mostly below zero as speech mels are,
+    inside the symmetric range), unit-norm embeds and stop targets."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(n_chars // 2, n_chars + 1, batch_size)
+    spec_lens = rng.integers(frames // 2, frames, batch_size)
+    embeds = rng.standard_normal((batch_size, speaker_dims)).astype(np.float32)
+    t, m = np.arange(frames)[None, None, :], np.arange(sp.num_mels)[None, :, None]
+    phase = rng.uniform(0, 6.3, (batch_size, 1, 1))
+    mels = (-1.5 + 2 * np.sin(2 * np.pi * (t / 97 + m / 40) + phase)
+            + 0.3 * rng.standard_normal((batch_size, sp.num_mels, frames)))
+    return {"chars": np.where(np.arange(n_chars)[None, :] < lens[:, None],
+                              rng.integers(1, 60, (batch_size, n_chars)), 0).astype(np.int32),
+            "mels": np.clip(mels, -sp.max_abs_value, sp.max_abs_value).astype(np.float32),
+            "embeds": embeds / np.linalg.norm(embeds, axis=1, keepdims=True),
+            "stop": (np.arange(frames)[None, :] >= spec_lens[:, None] - 1).astype(np.float32)}
+
+
+def synthesizer_step(dev):
+    cfg = factories.default_config(factories.MODEL_TYPE_TACOTRON)
+    bundle = factories.init_syn_model(factories.MODEL_TYPE_TACOTRON, seed=0, device=dev)
+    model = bundle.model.train()
+    r, _, B, lr, _ = cfg.tts_schedule[0]
+    raw = steps.make_tacotron_train_step(model, bundle.dims,
+                                         trainer.make_optimizer(model.parameters(), lr), r,
+                                         cfg.tts_clip_grad_norm)
+    batch = synthetic_tacotron_batch(B, 160, 86 * r, seed=12)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    return (lambda b: raw(b, generator)), {k: torch.from_numpy(v).to(dev)
+                                           for k, v in batch.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -115,6 +150,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     profile_step("GE2E step 640 x 160 x 40", *encoder_step(dev), n=2)
     profile_step("WaveRNN step 40 x 1000", *vocoder_step(dev), n=3)
+    profile_step("Tacotron step 112 x 602 frames x 160 chars, r 7", *synthesizer_step(dev), n=2)
 
     def leaf(*shape, scale=1.0):
         return (torch.randn(*shape, device=dev) * scale).requires_grad_()

@@ -1,21 +1,22 @@
-"""Training steps for the speaker encoder and the WaveRNN vocoder
+"""Training steps for the speaker encoder, Tacotron and the WaveRNN vocoder
 (counterpart of ``rtvc_tpu/train/steps.py``).
 
 Each ``make_*_train_step`` returns a closure over the model and its
 optimizer that runs one step in place: forward, loss, backward, the
 gradient operations of the reference, and the optimizer's update. After a
 step every parameter's ``.grad`` holds the gradient the optimizer applied.
-Both steps run in f32; the bf16 autocast policy is a later slice.
+All steps run in f32; the bf16 autocast policy is a later slice.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
 from rtvc_tpu_torch.models.speaker_encoder import SpeakerEncoder, ge2e_loss
+from rtvc_tpu_torch.models.tacotron import Tacotron, TacotronDims, tacotron_forward
 from rtvc_tpu_torch.models.wavernn import WaveRNN, WaveRNNDims, wavernn_forward
-from rtvc_tpu_torch.train.losses import cross_entropy_bits
+from rtvc_tpu_torch.train.losses import cross_entropy_bits, tacotron_loss
 
 Tensor = torch.Tensor
 
@@ -63,6 +64,49 @@ def make_encoder_train_step(model: SpeakerEncoder, optimizer: torch.optim.Optimi
                 p.grad.mul_(scale)
         optimizer.step()
         return loss.detach(), gnorm, sim.detach(), embeds.detach()
+
+    return step
+
+
+def make_tacotron_train_step(model: Tacotron, d: TacotronDims,
+                             optimizer: torch.optim.Optimizer, r: int,
+                             clip_grad_norm: Optional[float] = 1.0
+                             ) -> Callable[..., Tuple[Dict[str, Tensor], Tensor]]:
+    """Teacher-forced Tacotron step at reduction factor ``r``: forward (the
+    decoder chain through K5) → ``tacotron_loss`` → backward → global-norm
+    clip by ``min(1, c / (‖g‖ + 1e-6))`` → the optimizer; then the
+    BatchNorms' new running statistics are installed.
+
+    ``step({"chars", "mels", "embeds", "stop"}, generator=None)`` returns
+    ({"loss", "grad_norm" (before clipping), "m1", "m2", "stop"}, attention
+    (B, steps // r, T_text)), all detached. ``generator`` feeds the prenets'
+    dropout and the zoneout masks; ``prenet_dropout`` and ``zoneout_masks``
+    pass through to :func:`tacotron_forward` so that a test can share them."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    buffers = dict(model.named_buffers())
+
+    def step(batch: Dict[str, Tensor], generator: Optional[torch.Generator] = None,
+             prenet_dropout: bool = True, zoneout_masks=None):
+        optimizer.zero_grad(set_to_none=True)
+        m1, m2, attn, stop_pred, new_stats = tacotron_forward(
+            model, d, batch["chars"], batch["mels"], batch["embeds"], r, generator,
+            prenet_dropout=prenet_dropout, zoneout_masks=zoneout_masks)
+        loss, parts = tacotron_loss(m1.float(), m2.float(), stop_pred.float(), batch["mels"],
+                                    batch["stop"])
+        loss.backward()
+        with torch.no_grad():
+            gnorm = global_norm(p.grad for p in params)
+            if clip_grad_norm is not None:
+                scale = torch.clamp(clip_grad_norm / (gnorm + 1e-6), max=1.0)
+                for p in params:
+                    p.grad.mul_(scale)
+        optimizer.step()
+        with torch.no_grad():
+            for name, value in new_stats.items():
+                buffers[name].copy_(value)
+        stats = {"loss": loss.detach(), "grad_norm": gnorm,
+                 **{k: v.detach() for k, v in parts.items()}}
+        return stats, attn.detach()
 
     return step
 

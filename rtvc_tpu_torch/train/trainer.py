@@ -1,8 +1,11 @@
-"""Training loops for the GE2E speaker encoder and the runtimeracer WaveRNN
-(counterpart of ``rtvc_tpu/train/trainer.py``).
+"""Training loops for the GE2E speaker encoder, Tacotron and the
+runtimeracer WaveRNN (counterpart of ``rtvc_tpu/train/trainer.py``).
 
   * encoder — GE2E steps over a batch iterator, EER every ``eer_every``
     steps, rolling saves and immutable backups;
+  * synthesizer — Tacotron over the progressive schedule of its config (the
+    reduction factor, batch size and learning-rate range change per
+    session; per-step linear LR decay within a session);
   * vocoder — the session schedule of the WaveRNN config (per-step linear
     LR decay within a session), in-loop structured pruning, loss-anomaly
     detection.
@@ -21,8 +24,8 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from rtvc_tpu.utils.metrics import MetricsLogger, ValueWindow, simple_table, stream
-from rtvc_tpu.utils.profiler import Profiler
+from rtvc_tpu_torch.utils.metrics import MetricsLogger, ValueWindow, simple_table, stream
+from rtvc_tpu_torch.utils.profiler import Profiler
 from rtvc_tpu_torch.train import checkpoints as ckpt
 
 
@@ -199,6 +202,136 @@ def train_encoder(
 
 
 # ---------------------------------------------------------------------------
+# Synthesizer (Tacotron)
+# ---------------------------------------------------------------------------
+
+
+def train_synthesizer(
+    run_id: str,
+    model_type: str,
+    models_dir: Path,
+    epoch_batches: Callable[[int, int], Iterable[Dict[str, np.ndarray]]],
+    save_every: int = 1000,
+    backup_every: int = 25000,
+    seed: int = 0,
+    max_steps: Optional[int] = None,
+    override_hp=None,
+    resume: bool = True,
+    *,
+    device,
+) -> Dict[str, Any]:
+    """Tacotron training (f32) over the config's session schedule
+    ``(r, loops, batch_size, init_lr, end_lr)``.
+
+    ``epoch_batches(session_index, r)`` returns a sized, re-iterable source of
+    collated batches (``rtvc_tpu_torch.data.synthesizer_dataset.batch_iterator``
+    is one: each iteration is a fresh epoch); a source without a length
+    raises TypeError rather than being frozen into a list and replayed.
+    The step is rebuilt at every session, since ``r`` changes.
+    Each step draws its dropout and zoneout noise from a generator seeded by
+    (``seed``, step), so a resumed run repeats what an unbroken run does at
+    the same step. A resume in the middle of a session takes up that
+    session's learning-rate decay where it stood and ends the session at its
+    own step count. The other synthesizers (ForwardTacotron, FastPitch)
+    raise NotImplementedError: they are a later slice.
+
+    Returns the final step, the model, the last step's statistics, and every
+    step's loss, learning rate and wall milliseconds (``losses``, ``lrs``,
+    ``step_ms``)."""
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.train.steps import make_tacotron_train_step
+
+    device = torch.device(device)
+    bundle = factories.init_syn_model(model_type, seed=seed, override_hp=override_hp,
+                                      device=device)
+    cfg, dims, model = bundle.config, bundle.dims, bundle.model.train()
+    optimizer = make_optimizer(model.parameters())
+    cadence = CheckpointCadence(Path(models_dir) / run_id, run_id, model_type,
+                                save_every, backup_every)
+    metrics = MetricsLogger(Path(models_dir) / run_id / "metrics.tsv")
+    step = 0
+    if resume and cadence.path.exists():
+        step = _resume(cadence, model, optimizer, device, f"{model_type} {run_id}")
+    generator = torch.Generator(device=device)
+    loss_window, time_window = ValueWindow(100), ValueWindow(100)
+    losses, lrs, step_ms = [], [], []
+    last: Dict[str, float] = {}
+    session_start_step = 0
+    r = cfg.tts_schedule[0][0]
+    done = False
+
+    def extras():
+        # the running statistics are in the state dict too; the extras name
+        # them apart, with the reduction factor the weights were last
+        # trained at, as the reference's checkpoints do
+        return {"r": r, "config": cfg.asdict(), "batch_stats": dict(model.named_buffers())}
+
+    for session_idx, (r, loops, batch_size, init_lr, end_lr) in enumerate(cfg.tts_schedule):
+        session_batches = epoch_batches(session_idx, r)
+        if not hasattr(session_batches, "__len__"):
+            raise TypeError("epoch_batches must return a sized, re-iterable batch source "
+                            "(each iteration one fresh epoch), such as "
+                            "rtvc_tpu_torch.data.synthesizer_dataset.batch_iterator")
+        n_epochs = int(loops)
+        session_steps = max(len(session_batches) * n_epochs, 1)
+        if step - session_start_step >= session_steps:
+            session_start_step += session_steps
+            continue
+        simple_table([("Session", session_idx + 1), ("r", r), ("Batch", batch_size),
+                      ("LR", f"{init_lr:g}→{end_lr:g}"), ("Steps", session_steps)])
+        step_fn = make_tacotron_train_step(model, dims, optimizer, r, cfg.tts_clip_grad_norm)
+        t_last = time.perf_counter()
+        for _ in range(n_epochs):
+            for batch in session_batches:
+                # a resume in the middle of a session has fewer steps left
+                # than the session's epochs hold
+                if step - session_start_step >= session_steps:
+                    break
+                lr = linear_session_lr(init_lr, end_lr, step - session_start_step,
+                                       session_steps)
+                set_lr(optimizer, lr)
+                generator.manual_seed(seed * 1_000_003 + step)
+                stats, _ = step_fn(
+                    {"chars": torch.as_tensor(batch["chars"], device=device),
+                     "mels": torch.as_tensor(batch["mels"], dtype=torch.float32, device=device),
+                     "embeds": torch.as_tensor(batch["embeds"], dtype=torch.float32,
+                                               device=device),
+                     "stop": torch.as_tensor(batch["stop"], dtype=torch.float32,
+                                             device=device)},
+                    generator)
+                names = list(stats)
+                last = dict(zip(names, (float(v) for v in
+                                        torch.stack([stats[k] for k in names]).cpu())))
+                loss = last["loss"]
+                step += 1
+                now = time.perf_counter()
+                time_window.append(now - t_last)
+                step_ms.append((now - t_last) * 1000.0)
+                losses.append(loss)
+                lrs.append(lr)
+                loss_window.append(loss)
+                metrics.log(step, {**last, "lr": lr})
+                stream("Session %d | Step %d | lr %.2e | loss %.4f (avg %.4f) | %.2f steps/s "
+                       % (session_idx + 1, step, lr, loss, loss_window.average,
+                          1.0 / max(time_window.average, 1e-9)))
+                cadence.maybe_save(step, model, optimizer, extras())
+                done = max_steps is not None and step >= max_steps
+                t_last = time.perf_counter()
+                if done:
+                    break
+            if done or step - session_start_step >= session_steps:
+                break
+        session_start_step += session_steps
+        if done:
+            break
+
+    cadence.maybe_save(step, model, optimizer, extras(), force=True)
+    print()
+    return {"step": step, "model": model, "losses": losses, "lrs": lrs, "step_ms": step_ms,
+            "r": r, **last}
+
+
+# ---------------------------------------------------------------------------
 # Vocoder (WaveRNN)
 # ---------------------------------------------------------------------------
 
@@ -223,7 +356,7 @@ def train_vocoder(
     """WaveRNN training over the config's session schedule.
 
     ``epoch_batches(session_index)`` returns a sized, re-iterable batch
-    source for one session (``rtvc_tpu.data.vocoder_dataset.batch_iterator``
+    source for one session (``rtvc_tpu_torch.data.vocoder_dataset.batch_iterator``
     is one: each iteration is a fresh epoch with a new shuffle and new
     crops); it is iterated once per epoch. A source without a length raises
     TypeError, rather than being frozen into a list and replayed. Returns
@@ -265,7 +398,7 @@ def train_vocoder(
         if not hasattr(session_batches, "__len__"):
             raise TypeError("epoch_batches must return a sized, re-iterable batch source "
                             "(each iteration one fresh epoch), such as "
-                            "rtvc_tpu.data.vocoder_dataset.batch_iterator")
+                            "rtvc_tpu_torch.data.vocoder_dataset.batch_iterator")
         n_epochs = max(int(np.ceil(loops)), 1)
         session_steps = max(int(len(session_batches) * loops), 1)
         if step - session_start_step >= session_steps:

@@ -8,7 +8,7 @@ its dashboard and multi-process launch options, plus ``--device`` and
 the default model type; any other stops with NotImplementedError before
 any data is read. The dataset is the one
 the vocoder preprocessing writes (GTA mels, or ground-truth mels with
-``-g``), read through ``rtvc_tpu.data.vocoder_dataset``. Checkpoint-time
+``-g``), read through ``rtvc_tpu_torch.data.vocoder_dataset``. Checkpoint-time
 sample generation is not ported yet.
 """
 from __future__ import annotations
@@ -16,8 +16,8 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from rtvc_tpu.config import synthesizer_paths
-from rtvc_tpu.config import vocoder as voc_cfg
+from rtvc_tpu_torch.config import synthesizer_paths
+from rtvc_tpu_torch.config import vocoder as voc_cfg
 from rtvc_tpu_torch.models.wavernn import VOC_FATCHORD, VOC_GENEING, VOC_RUNTIMERACER
 
 CONFIGS = {
@@ -52,7 +52,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None):
     args = parse_args(argv)
-    from rtvc_tpu.data.vocoder_dataset import VocoderDataset, batch_iterator
+    from rtvc_tpu_torch.data.vocoder_dataset import VocoderDataset, batch_iterator
     from rtvc_tpu_torch.models import factories
     from rtvc_tpu_torch.models.wavernn import check_supported
     from rtvc_tpu_torch.train.steps import check_compute_dtype

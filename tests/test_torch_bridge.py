@@ -9,7 +9,8 @@ import jax
 import numpy as np
 import pytest
 
-from rtvc_tpu.config.encoder import EncoderModelParams
+from rtvc_tpu.config.encoder import EncoderModelParams as JEncoderModelParams
+from rtvc_tpu_torch.config.encoder import EncoderModelParams
 from rtvc_tpu.models import speaker_encoder as jspk
 from rtvc_tpu.models import tacotron as jtaco
 from rtvc_tpu.models import wavernn as jwav
@@ -57,7 +58,7 @@ def _assert_trees_equal(a, b):
 def test_speaker_encoder_round_trip():
     cfg = EncoderModelParams(model_hidden_size=16, model_embedding_size=12,
                              model_num_layers=3)
-    v = jspk.SpeakerEncoder(model=cfg).init(jax.random.PRNGKey(0),
+    v = jspk.SpeakerEncoder(model=JEncoderModelParams(**cfg.asdict())).init(jax.random.PRNGKey(0),
                                             np.zeros((1, 8, 40), np.float32))
     sd = bridge.speaker_encoder_state(v)
     back = jspk.import_torch_state(sd)
@@ -102,4 +103,4 @@ def test_later_synthesizers_raise(model_type):
     from rtvc_tpu_torch.models import factories
 
     with pytest.raises(NotImplementedError, match="later slice"):
-        factories.init_syn_model(model_type)
+        factories.init_syn_model(model_type, device="cpu")

@@ -8,16 +8,17 @@ import numpy as np
 import pytest
 import torch
 
-from rtvc_tpu.config import preprocessing, sp
-from rtvc_tpu.config.encoder import EncoderModelParams
-from rtvc_tpu.config.synthesizer import TacotronParams
-from rtvc_tpu.config.vocoder import WaveRNNParams
+from rtvc_tpu_torch.config import preprocessing, sp
+from rtvc_tpu.config.encoder import EncoderModelParams as JEncoderModelParams
+from rtvc_tpu_torch.config.encoder import EncoderModelParams
+from rtvc_tpu_torch.config.synthesizer import TacotronParams
+from rtvc_tpu_torch.config.vocoder import WaveRNNParams
 from rtvc_tpu.inference import encoder as jenc
 from rtvc_tpu.models import tacotron as jt
 from rtvc_tpu.models import wavernn as jw
 from rtvc_tpu.ops import audio as jaudio
 from rtvc_tpu.ops.pallas.tacotron_kernel import decode_pallas
-from rtvc_tpu.text import text_to_sequence
+from rtvc_tpu_torch.text import text_to_sequence
 from rtvc_tpu_torch import bridge
 from rtvc_tpu_torch.inference import encoder as tenc
 from rtvc_tpu_torch.inference import synthesizer as tsyn
@@ -96,22 +97,23 @@ def _jax_vocode_greedy(v, d, mel):
 
 @pytest.fixture
 def models(monkeypatch):
-    monkeypatch.setattr(jenc, "_model_cfg", ENC)
+    monkeypatch.setattr(jenc, "_model_cfg", JEncoderModelParams(**ENC.asdict()))
     monkeypatch.setattr(jenc, "_model", None)
     monkeypatch.setattr(jenc, "_params", None)
     monkeypatch.setattr(tenc, "_model", None)
     monkeypatch.setattr(tvoc, "_bundle", None)
     jenc.init_random_model(seed=1)
-    tenc.load_state(bridge.speaker_encoder_state(jenc._params), model_cfg=ENC)
+    tenc.load_state(bridge.speaker_encoder_state(jenc._params), device="cpu", model_cfg=ENC)
 
-    syn = factories.init_syn_model(factories.MODEL_TYPE_TACOTRON, seed=2, override_hp=SYN)
+    syn = factories.init_syn_model(factories.MODEL_TYPE_TACOTRON, seed=2, override_hp=SYN,
+                                   device="cpu")
     jd_syn = jt.TacotronDims(**syn.dims._asdict())
     v_syn = jt.import_torch_state(syn.model.state_dict(), jd_syn)
     synth = tsyn.Synthesizer()
     synth.load_bundle(syn, r=2)
 
     voc = factories.init_voc_model(factories.MODEL_TYPE_RUNTIMERACER, seed=3,
-                                   override_hp=VOC)
+                                   override_hp=VOC, device="cpu")
     jd_voc = jw.WaveRNNDims(**voc.dims._asdict())
     v_voc = jw.import_torch_state(voc.model.state_dict(), jd_voc)
     tvoc.load_bundle(voc)

@@ -32,6 +32,7 @@ from rtvc_tpu_torch.ops.lstm_seq import (
     lstm_seq_fwd_train_plain,
     lstm_seq_plain,
 )
+from rtvc_tpu_torch.ops import tacotron_train as tk
 from rtvc_tpu_torch.ops.tacotron_decode import tacotron_decode, tacotron_decode_plain
 from rtvc_tpu_torch.ops.wavernn_generate import (
     wavernn_generate_core,
@@ -240,3 +241,71 @@ def test_wavernn_kernel_sampler_distribution(dev):
     assert stats.chisquare(obs, exp).pvalue > 1e-3
     again = wavernn_generate_core(w, s, seed=12345)
     assert torch.equal(samples, again)
+
+
+def _taco_train_case(dev, B, T, n, D, L, E, KS=31, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, s=0.3):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+
+    w = tk.TrainWeights(
+        gwh=r(D, 3 * D, s=D ** -0.5), gbh=r(3 * D, s=0.1), wq=r(D, D, s=D ** -0.5),
+        bq=r(D, s=0.1), mloc=r(KS, D), vv=r(D), wri=r(E + D, L, s=(E + D) ** -0.5),
+        bri=r(L, s=0.1), l1wi=r(L, 4 * L, s=L ** -0.5), l1wh=r(L, 4 * L, s=L ** -0.5),
+        l1b=r(4 * L, s=0.1), l2wi=r(L, 4 * L, s=L ** -0.5), l2wh=r(L, 4 * L, s=L ** -0.5),
+        l2b=r(4 * L, s=0.1), gwi_ctx=r(E, 3 * D, s=E ** -0.5))
+    lens = torch.randint(max(T - 8, 1), T + 1, (B,), generator=g)
+    x = dict(xg_pre=r(n, B, 3 * D, s=1.0), enc_seq=r(B, T, E, s=0.5), enc_proj=r(B, T, D, s=0.5),
+             char_mask=(torch.arange(T)[None, :] < lens[:, None]).float().to(dev),
+             zo1=(torch.rand(n, B, L, generator=g) < 0.1).float().to(dev),
+             zo2=(torch.rand(n, B, L, generator=g) < 0.1).float().to(dev))
+    cots = [r(n, B, L, s=1.0), r(n, B, E, s=1.0), r(n, B, T, s=1.0)]
+    return w, x, cots
+
+
+# a mid size, an odd T with one row, and widths that take the kernels'
+# scalar path (not multiples of 4) with a short conv
+@pytest.mark.parametrize("B,T,n,D,L,E,KS", [(5, 40, 12, 128, 256, 384, 31),
+                                            (1, 21, 5, 128, 128, 128, 31),
+                                            (3, 9, 4, 13, 10, 7, 5)])
+def test_taco_train_kernels_match_plain(dev, B, T, n, D, L, E, KS):
+    w, x, cots = _taco_train_case(dev, B, T, n, D, L, E, KS)
+    x_all, res = _counted("tacotron_train_fwd", lambda: tk.taco_train_fwd(w, **x))
+    p_x, p_res = tk.taco_train_fwd_plain(w, **x)
+    assert rel_err(x_all, p_x) <= 1e-5
+    for name, a, b in zip(res._fields, res, p_res):
+        assert rel_err(a, b) <= 1e-5, name
+    args = (p_res, x["enc_seq"], x["enc_proj"], x["char_mask"], x["zo1"], x["zo2"], *cots)
+    got = _counted("tacotron_train_bwd", lambda: tk.taco_train_bwd(w, *args))
+    for name, a, b in zip(got._fields, got, tk.taco_train_bwd_plain(w, *args)):
+        assert rel_err(a, b) <= 1e-4, name
+    again = tk.taco_train_bwd(w, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "two runs differ in their bits"
+    # both halves through autograd, against autograd of the plain forward
+    names = ("xg_pre", "enc_seq", "enc_proj")
+
+    def grads(fwd):
+        lw = tk.TrainWeights(*(t.clone().requires_grad_() for t in w))
+        lx = {k: (v.clone().requires_grad_() if k in names else v) for k, v in x.items()}
+        torch.autograd.backward(fwd(lw, lx), cots)
+        return [t.grad for t in lw] + [lx[k].grad for k in names]
+
+    def plain(lw, lx):
+        p_x, p_res = tk.taco_train_fwd_plain(lw, **lx)
+        return p_x, p_res.ctx, p_res.scores
+
+    for name, a, b in zip(w._fields + names, grads(lambda lw, lx: tk.taco_decoder_train(lw, **lx)),
+                          grads(plain)):
+        assert rel_err(a, b) <= 1e-4, name
+
+
+def test_taco_train_kernels_reject_bad_input(dev):
+    w, x, _ = _taco_train_case(dev, 2, 9, 3, 16, 8, 8)
+    with pytest.raises(ValueError, match="enc_proj"):
+        tk.taco_train_fwd(w, **{**x, "enc_proj": x["enc_proj"][:, :, :8]})
+    with pytest.raises(ValueError, match="odd"):
+        tk.taco_train_fwd(w._replace(mloc=w.mloc[:30]), **x)
+    wide, xw, _ = _taco_train_case(dev, 1, 4, 1, 1028, 4, 4)
+    with pytest.raises(ValueError, match="1024"):
+        tk.taco_train_fwd(wide, **xw)

@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from rtvc_tpu.config.encoder import EncoderModelParams
+from rtvc_tpu.config.encoder import EncoderModelParams as JEncoderModelParams
+from rtvc_tpu_torch.config.encoder import EncoderModelParams
 from rtvc_tpu.inference import encoder as jenc
 from rtvc_tpu.models import layers as jl
 from rtvc_tpu.models import speaker_encoder as jspk
@@ -22,6 +23,7 @@ from rtvc_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_plain
 
 SMALL = EncoderModelParams(model_hidden_size=32, model_embedding_size=24,
                            model_num_layers=3)
+JSMALL = JEncoderModelParams(**SMALL.asdict())  # the JAX package gets its own class
 
 
 def _scan(w_hh_t, xg, h0, c0):
@@ -74,7 +76,7 @@ def test_lstm_module_matches_flax():
 
 def test_speaker_encoder_matches():
     frames = np.abs(np.random.default_rng(2).standard_normal((3, 20, 40))).astype(np.float32)
-    mod = jspk.SpeakerEncoder(model=SMALL)
+    mod = jspk.SpeakerEncoder(model=JSMALL)
     v = mod.init(jax.random.PRNGKey(0), frames)
     m = SpeakerEncoder(SMALL)
     m.load_state_dict(bridge.speaker_encoder_state(v))
@@ -86,12 +88,12 @@ def test_speaker_encoder_matches():
 @pytest.fixture
 def small_encoders(monkeypatch):
     """Both encoder inference modules hold the same small random model."""
-    monkeypatch.setattr(jenc, "_model_cfg", SMALL)
+    monkeypatch.setattr(jenc, "_model_cfg", JSMALL)
     monkeypatch.setattr(jenc, "_model", None)
     monkeypatch.setattr(jenc, "_params", None)
     monkeypatch.setattr(tenc, "_model", None)
     jenc.init_random_model(seed=0)
-    tenc.load_state(bridge.speaker_encoder_state(jenc._params), model_cfg=SMALL)
+    tenc.load_state(bridge.speaker_encoder_state(jenc._params), device="cpu", model_cfg=SMALL)
 
 
 def _prompt(seconds=2.5, seed=0):

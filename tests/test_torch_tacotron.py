@@ -25,7 +25,7 @@ DIMS = dict(
 @pytest.fixture(scope="module")
 def setup():
     jd, td = jt.TacotronDims(**DIMS), tt.TacotronDims(**DIMS)
-    model = factories.init_tacotron(td, seed=0)
+    model = factories.init_tacotron(td, seed=0, device="cpu")
     with torch.no_grad():  # non-trivial BatchNorm statistics
         for name, buf in model.named_buffers():
             buf.uniform_(0.5, 1.5) if name.endswith("var") else buf.normal_(0, 0.2)

@@ -18,8 +18,9 @@ import optax
 import pytest
 import torch
 
-from rtvc_tpu.config.encoder import EncoderModelParams
-from rtvc_tpu.config.vocoder import WaveRNNParams
+from rtvc_tpu.config.encoder import EncoderModelParams as JEncoderModelParams
+from rtvc_tpu_torch.config.encoder import EncoderModelParams
+from rtvc_tpu_torch.config.vocoder import WaveRNNParams
 from rtvc_tpu.models import speaker_encoder as jspk
 from rtvc_tpu.models import wavernn as jw
 from rtvc_tpu.train import pruning as jprune
@@ -36,6 +37,7 @@ from rtvc_tpu_torch.train import trainer as ttrain
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = EncoderModelParams(model_hidden_size=32, model_embedding_size=24, model_num_layers=3)
+JSMALL = JEncoderModelParams(**SMALL.asdict())  # the JAX package gets its own class
 VOC = dict(variant="runtimeracer-wavernn", mode="RAW", rnn_dims=128, fc_dims=16, bits=6,
            pad=2, upsample_factors=(2, 2, 5), feat_dims=10, compute_dims=8,
            res_out_dims=16, res_blocks=1, hop_length=20, sample_rate=1000)
@@ -73,7 +75,7 @@ def test_encoder_step_matches_jax():
     frames = (rng.standard_normal((S, 1, 1, 40))
               + 0.3 * rng.standard_normal((S, U, T, 40))).reshape(S * U, T, 40)
     frames = frames.astype(np.float32)
-    jmodel = jspk.SpeakerEncoder(model=SMALL)
+    jmodel = jspk.SpeakerEncoder(model=JSMALL)
     params = {"model": jmodel.init(jax.random.PRNGKey(0), frames)["params"],
               "similarity": jspk.init_similarity_params()}
     model = tspk.SpeakerEncoder(SMALL)
@@ -143,7 +145,7 @@ def _voc_batch(d, B=2, seed=3):
 def test_wavernn_step_matches_jax(monkeypatch, fused):
     jd, td = jw.WaveRNNDims(**VOC), tw.WaveRNNDims(**VOC)
     variables = jw.init_wavernn(jax.random.PRNGKey(0), jd)
-    model = factories.init_wavernn(td).train()
+    model = factories.init_wavernn(td, device="cpu").train()
     model.load_state_dict(bridge.wavernn_state(variables))
     batch = _voc_batch(td)
 
@@ -175,7 +177,7 @@ def test_wavernn_step_matches_jax(monkeypatch, fused):
 def test_prune_masks_match_jax():
     jd, td = jw.WaveRNNDims(**VOC), tw.WaveRNNDims(**VOC)
     variables = jw.init_wavernn(jax.random.PRNGKey(1), jd)
-    model = factories.init_wavernn(td)
+    model = factories.init_wavernn(td, device="cpu")
     model.load_state_dict(bridge.wavernn_state(variables))
     args = (0, 100, 0.9, 0.7, 4)  # start_prune, prune_steps, targets, group
     for step in (0, 10, 50, 150):
@@ -202,7 +204,7 @@ def _encoder_batches(n, S=2, U=3, T=12, seed=4):
 
 
 def _small_encoder():
-    return factories.init_encoder_model(seed=0, model_cfg=SMALL)
+    return factories.init_encoder_model(seed=0, device="cpu", model_cfg=SMALL)
 
 
 def test_train_encoder_resume_continues(tmp_path):
