@@ -7,17 +7,25 @@
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes of the clone path, and times both with CUDA events:
    K3 LSTM sequence (8 x 160 x 768), K2 Tacotron decoder (full width, 2
-   texts, prenet dropout off, then seeded dropout), K1 WaveRNN loop
-   (runtimeracer, 8 folds x 512 steps, greedy; then sampled from fixed
-   logits against a chi-square test).
+   texts, prenet dropout off, then seeded dropout), K1 WaveRNN loop (every
+   variant x head cell at full width: fatchord RAW and MOL, geneing BITS,
+   RAW (beta) and MOL, runtimeracer RAW and MOL; 8 folds x 512 steps, greedy;
+   then sampled from fixed head outputs against a chi-square or a
+   Kolmogorov-Smirnov test), K6 mel projection (a minute of audio, 4801
+   frames x 513 bins, and an odd frame count).
 3. Serves three clone requests through the public API at the default widths
    with seeded random weights: preprocess_wav → embed_utterance →
    synthesize_spectrograms → infer_waveform, and checks the outputs and
-   that every kernel of the path was launched.
+   that every kernel of the path was launched. Then vocodes three mels in
+   one ``infer_waveforms`` call (one K1 launch), serves the last request
+   through the fatchord and geneing vocoders at their configs' windows, and
+   one request without a vocoder: ``Synthesizer.griffin_lim`` at 30
+   iterations, then ``make_spectrogram`` of the result (one K6 launch).
 4. Holds the training kernels against autograd through their plain
    versions and times both: K3 forward with residuals and backward at the
    GE2E training shape (640 x 160 x 768), K4 forward and backward at the
-   runtimeracer training shape (40 x 1000 x 256).
+   vocoder training shapes (40 x 1000 x 256 for runtimeracer, 40 x 1000 x 512
+   for fatchord, 40 x 1400 x 256 for geneing).
    K5, the teacher-forced Tacotron decoder chain, forward and backward at the
    Tacotron training shape (112 rows x 86 iterations x 160 characters,
    D 256 / L 512 / E 896, zoneout masks at p 0.1, padded char mask); two
@@ -25,7 +33,9 @@
 5. Trains at full width with seeded random weights: ``train_encoder`` for 3
    GE2E steps on (640, 160, 40) partials, then resumes from its checkpoint
    for a 4th; ``train_vocoder("runtimeracer-wavernn")`` for 5 steps on one
-   batch of 40 x 1000 samples; ``train_synthesizer("tacotron")`` for 3 steps
+   batch of 40 x 1000 samples, then 3 steps each of ``fatchord-wavernn``
+   (40 x 1000, two GRUs of 512) and ``geneing-wavernn`` (40 x 1400, BITS);
+   ``train_synthesizer("tacotron")`` for 3 steps
    of its first session (r 7, batch 112, 602 frames, 160 characters) on one
    synthetic batch, then a resume for a 4th. Checks finite losses, the EER,
    the resume steps, falling vocoder and synthesizer losses, and each path's
@@ -35,7 +45,8 @@ Beside each kernel's time it gives the least time the card could take for the
 same work (``bound_ms``: the larger of the bytes the function must move, each
 input read once and each output written once, over the card's memory rate, and
 its operations over the card's f32 rate), and where one PyTorch call computes
-the same function (cuDNN's ``nn.LSTM`` / ``nn.GRU``) that call's time.
+the same function (cuDNN's ``nn.LSTM`` / ``nn.GRU``, ``torch.matmul`` for K6's
+product) that call's time.
 
 Prints the card, each phase, one JSON line describing the kernels, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -207,9 +218,27 @@ def phase_tacotron(dev, syn):
             "library_ms": None}
 
 
-def phase_wavernn(dev, voc):
+K1_CELLS = (("fatchord-wavernn", "RAW"), ("fatchord-wavernn", "MOL"),
+            ("geneing-wavernn", "BITS"), ("geneing-wavernn", "RAW"), ("geneing-wavernn", "MOL"),
+            ("runtimeracer-wavernn", "RAW"), ("runtimeracer-wavernn", "MOL"))
+
+
+def voc_model(model_type, mode, dev, seed=0):
+    """A full-width vocoder of a variant in a mode, seeded random weights."""
+    from rtvc_tpu_torch.models import factories
+
+    cfg = factories.default_config(model_type).replace(mode=mode)
+    return factories.init_voc_model(model_type, seed=seed, override_hp=cfg, device=dev)
+
+
+def k1_greedy_cell(dev, voc, B=8, T=512):
+    """One variant x head cell of K1 at full width: greedy, kernel against
+    plain. Categorical heads: equal class labels (a fold is cut at a near-tie
+    of the two top logits), logits within 1e-4, samples within 1e-6. MOL and
+    beta heads feed a continuous sample back: samples and head inputs within
+    1e-4 over all steps (MOL: up to a near-tie of the two most likely
+    components). Returns the cell's errors, times and bound."""
     import torch
-    from scipy import stats
 
     from rtvc_tpu_torch.models import wavernn as wrn
     from rtvc_tpu_torch.ops.wavernn_generate import (
@@ -218,73 +247,211 @@ def phase_wavernn(dev, voc):
     )
 
     d, model = voc.dims, voc.model
-    B, T = 8, 512
+    cell = f"{d.variant} {d.mode}"
     g = torch.Generator().manual_seed(2)
     mels_up = (torch.rand(B, T, d.feat_dims, generator=g) * 2 - 1).to(dev)
     aux = (torch.randn(B, T, d.res_out_dims, generator=g) * 0.5).to(dev)
+    kw = dict(variant=d.variant, head=d.head)
     with torch.no_grad():
         streams = {k: v.contiguous() for k, v in wrn.hoist_aux(model, d, mels_up, aux).items()}
         w = wrn.step_weights(model, d)
-        got, k_logits = wavernn_generate_core(w, streams, 0, argmax=True,
-                                              return_logits=True)
+        got, k_logits = wavernn_generate_core(w, streams, 0, argmax=True, return_logits=True,
+                                              **kw)
         ref, p_logits = wavernn_generate_core_plain(w, streams, 0, argmax=True,
-                                                    return_logits=True)
+                                                    return_logits=True, **kw)
         torch.cuda.synchronize()
         C = d.n_classes
-        # Samples are compared as class labels: the label → [-1, 1] division
-        # may round differently by one ulp in the two versions.
-        k_lab = torch.round((got + 1) * (C - 1) / 2)
-        p_lab = torch.round((ref + 1) * (C - 1) / 2)
         err, sample_err, flips = 0.0, 0.0, 0
         for b in range(B):
-            idx = torch.nonzero(k_lab[b] != p_lab[b])
+            if d.head == "categorical":
+                # Samples are compared as class labels: the label → [-1, 1]
+                # division may round differently by one ulp in the two versions.
+                differ = torch.round((got[b] + 1) * (C - 1) / 2) != torch.round(
+                    (ref[b] + 1) * (C - 1) / 2)
+                choice, tol = p_logits[b], 1e-6
+            else:
+                differ = (got[b] - ref[b]).abs() > 1e-4
+                choice, tol = p_logits[b, :, :C // 3], 1e-4
+            idx = torch.nonzero(differ)
             t_end = int(idx[0]) if len(idx) else T
             if t_end < T:
-                # a near-tie: the plain version's top-2 gap is within the
-                # two versions' logit disagreement at that step
-                top2 = torch.topk(p_logits[b, t_end], 2).values
-                gap = float(top2[0] - top2[1])
                 noise = float((k_logits[b, t_end] - p_logits[b, t_end]).abs().max())
-                print(f"K1 fold {b}: labels differ first at step {t_end}, top-2 logit gap "
-                      f"{gap:.3e}, logit difference {noise:.3e}")
-                check(gap <= 2 * noise, f"K1 greedy decode differs at fold {b} step {t_end} "
-                      f"with a logit gap of {gap}, above twice the logit difference {noise}")
+                growth = [float((got[b, :t + 1] - ref[b, :t + 1]).abs().max())
+                          for t in range(0, t_end + 1, max(t_end // 8, 1))]
+                print(f"K1 {cell} fold {b}: samples differ first at step {t_end}, head input "
+                      f"difference {noise:.3e}; sample difference by step {growth}")
+                check(d.head != "beta", f"K1 {cell} greedy samples differ at fold {b} step "
+                      f"{t_end}")
+                # a near-tie: the plain version's top-2 gap (classes, or mixture
+                # components) is within the two versions' disagreement there
+                top2 = torch.topk(choice[t_end], 2).values
+                gap = float(top2[0] - top2[1])
+                check(gap <= 2 * noise, f"K1 {cell} greedy decode differs at fold {b} step "
+                      f"{t_end} with a gap of {gap}, above twice the head input difference "
+                      f"{noise}")
                 flips += 1
             t_cmp = min(t_end + 1, T)
             err = max(err, float((k_logits[b, :t_cmp] - p_logits[b, :t_cmp]).abs().max()))
             if t_end:
                 sample_err = max(sample_err, float((got[b, :t_end] - ref[b, :t_end]).abs().max()))
-        check(err <= 1e-4, f"K1 logits differ from the plain version's: {err}")
-        check(sample_err <= 1e-6, f"K1 greedy samples differ: {sample_err}")
-        ms = cuda_ms(lambda: wavernn_generate_core(w, streams, 0, argmax=True))
-        plain_ms = cuda_ms(lambda: wavernn_generate_core_plain(w, streams, 0, argmax=True),
+        check(err <= 1e-4, f"K1 {cell} head inputs differ from the plain version's: {err}")
+        check(sample_err <= tol, f"K1 {cell} greedy samples differ: {sample_err}")
+        check(bool(torch.isfinite(got).all()) and float(got.std()) > 0, f"K1 {cell} output")
+        ms = cuda_ms(lambda: wavernn_generate_core(w, streams, 0, argmax=True, **kw))
+        plain_ms = cuda_ms(lambda: wavernn_generate_core_plain(w, streams, 0, argmax=True, **kw),
                            reps=1)
-        flops = 2 * B * T * sum(v.numel() for v in w.values() if v.ndim == 2)
-        k1_bound = bound(nbytes(*w.values(), *streams.values(), got), flops)
-        print(f"K1 wavernn_generate greedy {B} folds x {T} steps: labels equal "
-              f"({flips} folds cut at a near-tie), logit max_abs_err {err:.3e} (tol 1e-4), "
-              f"sample err {sample_err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {k1_bound['bound_ms']:.4f} ms by {k1_bound['bound_by']}")
+    flops = 2 * B * T * sum(v.numel() for v in w.values() if v.ndim == 2)
+    b = bound(nbytes(*w.values(), *streams.values(), got), flops)
+    print(f"K1 {cell} greedy {B} folds x {T} steps: head input max_abs_err {err:.3e} (tol 1e-4), "
+          f"sample err {sample_err:.3e} (tol {tol:g}), {flips} folds cut at a near-tie; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by "
+          f"{b['bound_by']}")
+    return {"cell": cell, "max_abs_err": max(err, sample_err), "ms": ms, "plain_ms": plain_ms,
+            **b}, w, streams
 
-        bias = torch.randn(C, generator=torch.Generator().manual_seed(3)) * 1.5
-        w_fixed = dict(w, fc5_w=torch.zeros_like(w["fc5_w"]), fc5_b=bias.to(dev))
-        long_streams = {k: v.repeat(1, 4, 1).contiguous() for k, v in streams.items()}
-        samples = wavernn_generate_core(w_fixed, long_streams, 2024)
-        labels = torch.round((samples.reshape(-1) + 1) * (C - 1) / 2).long().cpu().numpy()
-    p = torch.softmax(bias.double(), 0).numpy()
-    expected = p * labels.size
-    counts = np.bincount(labels, minlength=C)
-    keep = expected >= 5
-    obs = np.append(counts[keep], counts[~keep].sum())
-    exp = np.append(expected[keep], expected[~keep].sum())
-    pvalue = float(stats.chisquare(obs, exp).pvalue)
-    print(f"K1 sampled from fixed logits: {labels.size} draws, {keep.sum() + 1} bins, "
-          f"chi-square p = {pvalue:.4f} (need > 1e-3)")
-    check(pvalue > 1e-3, f"K1 sampler fails the chi-square test: p = {pvalue}")
-    return {"name": "wavernn_generate", "source": "rtvc_tpu_torch/csrc/wavernn_generate.cu",
-            "replaces": "rtvc_tpu/ops/pallas/wavernn_kernel.py:309",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **k1_bound,
-            "library_ms": None}
+
+def k1_sampled_cell(dev, voc, w, streams):
+    """The cell's sampled head from fixed head outputs (the last FC's weights
+    zeroed, its bias set), 8 folds x 2048 steps: a chi-square test against
+    softmax(bias) for a categorical head, a Kolmogorov-Smirnov test against
+    the mixture's analytic CDF for MOL and against scipy's Beta for the beta
+    head (p > 1e-3 each); one seed repeats its samples."""
+    import torch
+    from scipy import stats
+
+    from rtvc_tpu_torch.ops.wavernn_generate import LAYERS, wavernn_generate_core
+
+    d = voc.dims
+    cell = f"{d.variant} {d.mode}"
+    C = d.n_classes
+    rng = np.random.default_rng(3)
+    if d.head == "categorical":
+        bias = rng.normal(0, 1.5, C)
+    elif d.head == "mol":
+        logit, mean = rng.normal(0, 1, C // 3), rng.uniform(-0.6, 0.6, C // 3)
+        log_scale = rng.uniform(-4.5, -3.5, C // 3)
+        bias = np.concatenate([logit, mean, log_scale])
+    else:
+        alpha, beta = 2.5, 4.0
+        bias = np.log([alpha, beta])
+    last = LAYERS[d.variant].fcs[-1].name
+    w_fixed = dict(w, **{f"{last}_w": torch.zeros_like(w[f"{last}_w"]),
+                         f"{last}_b": torch.tensor(bias, dtype=torch.float32, device=dev)})
+    long_streams = {k: v.repeat(1, 4, 1).contiguous() for k, v in streams.items()}
+    kw = dict(variant=d.variant, head=d.head)
+    with torch.no_grad():
+        samples = wavernn_generate_core(w_fixed, long_streams, 2024, **kw)
+        again = wavernn_generate_core(w_fixed, long_streams, 2024, **kw)
+        other = wavernn_generate_core(w_fixed, long_streams, 2025, **kw)
+    check(torch.equal(samples, again), f"K1 {cell} sampler: one seed does not repeat")
+    check(not torch.equal(samples, other), f"K1 {cell} sampler: two seeds give the same samples")
+    x = samples.reshape(-1).double().cpu().numpy()
+    check(np.isfinite(x).all() and np.abs(x).max() <= 1.0, f"K1 {cell} samples out of range")
+    if d.head == "categorical":
+        labels = np.rint((x + 1) * (C - 1) / 2).astype(np.int64)
+        p = np.exp(bias - bias.max())
+        expected = p / p.sum() * labels.size
+        counts = np.bincount(labels, minlength=C)
+        keep = expected >= 5
+        obs = np.append(counts[keep], counts[~keep].sum())
+        exp = np.append(expected[keep], expected[~keep].sum())
+        pvalue, test = float(stats.chisquare(obs, exp).pvalue), "chi-square"
+    elif d.head == "mol":
+        pi = np.exp(logit - logit.max())
+        pi /= pi.sum()
+
+        def cdf(v):
+            z = (np.asarray(v)[..., None] - mean) / np.exp(log_scale)
+            return (pi / (1.0 + np.exp(-z))).sum(-1)
+
+        pvalue, test = float(stats.kstest(x, cdf).pvalue), "KS against the mixture's CDF"
+    else:
+        pvalue = float(stats.kstest((x + 1.0) / 2.0, stats.beta(alpha, beta).cdf).pvalue)
+        test = f"KS against Beta({alpha}, {beta})"
+    print(f"K1 {cell} sampled from fixed head outputs: {x.size} draws, {test} p = {pvalue:.4f} "
+          f"(need > 1e-3); seed repeats")
+    check(pvalue > 1e-3, f"K1 {cell} sampler fails its distribution test: p = {pvalue}")
+
+
+def phase_wavernn(dev):
+    """K1, every variant x head cell at full default width: greedy against
+    the plain version, then the sampled head's distribution. One kernels
+    entry per variant: the times of its default cell (fatchord RAW, geneing
+    BITS, runtimeracer RAW), the largest error of its cells, every cell's
+    numbers under ``cells``."""
+    import torch
+
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.ops.wavernn_generate import COUNT_NAME
+
+    entries = {}
+    for model_type, mode in K1_CELLS:
+        voc = voc_model(model_type, mode, dev)
+        cell, w, streams = k1_greedy_cell(dev, voc)
+        k1_sampled_cell(dev, voc, w, streams)
+        e = entries.setdefault(model_type, {
+            "name": COUNT_NAME[model_type], "source": "rtvc_tpu_torch/csrc/wavernn_generate.cu",
+            "replaces": "rtvc_tpu/ops/pallas/wavernn_kernel.py:309", "max_abs_err": 0.0,
+            "library_ms": None, "cells": []})
+        e["max_abs_err"] = max(e["max_abs_err"], cell["max_abs_err"])
+        e["cells"].append(cell)
+        if mode == factories.default_config(model_type).mode:
+            e.update({k: cell[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+        del voc, w, streams
+        torch.cuda.empty_cache()
+    return list(entries.values())
+
+
+def phase_mel(dev):
+    """K6 against its plain version at a minute of audio (4801 frames x 513
+    bins → 80 mels) and at an odd frame count, tolerance 2e-4 absolute on the
+    normalised scale of [-4, 4]; timed beside the plain version and beside
+    ``torch.matmul(basis, mag)`` alone, the library call that does the
+    product."""
+    import torch
+
+    from rtvc_tpu_torch.config import preprocessing as pp
+    from rtvc_tpu_torch.config import sp
+    from rtvc_tpu_torch.ops import audio
+    from rtvc_tpu_torch.ops.mel_project import (
+        mel_basis,
+        mel_project_normalize,
+        mel_project_normalize_plain,
+    )
+
+    g = torch.Generator().manual_seed(13)
+    errs = {}
+    for seconds in (60.0, 3.77):
+        n = int(seconds * sp.sample_rate)
+        t = torch.arange(n) / sp.sample_rate
+        wav = (0.3 * torch.sin(2 * np.pi * 220 * t) * torch.sin(2 * np.pi * 1.5 * t) ** 2
+               + 0.02 * torch.randn(n, generator=g)).to(dev)
+        mag = audio.stft_magnitude(audio.preemphasis(wav, sp.preemphasis), sp.n_fft,
+                                   sp.hop_size, sp.win_size).contiguous()
+        got = mel_project_normalize(mag, sp, pp)
+        ref = mel_project_normalize_plain(mag, sp, pp)
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape == (sp.num_mels, 1 + n // sp.hop_size),
+              f"K6 output shape {tuple(got.shape)}")
+        errs[mag.shape[1]] = float((got - ref).abs().max())
+        check(errs[mag.shape[1]] <= 2e-4, f"K6 differs from its plain version at "
+              f"{mag.shape[1]} frames: {errs[mag.shape[1]]}")
+        check(float(ref.std()) > 0.5, "K6: the test signal's mel is flat")
+        if seconds == 60.0:
+            big = mag
+    n_bins, T = big.shape
+    basis = mel_basis(sp, dev)
+    ms = cuda_ms(lambda: mel_project_normalize(big, sp, pp), reps=20)
+    plain_ms = cuda_ms(lambda: mel_project_normalize_plain(big, sp, pp), reps=20)
+    library_ms = cuda_ms(lambda: torch.matmul(basis, big), reps=20)
+    b = bound(nbytes(big, basis) + 4 * sp.num_mels * T, 2 * T * n_bins * sp.num_mels)
+    print(f"K6 mel_project {n_bins} bins x {T} frames -> {sp.num_mels} mels: max_abs_err "
+          f"{errs[T]:.3e}, by frame count {errs} (tol 2e-4); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.matmul alone {library_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.5f} ms by {b['bound_by']}")
+    return {"name": "mel_project", "source": "rtvc_tpu_torch/csrc/mel_project.cu",
+            "replaces": "rtvc_tpu/ops/pallas/mel_kernel.py:51", "max_abs_err": max(errs.values()),
+            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}
 
 
 def prompt(seed, seconds=3.0, sr=16000):
@@ -302,7 +469,10 @@ def phase_clone(dev, syn, voc):
     import torch
 
     from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.config import preprocessing
     from rtvc_tpu_torch.inference import encoder, synthesizer, vocoder
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.ops.wavernn_generate import COUNT_NAME
 
     encoder.init_random_model(seed=0, device=dev)
     synth = synthesizer.Synthesizer()
@@ -340,8 +510,57 @@ def phase_clone(dev, syn, voc):
               f"synthesize {t_syn:.1f} ms, vocode {t_voc:.1f} ms")
     counts = dict(_build.launch_counts)
     print(f"launches in the clone run: {counts}")
-    for name in ("lstm_seq", "tacotron_decode", "wavernn_generate"):
+    for name in ("lstm_seq", "tacotron_decode", "wavernn_generate_runtimeracer"):
         check(counts.get(name, 0) > 0, f"{name} was not launched by the clone path")
+
+    # the three mels of a batch of requests in one launch of the sample loop
+    mels = [mel[:, :n] for n in (mel.shape[1], mel.shape[1] * 5 // 8, mel.shape[1] // 3)]
+    _build.launch_counts.clear()
+    wavs, t_batch = timed(lambda: vocoder.infer_waveforms(mels))
+    batch_counts = dict(_build.launch_counts)
+    check(batch_counts == {"wavernn_generate_runtimeracer": 1},
+          f"infer_waveforms of {len(mels)} mels launched {batch_counts}, want one K1 launch")
+    for m, out in zip(mels, wavs):
+        check(out.shape == ((m.shape[1] - 1) * 200,) and np.isfinite(out).all(),
+              f"batched wav {out.shape} for {m.shape[1]} frames")
+    print(f"batched vocode of {[m.shape[1] for m in mels]} frames: one launch, "
+          f"{[len(o) for o in wavs]} samples, {t_batch:.1f} ms")
+
+    # the same request through the other two variants at their configs' windows
+    for model_type in ("fatchord-wavernn", "geneing-wavernn"):
+        other = voc_model(model_type, factories.default_config(model_type).mode, dev)
+        vocoder.load_bundle(other)
+        name = COUNT_NAME[model_type]
+        _build.launch_counts.clear()
+        out, t_voc = timed(lambda: vocoder.infer_waveform(mel))
+        counts[name] = _build.launch_counts[name]
+        check(counts[name] == 1, f"{name} launched {counts[name]} times for one request")
+        check(out.shape == ((mel.shape[1] - 1) * 200,) and np.isfinite(out).all()
+              and float(np.abs(out).max()) > 0, f"{model_type} wav {out.shape}")
+        print(f"clone through {model_type} ({other.config.mode}, window "
+              f"{other.config.gen_target} / {other.config.gen_overlap}): mel {mel.shape[1]} "
+              f"frames -> {len(out)} samples, vocode {t_voc:.1f} ms")
+    vocoder.load_bundle(voc)
+
+    # a request without a vocoder: Griffin-Lim, then the mel of what it gave
+    gl_pp = preprocessing.replace(griffin_lim_iters=30)
+    saved, synthesizer.preprocessing = synthesizer.preprocessing, gl_pp
+    try:
+        _build.launch_counts.clear()
+        gl_wav, t_gl = timed(lambda: synthesizer.Synthesizer.griffin_lim(mel, seed=0))
+        check(dict(_build.launch_counts) == {}, "Griffin-Lim launched a kernel")
+        remel, t_mel = timed(lambda: synthesizer.Synthesizer.make_spectrogram(gl_wav))
+    finally:
+        synthesizer.preprocessing = saved
+    counts["mel_project"] = _build.launch_counts["mel_project"]
+    check(counts["mel_project"] == 1, f"make_spectrogram launched mel_project "
+          f"{counts['mel_project']} times")
+    check(gl_wav.shape == ((mel.shape[1] - 1) * 200,) and np.isfinite(gl_wav).all()
+          and float(np.abs(gl_wav).max()) > 0, f"Griffin-Lim wav {gl_wav.shape}")
+    check(remel.shape == mel.shape and remel.dtype == np.float32 and np.isfinite(remel).all()
+          and float(np.abs(remel).max()) <= 4.0, f"make_spectrogram gave {remel.shape}")
+    print(f"vocoder-less request: Griffin-Lim (30 iterations) {len(gl_wav)} samples in "
+          f"{t_gl:.1f} ms, make_spectrogram {remel.shape} in {t_mel:.1f} ms")
     return counts
 
 
@@ -414,8 +633,22 @@ def phase_lstm_train(dev):
 
 
 def phase_gru(dev):
-    """K4 forward and backward at the runtimeracer training shape, against
-    autograd through the plain forward (tolerance as for K3)."""
+    """K4 forward and backward at the three vocoder training shapes
+    (runtimeracer, whose numbers are the kernels' entries; fatchord's H 512;
+    geneing's T 1400), each against autograd through the plain forward."""
+    first = gru_shape(dev, 40, 1000, 256)
+    for e in first:
+        e["shapes"] = []
+    for B, T, H in ((40, 1000, 512), (40, 1400, 256)):
+        for e, other in zip(first, gru_shape(dev, B, T, H)):
+            e["shapes"].append({"B": B, "T": T, "H": H, **{k: other[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    return first
+
+
+def gru_shape(dev, B, T, H):
+    """K4 forward and backward at one shape, against autograd through the
+    plain forward (tolerance as for K3)."""
     import torch
 
     from rtvc_tpu_torch.ops import rel_err
@@ -427,7 +660,6 @@ def phase_gru(dev):
         gru_seq_fwd_plain,
     )
 
-    B, T, H = 40, 1000, 256
     g = torch.Generator().manual_seed(5)
     s = H ** -0.5
     xg = torch.randn(B, T, 3 * H, generator=g).to(dev)
@@ -602,16 +834,22 @@ def phase_train_encoder(dev, runs_dir):
     return counts, out["step_ms"]
 
 
-def phase_train_vocoder(dev, runs_dir):
-    """runtimeracer WaveRNN training at full width (batch 40, seq_len 1000,
-    four GRUs of 256) for 5 steps on one seeded batch repeated."""
+def phase_train_vocoder(dev, runs_dir, model_type="runtimeracer-wavernn", steps=5):
+    """WaveRNN training of one variant at full width, in the first session of
+    its schedule (batch 40; runtimeracer: seq_len 1000, four GRUs of 256;
+    fatchord: seq_len 1000, two GRUs of 512; geneing: seq_len 1400, one GRU of
+    256, BITS), for a few steps on one seeded batch repeated."""
     from rtvc_tpu_torch.config.signal import sp
     from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.ops.wavernn_generate import LAYERS
     from rtvc_tpu_torch.train.trainer import train_vocoder
 
-    model_type, steps = factories.MODEL_TYPE_RUNTIMERACER, 5
     cfg = factories.default_config(model_type)
+    n_rnn = len(LAYERS[model_type].rnns)
+    # an epoch long enough that the first session (geneing's is a quarter of
+    # an epoch) holds every step
+    n_batches = int(np.ceil(steps / min(cfg.voc_tts_schedule[0][0], 1.0)))
     B, hop = int(cfg.voc_tts_schedule[0][3]), sp.hop_size
     L, C = cfg.seq_len, 2 ** cfg.bits
     rng = np.random.default_rng(8)
@@ -627,19 +865,20 @@ def phase_train_vocoder(dev, runs_dir):
              "mels": rng.uniform(0, 1, (B, sp.num_mels, L // hop + 2 * cfg.pad)).astype(
                  np.float32)}
     _build.launch_counts.clear()
-    out = train_vocoder("vocoder", model_type, runs_dir, lambda session: [batch] * steps,
+    out = train_vocoder(f"vocoder_{model_type}", model_type, runs_dir,
+                        lambda session: [batch] * n_batches,
                         max_steps=steps, save_every=0, device=dev, seed=0)
     counts = dict(_build.launch_counts)
-    print(f"launches in the vocoder training run: {counts}")
+    print(f"launches in the {model_type} training run: {counts}")
     losses = out["losses"]
     check(out["step"] == steps and len(losses) == steps, f"vocoder run ended at {out['step']}")
     check(all(np.isfinite(losses)), f"vocoder loss not finite: {losses}")
     check(losses[-1] < losses[0], f"vocoder loss did not fall: {losses}")
     for name in ("gru_seq", "gru_seq_bwd"):
-        check(counts.get(name, 0) == 4 * steps,
-              f"{name} launched {counts.get(name, 0)} times in {steps} vocoder steps, "
-              f"want {4 * steps}")
-    print(f"vocoder training {B} x {L}: losses {[round(v, 4) for v in losses]}; ms per step "
+        check(counts.get(name, 0) == n_rnn * steps,
+              f"{name} launched {counts.get(name, 0)} times in {steps} {model_type} steps, "
+              f"want {n_rnn * steps}")
+    print(f"{model_type} training {B} x {L}: losses {[round(v, 4) for v in losses]}; ms per step "
           f"{[round(m, 1) for m in out['step_ms']]}")
     return counts, out["step_ms"]
 
@@ -724,7 +963,7 @@ def main() -> int:
                                    override_hp=syn_cfg, device=dev)
     voc = factories.init_voc_model(factories.MODEL_TYPE_RUNTIMERACER, seed=0, device=dev)
 
-    kernels = [phase_lstm(dev), phase_tacotron(dev, syn), phase_wavernn(dev, voc)]
+    kernels = [phase_lstm(dev), phase_tacotron(dev, syn), *phase_wavernn(dev), phase_mel(dev)]
     counts = phase_clone(dev, syn, voc)
     kernels += [phase_lstm_train(dev), *phase_gru(dev), *phase_taco_train_kernel(dev)]
     runs_dir = _build.BUILD_DIR / "smoke_runs"
@@ -732,6 +971,8 @@ def main() -> int:
     try:
         enc_counts, _ = phase_train_encoder(dev, runs_dir)
         voc_counts, _ = phase_train_vocoder(dev, runs_dir)
+        phase_train_vocoder(dev, runs_dir, factories.MODEL_TYPE_FATCHORD, steps=3)
+        phase_train_vocoder(dev, runs_dir, factories.MODEL_TYPE_GENEING, steps=3)
         syn_counts, _ = phase_train_synthesizer(dev, runs_dir)
     finally:
         shutil.rmtree(runs_dir, ignore_errors=True)

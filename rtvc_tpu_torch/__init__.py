@@ -5,15 +5,17 @@ A port of ``rtvc_tpu`` (JAX/Pallas), which stays the numerical reference;
 this package imports nothing of it and keeps its own copies of the modules
 it shares (``config``, ``text``, ``data``, ``utils.metrics``,
 ``utils.profiler``). The clone path runs speaker encoder → Tacotron →
-WaveRNN, and all three models train here:
+WaveRNN (fatchord, geneing or runtimeracer), and all three models train
+here:
 
 =========  ===========================================================
 subpkg     role
 =========  ===========================================================
-ops        DSP on tensors (encoder mel, mu-law, de-emphasis), numpy host
-           DSP (VAD, resample, mel filterbank), and the kernel wrappers
-           ``lstm_seq`` (K3), ``gru_seq`` (K4), ``tacotron_decode`` (K2),
-           ``tacotron_train`` (K5), ``wavernn_generate`` (K1)
+ops        DSP on tensors (STFT, encoder and synthesizer mels, Griffin-Lim,
+           mu-law, de-emphasis), numpy host DSP (VAD, resample, mel
+           filterbank), and the kernel wrappers ``lstm_seq`` (K3),
+           ``gru_seq`` (K4), ``tacotron_decode`` (K2), ``tacotron_train``
+           (K5), ``wavernn_generate`` (K1), ``mel_project`` (K6)
 csrc       the CUDA C++ sources of those kernels (built by ``_build``)
 models     nn.Modules under the reference's torch state-dict names
 inference  encoder / synthesizer / vocoder public API

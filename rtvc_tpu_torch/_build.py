@@ -35,6 +35,7 @@ _I = ctypes.c_int
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _IP = ctypes.POINTER(ctypes.c_int)
 _U64 = ctypes.c_ulonglong
+_F = ctypes.c_float
 
 # C entry points and their argument types. Every entry returns the
 # cudaError_t of its launch (0 on success).
@@ -55,6 +56,9 @@ SIGNATURES = {
     "rtvc_tacotron_workspace": [_IP],
     # weights, streams, dims, argmax, seed, out, logits_out (or null), stream
     "rtvc_wavernn_generate": [_PP, _PP, _IP, _I, _U64, _P, _P, _P],
+    # mag, basis, out, n_bins, T, num_mels, min_level, ref_level_db,
+    # min_level_db, max_abs_value, symmetric, clip, stream
+    "rtvc_mel_project": [_P] * 3 + [_I] * 3 + [_F] * 4 + [_I] * 2 + [_P],
     # weights, inputs, outputs, dims (n, B, T, D, L, E, KS), stream
     "rtvc_tacotron_train_fwd": [_PP, _PP, _PP, _IP, _P],
     "rtvc_tacotron_train_bwd": [_PP, _PP, _PP, _IP, _P],
@@ -167,7 +171,9 @@ def stream_handle(device) -> int:
 
 
 def pointer_array(tensors) -> ctypes.Array:
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    """Device pointers of ``tensors`` as a C array; ``None`` gives a null."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
 
 
 def int_array(values) -> ctypes.Array:

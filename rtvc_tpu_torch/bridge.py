@@ -101,9 +101,10 @@ def tacotron_state(variables: Mapping) -> StateDict:
 
 
 def wavernn_state(variables: Mapping) -> StateDict:
-    """{"params", "batch_stats"} (``init_wavernn`` layout, runtimeracer) →
-    WaveRNN state_dict. Without "batch_stats" (a gradient tree) only the
-    parameters are mapped."""
+    """{"params", "batch_stats"} (``init_wavernn`` layout, any variant) →
+    WaveRNN state_dict: the upsampler, ``I``, and whichever of ``rnn1``-
+    ``rnn4`` and ``fc1``-``fc5`` the variant has. Without "batch_stats" (a
+    gradient tree) only the parameters are mapped."""
     p = variables["params"]
     up = p["upsample"]
     rp = up["resnet"]
@@ -126,5 +127,6 @@ def wavernn_state(variables: Mapping) -> StateDict:
     for i, w in enumerate(up["up_convs"]):
         sd[f"upsample.up_layers.{2 * i + 1}.weight"] = _t(w)
     for name in ("I", "rnn1", "rnn2", "rnn3", "rnn4", "fc1", "fc2", "fc3", "fc4", "fc5"):
-        _put(sd, f"{name}.", p[name])
+        if name in p:
+            _put(sd, f"{name}.", p[name])
     return sd

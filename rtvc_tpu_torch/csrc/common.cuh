@@ -126,9 +126,11 @@ __device__ __forceinline__ uint4 philox4x32(uint4 c, uint2 k) {
   return c;
 }
 
-// 24 random bits → a float strictly inside (0, 1).
+// 23 random bits → a float strictly inside (0, 1): k + 0.5 for k < 2^23 is
+// exact in f32, so the result lies in [2^-24, 1 - 2^-24]. (With 24 bits the
+// top values round up to 1.0, and -log(-log(1)) is infinite.)
 __device__ __forceinline__ float u01(uint32_t bits) {
-  return ((float)(bits >> 8) + 0.5f) * (1.0f / 16777216.0f);
+  return ((float)(bits >> 9) + 0.5f) * (1.0f / 8388608.0f);
 }
 
 }  // namespace rtvc

@@ -11,11 +11,15 @@ package that changes the numbers:
 * trailing frames below the stop threshold are trimmed.
 
 The decoder loop runs through the K2 kernel on a card (``ops.tacotron_decode``).
-Loading ``.ckpt`` files and the non-autoregressive synthesizers are later
-slices.
+``make_spectrogram`` (waveform or file → training-format mel, through the K6
+kernel) and ``griffin_lim`` (mel → waveform without a vocoder) are module
+functions and static helpers of ``Synthesizer``; both work on the card
+unless the caller names another device. Loading ``.ckpt`` files and the
+non-autoregressive synthesizers are not ported yet.
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import List, Optional, Union
 
 import numpy as np
@@ -25,7 +29,9 @@ from rtvc_tpu_torch.config import preprocessing, sp
 from rtvc_tpu_torch.text import text_to_sequence
 from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.models import tacotron as taco
+from rtvc_tpu_torch.ops import audio as audio_ops
 from rtvc_tpu_torch.ops.tacotron_decode import tacotron_decode
+from rtvc_tpu_torch.utils.io import load_wav
 
 _CHAR_BUCKET = 32
 _FRAME_BUCKET = 128
@@ -123,3 +129,37 @@ class Synthesizer:
             mels.append(m[:, :end].astype(np.float32))
             aligns.append(attn_np[b])
         return mels, aligns
+
+
+def load_preprocess_wav(fpath) -> np.ndarray:
+    """Load a file at the synthesizer's sample rate and rescale it like the
+    synthesizer's training audio."""
+    wav, _ = load_wav(fpath, target_sr=sp.sample_rate)
+    if preprocessing.rescale:
+        wav = wav / np.abs(wav).max() * preprocessing.rescaling_max
+    return wav
+
+
+def make_spectrogram(fpath_or_wav: Union[str, Path, np.ndarray], device=None) -> np.ndarray:
+    """Waveform or file → training-format mel (80, T), float32."""
+    if isinstance(fpath_or_wav, (str, Path)):
+        wav = load_preprocess_wav(fpath_or_wav)
+    else:
+        wav = fpath_or_wav
+    wav = torch.as_tensor(np.asarray(wav, np.float32), device=factories.resolve_device(device))
+    return audio_ops.melspectrogram(wav, sp, preprocessing).cpu().numpy()
+
+
+def griffin_lim(mel: np.ndarray, seed: int = 0, device=None) -> np.ndarray:
+    """Invert a training-format mel (80, T) with Griffin-Lim, from a random
+    initial phase seeded by ``seed``."""
+    device = factories.resolve_device(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    mel = torch.as_tensor(np.asarray(mel, np.float32), device=device)
+    return audio_ops.inv_mel_spectrogram(mel, sp, preprocessing, g).cpu().numpy()
+
+
+# the reference calls these as static helpers of Synthesizer
+Synthesizer.load_preprocess_wav = staticmethod(load_preprocess_wav)
+Synthesizer.make_spectrogram = staticmethod(make_spectrogram)
+Synthesizer.griffin_lim = staticmethod(griffin_lim)

@@ -1,21 +1,24 @@
-"""Vocoder inference (counterpart of ``rtvc_tpu/inference/vocoder.py``),
-runtimeracer WaveRNN.
+"""Vocoder inference (counterpart of ``rtvc_tpu/inference/vocoder.py``)
+with any of the three WaveRNN variants and heads.
 
-``infer_waveform`` folds the mel with the checkpoint's own window
-(``gen_target`` / ``gen_overlap``: 6000 / 1000 for runtimeracer). The JAX
-package's 400 / 160 default was tuned on a TPU and is re-derived on the card
-in a later change. The sample loop runs through the K1 kernel on a card.
-Loading ``.ckpt`` files and the native C++ engine are later slices.
+``infer_waveform`` vocodes one mel and ``infer_waveforms`` several in one
+launch of the sample loop. Both fold the mel with the model's own window
+(``gen_target`` / ``gen_overlap`` of its config: 3000 / 1500 for fatchord
+and geneing, 6000 / 1000 for runtimeracer) unless the caller passes
+another; a window tuned for the card is not derived yet. The sample loop
+runs through the K1 kernel on a card, and a launch that fails raises: there
+is no second path to retry on. Loading ``.ckpt`` files and the native C++
+engine are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
 from rtvc_tpu_torch.config import signal as _sig
 from rtvc_tpu_torch.models import factories
-from rtvc_tpu_torch.models.wavernn import wavernn_generate
+from rtvc_tpu_torch.models.wavernn import wavernn_generate, wavernn_generate_batch
 
 _bundle: Optional[factories.VocModel] = None
 _seed: int = 0
@@ -44,22 +47,29 @@ def set_seed(seed: int) -> None:
     _gen_counter = 0
 
 
-def infer_waveform(mel: np.ndarray, normalize: bool = True, batched: bool = True,
-                   target: Optional[int] = None, overlap: Optional[int] = None,
-                   progress_callback=None, argmax: bool = False) -> np.ndarray:
-    """Mel (synthesizer format, (80, T)) → float64 waveform of (T-1)·200
-    samples. ``argmax=True`` is the deterministic (greedy) test hook."""
+def _next_call(target: Optional[int], overlap: Optional[int]):
+    """(config, target, overlap, seed) of the next generation call: the
+    window defaults to the config's, and each call gets a seed of its own."""
     global _gen_counter
     if _bundle is None:
         raise Exception("Please load Wave-RNN in memory before using it")
     cfg = _bundle.config
     target = cfg.gen_target if target is None else target
     overlap = cfg.gen_overlap if overlap is None else overlap
+    _gen_counter += 1
+    seed = ((_seed & 0xFFFFFFFF) << 32) | (_gen_counter & 0xFFFFFFFF)
+    return cfg, target, overlap, seed
+
+
+def infer_waveform(mel: np.ndarray, normalize: bool = True, batched: bool = True,
+                   target: Optional[int] = None, overlap: Optional[int] = None,
+                   progress_callback=None, argmax: bool = False) -> np.ndarray:
+    """Mel (synthesizer format, (80, T)) → float64 waveform of (T-1)·200
+    samples. ``argmax=True`` is the deterministic (greedy) test hook."""
+    cfg, target, overlap, seed = _next_call(target, overlap)
     sp = _sig.sp
     if normalize:
         mel = mel / sp.max_abs_value
-    _gen_counter += 1
-    seed = ((_seed & 0xFFFFFFFF) << 32) | (_gen_counter & 0xFFFFFFFF)
     wav = wavernn_generate(_bundle.model, _bundle.dims, np.asarray(mel, np.float32),
                            seed, batched=batched, target=target, overlap=overlap,
                            mu_law=cfg.mu_law, apply_preemphasis=sp.preemphasize,
@@ -67,3 +77,19 @@ def infer_waveform(mel: np.ndarray, normalize: bool = True, batched: bool = True
     if progress_callback is not None:
         progress_callback(len(wav), len(wav), 1, 0.0)
     return wav
+
+
+def infer_waveforms(mels: Sequence[np.ndarray], normalize: bool = True,
+                    target: Optional[int] = None, overlap: Optional[int] = None,
+                    argmax: bool = False) -> List[np.ndarray]:
+    """Vocode several mels in one batch: every utterance's fold windows share
+    the batch axis of one launch of the sample loop. Returns one waveform
+    per mel, each of its own (T_i - 1)·200 samples."""
+    cfg, target, overlap, seed = _next_call(target, overlap)
+    sp = _sig.sp
+    if normalize:
+        mels = [m / sp.max_abs_value for m in mels]
+    return wavernn_generate_batch(_bundle.model, _bundle.dims,
+                                  [np.asarray(m, np.float32) for m in mels], seed,
+                                  target=target, overlap=overlap, mu_law=cfg.mu_law,
+                                  apply_preemphasis=sp.preemphasize, argmax=argmax)

@@ -1,6 +1,7 @@
 """Model factories (counterpart of ``rtvc_tpu/models/factories.py``) for the
-ported slice: Tacotron and the runtimeracer WaveRNN, plus the speaker
-encoder. Random weights come from a ``torch.Generator`` seeded by ``seed``;
+ported models: Tacotron, the three WaveRNN variants (fatchord, geneing,
+runtimeracer) with any of their heads, and the speaker encoder. Random
+weights come from a ``torch.Generator`` seeded by ``seed``;
 modules are built on the meta device and filled once, so no global RNG is
 touched. Every factory builds on the card when ``device`` is left out and
 raises without one; ``device="cpu"`` asks for the CPU. The distributions
@@ -29,10 +30,13 @@ MODEL_TYPE_TACOTRON = "tacotron"
 MODEL_TYPE_FORWARD_TACOTRON = "forward-tacotron"
 MODEL_TYPE_FASTPITCH = "fast-pitch"
 SYN_MODEL_TYPES = (MODEL_TYPE_TACOTRON, MODEL_TYPE_FORWARD_TACOTRON, MODEL_TYPE_FASTPITCH)
+MODEL_TYPE_FATCHORD = "fatchord-wavernn"
+MODEL_TYPE_GENEING = "geneing-wavernn"
 MODEL_TYPE_RUNTIMERACER = "runtimeracer-wavernn"
+VOC_MODEL_TYPES = (MODEL_TYPE_FATCHORD, MODEL_TYPE_GENEING, MODEL_TYPE_RUNTIMERACER)
 
 _LATER = ("{} is not ported to rtvc_tpu_torch yet: the non-autoregressive "
-          "synthesizers and the other WaveRNN variants are later slices")
+          "synthesizers are a later slice")
 
 
 class SynModel(NamedTuple):
@@ -53,11 +57,15 @@ def default_config(model_type: str):
     """The default hyper-parameters of a model type."""
     defaults = {
         MODEL_TYPE_TACOTRON: _syn_cfg.tacotron,
+        MODEL_TYPE_FATCHORD: _voc_cfg.wavernn_fatchord,
+        MODEL_TYPE_GENEING: _voc_cfg.wavernn_geneing,
         MODEL_TYPE_RUNTIMERACER: _voc_cfg.wavernn_runtimeracer,
     }
-    if model_type not in defaults:
+    if model_type in defaults:
+        return defaults[model_type]
+    if model_type in SYN_MODEL_TYPES:
         raise NotImplementedError(_LATER.format(model_type))
-    return defaults[model_type]
+    raise NotImplementedError("Invalid model of type '%s' provided. Aborting..." % model_type)
 
 
 def _uniform_(p: torch.Tensor, bound: float, g: torch.Generator) -> None:
@@ -167,11 +175,14 @@ def wavernn_dims(model_type: str, cfg) -> WaveRNNDims:
 def init_voc_model(model_type: str, seed: int = 0,
                    override_hp: Optional[_voc_cfg.WaveRNNParams] = None,
                    device=None) -> VocModel:
-    """A WaveRNN vocoder with random weights; the upsampler's smoothing
-    convs start as moving averages."""
+    """A WaveRNN vocoder of any variant with random weights; the
+    upsampler's smoothing convs start as moving averages. ``override_hp``
+    replaces the variant's defaults (``mode="MOL"`` or ``"RAW"`` picks
+    another head)."""
+    if model_type not in VOC_MODEL_TYPES:
+        raise NotImplementedError(
+            "Invalid model of type '%s' provided. Aborting..." % model_type)
     cfg = override_hp or default_config(model_type)
-    if model_type != MODEL_TYPE_RUNTIMERACER:
-        raise NotImplementedError(_LATER.format(model_type))
     dims = wavernn_dims(model_type, cfg)
     return VocModel(model_type, dims, init_wavernn(dims, seed, device), cfg)
 

@@ -1,40 +1,47 @@
-"""WaveRNN vocoder, runtimeracer variant with the RAW categorical head
-(counterpart of ``rtvc_tpu/models/wavernn.py``).
+"""WaveRNN vocoder (counterpart of ``rtvc_tpu/models/wavernn.py``): the
+fatchord (2 GRUs, 3 FCs), geneing (1 GRU, 2 FCs) and runtimeracer (4 GRUs,
+5 FCs) variants, each with the categorical head (RAW, or BITS on geneing),
+the mixture-of-logistics head (MOL) or, for geneing's RAW mode, the
+two-parameter beta head.
 
 Generation: upsample the mel (MelResNet + Stretch2d + smoothing convs),
 fold the conditioning into overlapping windows that form the batch, hoist
 every conditioning projection into full-sequence matmuls, run the
 autoregressive sample loop through the K1 kernel (``ops.wavernn_generate``),
 then cross-fade the folds back together, mu-law decode and de-emphasise.
+``wavernn_generate_batch`` vocodes several utterances in one launch of the
+loop: every utterance's folds share the batch axis.
 
 Training: ``wavernn_forward`` is the teacher-forced forward over the
-previous samples; its four GRUs run through the K4 kernels
+previous samples; its GRUs run through the K4 kernels
 (``ops.gru_seq.GRUSeqFn``), and its BatchNorms use batch statistics and
 return the updated running statistics.
-
-The fatchord and geneing variants and the MoL and beta heads belong to a
-later slice and raise NotImplementedError.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rtvc_tpu_torch.config.vocoder import MODE_MOL, MODE_RAW, WaveRNNParams
+from rtvc_tpu_torch.config.vocoder import MODE_BITS, MODE_MOL, MODE_RAW, WaveRNNParams
 from rtvc_tpu_torch.models.layers import GRU, BatchNorm1d, Linear
 from rtvc_tpu_torch.ops import audio as audio_ops
 from rtvc_tpu_torch.ops.gru_seq import GRUSeqFn
-from rtvc_tpu_torch.ops.wavernn_generate import wavernn_generate_core
+from rtvc_tpu_torch.ops.wavernn_generate import (  # noqa: F401  (VOC_* are re-exported)
+    HEAD_BETA,
+    HEAD_CATEGORICAL,
+    HEAD_MOL,
+    LAYERS,
+    VOC_FATCHORD,
+    VOC_GENEING,
+    VOC_RUNTIMERACER,
+    wavernn_generate_core,
+)
 
 Tensor = torch.Tensor
-
-VOC_FATCHORD = "fatchord-wavernn"
-VOC_GENEING = "geneing-wavernn"
-VOC_RUNTIMERACER = "runtimeracer-wavernn"
 
 _FRAME_BUCKET = 64
 
@@ -86,12 +93,14 @@ class WaveRNNDims(NamedTuple):
     def total_scale(self) -> int:
         return int(np.prod(self.upsample_factors))
 
-
-def check_supported(d: WaveRNNDims) -> None:
-    if d.variant != VOC_RUNTIMERACER or d.mode != MODE_RAW:
-        raise NotImplementedError(
-            f"{d.variant} / {d.mode}: only runtimeracer-wavernn with the RAW "
-            f"head is ported; the other variants and heads are a later slice")
+    @property
+    def head(self) -> str:
+        """The sampling head of the sample loop (``ops.wavernn_generate``)."""
+        if self.mode == MODE_MOL:
+            return HEAD_MOL
+        if self.mode == MODE_RAW and self.variant == VOC_GENEING:
+            return HEAD_BETA
+        return HEAD_CATEGORICAL
 
 
 # ---------------------------------------------------------------------------
@@ -141,24 +150,29 @@ class UpsampleNetwork(nn.Module):
 
 
 class WaveRNN(nn.Module):
-    """runtimeracer: 4 GRUs of rnn_dims + 5 FCs."""
+    """The upsampler, the input layer ``I``, and the variant's GRUs of
+    rnn_dims and FCs under the reference's names: fatchord ``rnn1``,
+    ``rnn2``, ``fc1``-``fc3``; geneing ``rnn1``, ``fc1``, ``fc3``;
+    runtimeracer ``rnn1``-``rnn4``, ``fc1``-``fc5``. A layer that
+    ``ops.wavernn_generate.LAYERS`` marks ``aux`` takes an aux split of the
+    conditioning beside its input; the last FC gives the head's inputs."""
 
     def __init__(self, d: WaveRNNDims, device=None):
         super().__init__()
-        check_supported(d)
+        if d.variant not in LAYERS:
+            raise ValueError(f"Unknown WaveRNN variant {d.variant}")
         self.dims = d
         R, Fd, A = d.rnn_dims, d.fc_dims, d.aux_dims
+        layers = LAYERS[d.variant]
         self.upsample = UpsampleNetwork(d, device=device)
         self.I = Linear(d.feat_dims + A, R, device=device)
-        self.rnn1 = GRU(R, R, device=device)
-        self.rnn2 = GRU(R, R, device=device)
-        self.rnn3 = GRU(R + A, R, device=device)
-        self.rnn4 = GRU(R, R, device=device)
-        self.fc1 = Linear(R + A, Fd, device=device)
-        self.fc2 = Linear(Fd, Fd, device=device)
-        self.fc3 = Linear(Fd + A, Fd, device=device)
-        self.fc4 = Linear(Fd, Fd, device=device)
-        self.fc5 = Linear(Fd, d.n_classes, device=device)
+        for rnn in layers.rnns:
+            setattr(self, rnn.name, GRU(R + A if rnn.aux else R, R, device=device))
+        n_in = R
+        for k, fc in enumerate(layers.fcs):
+            n_out = d.n_classes if k == len(layers.fcs) - 1 else Fd
+            setattr(self, fc.name, Linear(n_in + A if fc.aux else n_in, n_out, device=device))
+            n_in = n_out
 
 
 # ---------------------------------------------------------------------------
@@ -218,26 +232,37 @@ def gru_seq(gru: GRU, x: Tensor) -> Tensor:
                           gru.bias_hh_l0.contiguous())
 
 
+def _aux_splits(d: WaveRNNDims, aux: Tensor) -> List[Tensor]:
+    """The aux conditioning cut into the variant's equal splits: the first
+    goes to ``I``, the others to the layers marked ``aux``, in order."""
+    A = d.aux_dims
+    return [aux[:, :, A * i:A * (i + 1)] for i in range(d.n_aux_splits)]
+
+
 def wavernn_forward(model: WaveRNN, d: WaveRNNDims, x: Tensor, mels: Tensor
                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Teacher-forced runtimeracer forward: x (B, T) previous samples in
-    [-1, 1], mels (B, n_mels, T / hop + 2·pad) → (logits (B, T, n_classes),
-    new_stats) with the BatchNorms on batch statistics
-    (``rtvc_tpu/models/wavernn.py:wavernn_forward``)."""
-    check_supported(d)
-    A = d.aux_dims
+    """Teacher-forced forward of any variant: x (B, T) previous samples in
+    [-1, 1], mels (B, n_mels, T / hop + 2·pad) → (head output
+    (B, T, n_classes), new_stats) with the BatchNorms on batch statistics
+    (``rtvc_tpu/models/wavernn.py:wavernn_forward``). geneing in BITS mode
+    returns log-probabilities (its reference forward ends in a
+    log-softmax); every other cell returns the last FC's output."""
+    layers = LAYERS[d.variant]
     mels_up, aux, new_stats = upsample_forward(model, d, mels, train=True)
-    splits = [aux[:, :, A * i:A * (i + 1)] for i in range(d.n_aux_splits)]
+    splits = _aux_splits(d, aux)
+    rest = iter(splits[1:])
     h = model.I(torch.cat([x[:, :, None], mels_up, splits[0][:, :, :-1]], dim=2))
-    h = gru_seq(model.rnn1, h) + h
-    h = gru_seq(model.rnn2, h) + h
-    h = gru_seq(model.rnn3, torch.cat([h, splits[1]], dim=2)) + h
-    h = gru_seq(model.rnn4, h) + h
-    h = model.fc1(torch.cat([h, splits[2]], dim=2))
-    h = torch.relu(model.fc2(h))
-    h = model.fc3(torch.cat([h, splits[3]], dim=2))
-    h = torch.relu(model.fc4(h))
-    return model.fc5(h), new_stats
+    for rnn in layers.rnns:
+        inp = torch.cat([h, next(rest)], dim=2) if rnn.aux else h
+        h = gru_seq(getattr(model, rnn.name), inp) + h
+    for fc in layers.fcs:
+        inp = torch.cat([h, next(rest)], dim=2) if fc.aux else h
+        h = getattr(model, fc.name)(inp)
+        if fc.relu:
+            h = torch.relu(h)
+    if d.variant == VOC_GENEING and d.mode == MODE_BITS:
+        h = F.log_softmax(h.float(), dim=-1)
+    return h, new_stats
 
 
 def fold_with_overlap(x: Tensor, target: int, overlap: int) -> Tuple[Tensor, int]:
@@ -284,40 +309,50 @@ def xfade_and_unfold(y: Tensor, target: int, overlap: int) -> Tensor:
 def hoist_aux(model: WaveRNN, d: WaveRNNDims, mels_up: Tensor, aux: Tensor
               ) -> Dict[str, Tensor]:
     """Every projection of the conditioning as full-sequence matmuls: the
-    per-step streams the sample loop reads, each (B, T, width)."""
-    R, Fd, A = d.rnn_dims, d.fc_dims, d.aux_dims
-    splits = [aux[:, :, A * i:A * (i + 1)] for i in range(d.n_aux_splits)]
+    per-step streams the sample loop reads, each (B, T, width). A layer that
+    takes an aux split gets the product of the split with the aux columns
+    of its input matrix, with its input-side bias folded in."""
+    A = d.aux_dims
+    layers = LAYERS[d.variant]
+    splits = _aux_splits(d, aux)
+    rest = iter(splits[1:])
     w_I = model.I.weight  # (R, 1 + feat + A - 1): column 0 is the previous sample
     cond = torch.cat([mels_up, splits[0][:, :, :-1]], dim=2)
-    w3 = model.rnn3.weight_ih_l0
-    return {
-        "i_cond": cond @ w_I[:, 1:].t() + model.I.bias,
-        "rnn3_aux": splits[1] @ w3[:, R:].t() + model.rnn3.bias_ih_l0,
-        "fc1_aux": splits[2] @ model.fc1.weight[:, R:].t() + model.fc1.bias,
-        "fc3_aux": splits[3] @ model.fc3.weight[:, Fd:].t() + model.fc3.bias,
-    }
+    pre = {"i_cond": cond @ w_I[:, 1:].t() + model.I.bias}
+    for rnn in layers.rnns:
+        if rnn.aux:
+            g = getattr(model, rnn.name)
+            pre[f"{rnn.name}_aux"] = next(rest) @ g.weight_ih_l0[:, -A:].t() + g.bias_ih_l0
+    for fc in layers.fcs:
+        if fc.aux:
+            lin = getattr(model, fc.name)
+            pre[f"{fc.name}_aux"] = next(rest) @ lin.weight[:, -A:].t() + lin.bias
+    return pre
 
 
 def step_weights(model: WaveRNN, d: WaveRNNDims) -> Dict[str, Tensor]:
     """The weights the sample loop reads every step, contiguous, torch
     layout (out, in). Inputs that concatenate the state with an aux split
     keep only the state columns; the aux columns went into the streams."""
-    R, Fd = d.rnn_dims, d.fc_dims
+    A = d.aux_dims
+    layers = LAYERS[d.variant]
     w: Dict[str, Tensor] = {"i_col": model.I.weight[:, 0]}
-    for name in ("rnn1", "rnn2", "rnn4"):
-        g = getattr(model, name)
-        w[f"{name}_wih"] = g.weight_ih_l0
-        w[f"{name}_bih"] = g.bias_ih_l0
-    w["rnn3_wx"] = model.rnn3.weight_ih_l0[:, :R]
-    for name in ("rnn1", "rnn2", "rnn3", "rnn4"):
-        g = getattr(model, name)
-        w[f"{name}_whh"] = g.weight_hh_l0
-        w[f"{name}_bhh"] = g.bias_hh_l0
-    w["fc1_wx"] = model.fc1.weight[:, :R]
-    w["fc3_wx"] = model.fc3.weight[:, :Fd]
-    for name in ("fc2", "fc4", "fc5"):
-        w[f"{name}_w"] = getattr(model, name).weight
-        w[f"{name}_b"] = getattr(model, name).bias
+    for rnn in layers.rnns:
+        g = getattr(model, rnn.name)
+        if rnn.aux:
+            w[f"{rnn.name}_wx"] = g.weight_ih_l0[:, :-A]
+        else:
+            w[f"{rnn.name}_wih"] = g.weight_ih_l0
+            w[f"{rnn.name}_bih"] = g.bias_ih_l0
+        w[f"{rnn.name}_whh"] = g.weight_hh_l0
+        w[f"{rnn.name}_bhh"] = g.bias_hh_l0
+    for fc in layers.fcs:
+        lin = getattr(model, fc.name)
+        if fc.aux:
+            w[f"{fc.name}_wx"] = lin.weight[:, :-A]
+        else:
+            w[f"{fc.name}_w"] = lin.weight
+            w[f"{fc.name}_b"] = lin.bias
     return {k: v.detach().contiguous() for k, v in w.items()}
 
 
@@ -325,10 +360,34 @@ def generate_core(model: WaveRNN, d: WaveRNNDims, mels_up: Tensor, aux: Tensor,
                   seed: int, argmax: bool = False) -> Tensor:
     """Autoregressive sample loop over upsampled conditioning (B, T, ·) →
     samples (B, T) in [-1, 1]. ``argmax=True`` is the deterministic (greedy)
-    test hook."""
-    check_supported(d)
+    test hook: the most likely class, the most likely mixture component's
+    clipped mean, or the beta's mode (its mean where it has none)."""
     streams = {k: v.contiguous() for k, v in hoist_aux(model, d, mels_up, aux).items()}
-    return wavernn_generate_core(step_weights(model, d), streams, seed, argmax)
+    return wavernn_generate_core(step_weights(model, d), streams, seed, argmax,
+                                 variant=d.variant, head=d.head)
+
+
+def _check_mels(d: WaveRNNDims, n_frames: int, n_mels: int) -> None:
+    if n_frames < 2:
+        raise ValueError(f"Need at least 2 mel frames to generate audio, got {n_frames}")
+    if n_mels != d.feat_dims:
+        raise ValueError(f"Expected {d.feat_dims} mel bins, got {n_mels} — "
+                         f"is the mel transposed?")
+
+
+def _finish(d: WaveRNNDims, output: Tensor, wave_len: int, mu_law: bool,
+            apply_preemphasis: bool, fade_out: bool) -> np.ndarray:
+    """Unfolded samples → the utterance's waveform: mu-law decode,
+    de-emphasis, trim to ``wave_len``, fade-out over the last 20 hops."""
+    if mu_law:
+        output = audio_ops.decode_mu_law(output, d.n_classes, from_labels=False)
+    if apply_preemphasis:
+        output = audio_ops.de_emphasis(output, 0.97)
+    output = output[:wave_len].cpu().double().numpy().copy()
+    if fade_out:
+        fade_len = min(20 * d.hop_length, len(output))
+        output[-fade_len:] *= np.linspace(1.0, 0.0, fade_len)
+    return output
 
 
 @torch.no_grad()
@@ -339,23 +398,19 @@ def wavernn_generate(model: WaveRNN, d: WaveRNNDims, mels, seed: int,
                      fade_out: bool = True) -> np.ndarray:
     """pad → upsample → fold → AR loop → cross-fade/unfold → mu-law decode →
     de-emphasis → fade-out. ``mels`` (n_mels, n) or (1, n_mels, n); returns
-    a float64 numpy waveform of (n - 1)·hop samples.
+    a float64 numpy waveform of (n - 1)·hop samples. ``mu_law`` applies to
+    the RAW mode only: the BITS and MOL heads emit linear samples.
 
     The frame count is padded to a multiple of 64 with -1.0 (the JAX
     package's compile bucket); the pad changes the upsampled tail and the
     fold count, so it is kept for parity and trimmed off at the end."""
-    check_supported(d)
+    mu_law = mu_law if d.mode == MODE_RAW else False
     dev = model.I.weight.device
     mels = torch.as_tensor(np.asarray(mels, dtype=np.float32), device=dev)
     if mels.ndim == 2:
         mels = mels[None]
     n_frames = mels.shape[-1]
-    if n_frames < 2:
-        raise ValueError(f"Need at least 2 mel frames to generate audio, got {n_frames}")
-    if mels.shape[1] != d.feat_dims:
-        raise ValueError(f"Expected {d.feat_dims} mel bins, got {mels.shape[1]} — "
-                         f"is the mel transposed?")
-    wave_len = (n_frames - 1) * d.hop_length
+    _check_mels(d, n_frames, mels.shape[1])
     bucket = -(-n_frames // _FRAME_BUCKET) * _FRAME_BUCKET
     mels = F.pad(mels, (0, bucket - n_frames), value=-1.0)
     mels = F.pad(mels, (d.pad, d.pad))
@@ -365,12 +420,40 @@ def wavernn_generate(model: WaveRNN, d: WaveRNNDims, mels, seed: int,
         aux, _ = fold_with_overlap(aux, target, overlap)
     samples = generate_core(model, d, mels_up, aux, seed, argmax)
     output = xfade_and_unfold(samples, target, overlap) if batched else samples[0]
-    if mu_law:
-        output = audio_ops.decode_mu_law(output, d.n_classes, from_labels=False)
-    if apply_preemphasis:
-        output = audio_ops.de_emphasis(output, 0.97)
-    output = output[:wave_len].cpu().double().numpy().copy()
-    if fade_out:
-        fade_len = min(20 * d.hop_length, len(output))
-        output[-fade_len:] *= np.linspace(1.0, 0.0, fade_len)
-    return output
+    return _finish(d, output, (n_frames - 1) * d.hop_length, mu_law, apply_preemphasis,
+                   fade_out)
+
+
+@torch.no_grad()
+def wavernn_generate_batch(model: WaveRNN, d: WaveRNNDims, mels_list: Sequence, seed: int,
+                           target: int = 1000, overlap: int = 400, mu_law: bool = True,
+                           apply_preemphasis: bool = True, argmax: bool = False
+                           ) -> List[np.ndarray]:
+    """Vocode several utterances in one launch of the sample loop: all are
+    padded with -1.0 to one 64-frame bucket (the longest's), each is folded
+    with the same geometry, and every utterance's folds share the batch
+    axis, so short utterances ride along with long ones.
+
+    ``mels_list``: (n_mels, T_i) normalised mels. Returns one float64
+    waveform per utterance, trimmed to its own (T_i - 1)·hop samples, with
+    the fade-out."""
+    mu_law = mu_law if d.mode == MODE_RAW else False
+    dev = model.I.weight.device
+    frames = [int(np.shape(m)[-1]) for m in mels_list]
+    for m, n in zip(mels_list, frames):
+        _check_mels(d, n, np.shape(m)[-2])
+    bucket = -(-max(frames) // _FRAME_BUCKET) * _FRAME_BUCKET
+    stack = np.full((len(frames), d.feat_dims, bucket), -1.0, np.float32)
+    for i, m in enumerate(mels_list):
+        stack[i, :, :frames[i]] = np.asarray(m, np.float32)
+    mels = F.pad(torch.as_tensor(stack, device=dev), (d.pad, d.pad))
+    mels_up, aux, _ = upsample_forward(model, d, mels)
+    folded = [(fold_with_overlap(mels_up[i:i + 1], target, overlap)[0],
+               fold_with_overlap(aux[i:i + 1], target, overlap)[0])
+              for i in range(len(frames))]
+    n_folds = folded[0][0].shape[0]
+    samples = generate_core(model, d, torch.cat([m for m, _ in folded]),
+                            torch.cat([a for _, a in folded]), seed, argmax)
+    return [_finish(d, xfade_and_unfold(samples[i * n_folds:(i + 1) * n_folds], target, overlap),
+                    (n - 1) * d.hop_length, mu_law, apply_preemphasis, fade_out=True)
+            for i, n in enumerate(frames)]

@@ -1,6 +1,7 @@
-"""Ops: DSP on tensors (``audio``), numpy host DSP (``vad``, ``resample``,
-``mel``) and the kernel wrappers (``lstm_seq``, ``gru_seq``,
-``tacotron_decode``, ``tacotron_train``, ``wavernn_generate``). Import the submodule you need."""
+"""Ops: DSP on tensors (``audio``, ``stft``), numpy host DSP (``vad``,
+``resample``, ``mel``) and the kernel wrappers (``lstm_seq``, ``gru_seq``,
+``tacotron_decode``, ``tacotron_train``, ``wavernn_generate``,
+``mel_project``). Import the submodule you need."""
 import torch
 
 

@@ -1,41 +1,217 @@
-"""Audio DSP on tensors for the clone path (counterpart of
-``rtvc_tpu/ops/audio.py`` and ``ops/stft.py``): the speaker encoder's
-40-mel power spectrogram, volume normalisation, and the vocoder's label /
-mu-law codecs and de-emphasis."""
+"""Audio DSP on tensors (counterpart of ``rtvc_tpu/ops/audio.py``):
+
+* synthesizer path: pre-emphasis → STFT → mel → dB → [-4, 4] normalisation
+  (``melspectrogram``; its projection and normalisation run through the K6
+  kernel, ``ops.mel_project``) and the way back by Griffin-Lim
+  (``inv_mel_spectrogram``);
+* vocoder path: label / mu-law codecs and de-emphasis;
+* encoder path: the 40-mel power spectrogram and volume normalisation.
+
+``sp`` and ``pp`` are ``config.signal``'s ``SignalParams`` and
+``PreprocessingParams``. The random initial phase of Griffin-Lim comes from
+a ``torch.Generator``, or from ``angles`` where the caller injects it.
+"""
 from __future__ import annotations
 
-import functools
 import math
+from typing import Optional
 
 import numpy as np
 import scipy.signal
 import torch
 
+from rtvc_tpu_torch.config.signal import PreprocessingParams, SignalParams
 from rtvc_tpu_torch.ops import mel as mel_ops
+from rtvc_tpu_torch.ops import stft as stft_ops
+from rtvc_tpu_torch.ops.mel_project import mel_project_normalize
+from rtvc_tpu_torch.ops.stft import hann_window, stft_magnitude  # noqa: F401  (re-exported)
 
 Tensor = torch.Tensor
 
 
-@functools.lru_cache(maxsize=16)
-def hann_window(win_size: int, n_fft: int) -> np.ndarray:
-    """Periodic Hann window of ``win_size``, centred in an ``n_fft`` buffer
-    (librosa's ``get_window('hann', fftbins=True)`` + ``pad_center``)."""
-    n = np.arange(win_size, dtype=np.float64)
-    win = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_size)
-    lpad = (n_fft - win_size) // 2
-    padded = np.zeros(n_fft, dtype=np.float64)
-    padded[lpad: lpad + win_size] = win
-    return padded.astype(np.float32)
+# ---------------------------------------------------------------------------
+# Pre-emphasis filters
+# ---------------------------------------------------------------------------
 
 
-def stft_magnitude(y: Tensor, n_fft: int, hop_size: int, win_size: int
-                   ) -> Tensor:
-    """|STFT| with centred, reflect-padded frames, shape (1 + n_fft//2, T)."""
-    window = torch.from_numpy(hann_window(win_size, n_fft)).to(y.device)
-    spec = torch.stft(y, n_fft, hop_length=hop_size, win_length=n_fft,
-                      window=window, center=True, pad_mode="reflect",
-                      return_complex=True)
-    return spec.abs()
+def preemphasis(wav: Tensor, k: float) -> Tensor:
+    """FIR y[n] = x[n] - k·x[n-1]."""
+    return torch.cat([wav[:1], wav[1:] - k * wav[:-1]])
+
+
+def inv_preemphasis(wav: Tensor, k: float) -> Tensor:
+    """IIR y[n] = x[n] + k·y[n-1]. A first-order recurrence over a whole
+    waveform; it runs on the host in float64 (the waveform leaves the card
+    right after it) and returns a float32 tensor on ``wav``'s device."""
+    y = scipy.signal.lfilter([1.0], [1.0, -k], wav.detach().cpu().double().numpy())
+    return torch.from_numpy(y.astype(np.float32)).to(wav.device)
+
+
+# the vocoder side's name for the same filter
+de_emphasis = inv_preemphasis
+
+
+# ---------------------------------------------------------------------------
+# dB scaling and normalisation
+# ---------------------------------------------------------------------------
+
+
+def amp_to_db(x: Tensor, min_level_db: float) -> Tensor:
+    """20·log10(max(min_level, x))."""
+    min_level = math.exp(min_level_db / 20.0 * math.log(10.0))
+    return 20.0 * torch.log10(x.clamp(min=min_level))
+
+
+def db_to_amp(x: Tensor) -> Tensor:
+    return torch.pow(10.0, x * 0.05)
+
+
+def normalize_spectrogram(S: Tensor, sp: SignalParams, pp: PreprocessingParams) -> Tensor:
+    """dB → [-max_abs, max_abs] (symmetric) or [0, max_abs]."""
+    scaled = (S - sp.min_level_db) / (-sp.min_level_db)
+    if pp.symmetric_mels:
+        out = (2.0 * sp.max_abs_value) * scaled - sp.max_abs_value
+        lo, hi = -sp.max_abs_value, sp.max_abs_value
+    else:
+        out = sp.max_abs_value * scaled
+        lo, hi = 0.0, sp.max_abs_value
+    if pp.allow_clipping_in_normalization:
+        out = out.clamp(lo, hi)
+    return out
+
+
+def denormalize_spectrogram(D: Tensor, sp: SignalParams, pp: PreprocessingParams) -> Tensor:
+    """Inverse of :func:`normalize_spectrogram`."""
+    if pp.symmetric_mels:
+        if pp.allow_clipping_in_normalization:
+            D = D.clamp(-sp.max_abs_value, sp.max_abs_value)
+        return ((D + sp.max_abs_value) * (-sp.min_level_db) / (2.0 * sp.max_abs_value)
+                + sp.min_level_db)
+    if pp.allow_clipping_in_normalization:
+        D = D.clamp(0.0, sp.max_abs_value)
+    return D * (-sp.min_level_db) / sp.max_abs_value + sp.min_level_db
+
+
+# ---------------------------------------------------------------------------
+# Spectrograms (synthesizer path)
+# ---------------------------------------------------------------------------
+
+
+def _stft_mag(wav: Tensor, sp: SignalParams) -> Tensor:
+    if sp.preemphasize:
+        wav = preemphasis(wav, sp.preemphasis)
+    return stft_magnitude(wav, sp.n_fft, sp.hop_size, sp.win_size)
+
+
+def melspectrogram(wav: Tensor, sp: SignalParams, pp: PreprocessingParams) -> Tensor:
+    """Waveform → mel spectrogram in dB, shape (num_mels, T), normalised
+    through K6 when ``pp.signal_normalization`` is set."""
+    mag = _stft_mag(wav, sp)
+    if pp.signal_normalization:
+        return mel_project_normalize(mag.contiguous(), sp, pp)
+    basis = torch.from_numpy(mel_ops.mel_filterbank(
+        sp.sample_rate, sp.n_fft, sp.num_mels, sp.fmin, sp.fmax)).to(wav.device)
+    return amp_to_db(basis @ mag, sp.min_level_db) - sp.ref_level_db
+
+
+def linearspectrogram(wav: Tensor, sp: SignalParams, pp: PreprocessingParams) -> Tensor:
+    """Waveform → linear spectrogram in dB, normalised when
+    ``pp.signal_normalization`` is set."""
+    S = amp_to_db(_stft_mag(wav, sp), sp.min_level_db) - sp.ref_level_db
+    if pp.signal_normalization:
+        return normalize_spectrogram(S, sp, pp)
+    return S
+
+
+# ---------------------------------------------------------------------------
+# Griffin-Lim inversion
+# ---------------------------------------------------------------------------
+
+
+def _initial_phase(S: Tensor, generator: Optional[torch.Generator],
+                   angles: Optional[Tensor]) -> Tensor:
+    """exp(2πi·u) with u uniform in [0, 1) of S's shape: drawn from
+    ``generator``, or the injected ``angles``."""
+    if angles is None:
+        angles = torch.rand(S.shape, generator=generator, device=S.device)
+    return torch.polar(torch.ones_like(angles), 2.0 * math.pi * angles)
+
+
+def griffin_lim(S: Tensor, sp: SignalParams, n_iters: int,
+                generator: Optional[torch.Generator] = None, length: Optional[int] = None,
+                angles: Optional[Tensor] = None) -> Tensor:
+    """Phase recovery by iterated STFT projection: magnitudes S
+    (1 + n_fft // 2, T) → waveform. The inner istft never trims, so every
+    round trip keeps exactly T frames; ``length`` trims once at the end."""
+    phase = _initial_phase(S, generator, angles)
+    S = S.abs().to(torch.complex64)
+
+    def _istft(spec):
+        return stft_ops.istft(spec, sp.n_fft, sp.hop_size, sp.win_size)
+
+    y = _istft(S * phase)
+    for _ in range(n_iters):
+        spec = stft_ops.stft(y, sp.n_fft, sp.hop_size, sp.win_size)
+        y = _istft(S * (spec / spec.abs().clamp(min=1e-16)))
+    return y if length is None else y[:length]
+
+
+def fast_griffin_lim(S: Tensor, sp: SignalParams, n_iters: int,
+                     generator: Optional[torch.Generator] = None,
+                     length: Optional[int] = None, momentum: float = 0.99,
+                     angles: Optional[Tensor] = None) -> Tensor:
+    """Momentum-accelerated Griffin-Lim (Perraudin et al. 2013), the
+    ``pp.use_lws`` path of :func:`inv_mel_spectrogram`."""
+    phase = _initial_phase(S, generator, angles)
+    S = S.abs().to(torch.complex64)
+
+    def _istft(spec):
+        return stft_ops.istft(spec, sp.n_fft, sp.hop_size, sp.win_size)
+
+    c = t = S * phase
+    for _ in range(n_iters):
+        spec = stft_ops.stft(_istft(c), sp.n_fft, sp.hop_size, sp.win_size)
+        t_prev, t = t, S * (spec / spec.abs().clamp(min=1e-16))
+        c = t + momentum * (t - t_prev)
+    y = _istft(t)
+    return y if length is None else y[:length]
+
+
+def _invert(S: Tensor, sp: SignalParams, pp: PreprocessingParams, generator, length,
+            angles) -> Tensor:
+    recon = fast_griffin_lim if pp.use_lws else griffin_lim
+    wav = recon(S ** pp.power, sp, pp.griffin_lim_iters, generator, length=length,
+                angles=angles)
+    if sp.preemphasize:
+        wav = inv_preemphasis(wav, sp.preemphasis)
+    return wav
+
+
+def inv_mel_spectrogram(mel: Tensor, sp: SignalParams, pp: PreprocessingParams,
+                        generator: Optional[torch.Generator] = None,
+                        length: Optional[int] = None,
+                        angles: Optional[Tensor] = None) -> Tensor:
+    """Normalised mel → waveform: pinv(mel basis), then Griffin-Lim."""
+    D = denormalize_spectrogram(mel, sp, pp) if pp.signal_normalization else mel
+    amp = db_to_amp(D + sp.ref_level_db)
+    inv_basis = torch.from_numpy(mel_ops.inv_mel_filterbank(
+        sp.sample_rate, sp.n_fft, sp.num_mels, sp.fmin, sp.fmax)).to(mel.device)
+    S = (inv_basis @ amp).clamp(min=1e-10)
+    return _invert(S, sp, pp, generator, length, angles)
+
+
+def inv_linear_spectrogram(linear: Tensor, sp: SignalParams, pp: PreprocessingParams,
+                           generator: Optional[torch.Generator] = None,
+                           length: Optional[int] = None,
+                           angles: Optional[Tensor] = None) -> Tensor:
+    """Normalised linear spectrogram → waveform by Griffin-Lim."""
+    D = denormalize_spectrogram(linear, sp, pp) if pp.signal_normalization else linear
+    return _invert(db_to_amp(D + sp.ref_level_db), sp, pp, generator, length, angles)
+
+
+# ---------------------------------------------------------------------------
+# Encoder-path mel, volume, and the vocoder's codecs
+# ---------------------------------------------------------------------------
 
 
 def encoder_mel_spectrogram(wav: Tensor, sample_rate: int, n_fft: int,
@@ -75,12 +251,3 @@ def decode_mu_law(y: Tensor, mu: int, from_labels: bool = True) -> Tensor:
         y = label_2_float(y, int(math.log2(mu)))
     m = mu - 1
     return torch.sign(y) / m * ((1.0 + m) ** torch.abs(y) - 1.0)
-
-
-def de_emphasis(x: Tensor, k: float) -> Tensor:
-    """IIR y[n] = x[n] + k·y[n-1]. A first-order recurrence over a whole
-    waveform; it runs on the host in float64 (the waveform leaves the card
-    right after it) and returns a float32 tensor on ``x``'s device."""
-    y = scipy.signal.lfilter([1.0], [1.0, -k],
-                             x.detach().cpu().double().numpy())
-    return torch.from_numpy(y.astype(np.float32)).to(x.device)

@@ -87,3 +87,16 @@ def mel_filterbank(
     weights *= enorm[:, None]
     return weights.astype(np.float32)
 
+
+@functools.lru_cache(maxsize=16)
+def inv_mel_filterbank(
+    sample_rate: int,
+    n_fft: int,
+    n_mels: int,
+    fmin: float,
+    fmax: float,
+) -> np.ndarray:
+    """Moore-Penrose pseudo-inverse of the mel basis, shape
+    ``(1 + n_fft // 2, n_mels)`` (computed in float64)."""
+    basis = mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax)
+    return np.linalg.pinv(basis.astype(np.float64)).astype(np.float32)

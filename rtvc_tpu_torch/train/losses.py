@@ -14,6 +14,14 @@ def cross_entropy_bits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long())
 
 
+def nll_from_log_probs(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood where the model already returns
+    log-probabilities (geneing's BITS forward): log_probs (..., C), integer
+    labels (...)."""
+    picked = log_probs.gather(-1, labels.long()[..., None])
+    return -picked.mean()
+
+
 def tacotron_loss(m1_hat: torch.Tensor, m2_hat: torch.Tensor, stop_pred: torch.Tensor,
                   mels: torch.Tensor, stop_target: torch.Tensor
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -1,4 +1,4 @@
-"""Structured group-of-4 magnitude pruning for the runtimeracer WaveRNN
+"""Structured group-of-4 magnitude pruning for the WaveRNN variants
 (counterpart of ``rtvc_tpu/train/pruning.py``).
 
 Sparsity follows the cubic ramp ``z = Z·(1 − (1 − (t − t₀)/S)³)``; each
@@ -12,7 +12,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from rtvc_tpu_torch.models.wavernn import WaveRNN, WaveRNNDims, check_supported
+from rtvc_tpu_torch.models.wavernn import LAYERS, WaveRNN, WaveRNNDims
 
 Tensor = torch.Tensor
 
@@ -40,11 +40,11 @@ def group_prune_mask(W: Tensor, z: Tensor, sparse_group: int, splits: int) -> Te
 
 def prunable_weights(d: WaveRNNDims) -> List[Tuple[str, int]]:
     """(state-dict name, gate splits) of every pruned matrix: the input
-    layer, the five FCs, and both matrices of the four GRUs."""
-    check_supported(d)
-    out = [(f"{name}.weight", 1) for name in ("I", "fc1", "fc2", "fc3", "fc4", "fc5")]
-    for name in ("rnn1", "rnn2", "rnn3", "rnn4"):
-        out += [(f"{name}.weight_ih_l0", 3), (f"{name}.weight_hh_l0", 3)]
+    layer, the variant's FCs, and both matrices of each of its GRUs."""
+    layers = LAYERS[d.variant]
+    out = [(f"{name}.weight", 1) for name in ("I", *(fc.name for fc in layers.fcs))]
+    for rnn in layers.rnns:
+        out += [(f"{rnn.name}.weight_ih_l0", 3), (f"{rnn.name}.weight_hh_l0", 3)]
     return out
 
 

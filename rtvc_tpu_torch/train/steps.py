@@ -15,8 +15,10 @@ import torch
 
 from rtvc_tpu_torch.models.speaker_encoder import SpeakerEncoder, ge2e_loss
 from rtvc_tpu_torch.models.tacotron import Tacotron, TacotronDims, tacotron_forward
-from rtvc_tpu_torch.models.wavernn import WaveRNN, WaveRNNDims, wavernn_forward
-from rtvc_tpu_torch.train.losses import cross_entropy_bits, tacotron_loss
+from rtvc_tpu_torch.config.vocoder import MODE_BITS, MODE_MOL, MODE_RAW
+from rtvc_tpu_torch.models.distribution import discretized_mix_logistic_loss
+from rtvc_tpu_torch.models.wavernn import VOC_GENEING, WaveRNN, WaveRNNDims, wavernn_forward
+from rtvc_tpu_torch.train.losses import cross_entropy_bits, nll_from_log_probs, tacotron_loss
 
 Tensor = torch.Tensor
 
@@ -114,17 +116,36 @@ def make_tacotron_train_step(model: Tacotron, d: TacotronDims,
 def make_wavernn_train_step(model: WaveRNN, d: WaveRNNDims,
                             optimizer: torch.optim.Optimizer, compute_dtype: str = "f32"
                             ) -> Callable[[Dict[str, Tensor]], Tensor]:
-    """Teacher-forced WaveRNN step with the cross-entropy loss of the RAW
-    head: ``step({"x", "y", "mels"})`` runs the forward with batch
-    statistics, the backward and the optimizer, installs the BatchNorms'
-    new running statistics, and returns the loss, detached."""
+    """Teacher-forced WaveRNN step: ``step({"x", "y", "y_float", "mels"})``
+    runs the forward with batch statistics, the loss, the backward and the
+    optimizer, installs the BatchNorms' new running statistics, and returns
+    the loss, detached. The loss follows the head: the discretized
+    mixture-of-logistics likelihood of ``y_float`` in MOL mode, the NLL of
+    ``y`` under geneing's BITS log-probabilities, the cross entropy of ``y``
+    otherwise (``y_float`` is read in MOL mode only).
+
+    geneing's RAW mode has a beta head of two columns; a cross entropy over
+    them is not its likelihood, so training that cell raises."""
     check_compute_dtype(compute_dtype)
+    if d.variant == VOC_GENEING and d.mode == MODE_RAW:
+        raise NotImplementedError(
+            "training geneing-wavernn in RAW mode (the beta head) is not supported: a "
+            "cross entropy over its two columns is not a likelihood of that head; "
+            "train it in BITS or MOL mode")
     buffers = dict(model.named_buffers())
+
+    def loss_of(out: Tensor, batch: Dict[str, Tensor]) -> Tensor:
+        if d.mode == MODE_MOL:
+            return discretized_mix_logistic_loss(out.transpose(1, 2),
+                                                 batch["y_float"][:, :, None])
+        if d.mode == MODE_BITS and d.variant == VOC_GENEING:
+            return nll_from_log_probs(out, batch["y"])
+        return cross_entropy_bits(out, batch["y"])
 
     def step(batch: Dict[str, Tensor]) -> Tensor:
         optimizer.zero_grad(set_to_none=True)
-        logits, new_stats = wavernn_forward(model, d, batch["x"], batch["mels"])
-        loss = cross_entropy_bits(logits.float(), batch["y"])
+        out, new_stats = wavernn_forward(model, d, batch["x"], batch["mels"])
+        loss = loss_of(out.float(), batch)
         loss.backward()
         optimizer.step()
         with torch.no_grad():

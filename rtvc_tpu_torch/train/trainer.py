@@ -1,5 +1,5 @@
 """Training loops for the GE2E speaker encoder, Tacotron and the
-runtimeracer WaveRNN (counterpart of ``rtvc_tpu/train/trainer.py``).
+WaveRNN vocoders (counterpart of ``rtvc_tpu/train/trainer.py``).
 
   * encoder — GE2E steps over a batch iterator, EER every ``eer_every``
     steps, rolling saves and immutable backups;
@@ -363,7 +363,6 @@ def train_vocoder(
     the final step, the model, the last loss, and every step's loss and wall
     milliseconds (``losses``, ``step_ms``)."""
     from rtvc_tpu_torch.models import factories
-    from rtvc_tpu_torch.models.wavernn import check_supported
     from rtvc_tpu_torch.train.pruning import (
         apply_prune_masks,
         compute_prune_masks,
@@ -374,7 +373,6 @@ def train_vocoder(
     device = torch.device(device)
     cfg = override_hp or factories.default_config(model_type)
     dims = factories.wavernn_dims(model_type, cfg)
-    check_supported(dims)
     model = factories.init_wavernn(dims, seed=seed, device=device).train()
     optimizer = make_optimizer(model.parameters())
     step_fn = make_wavernn_train_step(model, dims, optimizer, compute_dtype)
@@ -416,7 +414,8 @@ def train_vocoder(
                                        session_steps)
                 set_lr(optimizer, lr)
                 loss = float(step_fn({k: torch.as_tensor(batch[k], device=device)
-                                      for k in ("x", "y", "mels")}))
+                                      for k in ("x", "y", "y_float", "mels")
+                                      if k in batch}))
                 step += 1
                 if cfg.use_sparsification and step >= cfg.start_prune:
                     masks = compute_prune_masks(model, dims, step, cfg.start_prune,

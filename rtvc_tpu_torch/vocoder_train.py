@@ -4,10 +4,9 @@
 
 The arguments are those of the JAX package's ``vocoder_train.py`` except
 its dashboard and multi-process launch options, plus ``--device`` and
-``--seed``. Only ``runtimeracer-wavernn`` (RAW head) is ported, so it is
-the default model type; any other stops with NotImplementedError before
-any data is read. The dataset is the one
-the vocoder preprocessing writes (GTA mels, or ground-truth mels with
+``--seed``. The model type is ``fatchord-wavernn``, ``geneing-wavernn`` or
+``runtimeracer-wavernn`` (the default here), each in its config's mode. The
+dataset is the one the vocoder preprocessing writes (GTA mels, or ground-truth mels with
 ``-g``), read through ``rtvc_tpu_torch.data.vocoder_dataset``. Checkpoint-time
 sample generation is not ported yet.
 """
@@ -53,13 +52,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None):
     args = parse_args(argv)
     from rtvc_tpu_torch.data.vocoder_dataset import VocoderDataset, batch_iterator
-    from rtvc_tpu_torch.models import factories
-    from rtvc_tpu_torch.models.wavernn import check_supported
     from rtvc_tpu_torch.train.steps import check_compute_dtype
     from rtvc_tpu_torch.train.trainer import train_vocoder
 
     cfg = CONFIGS[args.model_type]
-    check_supported(factories.wavernn_dims(args.model_type, cfg))
     check_compute_dtype(args.compute_dtype)
     syn_dir = args.syn_dir or args.datasets_root / "SV2TTS" / "synthesizer"
     voc_dir = args.voc_dir or args.datasets_root / "SV2TTS" / "vocoder"

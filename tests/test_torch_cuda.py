@@ -34,7 +34,12 @@ from rtvc_tpu_torch.ops.lstm_seq import (
 )
 from rtvc_tpu_torch.ops import tacotron_train as tk
 from rtvc_tpu_torch.ops.tacotron_decode import tacotron_decode, tacotron_decode_plain
+from rtvc_tpu_torch.config import preprocessing, sp
+from rtvc_tpu_torch.ops import audio as taudio
+from rtvc_tpu_torch.ops.mel_project import mel_project_normalize, mel_project_normalize_plain
 from rtvc_tpu_torch.ops.wavernn_generate import (
+    COUNT_NAME,
+    LAYERS,
     wavernn_generate_core,
     wavernn_generate_core_plain,
 )
@@ -201,8 +206,8 @@ def test_tacotron_decode_kernel_dropout_is_seeded(dev):
     assert not torch.equal(run(1), run(2))
 
 
-def _voc(dev, B=3, T=300):
-    d = tw.WaveRNNDims(**VOC)
+def _voc(dev, B=3, T=300, variant="runtimeracer-wavernn", mode="RAW"):
+    d = tw.WaveRNNDims(**{**VOC, "variant": variant, "mode": mode})
     model = factories.init_wavernn(d, seed=0, device=dev)
     g = torch.Generator().manual_seed(2)
     mels = (torch.rand(1, 10, 14, generator=g) * 2 - 1).to(dev)
@@ -241,6 +246,118 @@ def test_wavernn_kernel_sampler_distribution(dev):
     assert stats.chisquare(obs, exp).pvalue > 1e-3
     again = wavernn_generate_core(w, s, seed=12345)
     assert torch.equal(samples, again)
+
+
+CELLS = [("fatchord-wavernn", "RAW"), ("fatchord-wavernn", "MOL"), ("geneing-wavernn", "BITS"),
+         ("geneing-wavernn", "RAW"), ("geneing-wavernn", "MOL"),
+         ("runtimeracer-wavernn", "RAW"), ("runtimeracer-wavernn", "MOL")]
+
+
+@pytest.mark.parametrize("variant,mode", CELLS)
+def test_wavernn_kernel_cells_greedy_match_plain(dev, variant, mode):
+    """Every variant x head cell at a small width: the head's inputs within
+    1e-5 at every step, the samples within 1e-6 (categorical: equal labels)
+    or 1e-5 (MOL and beta feed a continuous sample back)."""
+    w, s, d = _voc(dev, variant=variant, mode=mode)
+    last = LAYERS[variant].fcs[-1].name
+    # a wide last FC, so that the greedy decode moves
+    w[f"{last}_w"] = (torch.randn(w[f"{last}_w"].shape,
+                                  generator=torch.Generator().manual_seed(6)) * 2.0).to(dev)
+    kw = dict(variant=variant, head=d.head)
+    got, k_logits = _counted(COUNT_NAME[variant], lambda: wavernn_generate_core(
+        w, s, 0, argmax=True, return_logits=True, **kw))
+    ref, p_logits = wavernn_generate_core_plain(w, s, 0, argmax=True, return_logits=True, **kw)
+    assert float(p_logits.std(dim=1).max()) > 1e-3  # the head's inputs move with the step
+    torch.testing.assert_close(k_logits, p_logits, atol=1e-5, rtol=0)
+    if d.head == "categorical":
+        C = d.n_classes
+        assert torch.equal(torch.round((got + 1) * (C - 1) / 2),
+                           torch.round((ref + 1) * (C - 1) / 2))
+        torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+    else:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("variant,mode", [("fatchord-wavernn", "MOL"), ("geneing-wavernn", "RAW"),
+                                          ("geneing-wavernn", "BITS")])
+def test_wavernn_kernel_heads_sample_their_distribution(dev, variant, mode):
+    w, s, d = _voc(dev, B=8, T=2000, variant=variant, mode=mode)
+    C = d.n_classes
+    rng = np.random.default_rng(4)
+    if d.head == "mol":
+        logit, mean = rng.normal(0, 1, 10), rng.uniform(-0.6, 0.6, 10)
+        log_scale = rng.uniform(-4.5, -3.5, 10)
+        bias = np.concatenate([logit, mean, log_scale])
+    elif d.head == "beta":
+        bias = np.log([0.7, 3.0])  # alpha < 1: the boosted gamma draw
+    else:
+        bias = rng.normal(0, 1.5, C)
+    last = LAYERS[variant].fcs[-1].name
+    w[f"{last}_w"] = torch.zeros_like(w[f"{last}_w"])
+    w[f"{last}_b"] = torch.tensor(bias, dtype=torch.float32, device=dev)
+    kw = dict(variant=variant, head=d.head)
+    samples = wavernn_generate_core(w, s, seed=99, **kw)
+    assert torch.equal(samples, wavernn_generate_core(w, s, seed=99, **kw))
+    assert not torch.equal(samples, wavernn_generate_core(w, s, seed=100, **kw))
+    x = samples.reshape(-1).double().cpu().numpy()
+    assert np.isfinite(x).all() and np.abs(x).max() <= 1.0
+    if d.head == "mol":
+        pi = np.exp(logit - logit.max())
+        pi /= pi.sum()
+
+        def cdf(v):
+            z = (np.asarray(v)[..., None] - mean) / np.exp(log_scale)
+            return (pi / (1.0 + np.exp(-z))).sum(-1)
+
+        assert stats.kstest(x, cdf).pvalue > 1e-3
+    elif d.head == "beta":
+        assert stats.kstest((x + 1) / 2, stats.beta(0.7, 3.0).cdf).pvalue > 1e-3
+    else:
+        labels = np.rint((x + 1) * (C - 1) / 2).astype(np.int64)
+        p = np.exp(bias - bias.max())
+        expected = p / p.sum() * labels.size
+        counts = np.bincount(labels, minlength=C)
+        keep = expected >= 5
+        obs = np.append(counts[keep], counts[~keep].sum())
+        exp = np.append(expected[keep], expected[~keep].sum())
+        assert stats.chisquare(obs, exp).pvalue > 1e-3
+
+
+def test_wavernn_kernel_rejects_bad_input(dev):
+    w, s, d = _voc(dev, variant="fatchord-wavernn")
+    with pytest.raises(ValueError, match="fc1_aux"):
+        wavernn_generate_core(w, {**s, "fc1_aux": s["fc1_aux"][:, :, :8].contiguous()}, 0,
+                              variant="fatchord-wavernn")
+    with pytest.raises(ValueError, match="beta head"):
+        wavernn_generate_core(w, s, 0, variant="fatchord-wavernn", head="beta")
+    with pytest.raises(KeyError):
+        wavernn_generate_core(w, s, 0, variant="runtimeracer-wavernn")
+
+
+# a minute of audio (4801 frames), an odd count, and fewer frames than a tile
+@pytest.mark.parametrize("n_samples", [960000, 4321, 1000])
+@pytest.mark.parametrize("symmetric,clip", [(True, True), (False, True), (True, False)])
+def test_mel_project_kernel_matches_plain(dev, n_samples, symmetric, clip):
+    pp = preprocessing.replace(symmetric_mels=symmetric, allow_clipping_in_normalization=clip)
+    g = torch.Generator().manual_seed(5)
+    wav = (torch.randn(n_samples, generator=g) * torch.linspace(0, 2, n_samples)).to(dev)
+    mag = taudio.stft_magnitude(wav, sp.n_fft, sp.hop_size, sp.win_size).contiguous()
+    got = _counted("mel_project", lambda: mel_project_normalize(mag, sp, pp))
+    want = mel_project_normalize_plain(mag, sp, pp)
+    assert got.shape == (80, 1 + n_samples // 200)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
+    mel = _counted("mel_project", lambda: taudio.melspectrogram(wav, sp, pp))
+    assert mel.shape == got.shape
+
+
+def test_mel_project_kernel_rejects_bad_input(dev):
+    mag = torch.zeros(513, 40, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        mel_project_normalize(mag.t().contiguous().t(), sp, preprocessing)
+    with pytest.raises(ValueError, match="basis"):
+        mel_project_normalize(mag[:512].contiguous(), sp, preprocessing)
+    with pytest.raises(ValueError, match="f32"):
+        mel_project_normalize(mag.double(), sp, preprocessing)
 
 
 def _taco_train_case(dev, B, T, n, D, L, E, KS=31, seed=0):
