@@ -6,7 +6,9 @@
 1. Builds the CUDA kernels from ``rtvc_tpu_torch/csrc`` (nvcc, sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes of the clone path, and times both with CUDA events:
-   K3 LSTM sequence (8 x 160 x 768), K2 Tacotron decoder (full width, 2
+   K3 LSTM sequence (8 x 160 x 768; W_hh resident in shared memory, a slice
+   of the hidden units per CTA, a grid barrier per step: the plan taken and
+   the barrier's own cost are printed), K2 Tacotron decoder (full width, 2
    texts, prenet dropout off, then seeded dropout), K1 WaveRNN loop (every
    variant x head cell at full width: fatchord RAW and MOL, geneing BITS,
    RAW (beta) and MOL, runtimeracer RAW and MOL; 8 folds x 512 steps, greedy;
@@ -23,7 +25,8 @@
    iterations, then ``make_spectrogram`` of the result (one K6 launch).
 4. Holds the training kernels against autograd through their plain
    versions and times both: K3 forward with residuals and backward at the
-   GE2E training shape (640 x 160 x 768), K4 forward and backward at the
+   GE2E training shape (640 x 160 x 768; two runs of its backward must give
+   equal bits), K4 forward and backward at the
    vocoder training shapes (40 x 1000 x 256 for runtimeracer, 40 x 1000 x 512
    for fatchord, 40 x 1400 x 256 for geneing).
    K5, the teacher-forced Tacotron decoder chain, forward and backward at the
@@ -40,6 +43,10 @@
    synthetic batch, then a resume for a 4th. Checks finite losses, the EER,
    the resume steps, falling vocoder and synthesizer losses, and each path's
    kernel launch counts.
+
+K3's lines also give the times of the earlier kernel (one CTA per batch
+row, W_hh re-read from L2 every step) on the same card model, and K6's line
+the kernel's device time apart from its wrapper's.
 
 Beside each kernel's time it gives the least time the card could take for the
 same work (``bound_ms``: the larger of the bytes the function must move, each
@@ -103,6 +110,56 @@ def bound(n_bytes, flops):
             else "operations"}
 
 
+def device_ms(fn, reps=20):
+    """Mean milliseconds of device time of the kernels ``fn()`` launches (the
+    profiler's self device time, without the host's part of a call), after
+    one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    check(us > 0, "the profiler recorded no device time")
+    return us / reps / 1e3
+
+
+# K3 before W_hh became resident in shared memory (one CTA per batch row that
+# re-read W_hh from L2 every step), CUDA-event ms on an NVIDIA H100 80GB HBM3 at
+# 700 W: inference forward at 8 x 160 x 768, training forward and backward
+# at 640 x 160 x 768. Printed beside the new times in the phases' own lines
+# only: the "kernels" line holds what this run measured.
+K3_EARLIER_MS = {"fwd": 19.201, "fwd_train": 128.434, "bwd": 117.167}
+
+
+def phase_barrier(dev):
+    """The grid barrier alone: launches of 1000 barriers and nothing else, over
+    one CTA per SM and over K3's two grids at H 768; microseconds a barrier."""
+    from rtvc_tpu_torch.ops.lstm_seq import device_limits, grid_barrier_steps
+
+    sms, smem = device_limits(dev)
+    steps = 1000
+    us = {n: cuda_ms(lambda: grid_barrier_steps(n, steps, dev)) / steps * 1e3
+          for n in (sms, 128, 64)}
+    print(f"grid barrier on {sms} SMs ({smem} bytes of shared memory a block): "
+          + ", ".join(f"{n} CTAs {t:.3f} us" for n, t in us.items()) + " a barrier")
+    return us
+
+
+def k3_plan(B, H, dev, backward=False):
+    from rtvc_tpu_torch.ops.lstm_seq import device_limits, plan
+
+    p = plan(B, H, *device_limits(dev), backward=backward)
+    return (f"{p.groups} groups x {p.slices} slices of {p.units} units, {p.nb} rows a warp, "
+            f"{p.smem} bytes of shared memory")
+
+
 def cudnn_rnn_ms(rnn, B, T, H, dev, backward=True):
     """(forward ms, backward ms) of a cuDNN recurrence over (B, T, H) inputs
     in f32 (``rtvc_tpu_torch`` switches TF32 off when it is imported), as the
@@ -144,8 +201,9 @@ def phase_lstm(dev):
     library_ms, _ = cudnn_rnn_ms(torch.nn.LSTM(H, H, batch_first=True), B, T, H, dev,
                                  backward=False)
     b = bound(nbytes(xg, w_hh, h0, c0, *got), 2 * B * T * 4 * H * H)
-    print(f"K3 lstm_seq B={B} T={T} H={H}: max_abs_err {err:.3e} (tol 1e-4), "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, nn.LSTM {library_ms:.3f} ms, "
+    print(f"K3 lstm_seq B={B} T={T} H={H} ({k3_plan(B, H, dev)}): max_abs_err {err:.3e} "
+          f"(tol 1e-4), kernel {ms:.3f} ms (earlier kernel {K3_EARLIER_MS['fwd']} ms), "
+          f"plain {plain_ms:.3f} ms, nn.LSTM {library_ms:.3f} ms, "
           f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {"name": "lstm_seq", "source": "rtvc_tpu_torch/csrc/lstm_seq.cu",
             "replaces": "rtvc_tpu/ops/pallas/lstm_train_kernel.py:300",
@@ -444,14 +502,19 @@ def phase_mel(dev):
     ms = cuda_ms(lambda: mel_project_normalize(big, sp, pp), reps=20)
     plain_ms = cuda_ms(lambda: mel_project_normalize_plain(big, sp, pp), reps=20)
     library_ms = cuda_ms(lambda: torch.matmul(basis, big), reps=20)
+    # the kernel alone, without the wrapper's checks and the host's part of a call
+    kernel_device_ms = device_ms(lambda: mel_project_normalize(big, sp, pp))
+    library_device_ms = device_ms(lambda: torch.matmul(basis, big))
     b = bound(nbytes(big, basis) + 4 * sp.num_mels * T, 2 * T * n_bins * sp.num_mels)
     print(f"K6 mel_project {n_bins} bins x {T} frames -> {sp.num_mels} mels: max_abs_err "
-          f"{errs[T]:.3e}, by frame count {errs} (tol 2e-4); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.matmul alone {library_ms:.4f} ms, bound "
-          f"{b['bound_ms']:.5f} ms by {b['bound_by']}")
+          f"{errs[T]:.3e}, by frame count {errs} (tol 2e-4); kernel {ms:.4f} ms a call "
+          f"({kernel_device_ms:.4f} ms of it on the device), plain {plain_ms:.4f} ms, "
+          f"torch.matmul alone {library_ms:.4f} ms a call ({library_device_ms:.4f} ms on the "
+          f"device), bound {b['bound_ms']:.5f} ms by {b['bound_by']}")
     return {"name": "mel_project", "source": "rtvc_tpu_torch/csrc/mel_project.cu",
             "replaces": "rtvc_tpu/ops/pallas/mel_kernel.py:51", "max_abs_err": max(errs.values()),
-            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}
+            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms,
+            "device_ms": kernel_device_ms, "library_device_ms": library_device_ms}
 
 
 def prompt(seed, seconds=3.0, sr=16000):
@@ -612,17 +675,22 @@ def phase_lstm_train(dev):
     fwd_ms = cuda_ms(lambda: lstm_seq_fwd_train(xg, w_hh, h0, c0))
     fwd_plain_ms = cuda_ms(lambda: lstm_seq_fwd_train_plain(xg, w_hh, h0, c0))
     bwd_args = (dys, dhT, dcT, gates, cs, c0, w_hh)
+    check(all(torch.equal(a, c) for a, c in zip(lstm_seq_bwd(*bwd_args), lstm_seq_bwd(*bwd_args))),
+          "K3 backward: two runs on the same inputs differ in their bits")
     ms = cuda_ms(lambda: lstm_seq_bwd(*bwd_args))
     plain_ms = cuda_ms(lambda: lstm_seq_bwd_plain(*bwd_args))
     lib_fwd_ms, lib_bwd_ms = cudnn_rnn_ms(torch.nn.LSTM(H, H, batch_first=True), B, T, H, dev)
     flops = 2 * B * T * 4 * H * H
     b = bound(nbytes(*bwd_args, k_grads[0], dhT, dcT), flops)
     fwd_b = bound(nbytes(xg, w_hh, h0, c0, *ref), flops)
-    print(f"K3 lstm_seq training B={B} T={T} H={H}: forward with residuals rel err "
-          f"{fwd_err:.3e}, kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, nn.LSTM "
+    print(f"K3 lstm_seq training B={B} T={T} H={H}: forward with residuals "
+          f"({k3_plan(B, H, dev)}) rel err {fwd_err:.3e}, kernel {fwd_ms:.3f} ms (earlier kernel "
+          f"{K3_EARLIER_MS['fwd_train']} ms), plain {fwd_plain_ms:.3f} ms, nn.LSTM "
           f"{lib_fwd_ms:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by {fwd_b['bound_by']}; "
-          f"backward rel errs " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-          + f" (tol 1e-4), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, nn.LSTM "
+          f"backward ({k3_plan(B, H, dev, backward=True)}) rel errs "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (tol 1e-4), bits repeat, kernel {ms:.3f} ms (earlier kernel "
+          f"{K3_EARLIER_MS['bwd']} ms), plain {plain_ms:.3f} ms, nn.LSTM "
           f"{lib_bwd_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {"name": "lstm_seq_bwd", "source": "rtvc_tpu_torch/csrc/lstm_seq.cu",
             "replaces": "rtvc_tpu/ops/pallas/lstm_train_kernel.py:158",
@@ -963,6 +1031,7 @@ def main() -> int:
                                    override_hp=syn_cfg, device=dev)
     voc = factories.init_voc_model(factories.MODEL_TYPE_RUNTIMERACER, seed=0, device=dev)
 
+    phase_barrier(dev)
     kernels = [phase_lstm(dev), phase_tacotron(dev, syn), *phase_wavernn(dev), phase_mel(dev)]
     counts = phase_clone(dev, syn, voc)
     kernels += [phase_lstm_train(dev), *phase_gru(dev), *phase_taco_train_kernel(dev)]

@@ -41,10 +41,15 @@ _F = ctypes.c_float
 # cudaError_t of its launch (0 on success).
 SIGNATURES = {
     # xg, w_hh, h0, c0, ys, hT, cT, cs (or null), gates (or null), B, T, H,
+    # plan (ops/lstm_seq.py:Plan), sync (32 zeroed words a group), stream
+    "rtvc_lstm_seq_fwd": [_P] * 9 + [_I] * 3 + [_IP, _P, _P],
+    # dys, dhT, dcT, gates, cs, c0, w_hh, dxg, dh0, dc0, B, T, H, plan, sync,
     # stream
-    "rtvc_lstm_seq_fwd": [_P] * 9 + [_I] * 3 + [_P],
-    # dys, dhT, dcT, gates, cs, c0, w_hh_t, dxg, dh0, dc0, B, T, H, stream
-    "rtvc_lstm_seq_bwd": [_P] * 10 + [_I] * 3 + [_P],
+    "rtvc_lstm_seq_bwd": [_P] * 10 + [_I] * 3 + [_IP, _P, _P],
+    # sync (one zeroed word), CTAs, barriers, stream
+    "rtvc_grid_barrier_steps": [_P, _I, _I, _P],
+    # out: SMs of the current device, shared-memory bytes a block may opt in to
+    "rtvc_device_limits": [_IP],
     # xg, w_hh, b_hh, ys, gates, B, T, H, stream
     "rtvc_gru_seq_fwd": [_P] * 5 + [_I] * 3 + [_P],
     # dys, gates, ys, w_hh_t, dxg, B, T, H, stream

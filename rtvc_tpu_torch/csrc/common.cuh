@@ -8,6 +8,11 @@
 // shuffles. Four rows per warp keep four independent loads in flight per
 // lane, which is what hides the L2 latency when a single CTA walks MBs of
 // weights per step.
+//
+// A recurrence whose weights fit in the shared memory of the whole card keeps
+// them there instead: every CTA owns a slice of the hidden units, all CTAs
+// advance one time step together, and grid_barrier separates the steps
+// (lstm_seq.cu).
 #pragma once
 
 #include <cstdint>
@@ -110,6 +115,59 @@ __device__ void matvec(const float* __restrict__ W, int ldw, int rows,
 inline cudaError_t allow_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Grid-wide barrier for a kernel whose CTAs are all resident at once (launch
+// it with cudaLaunchCooperativeKernel, which refuses a grid that does not
+// fit, where a spin on a CTA that never starts would hang). `counter` is a
+// zeroed word in device memory that only grows: the n-th barrier of a launch
+// over `ctas` CTAs waits for `target` = n * ctas arrivals. Thread 0 arrives
+// with a release and polls with an acquire, both at device scope; the two
+// __syncthreads extend that order to the block's other threads, so what any
+// CTA wrote before the barrier is visible after it to loads that go to L2
+// (__ldcg: the L1 of an SM is not coherent with the other SMs' stores). The
+// atomic only orders the steps; no sum goes through it.
+__device__ __forceinline__ void grid_barrier(unsigned int* counter, unsigned int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(counter) : "memory");
+    unsigned int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(counter) : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+// One round of warp_transpose_sum over the first N of v's values: lanes whose
+// bit `o` is set go on with the odd ones, the others with the even ones.
+template <int N, int M>
+__device__ __forceinline__ void warp_transpose_round(float (&v)[M], int o) {
+  const bool up = (threadIdx.x & o) != 0;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float keep = up ? v[2 * i + 1] : v[2 * i];
+    const float send = up ? v[2 * i] : v[2 * i + 1];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+// Sums each of the N values (N a multiple of 32) that every lane of a warp
+// holds over the 32 lanes, with N - N/32 shuffles instead of 5 N: each round
+// halves the values a lane keeps, the lane's bit choosing which of a pair it
+// goes on summing. Afterwards v[m], m < N/32, of lane l is the full sum of
+// the value that had index 32 m + bitrev5(l). Every index is a compile-time
+// constant, so v stays in registers (nvcc does not unroll a loop over the
+// rounds, and picking v[i] at run time then costs a branch per value: 20 times
+// the time of the whole product).
+template <int N>
+__device__ __forceinline__ void warp_transpose_sum(float (&v)[N]) {
+  static_assert(N % 32 == 0, "N must be a multiple of the warp size");
+  warp_transpose_round<N>(v, 16);
+  warp_transpose_round<N / 2>(v, 8);
+  warp_transpose_round<N / 4>(v, 4);
+  warp_transpose_round<N / 8>(v, 2);
+  warp_transpose_round<N / 16>(v, 1);
 }
 
 // Philox-4x32-10 (Salmon et al., SC'11): a counter-based generator, so a

@@ -6,10 +6,12 @@ PyTorch's (B, C, T) inside. Parameters carry the reference's torch
 state-dict names (``weight_ih_l0``, ``conv1d_bank.3.bnorm.running_var``, ...).
 
 Recurrences: :class:`LSTM` hoists the input projection for the whole
-sequence into one ``torch.matmul`` and runs the recurrence through K3: the
-inference kernel (``ops.lstm_seq.lstm_seq``) under no grad, and
+sequence into one ``torch.matmul`` and runs the recurrence through K3, whose
+kernels keep W_hh in the shared memory of the SMs for all time steps
+(``ops.lstm_seq``): the inference kernel (``lstm_seq``) under no grad, and
 ``LSTMSeqFn`` (forward with residuals, backward kernel) when a gradient is
-needed. :class:`GRU` stays a plain PyTorch loop: no kernel runs it on the
+needed. On a card the hidden width is bounded by what its shared memory
+holds (``ops.lstm_seq.plan``: 1320 on an H100). :class:`GRU` stays a plain PyTorch loop: no kernel runs it on the
 inference path (the Tacotron CBHG's BiGRU has a hidden width of 64, where
 the JAX package runs its scan too), and the Tacotron trainer differentiates
 the same loop; the WaveRNN trainer's GRUs go through K4

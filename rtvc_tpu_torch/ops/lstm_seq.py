@@ -1,7 +1,10 @@
 """K3: an LSTM sequence over hoisted input gates, forward and backward.
 
 Replaces ``rtvc_tpu/ops/pallas/lstm_train_kernel.py:lstm_seq_fused``. The
-CUDA kernels are in ``csrc/lstm_seq.cu``. Each wrapper launches its kernel
+CUDA kernels are in ``csrc/lstm_seq.cu``: W_hh stays in the shared memory of
+the SMs for the whole sequence, each CTA owning a slice of the hidden units
+and a group of batch rows, with a grid-wide barrier between time steps.
+:func:`plan` cuts a shape into that grid. Each wrapper launches its kernel
 for CUDA tensors and runs its plain PyTorch version for CPU tensors:
 
 - ``lstm_seq``: the inference forward (no residuals);
@@ -16,7 +19,7 @@ Gate order is torch's [i, f, g, o]; both biases are folded into ``xg``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -86,12 +89,105 @@ def lstm_seq_bwd_plain(dys: Tensor, dhT: Tensor, dcT: Tensor, gates: Tensor,
     return torch.stack(dxg[::-1], dim=1), dh, dc
 
 
+WARPS = 8  # warps of a CTA (csrc/lstm_seq.cu:kThreads / 32)
+
+# The kernels' instantiations: (hidden units a CTA owns, batch rows a warp
+# takes at a time), in order of preference. The forward keeps 4 · units rows
+# of W_hh (H long) in shared memory and units · 4 · rows sums in a lane's
+# registers; the backward units columns (4H long) and units · rows sums, so
+# it can take wider slices and more rows. A group of at most WARPS rows takes
+# one row a warp.
+FWD_SLICES = ((6, 4), (10, 2))
+BWD_SLICES = ((12, 8), (10, 8))
+
+
+class Plan(NamedTuple):
+    """How a launch is cut over the card: ``groups`` x ``slices`` CTAs; a CTA
+    owns ``units`` hidden units (the last slice may be ragged) of ``rows``
+    batch rows (the last group may be short), its warps take ``nb`` rows at a
+    time, and it needs ``smem`` bytes of shared memory."""
+    groups: int
+    slices: int
+    units: int
+    nb: int
+    rows: int
+    smem: int
+
+
+def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False) -> Plan:
+    """The partition of a (B, T, H) sequence for a card with ``sm_count`` SMs
+    whose blocks may take ``smem_limit`` bytes of shared memory: the first
+    instantiation whose slices fit the SMs (all CTAs must be resident at
+    once: one a SM) and whose weights fit the shared memory. SMs that the
+    slices leave over go to further batch groups, each with a barrier of its
+    own, as long as a group keeps every warp busy. Raises ValueError for a
+    hidden width past what the card can hold."""
+    if B < 1 or H < 1 or sm_count < 1:
+        raise ValueError(f"lstm_seq: B {B}, H {H} and the SM count {sm_count} must be positive")
+    widest = 0
+    for units, nb_many in BWD_SLICES if backward else FWD_SLICES:
+        slices = -(-H // units)
+        groups = max(1, min(sm_count // max(slices, 1), -(-B // (WARPS * nb_many))))
+        rows = -(-B // groups)
+        groups = -(-B // rows)
+        nb = nb_many if rows > WARPS else 1
+        # weights: forward 4·units rows of H (padded to 4), backward units rows of 4H
+        w_rows, ld = (units, 4 * H) if backward else (4 * units, -(-H // 4) * 4)
+        scratch = WARPS * (-(-w_rows * nb // 32) * 32)
+        smem = 4 * (w_rows * ld + scratch)
+        if slices <= sm_count and smem <= smem_limit:
+            return Plan(groups, slices, units, nb, rows, smem)
+        # the widest H this instantiation takes: 16 · units bytes of weights
+        # per unit of H, the forward's H padded to a multiple of 4
+        fits = max(0, smem_limit - 4 * scratch) // (16 * units)
+        widest = max(widest, min(units * sm_count, fits if backward else fits // 4 * 4))
+    raise ValueError(
+        f"lstm_seq: hidden width {H} is past the limit of {widest} for {sm_count} SMs with "
+        f"{smem_limit} bytes of shared memory each (W_hh must fit the card's shared memory)")
+
+
+_limits: dict = {}
+
+
+def device_limits(device) -> Tuple[int, int]:
+    """(SM count, bytes of shared memory a block may opt in to) of a CUDA
+    device, asked of the CUDA runtime once."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _limits:
+        out = _build.int_array([0, 0])
+        with torch.cuda.device(index):
+            _build.check(_build.library().rtvc_device_limits(out), "rtvc_device_limits")
+        _limits[index] = (int(out[0]), int(out[1]))
+    return _limits[index]
+
+
+def _plan_args(B: int, H: int, device, backward: bool):
+    """The plan for this device as the C entry points take it, and the
+    zeroed barrier counters (one 128-byte line a group)."""
+    p = plan(B, H, *device_limits(device), backward=backward)
+    return _build.int_array(p), torch.zeros(32 * p.groups, device=device, dtype=torch.int32)
+
+
+def grid_barrier_steps(ctas: int, steps: int, device) -> None:
+    """A launch of ``steps`` grid barriers over ``ctas`` CTAs and nothing
+    else: the cost a step of the recurrence pays before any work."""
+    sync = torch.zeros(1, device=device, dtype=torch.int32)
+    err = _build.library().rtvc_grid_barrier_steps(sync.data_ptr(), ctas, steps,
+                                                   _build.stream_handle(device))
+    _build.check(err, "rtvc_grid_barrier_steps")
+    _build.launch_counts["grid_barrier_steps"] += 1
+
+
 def _fwd_kernel(xg: Tensor, w_hh: Tensor, h0: Tensor, c0: Tensor, residuals: bool):
     B, T, _ = xg.shape
     H = w_hh.shape[1]
     _build.check_tensors("lstm_seq", xg.device, xg=(xg, (B, T, 4 * H)),
                          w_hh=(w_hh, (4 * H, H)), h0=(h0, (B, H)), c0=(c0, (B, H)))
+    if B < 1 or T < 1:
+        raise ValueError(f"lstm_seq: B and T must be at least 1, got {B} and {T}")
     lib = _build.library()
+    plan_v, sync = _plan_args(B, H, xg.device, backward=False)
     empty = lambda *shape: torch.empty(shape, device=xg.device, dtype=torch.float32)  # noqa: E731
     ys, hT, cT = empty(B, T, H), empty(B, H), empty(B, H)
     cs, gates = (empty(B, T, H), empty(B, T, 4 * H)) if residuals else (None, None)
@@ -99,7 +195,7 @@ def _fwd_kernel(xg: Tensor, w_hh: Tensor, h0: Tensor, c0: Tensor, residuals: boo
         xg.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
         ys.data_ptr(), hT.data_ptr(), cT.data_ptr(),
         cs.data_ptr() if residuals else None, gates.data_ptr() if residuals else None,
-        B, T, H, _build.stream_handle(xg.device),
+        B, T, H, plan_v, sync.data_ptr(), _build.stream_handle(xg.device),
     )
     _build.check(err, "rtvc_lstm_seq_fwd")
     _build.launch_counts["lstm_seq"] += 1
@@ -131,19 +227,21 @@ def lstm_seq_bwd(dys: Tensor, dhT: Tensor, dcT: Tensor, gates: Tensor, cs: Tenso
     if not dys.is_cuda:
         return lstm_seq_bwd_plain(dys, dhT, dcT, gates, cs, c0, w_hh)
     B, T, H = dys.shape
-    w_hh_t = w_hh.t().contiguous()  # the kernel streams rows of W_hhᵀ
     _build.check_tensors("lstm_seq_bwd", dys.device, dys=(dys, (B, T, H)),
                          dhT=(dhT, (B, H)), dcT=(dcT, (B, H)),
                          gates=(gates, (B, T, 4 * H)), cs=(cs, (B, T, H)),
-                         c0=(c0, (B, H)), w_hh_t=(w_hh_t, (H, 4 * H)))
+                         c0=(c0, (B, H)), w_hh=(w_hh, (4 * H, H)))
+    if B < 1 or T < 1:
+        raise ValueError(f"lstm_seq_bwd: B and T must be at least 1, got {B} and {T}")
     lib = _build.library()
+    plan_v, sync = _plan_args(B, H, dys.device, backward=True)
     dxg = torch.empty((B, T, 4 * H), device=dys.device, dtype=torch.float32)
     dh0 = torch.empty((B, H), device=dys.device, dtype=torch.float32)
     dc0 = torch.empty((B, H), device=dys.device, dtype=torch.float32)
     err = lib.rtvc_lstm_seq_bwd(
         dys.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), gates.data_ptr(), cs.data_ptr(),
-        c0.data_ptr(), w_hh_t.data_ptr(), dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        B, T, H, _build.stream_handle(dys.device),
+        c0.data_ptr(), w_hh.data_ptr(), dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+        B, T, H, plan_v, sync.data_ptr(), _build.stream_handle(dys.device),
     )
     _build.check(err, "rtvc_lstm_seq_bwd")
     _build.launch_counts["lstm_seq_bwd"] += 1

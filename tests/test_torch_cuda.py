@@ -25,6 +25,8 @@ from rtvc_tpu_torch.ops.gru_seq import (
 )
 from rtvc_tpu_torch.ops.lstm_seq import (
     LSTMSeqFn,
+    device_limits,
+    grid_barrier_steps,
     lstm_seq,
     lstm_seq_bwd,
     lstm_seq_bwd_plain,
@@ -66,7 +68,10 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("B,T,H", [(3, 20, 128), (2, 9, 40)])
+# small and ragged widths, one row, one step, more rows than SMs, and the
+# encoder's inference shape (B 8, T 160, H 768)
+@pytest.mark.parametrize("B,T,H", [(3, 20, 128), (2, 9, 40), (8, 160, 768), (1, 7, 128),
+                                   (133, 5, 200), (4, 1, 64), (5, 6, 13)])
 def test_lstm_seq_kernel_matches_plain(dev, B, T, H):
     g = torch.Generator().manual_seed(0)
     xg = torch.randn(B, T, 4 * H, generator=g).to(dev)
@@ -89,6 +94,39 @@ def test_lstm_seq_kernel_rejects_bad_input(dev):
         lstm_seq(xg, w, h, h)
 
 
+def test_lstm_seq_kernel_names_its_width_limit(dev):
+    B, T, H = 2, 3, 2048  # 16 MB of W_hh: more than the card's shared memory in one piece
+    xg = torch.zeros(B, T, 4 * H, device=dev)
+    w = torch.zeros(4 * H, H, device=dev)
+    h = torch.zeros(B, H, device=dev)
+    with pytest.raises(ValueError, match="past the limit of"):
+        lstm_seq(xg, w, h, h)
+    with pytest.raises(ValueError, match="past the limit of"):
+        lstm_seq_bwd(torch.zeros(B, T, H, device=dev), h, h, xg, torch.zeros(B, T, H, device=dev),
+                     h, w)
+
+
+def test_lstm_seq_kernel_widest(dev):
+    B, T, H = 9, 3, 1280  # the widest slices: 10 units a CTA
+    g = torch.Generator().manual_seed(3)
+    xg = torch.randn(B, T, 4 * H, generator=g).to(dev)
+    w = ((torch.rand(4 * H, H, generator=g) - 0.5) * 2 * H ** -0.5).to(dev)
+    h0, c0, dhT, dcT = (torch.randn(B, H, generator=g).to(dev) * 0.5 for _ in range(4))
+    dys = torch.randn(B, T, H, generator=g).to(dev)
+    want = lstm_seq_fwd_train_plain(xg, w, h0, c0)
+    for a, b in zip(lstm_seq_fwd_train(xg, w, h0, c0), want):
+        assert rel_err(a, b) <= 1e-5
+    _, _, _, cs, gates = want
+    for a, b in zip(lstm_seq_bwd(dys, dhT, dcT, gates, cs, c0, w),
+                    lstm_seq_bwd_plain(dys, dhT, dcT, gates, cs, c0, w)):
+        assert rel_err(a, b) <= 1e-4
+
+
+def test_grid_barrier_steps_runs(dev):
+    sms, _ = device_limits(dev)
+    _counted("grid_barrier_steps", lambda: grid_barrier_steps(sms, 100, dev))
+
+
 def _counted(name, fn):
     before = _build.launch_counts[name]
     out = fn()
@@ -97,9 +135,11 @@ def _counted(name, fn):
     return out
 
 
-# small widths, odd widths (the kernels' scalar path), and the encoder
-# training shape (B 640, T 160, H 768)
-@pytest.mark.parametrize("B,T,H", [(3, 20, 128), (2, 9, 13), (640, 160, 768)])
+# small widths, odd widths (the kernels' scalar path), the encoder training
+# shape (B 640, T 160, H 768), the inference shape, one row, more rows than
+# SMs at a ragged width, and one step
+@pytest.mark.parametrize("B,T,H", [(3, 20, 128), (2, 9, 13), (640, 160, 768), (8, 160, 768),
+                                   (1, 7, 128), (133, 5, 200), (4, 1, 64)])
 def test_lstm_train_kernels_match_plain(dev, B, T, H):
     g = torch.Generator().manual_seed(0)
     xg = torch.randn(B, T, 4 * H, generator=g).to(dev)
@@ -114,6 +154,9 @@ def test_lstm_train_kernels_match_plain(dev, B, T, H):
     got = _counted("lstm_seq_bwd", lambda: lstm_seq_bwd(dys, dhT, dcT, gates, cs, c0, w))
     for a, b in zip(got, lstm_seq_bwd_plain(dys, dhT, dcT, gates, cs, c0, w)):
         assert rel_err(a, b) <= 1e-4
+    # no sum goes through an atomic: a second run gives the same bits
+    for a, b in zip(got, lstm_seq_bwd(dys, dhT, dcT, gates, cs, c0, w)):
+        assert torch.equal(a, b)
     leaves = [t.clone().requires_grad_() for t in (xg, w, h0, c0)]
     torch.autograd.backward(LSTMSeqFn.apply(*leaves), (dys, dhT, dcT))
     ref = [t.clone().requires_grad_() for t in (xg, w, h0, c0)]
@@ -147,7 +190,7 @@ def test_gru_kernels_match_plain(dev, B, T, H):
 
 def test_train_kernels_reject_bad_input(dev):
     h = torch.zeros(2, 16, device=dev)
-    with pytest.raises(ValueError, match="w_hh_t"):
+    with pytest.raises(ValueError, match="w_hh"):
         lstm_seq_bwd(torch.zeros(2, 5, 16, device=dev), h, h,
                      torch.zeros(2, 5, 64, device=dev), torch.zeros(2, 5, 16, device=dev),
                      h, torch.zeros(64, 15, device=dev))

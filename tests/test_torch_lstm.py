@@ -8,6 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from rtvc_tpu.config.encoder import EncoderModelParams as JEncoderModelParams
 from rtvc_tpu_torch.config.encoder import EncoderModelParams
@@ -19,7 +21,14 @@ from rtvc_tpu_torch import bridge
 from rtvc_tpu_torch.inference import encoder as tenc
 from rtvc_tpu_torch.models import layers as tl
 from rtvc_tpu_torch.models.speaker_encoder import SpeakerEncoder
-from rtvc_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_plain
+from rtvc_tpu_torch.ops.lstm_seq import (
+    BWD_SLICES,
+    FWD_SLICES,
+    WARPS,
+    lstm_seq,
+    lstm_seq_plain,
+    plan,
+)
 
 SMALL = EncoderModelParams(model_hidden_size=32, model_embedding_size=24,
                            model_num_layers=3)
@@ -120,3 +129,114 @@ def test_encoder_inference_matches(small_encoders):
     sj = jenc.embed_speaker([pj, pj[: len(pj) // 2]])
     st = tenc.embed_speaker([pj, pj[: len(pj) // 2]])
     np.testing.assert_allclose(st, sj, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The partition of a launch over the card (no card needed: plan is pure)
+# ---------------------------------------------------------------------------
+
+H100 = (132, 232448)  # SMs, bytes of shared memory a block may opt in to
+
+
+def _check_plan(B, H, sm_count, smem_limit, backward):
+    p = plan(B, H, sm_count, smem_limit, backward=backward)
+    # every hidden unit is owned by exactly one slice; the last may be ragged
+    owners = np.zeros(H, dtype=np.int64)
+    for s in range(p.slices):
+        owners[s * p.units:min(H, (s + 1) * p.units)] += 1
+    assert (owners == 1).all()
+    assert (p.slices - 1) * p.units < H <= p.slices * p.units
+    # every batch row is in exactly one group; no group is empty
+    assert (p.groups - 1) * p.rows < B <= p.groups * p.rows
+    # all CTAs are resident at once, one a SM, and fit its shared memory
+    assert 1 <= p.groups * p.slices <= sm_count
+    assert 0 < p.smem <= smem_limit
+    # the weights a CTA keeps, and an instantiation that exists
+    w_floats = p.units * 4 * (H if backward else -(-H // 4) * 4)
+    assert p.smem >= 4 * w_floats
+    many = dict(BWD_SLICES if backward else FWD_SLICES)
+    assert p.nb == (many[p.units] if p.rows > WARPS else 1)
+    return p
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("sm_count", [16, 108, 132, 144])
+@pytest.mark.parametrize("B,H", [(1, 13), (2, 40), (3, 128), (8, 768), (133, 200), (640, 768),
+                                 (640, 256), (64, 1280), (5, 6), (1000, 1)])
+def test_lstm_plan_covers_the_shape(B, H, sm_count, backward):
+    _check_plan_or_limit(B, H, sm_count, H100[1], backward)
+    if H <= 6 * sm_count:  # every instantiation's slices fit the SMs
+        _check_plan(B, H, sm_count, H100[1], backward)
+
+
+def _check_plan_or_limit(B, H, sm_count, smem_limit, backward):
+    """A plan that covers the shape, or a refusal that names a limit below H."""
+    try:
+        _check_plan(B, H, sm_count, smem_limit, backward)
+    except ValueError as e:
+        assert "past the limit of" in str(e)
+        assert H > int(str(e).split("past the limit of ")[1].split()[0])
+
+
+def test_lstm_plan_at_the_encoder_shapes():
+    """The speaker encoder's shapes on an H100: one row a warp at the
+    inference batch; at the training batch the backward's wider slices leave
+    room for two batch groups."""
+    fwd8 = _check_plan(8, 768, *H100, backward=False)
+    assert (fwd8.groups, fwd8.slices, fwd8.units, fwd8.nb) == (1, 128, 6, 1)
+    fwd = _check_plan(640, 768, *H100, backward=False)
+    assert (fwd.groups, fwd.slices, fwd.units, fwd.nb, fwd.rows) == (1, 128, 6, 4, 640)
+    bwd = _check_plan(640, 768, *H100, backward=True)
+    assert (bwd.groups, bwd.slices, bwd.units, bwd.nb, bwd.rows) == (2, 64, 12, 8, 320)
+    assert bwd.smem == 4 * (12 * 4 * 768 + WARPS * 96)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_lstm_plan_names_the_limit(backward):
+    _check_plan(4, 1280, *H100, backward)   # the widest the H100 must take
+    _check_plan(4, 1320, *H100, backward)   # 10 units on each of 132 SMs
+    with pytest.raises(ValueError, match="past the limit of 1320 for 132 SMs"):
+        plan(4, 1321, *H100, backward=backward)
+    # a card with little shared memory is bounded by that, not by its SMs
+    with pytest.raises(ValueError, match="past the limit of"):
+        plan(4, 768, 132, 48 * 1024, backward=backward)
+    _check_plan(4, 256, 132, 48 * 1024, backward)
+    with pytest.raises(ValueError, match="must be positive"):
+        plan(0, 768, *H100, backward=backward)
+
+
+def test_lstm_plan_limit_counts_the_forward_padding():
+    """The forward pads H to a multiple of 4 in shared memory, so at a
+    shared-memory boundary the limit it names is a multiple of 4 below H,
+    and a width at that limit is taken."""
+    with pytest.raises(ValueError, match="past the limit of 168 for 29 SMs"):
+        plan(8, 170, 29, 17408, backward=False)
+    _check_plan_or_limit(8, 170, 29, 17408, backward=False)
+    _check_plan(8, 168, 29, 17408, backward=False)
+    with pytest.raises(ValueError, match="past the limit of 168 for 29 SMs"):
+        plan(8, 169, 29, 17408, backward=False)
+
+
+def test_profile_lstm_variants_match_the_kernel_source():
+    """``profile_lstm`` makes its variants by replacing parts of
+    ``csrc/lstm_seq.cu``: every part it names must still be in the source,
+    and every variant must differ from it."""
+    from rtvc_tpu_torch import _build, profile_lstm
+
+    source = (_build.SRC_DIR / "lstm_seq.cu").read_text()
+    made = profile_lstm.variants(source)
+    assert set(made) == {"base", "no_loads", "no_weights", "no_loads_no_weights", "clock"}
+    assert made["base"] == source
+    assert len({*made.values()}) == len(made)
+    assert profile_lstm.FIRST_LOAD not in made["no_loads_no_weights"]
+    assert profile_lstm.WEIGHT_LOAD not in made["no_loads_no_weights"]
+    assert made["clock"].count("clock64()") == 2
+    with pytest.raises(RuntimeError, match="no longer holds"):
+        profile_lstm.variants(source.replace(profile_lstm.WEIGHT_LOAD, ""))
+
+
+@settings(max_examples=300, deadline=None)
+@given(B=st.integers(1, 4096), H=st.integers(1, 1600), sm_count=st.integers(1, 200),
+       smem_kb=st.integers(16, 256), backward=st.booleans())
+def test_lstm_plan_property(B, H, sm_count, smem_kb, backward):
+    _check_plan_or_limit(B, H, sm_count, smem_kb * 1024, backward)
