@@ -10,17 +10,22 @@
    of the hidden units per CTA, a grid barrier per step: the plan taken and
    the barrier's own cost are printed), K2 Tacotron decoder (full width, 2
    texts, prenet dropout off, then seeded dropout), K1 WaveRNN loop (every
-   variant x head cell at full width: fatchord RAW and MOL, geneing BITS,
-   RAW (beta) and MOL, runtimeracer RAW and MOL; 8 folds x 512 steps, greedy;
-   then sampled from fixed head outputs against a chi-square or a
-   Kolmogorov-Smirnov test), K6 mel projection (a minute of audio, 4801
+   layer's weights resident in shared memory across the card, a grid
+   barrier per layer: the plan is printed; every variant x head cell at
+   full width: fatchord RAW and MOL, geneing BITS, RAW (beta) and MOL,
+   runtimeracer RAW and MOL; 8 folds x 512 steps, greedy; then sampled from
+   fixed head outputs against a chi-square or a Kolmogorov-Smirnov test; and
+   runtimeracer RAW over 8, 13, 39, 132 and 264 folds and at the 5 s clone's
+   13 folds x 8000 steps), K6 mel projection (a minute of audio, 4801
    frames x 513 bins, and an odd frame count).
-3. Serves three clone requests through the public API at the default widths
+3. Serves five clone requests through the public API at the default widths
    with seeded random weights: preprocess_wav → embed_utterance →
    synthesize_spectrograms → infer_waveform, and checks the outputs and
-   that every kernel of the path was launched. Then vocodes three mels in
+   that every kernel of the path was launched, and prints the median clone
+   time with its stage split. Then vocodes three mels in
    one ``infer_waveforms`` call (one K1 launch), serves the last request
-   through the fatchord and geneing vocoders at their configs' windows, and
+   through the fatchord and geneing vocoders at their configs' windows (twice
+   each: the first request of a model also loads its layers' kernels), and
    one request without a vocoder: ``Synthesizer.griffin_lim`` at 30
    iterations, then ``make_spectrogram`` of the result (one K6 launch).
 4. Holds the training kernels against autograd through their plain
@@ -28,7 +33,9 @@
    GE2E training shape (640 x 160 x 768; two runs of its backward must give
    equal bits), K4 forward and backward at the
    vocoder training shapes (40 x 1000 x 256 for runtimeracer, 40 x 1000 x 512
-   for fatchord, 40 x 1400 x 256 for geneing).
+   for fatchord, 40 x 1400 x 256 for geneing; W_hh resident in shared memory
+   as for K3, the plans printed; two runs of its backward must give equal
+   bits).
    K5, the teacher-forced Tacotron decoder chain, forward and backward at the
    Tacotron training shape (112 rows x 86 iterations x 160 characters,
    D 256 / L 512 / E 896, zoneout masks at p 0.1, padded char mask); two
@@ -44,9 +51,11 @@
    the resume steps, falling vocoder and synthesizer losses, and each path's
    kernel launch counts.
 
-K3's lines also give the times of the earlier kernel (one CTA per batch
-row, W_hh re-read from L2 every step) on the same card model, and K6's line
-the kernel's device time apart from its wrapper's.
+K1's, K3's and K4's lines also give the times of the earlier kernels (one
+CTA per fold or batch row, the weights re-read from L2 every step) on the
+same card model, K3's its time as a share of its time before K4 and K1 came
+to share its helpers, and K6's line the kernel's device time apart from its
+wrapper's.
 
 Beside each kernel's time it gives the least time the card could take for the
 same work (``bound_ms``: the larger of the bytes the function must move, each
@@ -136,14 +145,29 @@ def device_ms(fn, reps=20):
 # at 640 x 160 x 768. Printed beside the new times in the phases' own lines
 # only: the "kernels" line holds what this run measured.
 K3_EARLIER_MS = {"fwd": 19.201, "fwd_train": 128.434, "bwd": 117.167}
+# K3's times with W_hh resident in shared memory, before the other kernels
+# came to share its helpers (common.cuh), on the same card model and power
+# limit: this run's K3 lines give their time as a share of these.
+K3_RESIDENT_MS = {"fwd": 0.770, "fwd_train": 17.707, "bwd": 19.388}
+# K4 with one CTA per batch row (W_hh re-read from L2 every step), forward /
+# backward CUDA-event ms on an NVIDIA H100 80GB HBM3 at 700 W, by (B, T, H).
+K4_EARLIER_MS = {(40, 1000, 256): (14.695, 11.296), (40, 1000, 512): (45.079, 39.280),
+                 (40, 1400, 256): (20.621, 15.835)}
+# K1 with one CTA per fold (the weights re-read from L2 every step), greedy
+# 8 folds x 512 steps, ms on the same card, by cell.
+K1_EARLIER_MS = {"fatchord-wavernn RAW": 90.739, "fatchord-wavernn MOL": 83.330,
+                 "geneing-wavernn BITS": 19.827, "geneing-wavernn RAW": 16.519,
+                 "geneing-wavernn MOL": 14.266, "runtimeracer-wavernn RAW": 64.415,
+                 "runtimeracer-wavernn MOL": 57.882}
 
 
 def phase_barrier(dev):
     """The grid barrier alone: launches of 1000 barriers and nothing else, over
     one CTA per SM and over K3's two grids at H 768; microseconds a barrier."""
-    from rtvc_tpu_torch.ops.lstm_seq import device_limits, grid_barrier_steps
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.ops.lstm_seq import grid_barrier_steps
 
-    sms, smem = device_limits(dev)
+    sms, smem = _build.device_limits(dev)
     steps = 1000
     us = {n: cuda_ms(lambda: grid_barrier_steps(n, steps, dev)) / steps * 1e3
           for n in (sms, 128, 64)}
@@ -153,9 +177,10 @@ def phase_barrier(dev):
 
 
 def k3_plan(B, H, dev, backward=False):
-    from rtvc_tpu_torch.ops.lstm_seq import device_limits, plan
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.ops.lstm_seq import plan
 
-    p = plan(B, H, *device_limits(dev), backward=backward)
+    p = plan(B, H, *_build.device_limits(dev), backward=backward)
     return (f"{p.groups} groups x {p.slices} slices of {p.units} units, {p.nb} rows a warp, "
             f"{p.smem} bytes of shared memory")
 
@@ -202,7 +227,9 @@ def phase_lstm(dev):
                                  backward=False)
     b = bound(nbytes(xg, w_hh, h0, c0, *got), 2 * B * T * 4 * H * H)
     print(f"K3 lstm_seq B={B} T={T} H={H} ({k3_plan(B, H, dev)}): max_abs_err {err:.3e} "
-          f"(tol 1e-4), kernel {ms:.3f} ms (earlier kernel {K3_EARLIER_MS['fwd']} ms), "
+          f"(tol 1e-4), kernel {ms:.3f} ms ({ms / K3_RESIDENT_MS['fwd']:.3f} of "
+          f"{K3_RESIDENT_MS['fwd']} ms before the sharing; earlier kernel "
+          f"{K3_EARLIER_MS['fwd']} ms), "
           f"plain {plain_ms:.3f} ms, nn.LSTM {library_ms:.3f} ms, "
           f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {"name": "lstm_seq", "source": "rtvc_tpu_torch/csrc/lstm_seq.cu",
@@ -276,6 +303,12 @@ def phase_tacotron(dev, syn):
             "library_ms": None}
 
 
+# The fold counts the clone path (phase_clone) gives each variant's K1: a
+# 5 s request at the variant's window, and for runtimeracer also the batched
+# vocode of three requests. The fold count picks the kernel's items (4 or 8
+# folds) and its fold blocks.
+K1_MAIN_FOLDS = {"runtimeracer-wavernn": (13, 39), "fatchord-wavernn": (20,),
+                 "geneing-wavernn": (20,)}
 K1_CELLS = (("fatchord-wavernn", "RAW"), ("fatchord-wavernn", "MOL"),
             ("geneing-wavernn", "BITS"), ("geneing-wavernn", "RAW"), ("geneing-wavernn", "MOL"),
             ("runtimeracer-wavernn", "RAW"), ("runtimeracer-wavernn", "MOL"))
@@ -289,13 +322,86 @@ def voc_model(model_type, mode, dev, seed=0):
     return factories.init_voc_model(model_type, seed=seed, override_hp=cfg, device=dev)
 
 
+def k1_streams(voc, B, T, seed, dev):
+    """Seeded conditioning streams of B folds x T steps for a vocoder."""
+    import torch
+
+    from rtvc_tpu_torch.models import wavernn as wrn
+
+    d = voc.dims
+    g = torch.Generator().manual_seed(seed)
+    mels_up = (torch.rand(B, T, d.feat_dims, generator=g) * 2 - 1).to(dev)
+    aux = (torch.randn(B, T, d.res_out_dims, generator=g) * 0.5).to(dev)
+    with torch.no_grad():
+        return {k: v.contiguous() for k, v in wrn.hoist_aux(voc.model, d, mels_up, aux).items()}
+
+
+def k1_check(d, w, streams):
+    """Greedy K1 against its plain version on the same streams. Categorical
+    heads: equal class labels (a fold is cut at a near-tie of the two top
+    logits), logits within 1e-4, samples within 1e-6. MOL and beta heads feed
+    a continuous sample back: samples and head inputs within 1e-4 over all
+    steps (MOL: up to a near-tie of the two most likely components). Returns
+    the kernel's samples, the head inputs' and the samples' largest errors,
+    the samples' tolerance and the folds cut at a near-tie."""
+    import torch
+
+    from rtvc_tpu_torch.ops.wavernn_generate import (
+        wavernn_generate_core,
+        wavernn_generate_core_plain,
+    )
+
+    cell = f"{d.variant} {d.mode}"
+    kw = dict(variant=d.variant, head=d.head)
+    with torch.no_grad():
+        got, k_logits = wavernn_generate_core(w, streams, 0, argmax=True, return_logits=True,
+                                              **kw)
+        ref, p_logits = wavernn_generate_core_plain(w, streams, 0, argmax=True,
+                                                    return_logits=True, **kw)
+        torch.cuda.synchronize()
+    B, T = got.shape
+    where = f"K1 {cell} at {B} folds x {T} steps"
+    C = d.n_classes
+    err, sample_err, flips = 0.0, 0.0, 0
+    for b in range(B):
+        if d.head == "categorical":
+            # Samples are compared as class labels: the label → [-1, 1]
+            # division may round differently by one ulp in the two versions.
+            differ = torch.round((got[b] + 1) * (C - 1) / 2) != torch.round(
+                (ref[b] + 1) * (C - 1) / 2)
+            choice, tol = p_logits[b], 1e-6
+        else:
+            differ = (got[b] - ref[b]).abs() > 1e-4
+            choice, tol = p_logits[b, :, :C // 3], 1e-4
+        idx = torch.nonzero(differ)
+        t_end = int(idx[0]) if len(idx) else T
+        if t_end < T:
+            noise = float((k_logits[b, t_end] - p_logits[b, t_end]).abs().max())
+            growth = [float((got[b, :t + 1] - ref[b, :t + 1]).abs().max())
+                      for t in range(0, t_end + 1, max(t_end // 8, 1))]
+            print(f"{where}, fold {b}: samples differ first at step {t_end}, head input "
+                  f"difference {noise:.3e}; sample difference by step {growth}")
+            check(d.head != "beta", f"{where}: greedy samples differ at fold {b} step {t_end}")
+            # a near-tie: the plain version's top-2 gap (classes, or mixture
+            # components) is within the two versions' disagreement there
+            top2 = torch.topk(choice[t_end], 2).values
+            gap = float(top2[0] - top2[1])
+            check(gap <= 2 * noise, f"{where}: greedy decode differs at fold {b} step {t_end} "
+                  f"with a gap of {gap}, above twice the head input difference {noise}")
+            flips += 1
+        t_cmp = min(t_end + 1, T)
+        err = max(err, float((k_logits[b, :t_cmp] - p_logits[b, :t_cmp]).abs().max()))
+        if t_end:
+            sample_err = max(sample_err, float((got[b, :t_end] - ref[b, :t_end]).abs().max()))
+    check(err <= 1e-4, f"{where}: head inputs differ from the plain version's: {err}")
+    check(sample_err <= tol, f"{where}: greedy samples differ: {sample_err}")
+    check(bool(torch.isfinite(got).all()) and float(got.std()) > 0, f"{where}: output")
+    return got, err, sample_err, tol, flips
+
+
 def k1_greedy_cell(dev, voc, B=8, T=512):
-    """One variant x head cell of K1 at full width: greedy, kernel against
-    plain. Categorical heads: equal class labels (a fold is cut at a near-tie
-    of the two top logits), logits within 1e-4, samples within 1e-6. MOL and
-    beta heads feed a continuous sample back: samples and head inputs within
-    1e-4 over all steps (MOL: up to a near-tie of the two most likely
-    components). Returns the cell's errors, times and bound."""
+    """One variant x head cell of K1 at full width, greedy, kernel against
+    plain (``k1_check``), timed. Returns the cell's errors, times and bound."""
     import torch
 
     from rtvc_tpu_torch.models import wavernn as wrn
@@ -306,66 +412,103 @@ def k1_greedy_cell(dev, voc, B=8, T=512):
 
     d, model = voc.dims, voc.model
     cell = f"{d.variant} {d.mode}"
-    g = torch.Generator().manual_seed(2)
-    mels_up = (torch.rand(B, T, d.feat_dims, generator=g) * 2 - 1).to(dev)
-    aux = (torch.randn(B, T, d.res_out_dims, generator=g) * 0.5).to(dev)
     kw = dict(variant=d.variant, head=d.head)
+    streams = k1_streams(voc, B, T, 2, dev)
     with torch.no_grad():
-        streams = {k: v.contiguous() for k, v in wrn.hoist_aux(model, d, mels_up, aux).items()}
         w = wrn.step_weights(model, d)
-        got, k_logits = wavernn_generate_core(w, streams, 0, argmax=True, return_logits=True,
-                                              **kw)
-        ref, p_logits = wavernn_generate_core_plain(w, streams, 0, argmax=True,
-                                                    return_logits=True, **kw)
-        torch.cuda.synchronize()
-        C = d.n_classes
-        err, sample_err, flips = 0.0, 0.0, 0
-        for b in range(B):
-            if d.head == "categorical":
-                # Samples are compared as class labels: the label → [-1, 1]
-                # division may round differently by one ulp in the two versions.
-                differ = torch.round((got[b] + 1) * (C - 1) / 2) != torch.round(
-                    (ref[b] + 1) * (C - 1) / 2)
-                choice, tol = p_logits[b], 1e-6
-            else:
-                differ = (got[b] - ref[b]).abs() > 1e-4
-                choice, tol = p_logits[b, :, :C // 3], 1e-4
-            idx = torch.nonzero(differ)
-            t_end = int(idx[0]) if len(idx) else T
-            if t_end < T:
-                noise = float((k_logits[b, t_end] - p_logits[b, t_end]).abs().max())
-                growth = [float((got[b, :t + 1] - ref[b, :t + 1]).abs().max())
-                          for t in range(0, t_end + 1, max(t_end // 8, 1))]
-                print(f"K1 {cell} fold {b}: samples differ first at step {t_end}, head input "
-                      f"difference {noise:.3e}; sample difference by step {growth}")
-                check(d.head != "beta", f"K1 {cell} greedy samples differ at fold {b} step "
-                      f"{t_end}")
-                # a near-tie: the plain version's top-2 gap (classes, or mixture
-                # components) is within the two versions' disagreement there
-                top2 = torch.topk(choice[t_end], 2).values
-                gap = float(top2[0] - top2[1])
-                check(gap <= 2 * noise, f"K1 {cell} greedy decode differs at fold {b} step "
-                      f"{t_end} with a gap of {gap}, above twice the head input difference "
-                      f"{noise}")
-                flips += 1
-            t_cmp = min(t_end + 1, T)
-            err = max(err, float((k_logits[b, :t_cmp] - p_logits[b, :t_cmp]).abs().max()))
-            if t_end:
-                sample_err = max(sample_err, float((got[b, :t_end] - ref[b, :t_end]).abs().max()))
-        check(err <= 1e-4, f"K1 {cell} head inputs differ from the plain version's: {err}")
-        check(sample_err <= tol, f"K1 {cell} greedy samples differ: {sample_err}")
-        check(bool(torch.isfinite(got).all()) and float(got.std()) > 0, f"K1 {cell} output")
+    got, err, sample_err, tol, flips = k1_check(d, w, streams)
+    with torch.no_grad():
         ms = cuda_ms(lambda: wavernn_generate_core(w, streams, 0, argmax=True, **kw))
         plain_ms = cuda_ms(lambda: wavernn_generate_core_plain(w, streams, 0, argmax=True, **kw),
                            reps=1)
-    flops = 2 * B * T * sum(v.numel() for v in w.values() if v.ndim == 2)
-    b = bound(nbytes(*w.values(), *streams.values(), got), flops)
-    print(f"K1 {cell} greedy {B} folds x {T} steps: head input max_abs_err {err:.3e} (tol 1e-4), "
+    b = k1_bound(w, streams, got)
+    p = k1_plan(d, B, dev)
+    print(f"K1 {cell} greedy {B} folds x {T} steps ({p.ctas} CTAs: {p.units} units of each GRU, "
+          f"{p.fc_rows} rows of each FC, {p.last_rows} of the last; {p.nb} folds an item; "
+          f"{p.smem} bytes of shared memory): head input max_abs_err {err:.3e} (tol 1e-4), "
           f"sample err {sample_err:.3e} (tol {tol:g}), {flips} folds cut at a near-tie; kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by "
-          f"{b['bound_by']}")
+          f"{ms:.3f} ms ({ms / T * 1e3:.2f} us a step; earlier kernel {K1_EARLIER_MS[cell]} ms), "
+          f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {"cell": cell, "max_abs_err": max(err, sample_err), "ms": ms, "plain_ms": plain_ms,
-            **b}, w, streams
+            **b, "plan": list(p[:6])}, w, streams
+
+
+def k1_main_folds(dev, voc, w, T=512):
+    """A cell at the fold counts the clone path gives its variant
+    (``K1_MAIN_FOLDS``), greedy against the plain version (``k1_check``):
+    the fold count picks the kernel's items and fold blocks. Returns the
+    largest error."""
+    d = voc.dims
+    errs = {}
+    for B in K1_MAIN_FOLDS[d.variant]:
+        _, err, sample_err, _, flips = k1_check(d, w, k1_streams(voc, B, T, 7, dev))
+        errs[B] = max(err, sample_err)
+        print(f"K1 {d.variant} {d.mode} greedy at the clone's {B} folds x {T} steps "
+              f"({list(k1_plan(d, B, dev)[:6])}): max_abs_err {errs[B]:.3e} against the plain "
+              f"version, {flips} folds cut at a near-tie")
+    return max(errs.values())
+
+
+def k1_bound(w, streams, samples):
+    """K1's bound: every weight applied once to every fold and step; the
+    weights, the streams and the samples moved once."""
+    B, T = samples.shape
+    flops = 2 * B * T * sum(v.numel() for v in w.values() if v.ndim == 2)
+    return bound(nbytes(*w.values(), *streams.values(), samples), flops)
+
+
+def k1_plan(d, B, dev):
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.ops.wavernn_generate import plan
+
+    return plan(d.variant, d.rnn_dims, d.fc_dims, d.n_classes, B, *_build.device_limits(dev),
+                head=d.head)
+
+
+def k1_fold_sweep(dev, voc, folds=(8, 13, 39, 132, 264), T=512):
+    """runtimeracer RAW, greedy, at 8 to 264 folds x 512 steps and at the 5 s
+    clone's shape, 13 folds x 8000 steps: every launch against the plain
+    version (``k1_check``); the first 8 folds of every launch also repeat
+    the 8-fold launch's samples (folds are independent, and a fold's sums do
+    not depend on the plan). Prints µs a step at each."""
+    import torch
+
+    from rtvc_tpu_torch.models import wavernn as wrn
+    from rtvc_tpu_torch.ops.wavernn_generate import wavernn_generate_core
+
+    d, model = voc.dims, voc.model
+    kw = dict(variant=d.variant, head=d.head)
+    full = k1_streams(voc, max(folds), T, 9, dev)
+    with torch.no_grad():
+        w = wrn.step_weights(model, d)
+    sweep, first = [], None
+
+    def point(streams):
+        B, steps = streams["i_cond"].shape[:2]
+        got, err, sample_err, _, flips = k1_check(d, w, streams)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: wavernn_generate_core(w, streams, 0, argmax=True, **kw),
+                         reps=2 if steps > T else 3)
+        sweep.append({"folds": B, "steps": steps, "ms": ms, "us_a_step": ms / steps * 1e3,
+                      "max_abs_err": max(err, sample_err), "near_ties": flips,
+                      "plan": list(k1_plan(d, B, dev)[:6]), **k1_bound(w, streams, got)})
+        return got
+
+    for B in folds:
+        got = point({k: v[:B].contiguous() for k, v in full.items()})
+        first = got[:8] if first is None else first
+        check(torch.equal(got[:8], first), f"K1 at {B} folds: the first 8 folds differ from "
+              f"the 8-fold launch's")
+    clone_T = 8000
+    reps = -(-clone_T // T)
+    point({k: v[:13].repeat(1, reps, 1)[:, :clone_T].contiguous() for k, v in full.items()})
+    print("K1 runtimeracer RAW fold sweep, greedy, each launch against the plain version: "
+          + "; ".join(f"{e['folds']} folds x {e['steps']} steps {e['ms']:.3f} ms "
+                      f"({e['us_a_step']:.2f} us a step, bound {e['bound_ms']:.4f} ms), "
+                      f"max_abs_err {e['max_abs_err']:.3e}, {e['near_ties']} near-ties"
+                      for e in sweep)
+        + "; the first 8 folds repeat at every fold count")
+    return sweep
 
 
 def k1_sampled_cell(dev, voc, w, streams):
@@ -433,10 +576,11 @@ def k1_sampled_cell(dev, voc, w, streams):
 
 def phase_wavernn(dev):
     """K1, every variant x head cell at full default width: greedy against
-    the plain version, then the sampled head's distribution. One kernels
-    entry per variant: the times of its default cell (fatchord RAW, geneing
-    BITS, runtimeracer RAW), the largest error of its cells, every cell's
-    numbers under ``cells``."""
+    the plain version at 8 folds and at the clone path's fold counts, then
+    the sampled head's distribution; runtimeracer RAW also over a sweep of
+    fold counts. One kernels entry per variant: the times of its default
+    cell (fatchord RAW, geneing BITS, runtimeracer RAW), the largest error
+    of its cells, every cell's numbers under ``cells``."""
     import torch
 
     from rtvc_tpu_torch.models import factories
@@ -447,6 +591,12 @@ def phase_wavernn(dev):
         voc = voc_model(model_type, mode, dev)
         cell, w, streams = k1_greedy_cell(dev, voc)
         k1_sampled_cell(dev, voc, w, streams)
+        if (model_type, mode) == ("runtimeracer-wavernn", "RAW"):
+            cell["fold_sweep"] = k1_fold_sweep(dev, voc)
+            main_err = max(e["max_abs_err"] for e in cell["fold_sweep"])
+        else:
+            main_err = k1_main_folds(dev, voc, w)
+        cell["max_abs_err"] = max(cell["max_abs_err"], main_err)
         e = entries.setdefault(model_type, {
             "name": COUNT_NAME[model_type], "source": "rtvc_tpu_torch/csrc/wavernn_generate.cu",
             "replaces": "rtvc_tpu/ops/pallas/wavernn_kernel.py:309", "max_abs_err": 0.0,
@@ -544,7 +694,9 @@ def phase_clone(dev, syn, voc):
     vocoder.set_seed(0)
     texts = ["The quick brown fox jumps over the lazy dog.",
              "Voice cloning on a single graphics card.",
-             "Hello there, this is a test of the clone path."]
+             "Hello there, this is a test of the clone path.",
+             "A fourth request, for the median of five.",
+             "And a fifth one, to close the set."]
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -554,6 +706,7 @@ def phase_clone(dev, syn, voc):
         return out, (time.perf_counter() - t0) * 1000.0
 
     _build.launch_counts.clear()
+    stages = []
     for i, text in enumerate(texts):
         wav = prompt(i)
         pre, t_pre = timed(lambda: encoder.preprocess_wav(wav))
@@ -571,6 +724,12 @@ def phase_clone(dev, syn, voc):
               f"frames, wav {len(out)} samples ({len(out) / 16000:.2f} s); "
               f"preprocess {t_pre:.1f} ms, embed {t_emb:.1f} ms, "
               f"synthesize {t_syn:.1f} ms, vocode {t_voc:.1f} ms")
+        stages.append((t_pre, t_emb, t_syn, t_voc))
+    split = np.median(np.array(stages), axis=0)
+    print(f"clone median over {len(texts)} requests: "
+          f"{float(np.median(np.array(stages).sum(axis=1))):.1f} ms (stage medians: preprocess "
+          f"{split[0]:.1f}, embed {split[1]:.1f}, synthesize {split[2]:.1f}, vocode "
+          f"{split[3]:.1f} ms)")
     counts = dict(_build.launch_counts)
     print(f"launches in the clone run: {counts}")
     for name in ("lstm_seq", "tacotron_decode", "wavernn_generate_runtimeracer"):
@@ -600,9 +759,12 @@ def phase_clone(dev, syn, voc):
         check(counts[name] == 1, f"{name} launched {counts[name]} times for one request")
         check(out.shape == ((mel.shape[1] - 1) * 200,) and np.isfinite(out).all()
               and float(np.abs(out).max()) > 0, f"{model_type} wav {out.shape}")
+        # the first request of a model also loads what its layers launch
+        _, t_again = timed(lambda: vocoder.infer_waveform(mel))
         print(f"clone through {model_type} ({other.config.mode}, window "
               f"{other.config.gen_target} / {other.config.gen_overlap}): mel {mel.shape[1]} "
-              f"frames -> {len(out)} samples, vocode {t_voc:.1f} ms")
+              f"frames -> {len(out)} samples, vocode {t_voc:.1f} ms, {t_again:.1f} ms for "
+              f"the same request again")
     vocoder.load_bundle(voc)
 
     # a request without a vocoder: Griffin-Lim, then the mel of what it gave
@@ -684,13 +846,15 @@ def phase_lstm_train(dev):
     b = bound(nbytes(*bwd_args, k_grads[0], dhT, dcT), flops)
     fwd_b = bound(nbytes(xg, w_hh, h0, c0, *ref), flops)
     print(f"K3 lstm_seq training B={B} T={T} H={H}: forward with residuals "
-          f"({k3_plan(B, H, dev)}) rel err {fwd_err:.3e}, kernel {fwd_ms:.3f} ms (earlier kernel "
-          f"{K3_EARLIER_MS['fwd_train']} ms), plain {fwd_plain_ms:.3f} ms, nn.LSTM "
+          f"({k3_plan(B, H, dev)}) rel err {fwd_err:.3e}, kernel {fwd_ms:.3f} ms "
+          f"({fwd_ms / K3_RESIDENT_MS['fwd_train']:.3f} of its time before the sharing; "
+          f"earlier kernel {K3_EARLIER_MS['fwd_train']} ms), plain {fwd_plain_ms:.3f} ms, nn.LSTM "
           f"{lib_fwd_ms:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by {fwd_b['bound_by']}; "
           f"backward ({k3_plan(B, H, dev, backward=True)}) rel errs "
           + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-          + f" (tol 1e-4), bits repeat, kernel {ms:.3f} ms (earlier kernel "
-          f"{K3_EARLIER_MS['bwd']} ms), plain {plain_ms:.3f} ms, nn.LSTM "
+          + f" (tol 1e-4), bits repeat, kernel {ms:.3f} ms ({ms / K3_RESIDENT_MS['bwd']:.3f} "
+          f"of its time before the sharing; earlier kernel {K3_EARLIER_MS['bwd']} ms), plain "
+          f"{plain_ms:.3f} ms, nn.LSTM "
           f"{lib_bwd_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {"name": "lstm_seq_bwd", "source": "rtvc_tpu_torch/csrc/lstm_seq.cu",
             "replaces": "rtvc_tpu/ops/pallas/lstm_train_kernel.py:158",
@@ -710,7 +874,7 @@ def phase_gru(dev):
     for B, T, H in ((40, 1000, 512), (40, 1400, 256)):
         for e, other in zip(first, gru_shape(dev, B, T, H)):
             e["shapes"].append({"B": B, "T": T, "H": H, **{k: other[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan")}})
     return first
 
 
@@ -719,6 +883,7 @@ def gru_shape(dev, B, T, H):
     plain forward (tolerance as for K3)."""
     import torch
 
+    from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.ops import rel_err
     from rtvc_tpu_torch.ops.gru_seq import (
         GRUSeqFn,
@@ -726,6 +891,7 @@ def gru_shape(dev, B, T, H):
         gru_seq_bwd_plain,
         gru_seq_fwd,
         gru_seq_fwd_plain,
+        plan,
     )
 
     g = torch.Generator().manual_seed(5)
@@ -749,25 +915,35 @@ def gru_shape(dev, B, T, H):
     ms = cuda_ms(lambda: gru_seq_fwd(xg, w_hh, b_hh))
     plain_ms = cuda_ms(lambda: gru_seq_fwd_plain(xg, w_hh, b_hh), reps=2)
     bwd_ms = cuda_ms(lambda: gru_seq_bwd(dys, p_gates, p_ys, w_hh))
+    bwd_args = (dys, p_gates, p_ys, w_hh)
+    check(torch.equal(gru_seq_bwd(*bwd_args), gru_seq_bwd(*bwd_args)),
+          "K4 backward: two runs on the same inputs differ in their bits")
     bwd_plain_ms = cuda_ms(lambda: gru_seq_bwd_plain(dys, p_gates, p_ys, w_hh), reps=2)
     lib_fwd_ms, lib_bwd_ms = cudnn_rnn_ms(torch.nn.GRU(H, H, batch_first=True), B, T, H, dev)
     flops = 2 * B * T * 3 * H * H
     fwd_b = bound(nbytes(xg, w_hh, b_hh, ys, gates), flops)
     bwd_b = bound(nbytes(dys, p_gates, p_ys, w_hh, k_grads[0]), flops)
-    print(f"K4 gru_seq B={B} T={T} H={H}: forward rel err {fwd_err:.3e}, kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, nn.GRU {lib_fwd_ms:.3f} ms, bound "
-          f"{fwd_b['bound_ms']:.4f} ms by {fwd_b['bound_by']}; backward rel errs "
+    limits = _build.device_limits(dev)
+    p_fwd, p_bwd = plan(B, H, *limits), plan(B, H, *limits, backward=True)
+    was = K4_EARLIER_MS.get((B, T, H), (None, None))
+    print(f"K4 gru_seq B={B} T={T} H={H}: forward ({p_fwd.groups} groups x {p_fwd.slices} "
+          f"slices of {p_fwd.units} units, {p_fwd.nb} rows a pass) rel err {fwd_err:.3e}, kernel "
+          f"{ms:.3f} ms (earlier kernel {was[0]} ms), plain {plain_ms:.3f} ms, nn.GRU "
+          f"{lib_fwd_ms:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by {fwd_b['bound_by']}; "
+          f"backward ({p_bwd.groups} groups x {p_bwd.slices} slices of {p_bwd.units} units, "
+          f"{p_bwd.nb} rows a pass) rel errs "
           + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-          + f" (tol 1e-4), kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, nn.GRU "
-          f"{lib_bwd_ms:.3f} ms, bound {bwd_b['bound_ms']:.4f} ms by {bwd_b['bound_by']}")
+          + f" (tol 1e-4), bits repeat, kernel {bwd_ms:.3f} ms (earlier kernel {was[1]} ms), "
+          f"plain {bwd_plain_ms:.3f} ms, nn.GRU {lib_bwd_ms:.3f} ms, bound "
+          f"{bwd_b['bound_ms']:.4f} ms by {bwd_b['bound_by']}")
     return [{"name": "gru_seq", "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
              "replaces": "rtvc_tpu/ops/pallas/gru_train_kernel.py:71",
              "max_abs_err": fwd_abs, "ms": ms, "plain_ms": plain_ms, **fwd_b,
-             "library_ms": lib_fwd_ms},
+             "library_ms": lib_fwd_ms, "plan": list(p_fwd[:5])},
             {"name": "gru_seq_bwd", "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
              "replaces": "rtvc_tpu/ops/pallas/gru_train_kernel.py:111",
              "max_abs_err": bwd_abs, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_b,
-             "library_ms": lib_bwd_ms}]
+             "library_ms": lib_bwd_ms, "plan": list(p_bwd[:5])}]
 
 
 def phase_taco_train_kernel(dev):

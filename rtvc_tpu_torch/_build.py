@@ -50,17 +50,19 @@ SIGNATURES = {
     "rtvc_grid_barrier_steps": [_P, _I, _I, _P],
     # out: SMs of the current device, shared-memory bytes a block may opt in to
     "rtvc_device_limits": [_IP],
-    # xg, w_hh, b_hh, ys, gates, B, T, H, stream
-    "rtvc_gru_seq_fwd": [_P] * 5 + [_I] * 3 + [_P],
-    # dys, gates, ys, w_hh_t, dxg, B, T, H, stream
-    "rtvc_gru_seq_bwd": [_P] * 5 + [_I] * 3 + [_P],
+    # xg, w_hh, b_hh, ys, gates, B, T, H, plan (ops/gru_seq.py:Plan), sync,
+    # stream
+    "rtvc_gru_seq_fwd": [_P] * 5 + [_I] * 3 + [_IP, _P, _P],
+    # dys, gates, ys, w_hh, dxg, dhg, carry, B, T, H, plan, sync, stream
+    "rtvc_gru_seq_bwd": [_P] * 7 + [_I] * 3 + [_IP, _P, _P],
     # weights, dims, seed, enc_seq, enc_proj, char_mask, mel, attn, stops,
     # work, stream
     "rtvc_tacotron_decode": [_PP, _IP, _U64] + [_P] * 7 + [_P],
     # dims (as for rtvc_tacotron_decode) → floats of workspace needed
     "rtvc_tacotron_workspace": [_IP],
-    # weights, streams, dims, argmax, seed, out, logits_out (or null), stream
-    "rtvc_wavernn_generate": [_PP, _PP, _IP, _I, _U64, _P, _P, _P],
+    # weights, streams, dims (with the plan, ops/wavernn_generate.py:Plan),
+    # argmax, seed, scratch, sync, out, logits_out (or null), stream
+    "rtvc_wavernn_generate": [_PP, _PP, _IP, _I, _U64, _P, _P, _P, _P, _P],
     # mag, basis, out, n_bins, T, num_mels, min_level, ref_level_db,
     # min_level_db, max_abs_value, symmetric, clip, stream
     "rtvc_mel_project": [_P] * 3 + [_I] * 3 + [_F] * 4 + [_I] * 2 + [_P],
@@ -183,3 +185,22 @@ def pointer_array(tensors) -> ctypes.Array:
 
 def int_array(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*[int(v) for v in values])
+
+
+_limits: dict = {}
+
+
+def device_limits(device) -> tuple:
+    """(SM count, bytes of shared memory a block may opt in to) of a CUDA
+    device, asked of the CUDA runtime once: what every kernel's plan is cut
+    from."""
+    import torch
+
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _limits:
+        out = int_array([0, 0])
+        with torch.cuda.device(index):
+            check(library().rtvc_device_limits(out), "rtvc_device_limits")
+        _limits[index] = (int(out[0]), int(out[1]))
+    return _limits[index]

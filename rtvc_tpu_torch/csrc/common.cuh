@@ -10,9 +10,10 @@
 // weights per step.
 //
 // A recurrence whose weights fit in the shared memory of the whole card keeps
-// them there instead: every CTA owns a slice of the hidden units, all CTAs
-// advance one time step together, and grid_barrier separates the steps
-// (lstm_seq.cu).
+// them there instead: every CTA owns a slice of the hidden units (or of a
+// layer's rows), all CTAs advance one time step together, and grid_barrier
+// separates the steps. slice_product, the partition and the cooperative launch
+// below serve K3 (lstm_seq.cu), K4 (gru_seq.cu) and K1 (wavernn_generate.cu).
 #pragma once
 
 #include <cstdint>
@@ -189,6 +190,132 @@ __device__ __forceinline__ uint4 philox4x32(uint4 c, uint2 k) {
 // top values round up to 1.0, and -log(-log(1)) is infinite.)
 __device__ __forceinline__ float u01(uint32_t bits) {
   return ((float)(bits >> 9) + 0.5f) * (1.0f / 8388608.0f);
+}
+
+// ---------------------------------------------------------------------------
+// Persistent recurrences: weights resident in shared memory, one cooperative
+// launch, a grid barrier a step.
+// ---------------------------------------------------------------------------
+
+constexpr int kRecThreads = 256;  // threads of a CTA of a persistent recurrence
+constexpr int kRecWarps = kRecThreads / 32;
+
+__host__ __device__ constexpr int padded(int n) { return (n + 31) / 32 * 32; }
+
+__device__ __forceinline__ float dot4(const float4 w, const float4 v, float acc) {
+  acc = fmaf(w.x, v.x, acc);
+  acc = fmaf(w.y, v.y, acc);
+  acc = fmaf(w.z, v.z, acc);
+  return fmaf(w.w, v.w, acc);
+}
+
+// out[r * NB + b] = Σ_k W[r * ld + k] · x[b * xs + k] for r < R, b < NB (zero
+// for b >= nb), computed by one warp: W in shared memory, x in device memory,
+// read through L2 (other CTAs wrote it before the last grid barrier). `vec`
+// says that n and xs are multiples of 4 and x is 16-byte aligned. `out` is the
+// warp's own padded(R * NB) floats of shared memory; the caller runs
+// __syncwarp before reading it.
+template <int R, int NB>
+__device__ __forceinline__ void slice_product(const float* W, int ld, int n, const float* x,
+                                              size_t xs, int nb, bool vec, float* out) {
+  constexpr int N = padded(R * NB);
+  const int lane = threadIdx.x & 31;
+  float acc[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.0f;
+  if (vec) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 cur[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      cur[b] = (b < nb && lane * 4 < n)
+                   ? __ldcg(reinterpret_cast<const float4*>(x + b * xs + lane * 4))
+                   : zero;
+    for (int k = lane * 4; k < n; k += 128) {
+      float4 nxt[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        nxt[b] = (b < nb && k + 128 < n)
+                     ? __ldcg(reinterpret_cast<const float4*>(x + b * xs + k + 128))
+                     : zero;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 w = *reinterpret_cast<const float4*>(W + r * ld + k);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[r * NB + b] = dot4(w, cur[b], acc[r * NB + b]);
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) cur[b] = nxt[b];
+    }
+  } else {
+    for (int k = lane; k < n; k += 32) {
+      float v[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) v[b] = b < nb ? __ldcg(x + b * xs + k) : 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float w = W[r * ld + k];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[r * NB + b] = fmaf(w, v[b], acc[r * NB + b]);
+      }
+    }
+  }
+  warp_transpose_sum<N>(acc);
+  const int x5 = (int)(__brev((unsigned)lane) >> 27);
+#pragma unroll
+  for (int m = 0; m < N / 32; ++m) out[32 * m + x5] = acc[m];
+}
+
+// A sequence recurrence's grid: blockIdx.x = group * slices + slice. A CTA's
+// hidden units are [slice * U, slice * U + nu), its batch rows [b_lo, b_hi).
+struct Part {
+  int u0, nu, b_lo, b_hi;
+  unsigned int* counter;
+  unsigned int slices;
+};
+
+__device__ __forceinline__ Part partition(int U, int B, int H, int slices, int rows,
+                                          unsigned int* sync) {
+  const int group = blockIdx.x / slices, slice = blockIdx.x % slices;
+  Part p;
+  p.u0 = slice * U;
+  p.nu = min(U, H - p.u0);
+  p.b_lo = group * rows;
+  p.b_hi = min(B, p.b_lo + rows);
+  p.counter = sync + group * 32;  // one 128-byte line per group
+  p.slices = (unsigned int)slices;
+  return p;
+}
+
+// The plan a sequence wrapper hands over (ops/lstm_seq.py, ops/gru_seq.py):
+// groups, slices, units a CTA, batch rows a warp takes at a time, batch rows
+// a group, bytes of shared memory a CTA.
+struct SeqPlan {
+  int groups, slices, units, nb, rows, smem;
+};
+
+inline SeqPlan seq_plan(const int* v) { return {v[0], v[1], v[2], v[3], v[4], v[5]}; }
+
+// The plan covers (B, H) and its smem is what a CTA takes: weight_rows rows of
+// weight_ld floats, a warp's padded(weight_rows * nb) sums, and `extra` floats.
+inline bool seq_plan_ok(const SeqPlan& p, int B, int H, int weight_rows, int weight_ld,
+                        int extra = 0) {
+  const int smem = (int)sizeof(float) * (weight_rows * weight_ld +
+                                         kRecWarps * padded(weight_rows * p.nb) + extra);
+  return p.groups >= 1 && p.slices * p.units >= H && (p.slices - 1) * p.units < H &&
+         (long long)p.groups * p.rows >= B && p.smem == smem;
+}
+
+// A cooperative launch of `ctas` CTAs of kRecThreads threads with `smem` bytes
+// of dynamic shared memory: all CTAs resident at once, or the launch is
+// refused (cudaErrorCooperativeLaunchTooLarge) instead of hanging at a barrier.
+template <typename Kernel>
+int launch_cooperative(Kernel kernel, int ctas, int smem, void** args, cudaStream_t stream) {
+  cudaError_t e = allow_smem((const void*)kernel, (size_t)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(ctas), dim3(kRecThreads), args,
+                                  (size_t)smem, stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace rtvc

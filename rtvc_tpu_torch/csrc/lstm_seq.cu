@@ -50,95 +50,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-__host__ __device__ constexpr int padded(int n) { return (n + 31) / 32 * 32; }
-
-__device__ __forceinline__ float dot4(const float4 w, const float4 v, float acc) {
-  acc = fmaf(w.x, v.x, acc);
-  acc = fmaf(w.y, v.y, acc);
-  acc = fmaf(w.z, v.z, acc);
-  return fmaf(w.w, v.w, acc);
-}
-
-// out[r * NB + b] = Σ_k W[r * ld + k] · x[b * xs + k] for r < R, b < NB (zero
-// for b >= nb), computed by one warp: W in shared memory, x in device memory,
-// read through L2 (other CTAs wrote it before the last grid barrier). `vec`
-// says that n and xs are multiples of 4 and x is 16-byte aligned. `out` is the
-// warp's own padded(R * NB) floats of shared memory; the caller runs
-// __syncwarp before reading it.
-template <int R, int NB>
-__device__ __forceinline__ void slice_product(const float* W, int ld, int n, const float* x,
-                                              size_t xs, int nb, bool vec, float* out) {
-  constexpr int N = padded(R * NB);
-  const int lane = threadIdx.x & 31;
-  float acc[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = 0.0f;
-  if (vec) {
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 cur[NB];
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-      cur[b] = (b < nb && lane * 4 < n)
-                   ? __ldcg(reinterpret_cast<const float4*>(x + b * xs + lane * 4))
-                   : zero;
-    for (int k = lane * 4; k < n; k += 128) {
-      float4 nxt[NB];
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        nxt[b] = (b < nb && k + 128 < n)
-                     ? __ldcg(reinterpret_cast<const float4*>(x + b * xs + k + 128))
-                     : zero;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 w = *reinterpret_cast<const float4*>(W + r * ld + k);
-#pragma unroll
-        for (int b = 0; b < NB; ++b) acc[r * NB + b] = dot4(w, cur[b], acc[r * NB + b]);
-      }
-#pragma unroll
-      for (int b = 0; b < NB; ++b) cur[b] = nxt[b];
-    }
-  } else {
-    for (int k = lane; k < n; k += 32) {
-      float v[NB];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) v[b] = b < nb ? __ldcg(x + b * xs + k) : 0.0f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float w = W[r * ld + k];
-#pragma unroll
-        for (int b = 0; b < NB; ++b) acc[r * NB + b] = fmaf(w, v[b], acc[r * NB + b]);
-      }
-    }
-  }
-  rtvc::warp_transpose_sum<N>(acc);
-  const int x5 = (int)(__brev((unsigned)lane) >> 27);
-#pragma unroll
-  for (int m = 0; m < N / 32; ++m) out[32 * m + x5] = acc[m];
-}
-
-// The grid: blockIdx.x = group * slices + slice. A CTA's units are
-// [slice * U, slice * U + nu), its rows [b_lo, b_hi).
-struct Part {
-  int u0, nu, b_lo, b_hi;
-  unsigned int* counter;
-  unsigned int slices;
-};
-
-__device__ __forceinline__ Part partition(int U, int B, int H, int slices, int rows,
-                                          unsigned int* sync) {
-  const int group = blockIdx.x / slices, slice = blockIdx.x % slices;
-  Part p;
-  p.u0 = slice * U;
-  p.nu = min(U, H - p.u0);
-  p.b_lo = group * rows;
-  p.b_hi = min(B, p.b_lo + rows);
-  p.counter = sync + group * 32;  // one 128-byte line per group
-  p.slices = (unsigned int)slices;
-  return p;
-}
+constexpr int kThreads = rtvc::kRecThreads;
+constexpr int kWarps = rtvc::kRecWarps;
+using rtvc::padded;
+using rtvc::Part;
+using rtvc::partition;
+using rtvc::slice_product;
 
 template <int U, int NB>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -300,26 +217,11 @@ barrier_steps_kernel(unsigned int* sync, int steps) {
     rtvc::grid_barrier(sync, gridDim.x * (unsigned int)(t + 1));
 }
 
-// The plan the wrapper hands over: groups, slices, units a CTA, batch rows a
-// warp takes at a time, batch rows a group, bytes of shared memory a CTA.
-struct Plan {
-  int groups, slices, units, nb, rows, smem;
-};
+using Plan = rtvc::SeqPlan;
 
 template <typename Kernel>
 int launch(Kernel kernel, const Plan& plan, void** args, cudaStream_t stream) {
-  cudaError_t e = rtvc::allow_smem((const void*)kernel, (size_t)plan.smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(plan.groups * plan.slices),
-                                  dim3(kThreads), args, (size_t)plan.smem, stream);
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
-}
-
-bool plan_ok(const Plan& p, int B, int H, int weight_rows, int weight_ld) {
-  const int smem = (int)sizeof(float) *
-                   (weight_rows * weight_ld + kWarps * padded(weight_rows * p.nb));
-  return p.groups >= 1 && p.slices * p.units >= H && (p.slices - 1) * p.units < H &&
-         (long long)p.groups * p.rows >= B && p.smem == smem;
+  return rtvc::launch_cooperative(kernel, plan.groups * plan.slices, plan.smem, args, stream);
 }
 
 }  // namespace
@@ -359,8 +261,9 @@ extern "C" int rtvc_lstm_seq_fwd(const float* xg, const float* w_hh, const float
                                  const float* c0, float* ys, float* hT, float* cT,
                                  float* cs, float* gates, int B, int T, int H,
                                  const int* plan_v, unsigned int* sync, void* stream) {
-  const Plan plan = {plan_v[0], plan_v[1], plan_v[2], plan_v[3], plan_v[4], plan_v[5]};
-  if (!plan_ok(plan, B, H, 4 * plan.units, (H + 3) & ~3)) return (int)cudaErrorInvalidValue;
+  const Plan plan = rtvc::seq_plan(plan_v);
+  if (!rtvc::seq_plan_ok(plan, B, H, 4 * plan.units, (H + 3) & ~3))
+    return (int)cudaErrorInvalidValue;
   int slices = plan.slices, rows = plan.rows;
   void* args[] = {&xg, &w_hh, &h0, &c0, &ys, &hT, &cT, &cs, &gates,
                   &B,  &T,    &H,  &slices, &rows, &sync};
@@ -380,8 +283,8 @@ extern "C" int rtvc_lstm_seq_bwd(const float* dys, const float* dhT, const float
                                  const float* w_hh, float* dxg, float* dh0, float* dc0,
                                  int B, int T, int H, const int* plan_v, unsigned int* sync,
                                  void* stream) {
-  const Plan plan = {plan_v[0], plan_v[1], plan_v[2], plan_v[3], plan_v[4], plan_v[5]};
-  if (!plan_ok(plan, B, H, plan.units, 4 * H)) return (int)cudaErrorInvalidValue;
+  const Plan plan = rtvc::seq_plan(plan_v);
+  if (!rtvc::seq_plan_ok(plan, B, H, plan.units, 4 * H)) return (int)cudaErrorInvalidValue;
   int slices = plan.slices, rows = plan.rows;
   void* args[] = {&dys, &dhT, &dcT, &gates, &cs, &c0, &w_hh, &dxg, &dh0, &dc0,
                   &B,   &T,   &H,   &slices, &rows, &sync};

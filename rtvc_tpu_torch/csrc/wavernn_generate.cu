@@ -1,49 +1,69 @@
 // WaveRNN autoregressive sample loop: the fatchord, geneing and runtimeracer
 // variants, each with the categorical (RAW / BITS), mixture-of-logistics
-// (MOL) or two-parameter beta (geneing RAW) sampling head.
+// (MOL) or two-parameter beta (geneing RAW) sampling head, with every layer's
+// weights resident in shared memory across the card.
 //
 // Replaces: rtvc_tpu/ops/pallas/wavernn_kernel.py:generate_core_pallas
-// (body _make_kernel), the whole per-sample loop of the vocoder.
+// (body _make_kernel :67, call :506), the whole per-sample loop of the vocoder.
 //
-// What bounds it on the H100: a step is a chain of matrix-vector products,
-// one to four GRUs (W_ih and W_hh of 3R x R each) and two to five FCs. Per
-// step and fold row that is 4.2M weights (16.8 MB in f32) for fatchord
-// (R = F = 512), 2.1M (8.4 MB) for runtimeracer (R = F = 256, four GRUs) and
-// 0.56M (2.2 MB) for geneing (R = 256, F = 128), read once for 2 FLOP per
-// 4 bytes. That is far too large for one SM's 227 KB of shared memory but
-// fits in the 50 MB L2, so a step is bound by how fast an SM streams the
-// weights out of L2, and by the barriers between the dependent layers of
-// one step (7 for geneing, 25 for runtimeracer).
+// What bounds it on the H100: a step is a chain of dependent matrix-vector
+// products, one to four GRUs (W_ih and W_hh of 3R x R each) and two to five
+// FCs, for every fold: 2.1M weights (8.4 MB in f32) for runtimeracer (R = F =
+// 256), 4.2M (16.8 MB) for fatchord (R = F = 512), 0.56M (2.2 MB) for geneing
+// (R = 256, F = 128). One CTA per fold, as the first version had it, re-read
+// them from L2 every step, ≈ 125 µs a step whatever the fold count, on 13 of
+// the 132 SMs for a 5 s clone. Spread over the card the weights fit in shared
+// memory (runtimeracer ≈ 106 KB a CTA, fatchord ≈ 180 KB, geneing ≈ 30 KB,
+// the padding and the phase buffers included), and a step is then bound by
+// its chain: on an H100 at 700 W (PERF.md, section 6) runtimeracer takes
+// 26.7 µs a step at 8 folds and 32 at 13, of which the waits at its nine grid
+// barriers are ≈ 9 µs and each layer's product, sum over the lanes,
+// elementwise part and stores ≈ 2.5 µs of latency; the layers' inputs from
+// L2 and the weights from shared memory cost 2.5 and 1 µs. The time grows
+// with the folds (59 µs at 39, 200 µs at 264) because every CTA runs every
+// fold of its rows, a layer's items taking one L2 round trip each.
 //
-// Design: one launch for the whole loop and one CTA per fold row (fold rows
-// are independent recurrences). The layer list is a table in the kernel's
-// parameters (struct Layers): the GRUs in order, then the FCs, each with
-// either its own bias or a conditioning stream as its additive term; loops
-// over it are unrolled so every pointer is read from parameter space. The
-// GRU states, the running input x, the gate and FC activations, the head's
-// inputs and the previous sample live in shared memory. The weights are
-// re-read through L2 every step by warps that each own four output rows
-// (common.cuh:matvec). The conditioning streams (hoisted outside as full-
-// sequence matmuls) are read once per step. The head is a template
-// parameter: the categorical head is a Gumbel-argmax over up to 1024
-// classes reduced inside the block; the MOL head (30 columns) and the beta
-// head (2 columns) are the work of one warp and of one thread. Noise is
-// Philox-4x32-10 keyed by (seed, fold, step, draw group), so a draw does
-// not depend on the launch shape; `argmax` turns the noise off (greedy
-// decode). The heads use expf/logf and explicitly rounded multiplies and
-// adds (no fused multiply-add), so that the sample that is fed back agrees
-// with the plain PyTorch version to the last bit where the head's inputs
-// do. Sharing the weights across SMs (persistent CTAs that each own a
-// slice, with a grid barrier per layer), bf16 weights and bf16 streams are
-// later steps for speed.
+// Design: one cooperative launch of `ctas` CTAs, all resident, runs every
+// step. A CTA owns U hidden units of every GRU (the 3U rows of W_ih, or of
+// the state's columns `_wx`, and of W_hh that make their r, z, n gates) and a
+// slice of the rows of every FC, loaded into shared memory with their biases
+// once a launch (ops/wavernn_generate.py:plan cuts them). The layer list is a
+// runtime table in the kernel's parameters (struct Layers). All folds ride in
+// every CTA: a layer's product is cut into items of kRowBlock weight rows x NB folds
+// (common.cuh:slice_product: lanes over the reduction axis, the fold vectors
+// read from L2 one piece ahead, a transposing butterfly for the lanes' sums),
+// dealt out over the warps; the layer's elementwise part then writes the
+// CTA's slice of the layer's output to device memory, and a grid barrier
+// makes it whole for the next layer. Activations alternate between two (B, W)
+// buffers, the GRU states between two (B, R) buffers a layer by the step's
+// parity, so no layer overwrites what a slower CTA may still read.
+// The first GRU reads the conditioning stream i_cond directly: its input
+// x = i_cond + prev·i_col gives x·W_ihᵀ = i_cond·W_ihᵀ + prev·(W_ih·i_col),
+// and W_ih·i_col is computed once a launch. The head:
+// - categorical (C up to 1024): each CTA adds the Gumbel noise of its own
+//   classes, Philox-4x32-10 keyed by (class / 4, step, fold, 0) with the
+//   seed's key, so a draw does not depend on the launch shape, takes a local
+//   argmax per fold (ties to the lower index) and writes (value, index);
+//   after the barrier every CTA reduces the partials to the same sample;
+// - MOL (30 columns) and beta (2 columns): the last FC's rows go to device
+//   memory, and after the barrier every CTA runs the head for every fold, a
+//   warp (MOL) or a thread (beta) a fold, with the arithmetic of the plain
+//   version: expf / logf and explicitly rounded multiplies and adds, so the
+//   sample that is fed back agrees with it where the head's inputs do.
+// Each CTA keeps every fold's previous sample in shared memory; CTA 0 writes
+// the samples out. `argmax` turns the noise off (greedy decode); `logits_out`
+// (a test hook) receives the head's inputs at each step.
 #include <cfloat>
 
 #include "common.cuh"
 
 namespace {
 
+constexpr int kThreads = rtvc::kRecThreads;
+constexpr int kWarps = rtvc::kRecWarps;
 constexpr int kMaxRnn = 4;
 constexpr int kMaxFc = 5;
+constexpr int kRowBlock = 8;  // weight rows an item of a layer's product takes
 
 enum Head { kCategorical = 0, kMol = 1, kBeta = 2 };
 
@@ -66,24 +86,89 @@ struct Layers {
   int fc_relu[kMaxFc];
 };
 
-// h ← GRU(x, h) with torch gate semantics, then x ← x + h.
-// xg = x·W_ihᵀ + bih + add (add: a streamed row, or null), hg = h·W_hhᵀ + bhh.
-__device__ void gru_residual(const float* wih, const float* bih, const float* add,
-                             const float* whh, const float* bhh, float* h, float* x,
-                             float* xg, float* hg, int R) {
-  rtvc::matvec<1>(wih, R, 3 * R, x, 0, R, 1, xg, 0, bih, add, 0, false, rtvc::kNone);
-  rtvc::matvec<1>(whh, R, 3 * R, h, 0, R, 1, hg, 0, bhh, nullptr, 0, false, rtvc::kNone);
-  __syncthreads();
-  for (int j = threadIdx.x; j < R; j += blockDim.x) {
-    const float r = rtvc::sigmoidf_(xg[j] + hg[j]);
-    const float z = rtvc::sigmoidf_(xg[R + j] + hg[R + j]);
-    const float n = tanhf(xg[2 * R + j] + r * hg[2 * R + j]);
-    const float hn = (1.0f - z) * n + z * h[j];
-    h[j] = hn;
-    x[j] += hn;
-  }
-  __syncthreads();
+// Widths, head and the plan (ops/wavernn_generate.py:plan): `units` of every
+// GRU, `fc_rows` of every FC but the last and `last_rows` of the last a CTA,
+// `fb` folds a block of the phase buffer, `nb` folds an item.
+struct Dims {
+  int B, T, R, F, C, head, argmax;
+  int ctas, units, fc_rows, last_rows, fb, nb, smem;
+};
+
+// Device scratch of a launch: the GRU states (n_rnn x 2 x B x R, by the
+// step's parity), the activations (2 x B x W), the last FC's outputs (B x C,
+// MOL and beta), the categorical partials (ctas x B values and indices) and
+// the barrier counter, all zeroed by the caller.
+struct Scratch {
+  float* h;
+  float* act;
+  float* logits;
+  float* part_val;
+  int* part_idx;
+  unsigned int* sync;
+};
+
+__host__ __device__ constexpr int al4(int n) { return (n + 3) & ~3; }
+__host__ __device__ constexpr int blocks_of(int n) {
+  return (n + kRowBlock - 1) / kRowBlock * kRowBlock;
 }
+
+// Offsets (in floats) of a CTA's shared memory; the same arithmetic as
+// ops/wavernn_generate.py:_smem_floats.
+struct Layout {
+  int g_rows;                // rows a GRU weight block keeps (3U, padded)
+  int wih[kMaxRnn], whh[kMaxRnn], bih[kMaxRnn], bhh[kMaxRnn];
+  int v, col;                // the first GRU's W_ih·i_col rows and i_col units
+  int fc_w[kMaxFc], fc_b[kMaxFc];
+  int scratch, phase, phase_rows, red, prev, total;
+};
+
+__host__ __device__ inline Layout layout(const Dims& d, int n_rnn, int n_fc) {
+  Layout l{};
+  const int ldR = al4(d.R), ldF = al4(d.F);
+  l.g_rows = blocks_of(3 * d.units);
+  int o = 0;
+  for (int k = 0; k < n_rnn; ++k) {
+    l.wih[k] = o;
+    o += l.g_rows * ldR;
+    l.whh[k] = o;
+    o += l.g_rows * ldR;
+    l.bih[k] = o;
+    o += al4(3 * d.units);
+    l.bhh[k] = o;
+    o += al4(3 * d.units);
+  }
+  l.v = o;
+  o += al4(3 * d.units);
+  l.col = o;
+  o += al4(d.units);
+  int widest = 0;
+  for (int k = 0; k < n_fc; ++k) {
+    const int q = k == n_fc - 1 ? d.last_rows : d.fc_rows;
+    widest = q > widest ? q : widest;
+    l.fc_w[k] = o;
+    o += blocks_of(q) * (k == 0 ? ldR : ldF);
+    l.fc_b[k] = o;
+    o += al4(q);
+  }
+  l.scratch = o;
+  o += kWarps * rtvc::padded(kRowBlock * d.nb);
+  l.phase_rows = 2 * l.g_rows > blocks_of(widest) ? 2 * l.g_rows : blocks_of(widest);
+  l.phase = o;
+  o += l.phase_rows * d.fb;
+  l.red = o;
+  if (d.head == kCategorical) o += al4(2 * (d.last_rows / 4) * d.fb);
+  l.prev = o;
+  o += al4(d.B);
+  l.total = o;
+  return l;
+}
+
+// A GRU (unit, fold) pair's inputs besides the product: the conditioning
+// stream's three gate entries (zero without a stream), the unit's state and
+// its input (the first GRU's conditioning entry, before prev · i_col).
+struct GruIn {
+  float aux[3], h, x;
+};
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
@@ -133,98 +218,289 @@ __device__ float gamma_draw(float a, const float* u) {
   return a < 1.0f ? g * powf(u[6], 1.0f / fmaxf(a, 1e-6f)) : g;
 }
 
-template <int HEAD>
-__global__ void __launch_bounds__(1024)
-wavernn_kernel(Layers L, int T, int R, int Fd, int C, int argmax, uint2 key,
-               float* __restrict__ out, float* __restrict__ logits_out) {
+// Copies `rows` rows of a (.., n) weight matrix into shared memory as
+// blocks_of(rows) rows of ld floats, zero past the matrix; row r of the block
+// is the matrix's row `row_of(r)` (or zero where that is negative).
+template <typename RowOf>
+__device__ void load_rows(float* dst, const float* src, int rows, int n, int ld, RowOf row_of) {
+  const int total = blocks_of(rows) * ld;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int r = i / ld, k = i % ld;
+    const int row = r < rows ? row_of(r) : -1;
+    dst[i] = (row >= 0 && k < n) ? src[(size_t)row * n + k] : 0.0f;
+  }
+}
+
+// P[r * fb + b] = Σ_k W[r * ld + k] · x[b * xs + k] for the `rows` (a
+// multiple of kRowBlock) rows of one or two weight blocks and the `nf` folds
+// of a fold block: items of kRowBlock rows x NB folds, dealt out over the
+// warps. The second block (W2 over x2, stride xs2) lands in rows
+// [rows, 2 rows) of P.
+template <int NB>
+__device__ void layer_product(const float* W, const float* x, size_t xs, const float* W2,
+                              const float* x2, size_t xs2, int rows, int ld, int n, int nf,
+                              int fb, float* P, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int chunks = rows / kRowBlock, groups = (nf + NB - 1) / NB;
+  const int mats = W2 ? 2 : 1;
+  for (int item = warp; item < mats * chunks * groups; item += kWarps) {
+    const int mat = item / (chunks * groups), rest = item % (chunks * groups);
+    const int chunk = rest / groups, g = rest % groups;
+    const int nb = min(NB, nf - g * NB);
+    const float* in = mat ? x2 : x;
+    const size_t stride = mat ? xs2 : xs;
+    const bool vec = (n & 3) == 0 && (stride & 3) == 0 &&
+                     (reinterpret_cast<uintptr_t>(in) & 15) == 0;
+    rtvc::slice_product<kRowBlock, NB>((mat ? W2 : W) + chunk * kRowBlock * ld, ld, n,
+                                       in + (size_t)g * NB * stride, stride, nb, vec, scratch);
+    __syncwarp();
+    for (int i = lane; i < kRowBlock * NB; i += 32) {
+      const int r = i / NB, b = i % NB;
+      if (b < nb) P[(mat * rows + chunk * kRowBlock + r) * fb + g * NB + b] = scratch[i];
+    }
+    __syncwarp();
+  }
+}
+
+template <int HEAD, int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
+               float* __restrict__ logits_out) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* x = sm;                 // R
-  float* h = x + R;              // kMaxRnn·R: the GRU states
-  float* xg = h + kMaxRnn * R;   // 3R
-  float* hg = xg + 3 * R;        // 3R
-  float* f1 = hg + 3 * R;        // Fd
-  float* f2 = f1 + Fd;           // Fd
-  float* logits = f2 + Fd;       // C: the head's inputs
-  float* red_val = logits + C;   // 32
-  int* red_idx = reinterpret_cast<int*>(red_val + 32);  // 32
-  float* prev = reinterpret_cast<float*>(red_idx + 32);  // 1
+  const int n_rnn = L.n_rnn, n_fc = L.n_fc;
+  const Layout lay = layout(d, n_rnn, n_fc);
+  const int B = d.B, T = d.T, R = d.R, F = d.F, C = d.C, U = d.units, FB = d.fb;
+  const int ldR = al4(R), ldF = al4(F), W = al4(R > F ? R : F);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cta = blockIdx.x;
+  float* P = sm + lay.phase;
+  float* scratch = sm + lay.scratch + warp * rtvc::padded(kRowBlock * NB);
+  float* prev = sm + lay.prev;
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  for (int j = tid; j < kMaxRnn * R; j += blockDim.x) h[j] = 0.0f;
-  if (tid == 0) *prev = 0.0f;
+  // ---- the CTA's weights, once a launch ----
+  const int u0 = cta * U, nu = max(0, min(U, R - u0));
+  for (int k = 0; k < n_rnn; ++k) {
+    auto row_of = [&](int r) { return r % U < nu ? (r / U) * R + u0 + r % U : -1; };
+    load_rows(sm + lay.wih[k], L.rnn_wih[k], 3 * U, R, ldR, row_of);
+    load_rows(sm + lay.whh[k], L.rnn_whh[k], 3 * U, R, ldR, row_of);
+    for (int r = tid; r < 3 * U; r += kThreads) {
+      const int row = row_of(r);
+      sm[lay.bih[k] + r] = (row >= 0 && L.rnn_bih[k]) ? L.rnn_bih[k][row] : 0.0f;
+      sm[lay.bhh[k] + r] = row >= 0 ? L.rnn_bhh[k][row] : 0.0f;
+    }
+  }
+  for (int j = tid; j < U; j += kThreads) sm[lay.col + j] = j < nu ? L.i_col[u0 + j] : 0.0f;
+  int fc_r0[kMaxFc], fc_nr[kMaxFc];
+  for (int k = 0; k < n_fc; ++k) {
+    const bool last = k == n_fc - 1;
+    const int q = last ? d.last_rows : d.fc_rows, rows = last ? C : F;
+    const int n_in = k == 0 ? R : F;
+    fc_r0[k] = cta * q;
+    fc_nr[k] = max(0, min(q, rows - fc_r0[k]));
+    const int r0 = fc_r0[k], nr = fc_nr[k];
+    load_rows(sm + lay.fc_w[k], L.fc_w[k], q, n_in, k == 0 ? ldR : ldF,
+              [&](int r) { return r < nr ? r0 + r : -1; });
+    for (int r = tid; r < q; r += kThreads)
+      sm[lay.fc_b[k] + r] = (r < nr && L.fc_b[k]) ? L.fc_b[k][r0 + r] : 0.0f;
+  }
+  for (int b = tid; b < B; b += kThreads) prev[b] = 0.0f;
+  __syncthreads();
+  // the first GRU's W_ih · i_col, for its input's prev · i_col term
+  for (int r = tid; r < 3 * U; r += kThreads) {
+    float acc = 0.0f;
+    for (int k = 0; k < R; ++k) acc = fmaf(sm[lay.wih[0] + r * ldR + k], L.i_col[k], acc);
+    sm[lay.v + r] = acc;
+  }
   __syncthreads();
 
+  unsigned int barriers = 0;
+  const unsigned int ctas = (unsigned int)gridDim.x;
+  // the last FC's CTAs: the categorical partials to reduce
+  const int n_last = (C + d.last_rows - 1) / d.last_rows;
+
   for (int t = 0; t < T; ++t) {
-    const size_t row = (size_t)b * T + t;
-    const float* ic = L.i_cond + row * R;
-    const float p = *prev;
-    for (int j = tid; j < R; j += blockDim.x) x[j] = ic[j] + p * L.i_col[j];
-    __syncthreads();
-
+    int phase = 0;
+    // ---- the GRUs: h_k ← GRU(x, h_k), x ← x + h_k ----
+    for (int k = 0; k < n_rnn; ++k, ++phase) {
+      const float* h_read = s.h + ((size_t)(2 * k + ((t + 1) & 1)) * B) * R;
+      float* h_write = s.h + ((size_t)(2 * k + (t & 1)) * B) * R;
+      const float* x_in =
+          k == 0 ? L.i_cond + (size_t)t * R : s.act + (size_t)((phase + 1) & 1) * B * W;
+      const size_t xs = k == 0 ? (size_t)T * R : (size_t)W;
+      float* x_out = s.act + (size_t)(phase & 1) * B * W;
+      const float* aux = L.rnn_aux[k];
+      const float* wih = sm + lay.wih[k];
+      const float* whh = sm + lay.whh[k];
+      const float* bih = sm + lay.bih[k];
+      const float* bhh = sm + lay.bhh[k];
+      if (nu > 0) {
+        for (int f0 = 0; f0 < B; f0 += FB) {
+          const int nf = min(FB, B - f0), pairs = nu * nf;
+          // a (unit, fold) pair's inputs besides the product: its stream
+          // entries, its state and its input; the first pair of each thread
+          // is loaded before the product, so that its latency hides there
+          auto load_in = [&](int i) {
+            const int j = i % nu, fold = f0 + i / nu, u = u0 + j;
+            const size_t ft = (size_t)fold * T + t;
+            GruIn in;
 #pragma unroll
-    for (int k = 0; k < kMaxRnn; ++k) {
-      if (k < L.n_rnn)
-        gru_residual(L.rnn_wih[k], L.rnn_bih[k],
-                     L.rnn_aux[k] ? L.rnn_aux[k] + row * 3 * R : nullptr, L.rnn_whh[k],
-                     L.rnn_bhh[k], h + k * R, x, xg, hg, R);
-    }
-
-    // FC k reads x (k = 0) or the buffer FC k - 1 wrote: f1 and f2 in turn
+            for (int g = 0; g < 3; ++g) in.aux[g] = aux ? aux[ft * 3 * R + g * R + u] : 0.0f;
+            in.h = __ldcg(h_read + (size_t)fold * R + u);
+            in.x = k == 0 ? L.i_cond[ft * R + u] : __ldcg(x_in + (size_t)fold * W + u);
+            return in;
+          };
+          GruIn first{};
+          if (tid < pairs) first = load_in(tid);
+          layer_product<NB>(wih, x_in + (size_t)f0 * xs, xs, whh, h_read + (size_t)f0 * R, R,
+                            lay.g_rows, ldR, R, nf, FB, P, scratch);
+          __syncthreads();
+          for (int i = tid; i < pairs; i += kThreads) {
+            const GruIn in = i == tid ? first : load_in(i);
+            const int j = i % nu, b = i / nu, fold = f0 + b, u = u0 + j;
+            const float p = prev[fold];
+            float xg[3], hg[3];
 #pragma unroll
-    for (int k = 0; k < kMaxFc; ++k) {
-      if (k < L.n_fc) {
-        const bool last = k == L.n_fc - 1;
-        const int rows = last ? C : Fd;
-        const int n_in = k == 0 ? R : Fd;
-        const float* in = k == 0 ? x : ((k & 1) ? f1 : f2);
-        float* o = last ? logits : ((k & 1) ? f2 : f1);
-        rtvc::matvec<1>(L.fc_w[k], n_in, rows, in, 0, n_in, 1, o, 0, L.fc_b[k],
-                        L.fc_aux[k] ? L.fc_aux[k] + row * rows : nullptr, 0, false,
-                        L.fc_relu[k] ? rtvc::kRelu : rtvc::kNone);
-        __syncthreads();
-      }
-    }
-    if (logits_out)
-      for (int c = tid; c < C; c += blockDim.x) logits_out[row * C + c] = logits[c];
-
-    if constexpr (HEAD == kCategorical) {
-      // Gumbel-argmax over the classes; ties go to the lowest class index.
-      float best = -FLT_MAX;
-      int best_i = 0x7fffffff;
-      for (int c4 = tid; c4 * 4 < C; c4 += blockDim.x) {
-        uint4 rnd = make_uint4(0u, 0u, 0u, 0u);
-        if (!argmax)
-          rnd = rtvc::philox4x32(make_uint4((uint32_t)c4, (uint32_t)t, (uint32_t)b, 0u), key);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int c = c4 * 4 + i;
-          if (c < C) {
-            float v = logits[c];
-            if (!argmax) v -= logf(-logf(pick(rnd, i)));
-            if (v > best || (v == best && c < best_i)) {
-              best = v;
-              best_i = c;
+            for (int g = 0; g < 3; ++g) {
+              const int r = g * U + j;
+              float v = P[r * FB + b];
+              if (k == 0) v += p * sm[lay.v + r];
+              xg[g] = v + (aux ? in.aux[g] : bih[r]);
+              hg[g] = P[(lay.g_rows + r) * FB + b] + bhh[r];
             }
+            const float r_ = rtvc::sigmoidf_(xg[0] + hg[0]);
+            const float z = rtvc::sigmoidf_(xg[1] + hg[1]);
+            const float n = tanhf(xg[2] + r_ * hg[2]);
+            const float hn = (1.0f - z) * n + z * in.h;
+            h_write[(size_t)fold * R + u] = hn;
+            const float xv = k == 0 ? __fadd_rn(in.x, __fmul_rn(p, sm[lay.col + j])) : in.x;
+            x_out[(size_t)fold * W + u] = xv + hn;
           }
+          __syncthreads();
         }
       }
-      warp_argmax(best, best_i);
-      if (lane == 0) {
-        red_val[warp] = best;
-        red_idx[warp] = best_i;
+      rtvc::grid_barrier(s.sync, ctas * ++barriers);
+    }
+    // ---- the FCs, the last one with the head's first half ----
+    for (int k = 0; k < n_fc; ++k, ++phase) {
+      const bool last = k == n_fc - 1;
+      const int n_in = k == 0 ? R : F, r0 = fc_r0[k], nr = fc_nr[k];
+      const int rows = last ? C : F;
+      const float* x_in = s.act + (size_t)((phase + 1) & 1) * B * W;
+      float* f_out = s.act + (size_t)(phase & 1) * B * W;
+      const float* aux = L.fc_aux[k];
+      const float* bias = sm + lay.fc_b[k];
+      const int q = last ? d.last_rows : d.fc_rows;
+      if (nr > 0) {
+        for (int f0 = 0; f0 < B; f0 += FB) {
+          const int nf = min(FB, B - f0);
+          const bool gumbel = last && HEAD == kCategorical;
+          // what the elementwise part reads besides the product, for each
+          // thread's first item, before the product: a stream entry, or the
+          // Gumbel noise of four classes
+          const int nq = (nr + 3) / 4;
+          auto load_aux = [&](int i) {
+            return aux ? aux[((size_t)(f0 + i / nr) * T + t) * rows + r0 + i % nr] : 0.0f;
+          };
+          auto noise = [&](int i) {
+            const int qd = i % nq, fold = f0 + i / nq;
+            float e4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if (!d.argmax) {
+              const uint4 rnd = rtvc::philox4x32(
+                  make_uint4((uint32_t)(r0 / 4 + qd), (uint32_t)t, (uint32_t)fold, 0u), key);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) e4[e] = logf(-logf(pick(rnd, e)));
+            }
+            return make_float4(e4[0], e4[1], e4[2], e4[3]);
+          };
+          float first_aux = 0.0f;
+          float4 first_noise = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (!gumbel && tid < nr * nf) first_aux = load_aux(tid);
+          if (gumbel && tid < nq * nf) first_noise = noise(tid);
+          layer_product<NB>(sm + lay.fc_w[k], x_in + (size_t)f0 * W, W, nullptr, nullptr, 0,
+                            blocks_of(q), k == 0 ? ldR : ldF, n_in, nf, FB, P, scratch);
+          __syncthreads();
+          if (!gumbel) {
+            for (int i = tid; i < nr * nf; i += kThreads) {
+              const int j = i % nr, b = i / nr, fold = f0 + b, row = r0 + j;
+              const size_t ft = (size_t)fold * T + t;
+              float v = P[j * FB + b] + (aux ? (i == tid ? first_aux : load_aux(i)) : bias[j]);
+              if (L.fc_relu[k]) v = fmaxf(v, 0.0f);
+              if (!last) {
+                f_out[(size_t)fold * W + row] = v;
+              } else {
+                s.logits[(size_t)fold * C + row] = v;
+                if (logits_out) logits_out[ft * C + row] = v;
+              }
+            }
+          } else {
+            // Gumbel-argmax over the CTA's classes, four to a Philox draw
+            float* red_v = sm + lay.red;
+            int* red_i = reinterpret_cast<int*>(red_v + (d.last_rows / 4) * FB);
+            for (int i = tid; i < nq * nf; i += kThreads) {
+              const int qd = i % nq, b = i / nq, fold = f0 + b;
+              const size_t ft = (size_t)fold * T + t;
+              const float4 n4 = i == tid ? first_noise : noise(i);
+              const float e4[4] = {n4.x, n4.y, n4.z, n4.w};
+              float best = -FLT_MAX;
+              int best_i = 0x7fffffff;
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int j = qd * 4 + e, c = r0 + j;
+                if (j < nr) {
+                  float v = P[j * FB + b] + (aux ? aux[ft * rows + c] : bias[j]);
+                  if (L.fc_relu[k]) v = fmaxf(v, 0.0f);
+                  if (logits_out) logits_out[ft * C + c] = v;
+                  if (!d.argmax) v -= e4[e];
+                  if (v > best || (v == best && c < best_i)) {
+                    best = v;
+                    best_i = c;
+                  }
+                }
+              }
+              red_v[qd * FB + b] = best;
+              red_i[qd * FB + b] = best_i;
+            }
+            __syncthreads();
+            for (int b = tid; b < nf; b += kThreads) {
+              float best = red_v[b];
+              int best_i = red_i[b];
+              for (int qd = 1; qd < nq; ++qd) {
+                const float v = red_v[qd * FB + b];
+                const int c = red_i[qd * FB + b];
+                if (v > best || (v == best && c < best_i)) {
+                  best = v;
+                  best_i = c;
+                }
+              }
+              s.part_val[(size_t)cta * B + f0 + b] = best;
+              s.part_idx[(size_t)cta * B + f0 + b] = best_i;
+            }
+          }
+          __syncthreads();
+        }
       }
-      __syncthreads();
-      if (warp == 0) {
-        best = lane < nwarps ? red_val[lane] : -FLT_MAX;
-        best_i = lane < nwarps ? red_idx[lane] : 0x7fffffff;
+      rtvc::grid_barrier(s.sync, ctas * ++barriers);
+    }
+
+    // ---- the head's second half: every CTA draws every fold's sample ----
+    if constexpr (HEAD == kCategorical) {
+      for (int fold = warp; fold < B; fold += kWarps) {
+        float best = -FLT_MAX;
+        int best_i = 0x7fffffff;
+        for (int c = lane; c < n_last; c += 32) {
+          const float v = __ldcg(s.part_val + (size_t)c * B + fold);
+          const int i = __ldcg(s.part_idx + (size_t)c * B + fold);
+          if (v > best || (v == best && i < best_i)) {
+            best = v;
+            best_i = i;
+          }
+        }
         warp_argmax(best, best_i);
         if (lane == 0) {
           const float sample = 2.0f * (float)best_i / ((float)C - 1.0f) - 1.0f;
-          *prev = sample;
-          out[row] = sample;
+          prev[fold] = sample;
+          if (cta == 0) out[(size_t)fold * T + t] = sample;
         }
       }
     } else if constexpr (HEAD == kMol) {
@@ -232,15 +508,16 @@ wavernn_kernel(Layers L, int T, int R, int Fd, int C, int argmax, uint2 key,
       // (Gumbel) argmax, then an inverse-CDF logistic draw around its mean.
       // Draw groups 0 .. ceil(k_mix / 4) - 1 feed the Gumbel noise, the next
       // one the logistic draw.
-      if (warp == 0) {
-        const int k_mix = C / 3;
+      const int k_mix = C / 3;
+      for (int fold = warp; fold < B; fold += kWarps) {
+        const float* lg = s.logits + (size_t)fold * C;
         float best = -FLT_MAX;
         int comp = 0x7fffffff;
         for (int c = lane; c < k_mix; c += 32) {
-          float v = logits[c];
-          if (!argmax) {
+          float v = __ldcg(lg + c);
+          if (!d.argmax) {
             const uint4 rnd = rtvc::philox4x32(
-                make_uint4((uint32_t)(c >> 2), (uint32_t)t, (uint32_t)b, 0u), key);
+                make_uint4((uint32_t)(c >> 2), (uint32_t)t, (uint32_t)fold, 0u), key);
             v -= logf(-logf(clampf(pick(rnd, c & 3), 1e-5f, 1.0f - 1e-5f)));
           }
           if (v > best || (v == best && c < comp)) {
@@ -250,29 +527,30 @@ wavernn_kernel(Layers L, int T, int R, int Fd, int C, int argmax, uint2 key,
         }
         warp_argmax(best, comp);
         if (lane == 0) {
-          float sample = logits[k_mix + comp];
-          if (!argmax) {
-            const float log_scale = fmaxf(logits[2 * k_mix + comp], -32.23619130191664f);
+          float sample = __ldcg(lg + k_mix + comp);
+          if (!d.argmax) {
+            const float log_scale = fmaxf(__ldcg(lg + 2 * k_mix + comp), -32.23619130191664f);
             const uint4 rnd = rtvc::philox4x32(
-                make_uint4((uint32_t)((k_mix + 3) >> 2), (uint32_t)t, (uint32_t)b, 0u), key);
+                make_uint4((uint32_t)((k_mix + 3) >> 2), (uint32_t)t, (uint32_t)fold, 0u), key);
             const float u = clampf(pick(rnd, 0), 1e-5f, 1.0f - 1e-5f);
             sample = __fadd_rn(sample, __fmul_rn(expf(log_scale),
                                                  __fsub_rn(logf(u), logf(1.0f - u))));
           }
           sample = clampf(sample, -1.0f, 1.0f);
-          *prev = sample;
-          out[row] = sample;
+          prev[fold] = sample;
+          if (cta == 0) out[(size_t)fold * T + t] = sample;
         }
       }
     } else {
       // Columns [log α | log β] of a Beta(α, β) over [0, 1], mapped to
       // [-1, 1]. Greedy: the mode where it exists (α, β > 1), else the mean.
       // Sampled: Gα / (Gα + Gβ) from 14 uniforms, draw groups 0 .. 3.
-      if (tid == 0) {
-        const float alpha = expf(clampf(logits[0], -30.0f, 30.0f));
-        const float beta = expf(clampf(logits[1], -30.0f, 30.0f));
+      for (int fold = tid; fold < B; fold += kThreads) {
+        const float* lg = s.logits + (size_t)fold * C;
+        const float alpha = expf(clampf(__ldcg(lg), -30.0f, 30.0f));
+        const float beta = expf(clampf(__ldcg(lg + 1), -30.0f, 30.0f));
         float m;
-        if (argmax) {
+        if (d.argmax) {
           m = (alpha > 1.0f && beta > 1.0f)
                   ? __fdiv_rn(alpha - 1.0f, __fsub_rn(__fadd_rn(alpha, beta), 2.0f))
                   : __fdiv_rn(alpha, __fadd_rn(alpha, beta));
@@ -281,7 +559,7 @@ wavernn_kernel(Layers L, int T, int R, int Fd, int C, int argmax, uint2 key,
 #pragma unroll
           for (int g = 0; g < 4; ++g) {
             const uint4 rnd = rtvc::philox4x32(
-                make_uint4((uint32_t)g, (uint32_t)t, (uint32_t)b, 0u), key);
+                make_uint4((uint32_t)g, (uint32_t)t, (uint32_t)fold, 0u), key);
 #pragma unroll
             for (int i = 0; i < 4; ++i)
               u[4 * g + i] = clampf(pick(rnd, i), 1e-7f, 1.0f - 1e-7f);
@@ -291,67 +569,104 @@ wavernn_kernel(Layers L, int T, int R, int Fd, int C, int argmax, uint2 key,
           m = __fdiv_rn(ga, __fadd_rn(ga, gb));
         }
         const float sample = clampf(__fsub_rn(__fmul_rn(2.0f, m), 1.0f), -1.0f, 1.0f);
-        *prev = sample;
-        out[row] = sample;
+        prev[fold] = sample;
+        if (cta == 0) out[(size_t)fold * T + t] = sample;
       }
     }
     __syncthreads();
   }
 }
 
+// The instantiations: NB folds an item of a layer's product.
+template <int HEAD>
+const void* kernel_for(int nb) {
+  if (nb == 4) return (const void*)wavernn_kernel<HEAD, 4>;
+  if (nb == 8) return (const void*)wavernn_kernel<HEAD, 8>;
+  return nullptr;
+}
+
 }  // namespace
 
-// weights: 1 + 4·kMaxRnn + 2·kMaxFc device pointers: i_col, then for each of kMaxRnn GRU
-// slots (wih, bih, whh, bhh), then for each of kMaxFc FC slots (w, b); null
-// for an absent layer and for the bias of a layer that takes a stream.
-// streams: 1 + kMaxRnn + kMaxFc pointers: i_cond (B, T, R), then one per GRU slot
-// (B, T, 3R) and one per FC slot (B, T, F), null where the layer has its
-// own bias. dims: B, T, R, F, C, n_rnn, n_fc, head (0 categorical, 1 MOL,
-// 2 beta), then kMaxFc relu flags. out: (B, T) samples in [-1, 1];
-// logits_out: null, or (B, T, C) for the head's inputs at each step.
+// weights: 1 + 4·kMaxRnn + 2·kMaxFc device pointers: i_col, then for each of
+// kMaxRnn GRU slots (wih, bih, whh, bhh), then for each of kMaxFc FC slots
+// (w, b); null for an absent layer and for the bias of a layer that takes a
+// stream. streams: 1 + kMaxRnn + kMaxFc pointers: i_cond (B, T, R), then one
+// per GRU slot (B, T, 3R) and one per FC slot (B, T, F), null where the layer
+// has its own bias. dims: B, T, R, F, C, n_rnn, n_fc, head (0 categorical,
+// 1 MOL, 2 beta), then kMaxFc relu flags, then the plan: ctas, units,
+// fc_rows, last_rows, nb, fb, smem (ops/wavernn_generate.py:plan). scratch:
+// zeroed floats, n_rnn·2·B·R (GRU states), then 2·B·W (activations, W = R
+// and F's larger, rounded up to 4), B·C (head inputs), 2·ctas·B (partials);
+// sync: 32 zeroed words. out: (B, T) samples in [-1, 1]; logits_out: null,
+// or (B, T, C) for the head's inputs at each step. Returns the launch's
+// cudaError_t (cudaErrorInvalidValue for a plan that does not cover the
+// widths or has no instantiation).
 extern "C" int rtvc_wavernn_generate(const void* const* weights, const void* const* streams,
                                      const int* dims, int argmax, unsigned long long seed,
-                                     float* out, float* logits_out, void* stream) {
+                                     float* scratch, unsigned int* sync, float* out,
+                                     float* logits_out, void* stream) {
   Layers L;
   auto w = [&](int i) { return static_cast<const float*>(weights[i]); };
-  auto s = [&](int i) { return static_cast<const float*>(streams[i]); };
+  auto st = [&](int i) { return static_cast<const float*>(streams[i]); };
   L.i_col = w(0);
-  L.i_cond = s(0);
+  L.i_cond = st(0);
   for (int k = 0; k < kMaxRnn; ++k) {
     L.rnn_wih[k] = w(1 + 4 * k);
     L.rnn_bih[k] = w(2 + 4 * k);
     L.rnn_whh[k] = w(3 + 4 * k);
     L.rnn_bhh[k] = w(4 + 4 * k);
-    L.rnn_aux[k] = s(1 + k);
+    L.rnn_aux[k] = st(1 + k);
   }
   for (int k = 0; k < kMaxFc; ++k) {
     L.fc_w[k] = w(1 + 4 * kMaxRnn + 2 * k);
     L.fc_b[k] = w(2 + 4 * kMaxRnn + 2 * k);
-    L.fc_aux[k] = s(1 + kMaxRnn + k);
+    L.fc_aux[k] = st(1 + kMaxRnn + k);
     L.fc_relu[k] = dims[8 + k];
   }
-  const int B = dims[0], T = dims[1], R = dims[2], Fd = dims[3], C = dims[4];
+  Dims d;
+  d.B = dims[0];
+  d.T = dims[1];
+  d.R = dims[2];
+  d.F = dims[3];
+  d.C = dims[4];
   L.n_rnn = dims[5];
   L.n_fc = dims[6];
-  const int head = dims[7];
-  if (L.n_rnn < 1 || L.n_rnn > kMaxRnn || L.n_fc < 1 || L.n_fc > kMaxFc || head < 0 ||
-      head > 2 || (head == kMol && (C % 3 != 0 || C < 3)) || (head == kBeta && C != 2))
+  d.head = dims[7];
+  d.argmax = argmax;
+  const int* pl = dims + 8 + kMaxFc;
+  d.ctas = pl[0];
+  d.units = pl[1];
+  d.fc_rows = pl[2];
+  d.last_rows = pl[3];
+  d.nb = pl[4];
+  d.fb = pl[5];
+  d.smem = pl[6];
+  const int head = d.head;
+  if (L.n_rnn < 1 || L.n_rnn > kMaxRnn || L.n_fc < 2 || L.n_fc > kMaxFc || head < 0 ||
+      head > 2 || (head == kMol && (d.C % 3 != 0 || d.C < 3)) || (head == kBeta && d.C != 2) ||
+      d.B < 1 || d.T < 1 || d.fb < 1 || d.ctas < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)((1 + kMaxRnn + 6) * R + 2 * Fd + C + 32 + 32 + 4) * sizeof(float);
-  const void* kernel = head == kCategorical ? (const void*)wavernn_kernel<kCategorical>
-                       : head == kMol       ? (const void*)wavernn_kernel<kMol>
-                                            : (const void*)wavernn_kernel<kBeta>;
-  cudaError_t e = rtvc::allow_smem(kernel, smem);
-  if (e != cudaSuccess) return (int)e;
+  // the plan must cover every layer and match the layout's bytes
+  const bool covers = (long long)d.ctas * d.units >= d.R &&
+                      (long long)d.ctas * d.fc_rows >= d.F &&
+                      (long long)d.ctas * d.last_rows >= d.C &&
+                      (head != kCategorical || d.last_rows % 4 == 0);
+  if (!covers || (int)(layout(d, L.n_rnn, L.n_fc).total * sizeof(float)) != d.smem)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = head == kCategorical ? kernel_for<kCategorical>(d.nb)
+                       : head == kMol       ? kernel_for<kMol>(d.nb)
+                                            : kernel_for<kBeta>(d.nb);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  const int W = al4(d.R > d.F ? d.R : d.F);
+  Scratch s;
+  s.h = scratch;
+  s.act = s.h + (size_t)L.n_rnn * 2 * d.B * d.R;
+  s.logits = s.act + (size_t)2 * d.B * W;
+  s.part_val = s.logits + (size_t)d.B * d.C;
+  s.part_idx = reinterpret_cast<int*>(s.part_val + (size_t)d.ctas * d.B);
+  s.sync = sync;
   const uint2 key = make_uint2((uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head == kCategorical)
-    wavernn_kernel<kCategorical><<<B, 1024, smem, st>>>(L, T, R, Fd, C, argmax, key, out,
-                                                        logits_out);
-  else if (head == kMol)
-    wavernn_kernel<kMol><<<B, 1024, smem, st>>>(L, T, R, Fd, C, argmax, key, out, logits_out);
-  else
-    wavernn_kernel<kBeta><<<B, 1024, smem, st>>>(L, T, R, Fd, C, argmax, key, out, logits_out);
-  return (int)cudaGetLastError();
+  void* args[] = {&L, &d, &s, const_cast<uint2*>(&key), &out, &logits_out};
+  return rtvc::launch_cooperative(kernel, d.ctas, d.smem, args,
+                                  static_cast<cudaStream_t>(stream));
 }

@@ -2,8 +2,12 @@
 and backward (torch semantics: ``b_hn`` sits inside the reset product).
 
 Replaces ``rtvc_tpu/ops/pallas/gru_train_kernel.py:gru_seq_fused``. The CUDA
-kernels are in ``csrc/gru_seq.cu``. Each wrapper launches its kernel for
-CUDA tensors and runs its plain PyTorch version for CPU tensors:
+kernels are in ``csrc/gru_seq.cu``: W_hh stays in the shared memory of the
+SMs for the whole sequence, each CTA owning a slice of the hidden units and a
+group of batch rows, with a grid-wide barrier between time steps, as K3's
+(``ops/lstm_seq.py``). :func:`plan` cuts a shape into that grid. Each
+wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
+version for CPU tensors:
 
 - ``gru_seq_fwd``: ``xg`` (B, T, 3H) with ``b_ih`` folded in, ``w_hh``
   (3H, H), ``b_hh`` (3H) → ``ys`` (B, T, H) and the residuals
@@ -15,7 +19,7 @@ CUDA tensors and runs its plain PyTorch version for CPU tensors:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -65,6 +69,108 @@ def gru_seq_bwd_plain(dys: Tensor, gates: Tensor, ys: Tensor, w_hh: Tensor) -> T
     return torch.stack(dxg[::-1], dim=1)
 
 
+WARPS = 8  # warps of a CTA (csrc/common.cuh:kRecWarps)
+
+# The kernels' instantiations: hidden units a CTA owns → the batch rows a warp
+# may take at a time (csrc/gru_seq.cu). The forward keeps 3 · units rows of
+# W_hh (H long) in shared memory and 3 · units · nb sums in a lane's
+# registers; the backward units columns (3H long) and units · nb sums.
+FWD_SLICES = {1: (1, 3, 5), 2: (1, 3, 5), 4: (1, 3, 5), 8: (1, 3)}
+BWD_SLICES = {2: (1, 3, 5), 4: (1, 3, 5), 8: (1, 3, 5)}
+
+# The cost model that ranks the plans of a shape, in an SM's cycles a step,
+# fitted to every candidate's time at the three WaveRNN training shapes on an
+# H100 (PERF.md, PR 6): the busiest warp's passes, each a round trip to L2 for
+# every 128 floats of the reduction axis (one piece ahead hides the next) and
+# its FMAs at one every two cycles (two warps share a scheduler), against the
+# rows the CTA reads from L2 (h in the forward, the 3H-wide dhg in the
+# backward) at 16 bytes a cycle.
+L2_PIECE_CYCLES = 400
+FMA_CYCLES = 2
+L2_BYTES_PER_CYCLE = 16
+
+
+class Plan(NamedTuple):
+    """How a launch is cut over the card: ``groups`` x ``slices`` CTAs; a CTA
+    owns ``units`` hidden units (the last slice may be ragged) of ``rows``
+    batch rows (the last group may be short), its warps take ``nb`` rows at a
+    time, and it needs ``smem`` bytes of shared memory."""
+    groups: int
+    slices: int
+    units: int
+    nb: int
+    rows: int
+    smem: int
+
+
+def _weights(H: int, units: int, backward: bool) -> Tuple[int, int]:
+    """(rows, row length in floats) of the weights a CTA keeps."""
+    return (units, 3 * H) if backward else (3 * units, -(-H // 4) * 4)
+
+
+def _smem(H: int, units: int, nb: int, backward: bool) -> int:
+    w_rows, ld = _weights(H, units, backward)
+    scratch = WARPS * (-(-w_rows * nb // 32) * 32)
+    return 4 * (w_rows * ld + scratch + (0 if backward else w_rows))
+
+
+def cost(p: Plan, H: int, backward: bool) -> float:
+    """The plan's modelled cycles a step (see ``L2_PIECE_CYCLES``)."""
+    w_rows, ld = _weights(H, p.units, backward)
+    n = 3 * H if backward else H
+    passes = -(-(-(-p.rows // p.nb)) // WARPS)  # passes of the busiest warp
+    warp = passes * (-(-n // 128) * L2_PIECE_CYCLES + w_rows * p.nb * ld / 32 * FMA_CYCLES)
+    return max(warp, p.rows * n * 4 / L2_BYTES_PER_CYCLE)
+
+
+def candidates(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False):
+    """Every plan of a (B, T, H) sequence that the kernels have an
+    instantiation for and the card can hold: its slices and groups resident
+    at once (one CTA a SM) and its weights in one SM's shared memory."""
+    if B < 1 or H < 1 or sm_count < 1:
+        raise ValueError(f"gru_seq: B {B}, H {H} and the SM count {sm_count} must be positive")
+    out = []
+    for units, nbs in (BWD_SLICES if backward else FWD_SLICES).items():
+        slices = -(-H // units)
+        if slices > sm_count:
+            continue
+        for groups in range(1, min(sm_count // slices, B) + 1):
+            rows = -(-B // groups)
+            if -(-B // rows) != groups:
+                continue
+            for nb in nbs:
+                smem = _smem(H, units, nb, backward)
+                if smem <= smem_limit:
+                    out.append(Plan(groups, slices, units, nb, rows, smem))
+    return out
+
+
+def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False) -> Plan:
+    """The partition of a (B, T, H) sequence for a card with ``sm_count`` SMs
+    whose blocks may take ``smem_limit`` bytes of shared memory: of the
+    :func:`candidates`, the one of least :func:`cost`; on a tie the fewer
+    rows a group, then the more rows a warp pass. Raises ValueError, naming the
+    widest H the card takes, for a hidden width past it."""
+    found = candidates(B, H, sm_count, smem_limit, backward)
+    if found:
+        return min(found, key=lambda p: (cost(p, H, backward), p.rows, -p.nb))
+    widest = 0
+    for units, nbs in (BWD_SLICES if backward else FWD_SLICES).items():
+        fits = [w for w in range(units * sm_count, 0, -1)
+                if _smem(w, units, min(nbs), backward) <= smem_limit]
+        widest = max(widest, fits[0] if fits else 0)
+    raise ValueError(
+        f"gru_seq: hidden width {H} is past the limit of {widest} for {sm_count} SMs with "
+        f"{smem_limit} bytes of shared memory each (W_hh must fit the card's shared memory)")
+
+
+def _plan_args(B: int, H: int, device, backward: bool):
+    """The plan for this device as the C entry points take it, and the
+    zeroed barrier counters (one 128-byte line a group)."""
+    p = plan(B, H, *_build.device_limits(device), backward=backward)
+    return _build.int_array(p), torch.zeros(32 * p.groups, device=device, dtype=torch.int32)
+
+
 def gru_seq_fwd(xg: Tensor, w_hh: Tensor, b_hh: Tensor) -> Tuple[Tensor, Tensor]:
     """Same contract as :func:`gru_seq_fwd_plain`; CUDA tensors go through
     the kernel (f32, contiguous), CPU tensors through the plain version."""
@@ -74,15 +180,40 @@ def gru_seq_fwd(xg: Tensor, w_hh: Tensor, b_hh: Tensor) -> Tuple[Tensor, Tensor]
     H = w_hh.shape[1]
     _build.check_tensors("gru_seq", xg.device, xg=(xg, (B, T, 3 * H)),
                          w_hh=(w_hh, (3 * H, H)), b_hh=(b_hh, (3 * H,)))
+    if B < 1 or T < 1:
+        raise ValueError(f"gru_seq: B and T must be at least 1, got {B} and {T}")
     lib = _build.library()
+    plan_v, sync = _plan_args(B, H, xg.device, backward=False)
     ys = torch.empty((B, T, H), device=xg.device, dtype=torch.float32)
     gates = torch.empty((B, T, 4 * H), device=xg.device, dtype=torch.float32)
     err = lib.rtvc_gru_seq_fwd(xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                               ys.data_ptr(), gates.data_ptr(), B, T, H,
-                               _build.stream_handle(xg.device))
+                               ys.data_ptr(), gates.data_ptr(), B, T, H, plan_v,
+                               sync.data_ptr(), _build.stream_handle(xg.device))
     _build.check(err, "rtvc_gru_seq_fwd")
     _build.launch_counts["gru_seq"] += 1
     return ys, gates
+
+
+def _bwd(dys: Tensor, gates: Tensor, ys: Tensor, w_hh: Tensor) -> Tuple[Tensor, Tensor]:
+    """The backward kernel → (dxg, dhg), dhg = [dr, dz, dn·r] (B, T, 3H)."""
+    B, T, H = dys.shape
+    _build.check_tensors("gru_seq_bwd", dys.device, dys=(dys, (B, T, H)),
+                         gates=(gates, (B, T, 4 * H)), ys=(ys, (B, T, H)),
+                         w_hh=(w_hh, (3 * H, H)))
+    if B < 1 or T < 1:
+        raise ValueError(f"gru_seq_bwd: B and T must be at least 1, got {B} and {T}")
+    lib = _build.library()
+    plan_v, sync = _plan_args(B, H, dys.device, backward=True)
+    dxg = torch.empty((B, T, 3 * H), device=dys.device, dtype=torch.float32)
+    dhg = torch.empty((B, T, 3 * H), device=dys.device, dtype=torch.float32)
+    carry = torch.empty((B, H), device=dys.device, dtype=torch.float32)
+    err = lib.rtvc_gru_seq_bwd(dys.data_ptr(), gates.data_ptr(), ys.data_ptr(),
+                               w_hh.data_ptr(), dxg.data_ptr(), dhg.data_ptr(),
+                               carry.data_ptr(), B, T, H, plan_v, sync.data_ptr(),
+                               _build.stream_handle(dys.device))
+    _build.check(err, "rtvc_gru_seq_bwd")
+    _build.launch_counts["gru_seq_bwd"] += 1
+    return dxg, dhg
 
 
 def gru_seq_bwd(dys: Tensor, gates: Tensor, ys: Tensor, w_hh: Tensor) -> Tensor:
@@ -90,19 +221,7 @@ def gru_seq_bwd(dys: Tensor, gates: Tensor, ys: Tensor, w_hh: Tensor) -> Tensor:
     the kernel, CPU tensors through the plain version."""
     if not dys.is_cuda:
         return gru_seq_bwd_plain(dys, gates, ys, w_hh)
-    B, T, H = dys.shape
-    w_hh_t = w_hh.t().contiguous()  # the kernel streams rows of W_hhᵀ
-    _build.check_tensors("gru_seq_bwd", dys.device, dys=(dys, (B, T, H)),
-                         gates=(gates, (B, T, 4 * H)), ys=(ys, (B, T, H)),
-                         w_hh_t=(w_hh_t, (H, 3 * H)))
-    lib = _build.library()
-    dxg = torch.empty((B, T, 3 * H), device=dys.device, dtype=torch.float32)
-    err = lib.rtvc_gru_seq_bwd(dys.data_ptr(), gates.data_ptr(), ys.data_ptr(),
-                               w_hh_t.data_ptr(), dxg.data_ptr(), B, T, H,
-                               _build.stream_handle(dys.device))
-    _build.check(err, "rtvc_gru_seq_bwd")
-    _build.launch_counts["gru_seq_bwd"] += 1
-    return dxg
+    return _bwd(dys, gates, ys, w_hh)[0]
 
 
 class GRUSeqFn(torch.autograd.Function):
@@ -119,9 +238,13 @@ class GRUSeqFn(torch.autograd.Function):
     def backward(ctx, dys):
         w_hh, ys, gates = ctx.saved_tensors
         H = w_hh.shape[1]
-        dxg = gru_seq_bwd(dys.contiguous(), gates, ys, w_hh)
-        # hidden-side pre-activation cotangent: the n slice regains its ·r
-        dhg = torch.cat([dxg[..., :2 * H], dxg[..., 2 * H:] * gates[..., :H]], dim=-1)
+        dys = dys.contiguous()
+        if dys.is_cuda:
+            dxg, dhg = _bwd(dys, gates, ys, w_hh)
+        else:
+            dxg = gru_seq_bwd_plain(dys, gates, ys, w_hh)
+            # hidden-side pre-activation cotangent: the n slice regains its ·r
+            dhg = torch.cat([dxg[..., :2 * H], dxg[..., 2 * H:] * gates[..., :H]], dim=-1)
         h_prev = torch.cat([torch.zeros_like(ys[:, :1]), ys[:, :-1]], dim=1)
         dw_hh = dhg.reshape(-1, 3 * H).t() @ h_prev.reshape(-1, H)
         return dxg, dw_hh, dhg.sum(dim=(0, 1))

@@ -146,26 +146,10 @@ def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False)
         f"{smem_limit} bytes of shared memory each (W_hh must fit the card's shared memory)")
 
 
-_limits: dict = {}
-
-
-def device_limits(device) -> Tuple[int, int]:
-    """(SM count, bytes of shared memory a block may opt in to) of a CUDA
-    device, asked of the CUDA runtime once."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    if index not in _limits:
-        out = _build.int_array([0, 0])
-        with torch.cuda.device(index):
-            _build.check(_build.library().rtvc_device_limits(out), "rtvc_device_limits")
-        _limits[index] = (int(out[0]), int(out[1]))
-    return _limits[index]
-
-
 def _plan_args(B: int, H: int, device, backward: bool):
     """The plan for this device as the C entry points take it, and the
     zeroed barrier counters (one 128-byte line a group)."""
-    p = plan(B, H, *device_limits(device), backward=backward)
+    p = plan(B, H, *_build.device_limits(device), backward=backward)
     return _build.int_array(p), torch.zeros(32 * p.groups, device=device, dtype=torch.int32)
 
 

@@ -4,7 +4,11 @@ and runtimeracer variants and the categorical, MOL and beta heads.
 ``wavernn_generate_core`` launches the CUDA kernel in
 ``csrc/wavernn_generate.cu`` for CUDA tensors and runs
 ``wavernn_generate_core_plain`` for CPU tensors. It replaces
-``rtvc_tpu/ops/pallas/wavernn_kernel.py:generate_core_pallas``.
+``rtvc_tpu/ops/pallas/wavernn_kernel.py:generate_core_pallas``. The kernel
+is one cooperative launch over the card: every CTA keeps a slice of every
+layer's rows in shared memory, all folds ride in every CTA, and a grid
+barrier follows each dependent layer of a step; :func:`plan` cuts the
+layers over the CTAs.
 
 Inputs are the hoisted form ``models.wavernn`` prepares: ``weights`` (the
 per-step weights, torch layout, from ``step_weights``) and ``streams`` (the
@@ -82,6 +86,88 @@ LAYERS: Dict[str, LayerList] = {
 
 # the launch count's name, one per variant
 COUNT_NAME = {v: "wavernn_generate_" + v.split("-")[0] for v in LAYERS}
+
+WARPS = 8        # warps of a CTA (csrc/common.cuh:kRecWarps)
+ROW_BLOCK = 8    # weight rows an item of a layer's product takes (kRowBlock)
+FOLD_PASSES = (4, 8)  # the kernel's instantiations: folds an item takes
+WIDE_FOLDS = 64  # from this many folds on, items take 8 folds
+MAX_FOLD_BLOCK = 512  # folds of the phase buffer at most
+
+
+class Plan(NamedTuple):
+    """How a launch is cut over the card: ``ctas`` CTAs, each owning
+    ``units`` hidden units of every GRU, ``fc_rows`` rows of every FC but the
+    last and ``last_rows`` of the last (a multiple of 4 for a categorical
+    head: Philox gives four draws at once); a layer's product is cut into
+    items of ``nb`` folds; the phase buffer holds ``fb`` folds; a CTA needs
+    ``smem`` bytes of shared memory."""
+    ctas: int
+    units: int
+    fc_rows: int
+    last_rows: int
+    nb: int
+    fb: int
+    smem: int
+
+
+def _al4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _blocks(n: int) -> int:
+    return -(-n // ROW_BLOCK) * ROW_BLOCK
+
+
+def _smem_floats(variant: str, R: int, F: int, head: str, B: int, units: int,
+                 fc_rows: int, last_rows: int, nb: int, fb: int) -> int:
+    """Floats of a CTA's shared memory: the arithmetic of
+    ``csrc/wavernn_generate.cu:layout``."""
+    layers = LAYERS[variant]
+    g_rows = _blocks(3 * units)
+    n = len(layers.rnns) * (2 * g_rows * _al4(R) + 2 * _al4(3 * units))
+    n += _al4(3 * units) + _al4(units)
+    qs = [fc_rows] * (len(layers.fcs) - 1) + [last_rows]
+    for k, q in enumerate(qs):
+        n += _blocks(q) * _al4(R if k == 0 else F) + _al4(q)
+    n += WARPS * (-(-ROW_BLOCK * nb // 32) * 32)
+    n += max(2 * g_rows, _blocks(max(qs))) * fb
+    if head == HEAD_CATEGORICAL:
+        n += _al4(2 * (last_rows // 4) * fb)
+    return n + _al4(B)
+
+
+def plan(variant: str, R: int, F: int, C: int, B: int, sm_count: int, smem_limit: int,
+         head: str = HEAD_CATEGORICAL) -> Plan:
+    """The partition of a variant's sample loop for B folds on a card with
+    ``sm_count`` SMs whose blocks may take ``smem_limit`` bytes of shared
+    memory: every layer's rows cut evenly over at most ``sm_count`` CTAs (one
+    a SM, all resident at once), items of 4 folds below ``WIDE_FOLDS`` folds
+    and 8 from there on, and the phase buffer as many folds wide as fit (at
+    most B, at most ``MAX_FOLD_BLOCK``). Raises ValueError, naming the limit,
+    where a CTA's weights do not fit its shared memory or the folds' samples
+    do not fit beside them."""
+    if min(R, F, C, B, sm_count) < 1 or variant not in LAYERS:
+        raise ValueError(f"wavernn_generate: bad plan inputs {variant} R {R} F {F} C {C} "
+                         f"B {B} SMs {sm_count}")
+    units, fc_rows = -(-R // sm_count), -(-F // sm_count)
+    last_rows = -(-C // sm_count)
+    if head == HEAD_CATEGORICAL:
+        last_rows = _al4(last_rows)
+    ctas = max(-(-R // units), -(-F // fc_rows), -(-C // last_rows))
+    nb = FOLD_PASSES[1] if B >= WIDE_FOLDS else FOLD_PASSES[0]
+    least = 4 * _smem_floats(variant, R, F, head, 1, units, fc_rows, last_rows, nb, nb)
+    if least > smem_limit:
+        raise ValueError(
+            f"wavernn_generate: {variant} at R {R}, F {F}, C {C} needs {least} bytes of shared "
+            f"memory a CTA on {sm_count} SMs, past the limit of {smem_limit} (its weights must "
+            f"fit the card's shared memory)")
+    for fb in range(min(-(-B // nb), MAX_FOLD_BLOCK // nb) * nb, 0, -nb):
+        smem = 4 * _smem_floats(variant, R, F, head, B, units, fc_rows, last_rows, nb, fb)
+        if smem <= smem_limit:
+            return Plan(ctas, units, fc_rows, last_rows, nb, fb, smem)
+    widest = (smem_limit - least) // 4 + 1  # each fold beyond the first takes a float
+    raise ValueError(f"wavernn_generate: {B} folds are past the limit of {widest} for "
+                     f"{variant} with {smem_limit} bytes of shared memory a CTA")
 
 
 def weight_shapes(variant: str, R: int, F: int, C: int) -> Dict[str, tuple]:
@@ -224,10 +310,20 @@ def wavernn_generate_core(weights: Dict[str, Tensor], streams: Dict[str, Tensor]
                           variant: str = VOC_RUNTIMERACER, head: str = HEAD_CATEGORICAL):
     """Same contract as :func:`wavernn_generate_core_plain`; CUDA tensors go
     through the kernel."""
-    i_cond = streams["i_cond"]
-    if not i_cond.is_cuda:
+    if not streams["i_cond"].is_cuda:
         return wavernn_generate_core_plain(weights, streams, seed, argmax, return_logits,
                                            variant, head)
+    out = launch(_build.library(), weights, streams, seed, argmax, return_logits, variant, head)
+    _build.launch_counts[COUNT_NAME[variant]] += 1
+    return out
+
+
+def launch(lib, weights: Dict[str, Tensor], streams: Dict[str, Tensor], seed: int,
+           argmax: bool, return_logits: bool, variant: str, head: str):
+    """One launch of ``lib``'s ``rtvc_wavernn_generate`` (the package's
+    library, or a variant of it that ``profile_wavernn`` builds) on CUDA
+    tensors, after the shape checks and with this device's plan."""
+    i_cond = streams["i_cond"]
     layers = LAYERS[variant]
     B, T, R = i_cond.shape
     first, last = layers.fcs[0], layers.fcs[-1]
@@ -244,16 +340,20 @@ def wavernn_generate_core(weights: Dict[str, Tensor], streams: Dict[str, Tensor]
         name: (streams[name], (B, T, width))
         for name, width in stream_widths(variant, R, F).items()})
     w, s, relu = _slots(variant, weights, streams)
-    lib = _build.library()
+    p = plan(variant, R, F, C, B, *_build.device_limits(dev), head=head)
     out = torch.empty((B, T), device=dev, dtype=torch.float32)
     trace = torch.empty((B, T, C), device=dev) if return_logits else None
+    # GRU states (two a layer), activations (two), head inputs, partials
+    scratch = torch.zeros(len(layers.rnns) * 2 * B * R + 2 * B * _al4(max(R, F)) + B * C
+                          + 2 * p.ctas * B, device=dev, dtype=torch.float32)
+    sync = torch.zeros(32, device=dev, dtype=torch.int32)
     err = lib.rtvc_wavernn_generate(
         _build.pointer_array(w), _build.pointer_array(s),
         _build.int_array([B, T, R, F, C, len(layers.rnns), len(layers.fcs),
-                          _HEAD_CODE[head], *relu]),
-        int(bool(argmax)), int(seed) & 0xFFFFFFFFFFFFFFFF, out.data_ptr(),
-        None if trace is None else trace.data_ptr(), _build.stream_handle(dev),
+                          _HEAD_CODE[head], *relu, *p]),
+        int(bool(argmax)), int(seed) & 0xFFFFFFFFFFFFFFFF, scratch.data_ptr(),
+        sync.data_ptr(), out.data_ptr(), None if trace is None else trace.data_ptr(),
+        _build.stream_handle(dev),
     )
     _build.check(err, "rtvc_wavernn_generate")
-    _build.launch_counts[COUNT_NAME[variant]] += 1
     return (out, trace) if return_logits else out

@@ -2,9 +2,10 @@
 
     python -m rtvc_tpu_torch.profile_lstm [B T H]
 
-Builds ``csrc/lstm_seq.cu`` as it is and in variants whose source has one part
-replaced by a constant, each with its own ``nvcc`` (all started together,
-into a temporary directory), and times forward and backward of each with
+Builds ``csrc/lstm_seq.cu`` (with ``csrc/common.cuh`` written into it, where
+the product ``slice_product`` lives) as it is and in variants whose source has
+one part replaced by a constant, each with its own ``nvcc`` (all started
+together, into a temporary directory), and times forward and backward of each with
 CUDA events at the GE2E training shape (640 x 40 x 768: the time per step
 does not depend on T) and at the inference shape (8 x 160 x 768):
 
@@ -30,7 +31,7 @@ from pathlib import Path
 import torch
 
 from rtvc_tpu_torch import _build
-from rtvc_tpu_torch.ops.lstm_seq import device_limits, plan
+from rtvc_tpu_torch.ops.lstm_seq import plan
 
 FIRST_LOAD = "__ldcg(reinterpret_cast<const float4*>(x + b * xs + lane * 4))"
 NEXT_LOAD = "__ldcg(reinterpret_cast<const float4*>(x + b * xs + k + 128))"
@@ -40,32 +41,55 @@ FWD_SETUP = "  const int G = 4 * H;\n  for (int i = threadIdx.x; i < R * ld;"
 FWD_BARRIER = ("    if (t + 1 < T) rtvc::grid_barrier(p.counter, p.slices * (unsigned int)(t + 1));\n"
                "  }\n")
 CLOCK_WORD = 40  # of the barrier counters' tensor: kernel cycles / 1024
+BARRIER_WAIT = "    } while (seen < target);"
+
+
+def flat_source(name: str) -> str:
+    """``csrc/<name>`` with ``common.cuh`` written in place of its include, so
+    that one text holds the kernels and the helpers they call."""
+    common = (_build.SRC_DIR / "common.cuh").read_text().replace("#pragma once\n", "")
+    return (_build.SRC_DIR / name).read_text().replace('#include "common.cuh"', common, 1)
 
 
 def replaced(source: str, old: str, new: str) -> str:
     if old not in source:
-        raise RuntimeError(f"profile_lstm: csrc/lstm_seq.cu no longer holds {old!r}")
+        raise RuntimeError(f"profile: the kernel source no longer holds {old!r}")
     return source.replace(old, new, 1)
 
 
-def variants(source: str) -> dict:
+def part_variants(source: str) -> dict:
+    """The source as it is and with the shared product's loads from L2, its
+    weight reads from shared memory, or both replaced by constants (the
+    replacements land in ``common.cuh:slice_product``, which K3, K4 and K1
+    share)."""
     no_loads = replaced(replaced(source, FIRST_LOAD, "make_float4(1.f, 0.f, b, 2.f)"),
                         NEXT_LOAD, "make_float4(1.f, k, b, 2.f)")
+    return {"base": source, "no_loads": no_loads,
+            "no_weights": replaced(source, WEIGHT_LOAD, CONST_WEIGHT),
+            "no_loads_no_weights": replaced(no_loads, WEIGHT_LOAD, CONST_WEIGHT)}
+
+
+def no_wait(source: str) -> str:
+    """The source with the grid barrier's wait taken out (each CTA still
+    arrives): the barrier's own cost, with the steps no longer in order."""
+    return replaced(source, BARRIER_WAIT, "    } while (false);")
+
+
+def variants(source: str) -> dict:
     clock = replaced(source, FWD_SETUP, "  const long long c_start = clock64();\n" + FWD_SETUP)
     clock = replaced(clock, FWD_BARRIER, FWD_BARRIER + (
         "  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
         f"    sync[{CLOCK_WORD}] = (unsigned int)((clock64() - c_start) >> 10);\n"))
-    return {"base": source, "no_loads": no_loads,
-            "no_weights": replaced(source, WEIGHT_LOAD, CONST_WEIGHT),
-            "no_loads_no_weights": replaced(no_loads, WEIGHT_LOAD, CONST_WEIGHT),
-            "clock": clock}
+    return {**part_variants(source), "clock": clock}
 
 
-def build(tmp: Path) -> dict:
-    source = (_build.SRC_DIR / "lstm_seq.cu").read_text()
+def build(tmp: Path, made: dict, functions=("rtvc_lstm_seq_fwd", "rtvc_lstm_seq_bwd")) -> dict:
+    """Each variant's source built into a library of its own under ``tmp``,
+    all ``nvcc`` started together; ``functions`` are bound as the package
+    binds them."""
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     procs = {}
-    for name, text in variants(source).items():
+    for name, text in made.items():
         (tmp / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *flags, "-I", str(_build.SRC_DIR), "-shared", "-o",
@@ -77,7 +101,7 @@ def build(tmp: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the {name} variant:\n{log}")
         lib = ctypes.CDLL(str(tmp / f"{name}.so"))
-        for fn in ("rtvc_lstm_seq_fwd", "rtvc_lstm_seq_bwd"):
+        for fn in functions:
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -105,7 +129,7 @@ def profile_shape(libs: dict, B: int, T: int, H: int, dev) -> None:
     ys, cs = torch.empty(B, T, H, device=dev), torch.randn(B, T, H, generator=g).to(dev)
     gates, dxg = torch.rand(B, T, 4 * H, generator=g).to(dev), torch.empty(B, T, 4 * H, device=dev)
     hT, cT = torch.empty(B, H, device=dev), torch.empty(B, H, device=dev)
-    limits = device_limits(dev)
+    limits = _build.device_limits(dev)
     p_fwd, p_bwd = plan(B, H, *limits), plan(B, H, *limits, backward=True)
     stream = _build.stream_handle(dev)
     print(f"B={B} T={T} H={H}: forward {p_fwd}, backward {p_bwd}")
@@ -147,7 +171,7 @@ def main() -> int:
     shapes = [tuple(map(int, sys.argv[1:4]))] if len(sys.argv) >= 4 else [(640, 40, 768),
                                                                           (8, 160, 768)]
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp))
+        libs = build(Path(tmp), variants(flat_source("lstm_seq.cu")))
         for B, T, H in shapes:
             profile_shape(libs, B, T, H, dev)
     return 0

@@ -3,8 +3,10 @@
     python -m rtvc_tpu_torch.profile_train
 
 Takes GE2E steps (64 speakers x 10 utterances x 160 frames, 3 x LSTM-768),
-runtimeracer WaveRNN steps (batch 40 x 1000 samples) and Tacotron steps (the
-first session of its schedule: r 7, batch 112, 602 frames, 160 characters)
+WaveRNN steps of the three variants at the first session of their schedules
+(runtimeracer and fatchord batch 40 x 1000 samples, geneing 40 x 1400) and
+Tacotron steps (the first session of its schedule: r 7, batch 112, 602
+frames, 160 characters)
 with seeded random weights and synthetic batches. For each it prints the
 wall time of three steps ending in a device sync, the peak device memory, and a
 ``torch.profiler`` table of device time by kernel over a few more steps,
@@ -92,9 +94,9 @@ def encoder_step(dev):
     return step, x.reshape(S * U, T, 40).to(dev)
 
 
-def vocoder_step(dev):
-    cfg = factories.default_config(factories.MODEL_TYPE_RUNTIMERACER)
-    d = factories.wavernn_dims(factories.MODEL_TYPE_RUNTIMERACER, cfg)
+def vocoder_step(dev, model_type=factories.MODEL_TYPE_RUNTIMERACER):
+    cfg = factories.default_config(model_type)
+    d = factories.wavernn_dims(model_type, cfg)
     model = factories.init_wavernn(d, seed=0, device=dev).train()
     step = steps.make_wavernn_train_step(
         model, d, trainer.make_optimizer(model.parameters(), 1e-3))
@@ -149,7 +151,11 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     profile_step("GE2E step 640 x 160 x 40", *encoder_step(dev), n=2)
-    profile_step("WaveRNN step 40 x 1000", *vocoder_step(dev), n=3)
+    for model_type in (factories.MODEL_TYPE_RUNTIMERACER, factories.MODEL_TYPE_FATCHORD,
+                       factories.MODEL_TYPE_GENEING):
+        cfg = factories.default_config(model_type)
+        profile_step(f"WaveRNN {model_type} step {cfg.voc_tts_schedule[0][3]} x {cfg.seq_len}",
+                     *vocoder_step(dev, model_type), n=3)
     profile_step("Tacotron step 112 x 602 frames x 160 chars, r 7", *synthesizer_step(dev), n=2)
 
     def leaf(*shape, scale=1.0):
@@ -162,12 +168,12 @@ def main() -> int:
     cudnn = fwd_bwd_ms(torch.nn.LSTM(H, H, batch_first=True, device=dev), (leaf(640, 160, H),))
     print(f"fwd+bwd 640 x 160, H {H}: LSTMSeqFn {port:.3f} ms (recurrence only), "
           f"cuDNN nn.LSTM {cudnn:.3f} ms (input projection included)")
-    H = 256
-    port = fwd_bwd_ms(GRUSeqFn.apply,
-                      (leaf(40, 1000, 3 * H), leaf(3 * H, H, scale=H ** -0.5), leaf(3 * H)))
-    cudnn = fwd_bwd_ms(torch.nn.GRU(H, H, batch_first=True, device=dev), (leaf(40, 1000, H),))
-    print(f"fwd+bwd 40 x 1000, H {H}: GRUSeqFn {port:.3f} ms (recurrence only), "
-          f"cuDNN nn.GRU {cudnn:.3f} ms (input projection included)")
+    for T, H in ((1000, 256), (1000, 512), (1400, 256)):
+        port = fwd_bwd_ms(GRUSeqFn.apply,
+                          (leaf(40, T, 3 * H), leaf(3 * H, H, scale=H ** -0.5), leaf(3 * H)))
+        cudnn = fwd_bwd_ms(torch.nn.GRU(H, H, batch_first=True, device=dev), (leaf(40, T, H),))
+        print(f"fwd+bwd 40 x {T}, H {H}: GRUSeqFn {port:.3f} ms (recurrence only), "
+              f"cuDNN nn.GRU {cudnn:.3f} ms (input projection included)")
     print(f"jax imported: {'jax' in sys.modules}")
     return 0
 

@@ -25,7 +25,6 @@ from rtvc_tpu_torch.ops.gru_seq import (
 )
 from rtvc_tpu_torch.ops.lstm_seq import (
     LSTMSeqFn,
-    device_limits,
     grid_barrier_steps,
     lstm_seq,
     lstm_seq_bwd,
@@ -45,6 +44,7 @@ from rtvc_tpu_torch.ops.wavernn_generate import (
     wavernn_generate_core,
     wavernn_generate_core_plain,
 )
+from rtvc_tpu_torch.ops.wavernn_generate import plan as k1_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -123,7 +123,7 @@ def test_lstm_seq_kernel_widest(dev):
 
 
 def test_grid_barrier_steps_runs(dev):
-    sms, _ = device_limits(dev)
+    sms, _ = _build.device_limits(dev)
     _counted("grid_barrier_steps", lambda: grid_barrier_steps(sms, 100, dev))
 
 
@@ -165,9 +165,12 @@ def test_lstm_train_kernels_match_plain(dev, B, T, H):
         assert rel_err(a.grad, b.grad) <= 1e-4
 
 
-# small widths, odd widths, and the runtimeracer training shape (B 40,
-# seq_len 1000, H 256)
-@pytest.mark.parametrize("B,T,H", [(3, 20, 128), (2, 9, 13), (40, 1000, 256)])
+# small widths, odd widths (the kernels' scalar path), the three WaveRNN
+# training shapes (runtimeracer, fatchord, geneing), one row, more rows than
+# SMs at a ragged width, one step, and the CBHG BiGRU's width at its batch
+@pytest.mark.parametrize("B,T,H", [(3, 20, 128), (2, 9, 13), (40, 1000, 256), (40, 1000, 512),
+                                   (40, 1400, 256), (1, 7, 128), (133, 5, 200), (4, 1, 64),
+                                   (112, 50, 64), (5, 6, 13)])
 def test_gru_kernels_match_plain(dev, B, T, H):
     g = torch.Generator().manual_seed(1)
     s = H ** -0.5
@@ -180,12 +183,26 @@ def test_gru_kernels_match_plain(dev, B, T, H):
     assert rel_err(got[0], ys) <= 1e-5 and rel_err(got[1], gates) <= 1e-5
     dxg = _counted("gru_seq_bwd", lambda: gru_seq_bwd(dys, gates, ys, w))
     assert rel_err(dxg, gru_seq_bwd_plain(dys, gates, ys, w)) <= 1e-4
+    # no sum goes through an atomic: a second run gives the same bits
+    assert torch.equal(dxg, gru_seq_bwd(dys, gates, ys, w))
     leaves = [t.clone().requires_grad_() for t in (xg, w, b)]
     GRUSeqFn.apply(*leaves).backward(dys)
     ref = [t.clone().requires_grad_() for t in (xg, w, b)]
     gru_seq_fwd_plain(*ref)[0].backward(dys)
     for a, r in zip(leaves, ref):
         assert rel_err(a.grad, r.grad) <= 1e-4
+
+
+def test_gru_seq_kernel_names_its_width_limit(dev):
+    B, T, H = 2, 3, 1100  # past 8 units on each of the H100's 132 SMs
+    xg = torch.zeros(B, T, 3 * H, device=dev)
+    w = torch.zeros(3 * H, H, device=dev)
+    b = torch.zeros(3 * H, device=dev)
+    with pytest.raises(ValueError, match="past the limit of"):
+        gru_seq_fwd(xg, w, b)
+    with pytest.raises(ValueError, match="past the limit of"):
+        gru_seq_bwd(torch.zeros(B, T, H, device=dev), torch.zeros(B, T, 4 * H, device=dev),
+                    torch.zeros(B, T, H, device=dev), w)
 
 
 def test_train_kernels_reject_bad_input(dev):
@@ -296,12 +313,14 @@ CELLS = [("fatchord-wavernn", "RAW"), ("fatchord-wavernn", "MOL"), ("geneing-wav
          ("runtimeracer-wavernn", "RAW"), ("runtimeracer-wavernn", "MOL")]
 
 
+@pytest.mark.parametrize("B", [1, 13, 264])
 @pytest.mark.parametrize("variant,mode", CELLS)
-def test_wavernn_kernel_cells_greedy_match_plain(dev, variant, mode):
-    """Every variant x head cell at a small width: the head's inputs within
-    1e-5 at every step, the samples within 1e-6 (categorical: equal labels)
-    or 1e-5 (MOL and beta feed a continuous sample back)."""
-    w, s, d = _voc(dev, variant=variant, mode=mode)
+def test_wavernn_kernel_cells_greedy_match_plain(dev, variant, mode, B):
+    """Every variant x head cell at a small width, at one fold, at the 5 s
+    clone's 13 and past the SM count: the head's inputs within 1e-5 at every
+    step, the samples within 1e-6 (categorical: equal labels) or 1e-5 (MOL
+    and beta feed a continuous sample back)."""
+    w, s, d = _voc(dev, B=B, T=300 if B < 100 else 60, variant=variant, mode=mode)
     last = LAYERS[variant].fcs[-1].name
     # a wide last FC, so that the greedy decode moves
     w[f"{last}_w"] = (torch.randn(w[f"{last}_w"].shape,
@@ -340,6 +359,7 @@ def test_wavernn_kernel_heads_sample_their_distribution(dev, variant, mode):
     w[f"{last}_b"] = torch.tensor(bias, dtype=torch.float32, device=dev)
     kw = dict(variant=variant, head=d.head)
     samples = wavernn_generate_core(w, s, seed=99, **kw)
+    # one seed gives equal bits
     assert torch.equal(samples, wavernn_generate_core(w, s, seed=99, **kw))
     assert not torch.equal(samples, wavernn_generate_core(w, s, seed=100, **kw))
     x = samples.reshape(-1).double().cpu().numpy()
@@ -364,6 +384,59 @@ def test_wavernn_kernel_heads_sample_their_distribution(dev, variant, mode):
         obs = np.append(counts[keep], counts[~keep].sum())
         exp = np.append(expected[keep], expected[~keep].sum())
         assert stats.chisquare(obs, exp).pvalue > 1e-3
+
+
+def _full_width_greedy(dev, variant, mode, B, T):
+    """A cell at its config's default widths (the plan's real cut of the
+    layers over the card), B folds x T steps, greedy: head inputs within
+    1e-4 and the same samples as the plain version (categorical: labels).
+    Returns the vocoder's dims."""
+    from rtvc_tpu_torch.models import wavernn as wrn
+
+    cfg = factories.default_config(variant).replace(mode=mode)
+    voc = factories.init_voc_model(variant, seed=0, override_hp=cfg, device=dev)
+    d, model = voc.dims, voc.model
+    g = torch.Generator().manual_seed(8)
+    mels_up = (torch.rand(B, T, d.feat_dims, generator=g) * 2 - 1).to(dev)
+    aux = (torch.randn(B, T, d.res_out_dims, generator=g) * 0.5).to(dev)
+    kw = dict(variant=variant, head=d.head)
+    with torch.no_grad():
+        s = {k: v.contiguous() for k, v in wrn.hoist_aux(model, d, mels_up, aux).items()}
+        w = wrn.step_weights(model, d)
+        got, k_logits = _counted(COUNT_NAME[variant], lambda: wavernn_generate_core(
+            w, s, 0, argmax=True, return_logits=True, **kw))
+        ref, p_logits = wavernn_generate_core_plain(w, s, 0, argmax=True, return_logits=True,
+                                                    **kw)
+    torch.testing.assert_close(k_logits, p_logits, atol=1e-4, rtol=0)
+    if d.head == "categorical":
+        C = d.n_classes
+        assert torch.equal(torch.round((got + 1) * (C - 1) / 2),
+                           torch.round((ref + 1) * (C - 1) / 2))
+    else:
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+    return d
+
+
+@pytest.mark.parametrize("variant,mode", CELLS)
+def test_wavernn_kernel_full_width_matches_plain(dev, variant, mode):
+    """Each cell at its default widths, 13 folds x 64 steps."""
+    _full_width_greedy(dev, variant, mode, 13, 64)
+
+
+# fatchord's phase buffer fills the shared memory from about 340 folds; the
+# others stop at MAX_FOLD_BLOCK folds
+@pytest.mark.parametrize("variant,mode,B", [
+    ("fatchord-wavernn", "RAW", 400), ("fatchord-wavernn", "MOL", 400),
+    ("geneing-wavernn", "BITS", 600), ("runtimeracer-wavernn", "RAW", 600),
+    ("runtimeracer-wavernn", "MOL", 600)])
+def test_wavernn_kernel_fold_blocks_match_plain(dev, variant, mode, B):
+    """Past the fold block: the kernel loops over blocks of ``fb`` < B folds
+    (its partials, reductions and GRU / FC items indexed by block), at
+    default widths, 16 steps."""
+    d = _full_width_greedy(dev, variant, mode, B, 16)
+    p = k1_plan(variant, d.rnn_dims, d.fc_dims, d.n_classes, B, *_build.device_limits(dev),
+                head=d.head)
+    assert p.fb < B
 
 
 def test_wavernn_kernel_rejects_bad_input(dev):

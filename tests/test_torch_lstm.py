@@ -219,11 +219,13 @@ def test_lstm_plan_limit_counts_the_forward_padding():
 
 def test_profile_lstm_variants_match_the_kernel_source():
     """``profile_lstm`` makes its variants by replacing parts of
-    ``csrc/lstm_seq.cu``: every part it names must still be in the source,
-    and every variant must differ from it."""
-    from rtvc_tpu_torch import _build, profile_lstm
+    ``csrc/lstm_seq.cu`` with ``csrc/common.cuh`` written into it: every part
+    it names must still be in the source, and every variant must differ from
+    it."""
+    from rtvc_tpu_torch import profile_lstm
 
-    source = (_build.SRC_DIR / "lstm_seq.cu").read_text()
+    source = profile_lstm.flat_source("lstm_seq.cu")
+    assert '#include "common.cuh"' not in source and "slice_product" in source
     made = profile_lstm.variants(source)
     assert set(made) == {"base", "no_loads", "no_weights", "no_loads_no_weights", "clock"}
     assert made["base"] == source
