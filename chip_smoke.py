@@ -8,8 +8,10 @@
    shapes of the clone path, and times both with CUDA events:
    K3 LSTM sequence (8 x 160 x 768; W_hh resident in shared memory, a slice
    of the hidden units per CTA, a grid barrier per step: the plan taken and
-   the barrier's own cost are printed), K2 Tacotron decoder (full width, 2
-   texts, prenet dropout off, then seeded dropout), K1 WaveRNN loop (every
+   the barrier's own cost are printed), K2 Tacotron decoder (split over the
+   card, a grid barrier a phase: the plan is printed; full width at B 1 x T
+   64, B 2 x T 32 and B 24 x T 160, prenet dropout off, then seeded dropout,
+   beside the one-CTA kernel's times), K1 WaveRNN loop (every
    layer's weights resident in shared memory across the card, a grid
    barrier per layer: the plan is printed; every variant x head cell at
    full width: fatchord RAW and MOL, geneing BITS, RAW (beta) and MOL,
@@ -237,30 +239,47 @@ def phase_lstm(dev):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}
 
 
-def phase_tacotron(dev, syn):
+# K2 as one CTA that streamed every weight out of L2 each iteration (before it
+# was split over the card), 200 iterations at r 2, dropout off, CUDA-event ms
+# on an NVIDIA H100 80GB HBM3 at 700 W, by (B, T): the mean of two runs of
+# `profile_tacotron.py --wrapper` over that package, in one call with the split
+# kernel. Printed beside the new times in the phase's own lines only.
+K2_EARLIER_MS = {(1, 64): 131.332, (2, 32): 144.811, (24, 160): 4331.052}
+# (B, T) of K2's three cells: the clone's one text (its 64-character bucket),
+# two texts of 32, and the synthesis batch of 24 in a long-sentence bucket.
+K2_SHAPES = ((1, 64), (2, 32), (24, 160))
+
+
+def k2_cell(dev, syn, B, T):
+    """K2 at one shape against its plain version (dropout off: the same stop
+    iteration, mel within 1e-4, attention within 1e-5), its seeded dropout,
+    and its time beside the plain version's and its bound."""
     import torch
 
+    from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.models import tacotron as taco
-    from rtvc_tpu_torch.ops.tacotron_decode import tacotron_decode, tacotron_decode_plain
+    from rtvc_tpu_torch.ops import tacotron_decode as td
 
     d, model = syn.dims, syn.model
     r, max_steps = 2, (syn.config.max_decoder_steps // 2) * 2
     g = torch.Generator().manual_seed(1)
-    chars = torch.randint(1, d.num_chars, (2, 32), generator=g)
-    chars[0, 24:] = 0  # 24 characters in the 32 bucket
-    chars[1, 20:] = 0
-    spk = torch.randn(2, d.speaker_embedding_size, generator=g)
+    chars = torch.randint(1, d.num_chars, (B, T), generator=g)
+    lengths = torch.randint(T * 5 // 8, T + 1, (B,), generator=g)
+    for b in range(B):
+        chars[b, int(lengths[b]):] = 0
+    spk = torch.randn(B, d.speaker_embedding_size, generator=g)
     spk = spk / spk.norm(dim=1, keepdim=True)
+    p = td.plan(B, T, td.DecoderShape.of(model, d), r, *_build.device_limits(dev))
     with torch.no_grad():
         seq, proj = taco.encode(model, chars.to(dev), spk.to(dev), prenet_dropout=False)
         seq, proj = seq.contiguous(), proj.contiguous()
         mask = (chars != 0).float().to(dev)
 
         def kernel(seed=0, dropout=False):
-            return tacotron_decode(model, d, seq, proj, mask, seed, r, max_steps, dropout)
+            return td.tacotron_decode(model, d, seq, proj, mask, seed, r, max_steps, dropout)
 
         def plain():
-            return tacotron_decode_plain(model, d, seq, proj, mask, 0, r, max_steps, False)
+            return td.tacotron_decode_plain(model, d, seq, proj, mask, 0, r, max_steps, False)
 
         km, ka, ks = kernel()
         pm, pa, ps = plain()
@@ -270,21 +289,19 @@ def phase_tacotron(dev, syn):
         err_attn = float((ka - pa).abs().max())
         per_iter = (km - pm).abs().amax(dim=(0, 1)).reshape(-1, r).amax(dim=1)
         bad = torch.nonzero(per_iter > 1e-4)
-        print(f"K2 tacotron_decode B=2 T=32 iters={n_k}/{ks.shape[1]}: mel err "
-              f"{err_mel:.3e} (tol 1e-4), attn err {err_attn:.3e} (tol 1e-5); first "
-              f"iteration over tol: {int(bad[0]) if len(bad) else None}")
-        check(n_k == n_p, f"K2 stop iteration {n_k} != plain {n_p}")
-        check(err_mel <= 1e-4, f"K2 mel differs from its plain version: {err_mel}")
-        check(err_attn <= 1e-5, f"K2 attention differs from its plain version: {err_attn}")
+        check(n_k == n_p, f"K2 B={B} T={T}: stop iteration {n_k} != plain {n_p}")
+        check(err_mel <= 1e-4, f"K2 B={B} T={T}: mel differs from its plain version: {err_mel}"
+              f" (first iteration over tol {int(bad[0]) if len(bad) else None})")
+        check(err_attn <= 1e-5, f"K2 B={B} T={T}: attention differs from its plain version: "
+              f"{err_attn}")
         a1, a2, b1 = kernel(1, True)[0], kernel(1, True)[0], kernel(2, True)[0]
-        check(torch.equal(a1, a2), "K2 dropout: one seed does not repeat")
-        check(not torch.equal(a1, b1), "K2 dropout: two seeds give the same mel")
+        check(torch.equal(a1, a2), f"K2 B={B} T={T} dropout: one seed does not repeat")
+        check(not torch.equal(a1, b1), f"K2 B={B} T={T} dropout: two seeds give the same mel")
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(plain, reps=2)
     # the iterations this run took (n_k), each weight applied once to each of
     # the B rows; of mel_proj only the r frames' rows are read
     dec = model.decoder
-    B, T = mask.shape
     mats = [dec.prenet.fc1.weight, dec.prenet.fc2.weight, dec.attn_rnn.weight_ih,
             dec.attn_rnn.weight_hh, dec.attn_net.W.weight, dec.rnn_input.weight,
             dec.res_rnn1.weight_ih, dec.res_rnn1.weight_hh, dec.res_rnn2.weight_ih,
@@ -294,12 +311,24 @@ def phase_tacotron(dev, syn):
     attention = T * (NF * KS + d.decoder_dims * NF + d.decoder_dims + d.enc_out_dims)
     flops = 2 * n_k * B * (sum(m.numel() for m in mats) + mel_rows + attention)
     b = bound(nbytes(*mats, seq, proj, mask, km, ka, ks) + 4 * mel_rows, flops)
-    print(f"K2 dropout seeded: repeat ok, seeds differ; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms for {ks.shape[1]} iterations, bound "
-          f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
+    print(f"K2 tacotron_decode B={B} T={T} iters={n_k}/{ks.shape[1]} (plan: {p.ctas} CTAs, "
+          f"weights {'resident' if p.resident else 'read from L2'}, {p.nb} rows an item, "
+          f"{p.smem} bytes of shared memory a CTA): mel err {err_mel:.3e} (tol 1e-4), attn "
+          f"err {err_attn:.3e} (tol 1e-5); dropout seeded: repeat ok, seeds differ; kernel "
+          f"{ms:.3f} ms ({ms / n_k * 1e3:.2f} us an iteration; one-CTA kernel "
+          f"{K2_EARLIER_MS[(B, T)]} ms), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"by {b['bound_by']}")
+    return {"max_abs_err": max(err_mel, err_attn), "ms": ms, "plain_ms": plain_ms, **b}
+
+
+def phase_tacotron(dev, syn):
+    """K2 at its three cells; the kernels line takes the clone's (B 1 x T 64)
+    times and the largest error of the three."""
+    cells = {shape: k2_cell(dev, syn, *shape) for shape in K2_SHAPES}
+    clone = cells[K2_SHAPES[0]]
     return {"name": "tacotron_decode", "source": "rtvc_tpu_torch/csrc/tacotron_decode.cu",
             "replaces": "rtvc_tpu/ops/pallas/tacotron_kernel.py:427",
-            "max_abs_err": max(err_mel, err_attn), "ms": ms, "plain_ms": plain_ms, **b,
+            **clone, "max_abs_err": max(c["max_abs_err"] for c in cells.values()),
             "library_ms": None}
 
 

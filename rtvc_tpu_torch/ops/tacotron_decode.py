@@ -11,11 +11,19 @@ every stop token fired. Prenet dropout stays on unless ``dropout=False``;
 its noise comes from ``seed`` (Philox-4x32-10 in the kernel, a
 ``torch.Generator`` in the plain version), so the two agree exactly only
 with dropout off.
+
+The kernel is one cooperative launch over the card: every CTA owns a slice
+of the rows (or of the units) of every product of an iteration, for all
+batch rows at once, and a grid barrier ends each of the ten dependent phases
+of an iteration. :func:`plan` cuts the products over the CTAs, decides
+whether the weight slices stay in shared memory for the whole launch, and
+lays out the shared memory and the workspace; the kernel takes every offset
+from it.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -23,6 +31,281 @@ from rtvc_tpu_torch import _build
 from rtvc_tpu_torch.models.tacotron import Tacotron, TacotronDims, decode_loop
 
 Tensor = torch.Tensor
+
+THREADS = 256    # threads of a CTA (csrc/common.cuh:kRecThreads)
+WARPS = THREADS // 32
+ROW_BLOCK = 4    # weight rows an item of a product takes (kRowBlock)
+CHUNK = 128      # floats of the reduction axis a warp covers at once
+NB_CHOICES = (2, 4, 8)  # the kernel's instantiations: batch rows an item takes
+MAX_FILTERS = 32  # location filters a thread keeps in registers (kMaxFilters)
+CONV_PAIRS = 32  # (row, character) pairs a CTA convolves at once
+SPARE_PAIRS = 4  # pairs a CTA takes at most to keep them off the mel CTAs
+HEADER = 512     # floats of shared memory for the launch's parameters (kHeaderFloats)
+
+# The cuts: the unit axis each product is sliced along, over the CTAs.
+CUTS = ("fc", "gru", "query", "ri", "lstm", "mel", "stop", "pair", "ctx")
+# The products of an iteration, in the kernel's order (csrc: enum Product).
+PRODUCTS = ("fc1", "fc2", "gru_x", "gru_h", "gru_p", "query", "ri_a", "ri_c",
+            "l1_h", "l2_h", "l1_i", "l2_i", "mel", "stop_c", "stop_x")
+# Products whose single row is read from L2 in every plan.
+ALWAYS_STREAMED = ("stop_c", "stop_x")
+# The shared-memory offsets besides the products' (csrc: struct Plan).
+SMEM_SLOTS = ("c1", "c2", "v", "conv_w", "conv_b", "soft", "soft_rows", "scratch", "part",
+              "conv_buf", "conv_pairs", "bias", "ah_own", "x0_own", "x1_own", "qs", "end")
+# The workspace's buffers after the barrier's 32 words (csrc: enum Ws).
+WS_SLOTS = ("prev", "pre1", "pre2", "ctx", "ah", "q", "x0", "x1", "x2", "h1", "h2", "base",
+            "u", "cum", "stop", "lt", "total")
+
+
+class DecoderShape(NamedTuple):
+    """The decoder's widths: encoder output E, attention D, LSTM L, prenet P,
+    mels M, the model's largest r, location filters NF and taps KS."""
+    E: int
+    D: int
+    L: int
+    P: int
+    M: int
+    max_r: int
+    NF: int
+    KS: int
+
+    @classmethod
+    def of(cls, model: Tacotron, d: TacotronDims) -> "DecoderShape":
+        conv = model.decoder.attn_net.conv.weight
+        return cls(d.enc_out_dims, d.decoder_dims, d.lstm_dims, 2 * d.decoder_dims, d.n_mels,
+                   d.max_r, conv.shape[0], conv.shape[2])
+
+
+class Product(NamedTuple):
+    cut: str
+    gates: int   # weight rows a unit owns
+    n: int       # length of the reduction axis
+    phase: str   # the phase of an iteration it runs in (A-J)
+    chained: bool  # on the iteration's chain (False: its inputs are ready a phase or more early)
+
+
+def products(s: DecoderShape, r: int) -> Dict[str, Product]:
+    E, D, L, P, M = s.E, s.D, s.L, s.P, s.M
+    return {
+        "fc1": Product("fc", 1, M, "A", True),
+        "fc2": Product("fc", 1, P, "B", True),
+        "gru_x": Product("gru", 3, E, "A", False),
+        "gru_h": Product("gru", 3, D, "A", False),
+        "gru_p": Product("gru", 3, P, "C", True),
+        "query": Product("query", 1, D, "D", True),
+        "ri_a": Product("ri", 1, D, "D", False),
+        "ri_c": Product("ri", 1, E, "G", True),
+        "l1_h": Product("lstm", 4, L, "B", False),
+        "l2_h": Product("lstm", 4, L, "D", False),
+        "l1_i": Product("lstm", 4, L, "H", True),
+        "l2_i": Product("lstm", 4, L, "I", True),
+        "mel": Product("mel", r, L, "J", True),
+        "stop_c": Product("stop", 1, E, "G", False),
+        "stop_x": Product("stop", 1, L, "J", True),
+    }
+
+
+def cut_sizes(s: DecoderShape, B: int, T: int) -> Dict[str, int]:
+    """Units along each cut: prenet rows, GRU units, query rows, rnn_input
+    rows, LSTM units, mel channels, the stop row, (row, character) pairs of
+    the scores and (row, column) outputs of the context."""
+    return {"fc": s.P, "gru": s.D, "query": s.D, "ri": s.L, "lstm": s.L, "mel": s.M,
+            "stop": 1, "pair": B * T, "ctx": B * s.E}
+
+
+class Plan(NamedTuple):
+    """How a launch is cut over the card: ``ctas`` CTAs; ``nb`` batch rows an
+    item of a product takes; ``resident`` 1 where the weight slices stay in
+    shared memory for the whole launch, 0 where they are read from L2 every
+    iteration; ``smem`` bytes of shared memory a CTA. For each cut (CUTS),
+    ``q`` units a CTA and ``first``, the CTA that owns its first block (CTA c
+    owns block (c - first) mod ctas). For each product (PRODUCTS), ``ks``
+    pieces its reduction axis is cut into, ``w_off`` the offset of its weight
+    slice in shared memory (-1: read from L2) and ``out_off`` that of its
+    sums. ``sm`` holds the other shared-memory offsets (SMEM_SLOTS), ``ws``
+    the workspace's (WS_SLOTS, in floats, after 32 words for the barrier)."""
+    ctas: int
+    nb: int
+    resident: int
+    smem: int
+    q: Tuple[int, ...]
+    first: Tuple[int, ...]
+    ks: Tuple[int, ...]
+    w_off: Tuple[int, ...]
+    out_off: Tuple[int, ...]
+    sm: Tuple[int, ...]
+    ws: Tuple[int, ...]
+
+    def ints(self):
+        """The plan as the kernel reads it (csrc: struct Plan)."""
+        out = [self.ctas, self.nb, self.resident, self.smem]
+        for part in self[4:]:
+            out.extend(part)
+        return out
+
+    def owned(self, cut: str, n: int, cta: int) -> range:
+        """The units [0, n) of ``cut`` that CTA ``cta`` owns."""
+        k = CUTS.index(cut)
+        q = self.q[k]
+        u0 = (cta - self.first[k]) % self.ctas * q
+        return range(min(u0, n), min(u0 + q, n))
+
+
+def _al4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _bias_floats(q: Dict[str, int]) -> int:
+    """Floats of a CTA's biases (csrc: bias_layout): prenet fc1 and fc2, the
+    GRU's b_ih and b_hh, the query's, rnn_input's, both LSTMs' b_ih and b_hh,
+    the stop row's."""
+    sizes = (q["fc"], q["fc"], 3 * q["gru"], 3 * q["gru"], q["query"], q["ri"],
+             *(4 * q["lstm"],) * 4, 1)
+    return sum(_al4(n) for n in sizes)
+
+
+def _rows_hull(q_pair: int, q_ctx: int, T: int, E: int, B: int, ctas: int) -> int:
+    """The most batch rows whose softmax one CTA needs: the hull of the rows
+    of its (row, character) pairs and of its context outputs."""
+    most = 0
+    for c in range(ctas):
+        rows = []
+        for q, n, width in ((q_pair, B * T, T), (q_ctx, B * E, E)):
+            lo, hi = c * q, min((c + 1) * q, n)
+            if lo < hi:
+                rows += [lo // width, (hi - 1) // width]
+        if rows:
+            most = max(most, max(rows) - min(rows) + 1)
+    return most
+
+
+def plan(B: int, T: int, s: DecoderShape, r: int, sm_count: int, smem_limit: int,
+         resident=None, nb=None) -> Plan:
+    """The partition of the decoder loop for B texts of T characters at
+    reduction ``r`` on a card with ``sm_count`` SMs whose blocks may take
+    ``smem_limit`` bytes of shared memory. Every cut is spread evenly over
+    ``sm_count`` CTAs (one a SM, all resident at once); the mel channels and
+    the stop row sit on the last CTAs, and up to SPARE_PAIRS (row, character)
+    pairs a CTA on the others where that covers them. A chained product whose items are
+    fewer than the warps of a CTA cuts its reduction axis into as many pieces
+    as make them up. The weight slices stay in shared memory where they fit
+    (``resident`` None), else they are read from L2; ``resident`` and ``nb``
+    force a choice (the profile and the tests use that). Raises ValueError,
+    naming the limit, for a shape past it."""
+    if min(B, T, sm_count, r, *s) < 1 or r > s.max_r:
+        raise ValueError(f"tacotron_decode: bad plan inputs B {B} T {T} r {r} (max_r "
+                         f"{s.max_r}) SMs {sm_count} {s}")
+    if s.NF > MAX_FILTERS:
+        raise ValueError(f"tacotron_decode: {s.NF} location filters are past the limit of "
+                         f"{MAX_FILTERS}")
+    if nb is None:
+        nb = 2 if B <= 2 else 4 if B <= 12 else 8
+    if nb not in NB_CHOICES:
+        raise ValueError(f"tacotron_decode: nb {nb} is not one of {NB_CHOICES}")
+    ctas = sm_count
+    sizes = cut_sizes(s, B, T)
+    q = {c: _cdiv(n, ctas) for c, n in sizes.items()}
+    q["ctx"] = _al4(q["ctx"])  # the context is summed in groups of 4 columns
+    first = {c: 0 for c in CUTS}
+    first["mel"] = ctas - _cdiv(sizes["mel"], q["mel"])
+    first["stop"] = ctas - 1
+    # a few (row, character) pairs a CTA go to the CTAs without mel channels:
+    # phase J computes the next location term beside the mel frames
+    spare = first["mel"]
+    if spare and _cdiv(sizes["pair"], spare) <= SPARE_PAIRS:
+        q["pair"] = _cdiv(sizes["pair"], spare)
+    prods = products(s, r)
+    groups = _cdiv(B, nb)
+    ks = {}
+    for name, p in prods.items():
+        items = p.gates * _cdiv(q[p.cut], ROW_BLOCK) * groups
+        chunks = _cdiv(p.n, CHUNK)
+        want = min(chunks, _cdiv(WARPS, items)) if p.chained else 1
+        ks[name] = _cdiv(chunks, _cdiv(chunks, want))  # no piece left empty
+
+    def out_floats(name):
+        p = prods[name]
+        return _al4(ks[name] * p.gates * q[p.cut] * B)
+
+    def layout(keep_weights):
+        o = HEADER
+        w_off = {}
+        for name, p in prods.items():
+            if keep_weights and name not in ALWAYS_STREAMED:
+                w_off[name] = o
+                o += p.gates * q[p.cut] * _al4(p.n)
+            else:
+                w_off[name] = -1
+        sm = {}
+        for slot, n in (("v", s.D), ("conv_w", s.NF * s.KS), ("conv_b", s.NF)):
+            sm[slot] = o
+            o += _al4(n)
+        out_off = {}
+        for name, p in prods.items():
+            if not p.chained:
+                out_off[name] = o
+                o += out_floats(name)
+        for slot in ("c1", "c2"):
+            sm[slot] = o
+            o += _al4(q["lstm"] * B)
+        # the chained products of one phase side by side; the phases share
+        phase_base, widest = o, 0
+        for phase in "ABCDEFGHIJ":
+            at = phase_base
+            for name, p in prods.items():
+                if p.chained and p.phase == phase:
+                    out_off[name] = at
+                    at += out_floats(name)
+            widest = max(widest, at - phase_base)
+        o += widest
+        sm["soft_rows"] = _rows_hull(q["pair"], q["ctx"], T, s.E, B, ctas)
+        sm["soft"] = o
+        o += sm["soft_rows"] * _al4(T)
+        sm["scratch"] = o
+        o += WARPS * 32
+        # the context's pieces (phase F) and the location term's filters
+        # (phase J) share a buffer
+        sm["conv_pairs"] = min(q["pair"], CONV_PAIRS)
+        sm["part"] = sm["conv_buf"] = o
+        o += max(4 * THREADS, sm["conv_pairs"] * MAX_FILTERS)
+        sm["bias"] = o
+        o += _bias_floats(q)
+        for slot, cut in (("ah_own", "gru"), ("x0_own", "ri"), ("x1_own", "lstm")):
+            sm[slot] = o
+            o += _al4(q[cut] * B)
+        sm["qs"] = o
+        o += sm["soft_rows"] * _al4(s.D)
+        sm["end"] = o
+        return w_off, out_off, sm, 4 * o
+
+    choices = (True, False) if resident is None else (bool(resident),)
+    for keep in choices:
+        w_off, out_off, sm, smem = layout(keep)
+        if smem <= smem_limit:
+            break
+    else:
+        raise ValueError(
+            f"tacotron_decode: B {B} x T {T} at r {r} needs {smem} bytes of shared memory a CTA "
+            f"on {sm_count} SMs{' with its weights resident' if keep else ''}, past the limit "
+            f"of {smem_limit}")
+    ws, o = {}, 32
+    for slot, n in (("prev", B * _al4(s.M)), ("pre1", B * _al4(s.P)), ("pre2", B * _al4(s.P)),
+                    ("ctx", B * _al4(s.E)), ("ah", B * _al4(s.D)), ("q", B * _al4(s.D)),
+                    ("x0", B * _al4(s.L)), ("x1", B * _al4(s.L)), ("x2", B * _al4(s.L)),
+                    ("h1", B * _al4(s.L)), ("h2", B * _al4(s.L)),
+                    ("base", B * T * _al4(s.D)), ("u", B * _al4(T)), ("cum", B * _al4(T)),
+                    ("stop", _al4(B)), ("lt", _al4(s.NF * s.D))):
+        ws[slot] = o
+        o += n
+    ws["total"] = o
+    return Plan(ctas, nb, int(keep), smem, tuple(q[c] for c in CUTS),
+                tuple(first[c] for c in CUTS), tuple(ks[p] for p in PRODUCTS),
+                tuple(w_off[p] for p in PRODUCTS), tuple(out_off[p] for p in PRODUCTS),
+                tuple(sm[k] for k in SMEM_SLOTS), tuple(ws[k] for k in WS_SLOTS))
 
 
 def tacotron_decode_plain(model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
@@ -64,43 +347,51 @@ def tacotron_decode(model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
     if not encoder_seq.is_cuda:
         return tacotron_decode_plain(model, d, encoder_seq, encoder_seq_proj,
                                      char_mask, seed, r, max_steps, dropout)
+    out = launch(_build.library(), model, d, encoder_seq, encoder_seq_proj, char_mask, seed, r,
+                 max_steps, dropout)
+    _build.launch_counts["tacotron_decode"] += 1
+    return out
+
+
+def launch(lib, model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
+           encoder_seq_proj: Tensor, char_mask: Tensor, seed: int, r: int, max_steps: int,
+           dropout: bool = True, p: Plan = None, work: Tensor = None
+           ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One launch of ``lib``'s ``rtvc_tacotron_decode`` (the package's
+    library, or a variant of it that ``profile_tacotron`` builds) on CUDA
+    tensors, after the shape checks, with ``p`` or this device's plan, and
+    ``work`` (zeroed, at least ``p.ws[-1]`` floats) or a new workspace."""
     B, T, E = encoder_seq.shape
     dev = encoder_seq.device
-    D, L, M = d.decoder_dims, d.lstm_dims, d.n_mels
+    s = DecoderShape.of(model, d)
     if not 1 <= r <= d.max_r:
         raise ValueError(f"tacotron_decode: r={r} outside [1, {d.max_r}]")
-    for name, t, shape in (("encoder_seq", encoder_seq, (B, T, E)),
-                           ("encoder_seq_proj", encoder_seq_proj, (B, T, D)),
-                           ("char_mask", char_mask, (B, T))):
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"tacotron_decode: {name} must be f32 on {dev}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"tacotron_decode: {name} must be contiguous {shape}, "
-                             f"got {tuple(t.shape)}")
+    _build.check_tensors("tacotron_decode", dev, encoder_seq=(encoder_seq, (B, T, s.E)),
+                         encoder_seq_proj=(encoder_seq_proj, (B, T, s.D)),
+                         char_mask=(char_mask, (B, T)))
     weights = decoder_weights(model)
     for w in weights:
         if w.device != dev or w.dtype != torch.float32:
             raise ValueError(f"tacotron_decode: weights must be f32 on {dev}")
-    conv = model.decoder.attn_net.conv.weight
-    n_filters, ksize = conv.shape[0], conv.shape[2]
+    if p is None:
+        p = plan(B, T, s, r, *_build.device_limits(dev))
     max_iters = max(max_steps // r, 1)
     drop_thr = math.ceil(d.dropout * (1 << 24))  # keep iff 24 random bits ≥ thr
-    lib = _build.library()
-    dims = [B, T, E, D, L, 2 * D, M, d.max_r, r, max_iters, n_filters, ksize,
-            int(bool(dropout)), drop_thr, 0]
-    work_floats = lib.rtvc_tacotron_workspace(_build.int_array(dims))
-    dims[-1] = work_floats
-    work = torch.empty(work_floats, device=dev, dtype=torch.float32)
-    mel = torch.empty((B, M, max_iters * r), device=dev, dtype=torch.float32)
+    dims = [B, T, s.E, s.D, s.L, s.P, s.M, s.max_r, r, max_iters, s.NF, s.KS,
+            int(bool(dropout)), drop_thr]
+    if work is None:
+        work = torch.zeros(p.ws[-1], device=dev, dtype=torch.float32)
+    elif work.numel() < p.ws[-1] or work.device != dev or work.dtype != torch.float32:
+        raise ValueError(f"tacotron_decode: work must be at least {p.ws[-1]} f32 on {dev}")
+    mel = torch.empty((B, s.M, max_iters * r), device=dev, dtype=torch.float32)
     attn = torch.empty((B, max_iters, T), device=dev, dtype=torch.float32)
     stops = torch.empty((B, max_iters), device=dev, dtype=torch.float32)
+    ints = p.ints()
     err = lib.rtvc_tacotron_decode(
-        _build.pointer_array(weights), _build.int_array(dims),
-        int(seed) & 0xFFFFFFFFFFFFFFFF, encoder_seq.data_ptr(),
-        encoder_seq_proj.data_ptr(), char_mask.data_ptr(), mel.data_ptr(),
-        attn.data_ptr(), stops.data_ptr(), work.data_ptr(),
-        _build.stream_handle(dev),
+        _build.pointer_array(weights), _build.int_array(dims), _build.int_array(ints), len(ints),
+        int(seed) & 0xFFFFFFFFFFFFFFFF, encoder_seq.data_ptr(), encoder_seq_proj.data_ptr(),
+        char_mask.data_ptr(), mel.data_ptr(), attn.data_ptr(), stops.data_ptr(),
+        work.data_ptr(), _build.stream_handle(dev),
     )
     _build.check(err, "rtvc_tacotron_decode")
-    _build.launch_counts["tacotron_decode"] += 1
     return mel, attn, stops

@@ -33,6 +33,7 @@ from rtvc_tpu_torch.ops.lstm_seq import (
     lstm_seq_fwd_train_plain,
     lstm_seq_plain,
 )
+from rtvc_tpu_torch.ops import tacotron_decode as td
 from rtvc_tpu_torch.ops import tacotron_train as tk
 from rtvc_tpu_torch.ops.tacotron_decode import tacotron_decode, tacotron_decode_plain
 from rtvc_tpu_torch.config import preprocessing, sp
@@ -216,12 +217,12 @@ def test_train_kernels_reject_bad_input(dev):
                     torch.zeros(48, 16, device=dev), torch.zeros(48, device=dev))
 
 
-def _taco(dev, B, T=16):
-    d = tt.TacotronDims(**TACO)
+def _taco(dev, B, T=16, max_r=4):
+    d = tt.TacotronDims(**{**TACO, "max_r": max_r})
     model = factories.init_tacotron(d, seed=0, device=dev)
     g = torch.Generator().manual_seed(1)
     chars = torch.randint(1, 40, (B, T), generator=g)
-    chars[:, T - 4:] = 0
+    chars[:, max(1, T - 4):] = 0
     spk = torch.randn(B, 24, generator=g)
     with torch.no_grad():
         seq, proj = tt.encode(model, chars.to(dev), spk.to(dev), prenet_dropout=False)
@@ -229,18 +230,49 @@ def _taco(dev, B, T=16):
     return model, d, seq.contiguous(), proj.contiguous(), mask
 
 
-@pytest.mark.parametrize("B", [2, 11])
-def test_tacotron_decode_kernel_matches_plain(dev, B):
-    model, d, seq, proj, mask = _taco(dev, B)
+# one row to more rows than a 32-row pass, one character to more than a warp
+# of them, and r from 1 to beyond a row block of mel frames
+@pytest.mark.parametrize("r", [1, 2, 7])
+@pytest.mark.parametrize("T", [1, 33, 200])
+@pytest.mark.parametrize("B", [1, 2, 11, 24, 33])
+def test_tacotron_decode_kernel_matches_plain(dev, B, T, r):
+    model, d, seq, proj, mask = _taco(dev, B, T, max_r=7)
     with torch.no_grad():
-        km, ka, ks = tacotron_decode(model, d, seq, proj, mask, 0, 2, 40, dropout=False)
-        pm, pa, ps = tacotron_decode_plain(model, d, seq, proj, mask, 0, 2, 40,
+        km, ka, ks = _counted("tacotron_decode", lambda: tacotron_decode(
+            model, d, seq, proj, mask, 0, r, 40, dropout=False))
+        pm, pa, ps = tacotron_decode_plain(model, d, seq, proj, mask, 0, r, 40,
                                            dropout=False)
     torch.cuda.synchronize()
-    assert tt.stop_iterations(ks, 2) == tt.stop_iterations(ps, 2)
+    assert tt.stop_iterations(ks, r) == tt.stop_iterations(ps, r)
     torch.testing.assert_close(km, pm, atol=1e-4, rtol=0)
     torch.testing.assert_close(ka, pa, atol=1e-5, rtol=0)
     torch.testing.assert_close(ks, ps, atol=1e-4, rtol=0)
+
+
+def test_tacotron_decode_kernel_full_width(dev):
+    """The synthesizer's default widths at its batch of 24 and a 160-character
+    bucket, over 8 iterations: the weights resident, 8 rows an item."""
+    cfg = factories.default_config(factories.MODEL_TYPE_TACOTRON).replace(max_decoder_steps=16)
+    syn = factories.init_syn_model(factories.MODEL_TYPE_TACOTRON, seed=0, override_hp=cfg,
+                                   device=dev)
+    d, model = syn.dims, syn.model
+    B, T = 24, 160
+    g = torch.Generator().manual_seed(3)
+    chars = torch.randint(1, d.num_chars, (B, T), generator=g)
+    for b in range(B):
+        chars[b, T - 3 * b:] = 0
+    spk = torch.nn.functional.normalize(torch.randn(B, d.speaker_embedding_size, generator=g))
+    with torch.no_grad():
+        seq, proj = tt.encode(model, chars.to(dev), spk.to(dev), prenet_dropout=False)
+        seq, proj, mask = seq.contiguous(), proj.contiguous(), (chars != 0).float().to(dev)
+        p = td.plan(B, T, td.DecoderShape.of(model, d), 2, *_build.device_limits(dev))
+        assert p.resident == 1 and p.nb == 8
+        km, ka, ks = tacotron_decode(model, d, seq, proj, mask, 0, 2, 16, dropout=False)
+        pm, pa, ps = tacotron_decode_plain(model, d, seq, proj, mask, 0, 2, 16, dropout=False)
+    torch.cuda.synchronize()
+    assert tt.stop_iterations(ks, 2) == tt.stop_iterations(ps, 2) == 8
+    torch.testing.assert_close(km, pm, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ka, pa, atol=1e-5, rtol=0)
 
 
 def test_tacotron_decode_kernel_stops_and_zeroes(dev):
@@ -264,6 +296,36 @@ def test_tacotron_decode_kernel_dropout_is_seeded(dev):
 
     assert torch.equal(run(1), run(1))
     assert not torch.equal(run(1), run(2))
+
+
+def test_tacotron_decode_kernel_dropout_equal_across_plans(dev):
+    """The dropout mask depends on (seed, iteration, row, unit) only: a plan
+    with the weights read from L2 and 4 rows an item gives the bits of the
+    resident plan with 2 rows an item."""
+    model, d, seq, proj, mask = _taco(dev, 2)
+    s = td.DecoderShape.of(model, d)
+    limits = _build.device_limits(dev)
+    plans = [td.plan(2, 16, s, 2, *limits, resident=1, nb=2),
+             td.plan(2, 16, s, 2, *limits, resident=0, nb=4)]
+    assert plans[0].ks == plans[1].ks and plans[0] != plans[1]
+    with torch.no_grad():
+        a, b = (td.launch(_build.library(), model, d, seq, proj, mask, 5, 2, 24, True, p)[0]
+                for p in plans)
+    assert torch.equal(a, b)
+
+
+def test_tacotron_decode_kernel_refuses_what_does_not_fit(dev):
+    model, d, seq, proj, mask = _taco(dev, 2)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="outside"):
+            tacotron_decode(model, d, seq, proj, mask, 0, 5, 24)
+        p = td.plan(2, 16, td.DecoderShape.of(model, d), 2, *_build.device_limits(dev))
+        too_many = p._replace(ctas=8 * _build.device_limits(dev)[0])
+        with pytest.raises(RuntimeError, match="rtvc_tacotron_decode"):
+            td.launch(_build.library(), model, d, seq, proj, mask, 0, 2, 24, False, too_many)
+        model.decoder.attn_net = tt.LSA(d, filters=33, device=dev)
+        with pytest.raises(ValueError, match="past the limit of 32"):
+            tacotron_decode(model, d, seq, proj, mask, 0, 2, 24)
 
 
 def _voc(dev, B=3, T=300, variant="runtimeracer-wavernn", mode="RAW"):
