@@ -40,8 +40,11 @@
    bits).
    K5, the teacher-forced Tacotron decoder chain, forward and backward at the
    Tacotron training shape (112 rows x 86 iterations x 160 characters,
-   D 256 / L 512 / E 896, zoneout masks at p 0.1, padded char mask); two
-   runs of its backward must give equal bits.
+   D 256 / L 512 / E 896, zoneout masks at p 0.1, padded char mask), and the
+   backward (split over the card, a grid barrier a phase: the plan is
+   printed) also at the schedule's last session (22 rows x 602 iterations),
+   beside the one-CTA-a-row kernel's times; two runs of the backward must
+   give equal bits, and at 112 rows every candidate plan is timed.
 5. Trains at full width with seeded random weights: ``train_encoder`` for 3
    GE2E steps on (640, 160, 40) partials, then resumes from its checkpoint
    for a 4th; ``train_vocoder("runtimeracer-wavernn")`` for 5 steps on one
@@ -975,19 +978,126 @@ def gru_shape(dev, B, T, H):
              "library_ms": lib_bwd_ms, "plan": list(p_bwd[:5])}]
 
 
+# K5's backward with one CTA a batch row (before it was split over the card),
+# CUDA-event ms on an NVIDIA H100 80GB HBM3 at 700 W, by (B, n_iters): the
+# mean of the two runs of `profile_tacotron_train.py --wrapper` over that
+# package (parent, this, this, parent) in an earlier call, the one PERF.md
+# section 6 quotes. Printed beside the new times in the phase's own lines
+# only, marked as an earlier call's.
+K5_BWD_EARLIER_MS = {(112, 86): 51.166, (22, 602): 327.727}
+# (B, n_iters) of K5's backward: the first session of the Tacotron schedule
+# (r 7, batch 112, 602 frames) and the last (r 1, batch 22)
+K5_BWD_SHAPES = ((112, 86), (22, 602))
+K5_WIDTHS = dict(T=160, D=256, L=512, E=896, KS=31)
+
+
+def k5_case(g, dev, B, n):
+    """Inputs and cotangents of the chain at the full widths, from ``g``."""
+    import torch
+
+    T, D, L, E = (K5_WIDTHS[k] for k in "TDLE")
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+
+    lens = torch.randint(T // 2, T + 1, (B,), generator=g)
+    x = dict(xg_pre=r(n, B, 3 * D), enc_seq=r(B, T, E, s=0.5), enc_proj=r(B, T, D, s=0.5),
+             char_mask=(torch.arange(T)[None, :] < lens[:, None]).float().to(dev),
+             zo1=(torch.rand(n, B, L, generator=g) < 0.1).float().to(dev),
+             zo2=(torch.rand(n, B, L, generator=g) < 0.1).float().to(dev))
+    return x, [r(n, B, L), r(n, B, E), r(n, B, T)]
+
+
+def k5_bwd_cell(dev, w, x, cots, p_res, candidates=False):
+    """K5's backward at one shape on the plain forward's residuals, against
+    its plain version (every output within 1e-4 of the reference's largest
+    entry: f32 sums taken in another order, carried through every step), and
+    twice: it uses no atomics, so the two runs' bits are equal. Its time
+    beside the plain version's and its bound; with ``candidates`` also every
+    candidate plan through the kernel, each held to the plain version in the
+    same way and timed, the plan's choice marked."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops import tacotron_train as tk
+
+    T, D, L, E, KS = (K5_WIDTHS[k] for k in ("T", "D", "L", "E", "KS"))
+    n, B, _ = cots[0].shape
+    args = (p_res, x["enc_seq"], x["enc_proj"], x["char_mask"], x["zo1"], x["zo2"], *cots)
+    chosen = tk.device_plan_bwd(n, B, T, (D, L, E, KS), dev)
+    got, again = tk.taco_train_bwd(w, *args), tk.taco_train_bwd(w, *args)
+    want = tk.taco_train_bwd_plain(w, *args)
+    torch.cuda.synchronize()
+    errs = {k: rel_err(a, c) for k, a, c in zip(got._fields, got, want)}
+    abs_err = max(float((a - c).abs().max()) for a, c in zip(got, want))
+    check(max(errs.values()) <= 1e-4, f"K5 backward B={B} n={n} differs from its plain version: "
+          f"{errs}")
+    check(all(torch.equal(a, c) for a, c in zip(got, again)),
+          f"K5 backward B={B} n={n}: two runs on the same inputs differ in their bits")
+    ms = cuda_ms(lambda: tk.taco_train_bwd(w, *args))
+    plain_ms = cuda_ms(lambda: tk.taco_train_bwd_plain(w, *args), reps=2)
+    cand = []
+    if candidates:
+        lib = _build.library()
+        for c in tk.BWD_CANDIDATES:
+            try:
+                p = tk.device_plan_bwd(n, B, T, (D, L, E, KS), dev, candidate=c)
+            except ValueError as e:
+                print(f"  K5 backward candidate {c}: {e}")
+                continue
+            forced = tk.bwd_launch(lib, w, *args, p=p)
+            torch.cuda.synchronize()
+            worst = max(rel_err(a, c) for a, c in zip(forced, want))
+            check(worst <= 1e-4, f"K5 backward B={B} n={n} under candidate {p.name} differs "
+                  f"from its plain version: rel err {worst:.3e}")
+            del forced
+            cand.append((cuda_ms(lambda: tk.bwd_launch(lib, w, *args, p=p), reps=2), p, worst))
+        cand.sort(key=lambda r: r[0])
+    # per row and step: the eight products (lsa_W both ways), the attention:
+    # the location term, its two adjoints, the energies and the context's
+    # cotangent; after the walk scores x dctx for denc_seq
+    mats = D * 3 * D + 2 * D * D + (E + D) * L + 4 * L * 4 * L + E * 3 * D
+    flops = 2 * n * B * (mats + 3 * T * D * KS + 3 * T * D + 2 * T * E)
+    # the backward reads nine matrices, three vectors, the cotangents, eight
+    # residual streams, the masks and the attention memory; it writes its
+    # outputs and dv and dmloc once per CTA
+    read = [w.gwh, w.wq, w.wq, w.wri, w.l1wi, w.l1wh, w.l2wi, w.l2wh, w.gwi_ctx, w.bq, w.mloc,
+            w.vv, p_res.ah, p_res.g4, p_res.gates1, p_res.c1, p_res.gates2, p_res.c2,
+            p_res.scores, p_res.cum_T, *args[1:]]
+    b = bound(nbytes(*read, *got) + 4 * (chosen.ctas - 1) * (D + KS * D), flops)
+    was = K5_BWD_EARLIER_MS.get((B, n))
+    print(f"K5 tacotron_train backward B={B} n_iters={n} T={T} (plan {chosen.name}, "
+          f"{chosen.ctas} CTAs, {chosen.smem} bytes of shared memory a CTA, model "
+          f"{chosen.cost_ms:.3f} ms): rel errs "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f" (tol 1e-4), bits repeat, kernel {ms:.3f} ms ({ms / n * 1e3:.2f} us a step; "
+          f"one-CTA-a-row kernel {was} ms in an earlier call), plain {plain_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
+    if cand:
+        print(f"  K5 backward B={B} n={n} candidates, ms (model ms, max rel err against the "
+              f"plain version, tol 1e-4), fastest first: " + "; ".join(
+                  f"{p.name} {t:.3f} ({p.cost_ms:.3f}, {e:.3e})"
+                  + (" (plan)" if p == chosen else "") for t, p, e in cand))
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **b, "plan": chosen.name,
+            "candidates": {p.name: t for t, p, _ in cand}}
+
+
 def phase_taco_train_kernel(dev):
-    """K5 forward and backward at the Tacotron training shape (the first
-    session of the schedule: batch 112, r 7, 602 frames → 86 iterations; 160
-    characters), each against its plain version: every output within 1e-4 of
-    the reference's largest entry (f32 sums taken in another order, carried
-    through 86 steps). The backward runs on the plain forward's residuals,
-    and twice: it uses no atomics, so the two runs' bits are equal."""
+    """K5 forward at the Tacotron training shape (the first session of the
+    schedule: batch 112, r 7, 602 frames → 86 iterations; 160 characters)
+    against its plain version (every output within 1e-4 of the reference's
+    largest entry: f32 sums taken in another order, carried through 86
+    steps); the backward there and at the last session (batch 22, r 1, 602
+    iterations), each against its plain version on the plain forward's
+    residuals (``k5_bwd_cell``)."""
     import torch
 
     from rtvc_tpu_torch.ops import rel_err
     from rtvc_tpu_torch.ops import tacotron_train as tk
 
-    B, n, T, D, L, E, KS = 112, 86, 160, 256, 512, 896, 31
+    T, D, L, E, KS = (K5_WIDTHS[k] for k in ("T", "D", "L", "E", "KS"))
+    (B, n), last = K5_BWD_SHAPES
     g = torch.Generator().manual_seed(11)
 
     def u(*shape, fan):
@@ -1002,12 +1112,7 @@ def phase_taco_train_kernel(dev):
         l1wi=u(L, 4 * L, fan=L), l1wh=u(L, 4 * L, fan=L), l1b=u(4 * L, fan=L),
         l2wi=u(L, 4 * L, fan=L), l2wh=u(L, 4 * L, fan=L), l2b=u(4 * L, fan=L),
         gwi_ctx=u(E, 3 * D, fan=E))
-    lens = torch.randint(T // 2, T + 1, (B,), generator=g)
-    x = dict(xg_pre=r(n, B, 3 * D), enc_seq=r(B, T, E, s=0.5), enc_proj=r(B, T, D, s=0.5),
-             char_mask=(torch.arange(T)[None, :] < lens[:, None]).float().to(dev),
-             zo1=(torch.rand(n, B, L, generator=g) < 0.1).float().to(dev),
-             zo2=(torch.rand(n, B, L, generator=g) < 0.1).float().to(dev))
-    cots = [r(n, B, L), r(n, B, E), r(n, B, T)]
+    x, cots = k5_case(g, dev, B, n)
 
     x_all, res = tk.taco_train_fwd(w, **x)
     p_x, p_res = tk.taco_train_fwd_plain(w, **x)
@@ -1017,50 +1122,31 @@ def phase_taco_train_kernel(dev):
     fwd_abs = max(float((x_all - p_x).abs().max()),
                   *(float((a - c).abs().max()) for a, c in zip(res, p_res)))
     check(max(fwd_errs.values()) <= 1e-4, f"K5 forward differs from its plain version: {fwd_errs}")
-    args = (p_res, x["enc_seq"], x["enc_proj"], x["char_mask"], x["zo1"], x["zo2"], *cots)
-    got, again = tk.taco_train_bwd(w, *args), tk.taco_train_bwd(w, *args)
-    want = tk.taco_train_bwd_plain(w, *args)
-    torch.cuda.synchronize()
-    bwd_errs = {k: rel_err(a, c) for k, a, c in zip(got._fields, got, want)}
-    bwd_abs = max(float((a - c).abs().max()) for a, c in zip(got, want))
-    check(max(bwd_errs.values()) <= 1e-4, f"K5 backward differs from its plain version: {bwd_errs}")
-    check(all(torch.equal(a, c) for a, c in zip(got, again)),
-          "K5 backward: two runs on the same inputs differ in their bits")
     ms = cuda_ms(lambda: tk.taco_train_fwd(w, **x))
     plain_ms = cuda_ms(lambda: tk.taco_train_fwd_plain(w, **x), reps=2)
-    bwd_ms = cuda_ms(lambda: tk.taco_train_bwd(w, *args))
-    bwd_plain_ms = cuda_ms(lambda: tk.taco_train_bwd_plain(w, *args), reps=2)
-
     # per row and iteration: the eight products, then the attention: the
-    # location term (T·D·KS), energies, scores and context in the forward;
-    # in the backward also the query again, the location term's two adjoints
-    # and the attention memory's two passes
+    # location term (T·D·KS), energies, scores and context
     mats = D * 3 * D + D * D + (E + D) * L + 4 * L * 4 * L + E * 3 * D
     fwd_flops = 2 * n * B * (mats + T * D * KS + 2 * T * D + T * E)
-    bwd_flops = 2 * n * B * (mats + D * D + 3 * T * D * KS + 3 * T * D + 2 * T * E)
     fwd_b = bound(nbytes(*w, *x.values(), x_all, *res), fwd_flops)
-    # the backward reads nine matrices (lsa_W both ways), three vectors, the
-    # cotangents, eight residual streams, the masks and the attention memory;
-    # it writes dv and dmloc once per batch row
-    read = [w.gwh, w.wq, w.wq, w.wri, w.l1wi, w.l1wh, w.l2wi, w.l2wh, w.gwi_ctx, w.bq, w.mloc,
-            w.vv, p_res.ah, p_res.g4, p_res.gates1, p_res.c1, p_res.gates2, p_res.c2,
-            p_res.scores, p_res.cum_T, *args[1:]]
-    bwd_b = bound(nbytes(*read, *got) + 4 * (B - 1) * (D + KS * D), bwd_flops)
-    print(f"K5 tacotron_train B={B} n_iters={n} T={T} D={D} L={L} E={E}: forward rel errs "
-          f"max {max(fwd_errs.values()):.3e} ({max(fwd_errs, key=fwd_errs.get)}), kernel "
+    print(f"K5 tacotron_train forward B={B} n_iters={n} T={T} D={D} L={L} E={E}: rel errs max "
+          f"{max(fwd_errs.values()):.3e} ({max(fwd_errs, key=fwd_errs.get)}), kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by "
-          f"{fwd_b['bound_by']}; backward rel errs "
-          + ", ".join(f"{k} {e:.3e}" for k, e in bwd_errs.items())
-          + f" (tol 1e-4), bits repeat, kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, "
-          f"bound {bwd_b['bound_ms']:.4f} ms by {bwd_b['bound_by']}")
+          f"{fwd_b['bound_by']}")
+    first = k5_bwd_cell(dev, w, x, cots, p_res, candidates=True)
+    del x_all, res, p_x, p_res, x, cots
+    x, cots = k5_case(g, dev, *last)
+    _, p_res = tk.taco_train_fwd_plain(w, **x)
+    other = k5_bwd_cell(dev, w, x, cots, p_res)
     return [{"name": "tacotron_train_fwd", "source": "rtvc_tpu_torch/csrc/tacotron_train.cu",
              "replaces": "rtvc_tpu/ops/pallas/tacotron_train_kernel.py:109",
              "max_abs_err": fwd_abs, "ms": ms, "plain_ms": plain_ms, **fwd_b,
              "library_ms": None},
             {"name": "tacotron_train_bwd", "source": "rtvc_tpu_torch/csrc/tacotron_train.cu",
              "replaces": "rtvc_tpu/ops/pallas/tacotron_train_kernel.py:228",
-             "max_abs_err": bwd_abs, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_b,
-             "library_ms": None}]
+             **first, "library_ms": None,
+             "shapes": [{"B": last[0], "n_iters": last[1], **{k: other[k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "plan")}}]}]
 
 
 def phase_train_encoder(dev, runs_dir):

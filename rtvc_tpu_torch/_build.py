@@ -66,9 +66,14 @@ SIGNATURES = {
     "rtvc_mel_project": [_P] * 3 + [_I] * 3 + [_F] * 4 + [_I] * 2 + [_P],
     # weights, inputs, outputs, dims (n, B, T, D, L, E, KS), stream
     "rtvc_tacotron_train_fwd": [_PP, _PP, _PP, _IP, _P],
-    "rtvc_tacotron_train_bwd": [_PP, _PP, _PP, _IP, _P],
-    # dims, backward (0 or 1) → bytes of shared memory a CTA takes
-    "rtvc_tacotron_train_smem": [_IP, _I],
+    # weights, their strides, inputs, outputs, dims, plan
+    # (ops/tacotron_train.py:BwdPlan.ints), its length, work, stream
+    "rtvc_tacotron_train_bwd": [_PP, _IP, _PP, _PP, _IP, _IP, _I, _P, _P],
+    # cluster size, shared-memory bytes → CTAs the card runs at once in such
+    # clusters
+    "rtvc_tacotron_train_bwd_clusters": [_I, _I],
+    # dims → bytes of shared memory a CTA of the forward takes
+    "rtvc_tacotron_train_smem": [_IP],
 }
 
 # Launches per kernel since the last reset; each wrapper adds one where it

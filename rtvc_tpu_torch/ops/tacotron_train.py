@@ -23,6 +23,9 @@ emits.
 - ``taco_train_fwd`` / ``taco_train_bwd``: the two kernels' wrappers. CUDA
   tensors launch the kernel or raise; CPU tensors run the plain versions
   (``*_plain``), which the CPU tests hold against the JAX package;
+- ``plan_bwd``: the backward kernel's partition over the card (pure Python:
+  the candidates, their cost on the card's rates, the shared-memory and
+  workspace layouts the kernel reads);
 - ``TacoDecoderTrainFn``: both halves as a ``torch.autograd.Function``.
 
 Layouts: streams over iterations are time-major (n_iters, B, ·), as in the
@@ -31,7 +34,7 @@ T_text and n_iters: there is no padding and no additive mask.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -109,6 +112,14 @@ def prepare_train_weights(decoder, E: int) -> TrainWeights:
         l1wi=l1.weight_ih.t(), l1wh=l1.weight_hh.t(), l1b=l1.bias_ih + l1.bias_hh,
         l2wi=l2.weight_ih.t(), l2wh=l2.weight_hh.t(), l2b=l2.bias_ih + l2.bias_hh,
         gwi_ctx=cell.weight_ih[:, :E].t())
+
+
+def _al4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _windows(cum: Tensor, KS: int) -> Tensor:
@@ -293,8 +304,8 @@ def taco_train_bwd_plain(w: TrainWeights, res: TrainResiduals, enc_seq: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_shapes(fn: str, dims, backward: bool) -> None:
-    """Raise on a shape the kernels do not take."""
+def _check_shapes(fn: str, dims) -> None:
+    """Raise on a shape the forward kernel does not take."""
     n, B, T, D, L, E, KS = dims
     if min(dims) < 1:
         raise ValueError(f"{fn}: empty shape (n, B, T, D, L, E, KS) = {tuple(dims)}")
@@ -303,7 +314,7 @@ def _check_shapes(fn: str, dims, backward: bool) -> None:
                          "threads (one thread owns one attention column)")
     if KS % 2 == 0:
         raise ValueError(f"{fn}: the location conv must have an odd number of taps, got {KS}")
-    need = _build.library().rtvc_tacotron_train_smem(_build.int_array(dims), int(backward))
+    need = _build.library().rtvc_tacotron_train_smem(_build.int_array(dims))
     if need > MAX_SMEM:
         raise ValueError(f"{fn}: T_text {T} with D {D}, L {L}, E {E} needs {need} bytes of "
                          f"shared memory, the card gives a CTA {MAX_SMEM}")
@@ -331,7 +342,7 @@ def taco_train_fwd(w: TrainWeights, xg_pre: Tensor, enc_seq: Tensor, enc_proj: T
     T = enc_seq.shape[1]
     fn, dev = "tacotron_train_fwd", xg_pre.device
     dims = [n, B, T, D, L, E, KS]
-    _check_shapes(fn, dims, backward=False)
+    _check_shapes(fn, dims)
     mats = _torch_layout(w)
     vecs = [v.contiguous() for v in (w.gbh, w.bq, w.mloc, w.vv, w.bri, w.l1b, w.l2b)]
     _build.check_tensors(
@@ -363,26 +374,366 @@ def taco_train_fwd(w: TrainWeights, xg_pre: Tensor, enc_seq: Tensor, enc_proj: T
     return x_all, res
 
 
+# ---------------------------------------------------------------------------
+# The backward's partition over the card
+# ---------------------------------------------------------------------------
+
+# The kernel's constants (csrc: namespace bwd, kThreads, kRows, kNB, kChunk,
+# kMaxTaps, kPairTile, kHeaderFloats; STAGE is kStageSteps x kStageT).
+BWD_THREADS = 256   # threads of a CTA of the backward
+BWD_WARPS = BWD_THREADS // 32
+BWD_ROWS = 8        # weight rows an item of a product takes
+BWD_NB = 8          # batch rows an item takes
+BWD_CHUNK = 128     # floats of the reduction axis a warp covers at once
+MAX_TAPS = 32       # location taps a thread keeps in registers
+PAIR_TILE = 8       # (row, character) pairs the attention phase takes at once
+BWD_HEADER = 512    # floats of shared memory for the launch's parameters
+STAGE = 2048        # floats of the buffer the last phase stages the scores in
+
+# The cuts (csrc: bwd::Cut): LSTM units, context columns, attention units,
+# (row, character) pairs. The first three are cut over the slices of a batch
+# group, the pairs over every CTA.
+BWD_CUTS = ("lstm", "ctx", "att", "pair")
+# The products of a reverse step in the kernel's order (csrc: bwd::Product);
+# bwd_products gives each one's cut, gates, reduction length and phase.
+BWD_PRODUCTS = ("q", "gctx", "gh", "l2", "l1", "ric", "ria", "wq")
+# Phases of a step, each ended by a grid barrier.
+BWD_PHASES = "ABCDEFGH"
+# Shared-memory offsets besides the weights and the products' sums, in the
+# order of bwd::Plan's fields from dh2 to end.
+BWD_SMEM_SLOTS = ("dh2", "dc2", "hold2", "dh1", "dc1", "hold1", "dx1", "dctx", "dah", "outs",
+                  "scratch", "rowbuf", "row_stride", "soft_rows", "wpart", "end")
+# The workspace after the barrier's 32 words (csrc: bwd::Ws), in floats.
+BWD_WS_SLOTS = ("q", "dhg", "u", "cum0", "cum1", "dcum", "sarr", "dqp", "dvp", "dmlp", "dctx",
+                "wl2", "total")
+# Candidate partitions: (mode, batch groups). "resident": the weight slices
+# in the CTA's shared memory; "l2": read every step from a copy the kernel
+# gathers into the workspace; "cluster": a cluster of `groups` CTAs (one a
+# batch group, the same columns) holds the slices once between them and each
+# reads the others' part from their shared memory (distributed shared
+# memory), so that each CTA loads the inputs of its own rows only.
+BWD_MODES = ("resident", "l2", "cluster")
+BWD_CANDIDATES = (("resident", 1), ("l2", 1), ("l2", 2), ("l2", 4), ("cluster", 2),
+                  ("cluster", 4))
+
+# The card's rates the cost model ranks candidates by (NVIDIA H100 SXM): one
+# SM streams ≈ 78 GB/s out of L2 and the card ≈ 8 TB/s (measured for K1-K5);
+# device memory 3.35 TB/s; a grid barrier over 132 CTAs ≈ 1.05 µs (measured
+# for K3); a phase's own latency, an L2 round trip and the lanes' sum, ≈ 2 µs
+# (measured for K2); 67 TFLOP/s of f32 FMAs over the SMs. Distributed shared memory: ≈ 37 GB/s a
+# SM for the products' weight reads, a time that adds to the phase's,
+# fitted on the card (cluster x2 ran 2.9 ms behind resident at B 112 x 86
+# with ≈ 1.27 MB of remote rows a CTA a step; PERF.md section 6).
+L2_SM_BPS = 78e9
+L2_CARD_BPS = 8e12
+HBM_BPS = 3.35e12
+BARRIER_US = 1.05
+PHASE_US = 2.0
+FMA_CARD = 67e12 / 2
+DSMEM_SM_BPS = 37e9
+
+
+def bwd_products(D: int, L: int, E: int) -> Dict[str, Tuple[str, int, int, str]]:
+    """name → (cut, gates, reduction length, phase). Every product of the
+    backward multiplies by a transpose, so a unit's row is a row of the
+    (in, out) matrix of TrainWeights: ``q`` lsa_W's column j (the query,
+    recomputed from the stored attention hidden), ``gctx`` gwi_ctx's row e,
+    ``gh`` gwh's row j, ``l2``/``l1`` the two rows [W_hh; W_ih] of LSTM
+    unit j, ``ric``/``ria`` rnn_input's rows e and E + j, ``wq`` lsa_W's
+    row j."""
+    return {"q": ("att", 1, D, "A"), "gctx": ("ctx", 1, 3 * D, "A"),
+            "gh": ("att", 1, 3 * D, "A"), "l2": ("lstm", 2, 4 * L, "B"),
+            "l1": ("lstm", 2, 4 * L, "C"), "ric": ("ctx", 1, L, "D"),
+            "ria": ("att", 1, L, "D"), "wq": ("att", 1, D, "H")}
+
+
+class BwdPlan(NamedTuple):
+    """How the backward is cut over the card: ``ctas`` CTAs in ``groups``
+    batch groups of ``rows`` batch rows (CTA c is slice c // groups of group
+    c % groups); ``cluster`` CTAs a cluster (1, or ``groups``); ``mode``
+    (index into BWD_MODES); ``smem`` bytes of shared memory a CTA. ``q``:
+    units a slice of each cut (pairs a CTA for "pair"). For each product:
+    ``ks`` pieces its reduction axis is cut into, ``w_off`` the offset of
+    the CTA's weight rows (in shared memory; in its workspace copy for
+    "l2"), ``w_rows`` the rows it holds (gates × units of the slice, or a
+    cluster rank's share), ``out_off`` the offset of its sums. ``sm``: the
+    offsets of BWD_SMEM_SLOTS; ``ws``: those of BWD_WS_SLOTS in the
+    workspace (floats after 32 words for the barrier)."""
+    ctas: int
+    groups: int
+    cluster: int
+    mode: int
+    rows: int
+    smem: int
+    q: Tuple[int, ...]
+    ks: Tuple[int, ...]
+    w_off: Tuple[int, ...]
+    w_rows: Tuple[int, ...]
+    out_off: Tuple[int, ...]
+    sm: Tuple[int, ...]
+    ws: Tuple[int, ...]
+    cost_ms: float
+
+    def ints(self):
+        """The plan as the kernel reads it (csrc: bwd::Plan)."""
+        out = [self.ctas, self.groups, self.cluster, self.mode, self.rows, self.smem]
+        for part in self[6:13]:
+            out.extend(part)
+        return out
+
+    @property
+    def slices(self) -> int:
+        return self.ctas // self.groups
+
+    @property
+    def name(self) -> str:
+        return f"{BWD_MODES[self.mode]} x{self.groups}"
+
+    def owned(self, cut: str, n: int, cta: int) -> range:
+        """The units [0, n) of ``cut`` that CTA ``cta`` owns (for the batch
+        rows of its group, but for "pair")."""
+        q = self.q[BWD_CUTS.index(cut)]
+        start = (cta if cut == "pair" else cta // self.groups) * q
+        return range(min(start, n), min(start + q, n))
+
+    def batch_rows(self, B: int, cta: int) -> range:
+        g = cta % self.groups
+        return range(min(g * self.rows, B), min((g + 1) * self.rows, B))
+
+
+def _pair_rows(q_pair: int, B: int, T: int, ctas: int) -> int:
+    """The most batch rows the (row, character) pairs of one CTA touch."""
+    most = 0
+    for c in range(ctas):
+        lo, hi = c * q_pair, min((c + 1) * q_pair, B * T)
+        if lo < hi:
+            most = max(most, (hi - 1) // T - lo // T + 1)
+    return most
+
+
+def bwd_row_stride(T: int, D: int, E: int, KS: int) -> int:
+    """Floats a staged batch row takes in the attention phases: in phase F
+    its cotangent of the logits, scores, char mask, the zero-bordered
+    cumulative scores, the query and the CTA's part of dq; in phase E its
+    context cotangent."""
+    return max(3 * _al4(T) + _al4(T + KS - 1) + 2 * _al4(D), _al4(E))
+
+
+def plan_bwd(n: int, B: int, T: int, dims: Tuple[int, int, int, int], sm_count: int,
+             smem_limit: int, candidate=None, cluster_ctas=None) -> BwdPlan:
+    """The partition of K5's backward for ``n`` steps of B rows of T
+    characters at widths ``dims`` = (D, L, E, KS) on a card with ``sm_count``
+    SMs whose blocks take ``smem_limit`` bytes of shared memory. Every
+    candidate of BWD_CANDIDATES that fits is costed by the model above and
+    the cheapest is taken; ``candidate`` = (mode, groups) forces one (the
+    profile and the tests use that). ``cluster_ctas`` maps a cluster size to
+    the CTAs that the card runs at once in such clusters (the driver's
+    answer); without it the cluster candidates are not offered. Raises
+    ValueError, naming the limit, for a shape past it."""
+    D, L, E, KS = dims
+    if min(n, B, T, D, L, E, KS, sm_count) < 1:
+        raise ValueError(f"tacotron_train_bwd: bad plan inputs n {n} B {B} T {T} dims {dims} "
+                         f"SMs {sm_count}")
+    if KS % 2 == 0 or KS > MAX_TAPS - 1:
+        raise ValueError(f"tacotron_train_bwd: {KS} location taps: odd and at most "
+                         f"{MAX_TAPS - 1}, the limit of the registers a thread keeps them in")
+    cluster_ctas = cluster_ctas or {}
+    if candidate is not None:
+        mode, groups = candidate
+        if (mode, groups) not in BWD_CANDIDATES:
+            raise ValueError(f"tacotron_train_bwd: candidate {candidate} is not one of "
+                             f"{BWD_CANDIDATES}")
+        if mode == "cluster" and groups not in cluster_ctas:
+            raise ValueError(f"tacotron_train_bwd: the card runs no clusters of {groups}")
+        wanted = [(mode, groups)]
+    else:
+        wanted = [c for c in BWD_CANDIDATES if c[0] != "cluster" or c[1] in cluster_ctas]
+    made, refused = [], []
+    for mode, groups in wanted:
+        ctas = cluster_ctas[groups] if mode == "cluster" else sm_count
+        ctas = ctas // groups * groups
+        if ctas < 1:
+            refused.append(f"{mode} x{groups}: fewer than {groups} CTAs")
+            continue
+        p = _layout(n, B, T, dims, ctas, groups, mode)
+        if p.smem <= smem_limit:
+            made.append(p)
+        else:
+            refused.append(f"{mode} x{groups} needs {p.smem}")
+    if not made:
+        raise ValueError(f"tacotron_train_bwd: B {B} x T {T} at D {D}, L {L}, E {E} on "
+                         f"{sm_count} SMs: " + "; ".join(refused) +
+                         f" bytes of shared memory a CTA, past the limit of {smem_limit}")
+    return min(made, key=lambda p: p.cost_ms)
+
+
+def _layout(n, B, T, dims, ctas, groups, mode) -> BwdPlan:
+    D, L, E, KS = dims
+    m = BWD_MODES.index(mode)
+    C = groups if mode == "cluster" else 1
+    slices = ctas // groups
+    rows = _cdiv(B, groups)
+    sizes = {"lstm": L, "ctx": E, "att": D}
+    q = {c: _cdiv(sz, slices) for c, sz in sizes.items()}
+    q["pair"] = _cdiv(B * T, ctas)
+    prods = bwd_products(D, L, E)
+    groups_nb = _cdiv(rows, BWD_NB)
+    ks, w_rows = {}, {}
+    for name, (cut, gates, k, _) in prods.items():
+        items = _cdiv(gates * q[cut], BWD_ROWS) * groups_nb
+        chunks = _cdiv(k, BWD_CHUNK)
+        want = min(chunks, _cdiv(BWD_WARPS, items))
+        ks[name] = _cdiv(chunks, _cdiv(chunks, want))
+        w_rows[name] = _cdiv(gates * q[cut], C)
+    o = BWD_HEADER
+    w_off, wl2 = {}, 0
+    for name, (cut, gates, k, _) in prods.items():
+        size = w_rows[name] * _al4(k)
+        if mode == "l2":
+            w_off[name] = wl2
+            wl2 += size
+        else:
+            w_off[name] = o
+            o += size
+    sm = {}
+    for slot, cut in (("dh2", "lstm"), ("dc2", "lstm"), ("hold2", "lstm"), ("dh1", "lstm"),
+                      ("dc1", "lstm"), ("hold1", "lstm"), ("dx1", "lstm"), ("dctx", "ctx"),
+                      ("dah", "att")):
+        sm[slot] = o
+        o += _al4(q[cut] * rows)
+    out_off = {}
+    sm["outs"], widest = o, 0
+    for phase in BWD_PHASES:
+        at = o
+        for name, (cut, gates, k, ph) in prods.items():
+            if ph == phase:
+                out_off[name] = at
+                at += _al4(ks[name] * gates * q[cut] * rows)
+        widest = max(widest, at - o)
+    o += widest
+    sm["scratch"] = o
+    o += BWD_WARPS * _cdiv(BWD_ROWS * BWD_NB, 32) * 32
+    sm["soft_rows"] = _pair_rows(q["pair"], B, T, ctas)
+    sm["row_stride"] = bwd_row_stride(T, D, E, KS)
+    sm["rowbuf"] = o
+    o += sm["soft_rows"] * sm["row_stride"]
+    sm["wpart"] = o
+    o += max(PAIR_TILE * BWD_THREADS, STAGE)
+    sm["end"] = o
+    T4, D4, E4 = _al4(T), _al4(D), _al4(E)
+    ws, w = {}, 32
+    for slot, size in (("q", B * D4), ("dhg", B * _al4(3 * D)), ("u", B * T4), ("cum0", B * T4),
+                       ("cum1", B * T4), ("dcum", B * T4), ("sarr", B * T * MAX_TAPS),
+                       ("dqp", ctas * sm["soft_rows"] * D4), ("dvp", ctas * D4),
+                       ("dmlp", ctas * KS * D4), ("dctx", n * B * E4), ("wl2", ctas * wl2)):
+        ws[slot] = w
+        w += size
+    ws["total"] = w
+    cost = _cost_ms(n, B, T, dims, ctas, groups, mode, q, rows, ks, prods)
+    return BwdPlan(ctas, groups, C, m, rows, 4 * o, tuple(q[c] for c in BWD_CUTS),
+                   tuple(ks[p] for p in BWD_PRODUCTS), tuple(w_off[p] for p in BWD_PRODUCTS),
+                   tuple(w_rows[p] for p in BWD_PRODUCTS), tuple(out_off[p] for p in BWD_PRODUCTS),
+                   tuple(sm[k] for k in BWD_SMEM_SLOTS), tuple(ws[k] for k in BWD_WS_SLOTS), cost)
+
+
+def _cost_ms(n, B, T, dims, ctas, groups, mode, q, rows, ks, prods) -> float:
+    """The model's milliseconds for the whole launch: per step, the barriers
+    and each phase's latency, each product phase's time (the slower of its
+    inputs and L2 weights over a SM's share of L2 and its FMAs over a SM's
+    rate, plus its remote weights over distributed shared memory), and the
+    attention phases (their device-memory bytes over the card's rate or
+    their FMAs); then the scores · context product after the walk."""
+    D, L, E, KS = dims
+    l2_sm = min(L2_SM_BPS, L2_CARD_BPS / ctas)
+    fma_sm = FMA_CARD / ctas
+    step = len(BWD_PHASES) * (BARRIER_US + PHASE_US) * 1e-6
+    C = groups if mode == "cluster" else 1
+    for phase in BWD_PHASES:
+        l2 = dsm = fma = 0.0
+        for cut, gates, k, ph in prods.values():
+            if ph != phase:
+                continue
+            n_rows = gates * q[cut]
+            passes = _cdiv(rows, BWD_NB)
+            l2 += 4 * _cdiv(n_rows, BWD_ROWS) * rows * k
+            w_bytes = 4 * n_rows * k * passes
+            if mode == "l2":
+                l2 += w_bytes
+            elif mode == "cluster":
+                dsm += w_bytes * (C - 1) / C
+            fma += n_rows * k * rows
+        step += max(l2 / l2_sm, fma / fma_sm) + dsm / DSMEM_SM_BPS
+    hbm = 4 * B * T * (E + 3 * D)
+    pair_fma = _cdiv(B * T, ctas) * (E + 3 * KS * D + 8 * D)
+    step += max(hbm / HBM_BPS, pair_fma / fma_sm)
+    after = n * B * T * E / (0.5 * FMA_CARD)
+    return 1e3 * (n * step + after)
+
+
+_cluster_ctas: dict = {}
+
+
+def bwd_cluster_ctas(dev, smem_limit: int) -> Dict[int, int]:
+    """Cluster size → CTAs of the backward that ``dev`` runs at once in such
+    clusters (asked of the driver once; sizes it runs none of are left
+    out)."""
+    key = (torch.device(dev).index, smem_limit)
+    if key not in _cluster_ctas:
+        lib = _build.library()
+        found = {}
+        for c in (2, 4):
+            k = lib.rtvc_tacotron_train_bwd_clusters(c, smem_limit)
+            if k > 0:
+                found[c] = k
+        _cluster_ctas[key] = found
+    return _cluster_ctas[key]
+
+
+def device_plan_bwd(n: int, B: int, T: int, dims, dev, candidate=None) -> BwdPlan:
+    """:func:`plan_bwd` for the card ``dev`` holds."""
+    sms, smem = _build.device_limits(dev)
+    return plan_bwd(n, B, T, dims, sms, smem, candidate, bwd_cluster_ctas(dev, smem))
+
+
 def taco_train_bwd(w: TrainWeights, res: TrainResiduals, enc_seq: Tensor, enc_proj: Tensor,
                    char_mask: Tensor, zo1: Tensor, zo2: Tensor, dx_all: Tensor,
                    dctx_all: Tensor, dscores_all: Tensor) -> TrainCotangents:
     """Same contract as :func:`taco_train_bwd_plain`; CUDA tensors go through
-    the kernel, CPU tensors through the plain version. The kernel writes
-    ``dv`` and ``dmloc`` as one partial per batch row (it uses no atomics,
-    so two runs give the same bits); they are summed here."""
+    the kernel with this card's plan, CPU tensors through the plain version."""
     if not dx_all.is_cuda:
         return taco_train_bwd_plain(w, res, enc_seq, enc_proj, char_mask, zo1, zo2, dx_all,
                                     dctx_all, dscores_all)
+    out = bwd_launch(_build.library(), w, res, enc_seq, enc_proj, char_mask, zo1, zo2, dx_all,
+                     dctx_all, dscores_all)
+    _build.launch_counts["tacotron_train_bwd"] += 1
+    return out
+
+
+def bwd_launch(lib, w: TrainWeights, res: TrainResiduals, enc_seq: Tensor, enc_proj: Tensor,
+               char_mask: Tensor, zo1: Tensor, zo2: Tensor, dx_all: Tensor, dctx_all: Tensor,
+               dscores_all: Tensor, p: BwdPlan = None, work: Tensor = None
+               ) -> TrainCotangents:
+    """One launch of ``lib``'s ``rtvc_tacotron_train_bwd`` (the package's
+    library, or a variant that ``profile_tacotron_train`` builds) on CUDA
+    tensors, after the shape checks, with ``p`` or this card's plan, and
+    ``work`` (at least ``p.ws[-1]`` floats) or a new workspace. The
+    kernel reads the eight matrices as TrainWeights holds them (transposed
+    views of the parameters included) and gathers its slices itself; it
+    leaves ``dv`` and ``dmloc`` as one partial per CTA (no atomics, so two
+    runs give the same bits), summed here in a fixed order."""
     D, L, E, KS = w.dims
     n, B, _ = dx_all.shape
     T = enc_seq.shape[1]
     fn, dev = "tacotron_train_bwd", dx_all.device
-    dims = [n, B, T, D, L, E, KS]
-    _check_shapes(fn, dims, backward=True)
-    # the reverse walk multiplies by the transposes: it streams rows of the
-    # (in, out) matrices, and of lsa_W itself for the query it recomputes
-    mats = [m.contiguous() for m in (w.gwh, w.wq, w.wri, w.l1wi, w.l1wh, w.l2wi, w.l2wh,
-                                     w.gwi_ctx)] + [w.wq.t().contiguous()]
+    if p is None:
+        p = device_plan_bwd(n, B, T, (D, L, E, KS), dev)
+    mats = (w.gwh, w.wq, w.wri, w.l1wi, w.l1wh, w.l2wi, w.l2wh, w.gwi_ctx)
+    for name, m, shape in zip(("gwh", "wq", "wri", "l1wi", "l1wh", "l2wi", "l2wh", "gwi_ctx"),
+                              mats, ((D, 3 * D), (D, D), (E + D, L), (L, 4 * L), (L, 4 * L),
+                                     (L, 4 * L), (L, 4 * L), (E, 3 * D))):
+        if m.device != dev or m.dtype != torch.float32 or tuple(m.shape) != shape:
+            raise ValueError(f"{fn}: {name} must be f32 {shape} on {dev}, got "
+                             f"{m.dtype} {tuple(m.shape)} on {m.device}")
     vecs = [v.contiguous() for v in (w.bq, w.mloc, w.vv)]
     _build.check_tensors(
         fn, dev, dx_all=(dx_all, (n, B, L)), dctx_all=(dctx_all, (n, B, E)),
@@ -393,9 +744,6 @@ def taco_train_bwd(w: TrainWeights, res: TrainResiduals, enc_seq: Tensor, enc_pr
         gates1=(res.gates1, (n, B, 4 * L)), c1=(res.c1, (n, B, L)),
         gates2=(res.gates2, (n, B, 4 * L)), c2=(res.c2, (n, B, L)),
         scores=(res.scores, (n, B, T)), cum_T=(res.cum_T, (B, T)),
-        gwh=(mats[0], (D, 3 * D)), wq=(mats[1], (D, D)), wri=(mats[2], (E + D, L)),
-        l1wi=(mats[3], (L, 4 * L)), l1wh=(mats[4], (L, 4 * L)), l2wi=(mats[5], (L, 4 * L)),
-        l2wh=(mats[6], (L, 4 * L)), gwi_ctx=(mats[7], (E, 3 * D)), wq_t=(mats[8], (D, D)),
         bq=(vecs[0], (D,)), mloc=(vecs[1], (KS, D)), vv=(vecs[2], (D,)))
 
     def e(*shape):
@@ -404,19 +752,28 @@ def taco_train_bwd(w: TrainWeights, res: TrainResiduals, enc_seq: Tensor, enc_pr
     dxg4, dq, dx0 = e(n, B, 4 * D), e(n, B, D), e(n, B, L)
     dgates1, dgates2 = e(n, B, 4 * L), e(n, B, 4 * L)
     denc_seq, denc_proj = e(B, T, E), e(B, T, D)
-    dv_b, dmloc_b = e(B, D), e(B, KS, D)
-    err = _build.library().rtvc_tacotron_train_bwd(
-        _build.pointer_array(mats + vecs),
+    ws = dict(zip(BWD_WS_SLOTS, p.ws))
+    if work is None:
+        work = e(ws["total"])
+    elif work.numel() < ws["total"] or work.device != dev or work.dtype != torch.float32:
+        raise ValueError(f"{fn}: work must be at least {ws['total']} f32 on {dev}")
+    work[:32].zero_()
+    ints = p.ints()
+    err = lib.rtvc_tacotron_train_bwd(
+        _build.pointer_array([*mats, *vecs]),
+        _build.int_array([x for m in mats for x in m.stride()]),
         _build.pointer_array([dx_all, dctx_all, dscores_all, res.ah, res.g4, res.gates1,
                               res.c1, res.gates2, res.c2, res.scores, res.cum_T, zo1, zo2,
                               enc_seq, enc_proj, char_mask]),
-        _build.pointer_array([dxg4, dq, dx0, dgates1, dgates2, denc_seq, denc_proj, dv_b,
-                              dmloc_b]),
-        _build.int_array(dims), _build.stream_handle(dev))
+        _build.pointer_array([dxg4, dq, dx0, dgates1, dgates2, denc_seq, denc_proj]),
+        _build.int_array([n, B, T, D, L, E, KS]), _build.int_array(ints), len(ints),
+        work.data_ptr(), _build.stream_handle(dev))
     _build.check(err, "rtvc_tacotron_train_bwd")
-    _build.launch_counts["tacotron_train_bwd"] += 1
-    return TrainCotangents(dxg4, dq, dx0, dgates1, dgates2, denc_seq, denc_proj,
-                           dv_b.sum(dim=0), dmloc_b.sum(dim=0))
+    D4 = _al4(D)
+    dv = work[ws["dvp"]:ws["dvp"] + p.ctas * D4].view(p.ctas, D4)[:, :D].sum(dim=0)
+    dmloc = work[ws["dmlp"]:ws["dmlp"] + p.ctas * KS * D4].view(p.ctas, KS, D4)[..., :D].sum(
+        dim=0)
+    return TrainCotangents(dxg4, dq, dx0, dgates1, dgates2, denc_seq, denc_proj, dv, dmloc)
 
 
 class TacoDecoderTrainFn(torch.autograd.Function):

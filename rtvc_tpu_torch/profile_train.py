@@ -10,7 +10,9 @@ frames, 160 characters)
 with seeded random weights and synthetic batches. For each it prints the
 wall time of three steps ending in a device sync, the peak device memory, and a
 ``torch.profiler`` table of device time by kernel over a few more steps,
-with the idle share 1 - (summed device self time / profiled wall time).
+with the idle share 1 - (summed device self time / profiled wall time),
+and the device time of each of the port's own kernels (csrc/), which the
+table's top rows may leave out.
 Then it times the recurrences alone, forward plus backward at the same
 shapes, through ``LSTMSeqFn`` / ``GRUSeqFn`` and through cuDNN's
 ``nn.LSTM`` / ``nn.GRU`` (TF32 off) as a bar to measure against.
@@ -19,6 +21,7 @@ Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 import time
@@ -28,11 +31,29 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from rtvc_tpu_torch import _build
 from rtvc_tpu_torch.config.signal import sp
 from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.ops.gru_seq import GRUSeqFn
 from rtvc_tpu_torch.ops.lstm_seq import LSTMSeqFn
 from rtvc_tpu_torch.train import steps, trainer
+
+
+def own_kernels():
+    """The names of the port's own kernels: the ``__global__`` functions of
+    csrc/*.cu."""
+    found = set()
+    for src in _build.SRC_DIR.glob("*.cu"):
+        found.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                                src.read_text()))
+    return found
+
+
+def kernel_name(key):
+    """A profiler key → the kernel's bare name (no namespace, template
+    arguments or parameters)."""
+    key = re.sub(r"^void ", "", key.replace("(anonymous namespace)::", ""))
+    return re.split(r"[(<]", key)[0].split("::")[-1]
 
 
 def profile_step(name, step, batch, n):
@@ -62,6 +83,12 @@ def profile_step(name, step, batch, n):
     print(f"{name}: {n} steps profiled, wall {wall:.1f} ms, summed device self time "
           f"{device:.1f} ms, idle share {1 - device / wall:.4f}")
     print(table.table(sort_by="self_device_time_total", row_limit=12, max_name_column_width=60))
+    names = own_kernels()
+    own = sorted(((kernel_name(e.key), e.self_device_time_total / 1e3, e.count) for e in table
+                  if e.device_type == DeviceType.CUDA and kernel_name(e.key) in names),
+                 key=lambda r: -r[1])
+    print(f"{name}: the port's kernels, device ms over {n} steps (calls): "
+          + "; ".join(f"{k} {ms:.3f} ({c})" for k, ms, c in own))
 
 
 def fwd_bwd_ms(fn, args, reps=5):

@@ -577,22 +577,41 @@ def test_taco_train_kernels_match_plain(dev, B, T, n, D, L, E, KS):
         assert rel_err(a, b) <= 1e-4, name
     again = tk.taco_train_bwd(w, *args)
     assert all(torch.equal(a, b) for a, b in zip(got, again)), "two runs differ in their bits"
-    # both halves through autograd, against autograd of the plain forward
-    names = ("xg_pre", "enc_seq", "enc_proj")
+    _assert_train_fn_grads_match_plain(w, x, cots)
+
+
+_GRAD_INPUTS = ("xg_pre", "enc_seq", "enc_proj")
+
+
+def _assert_train_fn_grads_match_plain(w, x, cots):
+    """Both K5 kernels through ``TacoDecoderTrainFn`` (the weight gradients
+    are the wrapper's ``outer`` products and per-CTA sums), against autograd
+    of the plain forward: every weight's and input's gradient within 1e-4
+    of the reference's largest entry."""
 
     def grads(fwd):
         lw = tk.TrainWeights(*(t.clone().requires_grad_() for t in w))
-        lx = {k: (v.clone().requires_grad_() if k in names else v) for k, v in x.items()}
+        lx = {k: (v.clone().requires_grad_() if k in _GRAD_INPUTS else v) for k, v in x.items()}
         torch.autograd.backward(fwd(lw, lx), cots)
-        return [t.grad for t in lw] + [lx[k].grad for k in names]
+        return [t.grad for t in lw] + [lx[k].grad for k in _GRAD_INPUTS]
 
     def plain(lw, lx):
         p_x, p_res = tk.taco_train_fwd_plain(lw, **lx)
         return p_x, p_res.ctx, p_res.scores
 
-    for name, a, b in zip(w._fields + names, grads(lambda lw, lx: tk.taco_decoder_train(lw, **lx)),
-                          grads(plain)):
+    before = _build.launch_counts["tacotron_train_bwd"]
+    got = grads(lambda lw, lx: tk.taco_decoder_train(lw, **lx))
+    assert _build.launch_counts["tacotron_train_bwd"] == before + 1
+    for name, a, b in zip(w._fields + _GRAD_INPUTS, got, grads(plain)):
         assert rel_err(a, b) <= 1e-4, name
+
+
+# the default widths at a short walk, and the first session of the
+# schedule (batch 112, 86 iterations, 160 characters)
+@pytest.mark.parametrize("B,T,n", [(3, 20, 4), (112, 160, 86)])
+def test_taco_train_fn_grads_match_autograd_of_plain(dev, B, T, n):
+    w, x, cots = _taco_train_case(dev, B, T, n, 256, 512, 896)
+    _assert_train_fn_grads_match_plain(w, x, cots)
 
 
 def test_taco_train_kernels_reject_bad_input(dev):
@@ -604,3 +623,81 @@ def test_taco_train_kernels_reject_bad_input(dev):
     wide, xw, _ = _taco_train_case(dev, 1, 4, 1, 1028, 4, 4)
     with pytest.raises(ValueError, match="1024"):
         tk.taco_train_fwd(wide, **xw)
+
+
+def _bwd_args(dev, B, T, n, D, L, E, KS=31, transposed=False):
+    w, x, cots = _taco_train_case(dev, B, T, n, D, L, E, KS)
+    if transposed:
+        # the matrices as prepare_train_weights gives them: transposed views
+        # of (out, in) parameters
+        w = w._replace(**{k: getattr(w, k).t().contiguous().t() for k in (
+            "gwh", "wq", "wri", "l1wi", "l1wh", "l2wi", "l2wh", "gwi_ctx")})
+    _, p_res = tk.taco_train_fwd_plain(w, **x)
+    return w, (p_res, x["enc_seq"], x["enc_proj"], x["char_mask"], x["zo1"], x["zo2"], *cots)
+
+
+# narrow, ragged (the scalar path, a short conv) and the default widths
+@pytest.mark.parametrize("B,T,n,D,L,E,KS", [(5, 40, 12, 128, 256, 384, 31),
+                                            (3, 9, 4, 13, 10, 7, 5),
+                                            (3, 20, 4, 256, 512, 896, 31)])
+@pytest.mark.parametrize("candidate", tk.BWD_CANDIDATES)
+def test_taco_train_bwd_candidates_match_plain(dev, B, T, n, D, L, E, KS, candidate):
+    """K5's backward under each candidate partition of the plan, forced,
+    against the plain version (1e-4 of each output's largest entry) and
+    twice with equal bits. A cluster size the card runs no clusters of
+    skips, naming it."""
+    w, args = _bwd_args(dev, B, T, n, D, L, E, KS)
+    if candidate[0] == "cluster" and candidate[1] not in tk.bwd_cluster_ctas(
+            dev, _build.device_limits(dev)[1]):
+        pytest.skip(f"the card runs no clusters of {candidate[1]}")
+    p = tk.device_plan_bwd(n, B, T, (D, L, E, KS), dev, candidate=candidate)
+    lib = _build.library()
+    got = tk.bwd_launch(lib, w, *args, p=p)
+    again = tk.bwd_launch(lib, w, *args, p=p)
+    want = tk.taco_train_bwd_plain(w, *args)
+    for name, a, b in zip(got._fields, got, want):
+        assert rel_err(a, b) <= 1e-4, name
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "two runs differ in their bits"
+
+
+def test_taco_train_bwd_past_resident_matches_plain(dev):
+    """At batch 112 the weight slices stop fitting in shared memory beside
+    the staged rows past T_text 408: a longer text runs a candidate that
+    reads them from L2. Its result against the plain version (1e-4), twice
+    with equal bits."""
+    B, T, n, dims = 112, 420, 3, (256, 512, 896, 31)
+    w, args = _bwd_args(dev, B, T, n, *dims)
+    p = tk.device_plan_bwd(n, B, T, dims, dev)
+    assert p.name != "resident x1"
+    got = _counted("tacotron_train_bwd", lambda: tk.taco_train_bwd(w, *args))
+    again = tk.taco_train_bwd(w, *args)
+    for name, a, b in zip(got._fields, got, tk.taco_train_bwd_plain(w, *args)):
+        assert rel_err(a, b) <= 1e-4, name
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "two runs differ in their bits"
+
+
+def test_taco_train_bwd_reads_transposed_views(dev):
+    """The backward gathers its weight slices from the matrices as
+    TrainWeights holds them: transposed views of the parameters give the
+    same result as contiguous copies, with no copy made by the wrapper."""
+    w, args = _bwd_args(dev, 4, 24, 5, 64, 96, 80, transposed=True)
+    assert not w.l1wi.is_contiguous()
+    got = _counted("tacotron_train_bwd", lambda: tk.taco_train_bwd(w, *args))
+    want = tk.taco_train_bwd_plain(w, *args)
+    for name, a, b in zip(got._fields, got, want):
+        assert rel_err(a, b) <= 1e-4, name
+
+
+def test_taco_train_bwd_refuses_what_does_not_fit(dev):
+    w, args = _bwd_args(dev, 2, 9, 3, 16, 8, 8, KS=33)
+    with pytest.raises(ValueError, match="at most 31"):
+        tk.taco_train_bwd(w, *args)
+    w, args = _bwd_args(dev, 2, 9, 3, 16, 8, 8)
+    with pytest.raises(ValueError, match="past the limit of 4096"):
+        tk.bwd_launch(_build.library(), w, *args,
+                      p=tk.plan_bwd(3, 2, 9, (16, 8, 8, 31), 132, 4096))
+    bad = tk.plan_bwd(3, 2, 9, (16, 8, 8, 31), *_build.device_limits(dev))
+    with pytest.raises(RuntimeError, match="rtvc_tacotron_train_bwd"):
+        tk.bwd_launch(_build.library(), w, *args, p=bad._replace(smem=4))
+    with pytest.raises(ValueError, match="l1wi"):
+        tk.taco_train_bwd(w._replace(l1wi=w.l1wi[:, :8]), *args)
