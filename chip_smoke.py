@@ -40,11 +40,12 @@
    bits).
    K5, the teacher-forced Tacotron decoder chain, forward and backward at the
    Tacotron training shape (112 rows x 86 iterations x 160 characters,
-   D 256 / L 512 / E 896, zoneout masks at p 0.1, padded char mask), and the
-   backward (split over the card, a grid barrier a phase: the plan is
-   printed) also at the schedule's last session (22 rows x 602 iterations),
-   beside the one-CTA-a-row kernel's times; two runs of the backward must
-   give equal bits, and at 112 rows every candidate plan is timed.
+   D 256 / L 512 / E 896, zoneout masks at p 0.1, padded char mask) and at
+   the schedule's last session (22 rows x 602 iterations), each direction
+   split over the card (a grid barrier a phase: the plans are printed),
+   beside the one-CTA-a-row kernels' times; two runs of each must give equal
+   bits, and at 112 rows every candidate plan of each direction is held to
+   its plain version and timed.
 5. Trains at full width with seeded random weights: ``train_encoder`` for 3
    GE2E steps on (640, 160, 40) partials, then resumes from its checkpoint
    for a 4th; ``train_vocoder("runtimeracer-wavernn")`` for 5 steps on one
@@ -978,16 +979,17 @@ def gru_shape(dev, B, T, H):
              "library_ms": lib_bwd_ms, "plan": list(p_bwd[:5])}]
 
 
-# K5's backward with one CTA a batch row (before it was split over the card),
-# CUDA-event ms on an NVIDIA H100 80GB HBM3 at 700 W, by (B, n_iters): the
-# mean of the two runs of `profile_tacotron_train.py --wrapper` over that
+# K5 with one CTA a batch row (before each direction was split over the
+# card), CUDA-event ms on an NVIDIA H100 80GB HBM3 at 700 W, by (B, n_iters):
+# the mean of the two runs of `profile_tacotron_train.py --wrapper` over that
 # package (parent, this, this, parent) in an earlier call, the one PERF.md
 # section 6 quotes. Printed beside the new times in the phase's own lines
 # only, marked as an earlier call's.
+K5_FWD_EARLIER_MS = {(112, 86): 32.113, (22, 602): 218.737}
 K5_BWD_EARLIER_MS = {(112, 86): 51.166, (22, 602): 327.727}
-# (B, n_iters) of K5's backward: the first session of the Tacotron schedule
-# (r 7, batch 112, 602 frames) and the last (r 1, batch 22)
-K5_BWD_SHAPES = ((112, 86), (22, 602))
+# (B, n_iters) of K5: the first session of the Tacotron schedule (r 7, batch
+# 112, 602 frames) and the last (r 1, batch 22)
+K5_SHAPES = ((112, 86), (22, 602))
 K5_WIDTHS = dict(T=160, D=256, L=512, E=896, KS=31)
 
 
@@ -1008,6 +1010,97 @@ def k5_case(g, dev, B, n):
     return x, [r(n, B, L), r(n, B, E), r(n, B, T)]
 
 
+def k5_candidates(label, planner, launch, want, n, B, dev):
+    """Every candidate plan of one direction forced through the kernel, each
+    held to the plain version's outputs ``want`` (1e-4 of each output's
+    largest entry) and timed: [(ms, plan, max rel err)], fastest first."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops import tacotron_train as tk
+
+    T, D, L, E, KS = (K5_WIDTHS[k] for k in ("T", "D", "L", "E", "KS"))
+    lib = _build.library()
+    cand = []
+    for c in tk.CANDIDATES:
+        try:
+            p = planner(n, B, T, (D, L, E, KS), dev, candidate=c)
+        except ValueError as e:
+            print(f"  {label} candidate {c}: {e}")
+            continue
+        forced = launch(lib, p)
+        torch.cuda.synchronize()
+        worst = max(rel_err(a, b) for a, b in zip(forced, want))
+        check(worst <= 1e-4, f"{label} B={B} n={n} under candidate {p.name} differs from its "
+              f"plain version: rel err {worst:.3e}")
+        del forced
+        cand.append((cuda_ms(lambda: launch(lib, p), reps=2), p, worst))
+    return sorted(cand, key=lambda r: r[0])
+
+
+def k5_cand_line(label, B, n, cand, chosen):
+    return (f"  {label} B={B} n={n} candidates, ms (model ms, max rel err against the plain "
+            f"version, tol 1e-4), fastest first: " + "; ".join(
+                f"{p.name} {t:.3f} ({p.cost_ms:.3f}, {e:.3e})" + (" (plan)" if p == chosen else "")
+                for t, p, e in cand))
+
+
+def k5_fwd_cell(dev, w, x, candidates=False):
+    """K5's forward at one shape through the wrapper and the card's plan,
+    against its plain version (every output within 1e-4 of the reference's
+    largest entry: f32 sums taken in another order, carried through every
+    step), and twice: it uses no atomics, so the two runs' bits are equal.
+    Its time beside the plain version's and its bound; with ``candidates``
+    also every candidate plan through the kernel, each held to the plain
+    version in the same way and timed, the plan's choice marked. Returns the
+    cell and the plain version's residuals, which the backward's cell takes."""
+    import torch
+
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops import tacotron_train as tk
+
+    T, D, L, E, KS = (K5_WIDTHS[k] for k in ("T", "D", "L", "E", "KS"))
+    n, B, _ = x["xg_pre"].shape
+    chosen = tk.device_plan_fwd(n, B, T, (D, L, E, KS), dev)
+    x_all, res = tk.taco_train_fwd(w, **x)
+    x_again, res_again = tk.taco_train_fwd(w, **x)
+    p_x, p_res = tk.taco_train_fwd_plain(w, **x)
+    torch.cuda.synchronize()
+    got, want = (x_all, *res), (p_x, *p_res)
+    errs = dict(zip(("x_all",) + res._fields, (rel_err(a, b) for a, b in zip(got, want))))
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    check(max(errs.values()) <= 1e-4, f"K5 forward B={B} n={n} differs from its plain version: "
+          f"{errs}")
+    check(all(torch.equal(a, b) for a, b in zip(got, (x_again, *res_again))),
+          f"K5 forward B={B} n={n}: two runs on the same inputs differ in their bits")
+    del x_all, res, x_again, res_again, got
+    ms = cuda_ms(lambda: tk.taco_train_fwd(w, **x))
+    plain_ms = cuda_ms(lambda: tk.taco_train_fwd_plain(w, **x), reps=2)
+    def launch(lib, p):
+        out, res = tk.fwd_launch(lib, w, **x, p=p)
+        return (out, *res)
+
+    cand = k5_candidates("K5 forward", tk.device_plan_fwd, launch, want, n, B, dev) \
+        if candidates else []
+    # per row and iteration: the eight products, then the attention: the
+    # location term (T·D·KS), energies, scores and context
+    mats = D * 3 * D + D * D + (E + D) * L + 4 * L * 4 * L + E * 3 * D
+    flops = 2 * n * B * (mats + T * D * KS + 2 * T * D + T * E)
+    b = bound(nbytes(*w, *x.values(), *want), flops)
+    was = K5_FWD_EARLIER_MS.get((B, n))
+    print(f"K5 tacotron_train forward B={B} n_iters={n} T={T} D={D} L={L} E={E} (plan "
+          f"{chosen.name}, {chosen.ctas} CTAs, {chosen.smem} bytes of shared memory a CTA, model "
+          f"{chosen.cost_ms:.3f} ms): rel errs max {max(errs.values()):.3e} "
+          f"({max(errs, key=errs.get)}, tol 1e-4), bits repeat, kernel {ms:.3f} ms "
+          f"({ms / n * 1e3:.2f} us a step; one-CTA-a-row kernel {was} ms in an earlier call), "
+          f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+    if cand:
+        print(k5_cand_line("K5 forward", B, n, cand, chosen))
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **b, "plan": chosen.name,
+            "candidates": {p.name: t for t, p, _ in cand}}, p_res
+
+
 def k5_bwd_cell(dev, w, x, cots, p_res, candidates=False):
     """K5's backward at one shape on the plain forward's residuals, against
     its plain version (every output within 1e-4 of the reference's largest
@@ -1018,7 +1111,6 @@ def k5_bwd_cell(dev, w, x, cots, p_res, candidates=False):
     same way and timed, the plan's choice marked."""
     import torch
 
-    from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.ops import rel_err
     from rtvc_tpu_torch.ops import tacotron_train as tk
 
@@ -1037,23 +1129,9 @@ def k5_bwd_cell(dev, w, x, cots, p_res, candidates=False):
           f"K5 backward B={B} n={n}: two runs on the same inputs differ in their bits")
     ms = cuda_ms(lambda: tk.taco_train_bwd(w, *args))
     plain_ms = cuda_ms(lambda: tk.taco_train_bwd_plain(w, *args), reps=2)
-    cand = []
-    if candidates:
-        lib = _build.library()
-        for c in tk.BWD_CANDIDATES:
-            try:
-                p = tk.device_plan_bwd(n, B, T, (D, L, E, KS), dev, candidate=c)
-            except ValueError as e:
-                print(f"  K5 backward candidate {c}: {e}")
-                continue
-            forced = tk.bwd_launch(lib, w, *args, p=p)
-            torch.cuda.synchronize()
-            worst = max(rel_err(a, c) for a, c in zip(forced, want))
-            check(worst <= 1e-4, f"K5 backward B={B} n={n} under candidate {p.name} differs "
-                  f"from its plain version: rel err {worst:.3e}")
-            del forced
-            cand.append((cuda_ms(lambda: tk.bwd_launch(lib, w, *args, p=p), reps=2), p, worst))
-        cand.sort(key=lambda r: r[0])
+    cand = k5_candidates("K5 backward", tk.device_plan_bwd,
+                         lambda lib, p: tk.bwd_launch(lib, w, *args, p=p), want, n, B, dev) \
+        if candidates else []
     # per row and step: the eight products (lsa_W both ways), the attention:
     # the location term, its two adjoints, the energies and the context's
     # cotangent; after the walk scores x dctx for denc_seq
@@ -1075,29 +1153,24 @@ def k5_bwd_cell(dev, w, x, cots, p_res, candidates=False):
           f"one-CTA-a-row kernel {was} ms in an earlier call), plain {plain_ms:.3f} ms, bound "
           f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
     if cand:
-        print(f"  K5 backward B={B} n={n} candidates, ms (model ms, max rel err against the "
-              f"plain version, tol 1e-4), fastest first: " + "; ".join(
-                  f"{p.name} {t:.3f} ({p.cost_ms:.3f}, {e:.3e})"
-                  + (" (plan)" if p == chosen else "") for t, p, e in cand))
+        print(k5_cand_line("K5 backward", B, n, cand, chosen))
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **b, "plan": chosen.name,
             "candidates": {p.name: t for t, p, _ in cand}}
 
 
 def phase_taco_train_kernel(dev):
-    """K5 forward at the Tacotron training shape (the first session of the
-    schedule: batch 112, r 7, 602 frames → 86 iterations; 160 characters)
-    against its plain version (every output within 1e-4 of the reference's
-    largest entry: f32 sums taken in another order, carried through 86
-    steps); the backward there and at the last session (batch 22, r 1, 602
-    iterations), each against its plain version on the plain forward's
-    residuals (``k5_bwd_cell``)."""
+    """K5 at the Tacotron training shape (the first session of the schedule:
+    batch 112, r 7, 602 frames → 86 iterations; 160 characters) and at the
+    last session (batch 22, r 1, 602 iterations): the forward against its
+    plain version, then the backward on the plain forward's residuals against
+    its plain version (``k5_fwd_cell``, ``k5_bwd_cell``); every candidate
+    plan of each at the first session."""
     import torch
 
-    from rtvc_tpu_torch.ops import rel_err
     from rtvc_tpu_torch.ops import tacotron_train as tk
 
     T, D, L, E, KS = (K5_WIDTHS[k] for k in ("T", "D", "L", "E", "KS"))
-    (B, n), last = K5_BWD_SHAPES
+    (B, n), last = K5_SHAPES
     g = torch.Generator().manual_seed(11)
 
     def u(*shape, fan):
@@ -1113,40 +1186,21 @@ def phase_taco_train_kernel(dev):
         l2wi=u(L, 4 * L, fan=L), l2wh=u(L, 4 * L, fan=L), l2b=u(4 * L, fan=L),
         gwi_ctx=u(E, 3 * D, fan=E))
     x, cots = k5_case(g, dev, B, n)
-
-    x_all, res = tk.taco_train_fwd(w, **x)
-    p_x, p_res = tk.taco_train_fwd_plain(w, **x)
-    torch.cuda.synchronize()
-    fwd_errs = {"x_all": rel_err(x_all, p_x),
-                **{k: rel_err(a, c) for k, a, c in zip(res._fields, res, p_res)}}
-    fwd_abs = max(float((x_all - p_x).abs().max()),
-                  *(float((a - c).abs().max()) for a, c in zip(res, p_res)))
-    check(max(fwd_errs.values()) <= 1e-4, f"K5 forward differs from its plain version: {fwd_errs}")
-    ms = cuda_ms(lambda: tk.taco_train_fwd(w, **x))
-    plain_ms = cuda_ms(lambda: tk.taco_train_fwd_plain(w, **x), reps=2)
-    # per row and iteration: the eight products, then the attention: the
-    # location term (T·D·KS), energies, scores and context
-    mats = D * 3 * D + D * D + (E + D) * L + 4 * L * 4 * L + E * 3 * D
-    fwd_flops = 2 * n * B * (mats + T * D * KS + 2 * T * D + T * E)
-    fwd_b = bound(nbytes(*w, *x.values(), x_all, *res), fwd_flops)
-    print(f"K5 tacotron_train forward B={B} n_iters={n} T={T} D={D} L={L} E={E}: rel errs max "
-          f"{max(fwd_errs.values()):.3e} ({max(fwd_errs, key=fwd_errs.get)}), kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by "
-          f"{fwd_b['bound_by']}")
-    first = k5_bwd_cell(dev, w, x, cots, p_res, candidates=True)
-    del x_all, res, p_x, p_res, x, cots
+    fwd_first, p_res = k5_fwd_cell(dev, w, x, candidates=True)
+    bwd_first = k5_bwd_cell(dev, w, x, cots, p_res, candidates=True)
+    del p_res, x, cots
     x, cots = k5_case(g, dev, *last)
-    _, p_res = tk.taco_train_fwd_plain(w, **x)
-    other = k5_bwd_cell(dev, w, x, cots, p_res)
+    fwd_other, p_res = k5_fwd_cell(dev, w, x)
+    bwd_other = k5_bwd_cell(dev, w, x, cots, p_res)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "plan")
     return [{"name": "tacotron_train_fwd", "source": "rtvc_tpu_torch/csrc/tacotron_train.cu",
              "replaces": "rtvc_tpu/ops/pallas/tacotron_train_kernel.py:109",
-             "max_abs_err": fwd_abs, "ms": ms, "plain_ms": plain_ms, **fwd_b,
-             "library_ms": None},
+             **fwd_first, "library_ms": None,
+             "shapes": [{"B": last[0], "n_iters": last[1], **{k: fwd_other[k] for k in keys}}]},
             {"name": "tacotron_train_bwd", "source": "rtvc_tpu_torch/csrc/tacotron_train.cu",
              "replaces": "rtvc_tpu/ops/pallas/tacotron_train_kernel.py:228",
-             **first, "library_ms": None,
-             "shapes": [{"B": last[0], "n_iters": last[1], **{k: other[k] for k in (
-                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "plan")}}]}]
+             **bwd_first, "library_ms": None,
+             "shapes": [{"B": last[0], "n_iters": last[1], **{k: bwd_other[k] for k in keys}}]}]
 
 
 def phase_train_encoder(dev, runs_dir):

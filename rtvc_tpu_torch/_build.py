@@ -64,16 +64,11 @@ SIGNATURES = {
     # mag, basis, out, n_bins, T, num_mels, min_level, ref_level_db,
     # min_level_db, max_abs_value, symmetric, clip, stream
     "rtvc_mel_project": [_P] * 3 + [_I] * 3 + [_F] * 4 + [_I] * 2 + [_P],
-    # weights, inputs, outputs, dims (n, B, T, D, L, E, KS), stream
-    "rtvc_tacotron_train_fwd": [_PP, _PP, _PP, _IP, _P],
-    # weights, their strides, inputs, outputs, dims, plan
-    # (ops/tacotron_train.py:BwdPlan.ints), its length, work, stream
+    # weights, their strides, inputs, outputs, dims (n, B, T, D, L, E, KS),
+    # plan (ops/tacotron_train.py:FwdPlan.ints), its length, work, stream
+    "rtvc_tacotron_train_fwd": [_PP, _IP, _PP, _PP, _IP, _IP, _I, _P, _P],
+    # the same for the backward (BwdPlan.ints)
     "rtvc_tacotron_train_bwd": [_PP, _IP, _PP, _PP, _IP, _IP, _I, _P, _P],
-    # cluster size, shared-memory bytes → CTAs the card runs at once in such
-    # clusters
-    "rtvc_tacotron_train_bwd_clusters": [_I, _I],
-    # dims → bytes of shared memory a CTA of the forward takes
-    "rtvc_tacotron_train_smem": [_IP],
 }
 
 # Launches per kernel since the last reset; each wrapper adds one where it

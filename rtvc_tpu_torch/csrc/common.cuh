@@ -1,19 +1,14 @@
 // Shared device helpers for the hand-written recurrence kernels.
 //
 // Every kernel of this package is a matrix-vector recurrence: each step
-// multiplies a handful of weight matrices (a few MB, read through the 50 MB
-// L2) by state vectors of a few hundred floats. The helper below is the
-// workhorse: one warp owns four output rows at a time, each lane streams
-// 16-byte pieces of those rows, and the dot products are reduced with warp
-// shuffles. Four rows per warp keep four independent loads in flight per
-// lane, which is what hides the L2 latency when a single CTA walks MBs of
-// weights per step.
-//
-// A recurrence whose weights fit in the shared memory of the whole card keeps
-// them there instead: every CTA owns a slice of the hidden units (or of a
-// layer's rows), all CTAs advance one time step together, and grid_barrier
-// separates the steps. slice_product, the partition and the cooperative launch
-// below serve K3 (lstm_seq.cu), K4 (gru_seq.cu) and K1 (wavernn_generate.cu).
+// multiplies a handful of weight matrices (a few MB) by state vectors of a
+// few hundred floats. The weights live in the shared memory of the whole
+// card: every CTA owns a slice of the hidden units (or of a layer's rows),
+// all CTAs advance one time step together, and grid_barrier separates the
+// steps. slice_product, the partition and the cooperative launch below serve
+// K3 (lstm_seq.cu), K4 (gru_seq.cu) and K1 (wavernn_generate.cu);
+// grid_barrier and warp_transpose_sum also serve K2 (tacotron_decode.cu) and
+// K5 (tacotron_train.cu).
 #pragma once
 
 #include <cstdint>
@@ -28,88 +23,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-enum Act { kNone = 0, kRelu = 1 };
-
-// out[b * os + r] = act(init + sum_k W[r * ldw + k] * x[b * xs + k])
-// for r < rows, b < nb (nb <= NB), where init is
-//   out[b * os + r]            when accumulate,
-//   bias[r] (or 0) + add[b * as + r] (add may be null) otherwise.
-// Rows are split over the warps of the block; the caller synchronises
-// before reading `out`. `accumulate` lets a second call add the product of
-// another input segment into the same rows: the row→warp→lane mapping is
-// the same in both calls, so no synchronisation is needed between them.
-template <int NB>
-__device__ void matvec(const float* __restrict__ W, int ldw, int rows,
-                       const float* x, int xs, int n, int nb,
-                       float* out, int os, const float* __restrict__ bias,
-                       const float* add, int as, bool accumulate, int act) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const bool vec = ((n & 3) == 0) && ((ldw & 3) == 0) && ((xs & 3) == 0) &&
-                   ((reinterpret_cast<uintptr_t>(W) & 15) == 0) &&
-                   ((reinterpret_cast<uintptr_t>(x) & 15) == 0);
-  for (int r0 = warp * 4; r0 < rows; r0 += nwarps * 4) {
-    float acc[4][NB];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int b = 0; b < NB; ++b) acc[i][b] = 0.0f;
-    const int nr = rows - r0 < 4 ? rows - r0 : 4;
-    if (vec) {
-      for (int k = lane * 4; k < n; k += 128) {
-        float4 w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          w[i] = i < nr ? __ldg(reinterpret_cast<const float4*>(W + (size_t)(r0 + i) * ldw + k))
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          if (b < nb) {
-            const float4 v = *reinterpret_cast<const float4*>(x + (size_t)b * xs + k);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              acc[i][b] += w[i].x * v.x + w[i].y * v.y + w[i].z * v.z + w[i].w * v.w;
-          }
-        }
-      }
-    } else {
-      for (int k = lane; k < n; k += 32) {
-        float w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) w[i] = i < nr ? __ldg(W + (size_t)(r0 + i) * ldw + k) : 0.0f;
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          if (b < nb) {
-            const float v = x[(size_t)b * xs + k];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][b] += w[i] * v;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const float s = warp_sum(acc[i][b]);
-        if (lane == 0 && i < nr && b < nb) {
-          const int r = r0 + i;
-          float* o = out + (size_t)b * os + r;
-          float v;
-          if (accumulate) {
-            v = *o + s;
-          } else {
-            v = s + (bias ? bias[r] : 0.0f) + (add ? add[(size_t)b * as + r] : 0.0f);
-          }
-          if (act == kRelu) v = fmaxf(v, 0.0f);
-          *o = v;
-        }
-      }
-    }
-  }
-}
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory: past the
 // default 48 KB a launch needs the opt-in attribute.

@@ -23,9 +23,9 @@ emits.
 - ``taco_train_fwd`` / ``taco_train_bwd``: the two kernels' wrappers. CUDA
   tensors launch the kernel or raise; CPU tensors run the plain versions
   (``*_plain``), which the CPU tests hold against the JAX package;
-- ``plan_bwd``: the backward kernel's partition over the card (pure Python:
-  the candidates, their cost on the card's rates, the shared-memory and
-  workspace layouts the kernel reads);
+- ``plan_fwd`` / ``plan_bwd``: the two kernels' partitions over the card
+  (pure Python: the candidates, their cost on the card's rates, the
+  shared-memory and workspace layouts each kernel reads);
 - ``TacoDecoderTrainFn``: both halves as a ``torch.autograd.Function``.
 
 Layouts: streams over iterations are time-major (n_iters, B, ·), as in the
@@ -34,6 +34,7 @@ T_text and n_iters: there is no padding and no additive mask.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -42,9 +43,6 @@ import torch.nn.functional as F
 from rtvc_tpu_torch import _build
 
 Tensor = torch.Tensor
-
-MAX_THREADS = 1024      # threads of a CTA (csrc/tacotron_train.cu)
-MAX_SMEM = 232448       # bytes of shared memory a CTA can opt in to (sm_90)
 
 
 class TrainWeights(NamedTuple):
@@ -304,54 +302,68 @@ def taco_train_bwd_plain(w: TrainWeights, res: TrainResiduals, enc_seq: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_shapes(fn: str, dims) -> None:
-    """Raise on a shape the forward kernel does not take."""
-    n, B, T, D, L, E, KS = dims
-    if min(dims) < 1:
-        raise ValueError(f"{fn}: empty shape (n, B, T, D, L, E, KS) = {tuple(dims)}")
-    if D > MAX_THREADS:
-        raise ValueError(f"{fn}: decoder_dims {D} exceeds the kernel's {MAX_THREADS} "
-                         "threads (one thread owns one attention column)")
-    if KS % 2 == 0:
-        raise ValueError(f"{fn}: the location conv must have an odd number of taps, got {KS}")
-    need = _build.library().rtvc_tacotron_train_smem(_build.int_array(dims))
-    if need > MAX_SMEM:
-        raise ValueError(f"{fn}: T_text {T} with D {D}, L {L}, E {E} needs {need} bytes of "
-                         f"shared memory, the card gives a CTA {MAX_SMEM}")
+_MATS = ("gwh", "wq", "wri", "l1wi", "l1wh", "l2wi", "l2wh", "gwi_ctx")
 
 
-def _torch_layout(w: TrainWeights):
-    """The eight matrices as (out, in) rows, contiguous: the forward kernel
-    streams rows of these. For weights from :func:`prepare_train_weights`
-    seven are the parameters themselves and are not copied; ``gwi_ctx`` is a
-    column slice of the attention GRU's ``weight_ih``, so its (3D, E) rows
-    are copied on every call."""
-    return [m.t().contiguous() for m in (w.gwh, w.wq, w.wri, w.l1wi, w.l1wh, w.l2wi, w.l2wh,
-                                         w.gwi_ctx)]
+def _check_mats(fn: str, w: TrainWeights, dev) -> list:
+    """The eight matrices as TrainWeights holds them (any strides: the kernels
+    gather their rows themselves), after checking type, shape and device."""
+    D, L, E, _ = w.dims
+    shapes = ((D, 3 * D), (D, D), (E + D, L), (L, 4 * L), (L, 4 * L), (L, 4 * L), (L, 4 * L),
+              (E, 3 * D))
+    mats = [getattr(w, name) for name in _MATS]
+    for name, m, shape in zip(_MATS, mats, shapes):
+        if m.device != dev or m.dtype != torch.float32 or tuple(m.shape) != shape:
+            raise ValueError(f"{fn}: {name} must be f32 {shape} on {dev}, got "
+                             f"{m.dtype} {tuple(m.shape)} on {m.device}")
+    return mats
+
+
+def _work(fn: str, work, total: int, dev) -> Tensor:
+    """``work`` (at least ``total`` floats) or a new workspace, the barrier's
+    counter zeroed."""
+    if work is None:
+        work = torch.empty(total, device=dev, dtype=torch.float32)
+    elif work.numel() < total or work.device != dev or work.dtype != torch.float32:
+        raise ValueError(f"{fn}: work must be at least {total} f32 on {dev}")
+    work[:32].zero_()
+    return work
 
 
 def taco_train_fwd(w: TrainWeights, xg_pre: Tensor, enc_seq: Tensor, enc_proj: Tensor,
                    char_mask: Tensor, zo1: Tensor, zo2: Tensor
                    ) -> Tuple[Tensor, TrainResiduals]:
     """Same contract as :func:`taco_train_fwd_plain`; CUDA tensors go through
-    the kernel (f32, contiguous), CPU tensors through the plain version."""
+    the kernel with this card's plan, CPU tensors through the plain version."""
     if not xg_pre.is_cuda:
         return taco_train_fwd_plain(w, xg_pre, enc_seq, enc_proj, char_mask, zo1, zo2)
+    out = fwd_launch(_build.library(), w, xg_pre, enc_seq, enc_proj, char_mask, zo1, zo2)
+    _build.launch_counts["tacotron_train_fwd"] += 1
+    return out
+
+
+def fwd_launch(lib, w: TrainWeights, xg_pre: Tensor, enc_seq: Tensor, enc_proj: Tensor,
+               char_mask: Tensor, zo1: Tensor, zo2: Tensor, p: "FwdPlan" = None,
+               work: Tensor = None) -> Tuple[Tensor, TrainResiduals]:
+    """One launch of ``lib``'s ``rtvc_tacotron_train_fwd`` (the package's
+    library, or a variant that ``profile_tacotron_train`` builds) on CUDA
+    tensors, after the shape checks, with ``p`` or this card's plan, and
+    ``work`` (at least ``p.ws[-1]`` floats) or a new workspace. The kernel
+    reads the eight matrices as TrainWeights holds them (transposed views and
+    the column slice ``gwi_ctx`` of the GRU's ``weight_ih`` included) and
+    gathers its slices itself: no copy is made."""
     D, L, E, KS = w.dims
     n, B, _ = xg_pre.shape
     T = enc_seq.shape[1]
     fn, dev = "tacotron_train_fwd", xg_pre.device
-    dims = [n, B, T, D, L, E, KS]
-    _check_shapes(fn, dims)
-    mats = _torch_layout(w)
+    if p is None:
+        p = device_plan_fwd(n, B, T, (D, L, E, KS), dev)
+    mats = _check_mats(fn, w, dev)
     vecs = [v.contiguous() for v in (w.gbh, w.bq, w.mloc, w.vv, w.bri, w.l1b, w.l2b)]
     _build.check_tensors(
         fn, dev, xg_pre=(xg_pre, (n, B, 3 * D)), enc_seq=(enc_seq, (B, T, E)),
         enc_proj=(enc_proj, (B, T, D)), char_mask=(char_mask, (B, T)),
         zo1=(zo1, (n, B, L)), zo2=(zo2, (n, B, L)),
-        gwh=(mats[0], (3 * D, D)), wq=(mats[1], (D, D)), wri=(mats[2], (L, E + D)),
-        l1wi=(mats[3], (4 * L, L)), l1wh=(mats[4], (4 * L, L)), l2wi=(mats[5], (4 * L, L)),
-        l2wh=(mats[6], (4 * L, L)), gwi_ctx=(mats[7], (3 * D, E)),
         gbh=(vecs[0], (3 * D,)), bq=(vecs[1], (D,)), mloc=(vecs[2], (KS, D)),
         vv=(vecs[3], (D,)), bri=(vecs[4], (L,)), l1b=(vecs[5], (4 * L,)),
         l2b=(vecs[6], (4 * L,)))
@@ -364,35 +376,69 @@ def taco_train_fwd(w: TrainWeights, xg_pre: Tensor, enc_seq: Tensor, enc_proj: T
                          gates1=e(n, B, 4 * L), c1=e(n, B, L), h1=e(n, B, L),
                          gates2=e(n, B, 4 * L), c2=e(n, B, L), h2=e(n, B, L),
                          scores=e(n, B, T), ctx=e(n, B, E), cum_T=e(B, T))
-    err = _build.library().rtvc_tacotron_train_fwd(
-        _build.pointer_array(mats + vecs),
+    work = _work(fn, work, p.ws[-1], dev)
+    ints = p.ints()
+    err = lib.rtvc_tacotron_train_fwd(
+        _build.pointer_array([*mats, *vecs]),
+        _build.int_array([x for m in mats for x in m.stride()]),
         _build.pointer_array([xg_pre, zo1, zo2, enc_seq, enc_proj, char_mask]),
         _build.pointer_array([x_all, *res]),
-        _build.int_array(dims), _build.stream_handle(dev))
+        _build.int_array([n, B, T, D, L, E, KS]), _build.int_array(ints), len(ints),
+        work.data_ptr(), _build.stream_handle(dev))
     _build.check(err, "rtvc_tacotron_train_fwd")
-    _build.launch_counts["tacotron_train_fwd"] += 1
     return x_all, res
 
 
 # ---------------------------------------------------------------------------
-# The backward's partition over the card
+# The kernels' partitions over the card
 # ---------------------------------------------------------------------------
 
-# The kernel's constants (csrc: namespace bwd, kThreads, kRows, kNB, kChunk,
-# kMaxTaps, kPairTile, kHeaderFloats; STAGE is kStageSteps x kStageT).
-BWD_THREADS = 256   # threads of a CTA of the backward
-BWD_WARPS = BWD_THREADS // 32
-BWD_ROWS = 8        # weight rows an item of a product takes
-BWD_NB = 8          # batch rows an item takes
-BWD_CHUNK = 128     # floats of the reduction axis a warp covers at once
-MAX_TAPS = 32       # location taps a thread keeps in registers
-PAIR_TILE = 8       # (row, character) pairs the attention phase takes at once
-BWD_HEADER = 512    # floats of shared memory for the launch's parameters
-STAGE = 2048        # floats of the buffer the last phase stages the scores in
+# The kernels' constants (csrc/tacotron_train.cu: kThreads, kRows, kNB,
+# kChunk, kMaxTaps, kHeaderFloats; bwd::kPairTile, bwd::kStageSteps x
+# bwd::kStageT; fwd::kCtxCols).
+THREADS = 256       # threads of a CTA of either kernel
+WARPS = THREADS // 32
+ROWS = 8            # weight rows an item of a product takes
+NB = 8              # batch rows an item takes
+CHUNK = 128         # floats of the reduction axis a warp covers at once
+MAX_TAPS = 32       # location taps a thread keeps in registers (at most 31 used)
+HEADER = 512        # floats of shared memory for the launch's parameters
+PAIR_TILE = 8       # (row, character) pairs the backward's attention phase takes at once
+STAGE = 2048        # floats of the buffer the backward's last phase stages the scores in
+CTX_COLS = 128      # context columns of an item of the forward's phase D
 
-# The cuts (csrc: bwd::Cut): LSTM units, context columns, attention units,
-# (row, character) pairs. The first three are cut over the slices of a batch
-# group, the pairs over every CTA.
+# Candidate partitions of both kernels: (mode, batch groups). "resident": the
+# weight slices in the CTA's shared memory; "l2": read every step from a copy
+# the kernel gathers into the workspace. With g groups the CTAs of a group
+# own the units of every cut for that group's batch rows.
+MODES = ("resident", "l2")
+CANDIDATES = (("resident", 1), ("l2", 1), ("l2", 2))
+
+# The card's rates the cost models rank candidates by (NVIDIA H100 SXM): one
+# SM streams ≈ 78 GB/s out of L2 and the card ≈ 8 TB/s (measured for K1-K5);
+# device memory 3.35 TB/s and a 50 MB L2; a grid barrier over 132 CTAs
+# ≈ 1.05 µs (measured for K3); a phase's own latency, an L2 round trip and the
+# lanes' sum, ≈ 2 µs (measured for K2); 67 TFLOP/s of f32 FMAs over the SMs.
+# The backward's model, which charges the products and the attention at
+# those rates, missed the card by 2.5-3x (PERF.md section 6): outside
+# its barriers a step took ≈ 3.3 times the model's time, the products and the
+# attention being chains of dependent loads with 8 warps a SM. The forward's
+# model charges its products' L2 bytes and FMAs, and its attention's FMAs,
+# at the share of those rates the backward reached (REACHED); the
+# backward's keeps the card's rates, which rank its candidates in the card's
+# order (PERF.md section 6).
+L2_SM_BPS = 78e9
+L2_CARD_BPS = 8e12
+L2_BYTES = 50e6
+HBM_BPS = 3.35e12
+BARRIER_US = 1.05
+PHASE_US = 2.0
+FMA_CARD = 67e12 / 2
+REACHED = 0.3
+
+# The backward's cuts (csrc: bwd::Cut): LSTM units, context columns,
+# attention units, (row, character) pairs. The first three are cut over the
+# slices of a batch group, the pairs over every CTA.
 BWD_CUTS = ("lstm", "ctx", "att", "pair")
 # The products of a reverse step in the kernel's order (csrc: bwd::Product);
 # bwd_products gives each one's cut, gates, reduction length and phase.
@@ -406,31 +452,23 @@ BWD_SMEM_SLOTS = ("dh2", "dc2", "hold2", "dh1", "dc1", "hold1", "dx1", "dctx", "
 # The workspace after the barrier's 32 words (csrc: bwd::Ws), in floats.
 BWD_WS_SLOTS = ("q", "dhg", "u", "cum0", "cum1", "dcum", "sarr", "dqp", "dvp", "dmlp", "dctx",
                 "wl2", "total")
-# Candidate partitions: (mode, batch groups). "resident": the weight slices
-# in the CTA's shared memory; "l2": read every step from a copy the kernel
-# gathers into the workspace; "cluster": a cluster of `groups` CTAs (one a
-# batch group, the same columns) holds the slices once between them and each
-# reads the others' part from their shared memory (distributed shared
-# memory), so that each CTA loads the inputs of its own rows only.
-BWD_MODES = ("resident", "l2", "cluster")
-BWD_CANDIDATES = (("resident", 1), ("l2", 1), ("l2", 2), ("l2", 4), ("cluster", 2),
-                  ("cluster", 4))
 
-# The card's rates the cost model ranks candidates by (NVIDIA H100 SXM): one
-# SM streams ≈ 78 GB/s out of L2 and the card ≈ 8 TB/s (measured for K1-K5);
-# device memory 3.35 TB/s; a grid barrier over 132 CTAs ≈ 1.05 µs (measured
-# for K3); a phase's own latency, an L2 round trip and the lanes' sum, ≈ 2 µs
-# (measured for K2); 67 TFLOP/s of f32 FMAs over the SMs. Distributed shared memory: ≈ 37 GB/s a
-# SM for the products' weight reads, a time that adds to the phase's,
-# fitted on the card (cluster x2 ran 2.9 ms behind resident at B 112 x 86
-# with ≈ 1.27 MB of remote rows a CTA a step; PERF.md section 6).
-L2_SM_BPS = 78e9
-L2_CARD_BPS = 8e12
-HBM_BPS = 3.35e12
-BARRIER_US = 1.05
-PHASE_US = 2.0
-FMA_CARD = 67e12 / 2
-DSMEM_SM_BPS = 37e9
+# The forward's cuts (csrc: fwd::Cut): attention units (a unit's 3 gate rows
+# of gwh and gwi_ctx and its query column), LSTM units (a unit's 4 gate rows
+# of each LSTM's two matrices and rnn_input's output column), cut over the
+# slices of a batch group; (row, character) pairs, cut over every CTA. The
+# context items (row b, CTX_COLS columns k) go with the pairs: item k of row b
+# is the CTA's that owns pair (b, k·T // ceil(E / CTX_COLS)).
+FWD_CUTS = ("att", "lstm", "pair")
+FWD_PRODUCTS = ("gctx", "gh", "l1h", "l2h", "q", "ria", "ric", "l1i", "l2i")
+FWD_PHASES = "ABCDEFG"
+# The state of the CTA's units for its rows, in the order of fwd::Plan's
+# fields from ah, then the other offsets to end.
+FWD_STATE = (("ah", "att"), ("c1", "lstm"), ("h1", "lstm"), ("c2", "lstm"), ("h2", "lstm"),
+             ("x0", "lstm"), ("x1", "lstm"))
+FWD_SMEM_SLOTS = tuple(s for s, _ in FWD_STATE) + ("outs", "scratch", "rowbuf", "row_stride",
+                                                   "soft_rows", "wpart", "end")
+FWD_WS_SLOTS = ("q", "u", "cum", "x1", "wl2", "total")
 
 
 def bwd_products(D: int, L: int, E: int) -> Dict[str, Tuple[str, int, int, str]]:
@@ -447,37 +485,52 @@ def bwd_products(D: int, L: int, E: int) -> Dict[str, Tuple[str, int, int, str]]
             "ria": ("att", 1, L, "D"), "wq": ("att", 1, D, "H")}
 
 
-class BwdPlan(NamedTuple):
-    """How the backward is cut over the card: ``ctas`` CTAs in ``groups``
-    batch groups of ``rows`` batch rows (CTA c is slice c // groups of group
-    c % groups); ``cluster`` CTAs a cluster (1, or ``groups``); ``mode``
-    (index into BWD_MODES); ``smem`` bytes of shared memory a CTA. ``q``:
-    units a slice of each cut (pairs a CTA for "pair"). For each product:
-    ``ks`` pieces its reduction axis is cut into, ``w_off`` the offset of
-    the CTA's weight rows (in shared memory; in its workspace copy for
-    "l2"), ``w_rows`` the rows it holds (gates × units of the slice, or a
-    cluster rank's share), ``out_off`` the offset of its sums. ``sm``: the
-    offsets of BWD_SMEM_SLOTS; ``ws``: those of BWD_WS_SLOTS in the
-    workspace (floats after 32 words for the barrier)."""
+def fwd_products(D: int, L: int, E: int) -> Dict[str, Tuple[str, int, int, str, str]]:
+    """name → (cut, gates, reduction length, phase, the phase that reads its
+    sums). A unit's row of a forward product is a column of the (in, out)
+    matrix: ``gctx`` / ``gh`` the GRU unit's 3 gate columns of gwi_ctx (over
+    the previous context) and gwh (over the previous attention hidden);
+    ``l1h`` / ``l2h`` the LSTM unit's 4 gate columns of W_hh over the
+    previous h, beside the chain in phase A and read in F and G; ``q`` lsa_W's
+    column; ``ria`` / ``ric`` rnn_input's column over the attention hidden and
+    over the context; ``l1i`` / ``l2i`` the 4 gate columns of W_ih."""
+    return {"gctx": ("att", 3, E, "A", "A"), "gh": ("att", 3, D, "A", "A"),
+            "l1h": ("lstm", 4, L, "A", "F"), "l2h": ("lstm", 4, L, "A", "G"),
+            "q": ("att", 1, D, "B", "B"), "ria": ("lstm", 1, D, "B", "B"),
+            "ric": ("lstm", 1, E, "E", "E"), "l1i": ("lstm", 4, L, "F", "F"),
+            "l2i": ("lstm", 4, L, "G", "G")}
+
+
+class Plan(NamedTuple):
+    """How a kernel is cut over the card: ``ctas`` CTAs in ``groups`` batch
+    groups of ``rows`` batch rows (CTA c is slice c // groups of group
+    c % groups); ``mode`` (index into MODES); ``smem`` bytes of shared memory
+    a CTA. ``q``: units a slice of each cut (pairs a CTA for "pair"). For
+    each product: ``ks`` pieces its reduction axis is cut into, ``w_off``
+    the offset of the CTA's weight rows (gates × units of the slice; in
+    shared memory, or in its workspace copy for "l2"), ``out_off`` the
+    offset of its sums. ``sm``: the offsets of the direction's
+    SMEM_SLOTS; ``ws``: those of its WS_SLOTS in the workspace (floats after
+    32 words for the barrier)."""
     ctas: int
     groups: int
-    cluster: int
     mode: int
     rows: int
     smem: int
     q: Tuple[int, ...]
     ks: Tuple[int, ...]
     w_off: Tuple[int, ...]
-    w_rows: Tuple[int, ...]
     out_off: Tuple[int, ...]
     sm: Tuple[int, ...]
     ws: Tuple[int, ...]
     cost_ms: float
 
+    CUTS = BWD_CUTS
+
     def ints(self):
-        """The plan as the kernel reads it (csrc: bwd::Plan)."""
-        out = [self.ctas, self.groups, self.cluster, self.mode, self.rows, self.smem]
-        for part in self[6:13]:
+        """The plan as the kernel reads it (csrc: fwd::Plan, bwd::Plan)."""
+        out = [self.ctas, self.groups, self.mode, self.rows, self.smem]
+        for part in self[5:11]:
             out.extend(part)
         return out
 
@@ -487,18 +540,30 @@ class BwdPlan(NamedTuple):
 
     @property
     def name(self) -> str:
-        return f"{BWD_MODES[self.mode]} x{self.groups}"
+        return f"{MODES[self.mode]} x{self.groups}"
 
     def owned(self, cut: str, n: int, cta: int) -> range:
         """The units [0, n) of ``cut`` that CTA ``cta`` owns (for the batch
-        rows of its group, but for "pair")."""
-        q = self.q[BWD_CUTS.index(cut)]
+        rows of its group, but for the pairs, cut over every CTA)."""
+        q = self.q[self.CUTS.index(cut)]
         start = (cta if cut == "pair" else cta // self.groups) * q
         return range(min(start, n), min(start + q, n))
 
     def batch_rows(self, B: int, cta: int) -> range:
         g = cta % self.groups
         return range(min(g * self.rows, B), min((g + 1) * self.rows, B))
+
+
+class BwdPlan(Plan):
+    """The backward's :class:`Plan` (csrc: bwd::Plan)."""
+    __slots__ = ()
+    CUTS = BWD_CUTS
+
+
+class FwdPlan(Plan):
+    """The forward's :class:`Plan` (csrc: fwd::Plan)."""
+    __slots__ = ()
+    CUTS = FWD_CUTS
 
 
 def _pair_rows(q_pair: int, B: int, T: int, ctas: int) -> int:
@@ -519,106 +584,155 @@ def bwd_row_stride(T: int, D: int, E: int, KS: int) -> int:
     return max(3 * _al4(T) + _al4(T + KS - 1) + 2 * _al4(D), _al4(E))
 
 
-def plan_bwd(n: int, B: int, T: int, dims: Tuple[int, int, int, int], sm_count: int,
-             smem_limit: int, candidate=None, cluster_ctas=None) -> BwdPlan:
-    """The partition of K5's backward for ``n`` steps of B rows of T
-    characters at widths ``dims`` = (D, L, E, KS) on a card with ``sm_count``
-    SMs whose blocks take ``smem_limit`` bytes of shared memory. Every
-    candidate of BWD_CANDIDATES that fits is costed by the model above and
-    the cheapest is taken; ``candidate`` = (mode, groups) forces one (the
-    profile and the tests use that). ``cluster_ctas`` maps a cluster size to
-    the CTAs that the card runs at once in such clusters (the driver's
-    answer); without it the cluster candidates are not offered. Raises
-    ValueError, naming the limit, for a shape past it."""
+def fwd_row_stride(T: int, D: int) -> int:
+    """Floats a staged batch row takes in the forward: in phase C its
+    cumulative scores with a zero border wide enough for a tile's windows,
+    and its query; in phase D its logits, then scores."""
+    return max(_al4(T + 2 * MAX_TAPS) + _al4(D), _al4(T))
+
+
+def _check_inputs(fn: str, n, B, T, dims, sm_count) -> None:
     D, L, E, KS = dims
     if min(n, B, T, D, L, E, KS, sm_count) < 1:
-        raise ValueError(f"tacotron_train_bwd: bad plan inputs n {n} B {B} T {T} dims {dims} "
+        raise ValueError(f"{fn}: bad plan inputs n {n} B {B} T {T} dims {dims} "
                          f"SMs {sm_count}")
     if KS % 2 == 0 or KS > MAX_TAPS - 1:
-        raise ValueError(f"tacotron_train_bwd: {KS} location taps: odd and at most "
+        raise ValueError(f"{fn}: {KS} location taps: odd and at most "
                          f"{MAX_TAPS - 1}, the limit of the registers a thread keeps them in")
-    cluster_ctas = cluster_ctas or {}
-    if candidate is not None:
-        mode, groups = candidate
-        if (mode, groups) not in BWD_CANDIDATES:
-            raise ValueError(f"tacotron_train_bwd: candidate {candidate} is not one of "
-                             f"{BWD_CANDIDATES}")
-        if mode == "cluster" and groups not in cluster_ctas:
-            raise ValueError(f"tacotron_train_bwd: the card runs no clusters of {groups}")
-        wanted = [(mode, groups)]
-    else:
-        wanted = [c for c in BWD_CANDIDATES if c[0] != "cluster" or c[1] in cluster_ctas]
+
+
+def _choose(fn: str, layout, n, B, T, dims, sm_count, smem_limit, candidate):
+    """Every candidate of CANDIDATES (or ``candidate`` alone) laid out on
+    ``sm_count`` CTAs; the cheapest that fits ``smem_limit``."""
+    _check_inputs(fn, n, B, T, dims, sm_count)
+    D, L, E, _ = dims
+    if candidate is not None and tuple(candidate) not in CANDIDATES:
+        raise ValueError(f"{fn}: candidate {candidate} is not one of {CANDIDATES}")
     made, refused = [], []
-    for mode, groups in wanted:
-        ctas = cluster_ctas[groups] if mode == "cluster" else sm_count
-        ctas = ctas // groups * groups
+    for mode, groups in ([tuple(candidate)] if candidate is not None else CANDIDATES):
+        ctas = sm_count // groups * groups
         if ctas < 1:
             refused.append(f"{mode} x{groups}: fewer than {groups} CTAs")
             continue
-        p = _layout(n, B, T, dims, ctas, groups, mode)
+        p = layout(n, B, T, dims, ctas, groups, mode)
         if p.smem <= smem_limit:
             made.append(p)
         else:
             refused.append(f"{mode} x{groups} needs {p.smem}")
     if not made:
-        raise ValueError(f"tacotron_train_bwd: B {B} x T {T} at D {D}, L {L}, E {E} on "
+        raise ValueError(f"{fn}: B {B} x T {T} at D {D}, L {L}, E {E} on "
                          f"{sm_count} SMs: " + "; ".join(refused) +
                          f" bytes of shared memory a CTA, past the limit of {smem_limit}")
     return min(made, key=lambda p: p.cost_ms)
 
 
-def _layout(n, B, T, dims, ctas, groups, mode) -> BwdPlan:
-    D, L, E, KS = dims
-    m = BWD_MODES.index(mode)
-    C = groups if mode == "cluster" else 1
-    slices = ctas // groups
-    rows = _cdiv(B, groups)
-    sizes = {"lstm": L, "ctx": E, "att": D}
-    q = {c: _cdiv(sz, slices) for c, sz in sizes.items()}
-    q["pair"] = _cdiv(B * T, ctas)
-    prods = bwd_products(D, L, E)
-    groups_nb = _cdiv(rows, BWD_NB)
-    ks, w_rows = {}, {}
-    for name, (cut, gates, k, _) in prods.items():
-        items = _cdiv(gates * q[cut], BWD_ROWS) * groups_nb
-        chunks = _cdiv(k, BWD_CHUNK)
-        want = min(chunks, _cdiv(BWD_WARPS, items))
+@functools.lru_cache(maxsize=256)
+def plan_bwd(n: int, B: int, T: int, dims: Tuple[int, int, int, int], sm_count: int,
+             smem_limit: int, candidate=None) -> BwdPlan:
+    """The partition of K5's backward for ``n`` steps of B rows of T
+    characters at widths ``dims`` = (D, L, E, KS) on a card with ``sm_count``
+    SMs whose blocks take ``smem_limit`` bytes of shared memory. Every
+    candidate of CANDIDATES that fits is costed by the model above and the
+    cheapest is taken; ``candidate`` = (mode, groups) forces one (the profile
+    and the tests use that). Raises ValueError, naming the limit, for a shape
+    past it. Kept per argument tuple: a wrapper plans on every call, and a
+    plan takes ≈ 0.4 ms of the host's time."""
+    return _choose("tacotron_train_bwd", _bwd_layout, n, B, T, dims, sm_count, smem_limit,
+                   candidate)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_fwd(n: int, B: int, T: int, dims: Tuple[int, int, int, int], sm_count: int,
+             smem_limit: int, candidate=None) -> FwdPlan:
+    """The partition of K5's forward, with the same arguments, candidates
+    and refusals as :func:`plan_bwd`."""
+    return _choose("tacotron_train_fwd", _fwd_layout, n, B, T, dims, sm_count, smem_limit,
+                   candidate)
+
+
+def _pieces(prods, q, rows) -> Dict[str, int]:
+    """Pieces each product's reduction axis is cut into: enough items that
+    every warp of the CTA has one, in whole chunks."""
+    ks = {}
+    for name, (cut, gates, k, *_) in prods.items():
+        items = _cdiv(gates * q[cut], ROWS) * _cdiv(rows, NB)
+        chunks = _cdiv(k, CHUNK)
+        want = min(chunks, _cdiv(WARPS, items))
         ks[name] = _cdiv(chunks, _cdiv(chunks, want))
-        w_rows[name] = _cdiv(gates * q[cut], C)
-    o = BWD_HEADER
+    return ks
+
+
+def _place_weights(prods, q, mode, o):
+    """Each product's weight rows: in shared memory from offset ``o``, or in
+    the CTA's workspace copy for "l2". → (offsets, floats of the copy, o)."""
     w_off, wl2 = {}, 0
-    for name, (cut, gates, k, _) in prods.items():
-        size = w_rows[name] * _al4(k)
+    for name, (cut, gates, k, *_) in prods.items():
+        size = gates * q[cut] * _al4(k)
         if mode == "l2":
             w_off[name] = wl2
             wl2 += size
         else:
             w_off[name] = o
             o += size
+    return w_off, wl2, o
+
+
+def _phase_sums(prods, phases, q, rows, ks, o):
+    """The products' sums from offset ``o``: those of the products of one
+    phase side by side, the phases over the same floats. → (offsets, o)."""
+    out_off, widest = {}, 0
+    for phase in phases:
+        at = o
+        for name, (cut, gates, _, ph, *_) in prods.items():
+            if ph == phase and name not in out_off:
+                out_off[name] = at
+                at += _al4(ks[name] * gates * q[cut] * rows)
+        widest = max(widest, at - o)
+    return out_off, o + widest
+
+
+def _products_s(prods, phase, q, rows, mode, l2_sm, fma_sm) -> float:
+    """Seconds of one CTA's products of ``phase``: the slower of their inputs
+    (read once for each block of ROWS weight rows) and L2 weights over
+    ``l2_sm``, a SM's share of L2, and their FMAs over ``fma_sm``, a SM's
+    rate."""
+    l2 = fma = 0.0
+    for cut, gates, k, ph, *_ in prods.values():
+        if ph != phase:
+            continue
+        n_rows = gates * q[cut]
+        l2 += 4 * _cdiv(n_rows, ROWS) * rows * k
+        if mode == "l2":
+            l2 += 4 * n_rows * k * _cdiv(rows, NB)
+        fma += n_rows * k * rows
+    return max(l2 / l2_sm, fma / fma_sm)
+
+
+def _bwd_layout(n, B, T, dims, ctas, groups, mode) -> BwdPlan:
+    D, L, E, KS = dims
+    slices = ctas // groups
+    rows = _cdiv(B, groups)
+    q = {"lstm": _cdiv(L, slices), "ctx": _cdiv(E, slices), "att": _cdiv(D, slices),
+         "pair": _cdiv(B * T, ctas)}
+    prods = bwd_products(D, L, E)
+    ks = _pieces(prods, q, rows)
+    w_off, wl2, o = _place_weights(prods, q, mode, HEADER)
     sm = {}
     for slot, cut in (("dh2", "lstm"), ("dc2", "lstm"), ("hold2", "lstm"), ("dh1", "lstm"),
                       ("dc1", "lstm"), ("hold1", "lstm"), ("dx1", "lstm"), ("dctx", "ctx"),
                       ("dah", "att")):
         sm[slot] = o
         o += _al4(q[cut] * rows)
-    out_off = {}
-    sm["outs"], widest = o, 0
-    for phase in BWD_PHASES:
-        at = o
-        for name, (cut, gates, k, ph) in prods.items():
-            if ph == phase:
-                out_off[name] = at
-                at += _al4(ks[name] * gates * q[cut] * rows)
-        widest = max(widest, at - o)
-    o += widest
+    sm["outs"] = o
+    out_off, o = _phase_sums(prods, BWD_PHASES, q, rows, ks, o)
     sm["scratch"] = o
-    o += BWD_WARPS * _cdiv(BWD_ROWS * BWD_NB, 32) * 32
+    o += WARPS * _cdiv(ROWS * NB, 32) * 32
     sm["soft_rows"] = _pair_rows(q["pair"], B, T, ctas)
     sm["row_stride"] = bwd_row_stride(T, D, E, KS)
     sm["rowbuf"] = o
     o += sm["soft_rows"] * sm["row_stride"]
     sm["wpart"] = o
-    o += max(PAIR_TILE * BWD_THREADS, STAGE)
+    o += max(PAIR_TILE * THREADS, STAGE)
     sm["end"] = o
     T4, D4, E4 = _al4(T), _al4(D), _al4(E)
     ws, w = {}, 32
@@ -629,40 +743,24 @@ def _layout(n, B, T, dims, ctas, groups, mode) -> BwdPlan:
         ws[slot] = w
         w += size
     ws["total"] = w
-    cost = _cost_ms(n, B, T, dims, ctas, groups, mode, q, rows, ks, prods)
-    return BwdPlan(ctas, groups, C, m, rows, 4 * o, tuple(q[c] for c in BWD_CUTS),
-                   tuple(ks[p] for p in BWD_PRODUCTS), tuple(w_off[p] for p in BWD_PRODUCTS),
-                   tuple(w_rows[p] for p in BWD_PRODUCTS), tuple(out_off[p] for p in BWD_PRODUCTS),
+    cost = _bwd_cost_ms(n, B, T, dims, ctas, mode, q, rows, prods)
+    return BwdPlan(ctas, groups, MODES.index(mode), rows, 4 * o,
+                   tuple(q[c] for c in BWD_CUTS), tuple(ks[p] for p in BWD_PRODUCTS),
+                   tuple(w_off[p] for p in BWD_PRODUCTS), tuple(out_off[p] for p in BWD_PRODUCTS),
                    tuple(sm[k] for k in BWD_SMEM_SLOTS), tuple(ws[k] for k in BWD_WS_SLOTS), cost)
 
 
-def _cost_ms(n, B, T, dims, ctas, groups, mode, q, rows, ks, prods) -> float:
+def _bwd_cost_ms(n, B, T, dims, ctas, mode, q, rows, prods) -> float:
     """The model's milliseconds for the whole launch: per step, the barriers
-    and each phase's latency, each product phase's time (the slower of its
-    inputs and L2 weights over a SM's share of L2 and its FMAs over a SM's
-    rate, plus its remote weights over distributed shared memory), and the
-    attention phases (their device-memory bytes over the card's rate or
-    their FMAs); then the scores · context product after the walk."""
+    and each phase's latency, each product phase's time, and the attention
+    phases (their device-memory bytes over the card's rate or their FMAs);
+    then the scores · context product after the walk."""
     D, L, E, KS = dims
     l2_sm = min(L2_SM_BPS, L2_CARD_BPS / ctas)
     fma_sm = FMA_CARD / ctas
     step = len(BWD_PHASES) * (BARRIER_US + PHASE_US) * 1e-6
-    C = groups if mode == "cluster" else 1
     for phase in BWD_PHASES:
-        l2 = dsm = fma = 0.0
-        for cut, gates, k, ph in prods.values():
-            if ph != phase:
-                continue
-            n_rows = gates * q[cut]
-            passes = _cdiv(rows, BWD_NB)
-            l2 += 4 * _cdiv(n_rows, BWD_ROWS) * rows * k
-            w_bytes = 4 * n_rows * k * passes
-            if mode == "l2":
-                l2 += w_bytes
-            elif mode == "cluster":
-                dsm += w_bytes * (C - 1) / C
-            fma += n_rows * k * rows
-        step += max(l2 / l2_sm, fma / fma_sm) + dsm / DSMEM_SM_BPS
+        step += _products_s(prods, phase, q, rows, mode, l2_sm, fma_sm)
     hbm = 4 * B * T * (E + 3 * D)
     pair_fma = _cdiv(B * T, ctas) * (E + 3 * KS * D + 8 * D)
     step += max(hbm / HBM_BPS, pair_fma / fma_sm)
@@ -670,29 +768,80 @@ def _cost_ms(n, B, T, dims, ctas, groups, mode, q, rows, ks, prods) -> float:
     return 1e3 * (n * step + after)
 
 
-_cluster_ctas: dict = {}
+def _fwd_layout(n, B, T, dims, ctas, groups, mode) -> FwdPlan:
+    D, L, E, KS = dims
+    slices = ctas // groups
+    rows = _cdiv(B, groups)
+    q = {"att": _cdiv(D, slices), "lstm": _cdiv(L, slices), "pair": _cdiv(B * T, ctas)}
+    prods = fwd_products(D, L, E)
+    ks = _pieces(prods, q, rows)
+    w_off, wl2, o = _place_weights(prods, q, mode, HEADER)
+    sm = {}
+    for slot, cut in FWD_STATE:
+        sm[slot] = o
+        o += _al4(q[cut] * rows)
+    # the sums a later phase reads keep their own floats
+    out_off = {}
+    for name, (cut, gates, _, ph, read) in prods.items():
+        if read != ph:
+            out_off[name] = o
+            o += _al4(ks[name] * gates * q[cut] * rows)
+    sm["outs"] = o
+    shared, o = _phase_sums({k: v for k, v in prods.items() if k not in out_off}, FWD_PHASES,
+                            q, rows, ks, o)
+    out_off.update(shared)
+    sm["scratch"] = o
+    o += WARPS * _cdiv(ROWS * NB, 32) * 32
+    sm["soft_rows"] = _pair_rows(q["pair"], B, T, ctas)
+    sm["row_stride"] = fwd_row_stride(T, D)
+    sm["rowbuf"] = o
+    o += sm["soft_rows"] * sm["row_stride"]
+    # phase C: two halves of the warps' partial sums, then its pairs' sums;
+    # phase D: a float4 of partial context sums a thread
+    sm["wpart"] = o
+    o += max(2 * WARPS * 32 + _al4(q["pair"]), 4 * THREADS)
+    sm["end"] = o
+    ws, w = {}, 32
+    for slot, size in (("q", B * _al4(D)), ("u", B * _al4(T)), ("cum", B * _al4(T)),
+                       ("x1", B * _al4(L)), ("wl2", ctas * wl2)):
+        ws[slot] = w
+        w += size
+    ws["total"] = w
+    cost = _fwd_cost_ms(n, B, T, dims, ctas, mode, q, rows, prods)
+    return FwdPlan(ctas, groups, MODES.index(mode), rows, 4 * o,
+                   tuple(q[c] for c in FWD_CUTS), tuple(ks[p] for p in FWD_PRODUCTS),
+                   tuple(w_off[p] for p in FWD_PRODUCTS), tuple(out_off[p] for p in FWD_PRODUCTS),
+                   tuple(sm[k] for k in FWD_SMEM_SLOTS), tuple(ws[k] for k in FWD_WS_SLOTS), cost)
 
 
-def bwd_cluster_ctas(dev, smem_limit: int) -> Dict[int, int]:
-    """Cluster size → CTAs of the backward that ``dev`` runs at once in such
-    clusters (asked of the driver once; sizes it runs none of are left
-    out)."""
-    key = (torch.device(dev).index, smem_limit)
-    if key not in _cluster_ctas:
-        lib = _build.library()
-        found = {}
-        for c in (2, 4):
-            k = lib.rtvc_tacotron_train_bwd_clusters(c, smem_limit)
-            if k > 0:
-                found[c] = k
-        _cluster_ctas[key] = found
-    return _cluster_ctas[key]
+def _fwd_cost_ms(n, B, T, dims, ctas, mode, q, rows, prods) -> float:
+    """The model's milliseconds for the whole launch: per step, the barriers
+    and each phase's latency, each product phase's time, the energies (the
+    enc_proj bytes, or their location taps and tanh) and the context (the
+    enc_seq bytes, or its FMAs), the L2 and the FMAs at the share REACHED
+    of the card's rates. The attention memory comes from device memory
+    where it outgrows the L2, else from the L2."""
+    D, L, E, KS = dims
+    l2_sm = min(L2_SM_BPS, L2_CARD_BPS / ctas) * REACHED
+    fma_sm = FMA_CARD * REACHED / ctas
+    step = len(FWD_PHASES) * (BARRIER_US + PHASE_US) * 1e-6
+    for phase in FWD_PHASES:
+        step += _products_s(prods, phase, q, rows, mode, l2_sm, fma_sm)
+    rate = HBM_BPS if 4 * B * T * (E + D) > L2_BYTES else L2_CARD_BPS * REACHED
+    step += max(4 * B * T * D / rate, q["pair"] * (KS + 4) * D / fma_sm)
+    items = _cdiv(q["pair"] * _cdiv(E, CTX_COLS), T)
+    step += max(4 * B * T * E / rate, items * CTX_COLS * T / fma_sm)
+    return 1e3 * n * step
 
 
 def device_plan_bwd(n: int, B: int, T: int, dims, dev, candidate=None) -> BwdPlan:
     """:func:`plan_bwd` for the card ``dev`` holds."""
-    sms, smem = _build.device_limits(dev)
-    return plan_bwd(n, B, T, dims, sms, smem, candidate, bwd_cluster_ctas(dev, smem))
+    return plan_bwd(n, B, T, dims, *_build.device_limits(dev), candidate)
+
+
+def device_plan_fwd(n: int, B: int, T: int, dims, dev, candidate=None) -> FwdPlan:
+    """:func:`plan_fwd` for the card ``dev`` holds."""
+    return plan_fwd(n, B, T, dims, *_build.device_limits(dev), candidate)
 
 
 def taco_train_bwd(w: TrainWeights, res: TrainResiduals, enc_seq: Tensor, enc_proj: Tensor,
@@ -711,7 +860,7 @@ def taco_train_bwd(w: TrainWeights, res: TrainResiduals, enc_seq: Tensor, enc_pr
 
 def bwd_launch(lib, w: TrainWeights, res: TrainResiduals, enc_seq: Tensor, enc_proj: Tensor,
                char_mask: Tensor, zo1: Tensor, zo2: Tensor, dx_all: Tensor, dctx_all: Tensor,
-               dscores_all: Tensor, p: BwdPlan = None, work: Tensor = None
+               dscores_all: Tensor, p: "BwdPlan" = None, work: Tensor = None
                ) -> TrainCotangents:
     """One launch of ``lib``'s ``rtvc_tacotron_train_bwd`` (the package's
     library, or a variant that ``profile_tacotron_train`` builds) on CUDA
@@ -727,13 +876,7 @@ def bwd_launch(lib, w: TrainWeights, res: TrainResiduals, enc_seq: Tensor, enc_p
     fn, dev = "tacotron_train_bwd", dx_all.device
     if p is None:
         p = device_plan_bwd(n, B, T, (D, L, E, KS), dev)
-    mats = (w.gwh, w.wq, w.wri, w.l1wi, w.l1wh, w.l2wi, w.l2wh, w.gwi_ctx)
-    for name, m, shape in zip(("gwh", "wq", "wri", "l1wi", "l1wh", "l2wi", "l2wh", "gwi_ctx"),
-                              mats, ((D, 3 * D), (D, D), (E + D, L), (L, 4 * L), (L, 4 * L),
-                                     (L, 4 * L), (L, 4 * L), (E, 3 * D))):
-        if m.device != dev or m.dtype != torch.float32 or tuple(m.shape) != shape:
-            raise ValueError(f"{fn}: {name} must be f32 {shape} on {dev}, got "
-                             f"{m.dtype} {tuple(m.shape)} on {m.device}")
+    mats = _check_mats(fn, w, dev)
     vecs = [v.contiguous() for v in (w.bq, w.mloc, w.vv)]
     _build.check_tensors(
         fn, dev, dx_all=(dx_all, (n, B, L)), dctx_all=(dctx_all, (n, B, E)),
@@ -753,11 +896,7 @@ def bwd_launch(lib, w: TrainWeights, res: TrainResiduals, enc_seq: Tensor, enc_p
     dgates1, dgates2 = e(n, B, 4 * L), e(n, B, 4 * L)
     denc_seq, denc_proj = e(B, T, E), e(B, T, D)
     ws = dict(zip(BWD_WS_SLOTS, p.ws))
-    if work is None:
-        work = e(ws["total"])
-    elif work.numel() < ws["total"] or work.device != dev or work.dtype != torch.float32:
-        raise ValueError(f"{fn}: work must be at least {ws['total']} f32 on {dev}")
-    work[:32].zero_()
+    work = _work(fn, work, ws["total"], dev)
     ints = p.ints()
     err = lib.rtvc_tacotron_train_bwd(
         _build.pointer_array([*mats, *vecs]),

@@ -620,9 +620,9 @@ def test_taco_train_kernels_reject_bad_input(dev):
         tk.taco_train_fwd(w, **{**x, "enc_proj": x["enc_proj"][:, :, :8]})
     with pytest.raises(ValueError, match="odd"):
         tk.taco_train_fwd(w._replace(mloc=w.mloc[:30]), **x)
-    wide, xw, _ = _taco_train_case(dev, 1, 4, 1, 1028, 4, 4)
-    with pytest.raises(ValueError, match="1024"):
-        tk.taco_train_fwd(wide, **xw)
+    long_conv, xl, _ = _taco_train_case(dev, 2, 9, 3, 16, 8, 8, KS=33)
+    with pytest.raises(ValueError, match="at most 31"):
+        tk.taco_train_fwd(long_conv, **xl)
 
 
 def _bwd_args(dev, B, T, n, D, L, E, KS=31, transposed=False):
@@ -640,16 +640,12 @@ def _bwd_args(dev, B, T, n, D, L, E, KS=31, transposed=False):
 @pytest.mark.parametrize("B,T,n,D,L,E,KS", [(5, 40, 12, 128, 256, 384, 31),
                                             (3, 9, 4, 13, 10, 7, 5),
                                             (3, 20, 4, 256, 512, 896, 31)])
-@pytest.mark.parametrize("candidate", tk.BWD_CANDIDATES)
+@pytest.mark.parametrize("candidate", tk.CANDIDATES)
 def test_taco_train_bwd_candidates_match_plain(dev, B, T, n, D, L, E, KS, candidate):
     """K5's backward under each candidate partition of the plan, forced,
     against the plain version (1e-4 of each output's largest entry) and
-    twice with equal bits. A cluster size the card runs no clusters of
-    skips, naming it."""
+    twice with equal bits."""
     w, args = _bwd_args(dev, B, T, n, D, L, E, KS)
-    if candidate[0] == "cluster" and candidate[1] not in tk.bwd_cluster_ctas(
-            dev, _build.device_limits(dev)[1]):
-        pytest.skip(f"the card runs no clusters of {candidate[1]}")
     p = tk.device_plan_bwd(n, B, T, (D, L, E, KS), dev, candidate=candidate)
     lib = _build.library()
     got = tk.bwd_launch(lib, w, *args, p=p)
@@ -701,3 +697,104 @@ def test_taco_train_bwd_refuses_what_does_not_fit(dev):
         tk.bwd_launch(_build.library(), w, *args, p=bad._replace(smem=4))
     with pytest.raises(ValueError, match="l1wi"):
         tk.taco_train_bwd(w._replace(l1wi=w.l1wi[:, :8]), *args)
+
+
+def _assert_fwd_matches_plain(got, want, tol):
+    (x_all, res), (p_x, p_res) = got, want
+    assert rel_err(x_all, p_x) <= tol, "x_all"
+    for name, a, b in zip(res._fields, res, p_res):
+        assert rel_err(a, b) <= tol, name
+
+
+def _assert_same_bits(got, again):
+    (x_all, res), (x_again, res_again) = got, again
+    assert torch.equal(x_all, x_again), "two runs differ in their bits"
+    assert all(torch.equal(a, b) for a, b in zip(res, res_again)), "two runs differ in their bits"
+
+
+# narrow, ragged (the scalar paths, a short conv) and the default widths
+@pytest.mark.parametrize("B,T,n,D,L,E,KS", [(5, 40, 12, 128, 256, 384, 31),
+                                            (3, 9, 4, 13, 10, 7, 5),
+                                            (3, 20, 4, 256, 512, 896, 31)])
+@pytest.mark.parametrize("candidate", tk.CANDIDATES)
+def test_taco_train_fwd_candidates_match_plain(dev, B, T, n, D, L, E, KS, candidate):
+    """K5's forward under each candidate partition of the plan, forced,
+    against the plain version (1e-5 of each output's largest entry, as the
+    wrapper's test) and twice with equal bits."""
+    w, x, _ = _taco_train_case(dev, B, T, n, D, L, E, KS)
+    p = tk.device_plan_fwd(n, B, T, (D, L, E, KS), dev, candidate=candidate)
+    lib = _build.library()
+    got = tk.fwd_launch(lib, w, **x, p=p)
+    again = tk.fwd_launch(lib, w, **x, p=p)
+    _assert_fwd_matches_plain(got, tk.taco_train_fwd_plain(w, **x), 1e-5)
+    _assert_same_bits(got, again)
+
+
+def test_taco_train_fwd_full_width_matches_plain(dev):
+    """The forward at the first session of the schedule (batch 112, 86
+    steps, 160 characters, the default widths), through the wrapper and the
+    card's plan: against the plain version (1e-4 of each output's largest
+    entry: f32 sums in another order, carried through 86 steps), twice with
+    equal bits."""
+    w, x, _ = _taco_train_case(dev, 112, 160, 86, 256, 512, 896)
+    got = _counted("tacotron_train_fwd", lambda: tk.taco_train_fwd(w, **x))
+    again = tk.taco_train_fwd(w, **x)
+    _assert_fwd_matches_plain(got, tk.taco_train_fwd_plain(w, **x), 1e-4)
+    _assert_same_bits(got, again)
+
+
+def test_taco_train_fwd_past_resident_matches_plain(dev):
+    """At batch 112 the forward's weight slices stop fitting in shared
+    memory beside its staged rows past T_text 999: a longer text runs a
+    candidate that reads them from L2. Its result against the plain version
+    (1e-5), twice with equal bits."""
+    B, T, n, dims = 112, 1000, 3, (256, 512, 896, 31)
+    w, x, _ = _taco_train_case(dev, B, T, n, *dims)
+    assert tk.device_plan_fwd(n, B, T, dims, dev).name != "resident x1"
+    got = _counted("tacotron_train_fwd", lambda: tk.taco_train_fwd(w, **x))
+    again = tk.taco_train_fwd(w, **x)
+    _assert_fwd_matches_plain(got, tk.taco_train_fwd_plain(w, **x), 1e-5)
+    _assert_same_bits(got, again)
+
+
+def test_taco_train_fwd_reads_transposed_views(dev):
+    """The forward gathers its weight slices from the matrices as
+    prepare_train_weights gives them: transposed views of the parameters,
+    and gwi_ctx a column slice of the attention GRU's weight_ih. The kernel
+    receives those tensors' own storage and strides (no copy made), and the
+    result matches the plain version's (1e-5)."""
+    w, x, _ = _taco_train_case(dev, 4, 24, 5, 64, 96, 80)
+    E, P = 80, 24
+    weight_ih = torch.cat([w.gwi_ctx.t(), torch.randn(3 * 64, P, device=dev)], dim=1)
+    w = w._replace(gwi_ctx=weight_ih[:, :E].t(), **{k: getattr(w, k).t().contiguous().t() for k in (
+        "gwh", "wq", "wri", "l1wi", "l1wh", "l2wi", "l2wh")})
+    assert not w.gwi_ctx.is_contiguous() and not w.l1wi.is_contiguous()
+    lib = _build.library()
+    seen = {}
+
+    class Recording:
+        def rtvc_tacotron_train_fwd(self, weights, strides, *rest):
+            seen["weights"] = [weights[i] for i in range(8)]
+            seen["strides"] = [strides[i] for i in range(16)]
+            return lib.rtvc_tacotron_train_fwd(weights, strides, *rest)
+
+    got = tk.fwd_launch(Recording(), w, **x)
+    mats = [getattr(w, k) for k in ("gwh", "wq", "wri", "l1wi", "l1wh", "l2wi", "l2wh",
+                                    "gwi_ctx")]
+    assert seen["weights"] == [m.data_ptr() for m in mats]
+    assert seen["strides"] == [s for m in mats for s in m.stride()]
+    _assert_fwd_matches_plain(got, tk.taco_train_fwd_plain(w, **x), 1e-5)
+
+
+def test_taco_train_fwd_refuses_what_does_not_fit(dev):
+    w, x, _ = _taco_train_case(dev, 2, 9, 3, 16, 8, 8, KS=33)
+    with pytest.raises(ValueError, match="at most 31"):
+        tk.taco_train_fwd(w, **x)
+    w, x, _ = _taco_train_case(dev, 2, 9, 3, 16, 8, 8)
+    with pytest.raises(ValueError, match="past the limit of 4096"):
+        tk.fwd_launch(_build.library(), w, **x, p=tk.plan_fwd(3, 2, 9, (16, 8, 8, 31), 132, 4096))
+    bad = tk.plan_fwd(3, 2, 9, (16, 8, 8, 31), *_build.device_limits(dev))
+    with pytest.raises(RuntimeError, match="rtvc_tacotron_train_fwd"):
+        tk.fwd_launch(_build.library(), w, **x, p=bad._replace(smem=4))
+    with pytest.raises(ValueError, match="l1wi"):
+        tk.taco_train_fwd(w._replace(l1wi=w.l1wi[:, :8]), **x)
