@@ -18,18 +18,23 @@
    runtimeracer RAW and MOL; 8 folds x 512 steps, greedy; then sampled from
    fixed head outputs against a chi-square or a Kolmogorov-Smirnov test; and
    runtimeracer RAW over 8, 13, 39, 132 and 264 folds and at the 5 s clone's
-   13 folds x 8000 steps), K6 mel projection (a minute of audio, 4801
-   frames x 513 bins, and an odd frame count).
+   13 folds x 8000 steps), K6 mel projection (each mel over its band of
+   the filterbank: a minute of audio, 4801 frames x 513 bins, the clone's
+   make_spectrogram size, 400 frames, and a 3.77 s utterance, 302 frames;
+   the kernel's device time and the wrapper's host work apart).
 3. Serves five clone requests through the public API at the default widths
    with seeded random weights: preprocess_wav → embed_utterance →
    synthesize_spectrograms → infer_waveform, and checks the outputs and
-   that every kernel of the path was launched, and prints the median clone
-   time with its stage split. Then vocodes three mels in
+   that every kernel of the path was launched (K4 four times a request: the
+   encoder's and the postnet's CBHG BiGRUs, one launch a direction), and
+   prints the median clone time with its stage split and the device time of
+   one synthesize call by kernel. Then vocodes three mels in
    one ``infer_waveforms`` call (one K1 launch), serves the last request
    through the fatchord and geneing vocoders at their configs' windows (twice
    each: the first request of a model also loads its layers' kernels), and
    one request without a vocoder: ``Synthesizer.griffin_lim`` at 30
-   iterations, then ``make_spectrogram`` of the result (one K6 launch).
+   iterations, then ``make_spectrogram`` of the result (one K6 launch, held
+   to K6's plain version on the same magnitudes).
 4. Holds the training kernels against autograd through their plain
    versions and times both: K3 forward with residuals and backward at the
    GE2E training shape (640 x 160 x 768; two runs of its backward must give
@@ -37,7 +42,11 @@
    vocoder training shapes (40 x 1000 x 256 for runtimeracer, 40 x 1000 x 512
    for fatchord, 40 x 1400 x 256 for geneing; W_hh resident in shared memory
    as for K3, the plans printed; two runs of its backward must give equal
-   bits).
+   bits), and K4 at the Tacotron CBHG BiGRUs' shapes (H 64: 1 x 64 and 1 x
+   512 for a clone, 112 x 160 and 112 x 602 for a training step) beside
+   cuDNN's nn.GRU(64, 64) (the library yardstick, as at the other shapes),
+   and, for the CBHG's whole BiGRU, cuDNN's bidirectional nn.GRU(128, 64)
+   beside the port's GRU module.
    K5, the teacher-forced Tacotron decoder chain, forward and backward at the
    Tacotron training shape (112 rows x 86 iterations x 160 characters,
    D 256 / L 512 / E 896, zoneout masks at p 0.1, padded char mask) and at
@@ -55,7 +64,7 @@
    of its first session (r 7, batch 112, 602 frames, 160 characters) on one
    synthetic batch, then a resume for a 4th. Checks finite losses, the EER,
    the resume steps, falling vocoder and synthesizer losses, and each path's
-   kernel launch counts.
+   kernel launch counts (K4 four times each way a Tacotron step).
 
 K1's, K3's and K4's lines also give the times of the earlier kernels (one
 CTA per fold or batch row, the weights re-read from L2 every step) on the
@@ -145,6 +154,31 @@ def device_ms(fn, reps=20):
     return us / reps / 1e3
 
 
+def kernels_device_ms(fn):
+    """Device ms of one ``fn()`` by kernel, after one warm-up call: each of
+    the port's own kernels (csrc/) by name, the rest as "other", and "all"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtvc_tpu_torch.profile_train import kernel_name, own_kernels
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names, out = own_kernels(), {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            name = kernel_name(e.key)
+            name = name if name in names else "other"
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+    check(out, "the profiler recorded no device time")
+    out["all"] = sum(out.values())
+    return out
+
+
 # K3 before W_hh became resident in shared memory (one CTA per batch row that
 # re-read W_hh from L2 every step), CUDA-event ms on an NVIDIA H100 80GB HBM3 at
 # 700 W: inference forward at 8 x 160 x 768, training forward and backward
@@ -191,18 +225,19 @@ def k3_plan(B, H, dev, backward=False):
             f"{p.smem} bytes of shared memory")
 
 
-def cudnn_rnn_ms(rnn, B, T, H, dev, backward=True):
-    """(forward ms, backward ms) of a cuDNN recurrence over (B, T, H) inputs
-    in f32 (``rtvc_tpu_torch`` switches TF32 off when it is imported), as the
-    yardstick beside K3 and K4; it includes the input projection, which the
-    kernels leave to a matmul outside. The backward is the time of forward
+def rnn_ms(rnn, B, T, H, dev, backward=True):
+    """(forward ms, backward ms) of a recurrence module over (B, T,
+    ``rnn.input_size``) inputs in f32 (``rtvc_tpu_torch`` switches TF32 off
+    when it is imported): cuDNN's as the yardstick beside K3 and K4, or the
+    port's ``GRU``; it includes the input projection, which the kernels
+    leave to a matmul outside. The backward is the time of forward
     plus backward less the forward's; with ``backward=False`` the forward
     runs without a graph and the second value is None."""
     import torch
 
     g = torch.Generator().manual_seed(10)
-    x = torch.randn(B, T, H, generator=g).to(dev).requires_grad_(backward)
-    dys = torch.randn(B, T, H, generator=g).to(dev)
+    x = torch.randn(B, T, rnn.input_size, generator=g).to(dev).requires_grad_(backward)
+    dys = torch.randn(B, T, H * (2 if rnn.bidirectional else 1), generator=g).to(dev)
     rnn = rnn.to(dev).train(backward)
     with torch.set_grad_enabled(backward):
         fwd = cuda_ms(lambda: rnn(x))
@@ -229,8 +264,8 @@ def phase_lstm(dev):
     check(err <= 1e-4, f"K3 lstm_seq differs from its plain version: {err}")
     ms = cuda_ms(lambda: lstm_seq(xg, w_hh, h0, c0))
     plain_ms = cuda_ms(lambda: lstm_seq_plain(xg, w_hh, h0, c0))
-    library_ms, _ = cudnn_rnn_ms(torch.nn.LSTM(H, H, batch_first=True), B, T, H, dev,
-                                 backward=False)
+    library_ms, _ = rnn_ms(torch.nn.LSTM(H, H, batch_first=True), B, T, H, dev,
+                           backward=False)
     b = bound(nbytes(xg, w_hh, h0, c0, *got), 2 * B * T * 4 * H * H)
     print(f"K3 lstm_seq B={B} T={T} H={H} ({k3_plan(B, H, dev)}): max_abs_err {err:.3e} "
           f"(tol 1e-4), kernel {ms:.3f} ms ({ms / K3_RESIDENT_MS['fwd']:.3f} of "
@@ -643,61 +678,84 @@ def phase_wavernn(dev):
     return list(entries.values())
 
 
+# the frames of the clone's mel (the decoder's 200 iterations at r 2: the
+# seeded random weights never stop it early), checked in phase_clone
+CLONE_FRAMES = 400
+
+
 def phase_mel(dev):
     """K6 against its plain version at a minute of audio (4801 frames x 513
-    bins → 80 mels) and at an odd frame count, tolerance 2e-4 absolute on the
-    normalised scale of [-4, 4]; timed beside the plain version and beside
-    ``torch.matmul(basis, mag)`` alone, the library call that does the
-    product."""
+    bins → 80 mels), at the clone path's ``make_spectrogram`` size (the
+    Griffin-Lim wav of a 400-frame mel, (400 - 1) x 200 samples: 400
+    frames) and at a 3.77 s utterance (302 frames), tolerance 2e-4 absolute on the normalised scale of [-4, 4], two
+    runs giving the same bits; at each, timed by CUDA events (the wrapper's
+    host work included) and by the profiler (the kernel's device time alone)
+    beside the plain version and ``torch.matmul(basis, mag)``, the library
+    call that does the dense product alone. The bound counts the banded work:
+    the magnitudes, the band weights and the mel moved once, 2 FLOP a band
+    entry a frame."""
     import torch
 
+    from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.config import preprocessing as pp
     from rtvc_tpu_torch.config import sp
     from rtvc_tpu_torch.ops import audio
-    from rtvc_tpu_torch.ops.mel_project import (
-        mel_basis,
-        mel_project_normalize,
-        mel_project_normalize_plain,
-    )
+    from rtvc_tpu_torch.ops import mel_project as mp
 
     g = torch.Generator().manual_seed(13)
-    errs = {}
-    for seconds in (60.0, 3.77):
-        n = int(seconds * sp.sample_rate)
+    basis = mp.mel_basis(sp, dev)
+    bands = mp.mel_bands(basis.cpu().numpy())
+    cells = {}
+    for n in (60 * sp.sample_rate, (CLONE_FRAMES - 1) * sp.hop_size, 60320):
         t = torch.arange(n) / sp.sample_rate
         wav = (0.3 * torch.sin(2 * np.pi * 220 * t) * torch.sin(2 * np.pi * 1.5 * t) ** 2
                + 0.02 * torch.randn(n, generator=g)).to(dev)
         mag = audio.stft_magnitude(audio.preemphasis(wav, sp.preemphasis), sp.n_fft,
                                    sp.hop_size, sp.win_size).contiguous()
-        got = mel_project_normalize(mag, sp, pp)
-        ref = mel_project_normalize_plain(mag, sp, pp)
+        n_bins, T = mag.shape
+        got = mp.mel_project_normalize(mag, sp, pp)
+        ref = mp.mel_project_normalize_plain(mag, sp, pp)
         torch.cuda.synchronize()
         check(got.shape == ref.shape == (sp.num_mels, 1 + n // sp.hop_size),
               f"K6 output shape {tuple(got.shape)}")
-        errs[mag.shape[1]] = float((got - ref).abs().max())
-        check(errs[mag.shape[1]] <= 2e-4, f"K6 differs from its plain version at "
-              f"{mag.shape[1]} frames: {errs[mag.shape[1]]}")
+        err = float((got - ref).abs().max())
+        check(err <= 2e-4, f"K6 differs from its plain version at {T} frames: {err}")
+        check(torch.equal(got, mp.mel_project_normalize(mag, sp, pp)),
+              f"K6 at {T} frames: two runs on the same inputs differ in their bits")
         check(float(ref.std()) > 0.5, "K6: the test signal's mel is flat")
-        if seconds == 60.0:
-            big = mag
-    n_bins, T = big.shape
-    basis = mel_basis(sp, dev)
-    ms = cuda_ms(lambda: mel_project_normalize(big, sp, pp), reps=20)
-    plain_ms = cuda_ms(lambda: mel_project_normalize_plain(big, sp, pp), reps=20)
-    library_ms = cuda_ms(lambda: torch.matmul(basis, big), reps=20)
-    # the kernel alone, without the wrapper's checks and the host's part of a call
-    kernel_device_ms = device_ms(lambda: mel_project_normalize(big, sp, pp))
-    library_device_ms = device_ms(lambda: torch.matmul(basis, big))
-    b = bound(nbytes(big, basis) + 4 * sp.num_mels * T, 2 * T * n_bins * sp.num_mels)
-    print(f"K6 mel_project {n_bins} bins x {T} frames -> {sp.num_mels} mels: max_abs_err "
-          f"{errs[T]:.3e}, by frame count {errs} (tol 2e-4); kernel {ms:.4f} ms a call "
-          f"({kernel_device_ms:.4f} ms of it on the device), plain {plain_ms:.4f} ms, "
-          f"torch.matmul alone {library_ms:.4f} ms a call ({library_device_ms:.4f} ms on the "
-          f"device), bound {b['bound_ms']:.5f} ms by {b['bound_by']}")
+        ms = cuda_ms(lambda: mp.mel_project_normalize(mag, sp, pp), reps=20)
+        plain_ms = cuda_ms(lambda: mp.mel_project_normalize_plain(mag, sp, pp), reps=20)
+        library_ms = cuda_ms(lambda: torch.matmul(basis, mag), reps=20)
+        device = device_ms(lambda: mp.mel_project_normalize(mag, sp, pp))
+        # the wrapper's host work a call: the enqueue time of calls whose
+        # kernels take less than it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            mp.mel_project_normalize(mag, sp, pp)
+        host_ms = (time.perf_counter() - t0) * 10.0
+        torch.cuda.synchronize()
+        library_device = device_ms(lambda: torch.matmul(basis, mag))
+        b = bound(nbytes(mag, got) + 4 * (len(bands.weights) + 4 * sp.num_mels),
+                  2 * T * int(bands.width.sum()))
+        dense = bound(nbytes(mag, basis, got), 2 * T * n_bins * sp.num_mels)
+        mpc = mp.mels_per_cta(T, sp.num_mels, _build.device_limits(dev)[0])
+        print(f"K6 mel_project {n_bins} bins x {T} frames -> {sp.num_mels} mels ({mpc} mels a "
+              f"CTA, {-(-T // mp.FRAMES) * -(-sp.num_mels // mpc)} CTAs): max_abs_err {err:.3e} "
+              f"(tol 2e-4), bits repeat; kernel {ms:.4f} ms a call ({device:.4f} ms of it on "
+              f"the device, {host_ms:.4f} ms of host work a call), plain {plain_ms:.4f} ms, "
+              f"torch.matmul alone {library_ms:.4f} ms a call ({library_device:.4f} ms on the "
+              f"device), bound {b['bound_ms']:.5f} ms by "
+              f"{b['bound_by']} over the bands ({int(bands.width.sum())} of "
+              f"{n_bins * sp.num_mels} entries; the dense product's {dense['bound_ms']:.5f} ms "
+              f"by {dense['bound_by']})")
+        cells[T] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                    "library_ms": library_ms, "device_ms": device, "host_ms": host_ms,
+                    "library_device_ms": library_device, "dense_bound_ms": dense["bound_ms"]}
     return {"name": "mel_project", "source": "rtvc_tpu_torch/csrc/mel_project.cu",
-            "replaces": "rtvc_tpu/ops/pallas/mel_kernel.py:51", "max_abs_err": max(errs.values()),
-            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms,
-            "device_ms": kernel_device_ms, "library_device_ms": library_device_ms}
+            "replaces": "rtvc_tpu/ops/pallas/mel_kernel.py:51", **cells[max(cells)],
+            "max_abs_err": max(c["max_abs_err"] for c in cells.values()),
+            "shapes": [{"T": T, **c} for T, c in cells.items()]}
 
 
 def prompt(seed, seconds=3.0, sr=16000):
@@ -715,9 +773,11 @@ def phase_clone(dev, syn, voc):
     import torch
 
     from rtvc_tpu_torch import _build
-    from rtvc_tpu_torch.config import preprocessing
+    from rtvc_tpu_torch.config import preprocessing, sp
     from rtvc_tpu_torch.inference import encoder, synthesizer, vocoder
     from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.ops import audio
+    from rtvc_tpu_torch.ops.mel_project import mel_project_normalize_plain
     from rtvc_tpu_torch.ops.wavernn_generate import COUNT_NAME
 
     encoder.init_random_model(seed=0, device=dev)
@@ -767,6 +827,13 @@ def phase_clone(dev, syn, voc):
     print(f"launches in the clone run: {counts}")
     for name in ("lstm_seq", "tacotron_decode", "wavernn_generate_runtimeracer"):
         check(counts.get(name, 0) > 0, f"{name} was not launched by the clone path")
+    # the encoder's and the postnet's BiGRUs: two K4 launches each a request
+    check(counts.get("gru_seq", 0) == 4 * len(texts) and "gru_seq_bwd" not in counts,
+          f"the clone path launched gru_seq {counts.get('gru_seq', 0)} times in {len(texts)} "
+          f"requests, want {4 * len(texts)}, and no backward")
+    by_kernel = kernels_device_ms(lambda: synth.synthesize_spectrograms([texts[0]], [embed]))
+    print(f"synthesize stage median {split[2]:.1f} ms; device ms of one synthesize call by "
+          f"kernel (profiled): " + ", ".join(f"{k} {v:.3f}" for k, v in by_kernel.items()))
 
     # the three mels of a batch of requests in one launch of the sample loop
     mels = [mel[:, :n] for n in (mel.shape[1], mel.shape[1] * 5 // 8, mel.shape[1] // 3)]
@@ -817,8 +884,16 @@ def phase_clone(dev, syn, voc):
           and float(np.abs(gl_wav).max()) > 0, f"Griffin-Lim wav {gl_wav.shape}")
     check(remel.shape == mel.shape and remel.dtype == np.float32 and np.isfinite(remel).all()
           and float(np.abs(remel).max()) <= 4.0, f"make_spectrogram gave {remel.shape}")
+    check(mel.shape[1] == CLONE_FRAMES, f"the clone's mel has {mel.shape[1]} frames, phase_mel "
+          f"measured K6 at {CLONE_FRAMES}")
+    # K6 at the shape this path gave it, against its plain version
+    mag = audio._stft_mag(torch.as_tensor(gl_wav, device=dev), sp).contiguous()
+    remel_err = float(np.abs(remel - mel_project_normalize_plain(mag, sp, gl_pp).cpu().numpy())
+                      .max())
+    check(remel_err <= 2e-4, f"make_spectrogram's K6 differs from its plain version: {remel_err}")
     print(f"vocoder-less request: Griffin-Lim (30 iterations) {len(gl_wav)} samples in "
-          f"{t_gl:.1f} ms, make_spectrogram {remel.shape} in {t_mel:.1f} ms")
+          f"{t_gl:.1f} ms, make_spectrogram {remel.shape} in {t_mel:.1f} ms, max_abs_err "
+          f"{remel_err:.3e} against K6's plain version (tol 2e-4)")
     return counts
 
 
@@ -874,7 +949,7 @@ def phase_lstm_train(dev):
           "K3 backward: two runs on the same inputs differ in their bits")
     ms = cuda_ms(lambda: lstm_seq_bwd(*bwd_args))
     plain_ms = cuda_ms(lambda: lstm_seq_bwd_plain(*bwd_args))
-    lib_fwd_ms, lib_bwd_ms = cudnn_rnn_ms(torch.nn.LSTM(H, H, batch_first=True), B, T, H, dev)
+    lib_fwd_ms, lib_bwd_ms = rnn_ms(torch.nn.LSTM(H, H, batch_first=True), B, T, H, dev)
     flops = 2 * B * T * 4 * H * H
     b = bound(nbytes(*bwd_args, k_grads[0], dhT, dcT), flops)
     fwd_b = bound(nbytes(xg, w_hh, h0, c0, *ref), flops)
@@ -897,23 +972,50 @@ def phase_lstm_train(dev):
             "fwd_train_library_ms": lib_fwd_ms}
 
 
+# (B, T) of the CBHG BiGRUs (hidden 64 over 128 channels) that K4 runs: the
+# clone's encoder (its 64-character bucket) and postnet (its 512-frame
+# bucket), the Tacotron step's encoder (160 characters) and postnet (602
+# frames)
+CBHG_SHAPES = ((1, 64), (1, 512), (112, 160), (112, 602))
+
+
 def phase_gru(dev):
     """K4 forward and backward at the three vocoder training shapes
     (runtimeracer, whose numbers are the kernels' entries; fatchord's H 512;
-    geneing's T 1400), each against autograd through the plain forward."""
+    geneing's T 1400) and at the four CBHG BiGRU shapes (H 64), each against
+    autograd through the plain forward."""
     first = gru_shape(dev, 40, 1000, 256)
     for e in first:
         e["shapes"] = []
-    for B, T, H in ((40, 1000, 512), (40, 1400, 256)):
+    for B, T, H in ((40, 1000, 512), (40, 1400, 256), *((B, T, 64) for B, T in CBHG_SHAPES)):
         for e, other in zip(first, gru_shape(dev, B, T, H)):
             e["shapes"].append({"B": B, "T": T, "H": H, **{k: other[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan")}})
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan",
+                "library", "bidir_library_ms", "module_ms")}})
     return first
+
+
+def cbhg_gru(dev):
+    """The port's bidirectional ``GRU`` module as the CBHG builds it (128
+    channels, hidden 64) with seeded weights: two input products and two K4
+    sequences a pass."""
+    import torch
+
+    from rtvc_tpu_torch.models.layers import GRU
+
+    torch.manual_seed(9)
+    m = GRU(128, 64, bidirectional=True, device=dev)
+    for p in m.parameters():
+        torch.nn.init.uniform_(p, -0.125, 0.125)
+    return m
 
 
 def gru_shape(dev, B, T, H):
     """K4 forward and backward at one shape, against autograd through the
-    plain forward (tolerance as for K3)."""
+    plain forward (tolerance as for K3), beside cuDNN's ``nn.GRU(H, H)``,
+    one direction as K4 computes it. At the CBHG's H 64 the whole BiGRU is
+    timed too: cuDNN's bidirectional ``nn.GRU(128, 64)`` beside the port's
+    ``GRU`` module (two K4 launches a pass)."""
     import torch
 
     from rtvc_tpu_torch import _build
@@ -952,31 +1054,43 @@ def gru_shape(dev, B, T, H):
     check(torch.equal(gru_seq_bwd(*bwd_args), gru_seq_bwd(*bwd_args)),
           "K4 backward: two runs on the same inputs differ in their bits")
     bwd_plain_ms = cuda_ms(lambda: gru_seq_bwd_plain(dys, p_gates, p_ys, w_hh), reps=2)
-    lib_fwd_ms, lib_bwd_ms = cudnn_rnn_ms(torch.nn.GRU(H, H, batch_first=True), B, T, H, dev)
+    cbhg = H == 64
+    lib_fwd_ms, lib_bwd_ms = rnn_ms(torch.nn.GRU(H, H, batch_first=True), B, T, H, dev)
+    library = f"nn.GRU({H}, {H}), input projection included"
+    bi_fwd_ms, bi_bwd_ms = (rnn_ms(torch.nn.GRU(128, 64, batch_first=True, bidirectional=True),
+                                   B, T, H, dev) if cbhg else (None, None))
+    mod_fwd_ms, mod_bwd_ms = rnn_ms(cbhg_gru(dev), B, T, H, dev) if cbhg else (None, None)
+    module = (f"; the whole BiGRU (128 -> 2 x 64, both directions, input products included): "
+              f"nn.GRU(128, 64, bidirectional=True) forward {bi_fwd_ms:.3f} ms, backward "
+              f"{bi_bwd_ms:.3f} ms, the port's GRU module forward {mod_fwd_ms:.3f} ms, "
+              f"backward {mod_bwd_ms:.3f} ms" if cbhg else "")
     flops = 2 * B * T * 3 * H * H
     fwd_b = bound(nbytes(xg, w_hh, b_hh, ys, gates), flops)
     bwd_b = bound(nbytes(dys, p_gates, p_ys, w_hh, k_grads[0]), flops)
     limits = _build.device_limits(dev)
     p_fwd, p_bwd = plan(B, H, *limits), plan(B, H, *limits, backward=True)
-    was = K4_EARLIER_MS.get((B, T, H), (None, None))
+    was = [f" (earlier kernel {t} ms)" if t else ""
+           for t in K4_EARLIER_MS.get((B, T, H), (None, None))]
     print(f"K4 gru_seq B={B} T={T} H={H}: forward ({p_fwd.groups} groups x {p_fwd.slices} "
           f"slices of {p_fwd.units} units, {p_fwd.nb} rows a pass) rel err {fwd_err:.3e}, kernel "
-          f"{ms:.3f} ms (earlier kernel {was[0]} ms), plain {plain_ms:.3f} ms, nn.GRU "
+          f"{ms:.3f} ms{was[0]}, plain {plain_ms:.3f} ms, {library} "
           f"{lib_fwd_ms:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by {fwd_b['bound_by']}; "
           f"backward ({p_bwd.groups} groups x {p_bwd.slices} slices of {p_bwd.units} units, "
           f"{p_bwd.nb} rows a pass) rel errs "
           + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-          + f" (tol 1e-4), bits repeat, kernel {bwd_ms:.3f} ms (earlier kernel {was[1]} ms), "
+          + f" (tol 1e-4), bits repeat, kernel {bwd_ms:.3f} ms{was[1]}, "
           f"plain {bwd_plain_ms:.3f} ms, nn.GRU {lib_bwd_ms:.3f} ms, bound "
-          f"{bwd_b['bound_ms']:.4f} ms by {bwd_b['bound_by']}")
+          f"{bwd_b['bound_ms']:.4f} ms by {bwd_b['bound_by']}{module}")
     return [{"name": "gru_seq", "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
              "replaces": "rtvc_tpu/ops/pallas/gru_train_kernel.py:71",
              "max_abs_err": fwd_abs, "ms": ms, "plain_ms": plain_ms, **fwd_b,
-             "library_ms": lib_fwd_ms, "plan": list(p_fwd[:5])},
+             "library_ms": lib_fwd_ms, "plan": list(p_fwd[:5]), "library": library,
+             "bidir_library_ms": bi_fwd_ms, "module_ms": mod_fwd_ms},
             {"name": "gru_seq_bwd", "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
              "replaces": "rtvc_tpu/ops/pallas/gru_train_kernel.py:111",
              "max_abs_err": bwd_abs, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_b,
-             "library_ms": lib_bwd_ms, "plan": list(p_bwd[:5])}]
+             "library_ms": lib_bwd_ms, "plan": list(p_bwd[:5]), "library": library,
+             "bidir_library_ms": bi_bwd_ms, "module_ms": mod_bwd_ms}]
 
 
 # K5 with one CTA a batch row (before each direction was split over the
@@ -1330,6 +1444,11 @@ def phase_train_synthesizer(dev, runs_dir):
     for name in ("tacotron_train_fwd", "tacotron_train_bwd"):
         check(counts.get(name, 0) == steps,
               f"{name} launched {counts.get(name, 0)} times in {steps} synthesizer steps")
+    # the encoder's and the postnet's BiGRUs, two directions each
+    for name in ("gru_seq", "gru_seq_bwd"):
+        check(counts.get(name, 0) == 4 * steps,
+              f"{name} launched {counts.get(name, 0)} times in {steps} synthesizer steps, "
+              f"want {4 * steps}")
     resumed = train_synthesizer("synthesizer", model_type, runs_dir, epochs,
                                 max_steps=steps + 1, **kw)
     check(resumed["step"] == steps + 1 and len(resumed["losses"]) == 1,
@@ -1397,9 +1516,16 @@ def main() -> int:
                    "gru_seq": voc_counts["gru_seq"], "gru_seq_bwd": voc_counts["gru_seq_bwd"],
                    "tacotron_train_fwd": syn_counts["tacotron_train_fwd"],
                    "tacotron_train_bwd": syn_counts["tacotron_train_bwd"]}
+    # K4 runs on three paths: the vocoder trainer's count is its "launches"
+    by_path = {name: {"clone (5 requests)": counts.get(name, 0),
+                      "runtimeracer training (5 steps)": voc_counts[name],
+                      "tacotron training (3 steps)": syn_counts[name]}
+               for name in ("gru_seq", "gru_seq_bwd")}
     for k in kernels:
         k["route"] = "cuda"
         k["launches"] = path_counts[k["name"]]
+        if k["name"] in by_path:
+            k["launches_by_path"] = by_path[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -61,9 +61,10 @@ SIGNATURES = {
     # weights, streams, dims (with the plan, ops/wavernn_generate.py:Plan),
     # argmax, seed, scratch, sync, out, logits_out (or null), stream
     "rtvc_wavernn_generate": [_PP, _PP, _IP, _I, _U64, _P, _P, _P, _P, _P],
-    # mag, basis, out, n_bins, T, num_mels, min_level, ref_level_db,
+    # mag, band weights, bands (ops/mel_project.py:mel_bands), out, n_bins, T,
+    # num_mels, mels a CTA, shared-memory bytes, min_level, ref_level_db,
     # min_level_db, max_abs_value, symmetric, clip, stream
-    "rtvc_mel_project": [_P] * 3 + [_I] * 3 + [_F] * 4 + [_I] * 2 + [_P],
+    "rtvc_mel_project": [_P] * 4 + [_I] * 5 + [_F] * 4 + [_I] * 2 + [_P],
     # weights, their strides, inputs, outputs, dims (n, B, T, D, L, E, KS),
     # plan (ops/tacotron_train.py:FwdPlan.ints), its length, work, stream
     "rtvc_tacotron_train_fwd": [_PP, _IP, _PP, _PP, _IP, _IP, _I, _P, _P],

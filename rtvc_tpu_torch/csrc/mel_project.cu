@@ -5,133 +5,142 @@
 // Replaces: rtvc_tpu/ops/pallas/mel_kernel.py:mel_project_normalize (body
 // _kernel), the last stage of the synthesizer-format mel spectrogram.
 //
-// What bounds it on the H100: the product is 2·T·n_bins·num_mels FLOP
-// (0.39 GFLOP for a minute of audio: 4801 frames x 513 bins x 80 mels)
-// over (n_bins + num_mels)·T·4 bytes plus the 164 KB filterbank, about
-// 35 FLOP a byte, above the card's f32 ridge of 20 FLOP a byte: bound by
-// operations, at a few microseconds. At that size the launch and the tiles'
-// fill and drain matter more than either rate.
+// The filterbank is banded: each mel row's non-zero weights form one run of
+// bins (4 to 37 of 513 at the synthesizer's 16 kHz, n_fft 1024, 80 mels;
+// 997 of the 41,040 entries), and neighbouring rows overlap by about half a
+// run. The wrapper derives each row's run [first, first + width) from the
+// basis it is given (ops/mel_project.py:mel_bands) and passes the runs'
+// weights packed row after row, so correctness rests on the basis and not on
+// its shape: a row of zeros is an empty run and gives min_level.
 //
-// Design: one CTA per tile of 32 frames, so a minute of audio fills the
-// card (151 CTAs on 132 SMs) and each magnitude is read from device memory
-// once and each output written once. The bins are walked in chunks of 32:
-// the chunk's magnitudes (32 bins x 32 frames, rows of 128 contiguous bytes
-// in the (n_bins, T) input) and the chunk's filterbank columns (transposed
-// to bin-major, so a bin's num_mels weights are neighbours) are staged in
-// shared memory; the filterbank comes from L2, where all CTAs share it. The
-// 128 threads form 8 frame quads x 16 mel groups; a thread owns 4 frames x
-// up to 8 mels (mel m belongs to group m mod 16) in registers, so one
-// 16-byte and up to 8 4-byte shared loads feed up to 32 multiply-adds. The
-// epilogue runs in registers with the plain version's order of operations.
-// The exact (n_bins, T) input is taken and (num_mels, T) written: ragged
-// tiles are masked, nothing is padded.
+// What bounds it on the H100: with the band, the work is 2·T·Σwidth FLOP
+// (9.6 MFLOP for a minute of audio, 4801 frames) against the bytes of the
+// magnitudes read once and the mel written once (9.85 + 1.54 MB): bound by
+// bytes, at ≈ 3.4 µs, where the dense product (0.39 GFLOP) would be bound
+// by operations at 5.9 µs. What is left is the memory traffic and the
+// latency of one launch.
+//
+// Design: a CTA takes a tile of 32 consecutive frames and a group of
+// `mels_per_cta` consecutive mel rows, one warp a row and one lane a frame.
+// It stages the group's joint band of magnitudes (its bins x 32 frames, rows
+// of 128 contiguous bytes of the (n_bins, T) input) and the group's band
+// weights in shared memory with cp.async, all issued before one wait, so a
+// CTA pays one round trip to device memory; groups overlap only at their
+// edges, so each magnitude is read about 1.1 times at 8 rows a group. Then
+// each lane sums its row's band in bin order (fmaf, the weight a broadcast,
+// the magnitude its own bank) and runs the epilogue in registers with the
+// plain version's order of operations. The wrapper picks the group size from
+// the frame count so that there are at least two CTAs an SM (8 rows a group
+// at 4801 frames: 1510 CTAs; 2 at 302 frames: 400). The exact (n_bins, T)
+// input is taken and (num_mels, T) written: ragged tiles are masked, nothing
+// is padded, no atomics, and two runs give the same bits. f32 FFMA only:
+// the product is small now, and TF32 would not hold the 2e-4 tolerance on
+// the normalised scale.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kFrames = 32;           // frames per CTA
-constexpr int kBins = 32;             // bins per staged chunk
-constexpr int kMelGroups = 16;        // thread groups along the mel axis
-constexpr int kMaxMelsPerThread = 8;  // num_mels <= 128
-constexpr int kThreads = (kFrames / 4) * kMelGroups;
+constexpr int kFrames = 32;  // frames per CTA: one a lane
+constexpr int kMaxWarps = 32;
 
 struct Epilogue {
   float min_level, ref_level_db, min_level_db, max_abs;
   int symmetric, clip;
 };
 
-__global__ void __launch_bounds__(kThreads)
-mel_project_kernel(const float* __restrict__ mag, const float* __restrict__ basis,
-                   float* __restrict__ out, int n_bins, int T, int num_mels, Epilogue ep) {
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+// bands[m] = (first bin, width, offset of the run in `weights`, unused).
+__global__ void __launch_bounds__(kFrames * kMaxWarps)
+mel_project_kernel(const float* __restrict__ mag, const float* __restrict__ weights,
+                   const int4* __restrict__ bands, float* __restrict__ out, int n_bins, int T,
+                   int num_mels, Epilogue ep) {
   extern __shared__ float4 smem4[];
-  float* s_mag = reinterpret_cast<float*>(smem4);  // kBins x kFrames
-  float* s_basis = s_mag + kBins * kFrames;        // kBins x (num_mels + 1)
-  const int pitch = num_mels + 1;
-  const int tid = threadIdx.x;
-  const int fq = tid % (kFrames / 4);  // frame quad: frames 4·fq .. 4·fq + 3 of the tile
-  const int mg = tid / (kFrames / 4);  // mel group: mels mg, mg + 16, ...
+  const int mpc = blockDim.x / kFrames;
+  const int m0 = blockIdx.y * mpc;
+  const int m_end = min(m0 + mpc, num_mels);
   const int t0 = blockIdx.x * kFrames;
+  const int lane = threadIdx.x % kFrames;
+  const int warp = threadIdx.x / kFrames;
 
-  float acc[kMaxMelsPerThread][4];
-#pragma unroll
-  for (int j = 0; j < kMaxMelsPerThread; ++j)
-#pragma unroll
-    for (int f = 0; f < 4; ++f) acc[j][f] = 0.0f;
+  // the group's joint band and its weights, which are contiguous in `weights`
+  int lo = n_bins, hi = 0;
+  for (int m = m0; m < m_end; ++m) {
+    const int4 b = __ldg(bands + m);
+    if (b.y > 0) {
+      lo = min(lo, b.x);
+      hi = max(hi, b.x + b.y);
+    }
+  }
+  const int rows = max(hi - lo, 0);
+  const int4 b_first = __ldg(bands + m0), b_last = __ldg(bands + m_end - 1);
+  const int w_begin = b_first.z, n_w = b_last.z + b_last.y - b_first.z;
 
-  for (int k0 = 0; k0 < n_bins; k0 += kBins) {
-    for (int i = tid; i < kBins * kFrames; i += kThreads) {
-      const int kk = i / kFrames, f = i % kFrames;
-      const int k = k0 + kk, t = t0 + f;
-      s_mag[i] = (k < n_bins && t < T) ? mag[(size_t)k * T + t] : 0.0f;
-    }
-    for (int i = tid; i < kBins * num_mels; i += kThreads) {
-      const int m = i / kBins, kk = i % kBins;
-      const int k = k0 + kk;
-      s_basis[kk * pitch + m] = k < n_bins ? __ldg(basis + (size_t)m * n_bins + k) : 0.0f;
-    }
-    __syncthreads();
+  float* s_w = reinterpret_cast<float*>(smem4);  // n_w weights
+  float* s_mag = s_w + (n_w + 3) / 4 * 4;        // rows x kFrames magnitudes
+  for (int i = threadIdx.x; i < n_w; i += blockDim.x)
+    cp_async4(s_w + i, weights + w_begin + i);
+  if (t0 + lane < T) {
+    const float* src = mag + (size_t)lo * T + t0 + lane;
+    for (int r = warp; r < rows; r += mpc)
+      cp_async4(s_mag + r * kFrames + lane, src + (size_t)r * T);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int m = m0 + warp, t = t0 + lane;
+  if (m >= m_end || t >= T) return;
+  const int4 b = __ldg(bands + m);
+  const float* w = s_w + (b.z - w_begin);
+  const float* x = s_mag + (b.x - lo) * kFrames + lane;
+  float acc = 0.0f;
 #pragma unroll 4
-    for (int kk = 0; kk < kBins; ++kk) {
-      const float4 v = *reinterpret_cast<const float4*>(s_mag + kk * kFrames + 4 * fq);
-#pragma unroll
-      for (int j = 0; j < kMaxMelsPerThread; ++j) {
-        const int m = mg + kMelGroups * j;
-        if (m < num_mels) {
-          const float w = s_basis[kk * pitch + m];
-          acc[j][0] += w * v.x;
-          acc[j][1] += w * v.y;
-          acc[j][2] += w * v.z;
-          acc[j][3] += w * v.w;
-        }
-      }
-    }
-    __syncthreads();
-  }
+  for (int k = 0; k < b.y; ++k) acc = fmaf(w[k], x[k * kFrames], acc);
 
+  // each step rounded on its own, as the plain version's are
   const float span = -ep.min_level_db;
-#pragma unroll
-  for (int j = 0; j < kMaxMelsPerThread; ++j) {
-    const int m = mg + kMelGroups * j;
-    if (m >= num_mels) continue;
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const int t = t0 + 4 * fq + f;
-      if (t >= T) continue;
-      // each step rounded on its own, as the plain version's are
-      const float db = __fsub_rn(__fmul_rn(20.0f, log10f(fmaxf(acc[j][f], ep.min_level))),
-                                 ep.ref_level_db);
-      const float scaled = __fdiv_rn(__fsub_rn(db, ep.min_level_db), span);
-      float v, lo, hi;
-      if (ep.symmetric) {
-        v = __fsub_rn(__fmul_rn(2.0f * ep.max_abs, scaled), ep.max_abs);
-        lo = -ep.max_abs;
-        hi = ep.max_abs;
-      } else {
-        v = __fmul_rn(ep.max_abs, scaled);
-        lo = 0.0f;
-        hi = ep.max_abs;
-      }
-      if (ep.clip) v = fminf(fmaxf(v, lo), hi);
-      out[(size_t)m * T + t] = v;
-    }
+  const float db =
+      __fsub_rn(__fmul_rn(20.0f, log10f(fmaxf(acc, ep.min_level))), ep.ref_level_db);
+  const float scaled = __fdiv_rn(__fsub_rn(db, ep.min_level_db), span);
+  float v, lo_v, hi_v;
+  if (ep.symmetric) {
+    v = __fsub_rn(__fmul_rn(2.0f * ep.max_abs, scaled), ep.max_abs);
+    lo_v = -ep.max_abs;
+    hi_v = ep.max_abs;
+  } else {
+    v = __fmul_rn(ep.max_abs, scaled);
+    lo_v = 0.0f;
+    hi_v = ep.max_abs;
   }
+  if (ep.clip) v = fminf(fmaxf(v, lo_v), hi_v);
+  out[(size_t)m * T + t] = v;
 }
 
 }  // namespace
 
-// mag (n_bins, T) magnitudes, basis (num_mels, n_bins) filterbank → out
-// (num_mels, T), all f32, contiguous, on the current device; num_mels <= 128.
-// min_level = 10^(min_level_db / 20). Returns the launch's cudaError_t.
-extern "C" int rtvc_mel_project(const float* mag, const float* basis, float* out, int n_bins,
-                                int T, int num_mels, float min_level, float ref_level_db,
+// mag (n_bins, T) magnitudes → out (num_mels, T), f32, contiguous, on the
+// current device. weights: the rows' band weights packed row after row;
+// bands (num_mels, 4) int32: each row's first bin, width and offset into
+// weights (ops/mel_project.py:mel_bands). mels_per_cta (1 to 32) rows a CTA,
+// smem its bytes of shared memory: the largest group's weights (rounded up
+// to 4) plus its joint band x 32 frames. min_level = 10^(min_level_db / 20).
+// Returns the launch's cudaError_t.
+extern "C" int rtvc_mel_project(const float* mag, const float* weights, const int* bands,
+                                float* out, int n_bins, int T, int num_mels, int mels_per_cta,
+                                int smem, float min_level, float ref_level_db,
                                 float min_level_db, float max_abs, int symmetric, int clip,
                                 void* stream) {
-  if (num_mels < 1 || num_mels > kMelGroups * kMaxMelsPerThread || T < 1 || n_bins < 1)
+  if (num_mels < 1 || T < 1 || n_bins < 1 || mels_per_cta < 1 || mels_per_cta > kMaxWarps ||
+      smem < 0)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t err = rtvc::allow_smem((const void*)mel_project_kernel, (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
   const Epilogue ep{min_level, ref_level_db, min_level_db, max_abs, symmetric, clip};
-  const size_t smem = (size_t)(kBins * kFrames + kBins * (num_mels + 1)) * sizeof(float);
-  const int tiles = (T + kFrames - 1) / kFrames;
-  mel_project_kernel<<<tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      mag, basis, out, n_bins, T, num_mels, ep);
+  const dim3 grid((T + kFrames - 1) / kFrames, (num_mels + mels_per_cta - 1) / mels_per_cta);
+  mel_project_kernel<<<grid, kFrames * mels_per_cta, smem, static_cast<cudaStream_t>(stream)>>>(
+      mag, weights, reinterpret_cast<const int4*>(bands), out, n_bins, T, num_mels, ep);
   return (int)cudaGetLastError();
 }

@@ -11,11 +11,11 @@ kernels keep W_hh in the shared memory of the SMs for all time steps
 (``ops.lstm_seq``): the inference kernel (``lstm_seq``) under no grad, and
 ``LSTMSeqFn`` (forward with residuals, backward kernel) when a gradient is
 needed. On a card the hidden width is bounded by what its shared memory
-holds (``ops.lstm_seq.plan``: 1320 on an H100). :class:`GRU` stays a plain PyTorch loop: no kernel runs it on the
-inference path (the Tacotron CBHG's BiGRU has a hidden width of 64, where
-the JAX package runs its scan too), and the Tacotron trainer differentiates
-the same loop; the WaveRNN trainer's GRUs go through K4
-(``models.wavernn.gru_seq``).
+holds (``ops.lstm_seq.plan``: 1320 on an H100). :class:`GRU` does the same
+through K4 (``ops.gru_seq``: ``gru_seq_fwd`` under no grad, ``GRUSeqFn``
+with a gradient; 1056 on an H100): the Tacotron CBHGs' BiGRUs at hidden
+width 64, where the JAX package scans because its TPU kernel wants a
+multiple of 128, and the WaveRNN trainer's GRUs.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rtvc_tpu_torch.ops.gru_seq import GRUSeqFn, gru_seq_fwd
 from rtvc_tpu_torch.ops.lstm_seq import LSTMSeqFn, lstm_seq
 
 Tensor = torch.Tensor
@@ -101,16 +102,24 @@ class LSTM(nn.Module):
 
 class GRU(nn.Module):
     """Single-layer (optionally bidirectional) GRU over (B, T, I) with
-    ``torch.nn.GRU(batch_first=True)``'s parameter names.
+    ``torch.nn.GRU(batch_first=True)``'s parameter names. Each direction is
+    one input projection for the whole sequence and one K4 sequence from a
+    zero state.
 
     ``lengths`` (B,) makes the recurrence length-exact: pad frames neither
     advance the carry nor emit output, so the backward direction starts from
-    a zero state at each sequence's true last frame.
+    a zero state at each sequence's true last frame. K4 knows no mask: pad
+    frames come after a row's valid ones, so the forward direction runs over
+    all T frames and zeroes the pads' outputs; the backward direction reverses
+    each row's valid frames in place (frame t < len to len - 1 - t, pads
+    where they are) with one gather before the kernel and the same gather
+    after it.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
                  bidirectional: bool = False, device=None):
         super().__init__()
+        self.input_size = input_size
         self.hidden_size = hidden_size
         self.bidirectional = bidirectional
         H = hidden_size
@@ -121,39 +130,43 @@ class GRU(nn.Module):
                 self.register_parameter(
                     f"{name}_l0{sfx}", nn.Parameter(torch.empty(shape, device=device)))
 
-    def _direction(self, sfx: str, seq: Tensor, mask: Optional[Tensor]
-                   ) -> Tuple[Tensor, Tensor]:
-        w_ih = getattr(self, f"weight_ih_l0{sfx}")
-        w_hh = getattr(self, f"weight_hh_l0{sfx}")
-        b_hh = getattr(self, f"bias_hh_l0{sfx}")
-        xg = seq @ w_ih.t() + getattr(self, f"bias_ih_l0{sfx}")
-        h = seq.new_zeros((seq.shape[0], self.hidden_size))
-        ys = []
-        for t in range(seq.shape[1]):
-            h_new = gru_step(xg[:, t], h, w_hh, b_hh)
-            if mask is None:
-                h = h_new
-                ys.append(h)
-            else:
-                m = mask[:, t, None]
-                h = torch.where(m > 0, h_new, h)
-                ys.append(h * m)
-        return torch.stack(ys, dim=1), h
+    def sequence(self, seq: Tensor, sfx: str = "") -> Tensor:
+        """One direction over (B, T, I) from a zero state → ys (B, T, H):
+        the hoisted input product, then K4 (its plain version for a CPU
+        tensor)."""
+        xg = (seq @ getattr(self, f"weight_ih_l0{sfx}").t()
+              + getattr(self, f"bias_ih_l0{sfx}")).contiguous()
+        w_hh = getattr(self, f"weight_hh_l0{sfx}").contiguous()
+        b_hh = getattr(self, f"bias_hh_l0{sfx}").contiguous()
+        if torch.is_grad_enabled():
+            return GRUSeqFn.apply(xg, w_hh, b_hh)
+        return gru_seq_fwd(xg, w_hh, b_hh)[0]
 
     def forward(self, x: Tensor, lengths: Optional[Tensor] = None
                 ) -> Tuple[Tensor, Tensor]:
         """Zero initial state → (ys, h_T); bidirectional ys concatenate the
         forward and backward outputs, h_T stacks their final states."""
-        mask = None
-        if lengths is not None:
-            mask = (torch.arange(x.shape[1], device=x.device)[None, :]
-                    < lengths[:, None]).to(x.dtype)
-        fwd, h_fwd = self._direction("", x, mask)
+        if lengths is None:
+            fwd = self.sequence(x)
+            if not self.bidirectional:
+                return fwd, fwd[:, -1]
+            bwd = self.sequence(x.flip(1), "_reverse")
+            return torch.cat([fwd, bwd.flip(1)], dim=-1), torch.stack([fwd[:, -1], bwd[:, -1]])
+        lengths = lengths.to(device=x.device, dtype=torch.long)
+        t = torch.arange(x.shape[1], device=x.device)[None, :]
+        mask = (t < lengths[:, None]).to(x.dtype)[..., None]
+        last = (lengths - 1).clamp(min=0)[:, None, None].expand(-1, 1, self.hidden_size)
+        has_frames = (lengths > 0).to(x.dtype)[:, None]
+        fwd = self.sequence(x) * mask
+        h_fwd = fwd.gather(1, last)[:, 0] * has_frames
         if not self.bidirectional:
             return fwd, h_fwd
-        bwd, h_bwd = self._direction(
-            "_reverse", x.flip(1), None if mask is None else mask.flip(1))
-        return torch.cat([fwd, bwd.flip(1)], dim=-1), torch.stack([h_fwd, h_bwd])
+        # its own inverse: valid frames reversed per row, pads in place
+        rev = torch.where(t < lengths[:, None], lengths[:, None] - 1 - t, t)[..., None]
+        bwd = self.sequence(x.gather(1, rev.expand(-1, -1, x.shape[2])), "_reverse")
+        h_bwd = bwd.gather(1, last)[:, 0] * has_frames
+        bwd = bwd.gather(1, rev.expand(-1, -1, self.hidden_size)) * mask
+        return torch.cat([fwd, bwd], dim=-1), torch.stack([h_fwd, h_bwd])
 
 
 # ---------------------------------------------------------------------------

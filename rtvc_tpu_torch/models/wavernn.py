@@ -14,7 +14,7 @@ loop: every utterance's folds share the batch axis.
 
 Training: ``wavernn_forward`` is the teacher-forced forward over the
 previous samples; its GRUs run through the K4 kernels
-(``ops.gru_seq.GRUSeqFn``), and its BatchNorms use batch statistics and
+(``layers.GRU.sequence``), and its BatchNorms use batch statistics and
 return the updated running statistics.
 """
 from __future__ import annotations
@@ -29,7 +29,6 @@ from torch import nn
 from rtvc_tpu_torch.config.vocoder import MODE_BITS, MODE_MOL, MODE_RAW, WaveRNNParams
 from rtvc_tpu_torch.models.layers import GRU, BatchNorm1d, Linear
 from rtvc_tpu_torch.ops import audio as audio_ops
-from rtvc_tpu_torch.ops.gru_seq import GRUSeqFn
 from rtvc_tpu_torch.ops.wavernn_generate import (  # noqa: F401  (VOC_* are re-exported)
     HEAD_BETA,
     HEAD_CATEGORICAL,
@@ -224,14 +223,6 @@ def upsample_forward(model: WaveRNN, d: WaveRNNDims, mels: Tensor, train: bool =
 # ---------------------------------------------------------------------------
 
 
-def gru_seq(gru: GRU, x: Tensor) -> Tensor:
-    """A single-layer GRU module over (B, T, I) from a zero state, through K4:
-    the input projection is one matmul, the recurrence ``GRUSeqFn``."""
-    xg = x @ gru.weight_ih_l0.t() + gru.bias_ih_l0
-    return GRUSeqFn.apply(xg.contiguous(), gru.weight_hh_l0.contiguous(),
-                          gru.bias_hh_l0.contiguous())
-
-
 def _aux_splits(d: WaveRNNDims, aux: Tensor) -> List[Tensor]:
     """The aux conditioning cut into the variant's equal splits: the first
     goes to ``I``, the others to the layers marked ``aux``, in order."""
@@ -254,7 +245,7 @@ def wavernn_forward(model: WaveRNN, d: WaveRNNDims, x: Tensor, mels: Tensor
     h = model.I(torch.cat([x[:, :, None], mels_up, splits[0][:, :, :-1]], dim=2))
     for rnn in layers.rnns:
         inp = torch.cat([h, next(rest)], dim=2) if rnn.aux else h
-        h = gru_seq(getattr(model, rnn.name), inp) + h
+        h = getattr(model, rnn.name).sequence(inp) + h
     for fc in layers.fcs:
         inp = torch.cat([h, next(rest)], dim=2) if fc.aux else h
         h = getattr(model, fc.name)(inp)

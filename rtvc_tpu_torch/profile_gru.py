@@ -1,5 +1,5 @@
-"""Where K4's time goes at the WaveRNN training shapes, by taking parts of
-the kernels away.
+"""Where K4's time goes at the WaveRNN training shapes and the Tacotron
+CBHG's, by taking parts of the kernels away.
 
     python -m rtvc_tpu_torch.profile_gru
 
@@ -9,7 +9,8 @@ multiplies are constants, not read from L2), ``no_weights`` (the weights are
 constants, not read from shared memory), ``no_loads_no_weights`` (both), and
 ``no_wait`` (every CTA arrives at the grid barrier but none waits). Times
 forward and backward of each with CUDA events, with the package's plan, at
-B 40 x T 1000 x H 256 and 512 and B 40 x T 1400 x H 256; then every
+B 40 x T 1000 x H 256 and 512, B 40 x T 1400 x H 256 and the four CBHG
+BiGRU shapes at H 64 (B 1 x T 64 and 512, B 112 x T 160 and 602); then every
 candidate plan of each shape (``ops/gru_seq.py:candidates``) through the
 kernel as it is, beside the modelled cost that ``plan`` ranks them by. The
 variants' outputs are wrong by construction; only their times are read.
@@ -27,7 +28,11 @@ import torch
 from rtvc_tpu_torch import _build, profile_lstm
 from rtvc_tpu_torch.ops.gru_seq import candidates, cost, plan
 
-SHAPES = ((40, 1000, 256), (40, 1000, 512), (40, 1400, 256))
+# the WaveRNN training shapes, then the Tacotron CBHG BiGRUs' (H 64): the
+# clone's encoder and postnet (B 1 x T 64, 512), the training step's (B 112 x
+# T 160, 602)
+SHAPES = ((40, 1000, 256), (40, 1000, 512), (40, 1400, 256), (1, 64, 64), (1, 512, 64),
+          (112, 160, 64), (112, 602, 64))
 
 
 def variants(source: str) -> dict:

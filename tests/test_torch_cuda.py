@@ -206,6 +206,46 @@ def test_gru_seq_kernel_names_its_width_limit(dev):
                     torch.zeros(B, T, H, device=dev), w)
 
 
+# the CBHG BiGRU's shapes: the clone's encoder (B 1 x T 64, its text bucket)
+# and postnet (B 1 x T 512, its frame bucket), the Tacotron step's encoder
+# (B 112 x T 160) and postnet (B 112 x T 602)
+@pytest.mark.parametrize("B,T", [(1, 64), (1, 512), (112, 160), (112, 602)])
+@pytest.mark.parametrize("with_lengths", [False, True])
+def test_gru_module_on_the_card_matches_its_cpu_route(dev, B, T, with_lengths):
+    from rtvc_tpu_torch.models.layers import GRU
+
+    torch.manual_seed(3)
+    m = GRU(128, 64, bidirectional=True)
+    for p in m.parameters():
+        torch.nn.init.uniform_(p, -0.125, 0.125)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(B, T, 128, generator=g)
+    dy = torch.randn(B, T, 128, generator=g)
+    lengths = (torch.randint(1, T + 1, (B,), generator=g).index_fill_(0, torch.tensor([0]), T)
+               if with_lengths else None)
+    m_dev = GRU(128, 64, bidirectional=True, device=dev)
+    m_dev.load_state_dict(m.state_dict())
+
+    def run(mod, xt, lens):
+        mod.zero_grad()
+        xt = xt.clone().requires_grad_()
+        y, h = mod(xt, lengths=lens)
+        y.backward(dy.to(xt.device))
+        return [y.detach(), h.detach(), xt.grad] + [p.grad for p in mod.parameters()]
+
+    want = run(m, x, lengths)
+    before = {k: _build.launch_counts[k] for k in ("gru_seq", "gru_seq_bwd")}
+    got = run(m_dev, x.to(dev), None if lengths is None else lengths.to(dev))
+    torch.cuda.synchronize()
+    assert {k: _build.launch_counts[k] - before[k] for k in before} == {
+        "gru_seq": 2, "gru_seq_bwd": 2}
+    for a, b in zip(got, want):
+        assert rel_err(a.cpu(), b) <= 1e-4
+    with torch.no_grad():
+        y_ng = _counted("gru_seq", lambda: m_dev.sequence(x.to(dev)))
+        assert rel_err(y_ng.cpu(), m.sequence(x)) <= 1e-4
+
+
 def test_train_kernels_reject_bad_input(dev):
     h = torch.zeros(2, 16, device=dev)
     with pytest.raises(ValueError, match="w_hh"):
@@ -512,20 +552,35 @@ def test_wavernn_kernel_rejects_bad_input(dev):
         wavernn_generate_core(w, s, 0, variant="runtimeracer-wavernn")
 
 
-# a minute of audio (4801 frames), an odd count, and fewer frames than a tile
-@pytest.mark.parametrize("n_samples", [960000, 4321, 1000])
-@pytest.mark.parametrize("symmetric,clip", [(True, True), (False, True), (True, False)])
-def test_mel_project_kernel_matches_plain(dev, n_samples, symmetric, clip):
+# one frame, a tile less one, a tile and one more, a 3.77 s utterance, the
+# clone path's make_spectrogram size (its 400-frame mel), a minute of audio
+# and more (the first group size of 8 rows a CTA and the last of 1 both run)
+@pytest.mark.parametrize("T", [1, 31, 33, 302, 400, 4801, 10000])
+@pytest.mark.parametrize("symmetric,clip", [(True, True), (False, True), (True, False),
+                                            (False, False)])
+def test_mel_project_kernel_matches_plain(dev, T, symmetric, clip):
     pp = preprocessing.replace(symmetric_mels=symmetric, allow_clipping_in_normalization=clip)
     g = torch.Generator().manual_seed(5)
-    wav = (torch.randn(n_samples, generator=g) * torch.linspace(0, 2, n_samples)).to(dev)
-    mag = taudio.stft_magnitude(wav, sp.n_fft, sp.hop_size, sp.win_size).contiguous()
+    # magnitudes over ten decades, so that the floor and both clips are reached
+    mag = (10.0 ** (torch.rand(sp.n_fft // 2 + 1, T, generator=g) * 10 - 7)).to(dev)
     got = _counted("mel_project", lambda: mel_project_normalize(mag, sp, pp))
     want = mel_project_normalize_plain(mag, sp, pp)
-    assert got.shape == (80, 1 + n_samples // 200)
+    assert got.shape == (80, T)
     torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
-    mel = _counted("mel_project", lambda: taudio.melspectrogram(wav, sp, pp))
-    assert mel.shape == got.shape
+    # no sum goes through an atomic: a second run gives the same bits
+    assert torch.equal(got, mel_project_normalize(mag, sp, pp))
+
+
+def test_mel_project_kernel_on_the_melspectrogram_path(dev):
+    g = torch.Generator().manual_seed(5)
+    n_samples = 960000  # a minute of audio: 4801 frames
+    wav = (torch.randn(n_samples, generator=g) * torch.linspace(0, 2, n_samples)).to(dev)
+    mag = taudio.stft_magnitude(wav, sp.n_fft, sp.hop_size, sp.win_size).contiguous()
+    got = _counted("mel_project", lambda: mel_project_normalize(mag, sp, preprocessing))
+    torch.testing.assert_close(got, mel_project_normalize_plain(mag, sp, preprocessing),
+                               atol=2e-4, rtol=0)
+    mel = _counted("mel_project", lambda: taudio.melspectrogram(wav, sp, preprocessing))
+    assert mel.shape == got.shape == (80, 1 + n_samples // 200)
 
 
 def test_mel_project_kernel_rejects_bad_input(dev):
