@@ -35,7 +35,30 @@
    one request without a vocoder: ``Synthesizer.griffin_lim`` at 30
    iterations, then ``make_spectrogram`` of the result (one K6 launch, held
    to K6's plain version on the same magnitudes).
-4. Holds the training kernels against autograd through their plain
+4. Serves with loaded weights: writes the seeded full-width encoder and
+   runtimeracer vocoder as the port's trainer files and the Tacotron as a
+   reference ``.pt`` (with the decoder's r, a step buffer and BatchNorm's
+   batch counters), loads them through ``encoder.load_model``,
+   ``synthesizer.load_model`` and ``vocoder.load_model`` (each state equal
+   bit for bit to the model it was written from), starts
+   ``rtvc_tpu_torch.serve.create_server`` on a free loopback port and warms
+   it as ``serve.main`` does (``vocoder.warmup`` and ``warm_clone`` on its
+   model thread), then ``GET /health``, ``POST /embed``, three ``POST
+   /clone`` of the 3 s prompt one at a time and two at once. Every answer is
+   checked (200, a wav of (frames - 1) x 200 samples), the launches are K1
+   and K2 once, K3 three times and K4 four times a clone (the warm clone
+   included), plus K3 three times for /embed and warmup's K1, and the three
+   sequential clones replayed in process after ``set_seed`` give the same
+   bytes. The Tacotron serves at its default ``max_decoder_steps``, so every
+   kernel runs at shapes no other phase gives it (2000 frames: K2 over 1000
+   iterations, K4 over the postnet's 2048 frames, K1 over 59 folds): each
+   launch of the first served clone is held against its plain version on
+   the inputs it was given (K2 and K1 with dropout off and greedy, at their
+   phases' tolerances). Prints each request's wall time, the warm-up's, the
+   first clone after it beside the second, and the replay's times, on lines
+   that begin with the card's name and power limit. This phase runs first,
+   so that the warm-up pays for the process's first launches.
+5. Holds the training kernels against autograd through their plain
    versions and times both: K3 forward with residuals and backward at the
    GE2E training shape (640 x 160 x 768; two runs of its backward must give
    equal bits), K4 forward and backward at the
@@ -55,7 +78,7 @@
    beside the one-CTA-a-row kernels' times; two runs of each must give equal
    bits, and at 112 rows every candidate plan of each direction is held to
    its plain version and timed.
-5. Trains at full width with seeded random weights: ``train_encoder`` for 3
+6. Trains at full width with seeded random weights: ``train_encoder`` for 3
    GE2E steps on (640, 160, 40) partials, then resumes from its checkpoint
    for a 4th; ``train_vocoder("runtimeracer-wavernn")`` for 5 steps on one
    batch of 40 x 1000 samples, then 3 steps each of ``fatchord-wavernn``
@@ -83,6 +106,8 @@ Prints the card, each phase, one JSON line describing the kernels, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, without a CUDA device or if any phase fails.
 """
+import contextlib
+import importlib
 import json
 import shutil
 import subprocess
@@ -289,6 +314,34 @@ K2_EARLIER_MS = {(1, 64): 131.332, (2, 32): 144.811, (24, 160): 4331.052}
 K2_SHAPES = ((1, 64), (2, 32), (24, 160))
 
 
+def k2_check(model, d, seq, proj, mask, r, max_steps):
+    """K2 against its plain version on the same encoder outputs, dropout
+    off: the same stop iteration, mel within 1e-4, attention within 1e-5.
+    Returns the kernel's (mel, attention, stops), its stop iteration and
+    the two errors."""
+    import torch
+
+    from rtvc_tpu_torch.models import tacotron as taco
+    from rtvc_tpu_torch.ops import tacotron_decode as td
+
+    B, T = mask.shape
+    with torch.no_grad():
+        km, ka, ks = td.tacotron_decode(model, d, seq, proj, mask, 0, r, max_steps, False)
+        pm, pa, ps = td.tacotron_decode_plain(model, d, seq, proj, mask, 0, r, max_steps, False)
+        torch.cuda.synchronize()
+    n_k, n_p = taco.stop_iterations(ks, r), taco.stop_iterations(ps, r)
+    err_mel = float((km - pm).abs().max())
+    err_attn = float((ka - pa).abs().max())
+    per_iter = (km - pm).abs().amax(dim=(0, 1)).reshape(-1, r).amax(dim=1)
+    bad = torch.nonzero(per_iter > 1e-4)
+    check(n_k == n_p, f"K2 B={B} T={T}: stop iteration {n_k} != plain {n_p}")
+    check(err_mel <= 1e-4, f"K2 B={B} T={T}: mel differs from its plain version: {err_mel}"
+          f" (first iteration over tol {int(bad[0]) if len(bad) else None})")
+    check(err_attn <= 1e-5, f"K2 B={B} T={T}: attention differs from its plain version: "
+          f"{err_attn}")
+    return km, ka, ks, n_k, err_mel, err_attn
+
+
 def k2_cell(dev, syn, B, T):
     """K2 at one shape against its plain version (dropout off: the same stop
     iteration, mel within 1e-4, attention within 1e-5), its seeded dropout,
@@ -313,6 +366,7 @@ def k2_cell(dev, syn, B, T):
         seq, proj = taco.encode(model, chars.to(dev), spk.to(dev), prenet_dropout=False)
         seq, proj = seq.contiguous(), proj.contiguous()
         mask = (chars != 0).float().to(dev)
+        km, ka, ks, n_k, err_mel, err_attn = k2_check(model, d, seq, proj, mask, r, max_steps)
 
         def kernel(seed=0, dropout=False):
             return td.tacotron_decode(model, d, seq, proj, mask, seed, r, max_steps, dropout)
@@ -320,19 +374,6 @@ def k2_cell(dev, syn, B, T):
         def plain():
             return td.tacotron_decode_plain(model, d, seq, proj, mask, 0, r, max_steps, False)
 
-        km, ka, ks = kernel()
-        pm, pa, ps = plain()
-        torch.cuda.synchronize()
-        n_k, n_p = taco.stop_iterations(ks, r), taco.stop_iterations(ps, r)
-        err_mel = float((km - pm).abs().max())
-        err_attn = float((ka - pa).abs().max())
-        per_iter = (km - pm).abs().amax(dim=(0, 1)).reshape(-1, r).amax(dim=1)
-        bad = torch.nonzero(per_iter > 1e-4)
-        check(n_k == n_p, f"K2 B={B} T={T}: stop iteration {n_k} != plain {n_p}")
-        check(err_mel <= 1e-4, f"K2 B={B} T={T}: mel differs from its plain version: {err_mel}"
-              f" (first iteration over tol {int(bad[0]) if len(bad) else None})")
-        check(err_attn <= 1e-5, f"K2 B={B} T={T}: attention differs from its plain version: "
-              f"{err_attn}")
         a1, a2, b1 = kernel(1, True)[0], kernel(1, True)[0], kernel(2, True)[0]
         check(torch.equal(a1, a2), f"K2 B={B} T={T} dropout: one seed does not repeat")
         check(not torch.equal(a1, b1), f"K2 B={B} T={T} dropout: two seeds give the same mel")
@@ -758,17 +799,6 @@ def phase_mel(dev):
             "shapes": [{"T": T, **c} for T, c in cells.items()]}
 
 
-def prompt(seed, seconds=3.0, sr=16000):
-    """A voiced-sounding test prompt: harmonics under a syllable envelope."""
-    rng = np.random.default_rng(seed)
-    t = np.arange(int(seconds * sr)) / sr
-    f0 = 110 + 40 * seed + 15 * np.sin(2 * np.pi * 0.7 * t)
-    phase = 2 * np.pi * np.cumsum(f0) / sr
-    voice = sum(np.sin(k * phase) / k for k in range(1, 8))
-    env = np.clip(np.sin(2 * np.pi * 3.1 * t + rng.uniform(0, 6)), 0, None) ** 0.5
-    return (0.2 * voice * env + 0.003 * rng.standard_normal(t.size)).astype(np.float32)
-
-
 def phase_clone(dev, syn, voc):
     import torch
 
@@ -779,6 +809,7 @@ def phase_clone(dev, syn, voc):
     from rtvc_tpu_torch.ops import audio
     from rtvc_tpu_torch.ops.mel_project import mel_project_normalize_plain
     from rtvc_tpu_torch.ops.wavernn_generate import COUNT_NAME
+    from rtvc_tpu_torch.serve import voiced_prompt
 
     encoder.init_random_model(seed=0, device=dev)
     synth = synthesizer.Synthesizer()
@@ -801,7 +832,7 @@ def phase_clone(dev, syn, voc):
     _build.launch_counts.clear()
     stages = []
     for i, text in enumerate(texts):
-        wav = prompt(i)
+        wav = voiced_prompt(i)
         pre, t_pre = timed(lambda: encoder.preprocess_wav(wav))
         embed, t_emb = timed(lambda: encoder.embed_utterance(pre))
         specs, t_syn = timed(lambda: synth.synthesize_spectrograms([text], [embed]))
@@ -895,6 +926,266 @@ def phase_clone(dev, syn, voc):
           f"{t_gl:.1f} ms, make_spectrogram {remel.shape} in {t_mel:.1f} ms, max_abs_err "
           f"{remel_err:.3e} against K6's plain version (tol 2e-4)")
     return counts
+
+
+SERVE_SEED = 1234
+
+
+def serve_request(port, method, path, body=None):
+    """(status, content type, body, wall ms) of one request to the server."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, resp.getheader("Content-Type"), data, (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def write_serve_checkpoints(ckpt_dir, enc, syn, voc):
+    """The encoder and the vocoder in the port's trainer format, the Tacotron
+    as a reference ``.pt`` with the buffers the port's modules have not
+    (the decoder's r, the step counter, BatchNorm's batch counters)."""
+    import torch
+
+    from rtvc_tpu_torch.train.checkpoints import save_checkpoint
+
+    paths = {k: ckpt_dir / f"{k}.pt" for k in ("encoder", "synthesizer", "vocoder")}
+    save_checkpoint(paths["encoder"], enc, 1000, "speaker_encoder",
+                    extras={"config": {"model": enc.model_cfg.asdict(),
+                                       "data": enc.data_cfg.asdict()}})
+    state = dict(syn.model.state_dict())
+    for name in [n for n in state if n.endswith(".running_mean")]:
+        state[name.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(7)
+    state["decoder.r"] = torch.tensor(2, dtype=torch.int32)
+    state["step"] = torch.full((1,), 3000, dtype=torch.long)
+    torch.save({"step": 3000, "model_state": state, "optimizer_state": {},
+                "model_type": syn.model_type}, paths["synthesizer"])
+    save_checkpoint(paths["vocoder"], voc.model, 2000, voc.model_type,
+                    extras={"config": voc.config.asdict()})
+    return paths
+
+
+# the inference wrappers where the clone path looks them up: (module, name)
+SERVED_KERNELS = (("rtvc_tpu_torch.models.layers", "lstm_seq"),
+                  ("rtvc_tpu_torch.models.layers", "gru_seq_fwd"),
+                  ("rtvc_tpu_torch.inference.synthesizer", "tacotron_decode"),
+                  ("rtvc_tpu_torch.models.wavernn", "wavernn_generate_core"))
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Each call of the clone path's kernel wrappers inside, by name: its
+    arguments. The wrappers run as they are."""
+    calls = {name: [] for _, name in SERVED_KERNELS}
+    saved = []
+    for module, name in SERVED_KERNELS:
+        mod = importlib.import_module(module)
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def record(*args, _fn=fn, _calls=calls[name], **kwargs):
+            _calls.append((args, kwargs))
+            return _fn(*args, **kwargs)
+
+        setattr(mod, name, record)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def served_kernel_checks(calls, enc_layers, voc_dims):
+    """Every kernel launch of one served clone again on the inputs it was
+    given, against its plain version at its phase's tolerance: K3 and K4
+    forward within 1e-4 (absolute; relative for K4), K2 with dropout off
+    (``k2_check``) and K1 greedy (``k1_check``). Returns a line of the
+    shapes and errors."""
+    import torch
+
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops.gru_seq import gru_seq_fwd, gru_seq_fwd_plain
+    from rtvc_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_plain
+
+    n = {name: len(c) for name, c in calls.items()}
+    check(n == {"lstm_seq": enc_layers, "gru_seq_fwd": 4, "tacotron_decode": 1,
+                "wavernn_generate_core": 1}, f"one served clone called the wrappers {n} times")
+    parts = []
+    with torch.no_grad():
+        for args, _ in calls["lstm_seq"]:
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(lstm_seq(*args), lstm_seq_plain(*args)))
+            B, T, _ = args[0].shape
+            check(err <= 1e-4, f"K3 at the served B={B} T={T}: {err} from its plain version")
+            parts.append(f"K3 B={B} T={T} {err:.3e}")
+        for args, _ in calls["gru_seq_fwd"]:
+            err = max(rel_err(a, b) for a, b in zip(gru_seq_fwd(*args), gru_seq_fwd_plain(*args)))
+            B, T, _ = args[0].shape
+            check(err <= 1e-4, f"K4 at the served B={B} T={T}: rel err {err} from its plain "
+                  f"version")
+            parts.append(f"K4 B={B} T={T} rel {err:.3e}")
+        [((model, d, seq, proj, mask, _seed, r, max_steps), _)] = calls["tacotron_decode"]
+        _, _, _, n_k, err_mel, err_attn = k2_check(model, d, seq, proj, mask, r, max_steps)
+        parts.append(f"K2 B={mask.shape[0]} T={mask.shape[1]} {n_k} iterations of {max_steps // r}"
+                     f" mel {err_mel:.3e} attention {err_attn:.3e}")
+        [((w, streams, *_), _)] = calls["wavernn_generate_core"]
+        got, err, sample_err, tol, flips = k1_check(voc_dims, w, streams)
+        parts.append(f"K1 {got.shape[0]} folds x {got.shape[1]} steps head inputs {err:.3e} "
+                     f"samples {sample_err:.3e} (tol {tol:g}), {flips} near-ties")
+    return "; ".join(parts)
+
+
+def phase_serve(dev, card, syn, voc):
+    """Checkpoints written from the seeded full-width models, loaded through
+    the inference modules' ``load_model``, then served and warmed as
+    ``serve.main`` does: ``vocoder.warmup`` and ``warm_clone``, ``GET
+    /health``, ``POST /embed``, three ``POST /clone`` one at a time and two
+    at once, each checked; the three replayed in process after ``set_seed``
+    must give the same bytes, and every kernel launch of the first is held
+    against its plain version on its own inputs (``served_kernel_checks``).
+    The reference ``.pt`` carries no config, so the Tacotron serves at its
+    default ``max_decoder_steps`` (2000 frames for these weights, which
+    never stop early). It runs before the other phases: the warm-up takes
+    the process's first launches."""
+    import threading
+
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.inference import encoder, synthesizer, vocoder
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.serve import _parse_wav, _wav_bytes, create_server, voiced_prompt
+
+    ckpt_dir = _build.BUILD_DIR / "smoke_ckpts"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    try:
+        enc = factories.init_encoder_model(0, dev)
+        paths = write_serve_checkpoints(ckpt_dir, enc, syn, voc)
+        encoder.load_model(paths["encoder"], device=dev)
+        synthesizer.load_model(paths["synthesizer"], device=dev)
+        vocoder.load_model(paths["vocoder"], device=dev)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    synth = synthesizer._model
+    for name, loaded, made in (("encoder", encoder._model, enc),
+                               ("synthesizer", synth._bundle.model, syn.model),
+                               ("vocoder", vocoder._bundle.model, voc.model)):
+        a, b = loaded.state_dict(), made.state_dict()
+        check(set(a) == set(b) and all(a[k].is_cuda and torch.equal(a[k], b[k]) for k in b),
+              f"the loaded {name} differs from the model its checkpoint was written from")
+    check(synth._r == 2 and synthesizer.get_model_type() == "tacotron",
+          f"the synthesizer loaded r {synth._r}")
+
+    texts = ["The quick brown fox jumps over the lazy dog.",
+             "Voice cloning on a single graphics card.",
+             "Hello there, this is a test of the clone path."]
+    sr_hz = 16000
+    body = _wav_bytes(voiced_prompt(0), sr_hz)
+    server = create_server("127.0.0.1", 0, synth=synth)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    _build.launch_counts.clear()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_warm = server.on_models(vocoder.warmup)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        server.warm_clone()
+        torch.cuda.synchronize()
+        t_warm, t_warm_clone = (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+        status, ctype, health, t_health = serve_request(port, "GET", "/health")
+        health = json.loads(health)
+        check(status == 200 and health == {"status": "ok", "platform": "cuda",
+                                           "device": str(vocoder._bundle.model.I.weight.device),
+                                           "synthesizer": True, "vocoder": True},
+              f"/health answered {status}: {health}")
+        status, _, emb, t_embed = serve_request(port, "POST", "/embed", body)
+        check(status == 200, f"/embed answered {status}: {emb[:200]}")
+        emb = np.asarray(json.loads(emb)["embed"])
+        check(emb.shape == (768,) and abs(float(np.linalg.norm(emb)) - 1.0) < 1e-4,
+              f"/embed gave {emb.shape}")
+        vocoder.set_seed(SERVE_SEED)
+        clone_path = ["/clone?text=" + t.replace(" ", "%20") for t in texts]
+        with recorded_calls() as first_calls:
+            served = [serve_request(port, "POST", clone_path[0], body)]
+        served += [serve_request(port, "POST", path, body) for path in clone_path[1:]]
+        together = [None, None]
+
+        def concurrent(i):
+            together[i] = serve_request(port, "POST", clone_path[i], body)
+
+        workers = [threading.Thread(target=concurrent, args=(i,)) for i in range(2)]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        t_together = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    counts = dict(_build.launch_counts)
+
+    # the three sequential clones again, in process through the module functions
+    vocoder.set_seed(SERVE_SEED)
+    frames, replay_ms = [], []
+    for text, (status, ctype, got, _) in zip(texts, served):
+        check(status == 200 and ctype == "audio/wav", f"/clone answered {status}: {got[:200]}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, sr = _parse_wav(body)
+        embed = encoder.embed_utterance(encoder.preprocess_wav(x, source_sr=sr))
+        [mel] = synthesizer.synthesize_spectrograms([text], [embed])
+        wav = vocoder.infer_waveform(mel)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(embed, emb.astype(np.float32)), "/embed differs from embed_utterance")
+        wav_out, sr_out = _parse_wav(got)
+        check(sr_out == sr_hz and wav_out.shape == ((mel.shape[1] - 1) * 200,),
+              f"/clone gave {wav_out.shape} samples at {sr_out} Hz for {mel.shape[1]} frames")
+        check(got == _wav_bytes(wav, sr_hz), f"the served clone of {text!r} differs from its "
+              f"replay in process after set_seed")
+        frames.append(mel.shape[1])
+    for i, (status, ctype, got, _) in enumerate(together):
+        wav_out, sr_out = _parse_wav(got) if status == 200 else (None, None)
+        check(status == 200 and ctype == "audio/wav" and sr_out == sr_hz
+              and wav_out.shape == ((frames[i] - 1) * 200,) and np.isfinite(wav_out).all(),
+              f"the concurrent /clone {i} answered {status}")
+    # the served clones and the warm clone; K3 also for /embed
+    n = len(served) + len(together) + 1
+    want = {"lstm_seq": 3 * (n + 1), "tacotron_decode": n, "gru_seq": 4 * n,
+            "wavernn_generate_runtimeracer": n + n_warm}
+    check(counts == want, f"the served run launched {counts}, want {want} ({n} clones with the "
+          f"warm clone, one embed, {n_warm} warm-up vocode)")
+    kernel_line = served_kernel_checks(first_calls, encoder._model_cfg.model_num_layers,
+                                       vocoder._bundle.dims)
+    t_clone = [r[3] for r in served]
+    print(f"{card}: serve: checkpoints loaded bit for bit (encoder and vocoder from the port's "
+          f"trainer files, Tacotron from a reference .pt, r 2); warm-up on the model thread: "
+          f"vocoder.warmup ({n_warm} vocode) {t_warm:.1f} ms, warm_clone {t_warm_clone:.1f} ms; "
+          f"/health {t_health:.1f} ms, /embed {t_embed:.1f} ms")
+    print(f"{card}: serve: /clone of a 3 s prompt, {frames} frames, one at a time: "
+          + ", ".join(f"{t:.1f}" for t in t_clone) + " ms (the first after the warm-up "
+          f"{t_clone[0]:.1f} beside the second {t_clone[1]:.1f}); two at once "
+          + ", ".join(f"{r[3]:.1f}" for r in together) + f" ms, {t_together:.1f} ms for both")
+    print(f"{card}: serve: the same three clones in process "
+          + ", ".join(f"{t:.1f}" for t in replay_ms) + f" ms (median "
+          f"{float(np.median(replay_ms)):.1f}), served median {float(np.median(t_clone)):.1f} ms; "
+          f"served bytes equal the replay's; launches {counts}")
+    print(f"serve: the first served clone's kernels on their own inputs against their plain "
+          f"versions: {kernel_line}")
+    return {"served_ms": t_clone, "together_ms": [r[3] for r in together],
+            "replay_ms": replay_ms, "warmup_ms": t_warm, "warm_clone_ms": t_warm_clone,
+            "frames": frames, "counts": counts}
 
 
 def grads_of(fn, leaves, cotangents):
@@ -1495,6 +1786,8 @@ def main() -> int:
                                    override_hp=syn_cfg, device=dev)
     voc = factories.init_voc_model(factories.MODEL_TYPE_RUNTIMERACER, seed=0, device=dev)
 
+    # first, so that warmup and the first request pay for the first launches
+    phase_serve(dev, card, syn, voc)
     phase_barrier(dev)
     kernels = [phase_lstm(dev), phase_tacotron(dev, syn), *phase_wavernn(dev), phase_mel(dev)]
     counts = phase_clone(dev, syn, voc)

@@ -3,9 +3,9 @@
 The inverse of the JAX package's three ``import_torch_state`` functions
 (``models/speaker_encoder.py``, ``models/tacotron.py``, ``models/wavernn.py``):
 the input is a variables tree as nested dicts (and lists) of arrays — numpy,
-or anything ``np.asarray`` accepts — and the output is a state_dict under the
-reference's torch names, which the port's modules load with
-``load_state_dict(strict=True)``. No JAX import is needed.
+anything ``np.asarray`` accepts, or torch tensors — and the output is a
+state_dict under the reference's torch names, which the port's modules load
+with ``load_state_dict(strict=True)``. No JAX import is needed.
 
 The same functions map a JAX gradient tree (``jax.grad`` of a training
 loss over the same variables) to the names of the port's parameters, so a
@@ -26,6 +26,8 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def _t(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # a bfloat16 leaf of a .ckpt
+        return x.detach().to(dtype=torch.float32, copy=True)
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 

@@ -1,13 +1,13 @@
 """Speaker-encoder inference (counterpart of ``rtvc_tpu/inference/encoder.py``).
 
 Same module-level surface as the JAX package (and the reference it mirrors):
-install a model with ``load_state`` or ``init_random_model``, then
-``preprocess_wav`` → ``embed_utterance``. The partial-utterance batch runs
-through the speaker encoder whose LSTMs go through the K3 kernel on a card.
+install a model with ``load_model`` (a checkpoint in any of the formats of
+``train/checkpoints.py:read_model``), ``load_state`` or
+``init_random_model``, then ``preprocess_wav`` → ``embed_utterance``. The
+partial-utterance batch runs through the speaker encoder whose LSTMs go
+through the K3 kernel on a card.
 The JAX package pads that batch to a power of two to bound XLA recompiles;
 padded rows never touch real ones, so this port runs the batch as it is.
-
-Loading ``.ckpt`` files (flax msgpack) is a later slice.
 """
 from __future__ import annotations
 
@@ -23,11 +23,25 @@ from rtvc_tpu_torch.models.speaker_encoder import SpeakerEncoder
 from rtvc_tpu_torch.ops.audio import encoder_mel_spectrogram, normalize_volume
 from rtvc_tpu_torch.ops.resample import resample
 from rtvc_tpu_torch.ops.vad import trim_long_silences
+from rtvc_tpu_torch.train.checkpoints import read_model
 from rtvc_tpu_torch.utils.io import load_wav
 
 _data = EncoderDataParams()
 _model_cfg = EncoderModelParams()
 _model: Optional[SpeakerEncoder] = None
+
+
+def load_model(weights_fpath: Union[str, Path], device=None) -> SpeakerEncoder:
+    """Install the encoder of a checkpoint (JAX ``.ckpt``, reference
+    ``.pt`` or a file of the port's trainer), on the card unless ``device``
+    names another. A checkpoint that carries its config rebuilds the model
+    at its own widths; one that does not keeps the installed config."""
+    global _model, _model_cfg, _data
+    ckpt = read_model(weights_fpath, "encoder")
+    model = factories.from_checkpoint(ckpt, "encoder", device, (_model_cfg, _data))
+    _model, _model_cfg, _data = model, model.model_cfg, model.data_cfg
+    print('Loaded encoder "%s" trained to step %d' % (Path(weights_fpath).name, ckpt.step))
+    return _model
 
 
 def load_state(state_dict: dict, device=None,
@@ -63,7 +77,7 @@ def _device() -> torch.device:
 def embed_frames_batch(frames_batch: np.ndarray) -> np.ndarray:
     """(B, n_frames, n_channels) mel frames → (B, E) embeddings."""
     if _model is None:
-        raise Exception("Model was not loaded. Call load_state() or "
+        raise Exception("Model was not loaded. Call load_model(), load_state() or "
                         "init_random_model() before inference.")
     frames = torch.as_tensor(np.asarray(frames_batch, np.float32), device=_device())
     return _model(frames).cpu().numpy()

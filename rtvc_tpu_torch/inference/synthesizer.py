@@ -14,8 +14,15 @@ The decoder loop runs through the K2 kernel on a card (``ops.tacotron_decode``).
 ``make_spectrogram`` (waveform or file → training-format mel, through the K6
 kernel) and ``griffin_lim`` (mel → waveform without a vocoder) are module
 functions and static helpers of ``Synthesizer``; both work on the card
-unless the caller names another device. Loading ``.ckpt`` files and the
-non-autoregressive synthesizers are not ported yet.
+unless the caller names another device.
+
+``Synthesizer.load`` (and the module-level ``load_model``) reads a
+checkpoint in any of the formats of ``train/checkpoints.py:read_model``,
+rebuilding the model at the widths its config names (the defaults for a
+reference ``.pt``, which carries none) and taking the reduction factor
+from the file (2 when it names none). The non-autoregressive synthesizers,
+and with them ``speed_modifier``, ``pitch_function`` and
+``energy_function``, are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.models import tacotron as taco
 from rtvc_tpu_torch.ops import audio as audio_ops
 from rtvc_tpu_torch.ops.tacotron_decode import tacotron_decode
+from rtvc_tpu_torch.train.checkpoints import read_model
 from rtvc_tpu_torch.utils.io import load_wav
 
 _CHAR_BUCKET = 32
@@ -43,23 +51,42 @@ def pad1d(x, max_len, pad_value=0):
 
 
 class Synthesizer:
-    """Holds one synthesizer model; ``load_bundle`` installs it."""
+    """Holds one synthesizer model: ``load`` reads it from ``model_fpath``
+    (lazily, on the first synthesis), ``load_bundle`` installs one from
+    memory. The model lives on the card unless ``device`` names another."""
 
     sample_rate = sp.sample_rate
 
-    def __init__(self, model_fpath=None, verbose: bool = True):
-        self.model_fpath = model_fpath
+    def __init__(self, model_fpath: Optional[Union[str, Path]] = None, verbose: bool = True,
+                 device=None):
+        self.model_fpath = None if model_fpath is None else Path(model_fpath)
         self.verbose = verbose
+        self.device = device
         self._bundle: Optional[factories.SynModel] = None
+        self._step = 0
         self._r = 2
 
     def is_loaded(self) -> bool:
         return self._bundle is not None
 
+    def get_model_type(self) -> str:
+        if not self.is_loaded():
+            self.load()
+        return self._bundle.model_type
+
     def load(self):
-        raise NotImplementedError(
-            "loading synthesizer checkpoints is not ported to rtvc_tpu_torch "
-            "yet; install a model with load_bundle()")
+        """Read the model of ``model_fpath``."""
+        if self.model_fpath is None:
+            raise ValueError("Synthesizer has no checkpoint path; pass model_fpath or "
+                             "install a model with load_bundle()")
+        ckpt = read_model(self.model_fpath, "synthesizer")
+        self.load_bundle(factories.from_checkpoint(ckpt, "synthesizer", self.device),
+                         r=ckpt.r or 2)
+        self._step = ckpt.step
+        if self.verbose:
+            print("Loaded synthesizer of model '%s' at path '%s'."
+                  % (self._bundle.model_type, self.model_fpath.name))
+            print("Model has been trained to step %d." % self._step)
 
     def load_bundle(self, bundle: factories.SynModel, r: int = 2):
         """Install an in-memory model (self-tests, benchmarks)."""
@@ -129,6 +156,37 @@ class Synthesizer:
             mels.append(m[:, :end].astype(np.float32))
             aligns.append(attn_np[b])
         return mels, aligns
+
+
+_model: Optional[Synthesizer] = None
+
+
+def load_model(weights_fpath, verbose: bool = True, device=None) -> None:
+    """Install the module's synthesizer from a checkpoint, on the card
+    unless ``device`` names another."""
+    global _model
+    _model = Synthesizer(weights_fpath, verbose, device)
+    _model.load()
+
+
+def is_loaded() -> bool:
+    return _model is not None and _model.is_loaded()
+
+
+def get_model_type() -> str:
+    if not is_loaded():
+        raise Exception("Please load Synthesizer in memory before using it")
+    return _model.get_model_type()
+
+
+def synthesize_spectrograms(texts: List[str], embeddings: Union[np.ndarray, List[np.ndarray]],
+                            return_alignments: bool = False, seed: int = 0):
+    """The module's synthesizer: texts + speaker embeddings → list of
+    (80, Mi) mels."""
+    if not is_loaded():
+        raise Exception("Please load Synthesizer in memory before using it")
+    return _model.synthesize_spectrograms(texts, embeddings,
+                                          return_alignments=return_alignments, seed=seed)
 
 
 def load_preprocess_wav(fpath) -> np.ndarray:

@@ -7,8 +7,13 @@ launch of the sample loop. Both fold the mel with the model's own window
 and geneing, 6000 / 1000 for runtimeracer) unless the caller passes
 another; a window tuned for the card is not derived yet. The sample loop
 runs through the K1 kernel on a card, and a launch that fails raises: there
-is no second path to retry on. Loading ``.ckpt`` files and the native C++
-engine are not ported yet.
+is no second path to retry on.
+
+``load_model`` reads a checkpoint in any of the formats of
+``train/checkpoints.py:read_model`` and rebuilds the variant at the widths
+its config names; ``warmup`` builds the kernels and takes the model's first
+pass through K1 before the first request. The native C++ engine is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -16,18 +21,26 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from rtvc_tpu_torch import _build
 from rtvc_tpu_torch.config import signal as _sig
 from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.models.wavernn import wavernn_generate, wavernn_generate_batch
+from rtvc_tpu_torch.train.checkpoints import read_model
 
 _bundle: Optional[factories.VocModel] = None
 _seed: int = 0
 _gen_counter: int = 0
 
 
-def load_model(weights_fpath, *args, **kwargs):
-    raise NotImplementedError("loading vocoder checkpoints is not ported to "
-                              "rtvc_tpu_torch yet; install a model with load_bundle()")
+def load_model(weights_fpath, verbose: bool = True, device=None) -> None:
+    """Install the vocoder of a checkpoint, on the card unless ``device``
+    names another; the variant comes from the file (fatchord when it names
+    none, as the reference does)."""
+    ckpt = read_model(weights_fpath, "vocoder")
+    load_bundle(factories.from_checkpoint(ckpt, "vocoder", device))
+    if verbose:
+        print("Loaded vocoder of model '%s' at path '%s'." % (_bundle.model_type, weights_fpath))
+        print("Model has been trained to step %d." % ckpt.step)
 
 
 def load_bundle(bundle: factories.VocModel) -> None:
@@ -38,6 +51,22 @@ def load_bundle(bundle: factories.VocModel) -> None:
 
 def is_loaded() -> bool:
     return _bundle is not None
+
+
+def warmup(frame_buckets=(64,)) -> int:
+    """Vocode a silent mel of each frame count in ``frame_buckets`` before
+    the first request, after building the kernels when the model is on the
+    card; returns how many were vocoded. Each call takes a seed of the
+    counter, as a request does. One bucket is enough here: a kernel is
+    built once for every shape, and the first launch pays for loading it."""
+    if _bundle is None:
+        raise Exception("Please load Wave-RNN in memory before using it")
+    if _bundle.model.I.weight.is_cuda:
+        _build.library()
+    for frames in frame_buckets:
+        infer_waveform(np.zeros((_bundle.dims.feat_dims, int(frames)), np.float32),
+                       normalize=False)
+    return len(frame_buckets)
 
 
 def set_seed(seed: int) -> None:

@@ -68,6 +68,48 @@ def default_config(model_type: str):
     raise NotImplementedError("Invalid model of type '%s' provided. Aborting..." % model_type)
 
 
+def config_from_dict(model_type: str, cfg_dict: Optional[dict]):
+    """The hyper-parameter dataclass of a checkpoint's config dict (the
+    counterpart of the JAX package's ``config_from_extras`` on
+    ``extras['config']``), or the model type's defaults when the file
+    carries none. Lists become tuples again (``tts_schedule``)."""
+    cfg = default_config(model_type)  # raises: a later slice, or no such model
+    if not cfg_dict:
+        return cfg
+
+    def detuple(v):
+        return tuple(detuple(x) for x in v) if isinstance(v, list) else v
+
+    return type(cfg)(**{k: detuple(v) for k, v in cfg_dict.items()})
+
+
+def from_checkpoint(ckpt, kind: str, device=None, config=None):
+    """The model of a checkpoint read by ``train.checkpoints.read_model``,
+    built on ``device`` at the widths its config names and loaded with
+    ``strict=True``: a SpeakerEncoder for ``kind`` "encoder", a SynModel or a
+    VocModel. A file without a config takes ``config`` (the encoder's
+    ``(model, data)`` pair), else the defaults; one without a model type is a
+    Tacotron or a fatchord WaveRNN, as the reference's are."""
+    if kind == "encoder":
+        cfgs = ((EncoderModelParams(**ckpt.config["model"]),
+                 EncoderDataParams(**ckpt.config["data"])) if ckpt.config
+                else config or (EncoderModelParams(), EncoderDataParams()))
+        model = empty_on_device(lambda: SpeakerEncoder(*cfgs), device)
+        model.load_state_dict(ckpt.state_dict, strict=True)
+        return model.eval()
+    synthesizer = kind == "synthesizer"
+    model_type = ckpt.model_type or (MODEL_TYPE_TACOTRON if synthesizer else MODEL_TYPE_FATCHORD)
+    cfg = config_from_dict(model_type, ckpt.config)
+    if synthesizer:
+        dims = tacotron_dims(cfg)
+        model = empty_on_device(lambda: Tacotron(dims), device)
+    else:
+        dims = wavernn_dims(model_type, cfg)
+        model = empty_on_device(lambda: WaveRNN(dims), device)
+    model.load_state_dict(ckpt.state_dict, strict=True)
+    return (SynModel if synthesizer else VocModel)(model_type, dims, model.eval(), cfg)
+
+
 def _uniform_(p: torch.Tensor, bound: float, g: torch.Generator) -> None:
     p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
 

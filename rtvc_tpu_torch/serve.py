@@ -1,0 +1,246 @@
+"""HTTP front end of the clone pipeline (counterpart of ``rtvc_tpu/serve.py``).
+
+Stdlib ``http.server`` over the port's inference modules:
+
+  * ``GET  /health``          → {"status": "ok", "platform", "device",
+    "synthesizer", "vocoder"}
+  * ``POST /embed``           body = WAV bytes → {"embed": [768 floats]}
+  * ``POST /clone?text=...``  body = WAV prompt → WAV clone
+
+``/stream`` and the browser toolbox are not ported yet and answer 404.
+
+Start: ``python -m rtvc_tpu_torch.serve -e enc.ckpt -s syn.pt -v voc.pt``
+(any of the checkpoint formats ``train/checkpoints.py:read_model`` reads;
+the models run on the card, or on the CPU with ``--cpu``), or build a
+server over models already installed with ``create_server(...)``. Binds
+loopback by default. Every request's model work runs on one long-lived
+thread, in the order the requests come; sockets are read and written on
+the handler threads.
+"""
+from __future__ import annotations
+
+import io
+import json
+import wave
+from concurrent.futures import ThreadPoolExecutor
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+
+
+def _wav_bytes(wav: np.ndarray, sr: int) -> bytes:
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(_pcm16(wav))
+    return buf.getvalue()
+
+
+def _pcm16(wav: np.ndarray) -> bytes:
+    x = np.clip(np.asarray(wav, np.float64), -1.0, 1.0)
+    return (x * 32767.0).astype("<i2").tobytes()
+
+
+def _parse_wav(body: bytes) -> tuple[np.ndarray, int]:
+    with wave.open(io.BytesIO(body), "rb") as w:
+        sr = w.getframerate()
+        channels = w.getnchannels()
+        width = w.getsampwidth()
+        raw = w.readframes(w.getnframes())
+    if width == 2:
+        x = np.frombuffer(raw, "<i2").astype(np.float32) / 32768.0
+    elif width == 4:
+        x = np.frombuffer(raw, "<i4").astype(np.float32) / 2147483648.0
+    else:
+        raise ValueError(f"unsupported sample width {width}")
+    if channels > 1:
+        x = x.reshape(-1, channels).mean(axis=1)
+    return x, sr
+
+
+def voiced_prompt(seed: int = 0, seconds: float = 3.0, sr: int = 16000) -> np.ndarray:
+    """A voiced-sounding test prompt: harmonics under a syllable envelope."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 110 + 40 * seed + 15 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voice = sum(np.sin(k * phase) / k for k in range(1, 8))
+    env = np.clip(np.sin(2 * np.pi * 3.1 * t + rng.uniform(0, 6)), 0, None) ** 0.5
+    return (0.2 * voice * env + 0.003 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def _models_device():
+    """The device of the installed models (the vocoder's, else the
+    encoder's), or None before any is installed."""
+    from rtvc_tpu_torch.inference import encoder, vocoder
+
+    if vocoder.is_loaded():
+        return vocoder._bundle.model.I.weight.device
+    return encoder._device() if encoder.is_loaded() else None
+
+
+def _embed(wav: np.ndarray, sr: int) -> np.ndarray:
+    from rtvc_tpu_torch.inference import encoder
+
+    return encoder.embed_utterance(encoder.preprocess_wav(wav, source_sr=sr))
+
+
+def _clone(synth, wav: np.ndarray, sr: int, text: str) -> np.ndarray:
+    from rtvc_tpu_torch.inference import vocoder
+
+    [mel] = synth.synthesize_spectrograms([text], [_embed(wav, sr)])
+    return vocoder.infer_waveform(mel)
+
+
+class ModelServer(ThreadingHTTPServer):
+    """A ThreadingHTTPServer whose requests hand their model work to one
+    long-lived thread (``on_models``). One thread does what a lock would:
+    the vocoder's seed counter is shared state, and one card serves one
+    request best. It also keeps the per-thread state of the libraries the
+    models call: a new thread each request pays for it again (measured by
+    ``profile_serve``)."""
+
+    def __init__(self, address, handler, synth):
+        super().__init__(address, handler)
+        self.synth = synth
+        self._models = ThreadPoolExecutor(max_workers=1, thread_name_prefix="models")
+
+    def on_models(self, fn, *args):
+        """``fn(*args)`` on the model thread, after the work queued before it."""
+        return self._models.submit(fn, *args).result()
+
+    def warm_clone(self) -> None:
+        """One clone of a voiced test prompt on the model thread, so that
+        the first request does not pay for its layers' first pass; the
+        vocoder's seed counter is left where it was. Call it before the
+        first request; ``main`` calls it after ``vocoder.warmup``."""
+        from rtvc_tpu_torch.config import sp
+        from rtvc_tpu_torch.inference import vocoder
+
+        seeds = vocoder._seed, vocoder._gen_counter
+        self.on_models(_clone, self.synth, voiced_prompt(), sp.sample_rate,
+                       "A sentence to warm the models up.")
+        vocoder._seed, vocoder._gen_counter = seeds
+
+    def server_close(self):
+        super().server_close()
+        self._models.shutdown()
+
+
+def create_server(host: str = "127.0.0.1", port: int = 0, synth=None) -> ModelServer:
+    """A server over the models installed in the ``rtvc_tpu_torch.inference``
+    encoder and vocoder modules and the synthesizer ``synth`` (a
+    ``Synthesizer`` with its model)."""
+    from rtvc_tpu_torch.config import sp
+    from rtvc_tpu_torch.inference import vocoder
+
+    sr = sp.sample_rate
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        # bound socket reads and writes, so a stalled client cannot pin a worker
+        timeout = 120
+
+        def log_message(self, *a):
+            pass
+
+        def _json(self, obj, code=200):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _audio(self, wav):
+            body = _wav_bytes(wav, sr)
+            self.send_response(200)
+            self.send_header("Content-Type", "audio/wav")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _read_wav(self):
+            return _parse_wav(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+
+        def do_GET(self):  # noqa: N802
+            if urlparse(self.path).path != "/health":
+                return self.send_error(404)
+            dev = _models_device()
+            self._json({"status": "ok",
+                        "platform": None if dev is None else dev.type,
+                        "device": None if dev is None else str(dev),
+                        "synthesizer": synth is not None and synth.is_loaded(),
+                        "vocoder": vocoder.is_loaded()})
+
+        def do_POST(self):  # noqa: N802
+            try:
+                url = urlparse(self.path)
+                if url.path == "/embed":
+                    emb = self.server.on_models(_embed, *self._read_wav())
+                    self._json({"embed": [float(v) for v in emb]})
+                elif url.path == "/clone":
+                    text = (parse_qs(url.query).get("text") or [""])[0]
+                    if not text:
+                        return self._json({"error": "missing ?text="}, 400)
+                    self._audio(self.server.on_models(_clone, synth, *self._read_wav(), text))
+                else:
+                    self.send_error(404)
+            except BrokenPipeError:
+                pass
+            except Exception as e:  # answer with the error as JSON, keep serving
+                try:
+                    self._json({"error": repr(e)[:200]}, 500)
+                except OSError:
+                    pass
+
+    return ModelServer((host, port), Handler, synth)
+
+
+def main(argv=None) -> None:
+    import argparse
+    from pathlib import Path
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("-e", "--enc_model_fpath", type=Path, required=True)
+    parser.add_argument("-s", "--syn_model_fpath", type=Path, required=True)
+    parser.add_argument("-v", "--voc_model_fpath", type=Path, required=True)
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8765)
+    parser.add_argument("--cpu", action="store_true",
+                        help="Run the models on the CPU (the default is the card).")
+    args = parser.parse_args(argv)
+
+    from rtvc_tpu_torch.inference import encoder, synthesizer, vocoder
+    from rtvc_tpu_torch.utils import modelutils
+
+    missing = modelutils.missing_models(args.enc_model_fpath, args.syn_model_fpath,
+                                        args.voc_model_fpath)
+    if missing:
+        modelutils.model_files_missing(missing)
+        raise SystemExit(-1)
+
+    device = "cpu" if args.cpu else None
+    encoder.load_model(args.enc_model_fpath, device=device)
+    synth = synthesizer.Synthesizer(args.syn_model_fpath, device=device)
+    synth.load()
+    vocoder.load_model(args.voc_model_fpath, device=device)
+
+    server = create_server(args.host, args.port, synth=synth)
+    server.on_models(vocoder.warmup)
+    server.warm_clone()
+    print(f"Serving on http://{args.host}:{server.server_address[1]} "
+          f"(API: /health /embed /clone)")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Audio file loading on the host (numpy copy of ``rtvc_tpu/utils/io.py``).
 
-WAV files are read with scipy. The compressed formats that
+WAV files are read and written with scipy. The compressed formats that
 ``rtvc_tpu`` decodes through libmpg123 / FFmpeg are not ported yet: they
 raise :class:`UnsupportedAudioFormat`; pass a numpy waveform instead.
 """
@@ -54,3 +54,9 @@ def load_wav(path: PathLike, target_sr: Optional[int] = None
         sr = target_sr
     return wav.astype(np.float32), int(sr)
 
+
+def save_wav(wav: np.ndarray, path: PathLike, sample_rate: int) -> None:
+    """Peak-normalise to int16 and write a WAV file."""
+    wav = np.asarray(wav, dtype=np.float32)
+    scaled = wav * (32767.0 / max(0.01, float(np.max(np.abs(wav)))))
+    wavfile.write(str(path), sample_rate, scaled.astype(np.int16))

@@ -1,7 +1,7 @@
 """The port stands on its own: ``rtvc_tpu_torch`` and ``chip_smoke`` import
-neither ``jax`` nor anything of ``rtvc_tpu``, and the modules the port copied
-from the JAX package (config, text, the three dataset modules, metrics) still
-say what their originals say: equal config fields and values, equal symbol
+none of ``jax``, ``flax``, ``msgpack`` and ``rtvc_tpu``, and the modules the
+port copied from the JAX package (config, text, the three dataset modules,
+metrics) still say what their originals say: equal config fields and values, equal symbol
 sequences, and equal batches from one tiny on-disk dataset and seed."""
 import dataclasses
 import json
@@ -37,13 +37,15 @@ names = [m.name for m in pkgutil.walk_packages(rtvc_tpu_torch.__path__, "rtvc_tp
 for name in names:
     importlib.import_module(name)
 for need in ("models.distribution", "ops.stft", "ops.mel_project", "ops.wavernn_generate",
-             "inference.vocoder", "inference.synthesizer", "vocoder_train"):
+             "inference.vocoder", "inference.synthesizer", "vocoder_train",
+             "utils.flax_msgpack", "utils.modelutils", "train.checkpoints", "serve",
+             "demo_cli"):
     assert "rtvc_tpu_torch." + need in names, need
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "rtvc_tpu" or m.startswith("rtvc_tpu."))
+             if m.split(".")[0] in ("jax", "rtvc_tpu", "flax", "msgpack"))
 print(len(names), "modules;", "foreign:", bad)
-sys.exit(1 if bad or len(names) < 33 else 0)
+sys.exit(1 if bad or len(names) < 38 else 0)
 """
 
 

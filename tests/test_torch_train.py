@@ -7,6 +7,7 @@ Adam and the pruning masks; checkpoint save/resume for both trainers; and
 both ``python -m rtvc_tpu_torch.*_train`` entry points on tiny on-disk
 datasets."""
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -374,8 +375,11 @@ def _make_vocoder_dataset(root, n_utts=80, frames=20, n_mels=80):
 
 
 def _run(*args):
+    # two OpenMP threads: the full-width steps on the CPU run faster so than
+    # on every core, alone and more so beside other test workers
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
     proc = subprocess.run([sys.executable, "-m", *args], cwd=REPO, capture_output=True,
-                          text=True, timeout=600)
+                          text=True, timeout=600, env=env)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
 
 
