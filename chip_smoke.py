@@ -44,10 +44,14 @@
    ``rtvc_tpu_torch.serve.create_server`` on a free loopback port and warms
    it as ``serve.main`` does (``vocoder.warmup`` and ``warm_clone`` on its
    model thread), then ``GET /health``, ``POST /embed``, three ``POST
-   /clone`` of the 3 s prompt one at a time and two at once. Every answer is
+   /clone`` of the 3 s prompt one at a time and two at once, then two ``POST
+   /stream`` (chunked transfer of a streaming WAV; the client's time to the
+   first audio byte and to the last; the PCM equal byte for byte to
+   ``stream_clone`` replayed in process after ``set_seed``). Every answer is
    checked (200, a wav of (frames - 1) x 200 samples), the launches are K1
    and K2 once, K3 three times and K4 four times a clone (the warm clone
-   included), plus K3 three times for /embed and warmup's K1, and the three
+   included), plus K3 three times for /embed, warmup's K1 and the warm
+   stream's launches (two chunks, three resumed K2 launches), and the three
    sequential clones replayed in process after ``set_seed`` give the same
    bytes. The Tacotron serves at its default ``max_decoder_steps``, so every
    kernel runs at shapes no other phase gives it (2000 frames: K2 over 1000
@@ -58,6 +62,21 @@
    first clone after it beside the second, and the replay's times, on lines
    that begin with the card's name and power limit. This phase runs first,
    so that the warm-up pays for the process's first launches.
+4b. Streams (``inference.streaming.stream_clone``) at the default widths.
+   With the kernels of 2., K2 resumed launch by launch at B 1 x T 64 and
+   B 2 x T 32 over 200 iterations in launches of 8 and then 24: with
+   dropout on the joined launches equal one launch in bits (mel, stops, the
+   carried state); dropout off each launch within 1e-6 of the plain loop
+   from the carry it was given; the stop token forced to fire inside a
+   launch; a 24-iteration launch timed beside one of 200. After the clones
+   of 3., five streamed clones of the 3 s prompt (a first chunk of 16
+   frames, then 48), each one's time to the first audio, chunk emit times
+   and real-time factor printed. The first is counted (K3 for the
+   embedding, K4 for the encoder and each chunk's postnet, K2 and K1 once a
+   chunk), its raw decoder frames equal ``synthesize_spectrograms``' K2
+   frames bit for bit for the same seed, its samples number (Σ valid frames
+   − 1) x 200, and its first chunk's postnet K4 and vocoder K1 launches are
+   held to their plain versions.
 5. Holds the training kernels against autograd through their plain
    versions and times both: K3 forward with residuals and backward at the
    GE2E training shape (640 x 160 x 768; two runs of its backward must give
@@ -342,6 +361,22 @@ def k2_check(model, d, seq, proj, mask, r, max_steps):
     return km, ka, ks, n_k, err_mel, err_attn
 
 
+def k2_bound(model, d, r, n_k, B, T, *tensors):
+    """K2's bound for n_k iterations at B x T: each weight applied once to
+    each of the B rows an iteration (of mel_proj only the r frames' rows
+    are read), ``tensors`` read or written once."""
+    dec = model.decoder
+    mats = [dec.prenet.fc1.weight, dec.prenet.fc2.weight, dec.attn_rnn.weight_ih,
+            dec.attn_rnn.weight_hh, dec.attn_net.W.weight, dec.rnn_input.weight,
+            dec.res_rnn1.weight_ih, dec.res_rnn1.weight_hh, dec.res_rnn2.weight_ih,
+            dec.res_rnn2.weight_hh, dec.stop_proj.weight]
+    mel_rows = r * d.n_mels * d.lstm_dims
+    NF, _, KS = dec.attn_net.conv.weight.shape
+    attention = T * (NF * KS + d.decoder_dims * NF + d.decoder_dims + d.enc_out_dims)
+    flops = 2 * n_k * B * (sum(m.numel() for m in mats) + mel_rows + attention)
+    return bound(nbytes(*mats, *tensors) + 4 * mel_rows, flops)
+
+
 def k2_cell(dev, syn, B, T):
     """K2 at one shape against its plain version (dropout off: the same stop
     iteration, mel within 1e-4, attention within 1e-5), its seeded dropout,
@@ -379,18 +414,7 @@ def k2_cell(dev, syn, B, T):
         check(not torch.equal(a1, b1), f"K2 B={B} T={T} dropout: two seeds give the same mel")
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(plain, reps=2)
-    # the iterations this run took (n_k), each weight applied once to each of
-    # the B rows; of mel_proj only the r frames' rows are read
-    dec = model.decoder
-    mats = [dec.prenet.fc1.weight, dec.prenet.fc2.weight, dec.attn_rnn.weight_ih,
-            dec.attn_rnn.weight_hh, dec.attn_net.W.weight, dec.rnn_input.weight,
-            dec.res_rnn1.weight_ih, dec.res_rnn1.weight_hh, dec.res_rnn2.weight_ih,
-            dec.res_rnn2.weight_hh, dec.stop_proj.weight]
-    mel_rows = r * d.n_mels * d.lstm_dims
-    NF, _, KS = dec.attn_net.conv.weight.shape
-    attention = T * (NF * KS + d.decoder_dims * NF + d.decoder_dims + d.enc_out_dims)
-    flops = 2 * n_k * B * (sum(m.numel() for m in mats) + mel_rows + attention)
-    b = bound(nbytes(*mats, seq, proj, mask, km, ka, ks) + 4 * mel_rows, flops)
+    b = k2_bound(model, d, r, n_k, B, T, seq, proj, mask, km, ka, ks)
     print(f"K2 tacotron_decode B={B} T={T} iters={n_k}/{ks.shape[1]} (plan: {p.ctas} CTAs, "
           f"weights {'resident' if p.resident else 'read from L2'}, {p.nb} rows an item, "
           f"{p.smem} bytes of shared memory a CTA): mel err {err_mel:.3e} (tol 1e-4), attn "
@@ -407,6 +431,190 @@ def phase_tacotron(dev, syn):
     cells = {shape: k2_cell(dev, syn, *shape) for shape in K2_SHAPES}
     clone = cells[K2_SHAPES[0]]
     return {"name": "tacotron_decode", "source": "rtvc_tpu_torch/csrc/tacotron_decode.cu",
+            "replaces": "rtvc_tpu/ops/pallas/tacotron_kernel.py:427",
+            **clone, "max_abs_err": max(c["max_abs_err"] for c in cells.values()),
+            "library_ms": None}
+
+
+# K2 resumed chunk by chunk: (B, T) of its cells, and the launches a decode
+# of 200 iterations is cut into, the stream's (a first chunk of 16 frames,
+# then 48, at r 2).
+K2_CHUNK_SHAPES = ((1, 64), (2, 32))
+K2_CHUNK_ITERS = (8, 24)
+K2_PAD = -4.0
+
+
+def k2_chunks(model, d, seq, proj, mask, seed, r, cuts, dropout, min_iters=0):
+    """A decode as K2 launches of ``cuts`` iterations, each resumed from the
+    last one's carry (on the CPU, the plain loop's draws from one generator
+    through them all): [((carry, prev, done, start, n) it was given, its
+    DecodeChunk)]."""
+    import torch
+
+    from rtvc_tpu_torch.ops import tacotron_decode as td
+
+    state = k2_zero_state(d, *mask.shape, mask.device)
+    g = torch.Generator(device=mask.device).manual_seed(seed)  # the plain version's draws
+    outs, start = [], 0
+    for n in cuts:
+        out = td.tacotron_decode_chunk(model, d, seq, proj, mask, seed, r, *state, start, n,
+                                       min_iters, K2_PAD, dropout, g)
+        outs.append(((*state, start, n), out))
+        state, start = (out.carry, out.prev, out.done), start + n
+    return outs
+
+
+def k2_zero_state(d, B, T, dev):
+    """(carry, prev, done) at the start of a decode."""
+    import torch
+
+    from rtvc_tpu_torch.models import tacotron as taco
+
+    return (taco.init_decoder_carry(d, B, T, device=dev), torch.zeros(B, d.n_mels, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def k2_state(out):
+    return (*out.carry, out.prev)
+
+
+def k2_chunk_check(model, d, seq, proj, mask, r, cuts, min_iters=0):
+    """Each launch of a chunked decode, dropout off, against the plain loop
+    from the carry it was given: the same valid iterations and stop, mel
+    within 1e-6, attention and the carry out within 1e-5 relative. Returns
+    the launches and the largest mel and carry errors."""
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops import tacotron_decode as td
+
+    B, T = mask.shape
+    outs = k2_chunks(model, d, seq, proj, mask, 0, r, cuts, False, min_iters)
+    err_mel = err_carry = 0.0
+    for (carry, prev, done, start, n), out in outs:
+        ref = td.tacotron_decode_chunk_plain(model, d, seq, proj, mask, 0, r, carry, prev, done,
+                                             start, n, min_iters, K2_PAD, False)
+        where = f"K2 chunk B={B} T={T} iterations {start}-{start + n - 1}"
+        check((int(out.valid), int(out.done)) == (int(ref.valid), int(ref.done)),
+              f"{where}: valid / done {int(out.valid)} / {int(out.done)}, plain "
+              f"{int(ref.valid)} / {int(ref.done)}")
+        err_mel = max(err_mel, float((out.mel - ref.mel).abs().max()))
+        err_carry = max(err_carry, rel_err(out.attn, ref.attn),
+                        *(rel_err(a, b) for a, b in zip(k2_state(out), k2_state(ref))))
+        check(err_mel <= 1e-6, f"{where}: mel differs from the plain loop from its carry: "
+              f"{err_mel}")
+        check(err_carry <= 1e-5, f"{where}: attention or carry differs from the plain loop's "
+              f"by {err_carry} (relative)")
+    return outs, err_mel, err_carry
+
+
+def k2_chunk_cell(dev, syn, B, T):
+    """K2 resumed launch by launch at one shape, full width: with dropout on
+    the chunks of 200 iterations (8, then 24 at a time) joined equal one
+    launch of 200 in bits (mel, stops, the carry) and the whole-utterance
+    launch too; dropout off each launch is held to the plain loop from its
+    carry (``k2_chunk_check``); the stop token forced on fires in the middle
+    of a launch (valid iterations, the pad, the carry frozen at the stop, and
+    a launch after it that writes only the pad); then the time of one 24-
+    iteration launch against one of 200 and its bound."""
+    import torch
+
+    from rtvc_tpu_torch.ops import tacotron_decode as td
+
+    d, model = syn.dims, syn.model
+    r, n_total = 2, 200
+    cuts = [K2_CHUNK_ITERS[0]]
+    while sum(cuts) < n_total:
+        cuts.append(min(K2_CHUNK_ITERS[1], n_total - sum(cuts)))
+    g = torch.Generator().manual_seed(4)
+    chars = torch.randint(1, d.num_chars, (B, T), generator=g)
+    chars[:, T - T // 8:] = 0
+    spk = torch.nn.functional.normalize(torch.randn(B, d.speaker_embedding_size, generator=g))
+    with torch.no_grad():
+        seq, proj = (t.contiguous() for t in taco_encode(model, chars, spk, dev))
+        mask = (chars != 0).float().to(dev)
+        [(_, one)] = k2_chunks(model, d, seq, proj, mask, 11, r, [n_total], True)
+        parts = [out for _, out in k2_chunks(model, d, seq, proj, mask, 11, r, cuts, True)]
+        whole = td.tacotron_decode(model, d, seq, proj, mask, 11, r, 2 * n_total, True)
+        torch.cuda.synchronize()
+        where = f"K2 chunks B={B} T={T} {cuts[0]}, then {cuts[1]} iterations, dropout on"
+        check(all(torch.equal(torch.cat([getattr(o, k) for o in parts], 1 + (k == "mel")),
+                              getattr(one, k)) for k in ("mel", "attn", "stops")),
+              f"{where}: the joined chunks differ from one launch")
+        check(all(torch.equal(a, b) for a, b in zip(k2_state(parts[-1]), k2_state(one))),
+              f"{where}: the final carry differs from one launch's")
+        check(sum(int(o.valid) for o in parts) == int(one.valid) == n_total,
+              f"{where}: {[int(o.valid) for o in parts]} valid iterations, one launch "
+              f"{int(one.valid)}")
+        check(torch.equal(whole[0], one.mel) and torch.equal(whole[2], one.stops),
+              f"{where}: the whole-utterance launch differs from the resumable one")
+        outs, err_mel, err_carry = k2_chunk_check(model, d, seq, proj, mask, r, cuts)
+        # every stop token on: it fires at iteration 6 (the first past step
+        # 10), and at 9 when min_iters holds it off
+        bias = model.decoder.stop_proj.bias.clone()
+        model.decoder.stop_proj.bias.fill_(30.0)
+        try:
+            stops = []
+            for min_iters, at in ((0, 6), (9, 9)):
+                s_outs, s_mel, s_carry = k2_chunk_check(model, d, seq, proj, mask, r, [4] * 4,
+                                                        min_iters)
+                valid = [int(o.valid) for _, o in s_outs]
+                want = [min(4, max(0, at + 1 - 4 * i)) for i in range(4)]
+                check(valid == want, f"K2 chunk B={B} T={T} stop forced (min_iters "
+                      f"{min_iters}): valid {valid}, want {want}")
+                for (carry, prev, done, _, _), o in s_outs[at // 4 + 1:]:
+                    check(bool((o.mel == K2_PAD).all()) and all(
+                        torch.equal(a, b) for a, b in zip(k2_state(o), (*carry, prev))),
+                          f"K2 chunk B={B} T={T}: a launch after the stop wrote more than "
+                          f"the pad or moved the carry")
+                stopped = s_outs[at // 4][1]
+                check(bool((stopped.mel[:, :, 2 * valid[at // 4]:] == K2_PAD).all()),
+                      f"K2 chunk B={B} T={T}: no pad after the stop")
+                stops.append(f"fired at {at} (min_iters {min_iters}): valid {valid}, mel "
+                             f"{s_mel:.1e}, carry {s_carry:.1e} from the plain loop")
+                err_mel, err_carry = max(err_mel, s_mel), max(err_carry, s_carry)
+        finally:
+            model.decoder.stop_proj.bias.copy_(bias)
+        (carry, prev, done, start, n) = outs[1][0]
+
+        def chunk():
+            return td.tacotron_decode_chunk(model, d, seq, proj, mask, 0, r, carry, prev, done,
+                                            start, n, 0, K2_PAD, False)
+
+        def plain_chunk():
+            return td.tacotron_decode_chunk_plain(model, d, seq, proj, mask, 0, r, carry, prev,
+                                                  done, start, n, 0, K2_PAD, False)
+
+        ms = cuda_ms(chunk)
+        zero = k2_zero_state(d, B, T, dev)
+        ms_one = cuda_ms(lambda: td.tacotron_decode_chunk(
+            model, d, seq, proj, mask, 0, r, *zero, 0, n_total, 0, K2_PAD, False), reps=2)
+        plain_ms = cuda_ms(plain_chunk, reps=2)
+        out = chunk()
+    b = k2_bound(model, d, r, n, B, T, seq, proj, mask, out.mel, out.attn, out.stops,
+                 *carry, prev, *k2_state(out))
+    print(f"K2 tacotron_decode_chunk B={B} T={T}: {len(cuts)} launches ({cuts[0]}, then "
+          f"{cuts[1]} iterations) joined equal one launch of {n_total} in bits with dropout on "
+          f"(mel, attention, stops, carry), and the whole-utterance launch; dropout off each "
+          f"launch within mel {err_mel:.3e} (tol 1e-6), attention and carry {err_carry:.3e} "
+          f"relative (tol 1e-5) of the plain loop from its carry; stop forced: "
+          + "; ".join(stops) + f"; a {n}-iteration launch {ms:.3f} ms ({ms / n * 1e3:.2f} us an "
+          f"iteration), one of {n_total} {ms_one:.3f} ms ({ms_one / n_total * 1e3:.2f} us), plain "
+          f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return {"max_abs_err": err_mel, "carry_rel_err": err_carry, "ms": ms, "plain_ms": plain_ms,
+            "one_launch_ms": ms_one, **b}
+
+
+def taco_encode(model, chars, spk, dev):
+    from rtvc_tpu_torch.models import tacotron as taco
+
+    return taco.encode(model, chars.to(dev), spk.to(dev), prenet_dropout=False)
+
+
+def phase_tacotron_chunks(dev, syn):
+    """K2 resumed (``k2_chunk_cell``) at its two cells; the kernels line
+    takes the stream's (B 1 x T 64) times and the largest error."""
+    cells = {shape: k2_chunk_cell(dev, syn, *shape) for shape in K2_CHUNK_SHAPES}
+    clone = cells[K2_CHUNK_SHAPES[0]]
+    return {"name": "tacotron_decode_chunk", "source": "rtvc_tpu_torch/csrc/tacotron_decode.cu",
             "replaces": "rtvc_tpu/ops/pallas/tacotron_kernel.py:427",
             **clone, "max_abs_err": max(c["max_abs_err"] for c in cells.values()),
             "library_ms": None}
@@ -928,6 +1136,95 @@ def phase_clone(dev, syn, voc):
     return counts
 
 
+# the streaming clone's kernel wrappers where its path looks them up
+STREAM_KERNELS = (("rtvc_tpu_torch.models.layers", "lstm_seq"),
+                  ("rtvc_tpu_torch.models.layers", "gru_seq_fwd"),
+                  ("rtvc_tpu_torch.inference.streaming", "tacotron_decode_chunk"),
+                  ("rtvc_tpu_torch.models.wavernn", "wavernn_generate_core"))
+STREAM_RUNS = 5
+# the stream's first chunk ramps it: 16 frames (0.2 s of audio), then 48
+STREAM_KW = {"first_chunk_frames": 16}
+
+
+def phase_stream(dev, card, syn, voc):
+    """The streaming clone at full width (the Tacotron at ``max_decoder_steps``
+    400, the runtimeracer vocoder, the 3 s prompt): five runs of
+    ``stream_clone`` (a first chunk of 16 frames, then 48), each one's TTFA,
+    chunk cadence and real-time factor printed. The first run, with the
+    prompt's embedding before it, is the path whose launches are counted:
+    K3 for the embedding, K4 for the encoder's BiGRU and each chunk's
+    postnet, K2 resumed once a chunk, K1 once a chunk. Its raw decoder frames
+    must equal ``synthesize_spectrograms``' K2 frames for the same seed bit
+    for bit, its samples number (Σ valid frames − 1)·hop, and its first
+    chunk's postnet K4 and vocoder K1 launches are held to their plain
+    versions on the inputs they were given. Returns the counts."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.inference import encoder, synthesizer, vocoder
+    from rtvc_tpu_torch.inference.streaming import stream_clone
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops.gru_seq import gru_seq_fwd_plain
+    from rtvc_tpu_torch.profile_stream import TEXT, line, measure, stats
+    from rtvc_tpu_torch.serve import voiced_prompt
+
+    encoder.init_random_model(seed=0, device=dev)
+    synth = synthesizer.Synthesizer()
+    synth.load_bundle(syn, r=2)
+    vocoder.load_bundle(voc)
+    hop = voc.dims.hop_length
+    prompt = encoder.preprocess_wav(voiced_prompt(0))
+
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    with recorded_calls(STREAM_KERNELS) as calls:
+        embed = encoder.embed_utterance(prompt)
+        t0 = time.perf_counter()
+        chunks = list(stream_clone(synth, voc, TEXT, embed, **STREAM_KW))
+        runs = [stats(chunks, t0, time.perf_counter(), hop, synth.sample_rate)]
+    counts = dict(_build.launch_counts)
+    n = len(chunks)
+    frames = sum(c.frames for c in chunks)
+    want = {"lstm_seq": 3, "gru_seq": 2 + 2 * n, "tacotron_decode_chunk": n,
+            "wavernn_generate_runtimeracer": n}
+    check(counts == want, f"the stream launched {counts}, want {want} for {n} chunks")
+    samples = sum(len(c.wav) for c in chunks)
+    check(samples == (frames - 1) * hop and chunks[-1].final
+          and not any(c.final for c in chunks[:-1])
+          and all(np.isfinite(c.wav).all() for c in chunks),
+          f"the stream gave {samples} samples for {frames} frames in {n} chunks")
+    # the raw decoder frames against the batch path's K2 frames, same seed
+    with recorded_calls((("rtvc_tpu_torch.inference.synthesizer", "tacotron_decode"),)) as batch:
+        synth.synthesize_spectrograms([TEXT], [embed])
+    [(_, _, (km, _, _))] = batch["tacotron_decode"]
+    decoded = [out for _, _, out in calls["tacotron_decode_chunk"]]
+    streamed = torch.cat([o.mel[:, :, :int(o.valid) * 2] for o in decoded], dim=2)
+    check(streamed.shape[2] == frames and torch.equal(streamed, km[:, :, :frames]),
+          f"the streamed raw frames ({streamed.shape[2]}) differ from the batch path's K2 "
+          f"frames ({km.shape[2]}) for the same seed")
+    # the first chunk's postnet (K4, after the encoder's two) and vocoder launches
+    with torch.no_grad():
+        post_err = max(rel_err(a, b) for args, _, out in calls["gru_seq_fwd"][2:4]
+                       for a, b in zip(out, gru_seq_fwd_plain(*args)))
+    check(post_err <= 1e-4, f"the first chunk's postnet K4 differs from its plain version by "
+          f"{post_err} (relative)")
+    [(w, streams, *_), _, _] = calls["wavernn_generate_core"][0]
+    got, k1_err, sample_err, tol, flips = k1_check(voc.dims, w, streams)
+    print(f"stream: {n} chunks of {[c.frames for c in chunks]} frames, {samples} samples = "
+          f"({frames} - 1) x {hop}; the raw decoder frames equal synthesize_spectrograms' K2 "
+          f"frames for seed 0 bit for bit; launches {counts}; the first chunk's postnet K4 "
+          f"{post_err:.3e} relative, K1 ({got.shape[0]} folds x {got.shape[1]} steps, greedy) "
+          f"head inputs {k1_err:.3e} samples {sample_err:.3e} (tol {tol:g}), {flips} near-ties, "
+          f"from their plain versions on their own inputs")
+    runs += measure(synth, voc, TEXT, embed, STREAM_RUNS - 1, **STREAM_KW)
+    for i, run in enumerate(runs):
+        print(f"{card}: stream {i} of {STREAM_RUNS}{' (counted and checked)' if i == 0 else ''}: "
+              f"{line(run)}")
+    print(f"{card}: stream: median TTFA {float(np.median([r['ttfa_ms'] for r in runs])):.1f} ms, "
+          f"median RTF {float(np.median([r['rtf'] for r in runs])):.2f}")
+    return counts, runs
+
+
 SERVE_SEED = 1234
 
 
@@ -978,19 +1275,21 @@ SERVED_KERNELS = (("rtvc_tpu_torch.models.layers", "lstm_seq"),
 
 
 @contextlib.contextmanager
-def recorded_calls():
-    """Each call of the clone path's kernel wrappers inside, by name: its
-    arguments. The wrappers run as they are."""
-    calls = {name: [] for _, name in SERVED_KERNELS}
+def recorded_calls(targets=SERVED_KERNELS):
+    """Each call of the wrappers ``targets`` ((module, name) where a path
+    looks them up) inside, by name: its arguments and what it returned. The
+    wrappers run as they are."""
+    calls = {name: [] for _, name in targets}
     saved = []
-    for module, name in SERVED_KERNELS:
+    for module, name in targets:
         mod = importlib.import_module(module)
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
 
         def record(*args, _fn=fn, _calls=calls[name], **kwargs):
-            _calls.append((args, kwargs))
-            return _fn(*args, **kwargs)
+            out = _fn(*args, **kwargs)
+            _calls.append((args, kwargs, out))
+            return out
 
         setattr(mod, name, record)
     try:
@@ -1017,27 +1316,96 @@ def served_kernel_checks(calls, enc_layers, voc_dims):
                 "wavernn_generate_core": 1}, f"one served clone called the wrappers {n} times")
     parts = []
     with torch.no_grad():
-        for args, _ in calls["lstm_seq"]:
+        for args, _, _ in calls["lstm_seq"]:
             err = max(float((a - b).abs().max())
                       for a, b in zip(lstm_seq(*args), lstm_seq_plain(*args)))
             B, T, _ = args[0].shape
             check(err <= 1e-4, f"K3 at the served B={B} T={T}: {err} from its plain version")
             parts.append(f"K3 B={B} T={T} {err:.3e}")
-        for args, _ in calls["gru_seq_fwd"]:
+        for args, _, _ in calls["gru_seq_fwd"]:
             err = max(rel_err(a, b) for a, b in zip(gru_seq_fwd(*args), gru_seq_fwd_plain(*args)))
             B, T, _ = args[0].shape
             check(err <= 1e-4, f"K4 at the served B={B} T={T}: rel err {err} from its plain "
                   f"version")
             parts.append(f"K4 B={B} T={T} rel {err:.3e}")
-        [((model, d, seq, proj, mask, _seed, r, max_steps), _)] = calls["tacotron_decode"]
+        [((model, d, seq, proj, mask, _seed, r, max_steps), _, _)] = calls["tacotron_decode"]
         _, _, _, n_k, err_mel, err_attn = k2_check(model, d, seq, proj, mask, r, max_steps)
         parts.append(f"K2 B={mask.shape[0]} T={mask.shape[1]} {n_k} iterations of {max_steps // r}"
                      f" mel {err_mel:.3e} attention {err_attn:.3e}")
-        [((w, streams, *_), _)] = calls["wavernn_generate_core"]
+        [((w, streams, *_), _, _)] = calls["wavernn_generate_core"]
         got, err, sample_err, tol, flips = k1_check(voc_dims, w, streams)
         parts.append(f"K1 {got.shape[0]} folds x {got.shape[1]} steps head inputs {err:.3e} "
                      f"samples {sample_err:.3e} (tol {tol:g}), {flips} near-ties")
     return "; ".join(parts)
+
+
+STREAM_SEED = 4321
+
+
+def stream_request(port, path, body):
+    """(status, content type, transfer encoding, body, ms to the first audio
+    byte, ms to the last) of one streamed request: the 44-byte header read
+    first, then one byte."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=body)
+        resp = conn.getresponse()
+        head = resp.read(44)
+        first = resp.read(1)
+        t_first = (time.perf_counter() - t0) * 1e3
+        data = head + first + resp.read()
+        return (resp.status, resp.getheader("Content-Type"),
+                resp.getheader("Transfer-Encoding"), data, t_first,
+                (time.perf_counter() - t0) * 1e3)
+    finally:
+        conn.close()
+
+
+def served_stream_checks(streamed, counts, synth, body, text):
+    """Each served ``/stream`` against ``stream_clone`` replayed in process
+    after ``set_seed(STREAM_SEED)``: chunked transfer of a streaming WAV
+    (the header of the largest data length, 16-bit mono at 16 kHz), its PCM
+    equal byte for byte, (Σ valid − 1)·hop samples; and the launches: K3
+    three times and the encoder's K4 twice a stream, then K2 resumed, K1
+    and the postnet's K4 twice for each chunk. Returns a line of the
+    times."""
+    import struct
+
+    from rtvc_tpu_torch.inference import encoder, vocoder
+    from rtvc_tpu_torch.inference.streaming import stream_clone
+    from rtvc_tpu_torch.serve import _parse_wav, _pcm16, _streaming_wav_header
+
+    vocoder.set_seed(STREAM_SEED)
+    n_chunks, parts = 0, []
+    for status, ctype, encoding, data, t_first, t_last in streamed:
+        check(status == 200 and ctype == "audio/wav" and encoding == "chunked",
+              f"/stream answered {status} {ctype} {encoding}: {data[:200]}")
+        riff, _, wave_fmt, fmt_len, pcm, channels, sr, rate, align, bits, tag, data_len = \
+            struct.unpack("<4sI8sIHHIIHH4sI", data[:44])
+        check(data[:44] == _streaming_wav_header(16000) and riff == b"RIFF"
+              and wave_fmt == b"WAVEfmt " and (fmt_len, pcm, channels, sr, rate, align, bits)
+              == (16, 1, 1, 16000, 32000, 2, 16) and tag == b"data" and data_len == 0x7FFFF000,
+              f"/stream's header is not a streaming WAV's: {data[:44]}")
+        x, sr_in = _parse_wav(body)
+        embed = encoder.embed_utterance(encoder.preprocess_wav(x, source_sr=sr_in))
+        chunks = list(stream_clone(synth, None, text, embed, voc_seed=vocoder.next_seed()))
+        frames = sum(c.frames for c in chunks)
+        pcm_bytes = b"".join(_pcm16(c.wav) for c in chunks)
+        check(len(pcm_bytes) == 2 * (frames - 1) * 200 and data[44:] == pcm_bytes,
+              f"the served stream ({len(data) - 44} bytes) differs from its replay in process "
+              f"after set_seed ({len(pcm_bytes)} bytes, {frames} frames)")
+        n_chunks += len(chunks)
+        parts.append(f"{frames} frames in {len(chunks)} chunks, first audio byte at "
+                     f"{t_first:.1f} ms, last at {t_last:.1f} ms")
+    n = len(streamed)
+    want = {"lstm_seq": 3 * n, "gru_seq": 2 * n + 2 * n_chunks,
+            "tacotron_decode_chunk": n_chunks, "wavernn_generate_runtimeracer": n_chunks}
+    check(counts == want, f"the served streams launched {counts}, want {want}")
+    return ("/stream of the 3 s prompt, two one after the other: " + "; ".join(parts)
+            + f"; PCM equal to the replay in process byte for byte; launches {counts}")
 
 
 def phase_serve(dev, card, syn, voc):
@@ -1129,11 +1497,17 @@ def phase_serve(dev, card, syn, voc):
         for w in workers:
             w.join()
         t_together = (time.perf_counter() - t0) * 1e3
+        counts = dict(_build.launch_counts)
+        # two streams of the first text, the launches counted apart
+        _build.launch_counts.clear()
+        vocoder.set_seed(STREAM_SEED)
+        streamed = [stream_request(port, "/stream?text=" + texts[0].replace(" ", "%20"), body)
+                    for _ in range(2)]
+        stream_counts = dict(_build.launch_counts)
     finally:
         server.shutdown()
         server.server_close()
         thread.join(30)
-    counts = dict(_build.launch_counts)
 
     # the three sequential clones again, in process through the module functions
     vocoder.set_seed(SERVE_SEED)
@@ -1160,14 +1534,18 @@ def phase_serve(dev, card, syn, voc):
         check(status == 200 and ctype == "audio/wav" and sr_out == sr_hz
               and wav_out.shape == ((frames[i] - 1) * 200,) and np.isfinite(wav_out).all(),
               f"the concurrent /clone {i} answered {status}")
-    # the served clones and the warm clone; K3 also for /embed
+    # the served clones and the warm clone; K3 also for /embed; the warm
+    # stream's two chunks: its embedding, its encoder, two postnets and
+    # vocodes, and three decodes (the third launched before the second
+    # chunk is taken)
     n = len(served) + len(together) + 1
-    want = {"lstm_seq": 3 * (n + 1), "tacotron_decode": n, "gru_seq": 4 * n,
-            "wavernn_generate_runtimeracer": n + n_warm}
+    want = {"lstm_seq": 3 * (n + 1) + 3, "tacotron_decode": n, "gru_seq": 4 * n + 6,
+            "wavernn_generate_runtimeracer": n + n_warm + 2, "tacotron_decode_chunk": 3}
     check(counts == want, f"the served run launched {counts}, want {want} ({n} clones with the "
-          f"warm clone, one embed, {n_warm} warm-up vocode)")
+          f"warm clone, one embed, {n_warm} warm-up vocode, a warm stream's two chunks)")
     kernel_line = served_kernel_checks(first_calls, encoder._model_cfg.model_num_layers,
                                        vocoder._bundle.dims)
+    stream_line = served_stream_checks(streamed, stream_counts, synth, body, texts[0])
     t_clone = [r[3] for r in served]
     print(f"{card}: serve: checkpoints loaded bit for bit (encoder and vocoder from the port's "
           f"trainer files, Tacotron from a reference .pt, r 2); warm-up on the model thread: "
@@ -1183,6 +1561,7 @@ def phase_serve(dev, card, syn, voc):
           f"served bytes equal the replay's; launches {counts}")
     print(f"serve: the first served clone's kernels on their own inputs against their plain "
           f"versions: {kernel_line}")
+    print(f"{card}: serve: {stream_line}")
     return {"served_ms": t_clone, "together_ms": [r[3] for r in together],
             "replay_ms": replay_ms, "warmup_ms": t_warm, "warm_clone_ms": t_warm_clone,
             "frames": frames, "counts": counts}
@@ -1789,8 +2168,10 @@ def main() -> int:
     # first, so that warmup and the first request pay for the first launches
     phase_serve(dev, card, syn, voc)
     phase_barrier(dev)
-    kernels = [phase_lstm(dev), phase_tacotron(dev, syn), *phase_wavernn(dev), phase_mel(dev)]
+    kernels = [phase_lstm(dev), phase_tacotron(dev, syn), phase_tacotron_chunks(dev, syn),
+               *phase_wavernn(dev), phase_mel(dev)]
     counts = phase_clone(dev, syn, voc)
+    stream_counts, _ = phase_stream(dev, card, syn, voc)
     kernels += [phase_lstm_train(dev), *phase_gru(dev), *phase_taco_train_kernel(dev)]
     runs_dir = _build.BUILD_DIR / "smoke_runs"
     shutil.rmtree(runs_dir, ignore_errors=True)
@@ -1805,7 +2186,8 @@ def main() -> int:
     check("jax" not in sys.modules, "the port imported jax")
     # each kernel's launches on the path that runs it: the clone path for the
     # inference kernels, the trainers for the training ones
-    path_counts = {**counts, "lstm_seq_bwd": enc_counts["lstm_seq_bwd"],
+    path_counts = {**counts, "tacotron_decode_chunk": stream_counts["tacotron_decode_chunk"],
+                   "lstm_seq_bwd": enc_counts["lstm_seq_bwd"],
                    "gru_seq": voc_counts["gru_seq"], "gru_seq_bwd": voc_counts["gru_seq_bwd"],
                    "tacotron_train_fwd": syn_counts["tacotron_train_fwd"],
                    "tacotron_train_bwd": syn_counts["tacotron_train_bwd"]}
@@ -1814,6 +2196,10 @@ def main() -> int:
                       "runtimeracer training (5 steps)": voc_counts[name],
                       "tacotron training (3 steps)": syn_counts[name]}
                for name in ("gru_seq", "gru_seq_bwd")}
+    # the stream (one, with its prompt's embedding) runs K3, K4 and K1 too
+    for name in ("lstm_seq", "gru_seq", "wavernn_generate_runtimeracer"):
+        by_path.setdefault(name, {"clone (5 requests)": counts.get(name, 0)})
+        by_path[name]["stream (1, its embedding included)"] = stream_counts[name]
     for k in kernels:
         k["route"] = "cuda"
         k["launches"] = path_counts[k["name"]]

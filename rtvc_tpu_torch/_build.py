@@ -55,9 +55,12 @@ SIGNATURES = {
     "rtvc_gru_seq_fwd": [_P] * 5 + [_I] * 3 + [_IP, _P, _P],
     # dys, gates, ys, w_hh, dxg, dhg, carry, B, T, H, plan, sync, stream
     "rtvc_gru_seq_bwd": [_P] * 7 + [_I] * 3 + [_IP, _P, _P],
-    # weights, dims, plan (ops/tacotron_decode.py:Plan.ints), its length,
-    # seed, enc_seq, enc_proj, char_mask, mel, attn, stops, work, stream
-    "rtvc_tacotron_decode": [_PP, _IP, _IP, _I, _U64] + [_P] * 7 + [_P],
+    # weights, dims, their count, plan (ops/tacotron_decode.py:Plan.ints), its
+    # length, seed, enc_seq, enc_proj, char_mask, mel, attn, stops, work,
+    # carry in and out (8 pointers each, or null), done in, flags out, pad,
+    # stream
+    "rtvc_tacotron_decode": [_PP, _IP, _I, _IP, _I, _U64] + [_P] * 7 + [_PP, _PP, _P, _P, _F,
+                                                                        _P],
     # weights, streams, dims (with the plan, ops/wavernn_generate.py:Plan),
     # argmax, seed, scratch, sync, out, logits_out (or null), stream
     "rtvc_wavernn_generate": [_PP, _PP, _IP, _I, _U64, _P, _P, _P, _P, _P],

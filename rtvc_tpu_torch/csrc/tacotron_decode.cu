@@ -51,11 +51,23 @@
 //      enc_proj + L·conv(cum), written to the workspace.
 // After J's barrier every CTA reads the B stop values and takes the same
 // decision: the loop ends in the iteration where every stop token exceeds
-// 0.5 (after step 10), with no host read-back, and the outputs past it are
-// written as zeros. Prenet dropout stays on unless disabled, Philox-4x32-10
-// noise keyed by (seed; group of 4, iteration, batch row, layer) and a
-// 24-bit threshold, so a mask does not depend on the plan. No sum goes
-// through an atomic: two runs give equal bits.
+// 0.5 (after step 10, and not before iteration min_iters), with no host
+// read-back, and the outputs past it are written as the pad value (mel) and
+// zeros (attention, stops). Prenet dropout stays on unless disabled,
+// Philox-4x32-10 noise keyed by (seed; group of 4, absolute iteration, batch
+// row, layer) and a 24-bit threshold, so a mask does not depend on the plan
+// or on how the iterations are cut into launches. No sum goes through an
+// atomic: two runs give equal bits.
+//
+// A launch may resume a decode (the streaming clone's chunks): it then reads
+// the decoder state from a carry (attention GRU hidden, both LSTMs' h and c,
+// context, cumulative attention, previous frame; ops/tacotron_decode.py:
+// DecoderCarry) in place of zeros, each CTA the units it owns, into shared
+// memory (the cells and the GRU hidden) and the workspace, with one grid
+// barrier before the first iteration; its iterations count from `start`, a
+// `done` flag carried in makes it write only the pad, and after its last
+// iteration (or at the stop) each CTA writes its units of the state back.
+// The chunks of a decode, joined, give the bits of one launch.
 #include <cfloat>
 #include <cstring>
 
@@ -89,7 +101,18 @@ struct Weights {
 };
 
 struct Dims {
-  int B, T, E, D, L, P, M, max_r, r, max_iters, NF, KS, dropout, drop_thr;
+  int B, T, E, D, L, P, M, max_r, r, max_iters, NF, KS, dropout, drop_thr, start, min_iters;
+};
+
+// The decoder state between two launches, each (B, width) contiguous in the
+// order of ops/tacotron_decode.py:CARRY: attention hidden (D), the LSTMs'
+// h1, c1, h2, c2 (L), context (E), cumulative attention (T), previous frame
+// (M). Null pointers: a zero state (carry in) or none written (carry out).
+struct Carry {
+  const float *ah, *h1, *c1, *h2, *c2, *ctx, *cum, *prev;
+};
+struct CarryOut {
+  float *ah, *h1, *c1, *h2, *c2, *ctx, *cum, *prev;
 };
 
 // ops/tacotron_decode.py:Plan.ints, field for field.
@@ -512,6 +535,16 @@ __device__ __noinline__ void location(const float* __restrict__ enc_proj, int cu
   }
 }
 
+// The stop rule of absolute iteration `at`, whose B stop values are in
+// stop_buf: every stop token past 0.5, after step 10 and not before
+// min_iters. Every CTA reads the same values and takes the same decision.
+__device__ __forceinline__ bool stop_fired(const float* stop_buf, int at) {
+  const Dims& d = H().d;
+  int fired = 1;
+  for (int b = threadIdx.x; b < d.B; b += kThreads) fired &= __ldcg(stop_buf + b) > 0.5f;
+  return __syncthreads_and(fired) && at * d.r > 10 && at >= d.min_iters;
+}
+
 // The LSTM of the CTA's units: gates from the input product pi and the state
 // product ph with both biases, c in shared memory, h → h_buf, and the residual
 // x_out = x_in + h (x_in the CTA's own units, in shared memory; x_out also
@@ -543,7 +576,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 decode_kernel(Weights w_in, Dims d_in, Plan pl_in, uint2 key, const float* __restrict__ enc_seq,
               const float* __restrict__ enc_proj, const float* __restrict__ char_mask,
               float* __restrict__ mel, float* __restrict__ attn, float* __restrict__ stops,
-              float* ws) {
+              float* ws, Carry cin, CarryOut cout, const int* __restrict__ done_in,
+              int* __restrict__ flags, float pad) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid == 0) {
     H().w = w_in;
@@ -600,6 +634,41 @@ decode_kernel(Weights w_in, Dims d_in, Plan pl_in, uint2 key, const float* __res
 
   const int2 pairs = units_of(kCutPair);
   const int2 outs = units_of(kCutCtx);
+  const int2 gru_u = units_of(kCutGru), lstm_u = units_of(kCutLstm), mel_u = units_of(kCutMel);
+  float* h1_buf = ws + pl.ws[kWsH1];
+  float* h2_buf = ws + pl.ws[kWsH2];
+  float* prev_buf = ws + pl.ws[kWsPrev];
+  if (cin.ah) {
+    // the carried state, each CTA its own units, visible to the others after
+    // the barrier (on a counter of its own: the phases' barriers count from 0)
+    for (int idx = tid; idx < gru_u.y * B; idx += kThreads) {
+      const int j = idx % gru_u.y, b = idx / gru_u.y, u = gru_u.x + j;
+      const float v = cin.ah[(size_t)b * D + u];
+      S()[pl.ah_own + j * B + b] = v;
+      ah[(size_t)b * D4 + u] = v;
+    }
+    for (int idx = tid; idx < lstm_u.y * B; idx += kThreads) {
+      const int j = idx % lstm_u.y, b = idx / lstm_u.y, u = lstm_u.x + j;
+      const size_t at = (size_t)b * d.L + u;
+      S()[pl.c1 + j * B + b] = cin.c1[at];
+      S()[pl.c2 + j * B + b] = cin.c2[at];
+      h1_buf[(size_t)b * L4 + u] = cin.h1[at];
+      h2_buf[(size_t)b * L4 + u] = cin.h2[at];
+    }
+    for (int i = tid; i < outs.y; i += kThreads) {
+      const int o = outs.x + i;
+      ctx[(size_t)(o / E) * E4 + o % E] = cin.ctx[o];
+    }
+    for (int i = tid; i < pairs.y; i += kThreads) {
+      const int pr = pairs.x + i;
+      cum[(size_t)(pr / T) * T4 + pr % T] = cin.cum[pr];
+    }
+    for (int idx = tid; idx < mel_u.y * B; idx += kThreads) {
+      const int j = idx % mel_u.y, b = idx / mel_u.y, ch = mel_u.x + j;
+      prev_buf[(size_t)b * M4 + ch] = cin.prev[(size_t)b * M + ch];
+    }
+    rtvc::grid_barrier(sync + 1, ctas);
+  }
   // the batch rows whose softmax this CTA needs: the hull of its pairs' and
   // its context outputs' rows
   int b_lo = B, b_hi = -1, p_lo = 0, p_rows = 0;
@@ -618,26 +687,24 @@ decode_kernel(Weights w_in, Dims d_in, Plan pl_in, uint2 key, const float* __res
   __syncthreads();
   location(enc_proj, soft, p_lo);
 
+  // a launch after the stop runs no iteration and writes only the pad
+  const bool was_done = done_in && *done_in != 0;
   int n_iters = d.max_iters;
-  for (int it = 0; it < d.max_iters; ++it) {
+  for (int it = 0; it < d.max_iters && !was_done; ++it) {
     // ---- A: the stop rule, prenet fc1, the GRU's off-chain products ----
-    if (it > 0) {
-      int fired = 1;
-      for (int b = tid; b < B; b += kThreads) fired &= __ldcg(stop_buf + b) > 0.5f;
-      if (__syncthreads_and(fired) && (it - 1) * r > 10) {
-        n_iters = it;
-        break;  // every CTA reads the same stop values: the same decision
-      }
+    if (it > 0 && stop_fired(stop_buf, d.start + it - 1)) {
+      n_iters = it;
+      break;  // every CTA reads the same stop values: the same decision
     }
     run_product<NB>(kGruH, run_product<NB>(kGruX, run_product<NB>(kFc1, 0)));
     __syncthreads();
-    prenet_out(kFc1, bo.fc1, ws + pl.ws[kWsPre1], 0, it, key);
+    prenet_out(kFc1, bo.fc1, ws + pl.ws[kWsPre1], 0, d.start + it, key);
     rtvc::grid_barrier(sync, ctas * ++barriers);
 
     // ---- B: prenet fc2; off the chain the first LSTM's W_hh·h ----
     run_product<NB>(kL1H, run_product<NB>(kFc2, 0));
     __syncthreads();
-    prenet_out(kFc2, bo.fc2, ws + pl.ws[kWsPre2], 1, it, key);
+    prenet_out(kFc2, bo.fc2, ws + pl.ws[kWsPre2], 1, d.start + it, key);
     rtvc::grid_barrier(sync, ctas * ++barriers);
 
     // ---- C: the attention GRU over [context | prenet] ----
@@ -836,8 +903,8 @@ decode_kernel(Weights w_in, Dims d_in, Plan pl_in, uint2 key, const float* __res
     run_product<NB>(kStopX, run_product<NB>(kMel, 0));
     __syncthreads();
     {
-      const int2 un = units_of(kCutMel);
-      float* prev = ws + pl.ws[kWsPrev];
+      const int2 un = mel_u;
+      float* prev = prev_buf;
       for (int idx = tid; idx < un.y * r * B; idx += kThreads) {
         const int j = idx % un.y, s = idx / un.y % r, b = idx / (un.y * r), ch = un.x + j;
         const float v = psum(kMel, s, j, b);
@@ -856,20 +923,59 @@ decode_kernel(Weights w_in, Dims d_in, Plan pl_in, uint2 key, const float* __res
     location(enc_proj, soft, p_lo);
     rtvc::grid_barrier(sync, ctas * ++barriers);
   }
+  // the last iteration's stop, which a resumed decode carries on
+  const bool done = was_done || n_iters < d.max_iters ||
+                    (d.max_iters > 0 && stop_fired(stop_buf, d.start + d.max_iters - 1));
+  if (was_done) n_iters = 0;
 
-  // Past the stop: zeros, as the reference's while_loop leaves them.
+  // Past the stop: the pad (zeros for a whole decode, as the reference's
+  // while_loop leaves them).
   const int rest = d.max_iters - n_iters;
   if (rest > 0) {
     const size_t g0 = (size_t)blockIdx.x * kThreads + tid, stride = (size_t)ctas * kThreads;
     const size_t cols = (size_t)rest * r, wide = (size_t)d.max_iters * r;
     for (size_t i = g0; i < (size_t)B * M * cols; i += stride)
-      mel[i / cols * wide + (size_t)n_iters * r + i % cols] = 0.0f;
+      mel[i / cols * wide + (size_t)n_iters * r + i % cols] = pad;
     for (size_t i = g0; i < (size_t)B * rest * T; i += stride) {
       const size_t b = i / ((size_t)rest * T), k = i % ((size_t)rest * T);
       attn[(b * d.max_iters + n_iters) * T + k] = 0.0f;
     }
     for (size_t i = g0; i < (size_t)B * rest; i += stride)
       stops[i / rest * d.max_iters + n_iters + i % rest] = 0.0f;
+  }
+
+  // The state after the last iteration run, each CTA its own units (its own
+  // writes, visible to the CTA after the barrier's __syncthreads).
+  if (cout.ah) {
+    __syncthreads();
+    for (int idx = tid; idx < gru_u.y * B; idx += kThreads) {
+      const int j = idx % gru_u.y, b = idx / gru_u.y;
+      cout.ah[(size_t)b * D + gru_u.x + j] = S()[pl.ah_own + j * B + b];
+    }
+    for (int idx = tid; idx < lstm_u.y * B; idx += kThreads) {
+      const int j = idx % lstm_u.y, b = idx / lstm_u.y, u = lstm_u.x + j;
+      const size_t at = (size_t)b * d.L + u;
+      cout.c1[at] = S()[pl.c1 + j * B + b];
+      cout.c2[at] = S()[pl.c2 + j * B + b];
+      cout.h1[at] = __ldcg(h1_buf + (size_t)b * L4 + u);
+      cout.h2[at] = __ldcg(h2_buf + (size_t)b * L4 + u);
+    }
+    for (int i = tid; i < outs.y; i += kThreads) {
+      const int o = outs.x + i;
+      cout.ctx[o] = __ldcg(ctx + (size_t)(o / E) * E4 + o % E);
+    }
+    for (int i = tid; i < pairs.y; i += kThreads) {
+      const int pr = pairs.x + i;
+      cout.cum[pr] = __ldcg(cum + (size_t)(pr / T) * T4 + pr % T);
+    }
+    for (int idx = tid; idx < mel_u.y * B; idx += kThreads) {
+      const int j = idx % mel_u.y, b = idx / mel_u.y, ch = mel_u.x + j;
+      cout.prev[(size_t)b * M + ch] = __ldcg(prev_buf + (size_t)b * M4 + ch);
+    }
+  }
+  if (flags && blockIdx.x == 0 && tid == 0) {
+    flags[0] = done ? 1 : 0;
+    flags[1] = n_iters;
   }
 }
 
@@ -883,37 +989,48 @@ const void* kernel_for(int nb) {
 }  // namespace
 
 // weights: kNumWeights device pointers in the order of struct Weights, torch
-// layout, contiguous. dims: B, T, E, D, L, P, M, max_r, r, max_iters, NF, KS,
-// dropout, drop_thr. plan: plan_len ints (ops/tacotron_decode.py:Plan.ints).
-// enc_seq (B, T, E), enc_proj (B, T, D), char_mask (B, T) → mel (B, M,
-// max_iters·r), attn (B, max_iters, T), stops (B, max_iters). work: the
-// plan's ws[kWsTotal] zeroed floats, the grid barrier's counter first.
-// Returns the launch's cudaError_t: cudaErrorInvalidValue for a plan that
-// does not match, cudaErrorCooperativeLaunchTooLarge for a grid that does not
-// fit the card.
-extern "C" int rtvc_tacotron_decode(const void* const* weights, const int* dims,
+// layout, contiguous. dims: dims_len ints B, T, E, D, L, P, M, max_r, r,
+// max_iters (this launch's iterations), NF, KS, dropout, drop_thr, start (the
+// absolute iteration of the first), min_iters. plan: plan_len ints
+// (ops/tacotron_decode.py:Plan.ints). enc_seq (B, T, E), enc_proj (B, T, D),
+// char_mask (B, T) → mel (B, M, max_iters·r), attn (B, max_iters, T), stops
+// (B, max_iters). work: the plan's ws[kWsTotal] zeroed floats, the grid
+// barriers' counters first. carry_in, carry_out: 8 pointers each in the
+// order of struct Carry, or null (a zero state; no state written). done_in:
+// one int, or null; flags (or null) ← done, iterations run before the stop.
+// pad: the mel past the stop. Returns the launch's cudaError_t:
+// cudaErrorInvalidValue for dims or a plan that do not match,
+// cudaErrorCooperativeLaunchTooLarge for a grid that does not fit the card.
+extern "C" int rtvc_tacotron_decode(const void* const* weights, const int* dims, int dims_len,
                                     const int* plan, int plan_len, unsigned long long seed,
                                     const float* enc_seq, const float* enc_proj,
                                     const float* char_mask, float* mel, float* attn,
-                                    float* stops, float* work, void* stream) {
+                                    float* stops, float* work, const void* const* carry_in,
+                                    void* const* carry_out, const int* done_in, int* flags,
+                                    float pad, void* stream) {
   Weights w;
   const float** wp = reinterpret_cast<const float**>(&w);
   for (int i = 0; i < kNumWeights; ++i) wp[i] = static_cast<const float*>(weights[i]);
+  if (dims_len != (int)(sizeof(Dims) / sizeof(int))) return (int)cudaErrorInvalidValue;
   Dims d;
   std::memcpy(&d, dims, sizeof(Dims));
+  Carry cin{};
+  CarryOut cout{};
+  if (carry_in) std::memcpy(&cin, carry_in, sizeof(Carry));
+  if (carry_out) std::memcpy(&cout, carry_out, sizeof(CarryOut));
   if (plan_len != (int)(sizeof(Plan) / sizeof(int))) return (int)cudaErrorInvalidValue;
   Plan pl;
   std::memcpy(&pl, plan, sizeof(Plan));
   const void* kernel = kernel_for(pl.nb);
   if (!kernel || pl.ctas < 1 || d.B < 1 || d.T < 1 || d.r < 1 || d.r > d.max_r ||
-      d.NF > kMaxFilters || pl.v < kHeaderFloats || pl.smem < 4 * pl.end ||
+      d.NF > kMaxFilters || pl.v < kHeaderFloats || pl.smem < 4 * pl.end || d.start < 0 ||
       pl.q[kCutCtx] % 4 != 0 || pl.q[kCutRi] != pl.q[kCutLstm] ||
       pl.first[kCutRi] != pl.first[kCutLstm] ||
       bias_layout(pl).total > pl.ah_own - pl.bias)
     return (int)cudaErrorInvalidValue;
   const uint2 key = make_uint2((uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32));
   void* args[] = {&w, &d, &pl, const_cast<uint2*>(&key), &enc_seq, &enc_proj, &char_mask,
-                  &mel, &attn, &stops, &work};
+                  &mel, &attn, &stops, &work, &cin, &cout, &done_in, &flags, &pad};
   const int err = rtvc::launch_cooperative(kernel, pl.ctas, pl.smem, args,
                                            static_cast<cudaStream_t>(stream));
   if (err != 0) cudaGetLastError();  // a refused launch must not fail the next one's check

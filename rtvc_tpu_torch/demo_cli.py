@@ -1,20 +1,26 @@
 """Interactive voice-cloning CLI (counterpart of the JAX package's
 ``demo_cli.py``):
 
-    python -m rtvc_tpu_torch.demo_cli [-e enc] [-s syn] [-v voc] [--seed N] [--selftest] [--cpu]
+    python -m rtvc_tpu_torch.demo_cli [-e enc] [-s syn] [-v voc] [--seed N] [--stream]
+                                      [--selftest] [--cpu]
 
 1. A configuration self-test: the encoder on a second of silence, the
    synthesizer on a batch of two texts with a random embedding, the vocoder
-   on the two mels joined, with a short fold window.
+   on the two mels joined, with a short fold window; with ``--stream`` also
+   a streamed clone of a short text (``inference.streaming.stream_clone``),
+   its length held to the stream's invariant.
 2. An interactive clone loop: a wav prompt → embedding → text → mel →
-   waveform → ``demo_output_NN.wav``.
+   waveform → ``demo_output_NN.wav``; with ``--stream`` the waveform comes
+   chunk by chunk from ``stream_clone`` (the first audio after one chunk's
+   decode and vocode), and the time to it and each chunk's length are
+   printed.
 
 The checkpoints may be in any of the formats of
 ``train/checkpoints.py:read_model``. With none of the three present it runs
 on random weights (small synthesizer and vocoder); with only some present it
 names the missing ones and exits with 1. The models run on the card, or on
 the CPU with ``--cpu``. Audio is always written to disk. Not ported: the
-libwavernn backend, streaming, and mp3 prompts.
+libwavernn backend and mp3 prompts.
 """
 from __future__ import annotations
 
@@ -88,8 +94,36 @@ def config_test(args):
     wav = vocoder.infer_waveform(mel, target=200, overlap=50)
     assert wav.shape == ((mel.shape[1] - 1) * 200,) and np.isfinite(wav).all(), wav.shape
 
+    if args.stream:
+        from rtvc_tpu_torch.inference.streaming import stream_clone
+
+        print("Testing the stream...")
+        chunks = list(stream_clone(synth, None, "test 1", embed, seed=args.seed or 0,
+                                   voc_target=200, voc_overlap=50))
+        wav = np.concatenate([c.wav for c in chunks])
+        frames = sum(c.frames for c in chunks)
+        assert chunks[-1].final and not any(c.final for c in chunks[:-1])
+        assert wav.shape == ((frames - 1) * 200,) and np.isfinite(wav).all(), wav.shape
+
     print("All test passed! You can now synthesize speech.\n\n")
     return synth
+
+
+def stream_to_wav(synth, text: str, embed: np.ndarray, seed: int) -> np.ndarray:
+    """The streamed clone joined, printing the time to its first audio and
+    each chunk's length as they come."""
+    import time
+
+    from rtvc_tpu_torch.inference.streaming import stream_clone
+
+    t0 = time.perf_counter()
+    pieces = []
+    for chunk in stream_clone(synth, None, text, embed, seed=seed):
+        if chunk.index == 0:
+            print("  first audio after %.0f ms" % (1000 * (chunk.t_emitted - t0)))
+        pieces.append(chunk.wav)
+        print("  chunk %d: %.2f s" % (chunk.index, len(chunk.wav) / synth.sample_rate))
+    return np.concatenate(pieces).astype(np.float64)
 
 
 def clone_loop(args, synth):
@@ -111,10 +145,13 @@ def clone_loop(args, synth):
             text = input("Write a sentence (+-20 words) to be synthesized:\n")
             if args.seed is not None:
                 vocoder.set_seed(args.seed)
-            spec = synth.synthesize_spectrograms([text], [embed])[0]
-            print("Created the mel spectrogram")
-            print("Synthesizing the waveform:")
-            generated_wav = vocoder.infer_waveform(spec)
+            if args.stream:
+                generated_wav = stream_to_wav(synth, text, embed, args.seed or 0)
+            else:
+                spec = synth.synthesize_spectrograms([text], [embed])[0]
+                print("Created the mel spectrogram")
+                print("Synthesizing the waveform:")
+                generated_wav = vocoder.infer_waveform(spec)
 
             # pad a second of silence, then trim it as a prompt is trimmed
             sr = encoder._data.sampling_rate
@@ -147,6 +184,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Optional random number seed for deterministic output.")
     parser.add_argument("--no_sound", action="store_true",
                         help="Accepted for compatibility; audio is always saved to disk.")
+    parser.add_argument("--stream", action="store_true",
+                        help="Stream the clone in chunks of 48 frames (0.6 s): the first "
+                             "audio after one chunk instead of after the whole utterance.")
     parser.add_argument("--selftest", action="store_true",
                         help="Run only the configuration test and exit.")
     return parser.parse_args(argv)

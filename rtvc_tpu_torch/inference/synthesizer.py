@@ -50,6 +50,13 @@ def pad1d(x, max_len, pad_value=0):
                   constant_values=pad_value)
 
 
+def text_ids(texts: List[str]) -> np.ndarray:
+    """Texts → character ids (B, T), padded with 0 to a multiple of 32."""
+    seqs = [text_to_sequence(text.strip(), preprocessing.cleaner_names) for text in texts]
+    bucket_len = -(-max(len(t) for t in seqs) // _CHAR_BUCKET) * _CHAR_BUCKET
+    return np.stack([pad1d(t, bucket_len) for t in seqs]).astype(np.int64)
+
+
 class Synthesizer:
     """Holds one synthesizer model: ``load`` reads it from ``model_fpath``
     (lazily, on the first synthesis), ``load_bundle`` installs one from
@@ -105,21 +112,32 @@ class Synthesizer:
         reference keeps prenet dropout on at inference)."""
         if not self.is_loaded():
             self.load()
-        inputs = [text_to_sequence(text.strip(), preprocessing.cleaner_names)
-                  for text in texts]
         if not isinstance(embeddings, list):
             embeddings = [embeddings] if np.ndim(embeddings) == 1 else list(embeddings)
         bs = preprocessing.synthesis_batch_size
         specs, alignments = [], []
-        for i in range(0, len(inputs), bs):
-            batch = inputs[i:i + bs]
-            bucket_len = -(-max(len(t) for t in batch) // _CHAR_BUCKET) * _CHAR_BUCKET
-            chars = np.stack([pad1d(t, bucket_len) for t in batch]).astype(np.int64)
+        for i in range(0, len(texts), bs):
+            chars = text_ids(texts[i:i + bs])
             embeds = np.stack(embeddings[i:i + bs]).astype(np.float32)
             mels, aligns = self._generate(chars, embeds, seed, prenet_dropout)
             specs.extend(mels)
             alignments.extend(aligns)
         return (specs, alignments) if return_alignments else specs
+
+    def encode(self, chars: np.ndarray, embeds: np.ndarray, seed: int,
+               prenet_dropout: bool = True):
+        """Character ids (B, T) and speaker embeddings (B, E) → the
+        encoder's outputs (contiguous) and the character mask, on the
+        model's device; the encoder prenet's dropout draws from a generator
+        of ``seed``. The first half of a synthesis, which the streaming
+        clone shares."""
+        model = self._bundle.model
+        dev = model.post_proj.weight.device
+        chars_t = torch.as_tensor(chars, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        enc_seq, enc_proj = taco.encode(model, chars_t, torch.as_tensor(embeds, device=dev), g,
+                                        prenet_dropout)
+        return enc_seq.contiguous(), enc_proj.contiguous(), (chars_t != 0).to(torch.float32)
 
     def _generate(self, chars: np.ndarray, embeds: np.ndarray, seed: int,
                   prenet_dropout: bool):
@@ -127,15 +145,9 @@ class Synthesizer:
         r = self._r
         dev = model.post_proj.weight.device
         max_steps = (cfg.max_decoder_steps // r) * r
-        chars_t = torch.as_tensor(chars, device=dev)
-        g = torch.Generator(device=dev).manual_seed(seed)
-        enc_seq, enc_proj = taco.encode(model, chars_t,
-                                        torch.as_tensor(embeds, device=dev), g,
-                                        prenet_dropout)
-        mask = (chars_t != 0).to(torch.float32)
+        enc_seq, enc_proj, mask = self.encode(chars, embeds, seed, prenet_dropout)
         mel_buf, attn, stops = tacotron_decode(
-            model, d, enc_seq.contiguous(), enc_proj.contiguous(), mask, seed, r,
-            max_steps, dropout=prenet_dropout)
+            model, d, enc_seq, enc_proj, mask, seed, r, max_steps, dropout=prenet_dropout)
         n = max(taco.stop_iterations(stops, r) * r, r)
 
         bucket = -(-n // _FRAME_BUCKET) * _FRAME_BUCKET

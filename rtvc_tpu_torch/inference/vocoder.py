@@ -76,18 +76,23 @@ def set_seed(seed: int) -> None:
     _gen_counter = 0
 
 
+def next_seed() -> int:
+    """The seed of the next generation call: each call (a vocode, or a whole
+    stream) gets one of its own, from ``set_seed``'s seed and a counter."""
+    global _gen_counter
+    _gen_counter += 1
+    return ((_seed & 0xFFFFFFFF) << 32) | (_gen_counter & 0xFFFFFFFF)
+
+
 def _next_call(target: Optional[int], overlap: Optional[int]):
     """(config, target, overlap, seed) of the next generation call: the
     window defaults to the config's, and each call gets a seed of its own."""
-    global _gen_counter
     if _bundle is None:
         raise Exception("Please load Wave-RNN in memory before using it")
     cfg = _bundle.config
     target = cfg.gen_target if target is None else target
     overlap = cfg.gen_overlap if overlap is None else overlap
-    _gen_counter += 1
-    seed = ((_seed & 0xFFFFFFFF) << 32) | (_gen_counter & 0xFFFFFFFF)
-    return cfg, target, overlap, seed
+    return cfg, target, overlap, next_seed()
 
 
 def infer_waveform(mel: np.ndarray, normalize: bool = True, batched: bool = True,

@@ -366,19 +366,44 @@ def _check_mels(d: WaveRNNDims, n_frames: int, n_mels: int) -> None:
                          f"is the mel transposed?")
 
 
-def _finish(d: WaveRNNDims, output: Tensor, wave_len: int, mu_law: bool,
-            apply_preemphasis: bool, fade_out: bool) -> np.ndarray:
-    """Unfolded samples → the utterance's waveform: mu-law decode,
-    de-emphasis, trim to ``wave_len``, fade-out over the last 20 hops."""
+def _decode(d: WaveRNNDims, output: Tensor, mu_law: bool, apply_preemphasis: bool) -> Tensor:
+    """Unfolded samples → waveform samples: mu-law decode, de-emphasis."""
     if mu_law:
         output = audio_ops.decode_mu_law(output, d.n_classes, from_labels=False)
     if apply_preemphasis:
         output = audio_ops.de_emphasis(output, 0.97)
+    return output
+
+
+def _finish(d: WaveRNNDims, output: Tensor, wave_len: int, fade_out: bool) -> np.ndarray:
+    """A decoded waveform → the utterance's: trim to ``wave_len``, fade-out
+    over the last 20 hops."""
     output = output[:wave_len].cpu().double().numpy().copy()
     if fade_out:
         fade_len = min(20 * d.hop_length, len(output))
         output[-fade_len:] *= np.linspace(1.0, 0.0, fade_len)
     return output
+
+
+@torch.no_grad()
+def generate_pipeline(model: WaveRNN, d: WaveRNNDims, mels: Tensor, seed: int,
+                      batched: bool = True, target: int = 6000, overlap: int = 1000,
+                      mu_law: bool = True, apply_preemphasis: bool = True,
+                      argmax: bool = False) -> Tensor:
+    """The generate path on the model's device, as the JAX package's
+    ``_generate_pipeline``: mels (1, n_mels, n) → pad → upsample → fold → AR
+    loop → cross-fade/unfold → mu-law decode (RAW only) → de-emphasis. The
+    samples stay on the device, untrimmed: the first (n - 1)·hop are the
+    waveform's."""
+    mu_law = mu_law if d.mode == MODE_RAW else False
+    mels = F.pad(mels, (d.pad, d.pad))
+    mels_up, aux, _ = upsample_forward(model, d, mels)
+    if batched:
+        mels_up, _ = fold_with_overlap(mels_up, target, overlap)
+        aux, _ = fold_with_overlap(aux, target, overlap)
+    samples = generate_core(model, d, mels_up, aux, seed, argmax)
+    output = xfade_and_unfold(samples, target, overlap) if batched else samples[0]
+    return _decode(d, output, mu_law, apply_preemphasis)
 
 
 @torch.no_grad()
@@ -392,27 +417,25 @@ def wavernn_generate(model: WaveRNN, d: WaveRNNDims, mels, seed: int,
     a float64 numpy waveform of (n - 1)·hop samples. ``mu_law`` applies to
     the RAW mode only: the BITS and MOL heads emit linear samples.
 
-    The frame count is padded to a multiple of 64 with -1.0 (the JAX
-    package's compile bucket); the pad changes the upsampled tail and the
-    fold count, so it is kept for parity and trimmed off at the end."""
-    mu_law = mu_law if d.mode == MODE_RAW else False
+    The frame count is padded to a 64-frame bucket (:func:`bucket_pad`) and
+    the pad trimmed off at the end."""
     dev = model.I.weight.device
     mels = torch.as_tensor(np.asarray(mels, dtype=np.float32), device=dev)
     if mels.ndim == 2:
         mels = mels[None]
     n_frames = mels.shape[-1]
     _check_mels(d, n_frames, mels.shape[1])
-    bucket = -(-n_frames // _FRAME_BUCKET) * _FRAME_BUCKET
-    mels = F.pad(mels, (0, bucket - n_frames), value=-1.0)
-    mels = F.pad(mels, (d.pad, d.pad))
-    mels_up, aux, _ = upsample_forward(model, d, mels)
-    if batched:
-        mels_up, _ = fold_with_overlap(mels_up, target, overlap)
-        aux, _ = fold_with_overlap(aux, target, overlap)
-    samples = generate_core(model, d, mels_up, aux, seed, argmax)
-    output = xfade_and_unfold(samples, target, overlap) if batched else samples[0]
-    return _finish(d, output, (n_frames - 1) * d.hop_length, mu_law, apply_preemphasis,
-                   fade_out)
+    output = generate_pipeline(model, d, bucket_pad(mels), seed, batched, target, overlap,
+                               mu_law, apply_preemphasis, argmax)
+    return _finish(d, output, (n_frames - 1) * d.hop_length, fade_out)
+
+
+def bucket_pad(mels: Tensor) -> Tensor:
+    """(·, n_mels, n) → the frame count padded to a multiple of 64 with -1.0
+    (the JAX package's compile bucket, kept for parity: the pad changes the
+    upsampled tail and the fold count)."""
+    n_frames = mels.shape[-1]
+    return F.pad(mels, (0, -(-n_frames // _FRAME_BUCKET) * _FRAME_BUCKET - n_frames), value=-1.0)
 
 
 @torch.no_grad()
@@ -445,6 +468,7 @@ def wavernn_generate_batch(model: WaveRNN, d: WaveRNNDims, mels_list: Sequence, 
     n_folds = folded[0][0].shape[0]
     samples = generate_core(model, d, torch.cat([m for m, _ in folded]),
                             torch.cat([a for _, a in folded]), seed, argmax)
-    return [_finish(d, xfade_and_unfold(samples[i * n_folds:(i + 1) * n_folds], target, overlap),
-                    (n - 1) * d.hop_length, mu_law, apply_preemphasis, fade_out=True)
+    return [_finish(d, _decode(d, xfade_and_unfold(samples[i * n_folds:(i + 1) * n_folds],
+                                                   target, overlap), mu_law, apply_preemphasis),
+                    (n - 1) * d.hop_length, fade_out=True)
             for i, n in enumerate(frames)]

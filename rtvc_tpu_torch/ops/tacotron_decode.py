@@ -8,9 +8,19 @@ for CUDA tensors and runs ``tacotron_decode_plain`` (a Python loop of
 Both take the ``encode()`` outputs and return (mel (B, n_mels, max_iters·r),
 attn (B, max_iters, T), stops (B, max_iters)), zero past the iteration where
 every stop token fired. Prenet dropout stays on unless ``dropout=False``;
-its noise comes from ``seed`` (Philox-4x32-10 in the kernel, a
-``torch.Generator`` in the plain version), so the two agree exactly only
-with dropout off.
+its noise comes from ``seed`` (Philox-4x32-10 in the kernel, keyed by the
+absolute iteration; a ``torch.Generator`` in the plain version), so the two
+agree exactly only with dropout off.
+
+``tacotron_decode_chunk`` (plain twin ``tacotron_decode_chunk_plain``, a
+loop of ``decoder_step``) resumes a decode: ``n_iters`` iterations from a
+carried ``DecoderCarry`` and previous frame, counted from ``start_iter``,
+with ``min_iters`` and a ``done`` flag (the contract of the JAX package's
+chunk decoder, ``rtvc_tpu/inference/streaming.py:_make_chunk_decoder``):
+iterations after the stop write ``pad_value`` and leave the carry as it was
+at the stop. It is the same kernel; ``tacotron_decode`` is its zero-carry,
+whole-utterance case. Chunks of one decode, joined, give the bits of one
+launch.
 
 The kernel is one cooperative launch over the card: every CTA owns a slice
 of the rows (or of the units) of every product of an iteration, for all
@@ -23,12 +33,18 @@ from it.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from rtvc_tpu_torch import _build
-from rtvc_tpu_torch.models.tacotron import Tacotron, TacotronDims, decode_loop
+from rtvc_tpu_torch.models.tacotron import (
+    DecoderCarry,
+    Tacotron,
+    TacotronDims,
+    decode_loop,
+    decoder_step,
+)
 
 Tensor = torch.Tensor
 
@@ -55,6 +71,9 @@ SMEM_SLOTS = ("c1", "c2", "v", "conv_w", "conv_b", "soft", "soft_rows", "scratch
 # The workspace's buffers after the barrier's 32 words (csrc: enum Ws).
 WS_SLOTS = ("prev", "pre1", "pre2", "ctx", "ah", "q", "x0", "x1", "x2", "h1", "h2", "base",
             "u", "cum", "stop", "lt", "total")
+# The decoder state a resumable launch reads and writes, in the kernel's
+# order (csrc: struct Carry): DecoderCarry's fields, then the previous frame.
+CARRY = DecoderCarry._fields + ("prev",)
 
 
 class DecoderShape(NamedTuple):
@@ -317,6 +336,84 @@ def tacotron_decode_plain(model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
                        max_steps, g, prenet_dropout=dropout)
 
 
+class DecodeChunk(NamedTuple):
+    """One resumable launch's outputs: mel (B, n_mels, n_iters·r), attn
+    (B, n_iters, T) and stops (B, n_iters), the pad, zeros and zeros past the
+    stop; the decoder state after the last iteration run (at the stop, if it
+    fired) and its last frame (B, n_mels); ``done`` (int32 scalar) 1 once the
+    stop has fired, here or before; ``valid`` (int32 scalar) the iterations
+    run before the stop. The scalars stay on the tensors' device: reading
+    them waits for the launch."""
+    mel: Tensor
+    attn: Tensor
+    stops: Tensor
+    carry: DecoderCarry
+    prev: Tensor
+    done: Tensor
+    valid: Tensor
+
+
+def _stop_fired(stop: Tensor, it: int, r: int, min_iters: int) -> bool:
+    """The stop rule of iteration ``it`` (absolute): every stop token past
+    0.5, after step 10 and not before ``min_iters``."""
+    return it * r > 10 and it >= min_iters and bool((stop > 0.5).all())
+
+
+def tacotron_decode_chunk_plain(model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
+                                encoder_seq_proj: Tensor, char_mask: Tensor, seed: int, r: int,
+                                carry: DecoderCarry, prev: Tensor, done: Tensor,
+                                start_iter: int, n_iters: int, min_iters: int = 0,
+                                pad_value: float = 0.0, dropout: bool = True,
+                                generator: Optional[torch.Generator] = None) -> DecodeChunk:
+    """``n_iters`` iterations of ``decoder_step`` from ``carry`` and ``prev``.
+    Its dropout draws from ``generator``, or from a new one of ``seed``: pass
+    one generator through the chunks of a decode for the draws of one
+    ``decode_loop``."""
+    B, T, _ = encoder_seq.shape
+    dev = encoder_seq.device
+    g = generator
+    if g is None and dropout:
+        g = torch.Generator(device=dev).manual_seed(seed)
+    mel = torch.full((B, d.n_mels, n_iters * r), float(pad_value), device=dev)
+    attn = torch.zeros((B, n_iters, T), device=dev)
+    stops = torch.zeros((B, n_iters), device=dev)
+    fired, valid = bool(done), 0
+    for i in range(n_iters):
+        if fired:
+            break
+        carry, m, scores, stop = decoder_step(model, d, r, carry, prev, encoder_seq,
+                                              encoder_seq_proj, char_mask, g, dropout)
+        mel[:, :, i * r:(i + 1) * r] = m
+        attn[:, i] = scores
+        stops[:, i] = stop[:, 0]
+        prev = m[:, :, -1]
+        valid += 1
+        fired = _stop_fired(stop, start_iter + i, r, min_iters)
+    flag = torch.tensor(int(fired), dtype=torch.int32, device=dev)
+    return DecodeChunk(mel, attn, stops, carry, prev, flag,
+                       torch.tensor(valid, dtype=torch.int32, device=dev))
+
+
+def tacotron_decode_chunk(model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
+                          encoder_seq_proj: Tensor, char_mask: Tensor, seed: int, r: int,
+                          carry: DecoderCarry, prev: Tensor, done: Tensor, start_iter: int,
+                          n_iters: int, min_iters: int = 0, pad_value: float = 0.0,
+                          dropout: bool = True,
+                          generator: Optional[torch.Generator] = None) -> DecodeChunk:
+    """Same contract as :func:`tacotron_decode_chunk_plain`; CUDA tensors go
+    through the kernel, whose dropout is keyed by ``seed`` and the absolute
+    iteration (``generator`` is not read there)."""
+    if not encoder_seq.is_cuda:
+        return tacotron_decode_chunk_plain(model, d, encoder_seq, encoder_seq_proj, char_mask,
+                                           seed, r, carry, prev, done, start_iter, n_iters,
+                                           min_iters, pad_value, dropout, generator)
+    out = launch_chunk(_build.library(), model, d, encoder_seq, encoder_seq_proj, char_mask,
+                       seed, r, carry, prev, done, start_iter, n_iters, min_iters, pad_value,
+                       dropout)
+    _build.launch_counts["tacotron_decode_chunk"] += 1
+    return out
+
+
 def decoder_weights(model: Tacotron):
     """The decoder's weights in the kernel's order (torch layout)."""
     dec = model.decoder
@@ -360,7 +457,43 @@ def launch(lib, model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
     """One launch of ``lib``'s ``rtvc_tacotron_decode`` (the package's
     library, or a variant of it that ``profile_tacotron`` builds) on CUDA
     tensors, after the shape checks, with ``p`` or this device's plan, and
-    ``work`` (zeroed, at least ``p.ws[-1]`` floats) or a new workspace."""
+    ``work`` (zeroed, at least ``p.ws[-1]`` floats) or a new workspace: a
+    whole decode from a zero state."""
+    return _launch(lib, model, d, encoder_seq, encoder_seq_proj, char_mask, seed, r,
+                   max(max_steps // r, 1), dropout, p, work)
+
+
+def launch_chunk(lib, model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
+                 encoder_seq_proj: Tensor, char_mask: Tensor, seed: int, r: int,
+                 carry: DecoderCarry, prev: Tensor, done: Tensor, start_iter: int, n_iters: int,
+                 min_iters: int = 0, pad_value: float = 0.0, dropout: bool = True
+                 ) -> DecodeChunk:
+    """One resumable launch (:func:`tacotron_decode_chunk`'s contract) of
+    ``lib``'s ``rtvc_tacotron_decode``."""
+    B, T, _ = encoder_seq.shape
+    dev = encoder_seq.device
+    s = DecoderShape.of(model, d)
+    widths = (s.D, s.L, s.L, s.L, s.L, s.E, T, s.M)
+    state = (*carry, prev)
+    _build.check_tensors("tacotron_decode_chunk", dev, **{
+        name: (t, (B, n)) for name, t, n in zip(CARRY, state, widths)})
+    if n_iters < 1 or start_iter < 0:
+        raise ValueError(f"tacotron_decode_chunk: {n_iters} iterations from {start_iter}")
+    done = torch.as_tensor(done, device=dev).to(torch.int32).reshape(1)
+    out = [torch.empty_like(t) for t in state]
+    flags = torch.empty(2, dtype=torch.int32, device=dev)
+    mel, attn, stops = _launch(lib, model, d, encoder_seq, encoder_seq_proj, char_mask, seed,
+                               r, n_iters, dropout, None, None, start_iter, min_iters, pad_value,
+                               state, out, done, flags)
+    return DecodeChunk(mel, attn, stops, DecoderCarry(*out[:-1]), out[-1], flags[0], flags[1])
+
+
+def _launch(lib, model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
+            encoder_seq_proj: Tensor, char_mask: Tensor, seed: int, r: int, n_iters: int,
+            dropout: bool, p: Optional[Plan], work: Optional[Tensor], start_iter: int = 0,
+            min_iters: int = 0, pad_value: float = 0.0, carry_in=None, carry_out=None,
+            done: Optional[Tensor] = None, flags: Optional[Tensor] = None
+            ) -> Tuple[Tensor, Tensor, Tensor]:
     B, T, E = encoder_seq.shape
     dev = encoder_seq.device
     s = DecoderShape.of(model, d)
@@ -375,10 +508,10 @@ def launch(lib, model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
             raise ValueError(f"tacotron_decode: weights must be f32 on {dev}")
     if p is None:
         p = plan(B, T, s, r, *_build.device_limits(dev))
-    max_iters = max(max_steps // r, 1)
+    max_iters = n_iters
     drop_thr = math.ceil(d.dropout * (1 << 24))  # keep iff 24 random bits ≥ thr
     dims = [B, T, s.E, s.D, s.L, s.P, s.M, s.max_r, r, max_iters, s.NF, s.KS,
-            int(bool(dropout)), drop_thr]
+            int(bool(dropout)), drop_thr, start_iter, min_iters]
     if work is None:
         work = torch.zeros(p.ws[-1], device=dev, dtype=torch.float32)
     elif work.numel() < p.ws[-1] or work.device != dev or work.dtype != torch.float32:
@@ -388,10 +521,14 @@ def launch(lib, model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
     stops = torch.empty((B, max_iters), device=dev, dtype=torch.float32)
     ints = p.ints()
     err = lib.rtvc_tacotron_decode(
-        _build.pointer_array(weights), _build.int_array(dims), _build.int_array(ints), len(ints),
-        int(seed) & 0xFFFFFFFFFFFFFFFF, encoder_seq.data_ptr(), encoder_seq_proj.data_ptr(),
-        char_mask.data_ptr(), mel.data_ptr(), attn.data_ptr(), stops.data_ptr(),
-        work.data_ptr(), _build.stream_handle(dev),
+        _build.pointer_array(weights), _build.int_array(dims), len(dims), _build.int_array(ints),
+        len(ints), int(seed) & 0xFFFFFFFFFFFFFFFF, encoder_seq.data_ptr(),
+        encoder_seq_proj.data_ptr(), char_mask.data_ptr(), mel.data_ptr(), attn.data_ptr(),
+        stops.data_ptr(), work.data_ptr(),
+        None if carry_in is None else _build.pointer_array(carry_in),
+        None if carry_out is None else _build.pointer_array(carry_out),
+        None if done is None else done.data_ptr(), None if flags is None else flags.data_ptr(),
+        float(pad_value), _build.stream_handle(dev),
     )
     _build.check(err, "rtvc_tacotron_decode")
     return mel, attn, stops

@@ -6,21 +6,27 @@ Stdlib ``http.server`` over the port's inference modules:
     "synthesizer", "vocoder"}
   * ``POST /embed``           body = WAV bytes → {"embed": [768 floats]}
   * ``POST /clone?text=...``  body = WAV prompt → WAV clone
+  * ``POST /stream?text=...`` body = WAV prompt → the clone as a streaming
+    WAV (chunked transfer: a header of the largest data length, then PCM
+    chunk by chunk as ``inference.streaming.stream_clone`` yields them)
 
-``/stream`` and the browser toolbox are not ported yet and answer 404.
+The browser toolbox (``GET /``, ``/api/*``, the toolbox's ``GET
+/api/stream`` among them) is not ported yet and answers 404.
 
 Start: ``python -m rtvc_tpu_torch.serve -e enc.ckpt -s syn.pt -v voc.pt``
 (any of the checkpoint formats ``train/checkpoints.py:read_model`` reads;
 the models run on the card, or on the CPU with ``--cpu``), or build a
 server over models already installed with ``create_server(...)``. Binds
 loopback by default. Every request's model work runs on one long-lived
-thread, in the order the requests come; sockets are read and written on
-the handler threads.
+thread, in the order the requests come (a stream's: each step of its
+generator); sockets are read and written on the handler threads, so a slow
+reader of a stream never holds the model thread.
 """
 from __future__ import annotations
 
 import io
 import json
+import struct
 import wave
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -61,6 +67,46 @@ def _parse_wav(body: bytes) -> tuple[np.ndarray, int]:
     return x, sr
 
 
+def _streaming_wav_header(sr: int) -> bytes:
+    """A WAV header with the largest data length: a stream of unknown length
+    (players read until the connection closes)."""
+    data_len = 0x7FFFF000
+    return (b"RIFF" + struct.pack("<I", 36 + data_len) + b"WAVEfmt "
+            + struct.pack("<IHHIIHH", 16, 1, 1, sr, sr * 2, 2, 16)
+            + b"data" + struct.pack("<I", data_len))
+
+
+def stream_chunked_wav(handler, gen, on_models, sr: int) -> None:
+    """Answer with a chunked-transfer WAV from a generator of stream chunks.
+    Each ``next(gen)`` runs through ``on_models`` (the model thread); the
+    writes to the client run here. The first chunk is made before the
+    status line, so an error up to it still comes back as JSON (raised to
+    the caller); a failure after the header drops the connection, since a
+    second status line would corrupt the chunked framing: the client sees
+    a truncated stream."""
+    def chunk_out(data: bytes):
+        handler.wfile.write(b"%x\r\n" % len(data) + data + b"\r\n")
+
+    piece = on_models(next, gen, None)
+    try:
+        handler.send_response(200)
+        handler.send_header("Content-Type", "audio/wav")
+        handler.send_header("Transfer-Encoding", "chunked")
+        handler.end_headers()
+        chunk_out(_streaming_wav_header(sr))
+        while piece is not None:
+            if len(piece.wav):
+                chunk_out(_pcm16(piece.wav))
+            piece = on_models(next, gen, None)
+        handler.wfile.write(b"0\r\n\r\n")
+    except BrokenPipeError:
+        pass
+    except Exception:
+        handler.close_connection = True
+    finally:
+        on_models(gen.close)
+
+
 def voiced_prompt(seed: int = 0, seconds: float = 3.0, sr: int = 16000) -> np.ndarray:
     """A voiced-sounding test prompt: harmonics under a syllable envelope."""
     rng = np.random.default_rng(seed)
@@ -95,6 +141,24 @@ def _clone(synth, wav: np.ndarray, sr: int, text: str) -> np.ndarray:
     return vocoder.infer_waveform(mel)
 
 
+def _warm_stream(synth, wav: np.ndarray, sr: int, text: str, stream_kwargs: dict) -> None:
+    gen = _open_stream(synth, wav, sr, text, stream_kwargs)
+    for _ in range(2):
+        next(gen, None)
+    gen.close()
+
+
+def _open_stream(synth, wav: np.ndarray, sr: int, text: str, stream_kwargs: dict):
+    """The prompt's embedding, then a ``stream_clone`` generator whose
+    chunks take the vocoder's next seed (``vocoder.next_seed``, as a
+    ``/clone`` does)."""
+    from rtvc_tpu_torch.inference import vocoder
+    from rtvc_tpu_torch.inference.streaming import stream_clone
+
+    return stream_clone(synth, None, text, _embed(wav, sr),
+                        **{"voc_seed": vocoder.next_seed(), **stream_kwargs})
+
+
 class ModelServer(ThreadingHTTPServer):
     """A ThreadingHTTPServer whose requests hand their model work to one
     long-lived thread (``on_models``). One thread does what a lock would:
@@ -103,9 +167,10 @@ class ModelServer(ThreadingHTTPServer):
     models call: a new thread each request pays for it again (measured by
     ``profile_serve``)."""
 
-    def __init__(self, address, handler, synth):
+    def __init__(self, address, handler, synth, stream_kwargs=None):
         super().__init__(address, handler)
         self.synth = synth
+        self.stream_kwargs = dict(stream_kwargs or {})
         self._models = ThreadPoolExecutor(max_workers=1, thread_name_prefix="models")
 
     def on_models(self, fn, *args):
@@ -113,16 +178,19 @@ class ModelServer(ThreadingHTTPServer):
         return self._models.submit(fn, *args).result()
 
     def warm_clone(self) -> None:
-        """One clone of a voiced test prompt on the model thread, so that
-        the first request does not pay for its layers' first pass; the
-        vocoder's seed counter is left where it was. Call it before the
-        first request; ``main`` calls it after ``vocoder.warmup``."""
+        """One clone of a voiced test prompt, then the first two chunks of a
+        stream of it, on the model thread, so that the first request does
+        not pay for its layers' first pass at its shapes; the vocoder's seed
+        counter is left where it was. Call it before the first request;
+        ``main`` calls it after ``vocoder.warmup``."""
         from rtvc_tpu_torch.config import sp
         from rtvc_tpu_torch.inference import vocoder
 
         seeds = vocoder._seed, vocoder._gen_counter
-        self.on_models(_clone, self.synth, voiced_prompt(), sp.sample_rate,
-                       "A sentence to warm the models up.")
+        text = "A sentence to warm the models up."
+        self.on_models(_clone, self.synth, voiced_prompt(), sp.sample_rate, text)
+        self.on_models(_warm_stream, self.synth, voiced_prompt(), sp.sample_rate, text,
+                       self.stream_kwargs)
         vocoder._seed, vocoder._gen_counter = seeds
 
     def server_close(self):
@@ -130,10 +198,12 @@ class ModelServer(ThreadingHTTPServer):
         self._models.shutdown()
 
 
-def create_server(host: str = "127.0.0.1", port: int = 0, synth=None) -> ModelServer:
+def create_server(host: str = "127.0.0.1", port: int = 0, synth=None,
+                  stream_kwargs=None) -> ModelServer:
     """A server over the models installed in the ``rtvc_tpu_torch.inference``
     encoder and vocoder modules and the synthesizer ``synth`` (a
-    ``Synthesizer`` with its model)."""
+    ``Synthesizer`` with its model). ``stream_kwargs`` go to every
+    ``/stream``'s ``stream_clone`` (chunk sizes and the like)."""
     from rtvc_tpu_torch.config import sp
     from rtvc_tpu_torch.inference import vocoder
 
@@ -179,14 +249,18 @@ def create_server(host: str = "127.0.0.1", port: int = 0, synth=None) -> ModelSe
         def do_POST(self):  # noqa: N802
             try:
                 url = urlparse(self.path)
+                text = (parse_qs(url.query).get("text") or [""])[0]
                 if url.path == "/embed":
                     emb = self.server.on_models(_embed, *self._read_wav())
                     self._json({"embed": [float(v) for v in emb]})
+                elif url.path in ("/clone", "/stream") and not text:
+                    self._json({"error": "missing ?text="}, 400)
                 elif url.path == "/clone":
-                    text = (parse_qs(url.query).get("text") or [""])[0]
-                    if not text:
-                        return self._json({"error": "missing ?text="}, 400)
                     self._audio(self.server.on_models(_clone, synth, *self._read_wav(), text))
+                elif url.path == "/stream":
+                    gen = self.server.on_models(_open_stream, synth, *self._read_wav(), text,
+                                                self.server.stream_kwargs)
+                    stream_chunked_wav(self, gen, self.server.on_models, sr)
                 else:
                     self.send_error(404)
             except BrokenPipeError:
@@ -197,7 +271,7 @@ def create_server(host: str = "127.0.0.1", port: int = 0, synth=None) -> ModelSe
                 except OSError:
                     pass
 
-    return ModelServer((host, port), Handler, synth)
+    return ModelServer((host, port), Handler, synth, stream_kwargs)
 
 
 def main(argv=None) -> None:
@@ -233,7 +307,7 @@ def main(argv=None) -> None:
     server.on_models(vocoder.warmup)
     server.warm_clone()
     print(f"Serving on http://{args.host}:{server.server_address[1]} "
-          f"(API: /health /embed /clone)")
+          f"(API: /health /embed /clone /stream)")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -368,6 +368,109 @@ def test_tacotron_decode_kernel_refuses_what_does_not_fit(dev):
             tacotron_decode(model, d, seq, proj, mask, 0, 2, 24)
 
 
+def _chunked(model, d, seq, proj, mask, seed, r, cuts, dropout, min_iters=0, pad=-4.0):
+    """A decode cut into launches of ``cuts`` iterations, each resumed from
+    the last one's carry: [(its inputs (carry, prev, done, start, n), its
+    DecodeChunk)]."""
+    B, T = mask.shape
+    carry = tt.init_decoder_carry(d, B, T, device=mask.device)
+    prev = torch.zeros(B, d.n_mels, device=mask.device)
+    done = torch.zeros((), dtype=torch.int32, device=mask.device)
+    outs, start = [], 0
+    with torch.no_grad():
+        for n in cuts:
+            out = _counted("tacotron_decode_chunk", lambda: td.tacotron_decode_chunk(
+                model, d, seq, proj, mask, seed, r, carry, prev, done, start, n, min_iters,
+                pad, dropout))
+            outs.append(((carry, prev, done, start, n), out))
+            carry, prev, done, start = out.carry, out.prev, out.done, start + n
+    return outs
+
+
+def _state(out):
+    return (*out.carry, out.prev)
+
+
+@pytest.mark.parametrize("B,T", [(1, 16), (3, 33), (24, 40)])
+def test_tacotron_decode_chunks_equal_one_launch(dev, B, T):
+    """With dropout on, the chunks of a decode joined give one launch's bits
+    (mel, attention, stops, the final carry); the whole-utterance launch is
+    the zero-carry case of the same kernel."""
+    model, d, seq, proj, mask = _taco(dev, B, T)
+    [(_, one)] = _chunked(model, d, seq, proj, mask, 9, 2, [20], True)
+    parts = [out for _, out in _chunked(model, d, seq, proj, mask, 9, 2, [3, 5, 5, 7], True)]
+    for name in ("mel", "attn", "stops"):
+        dim = 2 if name == "mel" else 1
+        assert torch.equal(torch.cat([getattr(o, name) for o in parts], dim), getattr(one, name))
+    for a, b in zip(_state(parts[-1]), _state(one)):
+        assert torch.equal(a, b)
+    assert int(parts[-1].done) == int(one.done)
+    assert sum(int(o.valid) for o in parts) == int(one.valid)
+    [(_, zero_pad)] = _chunked(model, d, seq, proj, mask, 9, 2, [20], True, pad=0.0)
+    with torch.no_grad():
+        whole = tacotron_decode(model, d, seq, proj, mask, 9, 2, 40)
+    for a, b in zip(whole, (zero_pad.mel, zero_pad.attn, zero_pad.stops)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,T", [(1, 16), (3, 33)])
+def test_tacotron_decode_chunk_matches_plain_from_a_carry(dev, B, T):
+    """Dropout off: each launch against the plain loop from the carry it
+    was given: mel within 1e-6, attention and the carry out within 1e-6,
+    the same stop."""
+    model, d, seq, proj, mask = _taco(dev, B, T)
+    for (carry, prev, done, start, n), out in _chunked(model, d, seq, proj, mask, 0, 2,
+                                                       [3, 5, 5, 7], False):
+        with torch.no_grad():
+            ref = td.tacotron_decode_chunk_plain(model, d, seq, proj, mask, 0, 2, carry, prev,
+                                                 done, start, n, 0, -4.0, False)
+        assert int(out.valid) == int(ref.valid) and int(out.done) == int(ref.done)
+        torch.testing.assert_close(out.mel, ref.mel, atol=1e-6, rtol=0)
+        torch.testing.assert_close(out.attn, ref.attn, atol=1e-6, rtol=0)
+        for a, b in zip(_state(out), _state(ref)):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("min_iters,cut,valid", [(0, 1, 3), (9, 2, 2)])
+def test_tacotron_decode_chunk_stops_mid_chunk(dev, min_iters, cut, valid):
+    """Every stop token fires: at iteration 6 (the first past step 10 at r
+    2), or at ``min_iters``. The launch that holds it runs ``valid``
+    iterations, writes the pad after them and carries the state of the stop
+    iteration out; the next launch writes only the pad."""
+    model, d, seq, proj, mask = _taco(dev, 2)
+    with torch.no_grad():
+        model.decoder.stop_proj.bias.fill_(30.0)
+    outs = _chunked(model, d, seq, proj, mask, 0, 2, [4, 4, 4, 4], False, min_iters)
+    (carry, prev, done, start, n), out = outs[cut]
+    with torch.no_grad():
+        ref = td.tacotron_decode_chunk_plain(model, d, seq, proj, mask, 0, 2, carry, prev, done,
+                                             start, n, min_iters, -4.0, False)
+    assert int(out.valid) == int(ref.valid) == valid and int(out.done) == int(ref.done) == 1
+    assert (out.mel[:, :, 2 * valid:] == -4.0).all() and (out.stops[:, valid:] == 0).all()
+    torch.testing.assert_close(out.mel, ref.mel, atol=1e-6, rtol=0)
+    for a, b in zip(_state(out), _state(ref)):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+    assert all(int(o.valid) == 4 and int(o.done) == 0 for _, o in outs[:cut])
+    for (carry, prev, _, _, _), after in outs[cut + 1:]:
+        assert int(after.valid) == 0 and int(after.done) == 1
+        assert (after.mel == -4.0).all()
+        assert all(torch.equal(a, b) for a, b in zip(_state(after), (*carry, prev)))
+
+
+def test_tacotron_decode_chunk_after_the_stop_writes_the_pad(dev):
+    """A ``done`` carried in: no iteration runs, the mel is the pad, the
+    attention and the stops zero, and the carry comes back as it went in."""
+    model, d, seq, proj, mask = _taco(dev, 3)
+    [((_, _, _, _, _), first)] = _chunked(model, d, seq, proj, mask, 0, 2, [5], False)
+    with torch.no_grad():
+        out = td.tacotron_decode_chunk(model, d, seq, proj, mask, 0, 2, first.carry, first.prev,
+                                       torch.ones((), dtype=torch.int32, device=dev), 5, 6, 0,
+                                       -4.0, False)
+    assert int(out.valid) == 0 and int(out.done) == 1
+    assert (out.mel == -4.0).all() and (out.attn == 0).all() and (out.stops == 0).all()
+    assert all(torch.equal(a, b) for a, b in zip(_state(out), _state(first)))
+
+
 def _voc(dev, B=3, T=300, variant="runtimeracer-wavernn", mode="RAW"):
     d = tw.WaveRNNDims(**{**VOC, "variant": variant, "mode": mode})
     model = factories.init_wavernn(d, seed=0, device=dev)

@@ -1,8 +1,9 @@
 """The port's entry points at the narrow widths of ``test_torch_clone.py``:
 ``rtvc_tpu_torch.serve`` over models loaded from checkpoints, on the CPU
-(``/health``, ``/embed`` and ``/clone`` answer what the module functions
-give under the same seed, byte for byte; its wav codec is the JAX
-package's), and ``python -m rtvc_tpu_torch.demo_cli --selftest --cpu``."""
+(``/health``, ``/embed``, ``/clone`` and ``/stream`` answer what the module
+functions give under the same seed, byte for byte; its wav codec and its
+streaming header are the JAX package's), and ``python -m
+rtvc_tpu_torch.demo_cli --selftest [--stream] --cpu``."""
 import http.client
 import io
 import json
@@ -21,6 +22,7 @@ from rtvc_tpu import serve as jserve
 from rtvc_tpu_torch import serve as tserve
 from rtvc_tpu_torch.config.encoder import EncoderDataParams
 from rtvc_tpu_torch.inference import encoder as tenc
+from rtvc_tpu_torch.inference import streaming as tst
 from rtvc_tpu_torch.inference import synthesizer as tsyn
 from rtvc_tpu_torch.inference import vocoder as tvoc
 from rtvc_tpu_torch.models import factories
@@ -31,6 +33,7 @@ REPO = Path(__file__).resolve().parents[1]
 TEXT = "Serve this voice."
 # a short fold window keeps the sample loop's steps few on the CPU
 VOC_SERVE = VOC.replace(gen_target=100, gen_overlap=25)
+STREAM_KW = {"voc_target": 100, "voc_overlap": 25}
 
 
 @pytest.fixture(autouse=True)
@@ -92,7 +95,7 @@ def server(tmp_path, monkeypatch):
     assert tvoc._bundle.config == VOC_SERVE
     assert tvoc.warmup() == 1
 
-    srv = tserve.create_server("127.0.0.1", 0, synth=tsyn._model)
+    srv = tserve.create_server("127.0.0.1", 0, synth=tsyn._model, stream_kwargs=STREAM_KW)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     yield srv
@@ -151,8 +154,10 @@ def test_server_errors(server):
     assert status == 400 and json.loads(body) == {"error": "missing ?text="}
     status, _, body = _request(port, "POST", "/clone?text=hi", b"not a wav")
     assert status == 500 and "error" in json.loads(body)
-    assert _request(port, "POST", "/stream?text=hi", b"")[0] == 404
+    status, ctype, body = _request(port, "POST", "/stream?text=hi", b"")
+    assert status == 500 and ctype == "application/json" and "error" in json.loads(body)
     assert _request(port, "GET", "/")[0] == 404
+    assert _request(port, "GET", "/api/stream?text=hi")[0] == 404
     # the server keeps serving after an error
     assert _request(port, "GET", "/health")[0] == 200
 
@@ -191,6 +196,94 @@ def test_server_runs_the_models_on_one_thread(server, monkeypatch):
     assert len(want) == 2
 
 
+def _stream(port, text, body):
+    """(status, headers, body) of a POST /stream; raises on a truncated
+    chunked body."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/stream?text=" + text.replace(" ", "%20"), body=body)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def test_stream_answers_a_chunked_streaming_wav(server):
+    """/stream answers 200 with chunked transfer: the JAX server's streaming
+    header, then the PCM of ``stream_clone``'s chunks, equal byte for byte
+    to the stream replayed in process after ``set_seed`` (each stream takes
+    the vocoder's next seed, as a /clone does): (Σ frames − 1)·hop
+    samples."""
+    port = server.server_address[1]
+    prompt = tserve._wav_bytes(_prompt(3), 16000)
+    tvoc.set_seed(5)
+    answers = [_stream(port, TEXT, prompt) for _ in range(2)]
+    tvoc.set_seed(5)
+    wav, sr = tserve._parse_wav(prompt)
+    embed = tenc.embed_utterance(tenc.preprocess_wav(wav, source_sr=sr))
+    for status, headers, body in answers:
+        assert status == 200 and headers["Content-Type"] == "audio/wav"
+        assert headers["Transfer-Encoding"] == "chunked" and "Content-Length" not in headers
+        assert body[:44] == tserve._streaming_wav_header(16000) == jserve._streaming_wav_header(
+            16000)
+        chunks = list(tst.stream_clone(tsyn._model, None, TEXT, embed,
+                                       voc_seed=tvoc.next_seed(), **STREAM_KW))
+        assert body[44:] == b"".join(tserve._pcm16(c.wav) for c in chunks)
+        assert len(body) - 44 == 2 * (sum(c.frames for c in chunks) - 1) * 200
+    assert answers[0][2] != answers[1][2]
+
+
+def test_stream_errors(server, monkeypatch):
+    """An error before the header (no text, a body that is not a wav, a
+    first chunk that fails) comes back as JSON; one after it ends the
+    response short of its last chunk. The server keeps serving."""
+    port = server.server_address[1]
+    prompt = tserve._wav_bytes(_prompt(3), 16000)
+    status, _, body = _request(port, "POST", "/stream", prompt)
+    assert status == 400 and json.loads(body) == {"error": "missing ?text="}
+    status, _, body = _request(port, "POST", "/stream?text=hi", b"not a wav")
+    assert status == 500 and "error" in json.loads(body)
+
+    def first_fails(*args, **kwargs):
+        raise RuntimeError("no first chunk")
+        yield
+
+    def later_fails(*args, **kwargs):
+        yield tst.StreamChunk(np.full(50, 0.25, np.float32), 0, False, 0.0, 1)
+        raise RuntimeError("no second chunk")
+
+    monkeypatch.setattr(tst, "stream_clone", first_fails)
+    status, headers, body = _stream(port, "hi", prompt)
+    assert status == 500 and json.loads(body) == {"error": "RuntimeError('no first chunk')"}
+    monkeypatch.setattr(tst, "stream_clone", later_fails)
+    with pytest.raises(http.client.IncompleteRead) as got:
+        _stream(port, "hi", prompt)
+    assert got.value.partial == tserve._streaming_wav_header(16000) + tserve._pcm16(
+        np.full(50, 0.25))
+    assert _request(port, "GET", "/health")[0] == 200
+
+
+def test_stream_steps_on_the_model_thread(server, monkeypatch):
+    """Every step of the stream's generator (its creation, each ``next``
+    and the one that ends it) runs on the model thread; the chunks go out
+    in order."""
+    seen = []
+
+    def fake(synth, voc, text, embed, **kwargs):
+        for i in range(3):
+            seen.append(threading.get_ident())
+            yield tst.StreamChunk(np.full(20, 0.1 * i, np.float32), i, i == 2, 0.0, 1)
+        seen.append(threading.get_ident())
+
+    monkeypatch.setattr(tst, "stream_clone", fake)
+    model_thread = server.on_models(threading.get_ident)
+    status, _, body = _stream(server.server_address[1], "hi", tserve._wav_bytes(_prompt(), 16000))
+    assert status == 200 and len(seen) == 4 and set(seen) == {model_thread}
+    assert model_thread != threading.get_ident()
+    assert body[44:] == b"".join(tserve._pcm16(np.full(20, 0.1 * i, np.float32))
+                                 for i in range(3))
+
+
 def test_serve_main_stops_without_its_checkpoints(tmp_path, capsys):
     with pytest.raises(SystemExit) as exc:
         tserve.main(["-e", str(tmp_path / "e.pt"), "-s", str(tmp_path / "s.pt"),
@@ -212,6 +305,12 @@ def test_demo_cli_selftest_runs_on_random_weights(tmp_path):
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "RANDOM weights" in proc.stdout and "All test passed" in proc.stdout
     assert "jax" not in proc.stderr
+
+
+def test_demo_cli_selftest_streams(tmp_path):
+    proc = _demo_cli(tmp_path, "--selftest", "--stream", "--cpu")
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "Testing the stream" in proc.stdout and "All test passed" in proc.stdout
 
 
 def test_demo_cli_refuses_a_partial_install(tmp_path):
