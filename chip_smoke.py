@@ -77,6 +77,22 @@
    frames bit for bit for the same seed, its samples number (Σ valid frames
    − 1) x 200, and its first chunk's postnet K4 and vocoder K1 launches are
    held to their plain versions.
+4c. The non-autoregressive synthesizers at their default widths (seeded
+   random weights, the duration head set to 6 frames a character: 384
+   frames for a text in the 64-character bucket, 4.8 s). Five
+   ForwardTacotron clones of the 3 s prompt through the public API (median,
+   stage split; K3 twice for its BiLSTM and K4 ten times for its five
+   BiGRUs a synthesis, plus the embedding's K3 and the vocoder's K1; every
+   K3 and K4 launch of the first request held to its plain version on its
+   own inputs), then K3 (B 1 x T 384 x H 512) and K4 (B 1, H 64 / 128 / 256
+   at T 64 and H 256 at T 384) alone, each beside its bound, its plain
+   version, cuDNN's ``nn.LSTM(1280, 512)`` / ``nn.GRU`` and every other plan
+   the kernel has for the shape; five FastPitch clones (no K3 or K4 in
+   the synthesize stage); one streamed ForwardTacotron clone (TTFA,
+   cadence, (frames - 1) x 200 samples); ForwardTacotron written as a
+   reference ``.pt`` and FastPitch as a port trainer file, loaded through
+   ``synthesizer.load_model`` bit for bit, each serving one ``/clone`` and
+   one ``/stream`` after ``warm_clone``.
 5. Holds the training kernels against autograd through their plain
    versions and times both: K3 forward with residuals and backward at the
    GE2E training shape (640 x 160 x 768; two runs of its backward must give
@@ -1030,22 +1046,15 @@ def phase_clone(dev, syn, voc):
              "A fourth request, for the median of five.",
              "And a fifth one, to close the set."]
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1000.0
-
     _build.launch_counts.clear()
     stages = []
     for i, text in enumerate(texts):
         wav = voiced_prompt(i)
-        pre, t_pre = timed(lambda: encoder.preprocess_wav(wav))
-        embed, t_emb = timed(lambda: encoder.embed_utterance(pre))
-        specs, t_syn = timed(lambda: synth.synthesize_spectrograms([text], [embed]))
+        pre, t_pre = timed_ms(lambda: encoder.preprocess_wav(wav))
+        embed, t_emb = timed_ms(lambda: encoder.embed_utterance(pre))
+        specs, t_syn = timed_ms(lambda: synth.synthesize_spectrograms([text], [embed]))
         mel = specs[0]
-        out, t_voc = timed(lambda: vocoder.infer_waveform(mel))
+        out, t_voc = timed_ms(lambda: vocoder.infer_waveform(mel))
         check(embed.shape == (768,), f"embedding shape {embed.shape}")
         check(abs(float(np.linalg.norm(embed)) - 1.0) < 1e-4, "embedding is not unit norm")
         check(mel.ndim == 2 and mel.shape[0] == 80, f"mel shape {mel.shape}")
@@ -1077,7 +1086,7 @@ def phase_clone(dev, syn, voc):
     # the three mels of a batch of requests in one launch of the sample loop
     mels = [mel[:, :n] for n in (mel.shape[1], mel.shape[1] * 5 // 8, mel.shape[1] // 3)]
     _build.launch_counts.clear()
-    wavs, t_batch = timed(lambda: vocoder.infer_waveforms(mels))
+    wavs, t_batch = timed_ms(lambda: vocoder.infer_waveforms(mels))
     batch_counts = dict(_build.launch_counts)
     check(batch_counts == {"wavernn_generate_runtimeracer": 1},
           f"infer_waveforms of {len(mels)} mels launched {batch_counts}, want one K1 launch")
@@ -1093,13 +1102,13 @@ def phase_clone(dev, syn, voc):
         vocoder.load_bundle(other)
         name = COUNT_NAME[model_type]
         _build.launch_counts.clear()
-        out, t_voc = timed(lambda: vocoder.infer_waveform(mel))
+        out, t_voc = timed_ms(lambda: vocoder.infer_waveform(mel))
         counts[name] = _build.launch_counts[name]
         check(counts[name] == 1, f"{name} launched {counts[name]} times for one request")
         check(out.shape == ((mel.shape[1] - 1) * 200,) and np.isfinite(out).all()
               and float(np.abs(out).max()) > 0, f"{model_type} wav {out.shape}")
         # the first request of a model also loads what its layers launch
-        _, t_again = timed(lambda: vocoder.infer_waveform(mel))
+        _, t_again = timed_ms(lambda: vocoder.infer_waveform(mel))
         print(f"clone through {model_type} ({other.config.mode}, window "
               f"{other.config.gen_target} / {other.config.gen_overlap}): mel {mel.shape[1]} "
               f"frames -> {len(out)} samples, vocode {t_voc:.1f} ms, {t_again:.1f} ms for "
@@ -1111,9 +1120,9 @@ def phase_clone(dev, syn, voc):
     saved, synthesizer.preprocessing = synthesizer.preprocessing, gl_pp
     try:
         _build.launch_counts.clear()
-        gl_wav, t_gl = timed(lambda: synthesizer.Synthesizer.griffin_lim(mel, seed=0))
+        gl_wav, t_gl = timed_ms(lambda: synthesizer.Synthesizer.griffin_lim(mel, seed=0))
         check(dict(_build.launch_counts) == {}, "Griffin-Lim launched a kernel")
-        remel, t_mel = timed(lambda: synthesizer.Synthesizer.make_spectrogram(gl_wav))
+        remel, t_mel = timed_ms(lambda: synthesizer.Synthesizer.make_spectrogram(gl_wav))
     finally:
         synthesizer.preprocessing = saved
     counts["mel_project"] = _build.launch_counts["mel_project"]
@@ -1223,6 +1232,386 @@ def phase_stream(dev, card, syn, voc):
     print(f"{card}: stream: median TTFA {float(np.median([r['ttfa_ms'] for r in runs])):.1f} ms, "
           f"median RTF {float(np.median([r['rtf'] for r in runs])):.2f}")
     return counts, runs
+
+
+# ForwardTacotron and FastPitch at their default widths with seeded random
+# weights; the duration head set to weight 0 and bias 6.0, so that every
+# character of the clone texts' 64-character bucket takes 6 frames: 384 mel
+# frames (4.8 s), the scale of the Tacotron clone's 400 (random predictors
+# give near-zero durations, which the guard turns into 2 frames a character)
+NAR_DUR_BIAS = 6.0
+NAR_FRAMES = 384
+NAR_TYPES = ("forward-tacotron", "fast-pitch")
+# the NAR clone's kernel wrappers where its path looks them up: the encoder's
+# LSTM and ForwardTacotron's BiLSTM (K3, both recorded under "lstm_seq") and
+# every GRU (K4)
+NAR_KERNELS = (("rtvc_tpu_torch.models.layers", "lstm_seq"),
+               ("rtvc_tpu_torch.models.forward_tacotron", "lstm_seq"),
+               ("rtvc_tpu_torch.models.layers", "gru_seq_fwd"))
+# K3 and K4 at ForwardTacotron's shapes, B 1: (kernel, T, H, the module's input
+# width): the BiLSTM over the frames (2 x 256 + 768 in), the predictors'
+# BiGRUs over the text bucket (H 64 duration and energy, H 128 pitch, conv
+# widths 256 in), the prenet CBHG's over the text bucket and the postnet's over
+# the frames (H 256, 256 in)
+NAR_SHAPES = (("lstm_seq", NAR_FRAMES, 512, 1280), ("gru_seq", 64, 64, 256),
+              ("gru_seq", 64, 128, 256), ("gru_seq", 64, 256, 256),
+              ("gru_seq", NAR_FRAMES, 256, 256))
+
+
+def timed_ms(fn):
+    """(fn(), wall ms) between two device syncs."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def nar_kernel_checks(calls):
+    """Every K3 and K4 launch of one NAR clone again on the inputs it was
+    given, against its plain version: K3 within 1e-4 absolute, K4 1e-4
+    relative (the serve phase's tolerances). Returns a line of the shapes
+    and errors."""
+    import torch
+
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops.gru_seq import gru_seq_fwd, gru_seq_fwd_plain
+    from rtvc_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_plain
+
+    parts = []
+    with torch.no_grad():
+        for args, _, _ in calls["lstm_seq"]:
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(lstm_seq(*args), lstm_seq_plain(*args)))
+            B, T, G = args[0].shape
+            check(err <= 1e-4, f"K3 at the NAR clone's B={B} T={T} H={G // 4}: {err}")
+            parts.append(f"K3 B={B} T={T} H={G // 4} {err:.3e}")
+        for args, _, _ in calls["gru_seq_fwd"]:
+            err = max(rel_err(a, b) for a, b in zip(gru_seq_fwd(*args), gru_seq_fwd_plain(*args)))
+            B, T, G = args[0].shape
+            check(err <= 1e-4, f"K4 at the NAR clone's B={B} T={T} H={G // 3}: rel err {err}")
+            parts.append(f"K4 B={B} T={T} H={G // 3} rel {err:.3e}")
+    return "; ".join(parts)
+
+
+def k3_candidates_ms(xg, w_hh, h0, dev):
+    """K3's forward at one shape under each instantiation that fits it (6 or
+    10 units a CTA), launched with a plan made here, timed in
+    ``profile_gru.rounds_ms``: {units: ms}."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.profile_gru import rounds_ms
+    from rtvc_tpu_torch.ops.lstm_seq import FWD_SLICES, WARPS, Plan
+
+    B, T, _ = xg.shape
+    H = w_hh.shape[1]
+    sms, smem_limit = _build.device_limits(dev)
+    lib, stream = _build.library(), _build.stream_handle(dev)
+    ys, hT, cT = (torch.empty(B, T, H, device=dev), torch.empty(B, H, device=dev),
+                  torch.empty(B, H, device=dev))
+    runs = {}
+    for units, _ in FWD_SLICES:
+        smem = 4 * (4 * units * (-(-H // 4) * 4) + WARPS * (-(-4 * units // 32) * 32))
+        if -(-H // units) > sms or smem > smem_limit or B > WARPS:
+            continue
+        p = Plan(1, -(-H // units), units, 1, B, smem)
+
+        def run(p=p):
+            sync = torch.zeros(32, device=dev, dtype=torch.int32)
+            _build.check(lib.rtvc_lstm_seq_fwd(
+                xg.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+                hT.data_ptr(), cT.data_ptr(), None, None, B, T, H, _build.int_array(p),
+                sync.data_ptr(), stream), "rtvc_lstm_seq_fwd")
+
+        runs[units] = run
+    return rounds_ms(runs)
+
+
+def k4_candidates_ms(xg, w_hh, b_hh, dev):
+    """K4's forward at one shape under every candidate plan
+    (``ops/gru_seq.py:candidates``), timed in ``profile_gru.rounds_ms``:
+    [(ms, plan)], fastest first."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.profile_gru import rounds_ms
+    from rtvc_tpu_torch.ops.gru_seq import candidates
+
+    B, T, G = xg.shape
+    H = G // 3
+    lib, stream = _build.library(), _build.stream_handle(dev)
+    ys, gates = torch.empty(B, T, H, device=dev), torch.empty(B, T, 4 * H, device=dev)
+    runs = {}
+    for p in candidates(B, H, *_build.device_limits(dev)):
+        def run(p=p):
+            sync = torch.zeros(32 * p.groups, device=dev, dtype=torch.int32)
+            _build.check(lib.rtvc_gru_seq_fwd(
+                xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), ys.data_ptr(),
+                gates.data_ptr(), B, T, H, _build.int_array(p), sync.data_ptr(), stream),
+                "rtvc_gru_seq_fwd")
+
+        runs[p] = run
+    return sorted((ms, p) for p, ms in rounds_ms(runs).items())
+
+
+def nar_kernel_cells(dev, card):
+    """K3 and K4 at ``NAR_SHAPES``, B 1, seeded inputs: each against its plain
+    version (K3 1e-4 absolute, K4 1e-4 relative), its time beside its bound,
+    its plain version's and cuDNN's (``nn.LSTM(1280, 512)`` / ``nn.GRU(I, H)``,
+    input product included) by CUDA events, and the plan's time beside every
+    other plan the kernel has for the shape. Returns {kernel: [cell]}."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops.gru_seq import gru_seq_fwd, gru_seq_fwd_plain
+    from rtvc_tpu_torch.ops.gru_seq import plan as k4_plan
+    from rtvc_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_plain
+    from rtvc_tpu_torch.ops.lstm_seq import plan as lstm_plan
+
+    out = {"lstm_seq": [], "gru_seq": []}
+    limits = _build.device_limits(dev)
+    for kernel, T, H, I in NAR_SHAPES:
+        g = torch.Generator().manual_seed(H + T)
+        n = 4 if kernel == "lstm_seq" else 3
+        xg = torch.randn(1, T, n * H, generator=g).to(dev)
+        w = ((torch.rand(n * H, H, generator=g) * 2 - 1) * H ** -0.5).to(dev)
+        if kernel == "lstm_seq":
+            h0 = torch.zeros(1, H, device=dev)
+            got, want = lstm_seq(xg, w, h0, h0), lstm_seq_plain(xg, w, h0, h0)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            check(err <= 1e-4, f"K3 at B 1 x T {T} x H {H}: {err} from its plain version")
+            ms = cuda_ms(lambda: lstm_seq(xg, w, h0, h0))
+            plain_ms = cuda_ms(lambda: lstm_seq_plain(xg, w, h0, h0), reps=2)
+            lib_ms, _ = rnn_ms(torch.nn.LSTM(I, H, batch_first=True), 1, T, H, dev,
+                               backward=False)
+            library = f"nn.LSTM({I}, {H})"
+            b = bound(nbytes(xg, w, h0, h0, *got), 2 * T * 4 * H * H)
+            p = lstm_plan(1, H, *limits)
+            others = k3_candidates_ms(xg, w, h0, dev)
+            plans = ", ".join(f"{u} units a CTA {t:.3f} ms" + (" (plan)" if u == p.units else "")
+                              for u, t in others.items())
+        else:
+            bias = ((torch.rand(3 * H, generator=g) * 2 - 1) * H ** -0.5).to(dev)
+            got, want = gru_seq_fwd(xg, w, bias), gru_seq_fwd_plain(xg, w, bias)
+            torch.cuda.synchronize()
+            err = max(rel_err(a, b) for a, b in zip(got, want))
+            check(err <= 1e-4, f"K4 at B 1 x T {T} x H {H}: rel err {err} from its plain "
+                  f"version")
+            ms = cuda_ms(lambda: gru_seq_fwd(xg, w, bias))
+            plain_ms = cuda_ms(lambda: gru_seq_fwd_plain(xg, w, bias), reps=2)
+            lib_ms, _ = rnn_ms(torch.nn.GRU(I, H, batch_first=True), 1, T, H, dev,
+                               backward=False)
+            library = f"nn.GRU({I}, {H})"
+            b = bound(nbytes(xg, w, bias, *got), 2 * T * 3 * H * H)
+            p = k4_plan(1, H, *limits)
+            others = k4_candidates_ms(xg, w, bias, dev)
+            plans = "; ".join(f"{t:.3f} / {tuple(q[:4])}" + (" (plan)" if q == p else "")
+                              for t, q in others)
+        print(f"{card}: NAR {kernel} B=1 T={T} H={H}: plan ({p.groups} groups x {p.slices} "
+              f"slices of {p.units} units) {'abs' if n == 4 else 'rel'} err {err:.3e} (tol "
+              f"1e-4), kernel {ms:.3f} ms ({ms / T * 1e3:.2f} us a step), plain {plain_ms:.3f} "
+              f"ms, {library} {lib_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']}; every plan, ms / (groups, slices, units, nb): {plans}")
+        out[kernel].append({"B": 1, "T": T, "H": H, "max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, **b, "library_ms": lib_ms,
+                            "library": f"{library}, input projection included",
+                            "plan": list(p[:5]), "path": "forward-tacotron clone"})
+    return out
+
+
+def nar_clones(dev, card, synth, texts, record):
+    """Clones of ``texts`` through the public API with ``synth``; each one
+    checked (384 frames, (frames - 1) x 200 samples, finite), the launches
+    counted, the first's K3 and K4 launches recorded when ``record``.
+    Returns (counts, stage ms per request, the first's recorded calls)."""
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.inference import encoder, vocoder
+    from rtvc_tpu_torch.serve import voiced_prompt
+
+    model_type = synth.get_model_type()
+    _build.launch_counts.clear()
+    stages, first_calls = [], {}
+    for i, text in enumerate(texts):
+        wav = voiced_prompt(i)
+        with (recorded_calls(NAR_KERNELS) if record and i == 0
+              else contextlib.nullcontext({})) as calls:
+            pre, t_pre = timed_ms(lambda: encoder.preprocess_wav(wav))
+            embed, t_emb = timed_ms(lambda: encoder.embed_utterance(pre))
+            (specs, durs), t_syn = timed_ms(lambda: synth.synthesize_spectrograms(
+                [text], [embed], return_alignments=True))
+            mel = specs[0]
+            out, t_voc = timed_ms(lambda: vocoder.infer_waveform(mel))
+        first_calls = first_calls or calls
+        check(mel.shape == (80, NAR_FRAMES) and int(durs[0].sum()) == NAR_FRAMES
+              and durs[0].shape == (64,), f"{model_type}: mel {mel.shape}, durations "
+              f"{durs[0].shape} summing to {int(durs[0].sum())}, want 64 x 6 = {NAR_FRAMES}")
+        check(out.shape == ((NAR_FRAMES - 1) * 200,), f"{model_type}: wav {out.shape}")
+        check(all(np.isfinite(a).all() for a in (embed, mel, out)), f"{model_type}: non-finite")
+        print(f"{model_type} clone {i}: mel {mel.shape[1]} frames, wav {len(out)} samples "
+              f"({len(out) / 16000:.2f} s); preprocess {t_pre:.1f} ms, embed {t_emb:.1f} ms, "
+              f"synthesize {t_syn:.1f} ms, vocode {t_voc:.1f} ms")
+        stages.append((t_pre, t_emb, t_syn, t_voc))
+    split = np.median(np.array(stages), axis=0)
+    print(f"{card}: {model_type} clone median over {len(texts)} requests: "
+          f"{float(np.median(np.array(stages).sum(axis=1))):.1f} ms (stage medians: preprocess "
+          f"{split[0]:.1f}, embed {split[1]:.1f}, synthesize {split[2]:.1f}, vocode "
+          f"{split[3]:.1f} ms; {NAR_FRAMES} frames)")
+    return dict(_build.launch_counts), stages, first_calls
+
+
+def write_nar_checkpoints(ckpt_dir, ft, fp):
+    """ForwardTacotron as a reference ``.pt`` (its model type, a step buffer,
+    BatchNorm's batch counters), FastPitch as a port trainer file."""
+    import torch
+
+    from rtvc_tpu_torch.train.checkpoints import save_checkpoint
+
+    state = dict(ft.model.state_dict())
+    for name in [n for n in state if n.endswith(".running_mean")]:
+        state[name.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(7)
+    state["step"] = torch.full((1,), 3000, dtype=torch.long)
+    paths = {"forward-tacotron": ckpt_dir / "forward_tacotron.pt",
+             "fast-pitch": ckpt_dir / "fast_pitch.pt"}
+    torch.save({"step": 3000, "model_state": state, "optimizer_state": {},
+                "model_type": ft.model_type}, paths["forward-tacotron"])
+    save_checkpoint(paths["fast-pitch"], fp.model, 1000, fp.model_type,
+                    extras={"config": fp.config.asdict()})
+    return paths
+
+
+def phase_nar(dev, card, voc):
+    """The non-autoregressive synthesizers at their default widths (seeded
+    random weights, the duration head at ``NAR_DUR_BIAS``: 384 frames a
+    clone text), the runtimeracer vocoder, the 3 s prompt:
+
+    - five ForwardTacotron clones through the public API (median and stage
+      split; K3 3 (embedding) + 2 and K4 10 launches, K1 1 a request; the
+      first request's K3 and K4 launches held to their plain versions on
+      their own inputs), the device time of one synthesize call by kernel;
+    - K3 and K4 at the path's shapes (``nar_kernel_cells``);
+    - five FastPitch clones (K3 3 and K1 1 a request, no K4);
+    - one streamed ForwardTacotron clone (``stream_clone``: the batch mel
+      through ``stream_vocode``), its TTFA and cadence, (frames - 1) x 200
+      samples;
+    - ForwardTacotron written as a reference ``.pt`` and FastPitch as a port
+      trainer file, loaded through ``synthesizer.load_model`` (each state
+      equal bit for bit to the model it was written from), each serving one
+      ``/clone`` and one ``/stream`` through ``serve.create_server`` after
+      ``warm_clone``.
+
+    Returns {"counts": {type: launches of five clones}, "stream_counts",
+    "cells": K3 and K4 cells}."""
+    import threading
+
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.inference import encoder, synthesizer, vocoder
+    from rtvc_tpu_torch.inference.streaming import stream_clone
+    from rtvc_tpu_torch.profile_stream import TEXT, line, nar_synthesizer, stats
+    from rtvc_tpu_torch.serve import _parse_wav, _wav_bytes, create_server, voiced_prompt
+
+    encoder.init_random_model(seed=0, device=dev)
+    vocoder.load_bundle(voc)
+    vocoder.set_seed(0)
+    texts = ["The quick brown fox jumps over the lazy dog.",
+             "Voice cloning on a single graphics card.",
+             "Hello there, this is a test of the clone path.",
+             "A fourth request, for the median of five.",
+             "And a fifth one, to close the set."]
+    synths = {t: nar_synthesizer(t, dev, frames_per_char=NAR_DUR_BIAS) for t in NAR_TYPES}
+    counts, calls = {}, None
+    for model_type, synth in synths.items():
+        counts[model_type], _, first = nar_clones(dev, card, synth, texts,
+                                                  model_type == "forward-tacotron")
+        calls = calls or first
+        by_kernel = kernels_device_ms(lambda: synth.synthesize_spectrograms([texts[0]],
+                                                                            [np.zeros(768)]))
+        print(f"{card}: {model_type}: device ms of one synthesize call by kernel (profiled): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in by_kernel.items()))
+    n = len(texts)
+    want = {"forward-tacotron": {"lstm_seq": 5 * n, "gru_seq": 10 * n,
+                                 "wavernn_generate_runtimeracer": n},
+            "fast-pitch": {"lstm_seq": 3 * n, "wavernn_generate_runtimeracer": n}}
+    check(counts == want, f"the NAR clones launched {counts}, want {want}")
+    check(len(calls["lstm_seq"]) == 5 and len(calls["gru_seq_fwd"]) == 10,
+          f"one ForwardTacotron clone called K3 {len(calls['lstm_seq'])} and K4 "
+          f"{len(calls['gru_seq_fwd'])} times, want 5 and 10")
+    print(f"NAR: the first ForwardTacotron clone's K3 and K4 launches on their own inputs "
+          f"against their plain versions: {nar_kernel_checks(calls)}")
+    cells = nar_kernel_cells(dev, card)
+
+    # one streamed ForwardTacotron clone: the batch mel through stream_vocode
+    ft = synths["forward-tacotron"]
+    embed = encoder.embed_utterance(encoder.preprocess_wav(voiced_prompt(0)))
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    chunks = list(stream_clone(ft, voc, TEXT, embed, first_chunk_frames=16))
+    run = stats(chunks, t0, time.perf_counter(), voc.dims.hop_length, ft.sample_rate)
+    stream_counts = dict(_build.launch_counts)
+    frames = sum(c.frames for c in chunks)
+    samples = sum(len(c.wav) for c in chunks)
+    check(frames == NAR_FRAMES and samples == (frames - 1) * 200 and chunks[-1].final
+          and all(np.isfinite(c.wav).all() for c in chunks),
+          f"the NAR stream gave {samples} samples for {frames} frames")
+    check(stream_counts == {"lstm_seq": 2, "gru_seq": 10,
+                            "wavernn_generate_runtimeracer": len(chunks)},
+          f"the NAR stream launched {stream_counts} for {len(chunks)} chunks")
+    print(f"{card}: NAR stream (forward-tacotron, {len(chunks)} chunks of "
+          f"{[c.frames for c in chunks]} frames): {line(run)}; launches {stream_counts}")
+
+    # checkpoints into synthesizer.load_model, then one /clone and one /stream each
+    ckpt_dir = _build.BUILD_DIR / "smoke_nar_ckpts"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    loaded = {}
+    try:
+        paths = write_nar_checkpoints(ckpt_dir, synths["forward-tacotron"]._bundle,
+                                      synths["fast-pitch"]._bundle)
+        for model_type, path in paths.items():
+            synthesizer.load_model(path, verbose=False, device=dev)
+            loaded[model_type] = synthesizer._model
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    body = _wav_bytes(voiced_prompt(0), 16000)
+    parts = []
+    for model_type, synth in loaded.items():
+        a, b = synth._bundle.model.state_dict(), synths[model_type]._bundle.model.state_dict()
+        check(synth.get_model_type() == model_type and set(a) == set(b)
+              and all(a[k].is_cuda and torch.equal(a[k], b[k]) for k in b),
+              f"the loaded {model_type} differs from the model its checkpoint was written from")
+        server = create_server("127.0.0.1", 0, synth=synth)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            _, t_warm = timed_ms(server.warm_clone)
+            port = server.server_address[1]
+            status, ctype, got, t_clone = serve_request(
+                port, "POST", "/clone?text=" + texts[0].replace(" ", "%20"), body)
+            s_status, _, encoding, data, t_first, t_last = stream_request(
+                port, "/stream?text=" + texts[0].replace(" ", "%20"), body)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(30)
+        wav_out, sr_out = _parse_wav(got) if status == 200 else (None, None)
+        check(status == 200 and ctype == "audio/wav" and sr_out == 16000
+              and wav_out.shape == ((NAR_FRAMES - 1) * 200,),
+              f"{model_type} /clone answered {status}: {got[:200]}")
+        check(s_status == 200 and encoding == "chunked"
+              and len(data) - 44 == 2 * (NAR_FRAMES - 1) * 200,
+              f"{model_type} /stream answered {s_status} with {len(data)} bytes")
+        parts.append(f"{model_type} warm_clone {t_warm:.1f} ms, /clone {t_clone:.1f} ms, "
+                     f"/stream first audio byte {t_first:.1f} ms, last {t_last:.1f} ms")
+    print(f"{card}: NAR serve: ForwardTacotron from a reference .pt and FastPitch from a port "
+          f"trainer file, loaded bit for bit; {NAR_FRAMES} frames a request: " + "; ".join(parts))
+    return {"counts": counts, "stream_counts": stream_counts, "cells": cells}
 
 
 SERVE_SEED = 1234
@@ -2172,6 +2561,7 @@ def main() -> int:
                *phase_wavernn(dev), phase_mel(dev)]
     counts = phase_clone(dev, syn, voc)
     stream_counts, _ = phase_stream(dev, card, syn, voc)
+    nar = phase_nar(dev, card, voc)
     kernels += [phase_lstm_train(dev), *phase_gru(dev), *phase_taco_train_kernel(dev)]
     runs_dir = _build.BUILD_DIR / "smoke_runs"
     shutil.rmtree(runs_dir, ignore_errors=True)
@@ -2200,7 +2590,14 @@ def main() -> int:
     for name in ("lstm_seq", "gru_seq", "wavernn_generate_runtimeracer"):
         by_path.setdefault(name, {"clone (5 requests)": counts.get(name, 0)})
         by_path[name]["stream (1, its embedding included)"] = stream_counts[name]
+        # the NAR clones (embeddings included) and the NAR stream (without)
+        for model_type, nar_counts in nar["counts"].items():
+            by_path[name][f"{model_type} clone (5 requests)"] = nar_counts.get(name, 0)
+        by_path[name]["forward-tacotron stream (1)"] = nar["stream_counts"].get(name, 0)
     for k in kernels:
+        # K3's and K4's cells at ForwardTacotron's shapes
+        if k["name"] in nar["cells"]:
+            k.setdefault("shapes", []).extend(nar["cells"][k["name"]])
         k["route"] = "cuda"
         k["launches"] = path_counts[k["name"]]
         if k["name"] in by_path:

@@ -1,7 +1,8 @@
 """JAX variables → state_dicts of this package's modules.
 
-The inverse of the JAX package's three ``import_torch_state`` functions
-(``models/speaker_encoder.py``, ``models/tacotron.py``, ``models/wavernn.py``):
+The inverse of the JAX package's ``import_torch_state`` functions
+(``models/speaker_encoder.py``, ``models/tacotron.py``, ``models/wavernn.py``,
+``models/forward_tacotron.py``, ``models/fast_pitch.py``):
 the input is a variables tree as nested dicts (and lists) of arrays — numpy,
 anything ``np.asarray`` accepts, or torch tensors — and the output is a
 state_dict under the reference's torch names, which the port's modules load
@@ -131,4 +132,68 @@ def wavernn_state(variables: Mapping) -> StateDict:
     for name in ("I", "rnn1", "rnn2", "rnn3", "rnn4", "fc1", "fc2", "fc3", "fc4", "fc5"):
         if name in p:
             _put(sd, f"{name}.", p[name])
+    return sd
+
+
+def forward_tacotron_state(variables: Mapping) -> StateDict:
+    """{"params", "batch_stats"} (``init_forward_tacotron`` layout) →
+    ForwardTacotron state_dict. Without "batch_stats" only the parameters
+    are mapped."""
+    p = variables["params"]
+    s = variables.get("batch_stats")
+    sd: StateDict = OrderedDict()
+    for name in ("dur_pred", "pitch_pred", "energy_pred"):
+        sp = p[name]
+        _put(sd, f"{name}.embedding.", sp["embedding"])
+        for i in range(3):
+            conv = sp[f"convs_{i}"]
+            sd[f"{name}.convs.{i}.conv.weight"] = _t(conv["conv"]["weight"])
+            _put(sd, f"{name}.convs.{i}.bnorm.", conv["bnorm"])
+            if s is not None:
+                _put(sd, f"{name}.convs.{i}.bnorm.", s[name][f"convs_{i}"]["bnorm"])
+        _put(sd, f"{name}.rnn.", sp["rnn"])
+        _put(sd, f"{name}.lin.", sp["lin"])
+    _put(sd, "embedding.", p["embedding"])
+    _cbhg(sd, "prenet.", p["prenet"], None if s is None else s["prenet"])
+    _put(sd, "lstm.", p["lstm"])
+    _put(sd, "lin.", p["lin"])
+    _cbhg(sd, "postnet.", p["postnet"], None if s is None else s["postnet"])
+    _put(sd, "post_proj.", p["post_proj"])
+    _put(sd, "pitch_proj.", p["pitch_proj"])
+    _put(sd, "energy_proj.", p["energy_proj"])
+    return sd
+
+
+def _transformer(sd: StateDict, prefix: str, p: Mapping) -> None:
+    sd[prefix + "pos_encoder.scale"] = _t(p["pos_encoder"]["scale"])
+    n_layers = sum(1 for k in p if k.startswith("layers_"))
+    for i in range(n_layers):
+        lp, pre = p[f"layers_{i}"], f"{prefix}layers.{i}."
+        attn = lp["self_attn"]
+        sd[pre + "self_attn.in_proj_weight"] = _t(attn["in_proj_weight"])
+        sd[pre + "self_attn.in_proj_bias"] = _t(attn["in_proj_bias"])
+        _put(sd, pre + "self_attn.out_proj.", attn["out_proj"])
+        for name in ("conv1", "conv2", "norm1", "norm2"):
+            _put(sd, f"{pre}{name}.", lp[name])
+    _put(sd, prefix + "norm.", p["norm"])
+
+
+def fast_pitch_state(variables: Mapping) -> StateDict:
+    """{"params"} (``init_fast_pitch`` layout; FastPitch has no running
+    statistics) → FastPitch state_dict, the speaker projections
+    ``spk_proj`` included."""
+    p = variables["params"]
+    sd: StateDict = OrderedDict()
+    for name in ("dur_pred", "pitch_pred", "energy_pred"):
+        sp = p[name]
+        _put(sd, f"{name}.embedding.", sp["embedding"])
+        _put(sd, f"{name}.spk_proj.", sp["spk_proj"])
+        _transformer(sd, f"{name}.transformer.", sp["transformer"])
+        _put(sd, f"{name}.lin.", sp["lin"])
+    _put(sd, "embedding.", p["embedding"])
+    _put(sd, "spk_proj.", p["spk_proj"])
+    _transformer(sd, "prenet.", p["prenet"])
+    _transformer(sd, "postnet.", p["postnet"])
+    for name in ("lin", "pitch_proj", "energy_proj"):
+        _put(sd, f"{name}.", p[name])
     return sd

@@ -16,9 +16,11 @@
    printed.
 
 The checkpoints may be in any of the formats of
-``train/checkpoints.py:read_model``. With none of the three present it runs
-on random weights (small synthesizer and vocoder); with only some present it
-names the missing ones and exits with 1. The models run on the card, or on
+``train/checkpoints.py:read_model``, the synthesizer of any of the three
+types (Tacotron, ForwardTacotron, FastPitch: the file names it). With none
+of the three present it runs on random weights (small synthesizer and
+vocoder); with only some present it names the missing ones and exits
+with 1. The models run on the card, or on
 the CPU with ``--cpu``. Audio is always written to disk. Not ported: the
 libwavernn backend and mp3 prompts.
 """

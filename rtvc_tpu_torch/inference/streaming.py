@@ -23,8 +23,10 @@ JAX package folds the index into ``PRNGKey(seed ^ 0x5EED)``.
 
 The context buffers stay on the device. The conditioning streams are f32,
 as ``inference.vocoder.infer_waveform``'s are (the JAX package streams bf16
-by default, a choice made for the TPU). Only the Tacotron streams in this
-package: the non-autoregressive synthesizers are a later slice.
+by default, a choice made for the TPU). The non-autoregressive
+synthesizers (ForwardTacotron, FastPitch) make their whole mel in one
+parallel pass, so their stream is that mel through :func:`stream_vocode`,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -259,6 +261,10 @@ def stream_clone(synth, voc, text: str, embed: np.ndarray, seed: int = 0,
     default hop). ``synth`` is a ``Synthesizer`` with its model, ``voc`` a
     vocoder bundle (None: the one installed in ``inference.vocoder``).
 
+    A ForwardTacotron or FastPitch ``synth`` makes the whole mel with
+    ``synthesize_spectrograms(..., seed=seed)`` and streams it through
+    :func:`stream_vocode` (``post_ctx`` and ``min_frames`` do not apply).
+
     ``first_chunk_frames`` ramps the stream: a smaller first chunk (16 frames:
     0.2 s of audio) shortens the first chunk's decode and vocode while the
     later chunks run at ``chunk_frames``. ``min_frames`` holds the stop token
@@ -274,10 +280,13 @@ def stream_clone(synth, voc, text: str, embed: np.ndarray, seed: int = 0,
     chunk i+1 is launched before the host takes chunk i's audio: the card
     runs one stream of work, so the copy of chunk i's samples and the host's
     crossfade overlap chunk i+1's decode rather than wait for it."""
-    model_type = synth.get_model_type()
-    if model_type != factories.MODEL_TYPE_TACOTRON:
-        raise NotImplementedError(f"streaming {model_type} is a later slice (its chunked "
-                                  f"vocoder, stream_vocode, is ported)")
+    voc_seed = seed if voc_seed is None else voc_seed
+    if synth.get_model_type() != factories.MODEL_TYPE_TACOTRON:
+        mel = synth.synthesize_spectrograms([text], [np.asarray(embed, np.float32)],
+                                            seed=seed)[0]
+        yield from stream_vocode(voc, mel, voc_seed, chunk_frames, voc_ctx, xfade_frames,
+                                 voc_target, voc_overlap, first_chunk_frames)
+        return
     from rtvc_tpu_torch.inference.synthesizer import text_ids
 
     voc = _vocoder(voc)
@@ -297,7 +306,6 @@ def stream_clone(synth, voc, text: str, embed: np.ndarray, seed: int = 0,
     # that the cut drops samples at every join and the stream runs short of
     # (Σ valid − 1)·hop
     voc_ctx = max(voc_ctx, 1 + xfade_frames)
-    voc_seed = seed if voc_seed is None else voc_seed
     first_iters = max(-(-first_chunk_frames // r), 1) if first_chunk_frames else chunk_iters
 
     def chunk_iters_at(index, start):

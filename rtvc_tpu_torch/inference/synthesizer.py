@@ -1,16 +1,25 @@
-"""Synthesizer inference, Tacotron branch (counterpart of
+"""Synthesizer inference for the three synthesizers (counterpart of
 ``rtvc_tpu/inference/synthesizer.py``).
 
 ``Synthesizer.synthesize_spectrograms`` keeps every padding of the JAX
 package that changes the numbers:
 
-* character sequences are padded to a multiple of 32 — the attention mask
-  multiplies the logits, so pad characters take part in the softmax;
-* the postnet runs on a frame bucket (multiple of 128) padded with the
-  silence value ``-max_abs_value``, which the CBHG BiGRU's backward pass sees;
-* trailing frames below the stop threshold are trimmed.
+* character sequences are padded with 0 to a multiple of 32. In Tacotron
+  the attention mask multiplies the logits, so pad characters take part in
+  the softmax; in ForwardTacotron and FastPitch the predictors run over the
+  pad characters too, and their predicted durations count in each mel's
+  length (as in the JAX package);
+* Tacotron's postnet runs on a frame bucket (multiple of 128) padded with
+  the silence value ``-max_abs_value``, which the CBHG BiGRU's backward pass
+  sees, and trailing frames below the stop threshold are trimmed.
 
-The decoder loop runs through the K2 kernel on a card (``ops.tacotron_decode``).
+Tacotron's decoder loop runs through the K2 kernel on a card
+(``ops.tacotron_decode``). ForwardTacotron and FastPitch generate in one
+parallel pass (``models.forward_tacotron.forward_generate``,
+``models.fast_pitch.fastpitch_generate``: ForwardTacotron's BiLSTM through
+K3 and its five BiGRUs through K4) and take ``speed_modifier``,
+``pitch_function`` and ``energy_function``; each mel is trimmed to its
+row's duration sum, and the durations are its "alignments".
 ``make_spectrogram`` (waveform or file → training-format mel, through the K6
 kernel) and ``griffin_lim`` (mel → waveform without a vocoder) are module
 functions and static helpers of ``Synthesizer``; both work on the card
@@ -20,14 +29,12 @@ unless the caller names another device.
 checkpoint in any of the formats of ``train/checkpoints.py:read_model``,
 rebuilding the model at the widths its config names (the defaults for a
 reference ``.pt``, which carries none) and taking the reduction factor
-from the file (2 when it names none). The non-autoregressive synthesizers,
-and with them ``speed_modifier``, ``pitch_function`` and
-``energy_function``, are not ported yet.
+from the file (2 when it names none).
 """
 from __future__ import annotations
 
 from pathlib import Path
-from typing import List, Optional, Union
+from typing import Callable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -36,6 +43,8 @@ from rtvc_tpu_torch.config import preprocessing, sp
 from rtvc_tpu_torch.text import text_to_sequence
 from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.models import tacotron as taco
+from rtvc_tpu_torch.models.fast_pitch import fastpitch_generate
+from rtvc_tpu_torch.models.forward_tacotron import forward_generate
 from rtvc_tpu_torch.ops import audio as audio_ops
 from rtvc_tpu_torch.ops.tacotron_decode import tacotron_decode
 from rtvc_tpu_torch.train.checkpoints import read_model
@@ -96,19 +105,25 @@ class Synthesizer:
             print("Model has been trained to step %d." % self._step)
 
     def load_bundle(self, bundle: factories.SynModel, r: int = 2):
-        """Install an in-memory model (self-tests, benchmarks)."""
-        if bundle.model_type != factories.MODEL_TYPE_TACOTRON:
-            raise NotImplementedError(f"{bundle.model_type} is a later slice")
+        """Install an in-memory model of any of the three types (self-tests,
+        benchmarks); ``r`` is Tacotron's reduction factor."""
         self._bundle = bundle
         self._r = r
 
     @torch.no_grad()
     def synthesize_spectrograms(self, texts: List[str],
                                 embeddings: Union[np.ndarray, List[np.ndarray]],
-                                return_alignments: bool = False, seed: int = 0,
+                                return_alignments: bool = False, speed_modifier: float = 1.0,
+                                pitch_function: Optional[Callable] = None,
+                                energy_function: Optional[Callable] = None, seed: int = 0,
                                 prenet_dropout: bool = True):
-        """texts + speaker embeddings → list of (80, Mi) mels.
-        ``prenet_dropout=False`` is the deterministic test hook (the
+        """texts + speaker embeddings → list of (80, Mi) mels (and the
+        alignments: Tacotron's attention, the NAR synthesizers' durations).
+        The NAR synthesizers divide their predicted durations by ``alpha =
+        1 / speed_modifier``, as the JAX package does, and
+        ``pitch_function`` / ``energy_function`` map their (B, 1, T)
+        predictions (numpy in, array-like out); Tacotron ignores all three.
+        ``prenet_dropout=False`` is Tacotron's deterministic test hook (the
         reference keeps prenet dropout on at inference)."""
         if not self.is_loaded():
             self.load()
@@ -119,7 +134,11 @@ class Synthesizer:
         for i in range(0, len(texts), bs):
             chars = text_ids(texts[i:i + bs])
             embeds = np.stack(embeddings[i:i + bs]).astype(np.float32)
-            mels, aligns = self._generate(chars, embeds, seed, prenet_dropout)
+            if self._bundle.model_type == factories.MODEL_TYPE_TACOTRON:
+                mels, aligns = self._generate(chars, embeds, seed, prenet_dropout)
+            else:
+                mels, aligns = self._generate_forward(chars, embeds, speed_modifier,
+                                                      pitch_function, energy_function)
             specs.extend(mels)
             alignments.extend(aligns)
         return (specs, alignments) if return_alignments else specs
@@ -169,6 +188,21 @@ class Synthesizer:
             aligns.append(attn_np[b])
         return mels, aligns
 
+    def _generate_forward(self, chars: np.ndarray, embeds: np.ndarray, speed_modifier: float,
+                          pitch_function: Optional[Callable],
+                          energy_function: Optional[Callable]):
+        """ForwardTacotron or FastPitch: each mel trimmed to its row's
+        duration sum (at least one frame), the durations as alignments."""
+        gen = (fastpitch_generate if self._bundle.model_type == factories.MODEL_TYPE_FASTPITCH
+               else forward_generate)
+        dev = next(self._bundle.model.parameters()).device
+        mel, durs = gen(self._bundle.model, torch.as_tensor(chars, device=dev),
+                        torch.as_tensor(embeds, device=dev), alpha=1.0 / speed_modifier,
+                        pitch_function=pitch_function, energy_function=energy_function)
+        mel = mel.cpu().numpy()
+        return ([mel[b, :, :max(int(durs[b].sum()), 1)].astype(np.float32)
+                 for b in range(mel.shape[0])], list(durs))
+
 
 _model: Optional[Synthesizer] = None
 
@@ -192,13 +226,18 @@ def get_model_type() -> str:
 
 
 def synthesize_spectrograms(texts: List[str], embeddings: Union[np.ndarray, List[np.ndarray]],
-                            return_alignments: bool = False, seed: int = 0):
+                            return_alignments: bool = False, speed_modifier: float = 1.0,
+                            pitch_function: Optional[Callable] = None,
+                            energy_function: Optional[Callable] = None, seed: int = 0):
     """The module's synthesizer: texts + speaker embeddings → list of
-    (80, Mi) mels."""
+    (80, Mi) mels (see ``Synthesizer.synthesize_spectrograms``)."""
     if not is_loaded():
         raise Exception("Please load Synthesizer in memory before using it")
     return _model.synthesize_spectrograms(texts, embeddings,
-                                          return_alignments=return_alignments, seed=seed)
+                                          return_alignments=return_alignments,
+                                          speed_modifier=speed_modifier,
+                                          pitch_function=pitch_function,
+                                          energy_function=energy_function, seed=seed)
 
 
 def load_preprocess_wav(fpath) -> np.ndarray:

@@ -1,6 +1,7 @@
 """Model factories (counterpart of ``rtvc_tpu/models/factories.py``) for the
-ported models: Tacotron, the three WaveRNN variants (fatchord, geneing,
-runtimeracer) with any of their heads, and the speaker encoder. Random
+ported models: the three synthesizers (Tacotron, ForwardTacotron,
+FastPitch), the three WaveRNN variants (fatchord, geneing, runtimeracer)
+with any of their heads, and the speaker encoder. Random
 weights come from a ``torch.Generator`` seeded by ``seed``;
 modules are built on the meta device and filled once, so no global RNG is
 touched. Every factory builds on the card when ``device`` is left out and
@@ -11,7 +12,7 @@ JAX weights across through ``bridge``.
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
@@ -22,6 +23,13 @@ from rtvc_tpu_torch.config import vocoder as _voc_cfg
 from rtvc_tpu_torch.config.encoder import EncoderDataParams, EncoderModelParams
 from rtvc_tpu_torch.text.symbols import symbols
 from rtvc_tpu_torch.models import layers
+from rtvc_tpu_torch.models.fast_pitch import (
+    FastPitch,
+    FastPitchDims,
+    MultiheadAttention,
+    PositionalEncoding,
+)
+from rtvc_tpu_torch.models.forward_tacotron import BiLSTM, ForwardTacotron, ForwardTacotronDims
 from rtvc_tpu_torch.models.speaker_encoder import SpeakerEncoder
 from rtvc_tpu_torch.models.tacotron import Tacotron, TacotronDims
 from rtvc_tpu_torch.models.wavernn import WaveRNN, WaveRNNDims
@@ -35,14 +43,14 @@ MODEL_TYPE_GENEING = "geneing-wavernn"
 MODEL_TYPE_RUNTIMERACER = "runtimeracer-wavernn"
 VOC_MODEL_TYPES = (MODEL_TYPE_FATCHORD, MODEL_TYPE_GENEING, MODEL_TYPE_RUNTIMERACER)
 
-_LATER = ("{} is not ported to rtvc_tpu_torch yet: the non-autoregressive "
-          "synthesizers are a later slice")
+_LATER = ("training {} is not ported to rtvc_tpu_torch yet: the non-autoregressive "
+          "synthesizers' training is a later slice")
 
 
 class SynModel(NamedTuple):
     model_type: str
-    dims: TacotronDims
-    model: Tacotron
+    dims: Union[TacotronDims, ForwardTacotronDims, FastPitchDims]
+    model: Union[Tacotron, ForwardTacotron, FastPitch]
     config: Any
 
 
@@ -57,14 +65,14 @@ def default_config(model_type: str):
     """The default hyper-parameters of a model type."""
     defaults = {
         MODEL_TYPE_TACOTRON: _syn_cfg.tacotron,
+        MODEL_TYPE_FORWARD_TACOTRON: _syn_cfg.forward_tacotron,
+        MODEL_TYPE_FASTPITCH: _syn_cfg.fast_pitch,
         MODEL_TYPE_FATCHORD: _voc_cfg.wavernn_fatchord,
         MODEL_TYPE_GENEING: _voc_cfg.wavernn_geneing,
         MODEL_TYPE_RUNTIMERACER: _voc_cfg.wavernn_runtimeracer,
     }
     if model_type in defaults:
         return defaults[model_type]
-    if model_type in SYN_MODEL_TYPES:
-        raise NotImplementedError(_LATER.format(model_type))
     raise NotImplementedError("Invalid model of type '%s' provided. Aborting..." % model_type)
 
 
@@ -73,7 +81,7 @@ def config_from_dict(model_type: str, cfg_dict: Optional[dict]):
     counterpart of the JAX package's ``config_from_extras`` on
     ``extras['config']``), or the model type's defaults when the file
     carries none. Lists become tuples again (``tts_schedule``)."""
-    cfg = default_config(model_type)  # raises: a later slice, or no such model
+    cfg = default_config(model_type)  # raises for no such model
     if not cfg_dict:
         return cfg
 
@@ -89,7 +97,9 @@ def from_checkpoint(ckpt, kind: str, device=None, config=None):
     ``strict=True``: a SpeakerEncoder for ``kind`` "encoder", a SynModel or a
     VocModel. A file without a config takes ``config`` (the encoder's
     ``(model, data)`` pair), else the defaults; one without a model type is a
-    Tacotron or a fatchord WaveRNN, as the reference's are."""
+    Tacotron or a fatchord WaveRNN, as the reference's are. A FastPitch file
+    without the speaker projections (the reference's FastPitch has none)
+    takes them at zero, as the JAX package's importer does."""
     if kind == "encoder":
         cfgs = ((EncoderModelParams(**ckpt.config["model"]),
                  EncoderDataParams(**ckpt.config["data"])) if ckpt.config
@@ -100,13 +110,18 @@ def from_checkpoint(ckpt, kind: str, device=None, config=None):
     synthesizer = kind == "synthesizer"
     model_type = ckpt.model_type or (MODEL_TYPE_TACOTRON if synthesizer else MODEL_TYPE_FATCHORD)
     cfg = config_from_dict(model_type, ckpt.config)
+    state = ckpt.state_dict
     if synthesizer:
-        dims = tacotron_dims(cfg)
-        model = empty_on_device(lambda: Tacotron(dims), device)
+        dims = syn_dims(model_type, cfg)
+        model = empty_on_device(lambda: _SYN_CLASSES[model_type](dims), device)
+        if model_type == MODEL_TYPE_FASTPITCH:
+            state = {**{k: torch.zeros_like(v, device="cpu")
+                        for k, v in model.state_dict().items() if ".spk_proj." in f".{k}"},
+                     **state}
     else:
         dims = wavernn_dims(model_type, cfg)
         model = empty_on_device(lambda: WaveRNN(dims), device)
-    model.load_state_dict(ckpt.state_dict, strict=True)
+    model.load_state_dict(state, strict=True)
     return (SynModel if synthesizer else VocModel)(model_type, dims, model.eval(), cfg)
 
 
@@ -120,7 +135,7 @@ def _init_(module: nn.Module, g: torch.Generator) -> None:
     its layers (uniform ±1/√fan_in for linear, conv and recurrent weights;
     BatchNorm at identity; embeddings N(0, 1))."""
     for m in module.modules():
-        if isinstance(m, (layers.LSTM, layers.GRU, nn.GRUCell, nn.LSTMCell)):
+        if isinstance(m, (layers.LSTM, layers.GRU, BiLSTM, nn.GRUCell, nn.LSTMCell)):
             for p in m.parameters(recurse=False):
                 _uniform_(p, 1.0 / math.sqrt(m.hidden_size), g)
         elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
@@ -132,8 +147,26 @@ def _init_(module: nn.Module, g: torch.Generator) -> None:
             m.bias.fill_(0.0)
             m.running_mean.fill_(0.0)
             m.running_var.fill_(1.0)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.fill_(0.0)
+        elif isinstance(m, MultiheadAttention):  # torch's: xavier in_proj, zero bias
+            _uniform_(m.in_proj_weight, math.sqrt(6.0 / (2 * m.in_proj_weight.shape[1])), g)
+            m.in_proj_bias.fill_(0.0)
         elif isinstance(m, nn.Embedding):
             m.weight.copy_(torch.randn(m.weight.shape, generator=g))
+        elif isinstance(m, PositionalEncoding):
+            m.scale.fill_(1.0)
+
+
+@torch.no_grad()
+def _xavier_(model: nn.Module, g: torch.Generator) -> None:
+    """Xavier-uniform on every parameter of more than one dimension, over
+    its last two axes, as the JAX package re-initialises Tacotron and
+    ForwardTacotron."""
+    for p in model.parameters():
+        if p.ndim > 1:
+            _uniform_(p, math.sqrt(6.0 / (p.shape[-1] + p.shape[-2])), g)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -177,6 +210,15 @@ def tacotron_dims(cfg) -> TacotronDims:
                                     spk=_sig.sv2tts.speaker_embedding_size)
 
 
+def syn_dims(model_type: str, cfg):
+    """The static dimensions of a synthesizer of this type and config."""
+    if model_type == MODEL_TYPE_TACOTRON:
+        return tacotron_dims(cfg)
+    dims_cls = ForwardTacotronDims if model_type == MODEL_TYPE_FORWARD_TACOTRON else FastPitchDims
+    return dims_cls.from_config(cfg, num_chars=len(symbols), n_mels=_sig.sp.num_mels,
+                                spk=_sig.sv2tts.speaker_embedding_size)
+
+
 def get_model_train_elements(model_type: str) -> list:
     """The dataset elements a synthesizer's training needs."""
     if model_type == MODEL_TYPE_TACOTRON:
@@ -186,13 +228,15 @@ def get_model_train_elements(model_type: str) -> list:
 
 def init_syn_model(model_type: str, seed: int = 0, override_hp=None,
                    device=None) -> SynModel:
-    """A synthesizer with random weights (xavier-uniform on every >1-D
-    tensor, as the reference initialises Tacotron)."""
+    """A synthesizer of any of the three types with random weights:
+    xavier-uniform on every >1-D tensor for Tacotron and ForwardTacotron,
+    as the reference initialises them; FastPitch as the JAX package
+    initialises it (torch's layer defaults)."""
     cfg = override_hp or default_config(model_type)
-    if model_type != MODEL_TYPE_TACOTRON:
-        raise NotImplementedError(_LATER.format(model_type))
-    dims = tacotron_dims(cfg)
-    return SynModel(model_type, dims, init_tacotron(dims, seed, device), cfg)
+    if model_type not in SYN_MODEL_TYPES:
+        raise NotImplementedError("Invalid model of type '%s' provided. Aborting..." % model_type)
+    dims = syn_dims(model_type, cfg)
+    return SynModel(model_type, dims, _INIT[model_type](dims, seed, device), cfg)
 
 
 def init_tacotron(dims: TacotronDims, seed: int = 0, device=None) -> Tacotron:
@@ -200,12 +244,31 @@ def init_tacotron(dims: TacotronDims, seed: int = 0, device=None) -> Tacotron:
     model = empty_on_device(lambda: Tacotron(dims), device)
     g = torch.Generator().manual_seed(seed)
     _init_(model, g)
-    with torch.no_grad():
-        for p in model.parameters():
-            if p.ndim > 1:
-                limit = math.sqrt(6.0 / (p.shape[-1] + p.shape[-2]))
-                _uniform_(p, limit, g)
+    _xavier_(model, g)
     return model.eval()
+
+
+def init_forward_tacotron(dims: ForwardTacotronDims, seed: int = 0,
+                          device=None) -> ForwardTacotron:
+    """A ForwardTacotron of these dims with random weights."""
+    model = empty_on_device(lambda: ForwardTacotron(dims), device)
+    g = torch.Generator().manual_seed(seed)
+    _init_(model, g)
+    _xavier_(model, g)
+    return model.eval()
+
+
+def init_fast_pitch(dims: FastPitchDims, seed: int = 0, device=None) -> FastPitch:
+    """A FastPitch of these dims with random weights."""
+    model = empty_on_device(lambda: FastPitch(dims), device)
+    _init_(model, torch.Generator().manual_seed(seed))
+    return model.eval()
+
+
+_SYN_CLASSES = {MODEL_TYPE_TACOTRON: Tacotron, MODEL_TYPE_FORWARD_TACOTRON: ForwardTacotron,
+                MODEL_TYPE_FASTPITCH: FastPitch}
+_INIT = {MODEL_TYPE_TACOTRON: init_tacotron, MODEL_TYPE_FORWARD_TACOTRON: init_forward_tacotron,
+         MODEL_TYPE_FASTPITCH: init_fast_pitch}
 
 
 def wavernn_dims(model_type: str, cfg) -> WaveRNNDims:

@@ -15,7 +15,9 @@ holds (``ops.lstm_seq.plan``: 1320 on an H100). :class:`GRU` does the same
 through K4 (``ops.gru_seq``: ``gru_seq_fwd`` under no grad, ``GRUSeqFn``
 with a gradient; 1056 on an H100): the Tacotron CBHGs' BiGRUs at hidden
 width 64, where the JAX package scans because its TPU kernel wants a
-multiple of 128, and the WaveRNN trainer's GRUs.
+multiple of 128, ForwardTacotron's five BiGRUs, and the WaveRNN trainer's
+GRUs. :func:`length_regulate` is the non-autoregressive synthesizers'
+length regulator.
 """
 from __future__ import annotations
 
@@ -286,14 +288,22 @@ class BatchNormConv(nn.Module):
 
 
 class CBHG(nn.Module):
-    """Conv bank + highways + BiGRU on (B, T, C), Tacotron's variant: BiGRU
-    hidden = channels // 2, no dropout, ``pre_highway`` only when the
-    projection width differs from the highway width. (The ForwardTacotron
-    variant belongs to a later slice.)"""
+    """Conv bank + highways + BiGRU on (B, T, C). Two variants, as in the
+    JAX package:
+
+    * Tacotron's (the default): BiGRU hidden = channels // 2, no dropout,
+      ``pre_highway`` only when the projection width differs from the
+      highway width;
+    * ForwardTacotron's (``forward_variant=True``): BiGRU hidden = channels
+      (output 2 · channels), ``pre_highway`` always, and dropout of rate
+      ``dropout`` after the max-pool and after ``conv_project1``, in
+      training only (``new_stats`` given)."""
 
     def __init__(self, K: int, in_channels: int, channels: int,
-                 proj_channels: Sequence[int], num_highways: int, device=None):
+                 proj_channels: Sequence[int], num_highways: int,
+                 forward_variant: bool = False, dropout: float = 0.5, device=None):
         super().__init__()
+        self.dropout = dropout if forward_variant else 0.0
         self.conv1d_bank = nn.ModuleList(
             BatchNormConv(in_channels, channels, k, device=device)
             for k in range(1, K + 1))
@@ -301,22 +311,25 @@ class CBHG(nn.Module):
                                            device=device)
         self.conv_project2 = BatchNormConv(proj_channels[0], proj_channels[1], 3,
                                            relu=False, device=device)
-        if proj_channels[-1] != channels:
+        if forward_variant or proj_channels[-1] != channels:
             self.pre_highway = Linear(proj_channels[-1], channels, bias=False,
                                       device=device)
         else:
             self.pre_highway = None
         self.highways = nn.ModuleList(
             HighwayNetwork(channels, device=device) for _ in range(num_highways))
-        self.rnn = GRU(channels, channels // 2, bidirectional=True, device=device)
+        self.rnn = GRU(channels, channels if forward_variant else channels // 2,
+                       bidirectional=True, device=device)
 
     def forward(self, x: Tensor, lengths: Optional[Tensor] = None,
-                new_stats: Optional[Dict[str, Tensor]] = None, prefix: str = "") -> Tensor:
+                new_stats: Optional[Dict[str, Tensor]] = None, prefix: str = "",
+                generator: Optional[torch.Generator] = None) -> Tensor:
         # ``lengths`` (B,): every stage re-zeroes pad frames and the BiGRU
         # masks its carries, so padded input gives each sequence's unpadded
         # result. ``new_stats`` (training): every BatchNorm uses the batch's
         # statistics and leaves its new running statistics there under
-        # ``prefix`` + the buffers' names; the step installs them.
+        # ``prefix`` + the buffers' names; the step installs them. The
+        # forward variant's dropout draws from ``generator`` then.
         if lengths is not None:
             fmask = (torch.arange(x.shape[1], device=x.device)[None, :]
                      < lengths[:, None]).to(x.dtype)[..., None]
@@ -327,6 +340,11 @@ class CBHG(nn.Module):
             def remask(v):
                 return v
 
+        def drop(v):
+            if new_stats is None or not self.dropout:
+                return v
+            return always_dropout(v, self.dropout, generator)
+
         x = remask(x)
         residual = x
         seq_len = x.shape[1]
@@ -335,8 +353,8 @@ class CBHG(nn.Module):
              for i, conv in enumerate(self.conv1d_bank)], dim=-1)
         # MaxPool1d(2, stride 1, padding 1) trimmed to seq_len: max over [t-1, t]
         pooled = F.max_pool1d(bank.transpose(1, 2), 2, stride=1, padding=1)
-        pooled = remask(pooled[:, :, :seq_len].transpose(1, 2))
-        x = remask(self.conv_project1(pooled, new_stats, f"{prefix}conv_project1."))
+        pooled = drop(remask(pooled[:, :, :seq_len].transpose(1, 2)))
+        x = drop(remask(self.conv_project1(pooled, new_stats, f"{prefix}conv_project1.")))
         x = remask(self.conv_project2(x, new_stats, f"{prefix}conv_project2."))
         x = x + residual
         if self.pre_highway is not None:
@@ -345,3 +363,15 @@ class CBHG(nn.Module):
             x = highway(x)
         out, _ = self.rnn(remask(x), lengths=lengths)
         return out
+
+
+def length_regulate(x: Tensor, durations: Tensor, max_len: int) -> Tensor:
+    """Repeat each step of x (B, T, C) by its duration (B, T), integers
+    ≥ 0, into (B, max_len, C): frame l takes the step whose cumulative
+    duration first exceeds l (a search over the cumulative durations).
+    Frames past a row's total take step T − 1; the caller masks or zeroes
+    them."""
+    cum = durations.to(device=x.device, dtype=torch.long).cumsum(1)
+    positions = torch.arange(max_len, device=x.device).expand(x.shape[0], -1).contiguous()
+    idx = torch.searchsorted(cum, positions, right=True).clamp(max=x.shape[1] - 1)
+    return x.gather(1, idx[..., None].expand(-1, -1, x.shape[2]))

@@ -40,11 +40,48 @@ def preemphasis(wav: Tensor, k: float) -> Tensor:
 
 
 def inv_preemphasis(wav: Tensor, k: float) -> Tensor:
-    """IIR y[n] = x[n] + k·y[n-1]. A first-order recurrence over a whole
-    waveform; it runs on the host in float64 (the waveform leaves the card
-    right after it) and returns a float32 tensor on ``wav``'s device."""
+    """IIR y[n] = x[n] + k·y[n-1] over a whole waveform, in float64, as a
+    float32 tensor on ``wav``'s device: a CPU tensor through scipy's
+    ``lfilter``, a CUDA tensor on the card by :func:`iir_blocks` (a host
+    filter would wait for the card there, and a streamed vocode would wait
+    for each chunk's sample loop before it could queue the next)."""
+    if wav.is_cuda:
+        return iir_blocks(wav.detach().double(), k).float()
     y = scipy.signal.lfilter([1.0], [1.0, -k], wav.detach().cpu().double().numpy())
-    return torch.from_numpy(y.astype(np.float32)).to(wav.device)
+    return torch.from_numpy(y.astype(np.float32))
+
+
+IIR_BLOCK = 256
+
+
+def iir_blocks(x: Tensor, k: float) -> Tensor:
+    """y[n] = x[n] + k·y[n-1] from a zero state, in x's dtype, without a
+    sequential loop: each block of ``IIR_BLOCK`` samples from a zero state
+    is one product with the matrix of k^(i-j) (i ≥ j); the state entering a
+    block is Σ_m k^(m·L) · e[b-1-m], e the blocks' zero-state last values,
+    cut where k^(m·L) falls below 1e-18 (the whole sum when |k| ≥ 1)."""
+    L = IIR_BLOCK
+    n = x.shape[0]
+    nb = max(-(-n // L), 1)
+    xb = torch.nn.functional.pad(x, (0, nb * L - n)).view(nb, L)
+    i = torch.arange(L, device=x.device, dtype=x.dtype)
+    lag = i[:, None] - i[None, :]
+    P = torch.where(lag >= 0, torch.full_like(lag, k) ** lag.clamp(min=0), torch.zeros_like(lag))
+    y = xb @ P.t()
+    e = y[:, -1]
+    kL = abs(k) ** L
+    if k == 0:
+        terms = 0
+    elif kL >= 1:
+        terms = nb - 1
+    else:
+        terms = min(nb - 1, math.ceil(math.log(1e-18) / math.log(kL)))
+    state = e.clone()
+    for m in range(1, terms + 1):
+        state[m:] += (k ** L) ** m * e[:nb - m]
+    carry = torch.nn.functional.pad(state, (1, 0))[:nb]  # the state entering each block
+    y = y + carry[:, None] * (torch.full_like(i, k) ** (i + 1))[None, :]
+    return y.reshape(-1)[:n]
 
 
 # the vocoder side's name for the same filter

@@ -88,6 +88,13 @@ BWD_SLICES = {2: (1, 3, 5), 4: (1, 3, 5), 8: (1, 3, 5)}
 L2_PIECE_CYCLES = 400
 FMA_CYCLES = 2
 L2_BYTES_PER_CYCLE = 16
+# A forward instantiation whose warp computes fewer than SMALL_PASS_SUMS sums a
+# pass (3 · units · nb) ran ≈ 3.7 µs a step slower at B 1 on an H100, every
+# candidate timed at H 64, 128 and 256 (PERF.md, PR 14): 5.7-6.1 µs a step
+# against 2.0-3.5 for the others, with no spill. Those passes cost
+# SMALL_PASS_CYCLES more.
+SMALL_PASS_SUMS = 12
+SMALL_PASS_CYCLES = 6500
 
 
 class Plan(NamedTuple):
@@ -119,7 +126,9 @@ def cost(p: Plan, H: int, backward: bool) -> float:
     w_rows, ld = _weights(H, p.units, backward)
     n = 3 * H if backward else H
     passes = -(-(-(-p.rows // p.nb)) // WARPS)  # passes of the busiest warp
-    warp = passes * (-(-n // 128) * L2_PIECE_CYCLES + w_rows * p.nb * ld / 32 * FMA_CYCLES)
+    small = 0 if backward or w_rows * p.nb >= SMALL_PASS_SUMS else SMALL_PASS_CYCLES
+    warp = passes * (-(-n // 128) * L2_PIECE_CYCLES + w_rows * p.nb * ld / 32 * FMA_CYCLES
+                     + small)
     return max(warp, p.rows * n * 4 / L2_BYTES_PER_CYCLE)
 
 

@@ -9,10 +9,12 @@ multiplies are constants, not read from L2), ``no_weights`` (the weights are
 constants, not read from shared memory), ``no_loads_no_weights`` (both), and
 ``no_wait`` (every CTA arrives at the grid barrier but none waits). Times
 forward and backward of each with CUDA events, with the package's plan, at
-B 40 x T 1000 x H 256 and 512, B 40 x T 1400 x H 256 and the four CBHG
-BiGRU shapes at H 64 (B 1 x T 64 and 512, B 112 x T 160 and 602); then every
-candidate plan of each shape (``ops/gru_seq.py:candidates``) through the
-kernel as it is, beside the modelled cost that ``plan`` ranks them by. The
+B 40 x T 1000 x H 256 and 512, B 40 x T 1400 x H 256, the four CBHG
+BiGRU shapes at H 64 (B 1 x T 64 and 512, B 112 x T 160 and 602),
+ForwardTacotron's B 1 shapes (H 128 and 256 at T 64, H 256 at T 384) and a
+few rows (B 2, 3 and 8); then every candidate plan of each shape
+(``ops/gru_seq.py:candidates``) through the kernel as it is, in
+:func:`rounds_ms`, beside the modelled cost that ``plan`` ranks them by. The
 variants' outputs are wrong by construction; only their times are read.
 Needs an NVIDIA GPU and nvcc.
 """
@@ -32,7 +34,24 @@ from rtvc_tpu_torch.ops.gru_seq import candidates, cost, plan
 # clone's encoder and postnet (B 1 x T 64, 512), the training step's (B 112 x
 # T 160, 602)
 SHAPES = ((40, 1000, 256), (40, 1000, 512), (40, 1400, 256), (1, 64, 64), (1, 512, 64),
-          (112, 160, 64), (112, 602, 64))
+          (112, 160, 64), (112, 602, 64), (1, 64, 128), (1, 64, 256), (1, 384, 256),
+          (2, 64, 64), (3, 64, 128), (8, 64, 256))
+# A plan's time: the median of ROUNDS rounds of REPS launches, every plan of a
+# shape once a round in an order that alternates from round to round (one plan
+# at a time over two or three launches gave two times per plan at B 1, 2.2 and
+# 6 us a step, by when it ran)
+ROUNDS = 5
+REPS = 10
+
+
+def rounds_ms(runs: dict) -> dict:
+    """{key: median ms} of ``runs`` ({key: fn launching once})."""
+    keys = list(runs)
+    times = {k: [] for k in keys}
+    for r in range(ROUNDS):
+        for k in keys if r % 2 == 0 else keys[::-1]:
+            times[k].append(profile_lstm.cuda_ms(runs[k], reps=REPS))
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
 
 def variants(source: str) -> dict:
@@ -74,8 +93,9 @@ def profile_shape(libs: dict, B: int, T: int, H: int, dev) -> None:
         print(f"  {name}: forward {fwd_ms:.3f} ms, {fwd_ms / T * 1e3:.2f} us a step; backward "
               f"{bwd_ms:.3f} ms, {bwd_ms / T * 1e3:.2f} us a step")
     for backward, run, chosen in ((False, fwd, p_fwd), (True, bwd, p_bwd)):
-        timed = sorted((profile_lstm.cuda_ms(lambda: run(libs["base"], p), reps=2), p)
-                       for p in candidates(B, H, *limits, backward=backward))
+        timed = sorted((ms, p) for p, ms in rounds_ms(
+            {p: (lambda p=p: run(libs["base"], p))
+             for p in candidates(B, H, *limits, backward=backward)}).items())
         print(f"  {'backward' if backward else 'forward'} candidates, ms / modelled cycles a "
               f"step / (groups, slices, units, nb), fastest first: " + "; ".join(
                   f"{ms:.3f} / {cost(p, H, backward):.0f} / {tuple(p[:4])}"

@@ -2,6 +2,7 @@
 ``bench_streaming.py``'s ``_measure`` and ``_device_ttfa_tacotron``).
 
     python -m rtvc_tpu_torch.profile_stream [--runs 5] [--first 16]
+        [--synthesizer {tacotron,forward-tacotron,fast-pitch}]
 
 Seeded random weights at the default widths (the GE2E encoder, the Tacotron
 with ``max_decoder_steps`` 400 as ``demo_cli`` caps it, so that the decoder
@@ -13,8 +14,12 @@ chunk's emit time, the real-time factor (seconds of audio over the stream's
 wall seconds) and the chunk cadence's (a steady chunk's audio over the
 median gap between chunks). Then the first chunk's chain alone, timed with
 CUDA events around each stage: encode, decode (K2 over the first chunk's
-iterations), postnet (the CBHG, K4) and vocode (the generate path, K1). It
-raises without a card.
+iterations), postnet (the CBHG, K4) and vocode (the generate path, K1).
+With ``--synthesizer forward-tacotron`` or ``fast-pitch`` (their duration
+head set to 6 frames a character, as ``chip_smoke.py`` sets it) the stream
+is the batch mel through ``stream_vocode``, and the first chunk's split is
+the whole synthesize stage and the first chunk's vocode (host clock, each
+ended by a device sync). It raises without a card.
 """
 from __future__ import annotations
 
@@ -104,7 +109,47 @@ def first_chunk_split(synth, voc, text: str, embed: np.ndarray, first_chunk_fram
     return total
 
 
-def models(dev, seed: int = 0):
+@torch.no_grad()
+def nar_first_chunk_split(synth, voc, text: str, embed: np.ndarray, first_chunk_frames: int = 16,
+                          reps: int = 5) -> dict:
+    """A NAR stream's way to its first chunk, host ms after a device sync
+    (the mean of ``reps`` after a warm-up): the whole synthesize stage, then
+    the first chunk of ``stream_vocode`` over its mel, and both."""
+    from rtvc_tpu_torch.inference.streaming import stream_vocode
+
+    total = {"synthesize": 0.0, "first chunk's vocode": 0.0}
+    for rep in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel = synth.synthesize_spectrograms([text], [embed])[0]
+        t1 = time.perf_counter()
+        next(stream_vocode(voc, mel, 0, first_chunk_frames=first_chunk_frames))
+        t2 = time.perf_counter()
+        if rep:
+            total["synthesize"] += (t1 - t0) * 1e3 / reps
+            total["first chunk's vocode"] += (t2 - t1) * 1e3 / reps
+    total["all"] = sum(total.values())
+    return total
+
+
+def nar_synthesizer(model_type: str, dev, seed: int = 0, frames_per_char: float = 6.0):
+    """A ``Synthesizer`` holding a seeded default-width ForwardTacotron or
+    FastPitch whose duration head predicts ``frames_per_char`` frames for
+    every character (weight 0, that bias): random predictors give near-zero
+    durations, which the guard turns into 2 frames a character."""
+    from rtvc_tpu_torch.inference import synthesizer
+    from rtvc_tpu_torch.models import factories
+
+    bundle = factories.init_syn_model(model_type, seed=seed, device=dev)
+    with torch.no_grad():
+        bundle.model.dur_pred.lin.weight.zero_()
+        bundle.model.dur_pred.lin.bias.fill_(frames_per_char)
+    synth = synthesizer.Synthesizer()
+    synth.load_bundle(bundle)
+    return synth
+
+
+def models(dev, seed: int = 0, model_type: str = "tacotron"):
     """(synthesizer, vocoder bundle, embedding of the voiced prompt) at the
     default widths with seeded random weights; the encoder installed."""
     from rtvc_tpu_torch.inference import encoder, synthesizer
@@ -112,10 +157,13 @@ def models(dev, seed: int = 0):
     from rtvc_tpu_torch.serve import voiced_prompt
 
     encoder.init_random_model(seed=seed, device=dev)
-    cfg = factories.default_config(factories.MODEL_TYPE_TACOTRON).replace(max_decoder_steps=400)
-    synth = synthesizer.Synthesizer()
-    synth.load_bundle(factories.init_syn_model(factories.MODEL_TYPE_TACOTRON, seed=seed,
-                                               override_hp=cfg, device=dev), r=2)
+    if model_type == factories.MODEL_TYPE_TACOTRON:
+        cfg = factories.default_config(model_type).replace(max_decoder_steps=400)
+        synth = synthesizer.Synthesizer()
+        synth.load_bundle(factories.init_syn_model(model_type, seed=seed, override_hp=cfg,
+                                                   device=dev), r=2)
+    else:
+        synth = nar_synthesizer(model_type, dev, seed)
     voc = factories.init_voc_model(factories.MODEL_TYPE_RUNTIMERACER, seed=seed, device=dev)
     embed = encoder.embed_utterance(encoder.preprocess_wav(voiced_prompt(0)))
     return synth, voc, embed
@@ -134,19 +182,26 @@ def main(argv=None) -> int:
     parser.add_argument("--runs", type=int, default=5)
     parser.add_argument("--first", type=int, default=16,
                         help="first_chunk_frames of the stream (0: the steady 48)")
+    parser.add_argument("--synthesizer", default="tacotron",
+                        choices=("tacotron", "forward-tacotron", "fast-pitch"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_stream needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    synth, voc, embed = models(dev)
+    synth, voc, embed = models(dev, model_type=args.synthesizer)
     kw = {"first_chunk_frames": args.first or None}
     measure(synth, voc, TEXT, embed, 1, **kw)
     for i, run in enumerate(measure(synth, voc, TEXT, embed, args.runs, **kw)):
         print(f"{card}: stream {i}: {line(run)}")
-    split = first_chunk_split(synth, voc, TEXT, embed, args.first or 48)
-    print(f"{card}: the first chunk ({args.first or 48} frames) alone, device ms by stage: "
+    if args.synthesizer == "tacotron":
+        split = first_chunk_split(synth, voc, TEXT, embed, args.first or 48)
+        kind = "device ms by stage"
+    else:
+        split = nar_first_chunk_split(synth, voc, TEXT, embed, args.first or 48)
+        kind = f"{args.synthesizer}, host ms by stage"
+    print(f"{card}: the first chunk ({args.first or 48} frames) alone, {kind}: "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     return 0
 

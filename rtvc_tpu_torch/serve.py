@@ -14,7 +14,8 @@ The browser toolbox (``GET /``, ``/api/*``, the toolbox's ``GET
 /api/stream`` among them) is not ported yet and answers 404.
 
 Start: ``python -m rtvc_tpu_torch.serve -e enc.ckpt -s syn.pt -v voc.pt``
-(any of the checkpoint formats ``train/checkpoints.py:read_model`` reads;
+(any of the checkpoint formats ``train/checkpoints.py:read_model`` reads,
+a synthesizer of any of the three types;
 the models run on the card, or on the CPU with ``--cpu``), or build a
 server over models already installed with ``create_server(...)``. Binds
 loopback by default. Every request's model work runs on one long-lived

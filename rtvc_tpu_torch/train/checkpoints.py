@@ -32,9 +32,9 @@ from rtvc_tpu_torch.utils import flax_msgpack
 
 MAGIC = b"RTVCTPU1"
 KINDS = ("encoder", "synthesizer", "vocoder")
-# buffers of the reference's modules that the port's have not: Tacotron's
-# and WaveRNN's step counters, the decoder's reduction factor (read into
-# ``r`` first) and BatchNorm's batch counters
+# buffers of the reference's modules that the port's have not: Tacotron's,
+# ForwardTacotron's and WaveRNN's step counters, the decoder's reduction
+# factor (read into ``r`` first) and BatchNorm's batch counters
 _REFERENCE_ONLY = ("step", "decoder.r")
 _REFERENCE_ONLY_SUFFIX = ".num_batches_tracked"
 
@@ -118,10 +118,9 @@ def _from_jax(payload: dict, kind: str) -> ModelCheckpoint:
         tree = params if set(params) == {"model", "similarity"} else variables
         state = bridge.speaker_encoder_state(tree)
     elif kind == "synthesizer":
-        if model_type not in (None, "tacotron"):
-            raise NotImplementedError(f"{model_type} is not ported to rtvc_tpu_torch yet: the "
-                                      "non-autoregressive synthesizers are a later slice")
-        state = bridge.tacotron_state(variables)
+        state = {"forward-tacotron": bridge.forward_tacotron_state,
+                 "fast-pitch": bridge.fast_pitch_state}.get(model_type,
+                                                            bridge.tacotron_state)(variables)
     else:
         state = bridge.wavernn_state(variables)
     r = extras.get("r")

@@ -241,6 +241,7 @@ def train_synthesizer(
     from rtvc_tpu_torch.models import factories
     from rtvc_tpu_torch.train.steps import make_tacotron_train_step
 
+    factories.get_model_train_elements(model_type)  # raises for a type not trained yet
     device = torch.device(device)
     bundle = factories.init_syn_model(model_type, seed=seed, override_hp=override_hp,
                                       device=device)

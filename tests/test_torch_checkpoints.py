@@ -12,6 +12,9 @@ apart by content:
 * the port's own trainer file: a vocoder loaded from it vocodes exactly as
   the trained module does.
 
+ForwardTacotron and FastPitch load from all three (at the narrow widths of
+their own test files), bit for bit.
+
 The port's msgpack reader is held to ``flax.serialization.msgpack_restore``
 on the same bytes."""
 import jax
@@ -28,6 +31,8 @@ import rtvc_tpu_torch.config.synthesizer as tsyn_cfg
 import rtvc_tpu_torch.config.vocoder as tvoc_cfg
 from rtvc_tpu.config.encoder import EncoderDataParams as JEncoderDataParams
 from rtvc_tpu.config.encoder import EncoderModelParams as JEncoderModelParams
+from rtvc_tpu.config.synthesizer import FastPitchParams as JFastPitchParams
+from rtvc_tpu.config.synthesizer import ForwardTacotronParams as JForwardTacotronParams
 from rtvc_tpu.config.synthesizer import TacotronParams as JTacotronParams
 from rtvc_tpu.config.vocoder import WaveRNNParams as JWaveRNNParams
 from rtvc_tpu.inference import encoder as jenc
@@ -35,6 +40,8 @@ from rtvc_tpu.inference import synthesizer as jsyn
 from rtvc_tpu.inference import vocoder as jvoc
 from rtvc_tpu.models import factories as jfactories
 from rtvc_tpu.models.speaker_encoder import SpeakerEncoder as JSpeakerEncoder
+from rtvc_tpu.models import fast_pitch as jfp
+from rtvc_tpu.models import forward_tacotron as jft
 from rtvc_tpu.models import tacotron as jt
 from rtvc_tpu.models import wavernn as jw
 from rtvc_tpu.train.checkpoints import load_checkpoint as jax_load_checkpoint
@@ -48,6 +55,8 @@ from rtvc_tpu_torch.train import checkpoints as tckpt
 from rtvc_tpu_torch.train import trainer as ttrain
 from rtvc_tpu_torch.utils import flax_msgpack
 from test_torch_clone import ENC, SYN, TEXT, VOC, _jax_synthesize
+from test_torch_fast_pitch import CFG as FP_CFG
+from test_torch_forward_tacotron import CFG as FT_CFG
 from test_torch_train import _voc_cfg, _voc_epochs
 
 
@@ -226,12 +235,49 @@ def test_jax_wavernn_ckpt_loads_bit_for_bit(tmp_path, model_type):
 
 
 def test_non_autoregressive_ckpt_is_a_later_slice(tmp_path):
+    """The NAR synthesizers load and serve; their training is what is
+    still a later slice. A NAR .ckpt without the model's weights names
+    what is missing."""
     path = tmp_path / "fp.ckpt"
     jax_save_checkpoint(path, {"w": np.ones(2, np.float32)}, 1, "fast-pitch")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(KeyError, match="dur_pred"):
         tsyn.Synthesizer(path, device="cpu").load()
+    assert factories.config_from_dict("forward-tacotron", {"embed_dims": 8}) == \
+        tsyn_cfg.forward_tacotron.replace(embed_dims=8)
     with pytest.raises(NotImplementedError, match="later slice"):
-        factories.config_from_dict("forward-tacotron", {"embed_dims": 8})
+        factories.get_model_train_elements("forward-tacotron")
+
+
+NAR = {"forward-tacotron": (FT_CFG, JForwardTacotronParams, jft.ForwardTacotronDims,
+                            jft.import_torch_state, bridge.forward_tacotron_state),
+       "fast-pitch": (FP_CFG, JFastPitchParams, jfp.FastPitchDims, jfp.import_torch_state,
+                      bridge.fast_pitch_state)}
+
+
+@pytest.mark.parametrize("model_type", list(NAR))
+def test_jax_nar_ckpt_loads_bit_for_bit(tmp_path, model_type):
+    """A ForwardTacotron or FastPitch .ckpt in the JAX trainers' layout
+    (the running statistics in the extras): the port's state equals the
+    bridge of what the JAX package's own loader gives."""
+    narrow, jparams, jdims, importer, to_state = NAR[model_type]
+    tcfg = factories.default_config(model_type).replace(**narrow)
+    jcfg = jparams(**tcfg.asdict())
+    syn = factories.init_syn_model(model_type, seed=4, override_hp=tcfg, device="cpu")
+    variables = importer({k: v.clone() for k, v in syn.model.state_dict().items()},
+                         jdims(**syn.dims._asdict()))
+    extras = {"config": jcfg.asdict()}
+    if variables["batch_stats"]:
+        extras["batch_stats"] = _perturbed(variables["batch_stats"], 5)
+    path = tmp_path / "synthesizer.ckpt"
+    jax_save_checkpoint(path, variables["params"], 120, model_type, {}, extras=extras)
+    jsynth = jsyn.Synthesizer(path, verbose=False)
+    jsynth.load()
+    tsyn.load_model(path, verbose=False, device="cpu")
+    synth = tsyn._model
+    assert tsyn.get_model_type() == jsynth.get_model_type() == model_type
+    assert synth._step == 120 and synth._bundle.config == tcfg
+    assert synth._bundle.config.asdict() == jcfg.asdict()
+    _assert_state_equal(synth._bundle.model.state_dict(), to_state(jsynth._model.variables))
 
 
 # -- reference .pt files ------------------------------------------------------
@@ -290,6 +336,44 @@ def test_reference_pt_loads_alike_in_both_packages(tmp_path, monkeypatch):
     mel_j = _jax_synthesize(v_syn, jd_syn, embed)
     assert mel_t.shape == mel_j.shape and mel_t.shape[0] == 80
     np.testing.assert_allclose(mel_t, mel_j, atol=1e-4)
+
+
+def test_reference_forward_tacotron_pt_loads_bit_for_bit(tmp_path, monkeypatch):
+    """A reference ForwardTacotron .pt (model_type named, a step buffer and
+    BatchNorm's batch counters) loads strict at the default widths, narrowed
+    here; the JAX package's reader and importer give the same weights."""
+    monkeypatch.setattr(tsyn_cfg, "forward_tacotron", tsyn_cfg.forward_tacotron.replace(**FT_CFG))
+    syn = factories.init_syn_model("forward-tacotron", seed=8, device="cpu")
+    state = _reference_pt(tmp_path / "ft.pt", syn.model, "forward-tacotron",
+                          step=torch.zeros(1, dtype=torch.long))
+    assert "prenet.conv_project1.bnorm.num_batches_tracked" in state
+    synth = tsyn.Synthesizer(tmp_path / "ft.pt", verbose=False, device="cpu")
+    synth.load()
+    assert synth.get_model_type() == "forward-tacotron" and synth._step == 9
+    _assert_state_equal(synth._bundle.model.state_dict(), syn.model.state_dict())
+    v = jft.import_torch_state(jax_load_checkpoint(tmp_path / "ft.pt")["torch_state"],
+                               jft.ForwardTacotronDims(**syn.dims._asdict()))
+    _assert_state_equal(synth._bundle.model.state_dict(), bridge.forward_tacotron_state(v))
+
+
+def test_port_trainer_file_of_a_fast_pitch_loads_bit_for_bit(tmp_path, monkeypatch):
+    cfg = tsyn_cfg.fast_pitch.replace(**FP_CFG)
+    syn = factories.init_syn_model("fast-pitch", seed=2, override_hp=cfg, device="cpu")
+    path = tmp_path / "fp.pt"
+    tckpt.save_checkpoint(path, syn.model, 40, "fast-pitch", extras={"config": cfg.asdict()})
+    tsyn.load_model(path, verbose=False, device="cpu")
+    assert tsyn.get_model_type() == "fast-pitch" and tsyn._model._bundle.config == cfg
+    _assert_state_equal(tsyn._model._bundle.model.state_dict(), syn.model.state_dict())
+    # a FastPitch state without the speaker projections (the reference's
+    # FastPitch has none, nor a config) takes them at zero, as the JAX
+    # importer does
+    monkeypatch.setattr(tsyn_cfg, "fast_pitch", cfg)
+    state = {k: v for k, v in syn.model.state_dict().items() if "spk_proj." not in k}
+    torch.save({"step": 3, "model_state": state, "model_type": "fast-pitch"}, tmp_path / "r.pt")
+    model = factories.from_checkpoint(tckpt.read_model(tmp_path / "r.pt", "synthesizer"),
+                                      "synthesizer", "cpu").model
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, torch.zeros_like(v) if "spk_proj." in k else state[k]), k
 
 
 # -- the port's own trainer file ----------------------------------------------

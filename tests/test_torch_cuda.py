@@ -246,6 +246,82 @@ def test_gru_module_on_the_card_matches_its_cpu_route(dev, B, T, with_lengths):
         assert rel_err(y_ng.cpu(), m.sequence(x)) <= 1e-4
 
 
+# ForwardTacotron's generate path at B 1: its BiLSTM (K3, H 512 over a clone's
+# 384 mel frames), the predictors' BiGRUs (K4 at H 64 and 128 over the
+# 64-character bucket) and the CBHGs' (K4 at H 256 over the text bucket and
+# over the frames)
+@pytest.mark.parametrize("kernel,T,H", [("lstm_seq", 384, 512), ("gru_seq", 64, 64),
+                                        ("gru_seq", 64, 128), ("gru_seq", 64, 256),
+                                        ("gru_seq", 384, 256)])
+def test_nar_shapes_match_plain(dev, kernel, T, H):
+    g = torch.Generator().manual_seed(2)
+    n = 4 if kernel == "lstm_seq" else 3
+    xg = torch.randn(1, T, n * H, generator=g).to(dev)
+    w = ((torch.rand(n * H, H, generator=g) - 0.5) * 2 * H ** -0.5).to(dev)
+    if kernel == "lstm_seq":
+        h0 = torch.zeros(1, H, device=dev)
+        got = _counted(kernel, lambda: lstm_seq(xg, w, h0, h0))
+        for a, b in zip(got, lstm_seq_plain(xg, w, h0, h0)):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    else:
+        b = ((torch.rand(3 * H, generator=g) - 0.5) * 2 * H ** -0.5).to(dev)
+        got = _counted(kernel, lambda: gru_seq_fwd(xg, w, b))
+        for a, want in zip(got, gru_seq_fwd_plain(xg, w, b)):
+            assert rel_err(a, want) <= 1e-5
+
+
+@pytest.mark.parametrize("model_type", ["forward-tacotron", "fast-pitch"])
+def test_nar_generate_on_the_card_matches_its_cpu_route(dev, model_type):
+    """A narrow ForwardTacotron or FastPitch, the same weights on the card
+    and on the CPU, two texts: the same durations, the mels within 1e-4,
+    and on the card ForwardTacotron's BiLSTM through K3 (a launch a
+    direction) and its five BiGRUs through K4 (10 launches); FastPitch
+    launches neither."""
+    from rtvc_tpu_torch.models import fast_pitch as tfp
+    from rtvc_tpu_torch.models import forward_tacotron as tft
+
+    narrow = (dict(embed_dims=16, series_embed_dims=8, duration_conv_dims=12,
+                   duration_rnn_dims=8, pitch_conv_dims=12, pitch_rnn_dims=8,
+                   energy_conv_dims=12, energy_rnn_dims=8, prenet_dims=16, prenet_k=3,
+                   prenet_num_highways=2, rnn_dims=16, postnet_dims=12, postnet_k=3,
+                   postnet_num_highways=2)
+              if model_type == "forward-tacotron" else
+              dict(embed_dims=16, n_heads=2, conv_dims=24, n_layers_enc=2, n_layers_dec=2,
+                   series_d_model=8, series_n_heads=2, series_layers=1, series_d_fft=12))
+    cfg = factories.default_config(model_type).replace(**narrow)
+    cpu = factories.init_syn_model(model_type, seed=1, override_hp=cfg, device="cpu").model
+    card = factories.init_syn_model(model_type, seed=1, override_hp=cfg, device=dev).model
+    with torch.no_grad():
+        cpu.dur_pred.lin.bias.fill_(3.0)
+        card.dur_pred.lin.bias.fill_(3.0)
+    gen = tft.forward_generate if model_type == "forward-tacotron" else tfp.fastpitch_generate
+    g = torch.Generator().manual_seed(3)
+    chars = torch.randint(1, 40, (2, 32), generator=g)
+    chars[1, 20:] = 0
+    spk = torch.randn(2, 768, generator=g)
+    want_mel, want_durs = gen(cpu, chars, spk)
+    before = {k: _build.launch_counts[k] for k in ("lstm_seq", "gru_seq")}
+    got_mel, got_durs = gen(card, chars.to(dev), spk.to(dev))
+    torch.cuda.synchronize()
+    launched = {k: _build.launch_counts[k] - before[k] for k in before}
+    assert launched == ({"lstm_seq": 2, "gru_seq": 10} if model_type == "forward-tacotron"
+                        else {"lstm_seq": 0, "gru_seq": 0})
+    assert np.array_equal(got_durs, want_durs)
+    torch.testing.assert_close(got_mel.cpu(), want_mel, atol=1e-4, rtol=0)
+
+
+def test_de_emphasis_on_the_card_matches_its_cpu_route(dev):
+    """``inv_preemphasis`` on the card (the blocked IIR, no host sync) gives
+    the CPU route's samples (scipy's ``lfilter``) within f32 rounding."""
+    from rtvc_tpu_torch.ops import audio as taudio
+
+    x = torch.randn(76600, generator=torch.Generator().manual_seed(6)) * 0.3
+    want = taudio.inv_preemphasis(x, 0.97)
+    got = taudio.inv_preemphasis(x.to(dev), 0.97)
+    assert got.is_cuda and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=1e-6)
+
+
 def test_train_kernels_reject_bad_input(dev):
     h = torch.zeros(2, 16, device=dev)
     with pytest.raises(ValueError, match="w_hh"):

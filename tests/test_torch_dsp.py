@@ -143,6 +143,24 @@ def test_db_and_emphasis_helpers_match_jax():
     np.testing.assert_allclose(taudio.inv_preemphasis(pre, 0.97).numpy(), y, atol=1e-5)
 
 
+@pytest.mark.parametrize("n,k", [(1, 0.97), (255, 0.97), (257, 0.97), (76600, 0.97),
+                                 (5000, 0.5), (3000, 0.999), (1000, -0.9), (700, 0.0),
+                                 (100, 1.0)])
+def test_blocked_iir_matches_lfilter(n, k):
+    """The card's de-emphasis (``iir_blocks``: a product per block of 256
+    samples, the carried state a truncated geometric sum) equals scipy's
+    sequential ``lfilter`` to 1e-13 of the signal in float64, at block
+    edges, a 4.8 s waveform, slow and negative poles, no pole and |k| = 1;
+    here on the CPU, where ``inv_preemphasis`` itself keeps ``lfilter``."""
+    import scipy.signal
+
+    x = np.random.default_rng(n).standard_normal(n)
+    want = scipy.signal.lfilter([1.0], [1.0, -k], x)
+    got = taudio.iir_blocks(torch.from_numpy(x), k).numpy()
+    assert got.shape == (n,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-13 * np.abs(want).max())
+
+
 def _jax_with_angles(fn, angles):
     """Run a JAX Griffin-Lim with ``jax.random.uniform`` giving ``angles``."""
     orig = jax.random.uniform

@@ -68,6 +68,17 @@ def test_gru_plan_at_the_wavernn_training_shapes():
         assert p[0] * p[1] <= 132 and p[0] * p[4] >= 112
 
 
+@pytest.mark.parametrize("H", [64, 128, 256])
+def test_gru_plan_at_one_row(H):
+    """B 1 (ForwardTacotron's BiGRUs, the Tacotron clone's CBHGs): 4 units a
+    CTA, one row a pass, the fastest plan on an H100 at H 64, 128 and 256;
+    a warp pass of fewer than 12 sums (units 1-2, nb 1) is slow there."""
+    p = _check_gru_plan(1, H, *H100, False)
+    assert tuple(p[:5]) == (1, H // 4, 4, 1, 1)
+    slow = gs.Plan(1, H, 1, 1, 1, gs._smem(H, 1, 1, False))
+    assert gs.cost(slow, H, False) > gs.cost(p, H, False) + gs.SMALL_PASS_CYCLES / 2
+
+
 @pytest.mark.parametrize("backward", [False, True])
 def test_gru_plan_names_the_limit(backward):
     _check_gru_plan(4, 1056, *H100, backward)   # 8 units on each of 132 SMs

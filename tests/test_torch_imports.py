@@ -39,7 +39,8 @@ for name in names:
 for need in ("models.distribution", "ops.stft", "ops.mel_project", "ops.wavernn_generate",
              "inference.vocoder", "inference.synthesizer", "vocoder_train",
              "utils.flax_msgpack", "utils.modelutils", "train.checkpoints", "serve",
-             "demo_cli", "inference.streaming", "inference.pipelined", "profile_stream"):
+             "demo_cli", "inference.streaming", "inference.pipelined", "profile_stream",
+             "models.forward_tacotron", "models.fast_pitch"):
     assert "rtvc_tpu_torch." + need in names, need
 import chip_smoke
 bad = sorted(m for m in sys.modules

@@ -1,7 +1,8 @@
 """The port's entry points at the narrow widths of ``test_torch_clone.py``:
 ``rtvc_tpu_torch.serve`` over models loaded from checkpoints, on the CPU
 (``/health``, ``/embed``, ``/clone`` and ``/stream`` answer what the module
-functions give under the same seed, byte for byte; its wav codec and its
+functions give under the same seed, byte for byte, with a Tacotron and with
+each NAR synthesizer; its wav codec and its
 streaming header are the JAX package's), and ``python -m
 rtvc_tpu_torch.demo_cli --selftest [--stream] --cpu``."""
 import http.client
@@ -28,6 +29,8 @@ from rtvc_tpu_torch.inference import vocoder as tvoc
 from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.train.checkpoints import save_checkpoint
 from test_torch_clone import ENC, SYN, VOC, _prompt
+from test_torch_fast_pitch import CFG as FP_CFG
+from test_torch_forward_tacotron import CFG as FT_CFG
 
 REPO = Path(__file__).resolve().parents[1]
 TEXT = "Serve this voice."
@@ -231,6 +234,46 @@ def test_stream_answers_a_chunked_streaming_wav(server):
         assert body[44:] == b"".join(tserve._pcm16(c.wav) for c in chunks)
         assert len(body) - 44 == 2 * (sum(c.frames for c in chunks) - 1) * 200
     assert answers[0][2] != answers[1][2]
+
+
+@pytest.mark.parametrize("model_type,narrow", [("forward-tacotron", FT_CFG),
+                                               ("fast-pitch", FP_CFG)])
+def test_nar_synthesizer_serves_clone_and_stream(server, tmp_path, model_type, narrow):
+    """A ForwardTacotron or FastPitch loaded through ``synthesizer.load_model``
+    (the type read from the checkpoint) serves /clone and /stream after
+    ``warm_clone``, unchanged: the bytes equal the module functions' and
+    ``stream_clone``'s in process under the same seeds."""
+    cfg = factories.default_config(model_type).replace(**narrow)
+    syn = factories.init_syn_model(model_type, seed=6, override_hp=cfg, device="cpu")
+    save_checkpoint(tmp_path / "nar.pt", syn.model, 8, model_type,
+                    extras={"config": cfg.asdict()})
+    tsyn.load_model(tmp_path / "nar.pt", verbose=False, device="cpu")
+    assert tsyn.get_model_type() == model_type
+    srv = tserve.create_server("127.0.0.1", 0, synth=tsyn._model, stream_kwargs=STREAM_KW)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    prompt = tserve._wav_bytes(_prompt(2), 16000)
+    try:
+        srv.warm_clone()
+        port = srv.server_address[1]
+        tvoc.set_seed(9)
+        status, ctype, body = _request(port, "POST", "/clone?text=Serve%20this%20voice.", prompt)
+        streamed = _stream(port, TEXT, prompt)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(10)
+    tvoc.set_seed(9)
+    embed, mel, wav = _in_process_clone(prompt, TEXT)
+    assert status == 200 and ctype == "audio/wav" and body == tserve._wav_bytes(wav, 16000)
+    assert tserve._parse_wav(body)[0].shape == ((mel.shape[1] - 1) * 200,)
+    status, headers, data = streamed
+    chunks = list(tst.stream_clone(tsyn._model, None, TEXT, embed, voc_seed=tvoc.next_seed(),
+                                   **STREAM_KW))
+    assert status == 200 and headers["Transfer-Encoding"] == "chunked"
+    assert sum(c.frames for c in chunks) == mel.shape[1]
+    assert data[44:] == b"".join(tserve._pcm16(c.wav) for c in chunks)
+    assert len(data) - 44 == 2 * (mel.shape[1] - 1) * 200
 
 
 def test_stream_errors(server, monkeypatch):

@@ -24,6 +24,8 @@ from rtvc_tpu_torch.models import tacotron as tt
 from rtvc_tpu_torch.models import wavernn as tw
 from rtvc_tpu_torch.ops import tacotron_decode as td
 from test_torch_clone import SYN, VOC
+from test_torch_fast_pitch import CFG as FP_CFG
+from test_torch_forward_tacotron import CFG as FT_CFG
 from test_torch_tacotron import DIMS
 
 PAD = -4.0
@@ -337,10 +339,29 @@ def test_vocode_pipelined_order_and_single_calls(synth_voc):
         list(pipelined.vocode_pipelined(voc, [mels[0][:, :1]], argmax=True))
 
 
-def test_nar_stream_raises(synth_voc):
-    """Streaming a non-autoregressive synthesizer is a later slice."""
-    synth, voc, embed = synth_voc
+def _nar_stream_equals_stream_vocode(synth_voc, model_type, narrow):
+    _, voc, embed = synth_voc
+    cfg = factories.default_config(model_type).replace(**narrow)
     nar = tsyn.Synthesizer()
-    nar._bundle = synth._bundle._replace(model_type=factories.MODEL_TYPE_FORWARD_TACOTRON)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        next(tst.stream_clone(nar, voc, TEXT, embed))
+    nar.load_bundle(factories.init_syn_model(model_type, seed=4, override_hp=cfg, device="cpu"))
+    kw = dict(chunk_frames=24, first_chunk_frames=8, voc_target=100, voc_overlap=25)
+    got = list(tst.stream_clone(nar, voc, TEXT, embed, seed=6, **kw))
+    [mel] = nar.synthesize_spectrograms([TEXT], [embed], seed=6)
+    want = list(tst.stream_vocode(voc, mel, 6, **kw))
+    assert len(got) == len(want) >= 2 and sum(c.frames for c in got) == mel.shape[1]
+    for a, b in zip(got, want):
+        assert (a.index, a.final, a.frames) == (b.index, b.final, b.frames)
+        assert np.array_equal(a.wav, b.wav)
+    assert sum(len(c.wav) for c in got) == (mel.shape[1] - 1) * HOP
+
+
+def test_nar_stream_raises(synth_voc):
+    """A ForwardTacotron streams (it no longer raises): its stream is the
+    batch mel of the same seed through ``stream_vocode``, chunk for chunk
+    and sample for sample, as in the JAX package."""
+    _nar_stream_equals_stream_vocode(synth_voc, factories.MODEL_TYPE_FORWARD_TACOTRON, FT_CFG)
+
+
+def test_nar_stream_of_fast_pitch(synth_voc):
+    """FastPitch streams the same way."""
+    _nar_stream_equals_stream_vocode(synth_voc, factories.MODEL_TYPE_FASTPITCH, FP_CFG)
