@@ -124,6 +124,23 @@
    the resume steps, falling vocoder and synthesizer losses, and each path's
    kernel launch counts (K4 four times each way a Tacotron step).
 
+7. The non-autoregressive synthesizers' training. The alignment pass: the
+   seeded Tacotron written as a trainer file, read back through
+   ``TacotronAligner``, and ``create_align_features`` over five utterances of
+   200-1200 frames (one K5 forward launch at B 1, r 1 each; five files each,
+   durations summing to the mel, the first K5 launch held to its plain
+   version, two passes equal in bits; ms an utterance with K5's device
+   time). K3 forward with residuals and backward at ForwardTacotron's
+   BiLSTM (B 16 and 48 x 900 x 512, every instantiation timed), K4 both ways
+   at its BiGRUs' shapes (B 16: T 160 x H 64 / 128 / 256, T 900 x H 256) and
+   K5's forward at B 1 x 1216 x 160, each beside its bound, its plain
+   version and cuDNN. ``train_synthesizer`` for ForwardTacotron and
+   FastPitch at full width, 3 steps and a resume each at B 16 x 900 frames x
+   160 characters (falling losses; ForwardTacotron's K3 and K4 launches
+   counted and those of its first step held to their plain versions on
+   copies of their inputs; FastPitch launches no kernel of ours), then one
+   ForwardTacotron step at B 48 with its peak memory.
+
 K1's, K3's and K4's lines also give the times of the earlier kernels (one
 CTA per fold or batch row, the weights re-read from L2 every step) on the
 same card model, K3's its time as a share of its time before K4 and K1 came
@@ -1666,8 +1683,9 @@ SERVED_KERNELS = (("rtvc_tpu_torch.models.layers", "lstm_seq"),
 @contextlib.contextmanager
 def recorded_calls(targets=SERVED_KERNELS):
     """Each call of the wrappers ``targets`` ((module, name) where a path
-    looks them up) inside, by name: its arguments and what it returned. The
-    wrappers run as they are."""
+    looks them up) inside, by name: its arguments (copies of its tensor
+    arguments: a training step changes its weights in place) and what it
+    returned. The wrappers run as they are."""
     calls = {name: [] for _, name in targets}
     saved = []
     for module, name in targets:
@@ -1676,8 +1694,9 @@ def recorded_calls(targets=SERVED_KERNELS):
         saved.append((mod, name, fn))
 
         def record(*args, _fn=fn, _calls=calls[name], **kwargs):
+            kept = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
             out = _fn(*args, **kwargs)
-            _calls.append((args, kwargs, out))
+            _calls.append((kept, kwargs, out))
             return out
 
         setattr(mod, name, record)
@@ -2266,8 +2285,9 @@ def k5_fwd_cell(dev, w, x, candidates=False):
           f"{chosen.name}, {chosen.ctas} CTAs, {chosen.smem} bytes of shared memory a CTA, model "
           f"{chosen.cost_ms:.3f} ms): rel errs max {max(errs.values()):.3e} "
           f"({max(errs, key=errs.get)}, tol 1e-4), bits repeat, kernel {ms:.3f} ms "
-          f"({ms / n * 1e3:.2f} us a step; one-CTA-a-row kernel {was} ms in an earlier call), "
-          f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+          f"({ms / n * 1e3:.2f} us a step"
+          + (f"; one-CTA-a-row kernel {was} ms in an earlier call" if was else "")
+          + f"), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     if cand:
         print(k5_cand_line("K5 forward", B, n, cand, chosen))
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **b, "plan": chosen.name,
@@ -2523,6 +2543,485 @@ def phase_train_synthesizer(dev, runs_dir):
     return counts, out["step_ms"]
 
 
+# The alignment pass's five utterances: mel frames (80 a second: 2.5, 4, 6
+# and 9 s, and the preprocessing's max_mel_frames, 15 s) and the characters
+# of their texts (the longest takes 160 tokens with its end mark)
+ALIGN_FRAMES = (200, 320, 480, 720, 1200)
+ALIGN_CHARS = (40, 64, 96, 128, 159)
+ALIGN_WORDS = ("voice", "cloning", "on", "one", "graphics", "card", "the", "quick", "brown",
+               "fox", "jumps", "over", "a", "lazy", "dog", "while", "every", "kernel",
+               "keeps", "its", "weights", "close")
+# where the alignment pass looks K5's forward up (ops.tacotron_train's
+# taco_decoder_train calls it), for recording its launches
+ALIGN_KERNELS = (("rtvc_tpu_torch.ops.tacotron_train", "taco_train_fwd"),)
+ALIGN_FILES = (("duration", "duration"), ("attention", "attention"), ("alignment", "alignment"),
+               ("phoneme_pitch", "phoneme-pitch"), ("phoneme_energy", "phoneme-energy"))
+
+
+def write_align_root(root, seed=21):
+    """A synthesizer root of the five ``ALIGN_FRAMES`` utterances as the
+    audio and embedding passes leave one: a voiced wav (a glide of 90-190
+    Hz under a syllable envelope, 200 samples a frame), a mel shaped like
+    ``profile_train.synthetic_tacotron_batch``'s, a unit 768-d embedding, a
+    text of ``ALIGN_CHARS`` characters, and ``train.json``. Returns the
+    utterance ids, lengths and texts in the order the pass takes them."""
+    rng = np.random.default_rng(seed)
+    for d in ("wav", "mels", "embeds"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    meta, utts = {}, []
+    for i, (frames, chars) in enumerate(zip(ALIGN_FRAMES, ALIGN_CHARS)):
+        uid = f"align{i}"
+        t = np.arange(frames * 200) / 16000
+        f0 = 140 + 50 * np.sin(2 * np.pi * 0.6 * t + rng.uniform(0, 6.3))
+        env = np.clip(np.sin(2 * np.pi * 2.5 * t + rng.uniform(0, 6.3)), 0, None)
+        wav = (0.5 * env * np.sin(2 * np.pi * np.cumsum(f0) / 16000)
+               + 0.003 * rng.standard_normal(len(t))).astype(np.float32)
+        m, f = np.arange(80)[:, None], np.arange(frames)[None, :]
+        mel = np.clip(-1.5 + 2 * np.sin(2 * np.pi * (f / 97 + m / 40) + rng.uniform(0, 6.3))
+                      + 0.3 * rng.standard_normal((80, frames)), -4, 4).astype(np.float32)
+        embed = rng.standard_normal(768).astype(np.float32)
+        text = " ".join(rng.choice(ALIGN_WORDS, chars))[:chars].strip()
+        text = text + "s" * (chars - len(text))
+        np.save(root / "wav" / f"audio-{uid}.npy", wav)
+        np.save(root / "mels" / f"mel-{uid}.npy", mel.T)
+        np.save(root / "embeds" / f"embed-{uid}.npy", embed / np.linalg.norm(embed))
+        meta.setdefault(f"speaker{i % 2}", []).append(f"{uid}|{len(wav)}|{frames}|{text}")
+        utts.append((uid, frames, text))
+    (root / "train.json").write_text(json.dumps(meta))
+    order = [line.split("|")[0] for lines in meta.values() for line in lines]
+    return sorted(utts, key=lambda u: order.index(u[0]))
+
+
+def read_align_files(root, uid):
+    return [np.load(root / d / f"{stem}-{uid}.npy") for d, stem in ALIGN_FILES]
+
+
+def align_inputs(root, uid, text):
+    """An utterance's tokens, mel (n_mels, T) and embedding as the
+    alignment pass reads them."""
+    from rtvc_tpu_torch.config import preprocessing
+    from rtvc_tpu_torch.text import text_to_sequence
+
+    tokens = np.asarray(text_to_sequence(text, preprocessing.cleaner_names), np.int32)
+    mel = np.load(root / "mels" / f"mel-{uid}.npy").T.astype(np.float32)
+    return tokens, mel, np.load(root / "embeds" / f"embed-{uid}.npy")
+
+
+def phase_align(dev, card, syn):
+    """The alignment pass at full width: the seeded Tacotron written as a
+    port trainer file, read back through ``TacotronAligner`` (bit for bit),
+    and ``create_align_features`` over the five ``ALIGN_FRAMES`` utterances
+    (one K5 forward launch each, at B 1, r 1, over the mel padded to a
+    multiple of 32 and the text to a multiple of 16). Checks the five files
+    of every utterance, durations summing to the mel's length, every
+    utterance's K5 launch on its own inputs against K5's plain version (1e-4
+    of each output's largest entry), every utterance's durations equal to
+    those the attention through K5's plain version gives, and a second
+    pass's files equal to the first's in their bits; prints the milliseconds
+    an utterance with K5's device time. Returns the pass's launch counts."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.config import preprocessing
+    from rtvc_tpu_torch.data.duration_extractor import DurationExtractor
+    from rtvc_tpu_torch.data.synthesizer_preprocess import create_align_features
+    from rtvc_tpu_torch.inference.attention import MEL_BUCKET, TEXT_BUCKET, TacotronAligner
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops import tacotron_train as tk
+    from rtvc_tpu_torch.text import text_to_sequence
+    from rtvc_tpu_torch.train.checkpoints import save_checkpoint
+
+    work = _build.BUILD_DIR / "smoke_align"
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "syn"
+    root.mkdir(parents=True)
+    try:
+        ckpt = work / "tacotron.pt"
+        save_checkpoint(ckpt, syn.model, 5000, syn.model_type,
+                        extras={"r": 1, "config": syn.config.asdict()})
+        utts = write_align_root(root)
+        aligner = TacotronAligner(ckpt, device=dev)
+        a, b = aligner.bundle.model.state_dict(), syn.model.state_dict()
+        check(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in b),
+              "the aligner's Tacotron differs from the model its checkpoint was written from")
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        with recorded_calls(ALIGN_KERNELS) as recorded:
+            (n, pass_ms) = timed_ms(lambda: create_align_features(root, aligner=aligner))
+        counts = dict(_build.launch_counts)
+        # a K5 forward and the encoder's and the postnet's BiGRUs (K4, a
+        # launch a direction) an utterance
+        check(n == len(utts) and counts == {"tacotron_train_fwd": len(utts),
+                                            "gru_seq": 4 * len(utts)},
+              f"the alignment pass aligned {n} utterances with launches {counts}")
+        first = {}
+        for uid, frames, text in utts:
+            files = read_align_files(root, uid)
+            n_tok = len(text_to_sequence(text, preprocessing.cleaner_names))
+            dur, att, align, pitch, energy = files
+            check(dur.dtype == np.int64 and dur.shape == (n_tok,) and int(dur.sum()) == frames
+                  and pitch.shape == energy.shape == (n_tok,) and att.shape == align.shape == ()
+                  and all(np.isfinite(f).all() for f in files),
+                  f"alignment of {uid}: durations {dur.shape} summing to {int(dur.sum())} for "
+                  f"{frames} frames, pitch {pitch.shape}, energy {energy.shape}")
+            first[uid] = files
+        # every utterance's K5 launch on its own inputs against K5's plain
+        # version, the 1200-frame one's walk of 1216 iterations included
+        errs = {}
+        with torch.no_grad():
+            for (uid, frames, _), (args, _, (x_all, res)) in zip(utts,
+                                                                 recorded["taco_train_fwd"]):
+                n_it, B, _ = args[1].shape
+                check(B == 1 and n_it == -(-(frames + 1) // MEL_BUCKET) * MEL_BUCKET,
+                      f"the K5 launch of {uid} ran B {B} over {n_it} iterations")
+                p_x, p_res = tk.taco_train_fwd_plain(*args)
+                e = dict(zip(("x_all",) + res._fields,
+                             (rel_err(a, b) for a, b in zip((x_all, *res), (p_x, *p_res)))))
+                check(max(e.values()) <= 1e-4, f"K5 forward of {uid} ({n_it} iterations) "
+                      f"differs from its plain version: {e}")
+                errs[uid] = max(e.values())
+        # every utterance's durations again with K5's plain version in the
+        # kernel's place: the same path through the attention
+        extractor = DurationExtractor(silence_threshold=preprocessing.silence_threshold,
+                                      silence_prob_shift=preprocessing.silence_prob_shift)
+        kernel_att = {uid: aligner.attention(*align_inputs(root, uid, text))
+                      for uid, _, text in utts}
+        att_err = 0.0
+        kernel_fwd, tk.taco_train_fwd = tk.taco_train_fwd, tk.taco_train_fwd_plain
+        try:
+            for uid, frames, text in utts:
+                tokens, mel, embed = align_inputs(root, uid, text)
+                plain_att = aligner.attention(tokens, mel, embed)
+                att_err = max(att_err, float(np.abs(plain_att - kernel_att[uid]).max()))
+                dur, _ = extractor(tokens, mel, plain_att[:frames])
+                check(np.array_equal(dur, first[uid][0]),
+                      f"the durations of {uid} through K5 differ from those through its plain "
+                      f"version at {int((dur != first[uid][0]).sum())} of {len(dur)} characters")
+        finally:
+            tk.taco_train_fwd = kernel_fwd
+        create_align_features(root, aligner=aligner)
+        for uid, files in first.items():
+            again = read_align_files(root, uid)
+            check(all(a.tobytes() == b.tobytes() for a, b in zip(files, again)),
+                  f"two alignment passes differ in their bits for {uid}")
+        # each utterance's attention call: wall ms and device ms by kernel
+        parts = []
+        for uid, frames, text in utts:
+            tokens, mel, embed = align_inputs(root, uid, text)
+            _, wall = timed_ms(lambda: aligner.attention(tokens, mel, embed))
+            by_kernel = kernels_device_ms(lambda: aligner.attention(tokens, mel, embed))
+            k5 = by_kernel.get("tacotron_train_fwd_kernel", 0.0)
+            n_it = -(-(frames + 1) // MEL_BUCKET) * MEL_BUCKET
+            T = -(-len(tokens) // TEXT_BUCKET) * TEXT_BUCKET
+            parts.append(f"{uid} {frames} frames x {len(tokens)} tokens (K5 {n_it} x {T}): "
+                         f"attention {wall:.1f} ms, device {by_kernel['all']:.2f} ms of which K5 "
+                         f"{k5:.2f} ({k5 / wall:.0%} of the call)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"{card}: alignment pass, {len(utts)} utterances ({sum(ALIGN_FRAMES)} frames): "
+          f"{pass_ms:.1f} ms, {pass_ms / len(utts):.1f} ms an utterance (F0 tracking, durations "
+          f"and files on the host included), launches {counts}; each K5 launch against its "
+          f"plain version, rel errs max {({u: f'{e:.3e}' for u, e in errs.items()})} (tol "
+          f"1e-4); the attention through K5's plain version within {att_err:.3e} (abs) of "
+          f"K5's, its durations equal; a second pass equal in bits; " + "; ".join(parts))
+    return counts
+
+
+# the NAR trainer's kernel wrappers where its modules look them up: K3's
+# training halves (LSTMSeqFn) and K4's (GRUSeqFn)
+NAR_TRAIN_KERNELS = (("rtvc_tpu_torch.ops.lstm_seq", "lstm_seq_fwd_train"),
+                     ("rtvc_tpu_torch.ops.lstm_seq", "lstm_seq_bwd"),
+                     ("rtvc_tpu_torch.ops.gru_seq", "gru_seq_fwd"),
+                     ("rtvc_tpu_torch.ops.gru_seq", "_bwd"))
+
+
+def nar_train_kernel_checks(calls):
+    """Every K3 and K4 launch of one ForwardTacotron training step again on
+    the inputs it was given, against its plain version: each output within
+    1e-4 of its largest entry (the training kernels' tolerance: sums over T
+    in another order). Returns a line of the shapes and worst errors."""
+    import torch
+
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops.gru_seq import gru_seq_bwd_plain, gru_seq_fwd_plain
+    from rtvc_tpu_torch.ops.lstm_seq import lstm_seq_bwd_plain, lstm_seq_fwd_train_plain
+
+    plain = {"lstm_seq_fwd_train": lstm_seq_fwd_train_plain, "lstm_seq_bwd": lstm_seq_bwd_plain,
+             "gru_seq_fwd": gru_seq_fwd_plain, "_bwd": gru_seq_bwd_plain}
+    parts = []
+    with torch.no_grad():
+        for name, fn in plain.items():
+            worst, shapes = 0.0, []
+            for args, _, out in calls[name]:
+                got = out[:1] if name == "_bwd" else out
+                want = fn(*args)
+                want = (want,) if name == "_bwd" else want
+                err = max(rel_err(a, b) for a, b in zip(got, want))
+                B, T, G = args[0].shape
+                check(err <= 1e-4, f"{name} at the ForwardTacotron step's B={B} T={T} width {G}: "
+                      f"rel err {err} from its plain version")
+                worst = max(worst, err)
+                shapes.append(f"{B}x{T}x{G}")
+            parts.append(f"{name} ({len(calls[name])}: {', '.join(sorted(set(shapes)))}) "
+                         f"rel {worst:.3e}")
+    return "; ".join(parts)
+
+
+def phase_train_nar(dev, card, runs_dir):
+    """The non-autoregressive trainers at full width (the configs'
+    defaults), first session of the schedule (batch 16, lr 1e-3 falling), on
+    one synthetic batch shaped like ``collate_synthesizer``'s (160
+    characters, 900 frames, ``spec_lens`` 450-899, durations summing to each
+    length, pitch and energy: ``profile_train.synthetic_nar_batch``):
+
+    - ForwardTacotron, 3 steps then a resume for a 4th: finite losses, a
+      falling loss on the repeated batch, the resume at step 3; K3 forward
+      and backward twice a step, K4 forward and backward ten times; every K3
+      and K4 launch of the first step held to its plain version on its own
+      inputs (``nar_train_kernel_checks``);
+    - one ForwardTacotron step at the schedule's largest batch, 48: its wall
+      time and peak memory;
+    - FastPitch, 3 steps then a resume: finite, falling losses, none of the
+      port's kernels launched.
+
+    Returns ForwardTacotron's launch counts over its 3 steps."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.profile_train import nar_step, synthetic_nar_batch
+    from rtvc_tpu_torch.train.trainer import train_synthesizer
+
+    batch = synthetic_nar_batch(16, 160, 900, seed=13)
+    steps = 3
+
+    def epochs(session, r):
+        return [batch] * 12  # the session's length: its learning rate falls over 12 steps
+
+    kw = dict(save_every=0, device=dev, seed=0)
+    out = {}
+    for model_type in (factories.MODEL_TYPE_FORWARD_TACOTRON, factories.MODEL_TYPE_FASTPITCH):
+        _build.launch_counts.clear()
+        with recorded_calls(NAR_TRAIN_KERNELS) as calls:
+            first = train_synthesizer(model_type, model_type, runs_dir, epochs, max_steps=1, **kw)
+        rest = train_synthesizer(model_type, model_type, runs_dir, epochs, max_steps=steps, **kw)
+        counts = dict(_build.launch_counts)
+        resumed = train_synthesizer(model_type, model_type, runs_dir, epochs,
+                                    max_steps=steps + 1, **kw)
+        losses = first["losses"] + rest["losses"]
+        step_ms = first["step_ms"] + rest["step_ms"]
+        print(f"launches in the {model_type} training run ({steps} steps): {counts}")
+        check(rest["step"] == steps and len(losses) == steps,
+              f"{model_type} run ended at step {rest['step']} with {len(losses)} losses")
+        check(all(np.isfinite(losses)) and np.isfinite(rest["grad_norm"]),
+              f"{model_type} loss or grad norm not finite: {losses}, {rest['grad_norm']}")
+        check(losses[-1] < losses[0], f"{model_type} loss did not fall on a repeated batch: "
+              f"{losses}")
+        check(resumed["step"] == steps + 1 and len(resumed["losses"]) == 1
+              and np.isfinite(resumed["losses"][0]) and resumed["lrs"][0] < rest["lrs"][-1],
+              f"{model_type} resume did not start at step {steps}: {resumed['step']}, "
+              f"{resumed['losses']}, lr {resumed['lrs']} after {rest['lrs']}")
+        if model_type == factories.MODEL_TYPE_FORWARD_TACOTRON:
+            want = {"lstm_seq": 2 * steps, "lstm_seq_bwd": 2 * steps, "gru_seq": 10 * steps,
+                    "gru_seq_bwd": 10 * steps}
+            n_calls = {k: len(v) for k, v in calls.items()}
+            check(n_calls == {"lstm_seq_fwd_train": 2, "lstm_seq_bwd": 2, "gru_seq_fwd": 10,
+                              "_bwd": 10}, f"the first ForwardTacotron step called {n_calls}")
+            line = nar_train_kernel_checks(calls)
+            print(f"NAR training: the first ForwardTacotron step's K3 and K4 launches on their "
+                  f"own inputs against their plain versions: {line}")
+            out = counts
+        else:
+            want = {}
+        calls.clear()
+        check(counts == want, f"{model_type} training launched {counts}, want {want}")
+        parts = ", ".join(f"{k} {rest[k]:.4f}" for k in ("m1", "m2", "dur", "pitch", "energy"))
+        print(f"{card}: {model_type} training 16 x 900 frames x 160 chars: losses "
+              f"{[round(v, 4) for v in losses]} then {[round(v, 4) for v in resumed['losses']]} "
+              f"after the resume, grad norm {rest['grad_norm']:.4f} ({parts}); ms per step "
+              f"{[round(m, 1) for m in step_ms]} (the first loads the model and its kernels), "
+              f"after the resume {round(resumed['step_ms'][0], 1)}")
+    step, big = nar_step(dev, factories.MODEL_TYPE_FORWARD_TACOTRON, 48)
+    step(big)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats, ms = timed_ms(lambda: step(big))
+    check(np.isfinite(float(stats["loss"])), f"the B 48 ForwardTacotron step's loss {stats}")
+    print(f"{card}: forward-tacotron step at the schedule's largest batch, 48 x 900 frames x 160 "
+          f"chars: {ms:.1f} ms (the second), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, loss {float(stats['loss']):.4f}")
+    return out
+
+
+def k3_train_candidates_ms(args, backward, dev):
+    """K3's forward with residuals or its backward at one shape under each
+    instantiation that fits (``ops/lstm_seq.py:candidates``), launched with
+    that plan, timed in ``profile_gru.rounds_ms``: {units: ms}."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.ops.lstm_seq import Plan, candidates
+    from rtvc_tpu_torch.profile_gru import rounds_ms
+
+    lib, stream = _build.library(), _build.stream_handle(dev)
+    if backward:
+        dys, dhT, dcT, gates, cs, c0, w = args
+        B, T, H = dys.shape
+        outs = [torch.empty(B, T, 4 * H, device=dev), torch.empty(B, H, device=dev),
+                torch.empty(B, H, device=dev)]
+    else:
+        xg, w, h0, c0 = args
+        B, T, _ = xg.shape
+        H = w.shape[1]
+        outs = [torch.empty(B, T, H, device=dev), torch.empty(B, H, device=dev),
+                torch.empty(B, H, device=dev), torch.empty(B, T, H, device=dev),
+                torch.empty(B, T, 4 * H, device=dev)]
+    runs = {}
+    for p in candidates(B, H, *_build.device_limits(dev), backward=backward):
+        if not isinstance(p, Plan):
+            continue
+
+        def run(p=p):
+            sync = torch.zeros(32 * p.groups, device=dev, dtype=torch.int32)
+            if backward:
+                err = lib.rtvc_lstm_seq_bwd(*(t.data_ptr() for t in args),
+                                            *(t.data_ptr() for t in outs), B, T, H,
+                                            _build.int_array(p), sync.data_ptr(), stream)
+            else:
+                err = lib.rtvc_lstm_seq_fwd(*(t.data_ptr() for t in args),
+                                            *(t.data_ptr() for t in outs), B, T, H,
+                                            _build.int_array(p), sync.data_ptr(), stream)
+            _build.check(err, "rtvc_lstm_seq_" + ("bwd" if backward else "fwd"))
+
+        runs[p.units] = run
+    return rounds_ms(runs)
+
+
+def k3_train_cell(dev, card, B, T=900, H=512, I=1280):
+    """K3's forward with residuals and its backward at ForwardTacotron's
+    BiLSTM training shape (one direction from a zero state), seeded inputs:
+    each against its plain version (1e-4 of each output's largest entry),
+    the backward twice with equal bits; their times beside their bounds,
+    the plain versions' and cuDNN's ``nn.LSTM(1280, 512)`` (input product
+    included) forward and backward, and every instantiation that fits the
+    shape. Returns the forward's and the backward's cells."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops.lstm_seq import (
+        lstm_seq_bwd,
+        lstm_seq_bwd_plain,
+        lstm_seq_fwd_train,
+        lstm_seq_fwd_train_plain,
+        plan,
+    )
+
+    g = torch.Generator().manual_seed(B)
+    xg = torch.randn(B, T, 4 * H, generator=g).to(dev)
+    w = ((torch.rand(4 * H, H, generator=g) * 2 - 1) * H ** -0.5).to(dev)
+    h0 = torch.zeros(B, H, device=dev)
+    dys = torch.randn(B, T, H, generator=g).to(dev)
+    got, want = lstm_seq_fwd_train(xg, w, h0, h0), lstm_seq_fwd_train_plain(xg, w, h0, h0)
+    torch.cuda.synchronize()
+    fwd_err = max(rel_err(a, b) for a, b in zip(got, want))
+    fwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    check(fwd_err <= 1e-4, f"K3 forward with residuals at B {B} x T {T}: rel err {fwd_err}")
+    _, _, _, cs, gates = want
+    args = (dys, torch.zeros_like(h0), torch.zeros_like(h0), gates, cs, h0, w)
+    kb, pb = lstm_seq_bwd(*args), lstm_seq_bwd_plain(*args)
+    torch.cuda.synchronize()
+    bwd_err = max(rel_err(a, b) for a, b in zip(kb, pb))
+    bwd_abs = max(float((a - b).abs().max()) for a, b in zip(kb, pb))
+    check(bwd_err <= 1e-4, f"K3 backward at B {B} x T {T}: rel err {bwd_err}")
+    check(all(torch.equal(a, b) for a, b in zip(kb, lstm_seq_bwd(*args))),
+          f"K3 backward at B {B} x T {T}: two runs differ in their bits")
+    del got, kb
+    fwd_ms = cuda_ms(lambda: lstm_seq_fwd_train(xg, w, h0, h0))
+    fwd_plain = cuda_ms(lambda: lstm_seq_fwd_train_plain(xg, w, h0, h0), reps=1)
+    bwd_ms = cuda_ms(lambda: lstm_seq_bwd(*args))
+    bwd_plain = cuda_ms(lambda: lstm_seq_bwd_plain(*args), reps=1)
+    lib_fwd, lib_bwd = rnn_ms(torch.nn.LSTM(I, H, batch_first=True), B, T, H, dev)
+    fwd_c = k3_train_candidates_ms((xg, w, h0, h0), False, dev)
+    bwd_c = k3_train_candidates_ms(args, True, dev)
+    flops = 2 * B * T * 4 * H * H
+    fwd_b = bound(nbytes(xg, w, h0, h0, *want), flops)
+    bwd_b = bound(nbytes(*args, *pb), flops)
+    limits = _build.device_limits(dev)
+    p_f, p_b = plan(B, H, *limits), plan(B, H, *limits, backward=True)
+    print(f"{card}: K3 at ForwardTacotron's BiLSTM training shape B={B} T={T} H={H}: forward "
+          f"with residuals ({k3_plan(B, H, dev)}) rel err {fwd_err:.3e}, kernel {fwd_ms:.3f} ms "
+          f"({fwd_ms / T * 1e3:.2f} us a step), plain {fwd_plain:.3f} ms, nn.LSTM({I}, {H}) "
+          f"{lib_fwd:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by {fwd_b['bound_by']}, every "
+          f"instantiation: " + ", ".join(f"{u} units a CTA {t:.3f} ms" + (
+              " (plan)" if u == p_f.units else "") for u, t in fwd_c.items())
+          + f"; backward ({k3_plan(B, H, dev, backward=True)}) rel err {bwd_err:.3e} (tol 1e-4), "
+          f"bits repeat, kernel {bwd_ms:.3f} ms ({bwd_ms / T * 1e3:.2f} us a step), plain "
+          f"{bwd_plain:.3f} ms, nn.LSTM backward {lib_bwd:.3f} ms, bound "
+          f"{bwd_b['bound_ms']:.4f} ms by {bwd_b['bound_by']}, every instantiation: "
+          + ", ".join(f"{u} units a CTA {t:.3f} ms" + (" (plan)" if u == p_b.units else "")
+                      for u, t in bwd_c.items()))
+    common = {"B": B, "T": T, "H": H, "path": "forward-tacotron training",
+              "library": f"nn.LSTM({I}, {H}), input projection included"}
+    return ({**common, "max_abs_err": fwd_abs, "ms": fwd_ms, "plain_ms": fwd_plain, **fwd_b,
+             "library_ms": lib_fwd, "plan": list(p_f[:5]), "candidates_ms": fwd_c,
+             "with_residuals": True},
+            {**common, "max_abs_err": bwd_abs, "ms": bwd_ms, "plain_ms": bwd_plain, **bwd_b,
+             "library_ms": lib_bwd, "plan": list(p_b[:5]), "candidates_ms": bwd_c})
+
+
+# (B, T, H) of K4 in a ForwardTacotron training step: the predictors' BiGRUs
+# (H 64 duration and energy, H 128 pitch) and the prenet CBHG's (H 256) over
+# 160 characters, the postnet CBHG's (H 256) over 900 frames
+NAR_TRAIN_GRU_SHAPES = ((16, 160, 64), (16, 160, 128), (16, 160, 256), (16, 900, 256))
+
+
+def phase_nar_train_kernels(dev, card):
+    """K3 (``k3_train_cell`` at B 16 and 48), K4 forward and backward at
+    ``NAR_TRAIN_GRU_SHAPES`` (``gru_shape``: against autograd through the
+    plain forward, beside cuDNN's ``nn.GRU`` of the same width) and K5's
+    forward at the alignment pass's longest shape (B 1, r 1, 1216
+    iterations, 160 characters, zoneout 0: ``k5_fwd_cell``). Returns
+    {kernel name: [cells]}."""
+    import torch
+
+    from rtvc_tpu_torch.ops import tacotron_train as tk
+
+    out = {"lstm_seq": [], "lstm_seq_bwd": [], "gru_seq": [], "gru_seq_bwd": [],
+           "tacotron_train_fwd": []}
+    for B in (16, 48):
+        fwd, bwd = k3_train_cell(dev, card, B)
+        out["lstm_seq"].append(fwd)
+        out["lstm_seq_bwd"].append(bwd)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan",
+            "library")
+    for B, T, H in NAR_TRAIN_GRU_SHAPES:
+        for name, e in zip(("gru_seq", "gru_seq_bwd"), gru_shape(dev, B, T, H)):
+            out[name].append({"B": B, "T": T, "H": H, "path": "forward-tacotron training",
+                              **{k: e[k] for k in keys}})
+    T, D, L, E, KS = (K5_WIDTHS[k] for k in ("T", "D", "L", "E", "KS"))
+    g = torch.Generator().manual_seed(17)
+
+    def u(*shape, fan):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * fan ** -0.5).to(dev)
+
+    w = tk.TrainWeights(
+        gwh=u(D, 3 * D, fan=D), gbh=u(3 * D, fan=D), wq=u(D, D, fan=D), bq=u(D, fan=D),
+        mloc=(torch.randn(KS, D, generator=g) * 0.1).to(dev), vv=u(D, fan=D),
+        wri=u(E + D, L, fan=E + D), bri=u(L, fan=E + D), l1wi=u(L, 4 * L, fan=L),
+        l1wh=u(L, 4 * L, fan=L), l1b=u(4 * L, fan=L), l2wi=u(L, 4 * L, fan=L),
+        l2wh=u(L, 4 * L, fan=L), l2b=u(4 * L, fan=L), gwi_ctx=u(E, 3 * D, fan=E))
+    x, _ = k5_case(g, dev, 1, 1216)
+    x["zo1"].zero_()
+    x["zo2"].zero_()
+    cell, _ = k5_fwd_cell(dev, w, x)
+    out["tacotron_train_fwd"].append({"B": 1, "n_iters": 1216, "T": T, "path": "alignment pass",
+                                      **{k: cell[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                              "bound_ms", "bound_by", "plan")},
+                                      "library_ms": None})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2562,7 +3061,9 @@ def main() -> int:
     counts = phase_clone(dev, syn, voc)
     stream_counts, _ = phase_stream(dev, card, syn, voc)
     nar = phase_nar(dev, card, voc)
+    align_counts = phase_align(dev, card, syn)
     kernels += [phase_lstm_train(dev), *phase_gru(dev), *phase_taco_train_kernel(dev)]
+    nar_train_cells = phase_nar_train_kernels(dev, card)
     runs_dir = _build.BUILD_DIR / "smoke_runs"
     shutil.rmtree(runs_dir, ignore_errors=True)
     try:
@@ -2571,6 +3072,7 @@ def main() -> int:
         phase_train_vocoder(dev, runs_dir, factories.MODEL_TYPE_FATCHORD, steps=3)
         phase_train_vocoder(dev, runs_dir, factories.MODEL_TYPE_GENEING, steps=3)
         syn_counts, _ = phase_train_synthesizer(dev, runs_dir)
+        nar_train_counts = phase_train_nar(dev, card, runs_dir)
     finally:
         shutil.rmtree(runs_dir, ignore_errors=True)
     check("jax" not in sys.modules, "the port imported jax")
@@ -2594,7 +3096,18 @@ def main() -> int:
         for model_type, nar_counts in nar["counts"].items():
             by_path[name][f"{model_type} clone (5 requests)"] = nar_counts.get(name, 0)
         by_path[name]["forward-tacotron stream (1)"] = nar["stream_counts"].get(name, 0)
+    # the training kernels on the non-autoregressive paths: ForwardTacotron's
+    # trainer (K3 and K4 both ways) and the alignment pass (K5's forward)
+    by_path["lstm_seq_bwd"] = {"encoder training (3 steps)": enc_counts["lstm_seq_bwd"]}
+    for name in ("lstm_seq", "lstm_seq_bwd", "gru_seq", "gru_seq_bwd"):
+        by_path[name]["forward-tacotron training (3 steps)"] = nar_train_counts[name]
+    by_path["tacotron_train_fwd"] = {
+        "tacotron training (3 steps)": syn_counts["tacotron_train_fwd"],
+        "alignment pass (5 utterances)": align_counts["tacotron_train_fwd"]}
     for k in kernels:
+        # K3's, K4's and K5's cells at the NAR trainer's and the alignment pass's shapes
+        if k["name"] in nar_train_cells:
+            k.setdefault("shapes", []).extend(nar_train_cells[k["name"]])
         # K3's and K4's cells at ForwardTacotron's shapes
         if k["name"] in nar["cells"]:
             k.setdefault("shapes", []).extend(nar["cells"][k["name"]])

@@ -292,5 +292,7 @@ extern "C" int rtvc_lstm_seq_bwd(const float* dys, const float* dhT, const float
   RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 12, 8)
   RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 10, 1)
   RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 10, 8)
+  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 4, 1)
+  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 4, 2)
   return (int)cudaErrorInvalidValue;
 }

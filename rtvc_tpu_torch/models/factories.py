@@ -43,10 +43,6 @@ MODEL_TYPE_GENEING = "geneing-wavernn"
 MODEL_TYPE_RUNTIMERACER = "runtimeracer-wavernn"
 VOC_MODEL_TYPES = (MODEL_TYPE_FATCHORD, MODEL_TYPE_GENEING, MODEL_TYPE_RUNTIMERACER)
 
-_LATER = ("training {} is not ported to rtvc_tpu_torch yet: the non-autoregressive "
-          "synthesizers' training is a later slice")
-
-
 class SynModel(NamedTuple):
     model_type: str
     dims: Union[TacotronDims, ForwardTacotronDims, FastPitchDims]
@@ -220,10 +216,14 @@ def syn_dims(model_type: str, cfg):
 
 
 def get_model_train_elements(model_type: str) -> list:
-    """The dataset elements a synthesizer's training needs."""
+    """The dataset elements a synthesizer's training needs: the
+    non-autoregressive ones also read the alignment pass's five files."""
     if model_type == MODEL_TYPE_TACOTRON:
         return ["mel", "embed"]
-    raise NotImplementedError(_LATER.format(model_type))
+    if model_type in (MODEL_TYPE_FORWARD_TACOTRON, MODEL_TYPE_FASTPITCH):
+        return ["mel", "embed", "duration", "attention", "alignment", "phoneme_pitch",
+                "phoneme_energy"]
+    raise NotImplementedError("Invalid model of type '%s' provided. Aborting..." % model_type)
 
 
 def init_syn_model(model_type: str, seed: int = 0, override_hp=None,

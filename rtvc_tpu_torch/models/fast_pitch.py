@@ -11,6 +11,9 @@ predictor (the reference FastPitch has no speaker conditioning).
 
 No recurrence and no kernel of its own: the attention is written out as
 products and a softmax in f32, as the JAX package writes it.
+:func:`fastpitch_forward` is the training forward (ground-truth durations,
+pitch and energy; dropout in the FFT blocks and the predictors, drawn from
+the step's generator).
 :func:`fastpitch_generate` is the generate path (see
 ``models.forward_tacotron.forward_generate``: the same host-side rounding,
 guard and functions, synthesized at the batch's longest ``mel_lens``).
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +30,13 @@ from torch import nn
 
 from rtvc_tpu_torch.config.synthesizer import FastPitchParams
 from rtvc_tpu_torch.models.forward_tacotron import apply_series_function, round_durations
-from rtvc_tpu_torch.models.layers import Conv1d, Embedding, Linear, length_regulate
+from rtvc_tpu_torch.models.layers import (
+    Conv1d,
+    Embedding,
+    Linear,
+    always_dropout,
+    length_regulate,
+)
 
 Tensor = torch.Tensor
 
@@ -133,10 +142,16 @@ class FFTBlock(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, device=device)
 
     def forward(self, x: Tensor, key_padding_mask: Optional[Tensor],
-                exact_lengths: bool = False) -> Tensor:
+                exact_lengths: bool = False, dropout: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> Tensor:
         """``exact_lengths`` zeroes pad frames after each LayerNorm and
         between the convs, so that the convs see the zeros an unpadded run
-        has past its end."""
+        has past its end. ``dropout`` (training) drops the attention's and
+        the second conv's outputs ahead of their residual sums, drawn from
+        ``generator``."""
+        def drop(v):
+            return always_dropout(v, dropout, generator) if dropout else v
+
         if exact_lengths and key_padding_mask is not None:
             valid = (~key_padding_mask)[..., None].to(x.dtype)
 
@@ -146,10 +161,10 @@ class FFTBlock(nn.Module):
             def remask(v):
                 return v
         T = x.shape[1]
-        x = remask(self.norm1(x + self.self_attn(x, key_padding_mask)))
+        x = remask(self.norm1(x + drop(self.self_attn(x, key_padding_mask))))
         h = remask(torch.relu(self.conv1(x)[:, :T]))
         h = self.conv2(h)[:, :T]
-        return remask(self.norm2(x + h))
+        return remask(self.norm2(x + drop(h)))
 
 
 class PositionalEncoding(nn.Module):
@@ -170,11 +185,16 @@ class ForwardTransformer(nn.Module):
         self.norm = nn.LayerNorm(d_model, device=device)
 
     def forward(self, x: Tensor, key_padding_mask: Optional[Tensor],
-                exact_lengths: bool = False) -> Tensor:
+                exact_lengths: bool = False, dropout: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        """``dropout`` (training) drops the positionally encoded input and,
+        in each FFT block, as :meth:`FFTBlock.forward` does."""
         pe = _pe_on(x.shape[-1], x.device)[:x.shape[1]]
         x = x + (self.pos_encoder.scale * pe[None]).to(x.dtype)
+        if dropout:
+            x = always_dropout(x, dropout, generator)
         for layer in self.layers:
-            x = layer(x, key_padding_mask, exact_lengths)
+            x = layer(x, key_padding_mask, exact_lengths, dropout, generator)
         return self.norm(x)
 
 
@@ -190,9 +210,10 @@ class SeriesPredictor(nn.Module):
                                               d.series_layers, d.conv_kernel, device=device)
         self.lin = Linear(dm, 1, device=device)
 
-    def forward(self, x: Tensor, spk_emb: Tensor, pad_mask: Optional[Tensor]) -> Tensor:
+    def forward(self, x: Tensor, spk_emb: Tensor, pad_mask: Optional[Tensor],
+                dropout: float = 0.0, generator: Optional[torch.Generator] = None) -> Tensor:
         h = self.embedding(x) + self.spk_proj(spk_emb)[:, None, :]
-        return self.lin(self.transformer(h, pad_mask))
+        return self.lin(self.transformer(h, pad_mask, dropout=dropout, generator=generator))
 
 
 class FastPitch(nn.Module):
@@ -220,11 +241,12 @@ class FastPitch(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def predict(model: FastPitch, x: Tensor, spk_emb: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+def predict(model: FastPitch, x: Tensor, spk_emb: Tensor, dropout: float = 0.0,
+            generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor, Tensor]:
     """The three predictors (characters 0 are pads, masked as keys) →
     (durations, pitch, energy), each (B, T, 1)."""
     pad_mask = x == 0
-    return tuple(getattr(model, name)(x, spk_emb, pad_mask)
+    return tuple(getattr(model, name)(x, spk_emb, pad_mask, dropout, generator)
                  for name in ("dur_pred", "pitch_pred", "energy_pred"))
 
 
@@ -245,6 +267,34 @@ def mel_synthesis(model: FastPitch, x: Tensor, spk_emb: Tensor, durations: Tenso
     h = model.postnet(h, mel_pad, exact_lengths=True)
     m = model.lin(h).masked_fill(mel_pad[..., None], d.padding_value)
     return m.transpose(1, 2)
+
+
+def fastpitch_forward(model: FastPitch, x: Tensor, mel: Tensor, dur: Tensor, spk_emb: Tensor,
+                      mel_lens: Tensor, pitch: Tensor, energy: Tensor,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Dict[str, Tensor]]:
+    """The training forward (``rtvc_tpu/models/fast_pitch.py:fastpitch_forward``
+    with ``train=True``), with the arguments and outputs of
+    ``forward_tacotron.forward_tacotron_forward`` (mel_hat and mel_post are
+    the same tensor, and FastPitch has no running statistics). The FFT
+    blocks and the predictors take dropout from ``generator``. The frames
+    past a row's ``mel_lens`` are zeroed before the decoder transformer,
+    which masks them as keys, and take ``padding_value`` after ``lin``."""
+    d = model.dims
+    pad_mask = x == 0
+    dur_hat, pitch_hat, energy_hat = predict(model, x, spk_emb, d.series_dropout, generator)
+    h = model.embedding(x) + model.spk_proj(spk_emb)[:, None, :]
+    h = model.prenet(h, pad_mask, dropout=d.dropout, generator=generator)
+    h = h + model.pitch_proj(pitch[..., None]) * d.pitch_strength
+    h = h + model.energy_proj(energy[..., None]) * d.energy_strength
+    max_len = mel.shape[2]
+    h = length_regulate(h, torch.floor(dur + 0.5).clamp_min(0).long(), max_len)
+    mel_pad = (torch.arange(max_len, device=h.device)[None, :]
+               >= mel_lens.to(h.device)[:, None])
+    h = h.masked_fill(mel_pad[..., None], 0.0)
+    h = model.postnet(h, mel_pad, dropout=d.dropout, generator=generator)
+    m = model.lin(h).masked_fill(mel_pad[..., None], d.padding_value).transpose(1, 2)
+    return (m, m, dur_hat[..., 0], pitch_hat.transpose(1, 2), energy_hat.transpose(1, 2), {})
 
 
 @torch.no_grad()

@@ -10,8 +10,14 @@ state-dict names.
 
 Kernels: each of the five BiGRUs is ``layers.GRU`` (K4, one launch a
 direction), and each direction of the BiLSTM is one input product and one
-K3 sequence from a zero state (``ops.lstm_seq.lstm_seq``). On CPU tensors
-both run their plain versions.
+K3 sequence from a zero state: ``ops.lstm_seq.lstm_seq`` without a
+gradient, ``LSTMSeqFn`` (K3's forward with residuals, then its backward)
+with one. On CPU tensors both run their plain versions.
+
+:func:`forward_tacotron_forward` is the training forward: ground-truth
+durations, pitch and energy, the predictors and the prenet CBHG in train
+mode (dropout from the step's generator, BatchNorm batch statistics), the
+postnet CBHG over the whole padded buffer, as the JAX package trains it.
 
 :func:`forward_generate` is the generate path, on the host as the JAX
 package does it: predict, divide the durations by ``alpha``, apply the
@@ -22,7 +28,7 @@ the postnet is length-exact, so the valid frames are the same).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,9 +42,10 @@ from rtvc_tpu_torch.models.layers import (
     Conv1d,
     Embedding,
     Linear,
+    always_dropout,
     length_regulate,
 )
-from rtvc_tpu_torch.ops.lstm_seq import lstm_seq
+from rtvc_tpu_torch.ops.lstm_seq import LSTMSeqFn, lstm_seq
 
 Tensor = torch.Tensor
 
@@ -95,12 +102,20 @@ class SeriesPredictor(nn.Module):
         self.rnn = GRU(conv_dims, rnn_dims, bidirectional=True, device=device)
         self.lin = Linear(2 * rnn_dims, 1, device=device)
 
-    def forward(self, x: Tensor, spk_emb: Tensor) -> Tensor:
-        """chars (B, T), speaker embeddings (B, E) → (B, T, 1)."""
+    def forward(self, x: Tensor, spk_emb: Tensor, new_stats: Optional[Dict[str, Tensor]] = None,
+                prefix: str = "", dropout: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        """chars (B, T), speaker embeddings (B, E) → (B, T, 1). With
+        ``new_stats`` (training) the BatchNorms use the batch's statistics
+        and leave their new running statistics there under ``prefix``, and
+        each conv's output takes dropout of rate ``dropout`` from
+        ``generator``."""
         h = self.embedding(x)
         h = torch.cat([h, spk_emb[:, None, :].expand(-1, h.shape[1], -1)], dim=2)
-        for conv in self.convs:
-            h = conv(h)
+        for i, conv in enumerate(self.convs):
+            h = conv(h, new_stats, f"{prefix}convs.{i}.")
+            if new_stats is not None:
+                h = always_dropout(h, dropout, generator)
         h, _ = self.rnn(h)
         return self.lin(h)
 
@@ -154,19 +169,22 @@ class ForwardTacotron(nn.Module):
 
 def _lstm_dir(lstm: BiLSTM, sfx: str, x: Tensor) -> Tensor:
     """One direction from a zero state: the input product for the whole
-    sequence, then K3 (its plain version for a CPU tensor)."""
+    sequence, then K3 (its plain version for a CPU tensor): the inference
+    kernel without a gradient, ``LSTMSeqFn`` with one."""
     w_ih = getattr(lstm, f"weight_ih_l0{sfx}")
     b = getattr(lstm, f"bias_ih_l0{sfx}") + getattr(lstm, f"bias_hh_l0{sfx}")
     xg = (x @ w_ih.t() + b).contiguous()
     h0 = x.new_zeros((x.shape[0], lstm.hidden_size))
-    return lstm_seq(xg, getattr(lstm, f"weight_hh_l0{sfx}").contiguous(), h0, h0)[0]
+    seq = LSTMSeqFn.apply if torch.is_grad_enabled() else lstm_seq
+    return seq(xg, getattr(lstm, f"weight_hh_l0{sfx}").contiguous(), h0, h0)[0]
 
 
 def bilstm_packed(lstm: BiLSTM, x: Tensor, lens: Tensor, padding_value: float) -> Tensor:
     """The BiLSTM with ``pack_padded_sequence`` semantics on (B, T, I): the
     reverse direction reads each row reversed by its own length (a gather
     before and after), and positions at or past a row's length take
-    ``padding_value``."""
+    ``padding_value``. Pad frames follow a row's valid ones in both
+    directions, so their cotangents are zero and ``dxg`` is zero there."""
     B, T, _ = x.shape
     t = torch.arange(T, device=x.device)[None, :]
     lens = lens.to(device=x.device, dtype=torch.long)[:, None]
@@ -179,31 +197,68 @@ def bilstm_packed(lstm: BiLSTM, x: Tensor, lens: Tensor, padding_value: float) -
     return torch.where(mask, torch.cat([fwd, bwd], dim=-1), padding_value)
 
 
-def predict(model: ForwardTacotron, x: Tensor, spk_emb: Tensor
-            ) -> Tuple[Tensor, Tensor, Tensor]:
-    """The three predictors → (durations, pitch, energy), each (B, T, 1)."""
-    return (model.dur_pred(x, spk_emb), model.pitch_pred(x, spk_emb),
-            model.energy_pred(x, spk_emb))
+_PREDICTORS = ("dur_pred", "pitch_pred", "energy_pred")
+
+
+def predict(model: ForwardTacotron, x: Tensor, spk_emb: Tensor,
+            new_stats: Optional[Dict[str, Tensor]] = None,
+            generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor, Tensor]:
+    """The three predictors → (durations, pitch, energy), each (B, T, 1);
+    ``new_stats`` and ``generator`` as in :meth:`SeriesPredictor.forward`,
+    each at its own dropout rate."""
+    d = model.dims
+    rates = (d.duration_dropout, d.pitch_dropout, d.energy_dropout)
+    return tuple(getattr(model, name)(x, spk_emb, new_stats, f"{name}.", rate, generator)
+                 for name, rate in zip(_PREDICTORS, rates))
 
 
 def mel_synthesis(model: ForwardTacotron, x: Tensor, spk_emb: Tensor, durations: Tensor,
-                  pitch: Tensor, energy: Tensor, mel_lens: Tensor, max_len: int
-                  ) -> Tuple[Tensor, Tensor]:
-    """The inference trunk: pitch and energy (B, T, 1), integer durations
-    (B, T) and their sums ``mel_lens`` (B,) → (mel, mel_post), each
-    (B, n_mels, max_len). The postnet is length-exact (the CBHG with
-    ``lengths``), as the reference runs it on each unpadded sequence;
-    frames past a row's length hold lin(padding_value)."""
+                  pitch: Tensor, energy: Tensor, mel_lens: Tensor, max_len: int,
+                  new_stats: Optional[Dict[str, Tensor]] = None,
+                  generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
+    """The trunk: pitch and energy (B, T, 1), integer durations (B, T) and
+    their sums ``mel_lens`` (B,) → (mel, mel_post), each (B, n_mels,
+    max_len). In generation the postnet is length-exact (the CBHG with
+    ``lengths``), as the reference runs it on each unpadded sequence; frames
+    past a row's length hold lin(padding_value). With ``new_stats``
+    (training) both CBHGs use batch statistics and their dropout draws from
+    ``generator``, and the postnet runs over the whole buffer."""
     d = model.dims
-    h = model.prenet(model.embedding(x))
+    h = model.prenet(model.embedding(x), new_stats=new_stats, prefix="prenet.",
+                     generator=generator)
     h = h + model.pitch_proj(pitch) * d.pitch_strength
     h = h + model.energy_proj(energy) * d.energy_strength
     h = length_regulate(h, durations, max_len)
     h = torch.cat([h, spk_emb[:, None, :].expand(-1, max_len, -1)], dim=2)
     h = bilstm_packed(model.lstm, h, mel_lens, d.padding_value)
     mel = model.lin(h)
-    post = model.post_proj(model.postnet(mel, lengths=mel_lens))
-    return mel.transpose(1, 2), post.transpose(1, 2)
+    post = model.postnet(mel, lengths=None if new_stats is not None else mel_lens,
+                         new_stats=new_stats, prefix="postnet.", generator=generator)
+    return mel.transpose(1, 2), model.post_proj(post).transpose(1, 2)
+
+
+def forward_tacotron_forward(model: ForwardTacotron, x: Tensor, mel: Tensor, dur: Tensor,
+                             spk_emb: Tensor, mel_lens: Tensor, pitch: Tensor, energy: Tensor,
+                             generator: Optional[torch.Generator] = None
+                             ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor,
+                                        Dict[str, Tensor]]:
+    """The training forward (``rtvc_tpu/models/forward_tacotron.py:
+    forward_tacotron_forward`` with ``train=True``). chars (B, T), target
+    mels (B, n_mels, L) (only L is read), ground-truth durations, pitch and
+    energy (B, T), speaker embeddings (B, E), ``mel_lens`` (B,). The
+    durations are rounded as ``max(floor(d + 0.5), 0)`` and length-regulated
+    to L; dropout draws from ``generator``. Returns (mel_hat, mel_post
+    (B, n_mels, L), dur_hat (B, T), pitch_hat, energy_hat (B, 1, T),
+    new_stats): the BatchNorms' new running statistics under their buffers'
+    names, which the step installs."""
+    new_stats: Dict[str, Tensor] = {}
+    dur_hat, pitch_hat, energy_hat = predict(model, x, spk_emb, new_stats, generator)
+    durations = torch.floor(dur + 0.5).clamp_min(0).long()
+    mel_hat, mel_post = mel_synthesis(model, x, spk_emb, durations, pitch[..., None],
+                                      energy[..., None], mel_lens, mel.shape[2], new_stats,
+                                      generator)
+    return (mel_hat, mel_post, dur_hat[..., 0], pitch_hat.transpose(1, 2),
+            energy_hat.transpose(1, 2), new_stats)
 
 
 def round_durations(dur_hat: np.ndarray) -> np.ndarray:

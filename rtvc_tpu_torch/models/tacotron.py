@@ -298,7 +298,8 @@ def tacotron_forward(model: Tacotron, d: TacotronDims, chars: Tensor, mels: Tens
                      speaker_embedding: Tensor, r: int,
                      generator: Optional[torch.Generator] = None,
                      prenet_dropout: bool = True,
-                     zoneout_masks: Optional[Tuple[Tensor, Tensor]] = None
+                     zoneout_masks: Optional[Tuple[Tensor, Tensor]] = None,
+                     train: bool = True
                      ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Dict[str, Tensor]]:
     """Teacher-forced pass (``rtvc_tpu/models/tacotron.py:tacotron_forward``,
     its hoisted path). chars (B, T_text) int; mels (B, n_mels, steps) with
@@ -313,19 +314,24 @@ def tacotron_forward(model: Tacotron, d: TacotronDims, chars: Tensor, mels: Tens
     and the three recurrent cells, is K5: the kernels on CUDA tensors, their
     plain versions on CPU tensors.
 
-    The BatchNorms use batch statistics and ``new_stats`` maps each
-    running-statistics buffer's name to its new value (the training step
-    installs them). Zoneout masks (p = ``ZONEOUT_P``) are drawn from
-    ``generator`` outside the kernel unless ``zoneout_masks`` gives them.
-    The encoder prenet's dropout is always on; ``prenet_dropout=False`` turns
-    the decoder prenet's off (a deterministic test hook).
+    With ``train`` (the default) the BatchNorms use batch statistics and
+    ``new_stats`` maps each running-statistics buffer's name to its new value
+    (the training step installs them), and zoneout masks (p = ``ZONEOUT_P``)
+    are drawn from ``generator`` outside the kernel unless ``zoneout_masks``
+    gives them. ``train=False`` is the alignment pass's mode, as the JAX
+    package's: the BatchNorms use their running statistics, ``new_stats``
+    stays empty and the zoneout masks are zero. The encoder prenet's dropout
+    is always on; ``prenet_dropout=False`` turns the decoder prenet's off (a
+    deterministic test hook). Under no grad the chain is one K5 forward
+    launch, and autograd keeps no residual of it.
     """
     B, _, steps = mels.shape
     n_iters = steps // r
     enc, dec = model.encoder, model.decoder
     new_stats: Dict[str, Tensor] = {}
+    batch_stats = new_stats if train else None
     x = enc.pre_net(enc.embedding(chars.long()), generator)
-    x = enc.cbhg(x, new_stats=new_stats, prefix="encoder.cbhg.")
+    x = enc.cbhg(x, new_stats=batch_stats, prefix="encoder.cbhg.")
     if speaker_embedding.ndim == 1:
         speaker_embedding = speaker_embedding[None, :]
     e = speaker_embedding[:, None, :].expand(x.shape[0], x.shape[1], -1)
@@ -342,8 +348,11 @@ def tacotron_forward(model: Tacotron, d: TacotronDims, chars: Tensor, mels: Tens
     cell = dec.attn_rnn
     xg_pre = prenet_all @ cell.weight_ih[:, E:].t() + cell.bias_ih  # (B, n_iters, 3D)
 
-    if zoneout_masks is None:
+    if zoneout_masks is None and train:
         zoneout_masks = draw_zoneout_masks(n_iters, B, d.lstm_dims, mels.device, generator)
+    elif zoneout_masks is None:
+        zero = mels.new_zeros((n_iters, B, d.lstm_dims))
+        zoneout_masks = (zero, zero)
     x_all, ctx_all, attn = taco_decoder_train(
         prepare_train_weights(dec, E), xg_pre.transpose(0, 1), encoder_seq, encoder_seq_proj,
         char_mask, *zoneout_masks)
@@ -355,6 +364,6 @@ def tacotron_forward(model: Tacotron, d: TacotronDims, chars: Tensor, mels: Tens
     stops = torch.sigmoid(dec.stop_proj(torch.cat([x_all, ctx_all], dim=-1)))  # (n_iters, B, 1)
     mel_out = mel_steps.permute(1, 2, 0, 3).reshape(B, d.n_mels, steps)
     stop_out = stops[..., 0].transpose(0, 1).repeat_interleave(r, dim=1)
-    post = model.postnet(mel_out.transpose(1, 2), new_stats=new_stats, prefix="postnet.")
+    post = model.postnet(mel_out.transpose(1, 2), new_stats=batch_stats, prefix="postnet.")
     linear = model.post_proj(post).transpose(1, 2)
     return mel_out, linear, attn.transpose(0, 1), stop_out, new_stats

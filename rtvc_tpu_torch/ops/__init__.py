@@ -1,5 +1,5 @@
 """Ops: DSP on tensors (``audio``, ``stft``), numpy host DSP (``vad``,
-``resample``, ``mel``) and the kernel wrappers (``lstm_seq``, ``gru_seq``,
+``resample``, ``mel``, ``pitch``) and the kernel wrappers (``lstm_seq``, ``gru_seq``,
 ``tacotron_decode``, ``tacotron_train``, ``wavernn_generate``,
 ``mel_project``). Import the submodule you need."""
 import torch

@@ -92,13 +92,15 @@ def lstm_seq_bwd_plain(dys: Tensor, dhT: Tensor, dcT: Tensor, gates: Tensor,
 WARPS = 8  # warps of a CTA (csrc/lstm_seq.cu:kThreads / 32)
 
 # The kernels' instantiations: (hidden units a CTA owns, batch rows a warp
-# takes at a time), in order of preference. The forward keeps 4 · units rows
-# of W_hh (H long) in shared memory and units · 4 · rows sums in a lane's
-# registers; the backward units columns (4H long) and units · rows sums, so
-# it can take wider slices and more rows. A group of at most WARPS rows takes
-# one row a warp.
+# takes at a time), in order of preference (see :func:`plan`). The
+# forward keeps 4 · units rows of W_hh (H long) in shared memory and units ·
+# 4 · rows sums in a lane's registers; the backward units columns (4H long)
+# and units · rows sums, so it can take wider slices and more rows, and
+# narrow ones (4 units, 2 rows a warp) where a small batch would leave most
+# SMs and warps idle under the wide ones (B 16 x H 512: 128 CTAs against 43).
+# A group of at most WARPS rows takes one row a warp.
 FWD_SLICES = ((6, 4), (10, 2))
-BWD_SLICES = ((12, 8), (10, 8))
+BWD_SLICES = ((12, 8), (10, 8), (4, 2))
 
 
 class Plan(NamedTuple):
@@ -114,17 +116,17 @@ class Plan(NamedTuple):
     smem: int
 
 
-def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False) -> Plan:
-    """The partition of a (B, T, H) sequence for a card with ``sm_count`` SMs
-    whose blocks may take ``smem_limit`` bytes of shared memory: the first
-    instantiation whose slices fit the SMs (all CTAs must be resident at
-    once: one a SM) and whose weights fit the shared memory. SMs that the
-    slices leave over go to further batch groups, each with a barrier of its
-    own, as long as a group keeps every warp busy. Raises ValueError for a
-    hidden width past what the card can hold."""
+def candidates(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False):
+    """Each instantiation's partition of a (B, T, H) sequence for a card with
+    ``sm_count`` SMs whose blocks may take ``smem_limit`` bytes of shared
+    memory, in order of preference: a Plan where the instantiation's slices
+    fit the SMs (all CTAs must be resident at once: one a SM) and its
+    weights fit the shared memory, else the widest H it would take there.
+    SMs that the slices leave over go to further batch groups, each with a
+    barrier of its own, as long as a group keeps every warp busy."""
     if B < 1 or H < 1 or sm_count < 1:
         raise ValueError(f"lstm_seq: B {B}, H {H} and the SM count {sm_count} must be positive")
-    widest = 0
+    out = []
     for units, nb_many in BWD_SLICES if backward else FWD_SLICES:
         slices = -(-H // units)
         groups = max(1, min(sm_count // max(slices, 1), -(-B // (WARPS * nb_many))))
@@ -136,13 +138,29 @@ def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False)
         scratch = WARPS * (-(-w_rows * nb // 32) * 32)
         smem = 4 * (w_rows * ld + scratch)
         if slices <= sm_count and smem <= smem_limit:
-            return Plan(groups, slices, units, nb, rows, smem)
-        # the widest H this instantiation takes: 16 · units bytes of weights
-        # per unit of H, the forward's H padded to a multiple of 4
-        fits = max(0, smem_limit - 4 * scratch) // (16 * units)
-        widest = max(widest, min(units * sm_count, fits if backward else fits // 4 * 4))
+            out.append(Plan(groups, slices, units, nb, rows, smem))
+        else:
+            # the widest H this instantiation takes: 16 · units bytes of
+            # weights per unit of H, the forward's H padded to a multiple of 4
+            fits = max(0, smem_limit - 4 * scratch) // (16 * units)
+            out.append(min(units * sm_count, fits if backward else fits // 4 * 4))
+    return out
+
+
+def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False) -> Plan:
+    """The forward's first plan of :func:`candidates`; the backward's with
+    the most CTAs, the first of them on a tie (at every backward shape
+    timed, more CTAs ran faster; the forward's second instantiation in two
+    groups lost to its first at B 48: PERF.md section 6). Raises ValueError
+    for a hidden width past what the card can hold."""
+    made = candidates(B, H, sm_count, smem_limit, backward)
+    fits = [p for p in made if isinstance(p, Plan)]
+    if fits and backward:
+        return max(fits, key=lambda p: p.groups * p.slices)  # max keeps the first of equals
+    if fits:
+        return fits[0]
     raise ValueError(
-        f"lstm_seq: hidden width {H} is past the limit of {widest} for {sm_count} SMs with "
+        f"lstm_seq: hidden width {H} is past the limit of {max(made)} for {sm_count} SMs with "
         f"{smem_limit} bytes of shared memory each (W_hh must fit the card's shared memory)")
 
 

@@ -138,49 +138,78 @@ def _lstm(x, h_prev, c_prev, wi, wh, b, zo, L):
     return h, c, torch.cat([i, f, gg, o], dim=1)
 
 
+class FwdState(NamedTuple):
+    """The chain's carried state: the attention hidden (B, D), the context
+    (B, E), the cumulative scores (B, T) and both LSTMs' hidden and cell
+    (B, L)."""
+
+    ah: Tensor
+    ctx: Tensor
+    cum: Tensor
+    h1: Tensor
+    c1: Tensor
+    h2: Tensor
+    c2: Tensor
+
+
+def fwd_step_plain(w: TrainWeights, xg_pre: Tensor, enc_seq: Tensor, enc_proj: Tensor,
+                   char_mask: Tensor, zo1: Tensor, zo2: Tensor, state: FwdState
+                   ) -> Tuple[Tensor, Dict[str, Tensor], FwdState]:
+    """One step of the chain from ``state``: xg_pre (B, 3D) and zo1/zo2
+    (B, L) are the step's slices. Returns x0 + h1 + h2 (B, L), the step's
+    residual streams by :class:`TrainResiduals` field (``cum_T`` apart) and
+    the next state."""
+    D, L, E, KS = w.dims
+    xg = xg_pre + state.ctx @ w.gwi_ctx
+    hg = state.ah @ w.gwh + w.gbh
+    r = torch.sigmoid(xg[:, :D] + hg[:, :D])
+    zg = torch.sigmoid(xg[:, D:2 * D] + hg[:, D:2 * D])
+    hn = hg[:, 2 * D:]
+    ng = torch.tanh(xg[:, 2 * D:] + r * hn)
+    ah = (1.0 - zg) * ng + zg * state.ah
+
+    q = ah @ w.wq + w.bq
+    tv = torch.tanh(q[:, None, :] + enc_proj + _windows(state.cum, KS) @ w.mloc)
+    # the reference multiplies the logits by the pad mask (not an additive
+    # mask): pad characters take part in the softmax at logit 0
+    scores = torch.softmax((tv @ w.vv) * char_mask, dim=1)
+    cum = state.cum + scores
+    ctx = torch.einsum("bt,bte->be", scores, enc_seq)
+
+    x0 = torch.cat([ctx, ah], dim=1) @ w.wri + w.bri
+    h1, c1, g1 = _lstm(x0, state.h1, state.c1, w.l1wi, w.l1wh, w.l1b, zo1, L)
+    h2, c2, g2 = _lstm(x0 + h1, state.h2, state.c2, w.l2wi, w.l2wh, w.l2b, zo2, L)
+    streams = {"ah": ah, "g4": torch.cat([r, zg, ng, hn], dim=1), "x0": x0, "gates1": g1,
+               "c1": c1, "h1": h1, "gates2": g2, "c2": c2, "h2": h2, "scores": scores,
+               "ctx": ctx}
+    return x0 + h1 + h2, streams, FwdState(ah, ctx, cum, h1, c1, h2, c2)
+
+
 def taco_train_fwd_plain(w: TrainWeights, xg_pre: Tensor, enc_seq: Tensor, enc_proj: Tensor,
                          char_mask: Tensor, zo1: Tensor, zo2: Tensor
                          ) -> Tuple[Tensor, TrainResiduals]:
-    """The chain from a zero state. xg_pre (n, B, 3D) is the hoisted half of
-    the attention GRU's input projection (``bias_ih`` included); enc_seq
-    (B, T, E), enc_proj (B, T, D), char_mask (B, T); zo1/zo2 (n, B, L) are
-    the zoneout masks in {0, 1} (1 keeps the previous hidden). Returns
-    x_all = x0 + h1 + h2 (n, B, L) and the residuals, whose ``ctx`` and
-    ``scores`` are the chain's other two outputs."""
+    """The chain from a zero state (:func:`fwd_step_plain` a step). xg_pre
+    (n, B, 3D) is the hoisted half of the attention GRU's input projection
+    (``bias_ih`` included); enc_seq (B, T, E), enc_proj (B, T, D), char_mask
+    (B, T); zo1/zo2 (n, B, L) are the zoneout masks in {0, 1} (1 keeps the
+    previous hidden). Returns x_all = x0 + h1 + h2 (n, B, L) and the
+    residuals, whose ``ctx`` and ``scores`` are the chain's other two
+    outputs."""
     D, L, E, KS = w.dims
     n, B, _ = xg_pre.shape
     T = enc_seq.shape[1]
     z = xg_pre.new_zeros
-    ah, ctx, cum = z((B, D)), z((B, E)), z((B, T))
-    h1, c1, h2, c2 = z((B, L)), z((B, L)), z((B, L)), z((B, L))
+    state = FwdState(z((B, D)), z((B, E)), z((B, T)), z((B, L)), z((B, L)), z((B, L)),
+                     z((B, L)))
     out = {k: [] for k in TrainResiduals._fields[:-1]}
     xs = []
     for s in range(n):
-        xg = xg_pre[s] + ctx @ w.gwi_ctx
-        hg = ah @ w.gwh + w.gbh
-        r = torch.sigmoid(xg[:, :D] + hg[:, :D])
-        zg = torch.sigmoid(xg[:, D:2 * D] + hg[:, D:2 * D])
-        hn = hg[:, 2 * D:]
-        ng = torch.tanh(xg[:, 2 * D:] + r * hn)
-        ah = (1.0 - zg) * ng + zg * ah
-
-        q = ah @ w.wq + w.bq
-        tv = torch.tanh(q[:, None, :] + enc_proj + _windows(cum, KS) @ w.mloc)
-        # the reference multiplies the logits by the pad mask (not an
-        # additive mask): pad characters take part in the softmax at logit 0
-        scores = torch.softmax((tv @ w.vv) * char_mask, dim=1)
-        cum = cum + scores
-        ctx = torch.einsum("bt,bte->be", scores, enc_seq)
-
-        x0 = torch.cat([ctx, ah], dim=1) @ w.wri + w.bri
-        h1, c1, g1 = _lstm(x0, h1, c1, w.l1wi, w.l1wh, w.l1b, zo1[s], L)
-        h2, c2, g2 = _lstm(x0 + h1, h2, c2, w.l2wi, w.l2wh, w.l2b, zo2[s], L)
-        xs.append(x0 + h1 + h2)
-        for k, v in (("ah", ah), ("g4", torch.cat([r, zg, ng, hn], dim=1)), ("x0", x0),
-                     ("gates1", g1), ("c1", c1), ("h1", h1), ("gates2", g2), ("c2", c2),
-                     ("h2", h2), ("scores", scores), ("ctx", ctx)):
+        x, streams, state = fwd_step_plain(w, xg_pre[s], enc_seq, enc_proj, char_mask, zo1[s],
+                                           zo2[s], state)
+        xs.append(x)
+        for k, v in streams.items():
             out[k].append(v)
-    res = TrainResiduals(**{k: torch.stack(v) for k, v in out.items()}, cum_T=cum)
+    res = TrainResiduals(**{k: torch.stack(v) for k, v in out.items()}, cum_T=state.cum)
     return torch.stack(xs), res
 
 
@@ -968,5 +997,6 @@ class TacoDecoderTrainFn(torch.autograd.Function):
 def taco_decoder_train(w: TrainWeights, xg_pre: Tensor, enc_seq: Tensor, enc_proj: Tensor,
                        char_mask: Tensor, zo1: Tensor, zo2: Tensor
                        ) -> Tuple[Tensor, Tensor, Tensor]:
-    """:class:`TacoDecoderTrainFn` with the weights as one argument."""
+    """:class:`TacoDecoderTrainFn` with the weights as one argument. Under
+    no grad autograd builds no graph, so no residual outlives the call."""
     return TacoDecoderTrainFn.apply(xg_pre, enc_seq, enc_proj, char_mask, zo1, zo2, *w)

@@ -4,15 +4,17 @@
 
 Takes GE2E steps (64 speakers x 10 utterances x 160 frames, 3 x LSTM-768),
 WaveRNN steps of the three variants at the first session of their schedules
-(runtimeracer and fatchord batch 40 x 1000 samples, geneing 40 x 1400) and
+(runtimeracer and fatchord batch 40 x 1000 samples, geneing 40 x 1400),
 Tacotron steps (the first session of its schedule: r 7, batch 112, 602
-frames, 160 characters)
-with seeded random weights and synthetic batches. For each it prints the
+frames, 160 characters), ForwardTacotron steps at the first session's batch
+16 and the schedule's largest, 48 (900 frames, 160 characters) and FastPitch
+steps at batch 16, with seeded random weights and synthetic batches. For
+each it prints the
 wall time of three steps ending in a device sync, the peak device memory, and a
 ``torch.profiler`` table of device time by kernel over a few more steps,
 with the idle share 1 - (summed device self time / profiled wall time),
-and the device time of each of the port's own kernels (csrc/), which the
-table's top rows may leave out.
+the device time of each of the port's own kernels (csrc/), which the
+table's top rows may leave out, and that of cuDNN's convolution backward.
 Then it times the recurrences alone, forward plus backward at the same
 shapes, through ``LSTMSeqFn`` / ``GRUSeqFn`` and through cuDNN's
 ``nn.LSTM`` / ``nn.GRU`` (TF32 off) as a bar to measure against.
@@ -83,12 +85,17 @@ def profile_step(name, step, batch, n):
     print(f"{name}: {n} steps profiled, wall {wall:.1f} ms, summed device self time "
           f"{device:.1f} ms, idle share {1 - device / wall:.4f}")
     print(table.table(sort_by="self_device_time_total", row_limit=12, max_name_column_width=60))
-    names = own_kernels()
-    own = sorted(((kernel_name(e.key), e.self_device_time_total / 1e3, e.count) for e in table
-                  if e.device_type == DeviceType.CUDA and kernel_name(e.key) in names),
-                 key=lambda r: -r[1])
+    names, own = own_kernels(), {}
+    for e in table:  # one row a kernel name (the profiler splits one by its arguments)
+        if e.device_type == DeviceType.CUDA and kernel_name(e.key) in names:
+            ms, calls = own.get(kernel_name(e.key), (0.0, 0))
+            own[kernel_name(e.key)] = (ms + e.self_device_time_total / 1e3, calls + e.count)
     print(f"{name}: the port's kernels, device ms over {n} steps (calls): "
-          + "; ".join(f"{k} {ms:.3f} ({c})" for k, ms, c in own))
+          + "; ".join(f"{k} {ms:.3f} ({c})" for k, (ms, c) in
+                      sorted(own.items(), key=lambda r: -r[1][0])))
+    conv_bwd = sum(e.device_time_total for e in table if e.key == "aten::convolution_backward")
+    print(f"{name}: aten::convolution_backward (cuDNN), device ms over {n} steps: "
+          f"{conv_bwd / 1e3:.3f}")
 
 
 def fwd_bwd_ms(fn, args, reps=5):
@@ -170,6 +177,46 @@ def synthesizer_step(dev):
                                            for k, v in batch.items()}
 
 
+def synthetic_nar_batch(batch_size, n_chars, frames, seed, speaker_dims=768):
+    """One batch shaped like ``collate_synthesizer``'s for the
+    non-autoregressive synthesizers: ``synthetic_tacotron_batch``'s chars,
+    mels and embeds, ``x_lens``, ``spec_lens`` in [frames / 2, frames),
+    integer ``durations`` over each row's characters summing to its
+    ``spec_lens``, and pitch (Hz, 0 on a tenth of the characters) and energy
+    per character."""
+    out = synthetic_tacotron_batch(batch_size, n_chars, frames, seed, speaker_dims)
+    del out["stop"]
+    rng = np.random.default_rng(seed + 1)
+    x_lens = (out["chars"] != 0).sum(axis=1).astype(np.int32)
+    spec_lens = rng.integers(frames // 2, frames, batch_size).astype(np.int32)
+    durations = np.zeros((batch_size, n_chars), np.float32)
+    for b, (n, f) in enumerate(zip(x_lens, spec_lens)):
+        cuts = np.sort(rng.integers(0, f + 1, n - 1))
+        durations[b, :n] = np.diff(np.concatenate([[0], cuts, [f]]))
+    valid = durations > 0
+    out.update(x_lens=x_lens, spec_lens=spec_lens, durations=durations,
+               phoneme_pitchs=np.where(valid & (rng.uniform(size=valid.shape) > 0.1),
+                                       rng.uniform(90, 250, valid.shape), 0).astype(np.float32),
+               phoneme_energys=np.where(valid, rng.uniform(1, 10, valid.shape), 0).astype(
+                   np.float32))
+    return out
+
+
+def nar_step(dev, model_type, batch_size, n_chars=160, frames=900):
+    """A ForwardTacotron or FastPitch step at full width (the config's
+    defaults) and the first session's learning rate, on
+    ``synthetic_nar_batch``, as the trainer feeds it."""
+    cfg = factories.default_config(model_type)
+    model = factories.init_syn_model(model_type, seed=0, device=dev).model.train()
+    raw = steps.make_nar_synth_train_step(
+        model_type, model, trainer.make_optimizer(model.parameters(), cfg.tts_schedule[0][2]),
+        cfg)
+    batch = synthetic_nar_batch(batch_size, n_chars, frames, seed=13)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    return (lambda b: raw(b, generator)), {k: trainer.batch_tensor(batch[src], dev)
+                                           for k, src in trainer.NAR_BATCH_KEYS.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -184,6 +231,11 @@ def main() -> int:
         profile_step(f"WaveRNN {model_type} step {cfg.voc_tts_schedule[0][3]} x {cfg.seq_len}",
                      *vocoder_step(dev, model_type), n=3)
     profile_step("Tacotron step 112 x 602 frames x 160 chars, r 7", *synthesizer_step(dev), n=2)
+    for model_type, B in ((factories.MODEL_TYPE_FORWARD_TACOTRON, 16),
+                          (factories.MODEL_TYPE_FORWARD_TACOTRON, 48),
+                          (factories.MODEL_TYPE_FASTPITCH, 16)):
+        profile_step(f"{model_type} step {B} x 900 frames x 160 chars",
+                     *nar_step(dev, model_type, B), n=2)
 
     def leaf(*shape, scale=1.0):
         return (torch.randn(*shape, device=dev) * scale).requires_grad_()
@@ -195,6 +247,16 @@ def main() -> int:
     cudnn = fwd_bwd_ms(torch.nn.LSTM(H, H, batch_first=True, device=dev), (leaf(640, 160, H),))
     print(f"fwd+bwd 640 x 160, H {H}: LSTMSeqFn {port:.3f} ms (recurrence only), "
           f"cuDNN nn.LSTM {cudnn:.3f} ms (input projection included)")
+    for B in (16, 48):
+        H = 512
+        zero = torch.zeros(B, H, device=dev)
+        port = fwd_bwd_ms(LSTMSeqFn.apply,
+                          (leaf(B, 900, 4 * H), leaf(4 * H, H, scale=H ** -0.5), zero, zero))
+        cudnn = fwd_bwd_ms(torch.nn.LSTM(1280, H, batch_first=True, device=dev),
+                           (leaf(B, 900, 1280),))
+        print(f"fwd+bwd {B} x 900, H {H} (ForwardTacotron's BiLSTM, one direction): LSTMSeqFn "
+              f"{port:.3f} ms (recurrence only), cuDNN nn.LSTM(1280, {H}) {cudnn:.3f} ms "
+              f"(input projection included)")
     for T, H in ((1000, 256), (1000, 512), (1400, 256)):
         port = fwd_bwd_ms(GRUSeqFn.apply,
                           (leaf(40, T, 3 * H), leaf(3 * H, H, scale=H ** -0.5), leaf(3 * H)))

@@ -1,14 +1,17 @@
-"""Train a Tacotron synthesizer on one GPU:
+"""Train a synthesizer on one GPU:
 
     python -m rtvc_tpu_torch.synthesizer_train <run_id> [model_type] <syn_dir> [options]
 
 The arguments are those of the JAX package's ``synthesizer_train.py`` except
 its dashboard, multi-process launch and ``--compute_dtype`` options (the
 port trains in f32; bf16 is a later slice), plus ``--device`` and
-``--seed``. Only ``tacotron`` is ported, so it is the default model type;
-the non-autoregressive synthesizers stop with NotImplementedError before any
-data is read. ``syn_dir`` is the directory the synthesizer preprocessing
-writes (``train.json``, ``mels/``, ``embeds/``), read through
+``--seed``. ``model_type`` is ``tacotron`` (the default),
+``forward-tacotron`` or ``fast-pitch``. ``syn_dir`` is the directory the
+synthesizer preprocessing writes (``train.json``, ``mels/``, ``embeds/``;
+for the non-autoregressive synthesizers also the alignment pass's
+``duration/``, ``attention/``, ``alignment/``, ``phoneme_pitch/`` and
+``phoneme_energy/``, from ``python -m
+rtvc_tpu_torch.synthesizer_preprocess_alignments``), read through
 ``rtvc_tpu_torch.data.synthesizer_dataset``. The checkpoint-time evaluation
 samples are not ported yet.
 """
@@ -40,17 +43,17 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None):
     args = parse_args(argv)
     from rtvc_tpu_torch.data.synthesizer_dataset import SynthesizerDataset, batch_iterator
-    from rtvc_tpu_torch.train.trainer import train_synthesizer
+    from rtvc_tpu_torch.train.trainer import sessions, train_synthesizer
 
     elements = factories.get_model_train_elements(args.model_type)
     cfg = factories.default_config(args.model_type)
     dataset = SynthesizerDataset(args.syn_dir, elements)
     print(dataset.get_logs())
 
+    schedule = sessions(args.model_type, cfg.tts_schedule)
+
     def epoch_batches(session_idx, r):
-        # the batch size of a session comes from the schedule
-        return batch_iterator(dataset, batch_size=cfg.tts_schedule[session_idx][2], r=r,
-                              seed=session_idx)
+        return batch_iterator(dataset, batch_size=schedule[session_idx][2], r=r, seed=session_idx)
 
     return train_synthesizer(
         args.run_id, args.model_type, args.models_dir, epoch_batches,

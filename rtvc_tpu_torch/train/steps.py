@@ -1,5 +1,6 @@
-"""Training steps for the speaker encoder, Tacotron and the WaveRNN vocoder
-(counterpart of ``rtvc_tpu/train/steps.py``).
+"""Training steps for the speaker encoder, the three synthesizers
+(Tacotron, ForwardTacotron, FastPitch) and the WaveRNN vocoder (counterpart
+of ``rtvc_tpu/train/steps.py``).
 
 Each ``make_*_train_step`` returns a closure over the model and its
 optimizer that runs one step in place: forward, loss, backward, the
@@ -109,6 +110,83 @@ def make_tacotron_train_step(model: Tacotron, d: TacotronDims,
         stats = {"loss": loss.detach(), "grad_norm": gnorm,
                  **{k: v.detach() for k, v in parts.items()}}
         return stats, attn.detach()
+
+    return step
+
+
+def masked_l1_lastdim(pred: Tensor, target: Tensor, lens: Tensor) -> Tensor:
+    """L1 over the positions before each row's length on the last (time)
+    axis, divided by the mask's sum after it is broadcast to ``pred``'s
+    shape (for mels: n_mels × valid frames), as the JAX package does."""
+    t = torch.arange(pred.shape[-1], device=pred.device)
+    mask = (t[None, :] < lens[:, None]).to(pred.dtype)
+    while mask.ndim < pred.ndim:
+        mask = mask[:, None, :]
+    mask = mask.expand(pred.shape)
+    return ((pred - target).abs() * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def make_nar_synth_train_step(model_type: str, model, optimizer: torch.optim.Optimizer, cfg,
+                              compute_dtype: str = "f32"
+                              ) -> Callable[..., Dict[str, Tensor]]:
+    """ForwardTacotron or FastPitch step: the pitch and energy inputs take
+    zoneout (``cfg.pitch_zoneout`` / ``energy_zoneout``: an entry is zeroed
+    with that probability) → the training forward → masked L1 on the mel
+    and the postnet mel over ``spec_lens``, and on the durations, pitch and
+    energy over ``x_lens``, weighted by the config's loss factors →
+    backward → global-norm clip at ``cfg.clip_grad_norm`` → the optimizer;
+    then the BatchNorms' new running statistics are installed.
+
+    ``step({"chars", "mels", "embeds", "durations", "spec_lens", "x_lens",
+    "pitch", "energy"}, generator=None)`` returns {"loss", "grad_norm"
+    (before clipping), "m1", "m2", "dur", "pitch", "energy"}, detached;
+    ``generator`` feeds the zoneout draws and the forward's dropout."""
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.models.fast_pitch import fastpitch_forward
+    from rtvc_tpu_torch.models.forward_tacotron import forward_tacotron_forward
+
+    check_compute_dtype(compute_dtype)
+    forward = (forward_tacotron_forward if model_type == factories.MODEL_TYPE_FORWARD_TACOTRON
+               else fastpitch_forward)
+    pitch_zoneout = getattr(cfg, "pitch_zoneout", 0.0)
+    energy_zoneout = getattr(cfg, "energy_zoneout", 0.0)
+    params = [p for p in model.parameters() if p.requires_grad]
+    buffers = dict(model.named_buffers())
+
+    def zoneout(x: Tensor, p: float, generator) -> Tensor:
+        return x * (torch.rand(x.shape, generator=generator, device=x.device) > p)
+
+    def step(batch: Dict[str, Tensor], generator: Optional[torch.Generator] = None):
+        optimizer.zero_grad(set_to_none=True)
+        pitch, energy = batch["pitch"], batch["energy"]
+        pitch_in = zoneout(pitch, pitch_zoneout, generator)
+        energy_in = zoneout(energy, energy_zoneout, generator)
+        mel_hat, mel_post, dur_hat, pitch_hat, energy_hat, new_stats = forward(
+            model, batch["chars"], batch["mels"], batch["durations"], batch["embeds"],
+            batch["spec_lens"], pitch_in, energy_in, generator)
+        mels, spec_lens, x_lens = batch["mels"], batch["spec_lens"], batch["x_lens"]
+        parts = {
+            "m1": masked_l1_lastdim(mel_hat.float(), mels, spec_lens),
+            "m2": masked_l1_lastdim(mel_post.float(), mels, spec_lens),
+            "dur": masked_l1_lastdim(dur_hat.float()[:, None, :], batch["durations"][:, None, :],
+                                     x_lens),
+            "pitch": masked_l1_lastdim(pitch_hat.float(), pitch[:, None, :], x_lens),
+            "energy": masked_l1_lastdim(energy_hat.float(), energy[:, None, :], x_lens)}
+        loss = (parts["m1"] + parts["m2"] + cfg.duration_loss_factor * parts["dur"]
+                + cfg.pitch_loss_factor * parts["pitch"]
+                + cfg.energy_loss_factor * parts["energy"])
+        loss.backward()
+        with torch.no_grad():
+            gnorm = global_norm(p.grad for p in params)
+            scale = torch.clamp(cfg.clip_grad_norm / (gnorm + 1e-6), max=1.0)
+            for p in params:
+                p.grad.mul_(scale)
+        optimizer.step()
+        with torch.no_grad():
+            for name, value in new_stats.items():
+                buffers[name].copy_(value)
+        return {"loss": loss.detach(), "grad_norm": gnorm,
+                **{k: v.detach() for k, v in parts.items()}}
 
     return step
 

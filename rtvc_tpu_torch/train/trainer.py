@@ -1,11 +1,12 @@
-"""Training loops for the GE2E speaker encoder, Tacotron and the
-WaveRNN vocoders (counterpart of ``rtvc_tpu/train/trainer.py``).
+"""Training loops for the GE2E speaker encoder, the three synthesizers and
+the WaveRNN vocoders (counterpart of ``rtvc_tpu/train/trainer.py``).
 
   * encoder — GE2E steps over a batch iterator, EER every ``eer_every``
     steps, rolling saves and immutable backups;
-  * synthesizer — Tacotron over the progressive schedule of its config (the
-    reduction factor, batch size and learning-rate range change per
-    session; per-step linear LR decay within a session);
+  * synthesizer — Tacotron, ForwardTacotron or FastPitch over the
+    progressive schedule of its config (the batch size and learning-rate
+    range, and Tacotron's reduction factor, change per session; per-step
+    linear LR decay within a session);
   * vocoder — the session schedule of the WaveRNN config (per-step linear
     LR decay within a session), in-loop structured pruning, loss-anomaly
     detection.
@@ -98,6 +99,13 @@ class CheckpointCadence:
             ckpt.save_checkpoint(self.path, model, step, self.model_type, optimizer, extras)
         if do_backup:
             ckpt.backup_checkpoint(self.path, self.model_dir / "backups", step)
+
+
+def batch_tensor(x, device) -> torch.Tensor:
+    """A batch entry on ``device``: integers as int64, floats as f32."""
+    x = torch.as_tensor(x)
+    dtype = torch.long if not x.is_floating_point() else torch.float32
+    return x.to(device=device, dtype=dtype)
 
 
 def _resume(cadence: CheckpointCadence, model, optimizer, device, what: str) -> int:
@@ -202,8 +210,26 @@ def train_encoder(
 
 
 # ---------------------------------------------------------------------------
-# Synthesizer (Tacotron)
+# Synthesizers
 # ---------------------------------------------------------------------------
+
+# the batch keys each synthesizer's step reads, with the collated batch's
+# key for each (``data.synthesizer_dataset.collate_synthesizer``)
+TACOTRON_BATCH_KEYS = {"chars": "chars", "mels": "mels", "embeds": "embeds", "stop": "stop"}
+NAR_BATCH_KEYS = {"chars": "chars", "mels": "mels", "embeds": "embeds",
+                  "durations": "durations", "spec_lens": "spec_lens", "x_lens": "x_lens",
+                  "pitch": "phoneme_pitchs", "energy": "phoneme_energys"}
+
+
+def sessions(model_type: str, schedule):
+    """The schedule as (r, loops, batch_size, init_lr, end_lr) sessions:
+    Tacotron's as they are, the non-autoregressive synthesizers' (loops,
+    batch_size, init_lr, end_lr) at r 1."""
+    from rtvc_tpu_torch.models import factories
+
+    if model_type == factories.MODEL_TYPE_TACOTRON:
+        return [tuple(s) for s in schedule]
+    return [(1, *s) for s in schedule]
 
 
 def train_synthesizer(
@@ -220,28 +246,31 @@ def train_synthesizer(
     *,
     device,
 ) -> Dict[str, Any]:
-    """Tacotron training (f32) over the config's session schedule
-    ``(r, loops, batch_size, init_lr, end_lr)``.
+    """Synthesizer training (f32) over the config's session schedule:
+    Tacotron's ``(r, loops, batch_size, init_lr, end_lr)``, ForwardTacotron's
+    and FastPitch's ``(loops, batch_size, init_lr, end_lr)`` at r 1.
 
     ``epoch_batches(session_index, r)`` returns a sized, re-iterable source of
     collated batches (``rtvc_tpu_torch.data.synthesizer_dataset.batch_iterator``
     is one: each iteration is a fresh epoch); a source without a length
     raises TypeError rather than being frozen into a list and replayed.
-    The step is rebuilt at every session, since ``r`` changes.
-    Each step draws its dropout and zoneout noise from a generator seeded by
-    (``seed``, step), so a resumed run repeats what an unbroken run does at
-    the same step. A resume in the middle of a session takes up that
-    session's learning-rate decay where it stood and ends the session at its
-    own step count. The other synthesizers (ForwardTacotron, FastPitch)
-    raise NotImplementedError: they are a later slice.
+    Tacotron's step is rebuilt at every session, since ``r`` changes; its
+    batches carry ``chars``, ``mels``, ``embeds`` and ``stop``, the
+    non-autoregressive synthesizers' also ``durations``, ``spec_lens``,
+    ``x_lens``, ``phoneme_pitchs`` and ``phoneme_energys`` (the alignment
+    pass's files, collated). Each step draws its dropout and zoneout noise
+    from a generator seeded by (``seed``, step), so a resumed run repeats
+    what an unbroken run does at the same step. A resume in the middle of a
+    session takes up that session's learning-rate decay where it stood and
+    ends the session at its own step count.
 
     Returns the final step, the model, the last step's statistics, and every
     step's loss, learning rate and wall milliseconds (``losses``, ``lrs``,
     ``step_ms``)."""
     from rtvc_tpu_torch.models import factories
-    from rtvc_tpu_torch.train.steps import make_tacotron_train_step
+    from rtvc_tpu_torch.train.steps import make_nar_synth_train_step, make_tacotron_train_step
 
-    factories.get_model_train_elements(model_type)  # raises for a type not trained yet
+    is_tacotron = model_type == factories.MODEL_TYPE_TACOTRON
     device = torch.device(device)
     bundle = factories.init_syn_model(model_type, seed=seed, override_hp=override_hp,
                                       device=device)
@@ -258,7 +287,9 @@ def train_synthesizer(
     losses, lrs, step_ms = [], [], []
     last: Dict[str, float] = {}
     session_start_step = 0
-    r = cfg.tts_schedule[0][0]
+    schedule = sessions(model_type, cfg.tts_schedule)
+    r = schedule[0][0]
+    keys = TACOTRON_BATCH_KEYS if is_tacotron else NAR_BATCH_KEYS
     done = False
 
     def extras():
@@ -267,7 +298,7 @@ def train_synthesizer(
         # trained at, as the reference's checkpoints do
         return {"r": r, "config": cfg.asdict(), "batch_stats": dict(model.named_buffers())}
 
-    for session_idx, (r, loops, batch_size, init_lr, end_lr) in enumerate(cfg.tts_schedule):
+    for session_idx, (r, loops, batch_size, init_lr, end_lr) in enumerate(schedule):
         session_batches = epoch_batches(session_idx, r)
         if not hasattr(session_batches, "__len__"):
             raise TypeError("epoch_batches must return a sized, re-iterable batch source "
@@ -278,9 +309,17 @@ def train_synthesizer(
         if step - session_start_step >= session_steps:
             session_start_step += session_steps
             continue
-        simple_table([("Session", session_idx + 1), ("r", r), ("Batch", batch_size),
-                      ("LR", f"{init_lr:g}→{end_lr:g}"), ("Steps", session_steps)])
-        step_fn = make_tacotron_train_step(model, dims, optimizer, r, cfg.tts_clip_grad_norm)
+        simple_table([("Session", session_idx + 1), ("r", r if is_tacotron else "-"),
+                      ("Batch", batch_size), ("LR", f"{init_lr:g}→{end_lr:g}"),
+                      ("Steps", session_steps)])
+        if is_tacotron:
+            tacotron_step = make_tacotron_train_step(model, dims, optimizer, r,
+                                                     cfg.tts_clip_grad_norm)
+
+            def step_fn(batch, generator):
+                return tacotron_step(batch, generator)[0]
+        else:
+            step_fn = make_nar_synth_train_step(model_type, model, optimizer, cfg)
         t_last = time.perf_counter()
         for _ in range(n_epochs):
             for batch in session_batches:
@@ -292,14 +331,8 @@ def train_synthesizer(
                                        session_steps)
                 set_lr(optimizer, lr)
                 generator.manual_seed(seed * 1_000_003 + step)
-                stats, _ = step_fn(
-                    {"chars": torch.as_tensor(batch["chars"], device=device),
-                     "mels": torch.as_tensor(batch["mels"], dtype=torch.float32, device=device),
-                     "embeds": torch.as_tensor(batch["embeds"], dtype=torch.float32,
-                                               device=device),
-                     "stop": torch.as_tensor(batch["stop"], dtype=torch.float32,
-                                             device=device)},
-                    generator)
+                stats = step_fn({k: batch_tensor(batch[src], device) for k, src in keys.items()},
+                                generator)
                 names = list(stats)
                 last = dict(zip(names, (float(v) for v in
                                         torch.stack([stats[k] for k in names]).cpu())))

@@ -101,12 +101,17 @@ def test_port_imports_without_jax():
 @pytest.mark.parametrize("model_type", ["forward-tacotron", "fast-pitch"])
 def test_later_synthesizers_raise(model_type):
     """ForwardTacotron and FastPitch are built (their parity with the JAX
-    package is in their own test files); their training is what still
-    raises, a later slice."""
+    package is in their own test files) and trained: their training reads
+    the JAX package's seven dataset elements (the alignment pass's five
+    beside the mel and the embedding); an unknown type still raises."""
+    from rtvc_tpu.models import factories as jfactories
     from rtvc_tpu_torch.models import factories
 
     bundle = factories.init_syn_model(model_type, device="cpu")
     assert bundle.model_type == model_type and bundle.dims.n_mels == 80
     assert bundle.config == factories.default_config(model_type)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        factories.get_model_train_elements(model_type)
+    assert factories.get_model_train_elements(model_type) == \
+        jfactories.get_model_train_elements(model_type)
+    assert len(factories.get_model_train_elements(model_type)) == 7
+    with pytest.raises(NotImplementedError, match="Invalid model"):
+        factories.get_model_train_elements(model_type + "-2")

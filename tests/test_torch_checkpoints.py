@@ -235,17 +235,31 @@ def test_jax_wavernn_ckpt_loads_bit_for_bit(tmp_path, model_type):
 
 
 def test_non_autoregressive_ckpt_is_a_later_slice(tmp_path):
-    """The NAR synthesizers load and serve; their training is what is
-    still a later slice. A NAR .ckpt without the model's weights names
-    what is missing."""
+    """The NAR synthesizers load, serve and train. A NAR .ckpt without the
+    model's weights names what is missing; the NAR trainer's own file reads
+    back bit for bit through ``read_model``, with its step, type, r 1 and
+    config, and loads into ``Synthesizer``."""
     path = tmp_path / "fp.ckpt"
     jax_save_checkpoint(path, {"w": np.ones(2, np.float32)}, 1, "fast-pitch")
     with pytest.raises(KeyError, match="dur_pred"):
         tsyn.Synthesizer(path, device="cpu").load()
     assert factories.config_from_dict("forward-tacotron", {"embed_dims": 8}) == \
         tsyn_cfg.forward_tacotron.replace(embed_dims=8)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        factories.get_model_train_elements("forward-tacotron")
+    from test_torch_nar_train import SMALL, _epochs
+    from test_torch_align import aligned_root
+
+    root = aligned_root(tmp_path / "syn", 4)
+    run = ttrain.train_synthesizer("ft", "forward-tacotron", tmp_path, _epochs(
+        root, "forward-tacotron"), max_steps=1, override_hp=SMALL["forward-tacotron"],
+        device="cpu")
+    ckpt = tckpt.read_model(tmp_path / "ft" / "ft.pt", "synthesizer")
+    assert (ckpt.step, ckpt.model_type, ckpt.r) == (1, "forward-tacotron", 1)
+    assert ckpt.config == SMALL["forward-tacotron"].asdict()
+    sd = run["model"].state_dict()
+    assert set(ckpt.state_dict) == set(sd)
+    assert all(torch.equal(ckpt.state_dict[k], sd[k]) for k in sd)
+    synth = tsyn.Synthesizer(tmp_path / "ft" / "ft.pt", device="cpu", verbose=False)
+    assert synth.get_model_type() == "forward-tacotron"
 
 
 NAR = {"forward-tacotron": (FT_CFG, JForwardTacotronParams, jft.ForwardTacotronDims,

@@ -270,6 +270,129 @@ def test_nar_shapes_match_plain(dev, kernel, T, H):
             assert rel_err(a, want) <= 1e-5
 
 
+# the non-autoregressive trainers' shapes: ForwardTacotron's BiLSTM (K3, H 512)
+# over 900 frames at the schedule's first and largest batches, its
+# predictors' and prenet's BiGRUs (K4 at H 64, 128 and 256) over 160
+# characters and its postnet's (H 256) over the frames
+@pytest.mark.parametrize("kernel,B,T,H", [("lstm_seq", 16, 900, 512), ("lstm_seq", 48, 900, 512),
+                                          ("gru_seq", 16, 160, 64), ("gru_seq", 16, 160, 128),
+                                          ("gru_seq", 16, 160, 256), ("gru_seq", 16, 900, 256)])
+def test_nar_training_shapes_match_plain(dev, kernel, B, T, H):
+    g = torch.Generator().manual_seed(4)
+    n = 4 if kernel == "lstm_seq" else 3
+    xg = torch.randn(B, T, n * H, generator=g).to(dev)
+    w = ((torch.rand(n * H, H, generator=g) - 0.5) * 2 * H ** -0.5).to(dev)
+    dys = torch.randn(B, T, H, generator=g).to(dev)
+    if kernel == "lstm_seq":
+        h0 = torch.zeros(B, H, device=dev)
+        got = _counted("lstm_seq", lambda: lstm_seq_fwd_train(xg, w, h0, h0))
+        want = lstm_seq_fwd_train_plain(xg, w, h0, h0)
+        for a, b in zip(got, want):
+            assert rel_err(a, b) <= 1e-4
+        _, _, _, cs, gates = want
+        args = (dys, torch.zeros_like(h0), torch.zeros_like(h0), gates, cs, h0, w)
+        got = _counted("lstm_seq_bwd", lambda: lstm_seq_bwd(*args))
+        for a, b in zip(got, lstm_seq_bwd_plain(*args)):
+            assert rel_err(a, b) <= 1e-4
+        for a, b in zip(got, lstm_seq_bwd(*args)):
+            assert torch.equal(a, b)
+    else:
+        b = ((torch.rand(3 * H, generator=g) - 0.5) * 2 * H ** -0.5).to(dev)
+        got = _counted("gru_seq", lambda: gru_seq_fwd(xg, w, b))
+        ys, gates = gru_seq_fwd_plain(xg, w, b)
+        assert rel_err(got[0], ys) <= 1e-4 and rel_err(got[1], gates) <= 1e-4
+        dxg = _counted("gru_seq_bwd", lambda: gru_seq_bwd(dys, gates, ys, w))
+        assert rel_err(dxg, gru_seq_bwd_plain(dys, gates, ys, w)) <= 1e-4
+        assert torch.equal(dxg, gru_seq_bwd(dys, gates, ys, w))
+
+
+@pytest.mark.parametrize("model_type", ["forward-tacotron", "fast-pitch"])
+def test_nar_training_step_on_the_card_matches_its_cpu_route(dev, model_type):
+    """One training step of a narrow ForwardTacotron or FastPitch (dropout 0),
+    the same weights and batch on the card and on the CPU: the losses within
+    1e-4 relative, the updated weights within 1e-5 of the CPU's, and on the
+    card ForwardTacotron's BiLSTM through K3 (forward with residuals and
+    backward, a launch a direction each) and its five BiGRUs through K4
+    (10 launches each way); FastPitch launches neither."""
+    from rtvc_tpu_torch.train.steps import make_nar_synth_train_step
+    from rtvc_tpu_torch.train.trainer import make_optimizer
+
+    narrow = (dict(embed_dims=16, series_embed_dims=8, duration_conv_dims=12,
+                   duration_rnn_dims=8, pitch_conv_dims=12, pitch_rnn_dims=8,
+                   energy_conv_dims=12, energy_rnn_dims=8, prenet_dims=16, prenet_k=3,
+                   prenet_num_highways=2, rnn_dims=16, postnet_dims=12, postnet_k=3,
+                   postnet_num_highways=2, duration_dropout=0.0, pitch_dropout=0.0,
+                   energy_dropout=0.0, prenet_dropout=0.0)
+              if model_type == "forward-tacotron" else
+              dict(embed_dims=16, n_heads=2, conv_dims=24, n_layers_enc=2, n_layers_dec=2,
+                   series_d_model=8, series_n_heads=2, series_layers=1, series_d_fft=12,
+                   dropout=0.0, series_dropout=0.0))
+    cfg = factories.default_config(model_type).replace(**narrow)
+    g = torch.Generator().manual_seed(5)
+    B, T, L = 4, 32, 64  # durations of 0-2 frames a character
+    x_lens = torch.tensor([32, 20, 11, 7])
+    chars = torch.where(torch.arange(T)[None, :] < x_lens[:, None],
+                        torch.randint(1, 40, (B, T), generator=g), 0)
+    durations = torch.where(torch.arange(T)[None, :] < x_lens[:, None],
+                            torch.randint(0, 3, (B, T), generator=g), 0).float()
+    batch = {"chars": chars, "mels": torch.rand(B, 80, L, generator=g) * 4 - 4,
+             "embeds": torch.randn(B, 768, generator=g), "durations": durations,
+             "spec_lens": durations.sum(1).long(), "x_lens": x_lens,
+             "pitch": torch.rand(B, T, generator=g), "energy": torch.rand(B, T, generator=g)}
+    out = {}
+    for where in ("cpu", dev):
+        model = factories.init_syn_model(model_type, seed=2, override_hp=cfg,
+                                         device=where).model.train()
+        step = make_nar_synth_train_step(model_type, model, make_optimizer(model.parameters()),
+                                         cfg)
+        before = dict(_build.launch_counts)
+        stats = step({k: v.to(where) for k, v in batch.items()},
+                     torch.Generator(device=where).manual_seed(0))
+        torch.cuda.synchronize()
+        launched = {k: _build.launch_counts[k] - before.get(k, 0)
+                    for k in ("lstm_seq", "lstm_seq_bwd", "gru_seq", "gru_seq_bwd")}
+        out[str(where)] = (stats, {k: v.cpu() for k, v in model.state_dict().items()}, launched)
+    (want, w_state, _), (got, g_state, launched) = out["cpu"], out[str(dev)]
+    assert launched == ({"lstm_seq": 2, "lstm_seq_bwd": 2, "gru_seq": 10, "gru_seq_bwd": 10}
+                        if model_type == "forward-tacotron" else
+                        {"lstm_seq": 0, "lstm_seq_bwd": 0, "gru_seq": 0, "gru_seq_bwd": 0})
+    for k in want:
+        assert abs(float(got[k]) / float(want[k]) - 1) <= 1e-4, k
+    for k, v in w_state.items():
+        torch.testing.assert_close(g_state[k], v, atol=1e-5, rtol=0, msg=k)
+
+
+def test_aligner_on_the_card_matches_its_cpu_route(dev):
+    """The alignment pass's Tacotron (narrow, dropout 0) over one utterance
+    on the card and on the CPU: the attention within 1e-5, the chain one K5
+    forward launch at B 1, r 1, and no backward; a second call on the card
+    leaves no tensor behind (autograd keeps no residual under no grad)."""
+    from rtvc_tpu_torch.config.synthesizer import TacotronParams
+    from rtvc_tpu_torch.inference.attention import TacotronAligner
+
+    cfg = TacotronParams(embed_dims=16, encoder_dims=16, decoder_dims=32, postnet_dims=16,
+                         encoder_K=4, lstm_dims=32, postnet_K=4, num_highways=2, dropout=0.0)
+    g = torch.Generator().manual_seed(6)
+    tokens = torch.randint(1, 60, (37,), generator=g).numpy()
+    mel = (torch.rand(80, 301, generator=g) * 8 - 4).numpy()
+    embed = torch.randn(768, generator=g).numpy()
+    atts = {}
+    for where in ("cpu", dev):
+        bundle = factories.init_syn_model("tacotron", seed=3, override_hp=cfg, device=where)
+        before = dict(_build.launch_counts)
+        atts[str(where)] = TacotronAligner(bundle=bundle).attention(tokens, mel, embed)
+        launched = {k: _build.launch_counts[k] - before.get(k, 0)
+                    for k in ("tacotron_train_fwd", "tacotron_train_bwd")}
+    assert launched == {"tacotron_train_fwd": 1, "tacotron_train_bwd": 0}
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    TacotronAligner(bundle=bundle).attention(tokens, mel, embed)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == allocated
+    assert atts[str(dev)].shape == (301, 37)
+    np.testing.assert_allclose(atts[str(dev)], atts["cpu"], atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("model_type", ["forward-tacotron", "fast-pitch"])
 def test_nar_generate_on_the_card_matches_its_cpu_route(dev, model_type):
     """A narrow ForwardTacotron or FastPitch, the same weights on the card
@@ -975,6 +1098,96 @@ def test_taco_train_fwd_full_width_matches_plain(dev):
     again = tk.taco_train_fwd(w, **x)
     _assert_fwd_matches_plain(got, tk.taco_train_fwd_plain(w, **x), 1e-4)
     _assert_same_bits(got, again)
+
+
+def _taco_train_init_case(dev, B, T, n, D=256, L=512, E=896, KS=31, seed=7):
+    """The chain's weights at PyTorch's initial scale (uniform within
+    ±1/√fan in; the location taps ⊗ L normal, 0.1), as ``chip_smoke.py``
+    draws them, the inputs of ``_taco_train_case`` and zoneout 0 (the
+    alignment pass's)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, fan):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * fan ** -0.5).to(dev)
+
+    w = tk.TrainWeights(
+        gwh=u(D, 3 * D, fan=D), gbh=u(3 * D, fan=D), wq=u(D, D, fan=D), bq=u(D, fan=D),
+        mloc=(torch.randn(KS, D, generator=g) * 0.1).to(dev), vv=u(D, fan=D),
+        wri=u(E + D, L, fan=E + D), bri=u(L, fan=E + D), l1wi=u(L, 4 * L, fan=L),
+        l1wh=u(L, 4 * L, fan=L), l1b=u(4 * L, fan=L), l2wi=u(L, 4 * L, fan=L),
+        l2wh=u(L, 4 * L, fan=L), l2b=u(4 * L, fan=L), gwi_ctx=u(E, 3 * D, fan=E))
+    _, x, _ = _taco_train_case(dev, B, T, n, D, L, E, KS, seed)
+    x["zo1"].zero_()
+    x["zo2"].zero_()
+    return w, x
+
+
+# the alignment pass: one utterance (B 1, r 1) over the longest padded mel
+# (1216 iterations) and the text bucket's 160 characters, and a short one
+@pytest.mark.parametrize("T,n", [(160, 1216), (48, 320)])
+def test_taco_train_fwd_aligner_shape_matches_plain(dev, T, n):
+    w, x = _taco_train_init_case(dev, 1, T, n)
+    got = _counted("tacotron_train_fwd", lambda: tk.taco_train_fwd(w, **x))
+    again = tk.taco_train_fwd(w, **x)
+    _assert_fwd_matches_plain(got, tk.taco_train_fwd_plain(w, **x), 1e-4)
+    _assert_same_bits(got, again)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4, 5])
+def test_taco_train_fwd_long_walk_tracks_f64(dev, seed):
+    """At ``_taco_train_case``'s weights (normal, std 1/√fan: about 1.7x the
+    initial scale) one row's walk over 1216 steps is chaotic: rounding grows
+    by orders of magnitude after a few hundred steps, so two f32 orders of
+    summation part at the end, by an amount the seed decides (PERF.md gives
+    the readings). The kernel is held to an f64 run of the plain version
+    where rounding has not grown, within 1e-5 of its largest entry over the
+    first 300 steps (as the f32 plain version is), and at every one of the
+    1216 steps to one f64 step of the plain version taken from the kernel's
+    own state a step back: each stream within 1e-5 of its largest entry.
+    Prints the distances from the f64 run (run with ``-s`` to read them)."""
+    w, x, _ = _taco_train_case(dev, 1, 160, 1216, 256, 512, 896, seed=seed)
+    x["zo1"].zero_()
+    x["zo2"].zero_()
+    got, res = tk.taco_train_fwd(w, **x)
+    plain, _ = tk.taco_train_fwd_plain(w, **x)
+    w64 = tk.TrainWeights(*(t.double() for t in w))
+    x64 = {k: v.double() for k, v in x.items()}
+    ref, _ = tk.taco_train_fwd_plain(w64, **x64)
+    scale = ref.abs().max()
+
+    def drift(a):
+        return (a.double() - ref).abs().amax(dim=(1, 2)) / scale
+
+    d_kernel, d_plain = drift(got), drift(plain)
+    print(f"K5 long walk, seed {seed}: distance from f64 over the first 300 steps kernel "
+          f"{float(d_kernel[:300].max()):.3e} plain {float(d_plain[:300].max()):.3e}; at step "
+          f"1216 kernel {float(d_kernel[-1]):.3e} plain {float(d_plain[-1]):.3e} (ratio "
+          f"{float(d_kernel[-1] / d_plain[-1]):.2f})")
+    assert float(d_kernel[:300].max()) <= 1e-5 and float(d_plain[:300].max()) <= 1e-5
+
+    # the kernel's state a step back (zero at step 0; the cumulative scores
+    # summed in f32 step by step, as the kernel sums them), the 1216 steps
+    # taken in f64 as one batch
+    def prev(t):
+        return torch.cat([torch.zeros_like(t[:1]), t[:-1]])[:, 0].double()
+
+    cum, cums = torch.zeros_like(res.cum_T), []
+    for scores in res.scores:
+        cums.append(cum)
+        cum = cum + scores
+    assert rel_err(cum, res.cum_T) <= 1e-6
+    n = got.shape[0]
+    state = tk.FwdState(prev(res.ah), prev(res.ctx), torch.cat(cums).double(), prev(res.h1),
+                        prev(res.c1), prev(res.h2), prev(res.c2))
+    x_step, streams, _ = tk.fwd_step_plain(
+        w64, x64["xg_pre"][:, 0], x64["enc_seq"].expand(n, -1, -1),
+        x64["enc_proj"].expand(n, -1, -1), x64["char_mask"].expand(n, -1), x64["zo1"][:, 0],
+        x64["zo2"][:, 0], state)
+    errs = {k: rel_err(getattr(res, k)[:, 0].double(), v) for k, v in streams.items()}
+    errs["x_all"] = rel_err(got[:, 0].double(), x_step)
+    print(f"K5 long walk, seed {seed}: each step against an f64 step from the kernel's state, "
+          f"worst {max(errs.values()):.3e} ({max(errs, key=errs.get)})")
+    assert max(errs.values()) <= 1e-5, errs
 
 
 def test_taco_train_fwd_past_resident_matches_plain(dev):

@@ -1,8 +1,12 @@
 """The port stands on its own: ``rtvc_tpu_torch`` and ``chip_smoke`` import
 none of ``jax``, ``flax``, ``msgpack`` and ``rtvc_tpu``, and the modules the
 port copied from the JAX package (config, text, the three dataset modules,
-metrics) still say what their originals say: equal config fields and values, equal symbol
-sequences, and equal batches from one tiny on-disk dataset and seed."""
+metrics, the duration extractor, the F0 tracker) still say what their
+originals say: equal config fields and values, equal symbol sequences, equal
+batches from one tiny on-disk dataset and seed (the non-autoregressive
+synthesizers' batches from a root the alignment pass wrote too), and the
+copied functions' sources equal their originals' but for the imports (their
+values on seeded inputs: ``test_torch_align.py``)."""
 import dataclasses
 import json
 import random
@@ -25,6 +29,7 @@ from rtvc_tpu_torch import text as ttext
 from rtvc_tpu_torch.data import ge2e_sampler as tge2e
 from rtvc_tpu_torch.data import synthesizer_dataset as tsyn
 from rtvc_tpu_torch.data import vocoder_dataset as tvoc
+from rtvc_tpu_torch.models import factories as tfactories
 from rtvc_tpu_torch.utils import metrics as tmetrics
 
 REPO = Path(__file__).resolve().parents[1]
@@ -40,13 +45,15 @@ for need in ("models.distribution", "ops.stft", "ops.mel_project", "ops.wavernn_
              "inference.vocoder", "inference.synthesizer", "vocoder_train",
              "utils.flax_msgpack", "utils.modelutils", "train.checkpoints", "serve",
              "demo_cli", "inference.streaming", "inference.pipelined", "profile_stream",
-             "models.forward_tacotron", "models.fast_pitch"):
+             "models.forward_tacotron", "models.fast_pitch", "inference.attention",
+             "data.duration_extractor", "data.synthesizer_preprocess", "ops.pitch",
+             "synthesizer_preprocess_alignments"):
     assert "rtvc_tpu_torch." + need in names, need
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "rtvc_tpu", "flax", "msgpack"))
 print(len(names), "modules;", "foreign:", bad)
-sys.exit(1 if bad or len(names) < 38 else 0)
+sys.exit(1 if bad or len(names) < 43 else 0)
 """
 
 
@@ -60,7 +67,7 @@ def test_port_sources_name_no_jax_import():
     pattern = ("from rtvc_tpu ", "from rtvc_tpu.", "import rtvc_tpu ", "import rtvc_tpu.",
                "import rtvc_tpu\n", "import jax", "from jax")
     files = sorted((REPO / "rtvc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 43
+    assert len(files) > 48
     for f in files:
         for n, line in enumerate(f.read_text().splitlines(keepends=True), 1):
             code = line.strip()
@@ -122,6 +129,34 @@ def test_synthesizer_dataset_copy_yields_the_same_batches(tmp_path):
     for a, b in zip(out[0][1], out[1][1]):
         _batches_equal(a, b)
     assert out[1][1][0]["mels"].shape[2] % 3 == 0 and out[1][1][0]["chars"].shape[1] % 32 == 0
+
+
+def test_synthesizer_dataset_copy_yields_the_same_nar_batches(tmp_path):
+    from test_torch_align import aligned_root
+
+    root = aligned_root(tmp_path / "syn", 5)
+    elements = tfactories.get_model_train_elements("forward-tacotron")
+    out = []
+    for mod in (jsyn, tsyn):
+        it = mod.batch_iterator(mod.SynthesizerDataset(root, elements), batch_size=2, r=1,
+                                seed=3)
+        out.append([b for _ in range(2) for b in it])
+    assert len(out[0]) == len(out[1]) == 4
+    for a, b in zip(*out):
+        _batches_equal(a, b)
+    assert {"durations", "phoneme_pitchs", "phoneme_energys", "attentions",
+            "alignments"} <= set(out[1][0])
+
+
+@pytest.mark.parametrize("copy,original", [
+    ("rtvc_tpu_torch/data/duration_extractor.py", "rtvc_tpu/data/duration_extractor.py"),
+    ("rtvc_tpu_torch/ops/pitch.py", "rtvc_tpu/ops/pitch.py")])
+def test_numpy_copies_equal_their_originals(copy, original):
+    def body(path):  # the code after the docstring, the package's name taken out
+        text = (REPO / path).read_text()
+        return text[text.index('"""', 3) + 3:].replace("rtvc_tpu_torch.", "rtvc_tpu.")
+
+    assert body(copy) == body(original)
 
 
 def test_vocoder_dataset_copy_yields_the_same_batches(tmp_path):

@@ -25,6 +25,7 @@ from rtvc_tpu_torch.ops.lstm_seq import (
     BWD_SLICES,
     FWD_SLICES,
     WARPS,
+    candidates,
     lstm_seq,
     lstm_seq_plain,
     plan,
@@ -189,6 +190,20 @@ def test_lstm_plan_at_the_encoder_shapes():
     bwd = _check_plan(640, 768, *H100, backward=True)
     assert (bwd.groups, bwd.slices, bwd.units, bwd.nb, bwd.rows) == (2, 64, 12, 8, 320)
     assert bwd.smem == 4 * (12 * 4 * 768 + WARPS * 96)
+
+
+@pytest.mark.parametrize("B", [16, 48])
+def test_lstm_plan_at_the_forward_tacotron_training_shapes(B):
+    """ForwardTacotron's BiLSTM (H 512) at the schedule's batches 16 and 48:
+    the forward as at the clone's one row (6 units a CTA, 86 CTAs); the
+    backward in narrow slices over 128 CTAs, every warp with rows, where the
+    wide ones would leave 89 SMs idle."""
+    fwd = _check_plan(B, 512, *H100, backward=False)
+    assert (fwd.groups, fwd.slices, fwd.units, fwd.nb, fwd.rows) == (1, 86, 6, 4, B)
+    bwd = _check_plan(B, 512, *H100, backward=True)
+    assert (bwd.groups, bwd.slices, bwd.units, bwd.nb, bwd.rows) == (1, 128, 4, 2, B)
+    wide = [p for p in candidates(B, 512, *H100, backward=True) if p.units == 12]
+    assert wide and wide[0].slices == 43
 
 
 @pytest.mark.parametrize("backward", [False, True])

@@ -263,12 +263,17 @@ def test_train_synthesizer_refusals(tmp_path):
         ttrain.train_synthesizer("c", "tacotron", tmp_path,
                                  lambda i, r: iter(_epochs(root)(i, r)), override_hp=SMALL,
                                  device="cpu")
+    # the non-autoregressive types train now (tests/test_torch_nar_train.py);
+    # an unsized source stops them the same way, and a type no factory knows
+    # raises
     for model_type in ("forward-tacotron", "fast-pitch"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ttrain.train_synthesizer("e", model_type, tmp_path, _epochs(root),
-                                     device="cpu")
-        with pytest.raises(NotImplementedError, match="later slice"):
-            synthesizer_train.main(["run", model_type, str(tmp_path / "missing")])
+        with pytest.raises(TypeError, match="sized"):
+            ttrain.train_synthesizer("e", model_type, tmp_path,
+                                     lambda i, r: iter(_epochs(root)(i, r)), device="cpu")
+    with pytest.raises(NotImplementedError, match="Invalid model"):
+        ttrain.train_synthesizer("e", "glow-tts", tmp_path, _epochs(root), device="cpu")
+    with pytest.raises(SystemExit):  # argparse refuses a type it does not list
+        synthesizer_train.main(["run", "glow-tts", str(tmp_path / "missing")])
 
 
 def test_entry_points_need_a_card_unless_told_otherwise(tmp_path):
