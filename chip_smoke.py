@@ -141,6 +141,28 @@
    copies of their inputs; FastPitch launches no kernel of ours), then one
    ForwardTacotron step at B 48 with its peak memory.
 
+8. The GTA pass and the trainers' samples (``phase_gta``,
+   ``phase_gta_train``). A synthesizer corpus of 16 utterances of 200-1200
+   frames (the last at ``max_mel_frames``) with texts of 40-159 characters,
+   wavs, and the alignment pass's files (seeded durations summing to each
+   mel); ``python -m rtvc_tpu_torch.vocoder_preprocess``'s ``main`` at
+   ``--batch_size 8`` from a checkpoint of each type (Tacotron at r 2:
+   two K5 forward launches at B 8, 334 and 602 iterations; ForwardTacotron:
+   its BiLSTM through K3 and its BiGRUs through K4 at B 8 over the
+   regulated frames; FastPitch). 16 mels of (frames, 80), finite, and a
+   ``synthesized.json`` of 16 lines; every K5, K4 and K3 launch held to its
+   plain version; a second pass equal in bits; a ``--skip_existing`` pass
+   that writes nothing; ms an utterance per type, and each kernel at the
+   pass's shapes beside its bound, plain version and cuDNN. Then the
+   runtimeracer vocoder trained for 3 steps on the Tacotron pass's mels with
+   the entry point's ``gen_hook`` at ``save_every`` 2 (``gen_testset``, its
+   items cut to 2: K1 once an item, each launch held greedily to its plain
+   version), and the Tacotron (K2 held to its plain version), ForwardTacotron
+   and FastPitch evaluation hooks once each (ForwardTacotron's K3 and K4
+   launches held to their plain versions): their wavs finite, their PNGs
+   written exactly where matplotlib imports (the card's machine has none),
+   each hook's time.
+
 K1's, K3's and K4's lines also give the times of the earlier kernels (one
 CTA per fold or batch row, the weights re-read from L2 every step) on the
 same card model, K3's its time as a share of its time before K4 and K1 came
@@ -1374,19 +1396,51 @@ def k4_candidates_ms(xg, w_hh, b_hh, dev):
     return sorted((ms, p) for p, ms in rounds_ms(runs).items())
 
 
+def rnn_fwd_cell(name, args, I):
+    """K3 (``lstm_seq``) or K4 (``gru_seq_fwd``) on ``args`` under no grad,
+    against its plain version (max abs and max rel error; the caller
+    checks), its time and its plain version's by CUDA events, cuDNN's
+    ``nn.LSTM(I, H)`` / ``nn.GRU(I, H)`` (input projection included), and its
+    bound: the inputs read once and the outputs a caller without a gradient
+    reads written once (K3's ys, h_T and c_T; K4's ys, not the gates that
+    only its backward reads)."""
+    import torch
+
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops.gru_seq import gru_seq_fwd, gru_seq_fwd_plain
+    from rtvc_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_plain
+
+    lstm = name == "lstm_seq"
+    kernel, plain = (lstm_seq, lstm_seq_plain) if lstm else (gru_seq_fwd, gru_seq_fwd_plain)
+    n = 4 if lstm else 3
+    B, T, G = args[0].shape
+    H = G // n
+    with torch.no_grad():
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        rel = max(rel_err(a, b) for a, b in zip(got, want))
+        ms = cuda_ms(lambda: kernel(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), reps=2)
+    library = f"nn.{'LSTM' if lstm else 'GRU'}({I}, {H})"
+    rnn = (torch.nn.LSTM if lstm else torch.nn.GRU)(I, H, batch_first=True)
+    lib_ms, _ = rnn_ms(rnn, B, T, H, args[0].device, backward=False)
+    b = bound(nbytes(*args, *(got if lstm else got[:1])), 2 * B * T * n * H * H)
+    return {"B": B, "T": T, "H": H, "max_abs_err": abs_err, "rel_err": rel, "ms": ms,
+            "plain_ms": plain_ms, **b, "library_ms": lib_ms,
+            "library": f"{library}, input projection included"}
+
+
 def nar_kernel_cells(dev, card):
-    """K3 and K4 at ``NAR_SHAPES``, B 1, seeded inputs: each against its plain
-    version (K3 1e-4 absolute, K4 1e-4 relative), its time beside its bound,
-    its plain version's and cuDNN's (``nn.LSTM(1280, 512)`` / ``nn.GRU(I, H)``,
-    input product included) by CUDA events, and the plan's time beside every
-    other plan the kernel has for the shape. Returns {kernel: [cell]}."""
+    """K3 and K4 at ``NAR_SHAPES``, B 1, seeded inputs (``rnn_fwd_cell``):
+    each against its plain version (K3 1e-4 absolute, K4 1e-4 relative),
+    its time beside its bound, its plain version's and cuDNN's, and the
+    plan's time beside every other plan the kernel has for the shape.
+    Returns {kernel: [cell]}."""
     import torch
 
     from rtvc_tpu_torch import _build
-    from rtvc_tpu_torch.ops import rel_err
-    from rtvc_tpu_torch.ops.gru_seq import gru_seq_fwd, gru_seq_fwd_plain
     from rtvc_tpu_torch.ops.gru_seq import plan as k4_plan
-    from rtvc_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_plain
     from rtvc_tpu_torch.ops.lstm_seq import plan as lstm_plan
 
     out = {"lstm_seq": [], "gru_seq": []}
@@ -1398,46 +1452,30 @@ def nar_kernel_cells(dev, card):
         w = ((torch.rand(n * H, H, generator=g) * 2 - 1) * H ** -0.5).to(dev)
         if kernel == "lstm_seq":
             h0 = torch.zeros(1, H, device=dev)
-            got, want = lstm_seq(xg, w, h0, h0), lstm_seq_plain(xg, w, h0, h0)
-            torch.cuda.synchronize()
-            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            c = rnn_fwd_cell("lstm_seq", (xg, w, h0, h0), I)
+            err = c["max_abs_err"]
             check(err <= 1e-4, f"K3 at B 1 x T {T} x H {H}: {err} from its plain version")
-            ms = cuda_ms(lambda: lstm_seq(xg, w, h0, h0))
-            plain_ms = cuda_ms(lambda: lstm_seq_plain(xg, w, h0, h0), reps=2)
-            lib_ms, _ = rnn_ms(torch.nn.LSTM(I, H, batch_first=True), 1, T, H, dev,
-                               backward=False)
-            library = f"nn.LSTM({I}, {H})"
-            b = bound(nbytes(xg, w, h0, h0, *got), 2 * T * 4 * H * H)
             p = lstm_plan(1, H, *limits)
             others = k3_candidates_ms(xg, w, h0, dev)
             plans = ", ".join(f"{u} units a CTA {t:.3f} ms" + (" (plan)" if u == p.units else "")
                               for u, t in others.items())
         else:
             bias = ((torch.rand(3 * H, generator=g) * 2 - 1) * H ** -0.5).to(dev)
-            got, want = gru_seq_fwd(xg, w, bias), gru_seq_fwd_plain(xg, w, bias)
-            torch.cuda.synchronize()
-            err = max(rel_err(a, b) for a, b in zip(got, want))
+            c = rnn_fwd_cell("gru_seq_fwd", (xg, w, bias), I)
+            err = c["rel_err"]
             check(err <= 1e-4, f"K4 at B 1 x T {T} x H {H}: rel err {err} from its plain "
                   f"version")
-            ms = cuda_ms(lambda: gru_seq_fwd(xg, w, bias))
-            plain_ms = cuda_ms(lambda: gru_seq_fwd_plain(xg, w, bias), reps=2)
-            lib_ms, _ = rnn_ms(torch.nn.GRU(I, H, batch_first=True), 1, T, H, dev,
-                               backward=False)
-            library = f"nn.GRU({I}, {H})"
-            b = bound(nbytes(xg, w, bias, *got), 2 * T * 3 * H * H)
             p = k4_plan(1, H, *limits)
             others = k4_candidates_ms(xg, w, bias, dev)
             plans = "; ".join(f"{t:.3f} / {tuple(q[:4])}" + (" (plan)" if q == p else "")
                               for t, q in others)
         print(f"{card}: NAR {kernel} B=1 T={T} H={H}: plan ({p.groups} groups x {p.slices} "
               f"slices of {p.units} units) {'abs' if n == 4 else 'rel'} err {err:.3e} (tol "
-              f"1e-4), kernel {ms:.3f} ms ({ms / T * 1e3:.2f} us a step), plain {plain_ms:.3f} "
-              f"ms, {library} {lib_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by "
-              f"{b['bound_by']}; every plan, ms / (groups, slices, units, nb): {plans}")
-        out[kernel].append({"B": 1, "T": T, "H": H, "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms, **b, "library_ms": lib_ms,
-                            "library": f"{library}, input projection included",
-                            "plan": list(p[:5]), "path": "forward-tacotron clone"})
+              f"1e-4), kernel {c['ms']:.3f} ms ({c['ms'] / T * 1e3:.2f} us a step), plain "
+              f"{c['plain_ms']:.3f} ms, {c['library']} {c['library_ms']:.3f} ms, "
+              f"bound {c['bound_ms']:.4f} ms by {c['bound_by']}; every plan, ms / (groups, "
+              f"slices, units, nb): {plans}")
+        out[kernel].append({**c, "plan": list(p[:5]), "path": "forward-tacotron clone"})
     return out
 
 
@@ -2066,7 +2104,8 @@ def phase_gru(dev):
     for e in first:
         e["shapes"] = []
     for B, T, H in ((40, 1000, 512), (40, 1400, 256), *((B, T, 64) for B, T in CBHG_SHAPES)):
-        for e, other in zip(first, gru_shape(dev, B, T, H)):
+        # B 1 is the clone's, which takes no gradient
+        for e, other in zip(first, gru_shape(dev, B, T, H, grad=B > 1)):
             e["shapes"].append({"B": B, "T": T, "H": H, **{k: other[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan",
                 "library", "bidir_library_ms", "module_ms")}})
@@ -2088,12 +2127,14 @@ def cbhg_gru(dev):
     return m
 
 
-def gru_shape(dev, B, T, H):
+def gru_shape(dev, B, T, H, grad=True):
     """K4 forward and backward at one shape, against autograd through the
     plain forward (tolerance as for K3), beside cuDNN's ``nn.GRU(H, H)``,
     one direction as K4 computes it. At the CBHG's H 64 the whole BiGRU is
     timed too: cuDNN's bidirectional ``nn.GRU(128, 64)`` beside the port's
-    ``GRU`` module (two K4 launches a pass)."""
+    ``GRU`` module (two K4 launches a pass). The forward's bound writes the
+    gates only where its path takes a gradient (``grad``), as only the
+    backward reads them."""
     import torch
 
     from rtvc_tpu_torch import _build
@@ -2143,7 +2184,7 @@ def gru_shape(dev, B, T, H):
               f"{bi_bwd_ms:.3f} ms, the port's GRU module forward {mod_fwd_ms:.3f} ms, "
               f"backward {mod_bwd_ms:.3f} ms" if cbhg else "")
     flops = 2 * B * T * 3 * H * H
-    fwd_b = bound(nbytes(xg, w_hh, b_hh, ys, gates), flops)
+    fwd_b = bound(nbytes(xg, w_hh, b_hh, ys, *((gates,) if grad else ())), flops)
     bwd_b = bound(nbytes(dys, p_gates, p_ys, w_hh, k_grads[0]), flops)
     limits = _build.device_limits(dev)
     p_fwd, p_bwd = plan(B, H, *limits), plan(B, H, *limits, backward=True)
@@ -2238,6 +2279,18 @@ def k5_cand_line(label, B, n, cand, chosen):
                 for t, p, e in cand))
 
 
+def k5_fwd_bound(w, x, outputs):
+    """K5's forward bound on these weights and inputs: per row and
+    iteration the eight products, then the attention (the location term
+    T·D·KS, energies, scores and context); ``outputs`` written once."""
+    n, B, _ = x["xg_pre"].shape
+    T, E = x["enc_seq"].shape[1:]
+    D, L, KS = w.gwh.shape[0], w.l1wh.shape[0], w.mloc.shape[0]
+    mats = D * 3 * D + D * D + (E + D) * L + 4 * L * 4 * L + E * 3 * D
+    flops = 2 * n * B * (mats + T * D * KS + 2 * T * D + T * E)
+    return bound(nbytes(*w, *x.values(), *outputs), flops)
+
+
 def k5_fwd_cell(dev, w, x, candidates=False):
     """K5's forward at one shape through the wrapper and the card's plan,
     against its plain version (every output within 1e-4 of the reference's
@@ -2252,8 +2305,9 @@ def k5_fwd_cell(dev, w, x, candidates=False):
     from rtvc_tpu_torch.ops import rel_err
     from rtvc_tpu_torch.ops import tacotron_train as tk
 
-    T, D, L, E, KS = (K5_WIDTHS[k] for k in ("T", "D", "L", "E", "KS"))
     n, B, _ = x["xg_pre"].shape
+    T, E = x["enc_seq"].shape[1:]
+    D, L, KS = w.gwh.shape[0], w.l1wh.shape[0], w.mloc.shape[0]
     chosen = tk.device_plan_fwd(n, B, T, (D, L, E, KS), dev)
     x_all, res = tk.taco_train_fwd(w, **x)
     x_again, res_again = tk.taco_train_fwd(w, **x)
@@ -2275,11 +2329,7 @@ def k5_fwd_cell(dev, w, x, candidates=False):
 
     cand = k5_candidates("K5 forward", tk.device_plan_fwd, launch, want, n, B, dev) \
         if candidates else []
-    # per row and iteration: the eight products, then the attention: the
-    # location term (T·D·KS), energies, scores and context
-    mats = D * 3 * D + D * D + (E + D) * L + 4 * L * 4 * L + E * 3 * D
-    flops = 2 * n * B * (mats + T * D * KS + 2 * T * D + T * E)
-    b = bound(nbytes(*w, *x.values(), *want), flops)
+    b = k5_fwd_bound(w, x, want)
     was = K5_FWD_EARLIER_MS.get((B, n))
     print(f"K5 tacotron_train forward B={B} n_iters={n} T={T} D={D} L={L} E={E} (plan "
           f"{chosen.name}, {chosen.ctas} CTAs, {chosen.smem} bytes of shared memory a CTA, model "
@@ -2290,7 +2340,8 @@ def k5_fwd_cell(dev, w, x, candidates=False):
           + f"), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     if cand:
         print(k5_cand_line("K5 forward", B, n, cand, chosen))
-    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **b, "plan": chosen.name,
+    return {"B": B, "n_iters": n, "T": T, "max_abs_err": abs_err, "ms": ms,
+            "plain_ms": plain_ms, **b, "library_ms": None, "plan": chosen.name,
             "candidates": {p.name: t for t, p, _ in cand}}, p_res
 
 
@@ -3015,11 +3066,380 @@ def phase_nar_train_kernels(dev, card):
     x["zo1"].zero_()
     x["zo2"].zero_()
     cell, _ = k5_fwd_cell(dev, w, x)
-    out["tacotron_train_fwd"].append({"B": 1, "n_iters": 1216, "T": T, "path": "alignment pass",
-                                      **{k: cell[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                              "bound_ms", "bound_by", "plan")},
-                                      "library_ms": None})
+    out["tacotron_train_fwd"].append({**cell, "path": "alignment pass"})
     return out
+
+
+# The GTA pass's corpus: 16 utterances of 200-1200 frames (the last at
+# max_mel_frames) with texts of 40-159 characters, longer texts with longer
+# mels, so that its two batches of 8 are the shorter and the longer half
+GTA_UTTS = 16
+GTA_FRAMES = tuple(int(f) for f in np.linspace(200, 1200, GTA_UTTS))
+GTA_CHARS = tuple(int(c) for c in np.linspace(40, 159, GTA_UTTS))
+GTA_R = 2
+GTA_TYPES = ("tacotron", "forward-tacotron", "fast-pitch")
+# where the GTA pass and the hooks look the kernels' wrappers up: K5's
+# forward (under taco_decoder_train), K4 (every layers.GRU), ForwardTacotron's
+# K3, K2 (the Tacotron hook) and K1 (gen_testset's wavernn_generate)
+GTA_KERNELS = (("rtvc_tpu_torch.ops.tacotron_train", "taco_train_fwd"),
+               ("rtvc_tpu_torch.models.layers", "gru_seq_fwd"),
+               ("rtvc_tpu_torch.models.forward_tacotron", "lstm_seq"))
+HOOK_KERNELS = (("rtvc_tpu_torch.ops.tacotron_decode", "tacotron_decode"),
+                ("rtvc_tpu_torch.models.layers", "gru_seq_fwd"),
+                ("rtvc_tpu_torch.models.forward_tacotron", "lstm_seq"),
+                ("rtvc_tpu_torch.models.wavernn", "wavernn_generate_core"))
+
+
+def write_gta_root(root, seed=31):
+    """A synthesizer root of the ``GTA_FRAMES`` utterances as the audio,
+    embedding and alignment passes leave one: a voiced wav, a mel, a unit
+    768-d embedding and a text as ``write_align_root`` makes them, and
+    seeded durations summing to the mel's length over the text's
+    characters, pitch and energy a character, attention and alignment
+    scores. Returns {utterance id: frames}."""
+    from rtvc_tpu_torch.config import preprocessing
+    from rtvc_tpu_torch.text import text_to_sequence
+
+    rng = np.random.default_rng(seed)
+    for d in ("wav", "mels", "embeds", "duration", "attention", "alignment", "phoneme_pitch",
+              "phoneme_energy"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    meta, utts = {}, {}
+    for i, (frames, chars) in enumerate(zip(GTA_FRAMES, GTA_CHARS)):
+        uid = f"gta{i:02d}"
+        t = np.arange(frames * 200) / 16000
+        f0 = 140 + 50 * np.sin(2 * np.pi * 0.6 * t + rng.uniform(0, 6.3))
+        env = np.clip(np.sin(2 * np.pi * 2.5 * t + rng.uniform(0, 6.3)), 0, None)
+        wav = (0.5 * env * np.sin(2 * np.pi * np.cumsum(f0) / 16000)
+               + 0.003 * rng.standard_normal(len(t))).astype(np.float32)
+        m, f = np.arange(80)[:, None], np.arange(frames)[None, :]
+        mel = np.clip(-1.5 + 2 * np.sin(2 * np.pi * (f / 97 + m / 40) + rng.uniform(0, 6.3))
+                      + 0.3 * rng.standard_normal((80, frames)), -4, 4).astype(np.float32)
+        embed = rng.standard_normal(768).astype(np.float32)
+        text = " ".join(rng.choice(ALIGN_WORDS, chars))[:chars].strip()
+        text = text + "s" * (chars - len(text))
+        n_tok = len(text_to_sequence(text, preprocessing.cleaner_names))
+        cuts = np.sort(rng.integers(0, frames + 1, n_tok - 1))
+        files = {"wav/audio": wav, "mels/mel": mel.T,
+                 "embeds/embed": embed / np.linalg.norm(embed),
+                 "duration/duration": np.diff(np.concatenate([[0], cuts, [frames]])),
+                 "attention/attention": np.float32(0.9),
+                 "alignment/alignment": np.float32(0.8),
+                 "phoneme_pitch/phoneme-pitch": rng.uniform(80, 250, n_tok).astype(np.float32),
+                 "phoneme_energy/phoneme-energy": rng.uniform(0, 2, n_tok).astype(np.float32)}
+        for stem, a in files.items():
+            np.save(root / f"{stem}-{uid}.npy", a)
+        meta.setdefault(f"speaker{i % 2}", []).append(f"{uid}|{len(wav)}|{frames}|{text}")
+        utts[uid] = frames
+    (root / "train.json").write_text(json.dumps(meta))
+    return utts
+
+
+def gta_kernel_checks(calls, where):
+    """Every K5, K4 and K3 launch of a GTA pass or a hook (``where``) again
+    on the inputs it was given, against its plain version: each output within 1e-4 of its
+    largest entry (K5: ``taco_train_fwd_plain``; K4 ``gru_seq_fwd_plain``;
+    K3 ``lstm_seq_plain``, whose outputs are within 1e-4 absolute in the
+    serve phase, held here relative as the training kernels are). Returns
+    {wrapper: (launches, worst error, shapes)}."""
+    import torch
+
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops import tacotron_train as tk
+    from rtvc_tpu_torch.ops.gru_seq import gru_seq_fwd_plain
+    from rtvc_tpu_torch.ops.lstm_seq import lstm_seq_plain
+
+    out = {}
+    with torch.no_grad():
+        for name, c in calls.items():
+            worst, shapes = 0.0, set()
+            for args, _, got in c:
+                if name == "taco_train_fwd":
+                    want = tk.taco_train_fwd_plain(*args)
+                    got, want = (got[0], *got[1]), (want[0], *want[1])
+                    n, B, _ = args[1].shape
+                    shape = f"B {B} x {n} iterations x T {args[2].shape[1]}"
+                else:
+                    want = (gru_seq_fwd_plain if name == "gru_seq_fwd" else lstm_seq_plain)(*args)
+                    B, T, G = args[0].shape
+                    shape = f"B {B} x T {T} x H {G // (3 if name == 'gru_seq_fwd' else 4)}"
+                err = max(rel_err(a, b) for a, b in zip(got, want))
+                check(err <= 1e-4, f"{name} in the {where} at {shape}: rel err {err} from its "
+                      f"plain version")
+                worst = max(worst, err)
+                shapes.add(shape)
+            out[name] = (len(c), worst, sorted(shapes))
+    return out
+
+
+def phase_gta(dev, card, syn, work):
+    """The GTA pass (``python -m rtvc_tpu_torch.vocoder_preprocess``'s
+    ``main`` at ``--batch_size 8``) at full width on the ``GTA_FRAMES``
+    corpus (``write_gta_root``) for each synthesizer type, each read from a
+    checkpoint: the seeded Tacotron (r 2) and ForwardTacotron as port
+    trainer files, FastPitch too. Each pass is two batches of 8. Checks the
+    16 mels ((frames, 80), finite) and a ``synthesized.json`` of 16 lines;
+    a second pass into a fresh directory equal in bits, its every K5 launch
+    (one a Tacotron batch, B 8), every K4 launch (the CBHG BiGRUs) and
+    ForwardTacotron's K3 launches (two a batch) recorded and held to their
+    plain versions on their own inputs (``gta_kernel_checks``); a
+    ``--skip_existing`` pass that writes nothing. Prints ms an utterance per
+    type (the first pass, with the model's load, and the pass alone on the
+    model in memory, with its longer batch's device time by kernel; neither
+    recorded), K5's forward at the pass's two shapes and ForwardTacotron's
+    K3 and K4 at the longer batch's (``k5_fwd_cell``, ``rnn_fwd_cell``).
+    Returns the launch counts per type,
+    the kernel cells, the Tacotron pass's vocoder directory and the NAR
+    models."""
+    import torch
+
+    from rtvc_tpu_torch import _build, vocoder_preprocess
+    from rtvc_tpu_torch.data.synthesizer_dataset import SynthesizerDataset, batch_iterator
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.train.checkpoints import save_checkpoint
+    from rtvc_tpu_torch.train.gta import gta_forward, run_synthesis
+
+    root = work / "syn"
+    utts = write_gta_root(root)
+    models = {"tacotron": syn,
+              **{t: factories.init_syn_model(t, seed=0, device=dev) for t in GTA_TYPES[1:]}}
+    want_counts = {"tacotron": {"tacotron_train_fwd": 2, "gru_seq": 8},
+                   "forward-tacotron": {"lstm_seq": 4, "gru_seq": 20}, "fast-pitch": {}}
+    counts, cells, parts = {}, {"tacotron_train_fwd": [], "lstm_seq": [], "gru_seq": []}, []
+    for model_type in GTA_TYPES:
+        bundle = models[model_type]
+        ckpt = work / f"{model_type}.pt"
+        r = GTA_R if model_type == "tacotron" else 1
+        save_checkpoint(ckpt, bundle.model, 1000, model_type,
+                        extras={"r": r, "config": bundle.config.asdict()})
+
+        def run(out, *extra):
+            return vocoder_preprocess.main([str(work), "-i", str(root), "-o", str(out), "-s",
+                                            str(ckpt), "--batch_size", "8", "--device", str(dev),
+                                            *extra])
+
+        voc_dir = work / f"voc_{model_type}"
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        n, first_ms = timed_ms(lambda: run(voc_dir))
+        counts[model_type] = dict(_build.launch_counts)
+        check(n == GTA_UTTS and counts[model_type] == want_counts[model_type],
+              f"the {model_type} GTA pass synthesized {n} utterances with launches "
+              f"{counts[model_type]}, want {GTA_UTTS} and {want_counts[model_type]}")
+        meta = json.loads((voc_dir / "synthesized.json").read_text())
+        check(sorted(meta) == sorted(utts), f"{model_type} synthesized.json holds {sorted(meta)}")
+        mels = {}
+        for uid, frames in utts.items():
+            mel = np.load(voc_dir / "mels_gta" / f"{uid}.npy")
+            check(mel.shape == (frames, 80) and np.isfinite(mel).all(),
+                  f"{model_type} GTA mel of {uid}: {mel.shape}, finite {np.isfinite(mel).all()}")
+            mels[uid] = mel
+        with recorded_calls(GTA_KERNELS) as calls:
+            run(work / f"again_{model_type}")
+        again = {p.stem: np.load(p) for p in (work / f"again_{model_type}" / "mels_gta").iterdir()}
+        check(again.keys() == mels.keys() and all(again[u].tobytes() == mels[u].tobytes()
+                                                  for u in mels),
+              f"two {model_type} GTA passes differ in their bits")
+        checked = gta_kernel_checks({k: v for k, v in calls.items() if v},
+                                    f"{model_type} GTA pass")
+        if model_type == "tacotron":
+            for args, _, _ in calls["taco_train_fwd"]:
+                x = dict(zip(("xg_pre", "enc_seq", "enc_proj", "char_mask", "zo1", "zo2"),
+                             args[1:]))
+                cell, _ = k5_fwd_cell(dev, args[0], x)
+                cells["tacotron_train_fwd"].append(
+                    {**cell, "path": f"GTA pass (tacotron, r {GTA_R})",
+                     "launches_per_utterance": 1 / GTA_UTTS})
+        elif model_type == "forward-tacotron":
+            # the longer batch's launches, one a shape
+            shapes = {}
+            for name in ("lstm_seq", "gru_seq_fwd"):
+                for args, _, _ in calls[name][len(calls[name]) // 2:]:
+                    shapes.setdefault((name, tuple(args[0].shape)), args)
+            for (name, shape), args in sorted(shapes.items(), key=lambda kv: kv[0]):
+                # the BiLSTM takes the regulated frames and the speaker
+                # embedding (1280); each BiGRU its highway's H
+                I = 1280 if name == "lstm_seq" else shape[2] // 3
+                cells["lstm_seq" if name == "lstm_seq" else "gru_seq"].append(
+                    {**rnn_fwd_cell(name, args, I), "path": "GTA pass (forward-tacotron)"})
+        calls.clear()
+        stamps = {p: p.stat().st_mtime_ns for p in (voc_dir / "mels_gta").iterdir()}
+        check(run(voc_dir, "--skip_existing") == 0
+              and all(p.stat().st_mtime_ns == t for p, t in stamps.items()),
+              f"the {model_type} --skip_existing pass wrote mels")
+        # the pass alone on the model in memory, and the device time of its
+        # longer batch's forward by kernel
+        _, pass_ms = timed_ms(lambda: run_synthesis(root, work / f"mem_{model_type}", bundle,
+                                                    r=r, batch_size=8))
+        dataset = SynthesizerDataset(root, factories.get_model_train_elements(model_type))
+        *_, batch = batch_iterator(dataset, 8, r, shuffle=False, drop_last=False, mel_bucket=2)
+        with torch.no_grad():
+            by_kernel = kernels_device_ms(lambda: gta_forward(bundle, batch, r))
+            _, fwd_ms = timed_ms(lambda: gta_forward(bundle, batch, r))
+        split = ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_kernel.items(),
+                                                            key=lambda kv: -kv[1]))
+        parts.append(f"{model_type} {first_ms / GTA_UTTS:.1f} ms an utterance (first pass, "
+                     f"the checkpoint's load included), {pass_ms / GTA_UTTS:.1f} (the pass "
+                     f"alone, the model in memory); the "
+                     f"longer batch's forward {fwd_ms:.1f} ms, device ms {split}; "
+                     f"launches {counts[model_type]}, each against its plain version: "
+                     + ", ".join(f"{k} {n_} launches rel {e:.3e} ({'; '.join(s)})"
+                                 for k, (n_, e, s) in checked.items()))
+    print(f"{card}: GTA pass, {GTA_UTTS} utterances ({sum(GTA_FRAMES)} frames, "
+          f"{min(GTA_FRAMES)}-{max(GTA_FRAMES)}), batch 8: " + "; ".join(parts)
+          + "; two passes equal in bits, --skip_existing wrote nothing")
+    for name, cs in cells.items():
+        for c in cs:
+            shape = " x ".join(f"{k} {c[k]}" for k in ("B", "n_iters", "T", "H") if k in c)
+            print(f"{card}: {name} on the {c['path']}, {shape}: kernel {c['ms']:.3f} ms, plain "
+                  f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms by {c['bound_by']}"
+                  + (f", {c['library']} {c['library_ms']:.3f} ms" if c.get("library") else "")
+                  + f", max abs err {c['max_abs_err']:.3e}")
+    return {"counts": counts, "cells": cells, "voc_dir": work / "voc_tacotron",
+            "models": models}
+
+
+def phase_gta_train(dev, card, gta, work):
+    """What follows the GTA pass: ``train_vocoder("runtimeracer-wavernn")``
+    at full width for 3 steps on the Tacotron pass's mels and the corpus's
+    wavs (batch 8, ``save_every`` 2, its ``gen_hook`` the entry point's
+    ``vocoder_train.sample_hook`` with ``gen_at_checkpoint`` cut to 2 to
+    bound the time: ``gen_testset`` fires at step 2, K1 once an item, each
+    launch held greedily to its plain version on its own streams,
+    ``k1_check``); then the Tacotron evaluation hook (K2 at B 1, up to 400
+    frames, held to its plain version by ``k2_check``) and the
+    ForwardTacotron and FastPitch hooks once each (ForwardTacotron's K3 and
+    K4 launches held to their plain versions, ``nar_kernel_checks``).
+    Checks the wavs exist and are finite, and that the PNGs exist exactly
+    where matplotlib imports. Prints the time of each hook, and K1's and
+    K2's at the shapes these paths gave them. Returns the launch counts by
+    path and those kernel cells."""
+    import torch
+    from scipy.io import wavfile
+
+    from rtvc_tpu_torch import _build, vocoder_train
+    from rtvc_tpu_torch.config import synthesizer_paths
+    from rtvc_tpu_torch.data.vocoder_dataset import VocoderDataset, batch_iterator
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.ops.tacotron_decode import tacotron_decode, tacotron_decode_plain
+    from rtvc_tpu_torch.ops.wavernn_generate import (
+        wavernn_generate_core,
+        wavernn_generate_core_plain,
+    )
+    from rtvc_tpu_torch.train import eval_hooks
+    from rtvc_tpu_torch.train.trainer import train_vocoder
+    from rtvc_tpu_torch.utils import plots
+
+    def wavs_ok(paths):
+        for p in paths:
+            check(p.exists(), f"{p.name} was not written")
+            sr, wav = wavfile.read(p)
+            check(sr == 16000 and len(wav) > 0 and np.isfinite(wav).all(),
+                  f"{p.name}: {sr} Hz, {len(wav)} samples")
+
+    def pngs_ok(paths):
+        have = [p.exists() for p in paths]
+        check(all(have) if plots.available() else not any(have),
+              f"matplotlib {'imports' if plots.available() else 'is absent'}, PNGs written: "
+              f"{[p.name for p, h in zip(paths, have) if h]}")
+
+    model_type = factories.MODEL_TYPE_RUNTIMERACER
+    cfg = factories.default_config(model_type).replace(gen_at_checkpoint=2)
+    voc_dir, samples = gta["voc_dir"], work / "samples"
+    dataset = VocoderDataset(voc_dir / synthesizer_paths.gta_metadata_file,
+                             voc_dir / synthesizer_paths.gta_mel_dir,
+                             work / "syn" / synthesizer_paths.wav_dir, cfg)
+    hook = vocoder_train.sample_hook(model_type, cfg, dataset, samples)
+    counts, parts = {}, []
+    _build.launch_counts.clear()
+    with recorded_calls(HOOK_KERNELS) as calls:
+        out, train_ms = timed_ms(lambda: train_vocoder(
+            "gta_voc", model_type, work / "runs",
+            lambda session: batch_iterator(dataset, 8, cfg, seed=session), save_every=2,
+            gen_hook=hook, gen_every=2, max_steps=3, override_hp=cfg, device=dev, seed=0))
+    counts["vocoder training, 3 steps and its samples at step 2"] = dict(_build.launch_counts)
+    k1 = "wavernn_generate_runtimeracer"
+    check(out["step"] == 3 and all(np.isfinite(out["losses"]))
+          and len(calls["wavernn_generate_core"]) == 2,
+          f"vocoder training on the GTA mels: step {out['step']}, losses {out['losses']}, "
+          f"{len(calls['wavernn_generate_core'])} calls of K1's wrapper")
+    names = [samples / f"2_{i}_{k}.wav" for i in range(2)
+             for k in ("target", "griffinlim", "generated")]
+    wavs_ok(names)
+    pngs_ok([samples / f"2_{i}_compare.png" for i in range(2)])
+    voc_dims = factories.wavernn_dims(model_type, cfg)
+    k1_parts, k1_errs = [], []
+    for (w, streams, *_), _, _ in calls["wavernn_generate_core"]:
+        got, err, sample_err, tol, flips = k1_check(voc_dims, w, streams)
+        k1_errs.append(max(err, sample_err))
+        k1_parts.append(f"{got.shape[0]} folds x {got.shape[1]} steps head inputs {err:.3e} "
+                        f"samples {sample_err:.3e} (tol {tol:g}), {flips} near-ties")
+    # K1 at the first item's shape, as gen_testset launches it (sampled)
+    args, kwargs, samples_out = calls["wavernn_generate_core"][0]
+    cells = {"wavernn_generate_runtimeracer": [{
+        "B": samples_out.shape[0], "T": samples_out.shape[1], "path": "gen_testset",
+        "max_abs_err": k1_errs[0],
+        "ms": cuda_ms(lambda: wavernn_generate_core(*args, **kwargs)),
+        "plain_ms": timed_ms(lambda: wavernn_generate_core_plain(*args, **kwargs))[1],
+        **k1_bound(args[0], args[1], samples_out), "library_ms": None}]}
+    parts.append(f"runtimeracer training on the GTA mels, batch 8: losses "
+                 f"{[round(v, 4) for v in out['losses']]}, {train_ms:.0f} ms for 3 steps with "
+                 f"gen_testset's 2 items at step 2; K1 against its plain version: "
+                 + "; ".join(k1_parts))
+
+    syn = gta["models"]["tacotron"]
+    hooks = {"tacotron": eval_hooks.make_tacotron_eval_hook(work / "taco_samples"),
+             **{t: eval_hooks.make_nar_eval_hook(work / f"{t}_samples", t)
+                for t in GTA_TYPES[1:]}}
+    for model_type, fire in hooks.items():
+        model = gta["models"][model_type].model.train()
+        _build.launch_counts.clear()
+        with recorded_calls(HOOK_KERNELS) as calls:
+            _, hook_ms = timed_ms(lambda: fire(7, model, GTA_R))
+        check(model.training, f"the {model_type} hook left the model in eval mode")
+        model.eval()
+        counts[f"{model_type} eval hook"] = dict(_build.launch_counts)
+        out_dir = work / ("taco_samples" if model_type == "tacotron" else f"{model_type}_samples")
+        wavs_ok([out_dir / "eval_7.wav"])
+        if model_type == "tacotron":
+            [(k2_args, _, _)] = calls["tacotron_decode"]
+            m, d, seq, proj, mask, _seed, r, max_steps = k2_args
+            km, ka, ks, n_k, err_mel, err_attn = k2_check(m, d, seq, proj, mask, r, max_steps)
+            checked = (f"K2 {n_k} iterations of {max_steps // r}: mel {err_mel:.3e}, attention "
+                       f"{err_attn:.3e}")
+            with torch.no_grad():
+                cells["tacotron_decode"] = [{
+                    "B": mask.shape[0], "T": mask.shape[1], "iters": n_k,
+                    "path": "tacotron eval hook", "max_abs_err": max(err_mel, err_attn),
+                    "ms": cuda_ms(lambda: tacotron_decode(*k2_args)),
+                    "plain_ms": cuda_ms(lambda: tacotron_decode_plain(*k2_args), reps=1),
+                    **k2_bound(m, d, r, n_k, *mask.shape, seq, proj, mask, km, ka, ks),
+                    "library_ms": None}]
+            pngs_ok([out_dir / "attention_7.png", out_dir / "mel_7.png"])
+        else:
+            checked = "; ".join(
+                f"{k} {n_} launches rel {e:.3e} ({', '.join(s)})"
+                for k, (n_, e, s) in gta_kernel_checks(
+                    {k: v for k, v in calls.items() if v}, f"{model_type} hook").items()) \
+                or "no kernel of ours"
+            pngs_ok([out_dir / f"{k}_7.png" for k in ("mel", "pitch_sweep", "energy_sweep")])
+        parts.append(f"{model_type} hook {hook_ms:.1f} ms, launches "
+                     f"{counts[f'{model_type} eval hook']}, {checked}")
+    # the hooks: K2 and the encoder's BiGRUs; seven ForwardTacotron
+    # syntheses (the sample, then three pitch and three energy factors)
+    want = {"vocoder training, 3 steps and its samples at step 2":
+            {"gru_seq": 12, "gru_seq_bwd": 12, k1: 2},
+            "tacotron eval hook": {"tacotron_decode": 1, "gru_seq": 2},
+            "forward-tacotron eval hook": {"lstm_seq": 14, "gru_seq": 70},
+            "fast-pitch eval hook": {}}
+    check(counts == want, f"launches after the GTA pass {counts}, want {want}")
+    print(f"{card}: after the GTA pass (matplotlib {'imports' if plots.available() else 'absent'}"
+          f"): " + "; ".join(parts))
+    for name, [c] in cells.items():
+        print(f"{card}: {name} on the {c['path']} path, B {c['B']} x T {c['T']}: kernel "
+              f"{c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms by "
+              f"{c['bound_by']}")
+    return counts, cells
 
 
 def main() -> int:
@@ -3039,6 +3459,14 @@ def main() -> int:
     from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.models import factories
 
+    # wall seconds of each part of the script, printed before the kernels line
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     t0 = time.perf_counter()
     path = _build.library_path()
     _build.library()
@@ -3052,29 +3480,51 @@ def main() -> int:
     syn = factories.init_syn_model(factories.MODEL_TYPE_TACOTRON, seed=0,
                                    override_hp=syn_cfg, device=dev)
     voc = factories.init_voc_model(factories.MODEL_TYPE_RUNTIMERACER, seed=0, device=dev)
+    lap("build and models")
 
     # first, so that warmup and the first request pay for the first launches
     phase_serve(dev, card, syn, voc)
     phase_barrier(dev)
+    lap("serve")
     kernels = [phase_lstm(dev), phase_tacotron(dev, syn), phase_tacotron_chunks(dev, syn),
                *phase_wavernn(dev), phase_mel(dev)]
+    lap("inference kernels")
     counts = phase_clone(dev, syn, voc)
     stream_counts, _ = phase_stream(dev, card, syn, voc)
+    lap("clone and stream")
     nar = phase_nar(dev, card, voc)
+    lap("nar")
     align_counts = phase_align(dev, card, syn)
+    lap("align")
     kernels += [phase_lstm_train(dev), *phase_gru(dev), *phase_taco_train_kernel(dev)]
+    lap("training kernels")
     nar_train_cells = phase_nar_train_kernels(dev, card)
+    lap("nar training kernels")
     runs_dir = _build.BUILD_DIR / "smoke_runs"
     shutil.rmtree(runs_dir, ignore_errors=True)
     try:
         enc_counts, _ = phase_train_encoder(dev, runs_dir)
+        lap("train encoder")
         voc_counts, _ = phase_train_vocoder(dev, runs_dir)
         phase_train_vocoder(dev, runs_dir, factories.MODEL_TYPE_FATCHORD, steps=3)
         phase_train_vocoder(dev, runs_dir, factories.MODEL_TYPE_GENEING, steps=3)
+        lap("train vocoders")
         syn_counts, _ = phase_train_synthesizer(dev, runs_dir)
+        lap("train tacotron")
         nar_train_counts = phase_train_nar(dev, card, runs_dir)
+        lap("train nar")
     finally:
         shutil.rmtree(runs_dir, ignore_errors=True)
+    gta_work = _build.BUILD_DIR / "smoke_gta"
+    shutil.rmtree(gta_work, ignore_errors=True)
+    gta_work.mkdir(parents=True)
+    try:
+        gta = phase_gta(dev, card, syn, gta_work)
+        lap("gta")
+        hook_counts, hook_cells = phase_gta_train(dev, card, gta, gta_work)
+        lap("gta train")
+    finally:
+        shutil.rmtree(gta_work, ignore_errors=True)
     check("jax" not in sys.modules, "the port imported jax")
     # each kernel's launches on the path that runs it: the clone path for the
     # inference kernels, the trainers for the training ones
@@ -3104,7 +3554,21 @@ def main() -> int:
     by_path["tacotron_train_fwd"] = {
         "tacotron training (3 steps)": syn_counts["tacotron_train_fwd"],
         "alignment pass (5 utterances)": align_counts["tacotron_train_fwd"]}
+    # the GTA pass and what follows it: the vocoder trained on its mels with
+    # checkpoint samples, the evaluation hooks
+    by_path["tacotron_decode"] = {"clone (5 requests)": counts["tacotron_decode"]}
+    for model_type, c in gta["counts"].items():
+        for name, n in c.items():
+            by_path.setdefault(name, {})[f"GTA pass, {model_type} (16 utterances, B 8)"] = n
+    for path, c in hook_counts.items():
+        for name, n in c.items():
+            by_path.setdefault(name, {})[path] = n
     for k in kernels:
+        # K3's, K4's and K5's cells at the GTA pass's shapes, K1's and K2's
+        # at gen_testset's and the Tacotron hook's
+        for cells in (gta["cells"], hook_cells):
+            if k["name"] in cells:
+                k.setdefault("shapes", []).extend(cells[k["name"]])
         # K3's, K4's and K5's cells at the NAR trainer's and the alignment pass's shapes
         if k["name"] in nar_train_cells:
             k.setdefault("shapes", []).extend(nar_train_cells[k["name"]])
@@ -3115,6 +3579,7 @@ def main() -> int:
         k["launches"] = path_counts[k["name"]]
         if k["name"] in by_path:
             k["launches_by_path"] = by_path[k["name"]]
+    print(f"wall seconds by part: {json.dumps(laps)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

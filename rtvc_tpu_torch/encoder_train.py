@@ -5,7 +5,9 @@
 The arguments are those of the JAX package's ``encoder_train.py`` except
 its dashboard and multi-process launch options, plus ``--device``. The
 dataset is the one ``encoder_preprocess.py`` writes, read through
-``rtvc_tpu_torch.data.ge2e_sampler``.
+``rtvc_tpu_torch.data.ge2e_sampler``. A run of the JAX package's trainer
+(``<run_id>.ckpt`` in ``<models_dir>/<run_id>``) is taken up where the
+port's own checkpoint is missing.
 """
 from __future__ import annotations
 

@@ -271,20 +271,22 @@ def mel_synthesis(model: FastPitch, x: Tensor, spk_emb: Tensor, durations: Tenso
 
 def fastpitch_forward(model: FastPitch, x: Tensor, mel: Tensor, dur: Tensor, spk_emb: Tensor,
                       mel_lens: Tensor, pitch: Tensor, energy: Tensor,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None, train: bool = True
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Dict[str, Tensor]]:
-    """The training forward (``rtvc_tpu/models/fast_pitch.py:fastpitch_forward``
-    with ``train=True``), with the arguments and outputs of
+    """The teacher-forced forward (``rtvc_tpu/models/fast_pitch.py:
+    fastpitch_forward``), with the arguments and outputs of
     ``forward_tacotron.forward_tacotron_forward`` (mel_hat and mel_post are
-    the same tensor, and FastPitch has no running statistics). The FFT
-    blocks and the predictors take dropout from ``generator``. The frames
-    past a row's ``mel_lens`` are zeroed before the decoder transformer,
-    which masks them as keys, and take ``padding_value`` after ``lin``."""
+    the same tensor, and FastPitch has no running statistics). In training
+    the FFT blocks and the predictors take dropout from ``generator``;
+    ``train=False`` (the GTA pass) draws none. The frames past a row's
+    ``mel_lens`` are zeroed before the decoder transformer, which masks them
+    as keys, and take ``padding_value`` after ``lin``."""
     d = model.dims
     pad_mask = x == 0
-    dur_hat, pitch_hat, energy_hat = predict(model, x, spk_emb, d.series_dropout, generator)
+    series_dropout, dropout = (d.series_dropout, d.dropout) if train else (0.0, 0.0)
+    dur_hat, pitch_hat, energy_hat = predict(model, x, spk_emb, series_dropout, generator)
     h = model.embedding(x) + model.spk_proj(spk_emb)[:, None, :]
-    h = model.prenet(h, pad_mask, dropout=d.dropout, generator=generator)
+    h = model.prenet(h, pad_mask, dropout=dropout, generator=generator)
     h = h + model.pitch_proj(pitch[..., None]) * d.pitch_strength
     h = h + model.energy_proj(energy[..., None]) * d.energy_strength
     max_len = mel.shape[2]
@@ -292,7 +294,7 @@ def fastpitch_forward(model: FastPitch, x: Tensor, mel: Tensor, dur: Tensor, spk
     mel_pad = (torch.arange(max_len, device=h.device)[None, :]
                >= mel_lens.to(h.device)[:, None])
     h = h.masked_fill(mel_pad[..., None], 0.0)
-    h = model.postnet(h, mel_pad, dropout=d.dropout, generator=generator)
+    h = model.postnet(h, mel_pad, dropout=dropout, generator=generator)
     m = model.lin(h).masked_fill(mel_pad[..., None], d.padding_value).transpose(1, 2)
     return (m, m, dur_hat[..., 0], pitch_hat.transpose(1, 2), energy_hat.transpose(1, 2), {})
 

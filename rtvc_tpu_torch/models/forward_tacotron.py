@@ -14,10 +14,11 @@ K3 sequence from a zero state: ``ops.lstm_seq.lstm_seq`` without a
 gradient, ``LSTMSeqFn`` (K3's forward with residuals, then its backward)
 with one. On CPU tensors both run their plain versions.
 
-:func:`forward_tacotron_forward` is the training forward: ground-truth
+:func:`forward_tacotron_forward` is the teacher-forced forward: ground-truth
 durations, pitch and energy, the predictors and the prenet CBHG in train
-mode (dropout from the step's generator, BatchNorm batch statistics), the
-postnet CBHG over the whole padded buffer, as the JAX package trains it.
+mode (dropout from the step's generator, BatchNorm batch statistics) or,
+with ``train=False`` (the GTA pass), in eval mode; the postnet CBHG over
+the whole padded buffer either way, as the JAX package runs it.
 
 :func:`forward_generate` is the generate path, on the host as the JAX
 package does it: predict, divide the durations by ``alpha``, apply the
@@ -215,14 +216,17 @@ def predict(model: ForwardTacotron, x: Tensor, spk_emb: Tensor,
 def mel_synthesis(model: ForwardTacotron, x: Tensor, spk_emb: Tensor, durations: Tensor,
                   pitch: Tensor, energy: Tensor, mel_lens: Tensor, max_len: int,
                   new_stats: Optional[Dict[str, Tensor]] = None,
-                  generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
+                  generator: Optional[torch.Generator] = None,
+                  exact_lengths: bool = True) -> Tuple[Tensor, Tensor]:
     """The trunk: pitch and energy (B, T, 1), integer durations (B, T) and
     their sums ``mel_lens`` (B,) → (mel, mel_post), each (B, n_mels,
     max_len). In generation the postnet is length-exact (the CBHG with
     ``lengths``), as the reference runs it on each unpadded sequence; frames
     past a row's length hold lin(padding_value). With ``new_stats``
     (training) both CBHGs use batch statistics and their dropout draws from
-    ``generator``, and the postnet runs over the whole buffer."""
+    ``generator``. ``exact_lengths=False`` runs the postnet over the whole
+    buffer, as the teacher-forced forward does in training and in eval
+    mode."""
     d = model.dims
     h = model.prenet(model.embedding(x), new_stats=new_stats, prefix="prenet.",
                      generator=generator)
@@ -232,31 +236,35 @@ def mel_synthesis(model: ForwardTacotron, x: Tensor, spk_emb: Tensor, durations:
     h = torch.cat([h, spk_emb[:, None, :].expand(-1, max_len, -1)], dim=2)
     h = bilstm_packed(model.lstm, h, mel_lens, d.padding_value)
     mel = model.lin(h)
-    post = model.postnet(mel, lengths=None if new_stats is not None else mel_lens,
+    post = model.postnet(mel, lengths=mel_lens if exact_lengths else None,
                          new_stats=new_stats, prefix="postnet.", generator=generator)
     return mel.transpose(1, 2), model.post_proj(post).transpose(1, 2)
 
 
 def forward_tacotron_forward(model: ForwardTacotron, x: Tensor, mel: Tensor, dur: Tensor,
                              spk_emb: Tensor, mel_lens: Tensor, pitch: Tensor, energy: Tensor,
-                             generator: Optional[torch.Generator] = None
+                             generator: Optional[torch.Generator] = None, train: bool = True
                              ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor,
                                         Dict[str, Tensor]]:
-    """The training forward (``rtvc_tpu/models/forward_tacotron.py:
-    forward_tacotron_forward`` with ``train=True``). chars (B, T), target
+    """The teacher-forced forward (``rtvc_tpu/models/forward_tacotron.py:
+    forward_tacotron_forward``). chars (B, T), target
     mels (B, n_mels, L) (only L is read), ground-truth durations, pitch and
     energy (B, T), speaker embeddings (B, E), ``mel_lens`` (B,). The
     durations are rounded as ``max(floor(d + 0.5), 0)`` and length-regulated
     to L; dropout draws from ``generator``. Returns (mel_hat, mel_post
     (B, n_mels, L), dur_hat (B, T), pitch_hat, energy_hat (B, 1, T),
     new_stats): the BatchNorms' new running statistics under their buffers'
-    names, which the step installs."""
+    names, which the step installs. ``train=False`` (the GTA pass) is the
+    JAX package's eval mode: running statistics, no dropout (``generator``
+    is not read), no new statistics, and the postnet over the whole padded
+    buffer, as in training."""
     new_stats: Dict[str, Tensor] = {}
-    dur_hat, pitch_hat, energy_hat = predict(model, x, spk_emb, new_stats, generator)
+    batch_stats = new_stats if train else None
+    dur_hat, pitch_hat, energy_hat = predict(model, x, spk_emb, batch_stats, generator)
     durations = torch.floor(dur + 0.5).clamp_min(0).long()
     mel_hat, mel_post = mel_synthesis(model, x, spk_emb, durations, pitch[..., None],
-                                      energy[..., None], mel_lens, mel.shape[2], new_stats,
-                                      generator)
+                                      energy[..., None], mel_lens, mel.shape[2], batch_stats,
+                                      generator, exact_lengths=False)
     return (mel_hat, mel_post, dur_hat[..., 0], pitch_hat.transpose(1, 2),
             energy_hat.transpose(1, 2), new_stats)
 

@@ -299,7 +299,7 @@ def tacotron_forward(model: Tacotron, d: TacotronDims, chars: Tensor, mels: Tens
                      generator: Optional[torch.Generator] = None,
                      prenet_dropout: bool = True,
                      zoneout_masks: Optional[Tuple[Tensor, Tensor]] = None,
-                     train: bool = True
+                     train: bool = True, encoder_prenet_dropout: bool = True
                      ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Dict[str, Tensor]]:
     """Teacher-forced pass (``rtvc_tpu/models/tacotron.py:tacotron_forward``,
     its hoisted path). chars (B, T_text) int; mels (B, n_mels, steps) with
@@ -320,17 +320,19 @@ def tacotron_forward(model: Tacotron, d: TacotronDims, chars: Tensor, mels: Tens
     are drawn from ``generator`` outside the kernel unless ``zoneout_masks``
     gives them. ``train=False`` is the alignment pass's mode, as the JAX
     package's: the BatchNorms use their running statistics, ``new_stats``
-    stays empty and the zoneout masks are zero. The encoder prenet's dropout
-    is always on; ``prenet_dropout=False`` turns the decoder prenet's off (a
-    deterministic test hook). Under no grad the chain is one K5 forward
-    launch, and autograd keeps no residual of it.
+    stays empty and the zoneout masks are zero. The prenets' dropout stays on
+    (the Tacotron 2 convention) unless turned off: ``prenet_dropout=False``
+    the decoder prenet's, ``encoder_prenet_dropout=False`` the encoder
+    prenet's. The GTA pass turns both off, as the JAX package's
+    ``dropout=0.0`` does, so that its mels are deterministic. Under no grad
+    the chain is one K5 forward launch, and autograd keeps no residual of it.
     """
     B, _, steps = mels.shape
     n_iters = steps // r
     enc, dec = model.encoder, model.decoder
     new_stats: Dict[str, Tensor] = {}
     batch_stats = new_stats if train else None
-    x = enc.pre_net(enc.embedding(chars.long()), generator)
+    x = enc.pre_net(enc.embedding(chars.long()), generator, dropout=encoder_prenet_dropout)
     x = enc.cbhg(x, new_stats=batch_stats, prefix="encoder.cbhg.")
     if speaker_embedding.ndim == 1:
         speaker_embedding = speaker_embedding[None, :]

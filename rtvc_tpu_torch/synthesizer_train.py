@@ -12,8 +12,12 @@ for the non-autoregressive synthesizers also the alignment pass's
 ``duration/``, ``attention/``, ``alignment/``, ``phoneme_pitch/`` and
 ``phoneme_energy/``, from ``python -m
 rtvc_tpu_torch.synthesizer_preprocess_alignments``), read through
-``rtvc_tpu_torch.data.synthesizer_dataset``. The checkpoint-time evaluation
-samples are not ported yet.
+``rtvc_tpu_torch.data.synthesizer_dataset``. Every ``eval_interval`` steps
+of the type's config the type's evaluation hook (``train.eval_hooks``)
+writes a sample into ``<models_dir>/<run_id>/samples``: its wav, and its
+plots where matplotlib imports. A run of the JAX package's trainer
+(``<run_id>.ckpt`` in ``<models_dir>/<run_id>``) is taken up where the
+port's own checkpoint is missing.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None):
     args = parse_args(argv)
     from rtvc_tpu_torch.data.synthesizer_dataset import SynthesizerDataset, batch_iterator
+    from rtvc_tpu_torch.train.eval_hooks import make_synthesizer_eval_hook
     from rtvc_tpu_torch.train.trainer import sessions, train_synthesizer
 
     elements = factories.get_model_train_elements(args.model_type)
@@ -59,6 +64,9 @@ def main(argv=None):
         args.run_id, args.model_type, args.models_dir, epoch_batches,
         save_every=args.save_every, backup_every=args.backup_every, max_steps=args.max_steps,
         resume=not args.force_restart, device=args.device, seed=args.seed,
+        eval_hook=make_synthesizer_eval_hook(args.models_dir / args.run_id / "samples",
+                                             args.model_type),
+        eval_interval=cfg.eval_interval,
     )
 
 

@@ -31,7 +31,7 @@ def check_compute_dtype(compute_dtype: str) -> None:
     if compute_dtype == "bf16":
         raise NotImplementedError(
             "compute_dtype='bf16' is not ported yet: the bf16 autocast policy is "
-            "a later slice (ROADMAP Queue 1, item 5); use 'f32' or 'auto'")
+            "a later slice (ROADMAP Queue 1, \"The bf16 policy\"); use 'f32' or 'auto'")
     raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
 
 

@@ -13,7 +13,9 @@ the WaveRNN vocoders (counterpart of ``rtvc_tpu/train/trainer.py``).
 
 Each trainer builds its model from an explicit ``torch.Generator`` seed on
 the ``device`` its caller names, and resumes from its own checkpoint
-(``<models_dir>/<run_id>/<run_id>.pt``: model, optimizer and step).
+(``<models_dir>/<run_id>/<run_id>.pt``: model, optimizer and step), or
+takes up a run of the JAX package's trainers from its ``<run_id>.ckpt``
+(:func:`_resume`).
 Multi-GPU data parallelism is a later slice.
 """
 from __future__ import annotations
@@ -108,12 +110,31 @@ def batch_tensor(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=dtype)
 
 
-def _resume(cadence: CheckpointCadence, model, optimizer, device, what: str) -> int:
-    state = ckpt.load_checkpoint(cadence.path, map_location=device)
-    model.load_state_dict(state["state_dict"])
-    optimizer.load_state_dict(state["optimizer"])
-    print(f"Resuming {what} run at step {state['step']}")
-    return state["step"]
+def _resume(cadence: CheckpointCadence, model, optimizer, device, what: str, kind: str) -> int:
+    """The step a run resumes at, 0 for a new run. The port's own
+    ``<run_id>.pt`` gives the model, Adam and the step. Without one, a JAX
+    package's ``<run_id>.ckpt`` beside it is taken up as the JAX trainers
+    take up their own: the parameters and running statistics (``read_model``
+    of ``kind``, loaded strictly) and the step, with Adam started afresh (the
+    JAX trainers do not read their ``opt_state`` back). The trainers'
+    schedules then put the run in the session, r and learning rate of its
+    step, and it saves ``<run_id>.pt`` from then on. A ``<run_id>.ckpt``
+    that ``read_model`` cannot read raises."""
+    if cadence.path.exists():
+        state = ckpt.load_checkpoint(cadence.path, map_location=device)
+        model.load_state_dict(state["state_dict"])
+        optimizer.load_state_dict(state["optimizer"])
+        print(f"Resuming {what} run at step {state['step']}")
+        return state["step"]
+    jax_path = cadence.path.with_suffix(".ckpt")
+    if jax_path.exists():
+        read = ckpt.read_model(jax_path, kind)
+        model.load_state_dict(read.state_dict, strict=True)
+        print(f"Taking up the JAX run {what} from {jax_path.name} at step {read.step} "
+              f"(parameters and running statistics; Adam starts afresh, as in the JAX "
+              f"trainers); saving {cadence.path.name} from here on")
+        return read.step
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -162,9 +183,8 @@ def train_encoder(
     cadence = CheckpointCadence(Path(models_dir) / run_id, run_id, "speaker_encoder",
                                 save_every, backup_every)
     metrics = MetricsLogger(Path(models_dir) / run_id / "metrics.tsv")
-    step = 0
-    if resume and cadence.path.exists():
-        step = _resume(cadence, model, optimizer, device, f"encoder {run_id}")
+    step = _resume(cadence, model, optimizer, device, f"encoder {run_id}", "encoder") \
+        if resume else 0
     if end_after is not None:
         # a relative stop: end_after more steps from wherever the run resumed
         total_steps = min(total_steps or np.inf, step + end_after)
@@ -243,6 +263,8 @@ def train_synthesizer(
     max_steps: Optional[int] = None,
     override_hp=None,
     resume: bool = True,
+    eval_hook: Optional[Callable] = None,
+    eval_interval: int = 500,
     *,
     device,
 ) -> Dict[str, Any]:
@@ -262,7 +284,8 @@ def train_synthesizer(
     from a generator seeded by (``seed``, step), so a resumed run repeats
     what an unbroken run does at the same step. A resume in the middle of a
     session takes up that session's learning-rate decay where it stood and
-    ends the session at its own step count.
+    ends the session at its own step count. ``eval_hook(step, model, r)``
+    runs after every ``eval_interval``-th step's save (``train.eval_hooks``).
 
     Returns the final step, the model, the last step's statistics, and every
     step's loss, learning rate and wall milliseconds (``losses``, ``lrs``,
@@ -279,9 +302,8 @@ def train_synthesizer(
     cadence = CheckpointCadence(Path(models_dir) / run_id, run_id, model_type,
                                 save_every, backup_every)
     metrics = MetricsLogger(Path(models_dir) / run_id / "metrics.tsv")
-    step = 0
-    if resume and cadence.path.exists():
-        step = _resume(cadence, model, optimizer, device, f"{model_type} {run_id}")
+    step = _resume(cadence, model, optimizer, device, f"{model_type} {run_id}",
+                   "synthesizer") if resume else 0
     generator = torch.Generator(device=device)
     loss_window, time_window = ValueWindow(100), ValueWindow(100)
     losses, lrs, step_ms = [], [], []
@@ -349,6 +371,8 @@ def train_synthesizer(
                        % (session_idx + 1, step, lr, loss, loss_window.average,
                           1.0 / max(time_window.average, 1e-9)))
                 cadence.maybe_save(step, model, optimizer, extras())
+                if eval_hook is not None and eval_interval > 0 and step % eval_interval == 0:
+                    eval_hook(step, model, r)
                 done = max_steps is not None and step >= max_steps
                 t_last = time.perf_counter()
                 if done:
@@ -413,9 +437,8 @@ def train_vocoder(
     cadence = CheckpointCadence(Path(models_dir) / run_id, run_id, model_type,
                                 save_every, backup_every)
     metrics = MetricsLogger(Path(models_dir) / run_id / "metrics.tsv")
-    step = 0
-    if resume and cadence.path.exists():
-        step = _resume(cadence, model, optimizer, device, f"{model_type} {run_id}")
+    step = _resume(cadence, model, optimizer, device, f"{model_type} {run_id}",
+                   "vocoder") if resume else 0
     extras = {"config": cfg.asdict()}
     detector = AnomalyDetector(cfg.anomaly_trigger_multiplier) if cfg.anomaly_detection else None
     loss_window, time_window = ValueWindow(100), ValueWindow(100)

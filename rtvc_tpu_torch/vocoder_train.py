@@ -7,8 +7,12 @@ its dashboard and multi-process launch options, plus ``--device`` and
 ``--seed``. The model type is ``fatchord-wavernn``, ``geneing-wavernn`` or
 ``runtimeracer-wavernn`` (the default here), each in its config's mode. The
 dataset is the one the vocoder preprocessing writes (GTA mels, or ground-truth mels with
-``-g``), read through ``rtvc_tpu_torch.data.vocoder_dataset``. Checkpoint-time
-sample generation is not ported yet.
+``-g``), read through ``rtvc_tpu_torch.data.vocoder_dataset``; ``python -m
+rtvc_tpu_torch.vocoder_preprocess`` writes the GTA mels. At every save
+(``--save_every``) ``train.gen_testset`` writes the config's
+``gen_at_checkpoint`` samples into ``<models_dir>/<run_id>/samples``. A run
+of the JAX package's trainer (``<run_id>.ckpt``) is taken up where the
+port's own checkpoint is missing.
 """
 from __future__ import annotations
 
@@ -49,6 +53,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
+def sample_hook(model_type: str, cfg, dataset, sample_dir):
+    """The trainer's ``gen_hook(step, model)``: ``gen_testset`` of the
+    config's ``gen_at_checkpoint`` items of ``dataset`` into ``sample_dir``."""
+    from rtvc_tpu_torch.models.factories import wavernn_dims
+    from rtvc_tpu_torch.train.gen_testset import gen_testset
+
+    dims = wavernn_dims(model_type, cfg)
+
+    def gen_hook(step, model):
+        gen_testset(model, dims, cfg, dataset, sample_dir, step, samples=cfg.gen_at_checkpoint)
+
+    return gen_hook
+
+
 def main(argv=None):
     args = parse_args(argv)
     from rtvc_tpu_torch.data.vocoder_dataset import VocoderDataset, batch_iterator
@@ -77,6 +95,9 @@ def main(argv=None):
         args.run_id, args.model_type, args.models_dir, epoch_batches,
         save_every=args.save_every, backup_every=args.backup_every,
         max_steps=args.max_steps, resume=not args.force_restart,
+        gen_hook=sample_hook(args.model_type, cfg, dataset,
+                             args.models_dir / args.run_id / "samples"),
+        gen_every=args.save_every,
         compute_dtype=args.compute_dtype, device=args.device, seed=args.seed,
     )
 

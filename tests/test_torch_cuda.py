@@ -1245,3 +1245,134 @@ def test_taco_train_fwd_refuses_what_does_not_fit(dev):
         tk.fwd_launch(_build.library(), w, **x, p=bad._replace(smem=4))
     with pytest.raises(ValueError, match="l1wi"):
         tk.taco_train_fwd(w._replace(l1wi=w.l1wi[:, :8]), **x)
+
+
+# the GTA pass at B 8, r 2 (``chip_smoke.py``'s phase_gta): a batch of the
+# shorter utterances and one of the longest (1200 frames: 602 iterations
+# over the 160-character bucket)
+@pytest.mark.parametrize("T,n", [(96, 334), (160, 602)])
+def test_taco_train_fwd_gta_shapes_match_plain(dev, T, n):
+    w, x = _taco_train_init_case(dev, 8, T, n)
+    got = _counted("tacotron_train_fwd", lambda: tk.taco_train_fwd(w, **x))
+    again = tk.taco_train_fwd(w, **x)
+    _assert_fwd_matches_plain(got, tk.taco_train_fwd_plain(w, **x), 1e-4)
+    _assert_same_bits(got, again)
+
+
+GTA_NARROW = {
+    "tacotron": dict(embed_dims=16, encoder_dims=16, decoder_dims=32, postnet_dims=16,
+                     encoder_K=4, lstm_dims=32, postnet_K=4, num_highways=2),
+    "forward-tacotron": dict(embed_dims=16, series_embed_dims=8, duration_conv_dims=12,
+                             duration_rnn_dims=8, pitch_conv_dims=12, pitch_rnn_dims=8,
+                             energy_conv_dims=12, energy_rnn_dims=8, prenet_dims=16,
+                             prenet_k=3, prenet_num_highways=2, rnn_dims=16, postnet_dims=12,
+                             postnet_k=3, postnet_num_highways=2),
+}
+
+
+def _write_gta_root(root, n_utts=5, seed=0):
+    """A tiny synthesizer root with the alignment pass's files: 80-band
+    mels of 20-40 frames, unit 768-d embeddings, durations summing to each
+    mel over its text's characters, pitch and energy."""
+    from rtvc_tpu_torch.config import preprocessing
+    from rtvc_tpu_torch.text import text_to_sequence
+
+    rng = np.random.default_rng(seed)
+    for d in ("mels", "embeds", "duration", "attention", "alignment", "phoneme_pitch",
+              "phoneme_energy"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    meta = {}
+    for i in range(n_utts):
+        uid, n = f"utt{i:03d}", int(rng.integers(20, 41))
+        text = ["hello there", "a short one", "voice clone"][i % 3] + f" {i}"
+        chars = len(text_to_sequence(text, preprocessing.cleaner_names))
+        cuts = np.sort(rng.integers(0, n + 1, chars - 1))
+        files = {"mels/mel": rng.uniform(-4, 0, (n, 80)).astype(np.float32),
+                 "duration/duration": np.diff(np.concatenate([[0], cuts, [n]])),
+                 "attention/attention": np.float32(0.9), "alignment/alignment": np.float32(0.8),
+                 "phoneme_pitch/phoneme-pitch": rng.uniform(0, 2, chars).astype(np.float32),
+                 "phoneme_energy/phoneme-energy": rng.uniform(0, 2, chars).astype(np.float32)}
+        for stem, a in files.items():
+            np.save(root / f"{stem}-{uid}.npy", a)
+        e = rng.standard_normal(768).astype(np.float32)
+        np.save(root / "embeds" / f"embed-{uid}.npy", e / np.linalg.norm(e))
+        meta.setdefault(f"spk{i % 2}", []).append(f"{uid}|{n * 200}|{n}|{text}")
+    (root / "train.json").write_text(__import__("json").dumps(meta))
+    return root
+
+
+@pytest.mark.parametrize("model_type", ["tacotron", "forward-tacotron"])
+def test_gta_pass_on_the_card_matches_its_cpu_route(dev, tmp_path, model_type):
+    """The GTA pass (``train.gta.run_synthesis``, batch 2, r 2) with the same
+    narrow weights on the card and on the CPU: every saved mel within 1e-4,
+    ``synthesized.json`` equal; on the card Tacotron's decoder chain is one
+    K5 forward launch a batch (no backward), ForwardTacotron's BiLSTM two K3
+    launches a batch and its five BiGRUs ten K4 launches."""
+    from rtvc_tpu_torch.train.gta import run_synthesis
+
+    root = _write_gta_root(tmp_path / "syn")
+    cfg = factories.default_config(model_type).replace(**GTA_NARROW[model_type])
+    names = ("tacotron_train_fwd", "tacotron_train_bwd", "lstm_seq", "gru_seq")
+    mels = {}
+    for where in ("cpu", dev):
+        bundle = factories.init_syn_model(model_type, seed=4, override_hp=cfg, device=where)
+        before = dict(_build.launch_counts)
+        assert run_synthesis(root, tmp_path / str(where), bundle, r=2, batch_size=2) == 5
+        torch.cuda.synchronize()
+        launched = {k: _build.launch_counts[k] - before.get(k, 0) for k in names}
+        mels[str(where)] = {p.stem: np.load(p)
+                            for p in (tmp_path / str(where) / "mels_gta").iterdir()}
+    batches = 3
+    assert launched == ({"tacotron_train_fwd": batches, "tacotron_train_bwd": 0, "lstm_seq": 0,
+                         "gru_seq": 4 * batches} if model_type == "tacotron" else
+                        {"tacotron_train_fwd": 0, "tacotron_train_bwd": 0,
+                         "lstm_seq": 2 * batches, "gru_seq": 10 * batches})
+    assert mels[str(dev)].keys() == mels["cpu"].keys() and len(mels["cpu"]) == 5
+    for uid, mel in mels["cpu"].items():
+        np.testing.assert_allclose(mels[str(dev)][uid], mel, atol=1e-4, rtol=0, err_msg=uid)
+    assert (tmp_path / str(dev) / "synthesized.json").read_text() == \
+        (tmp_path / "cpu" / "synthesized.json").read_text()
+
+
+def test_gen_testset_on_the_card_writes_finite_wavs(dev, tmp_path):
+    """``train.gen_testset`` with a narrow runtimeracer on the card: the
+    three wavs an item (the generated one through K1, one launch an item),
+    finite, of the item's length, and the model's state untouched."""
+    import json
+
+    from scipy.io import wavfile
+
+    from rtvc_tpu_torch.config.vocoder import WaveRNNParams
+    from rtvc_tpu_torch.data.vocoder_dataset import VocoderDataset
+    from rtvc_tpu_torch.train.gen_testset import gen_testset
+
+    rng = np.random.default_rng(2)
+    for d in ("mels_gta", "wav"):
+        (tmp_path / d).mkdir()
+    meta = {}
+    for i in range(2):
+        uid = f"utt{i:03d}"
+        np.save(tmp_path / "mels_gta" / f"{uid}.npy", rng.uniform(-4, 4, (30, 80)).astype(
+            np.float32))
+        np.save(tmp_path / "wav" / f"audio-{uid}.npy",
+                (0.5 * np.sin(np.linspace(0, 300, 6000) + i)).astype(np.float32))
+        meta[uid] = f"{uid}|6000|30|text"
+    (tmp_path / "synthesized.json").write_text(json.dumps(meta))
+    cfg = WaveRNNParams(rnn_dims=64, fc_dims=64, compute_dims=16, res_out_dims=32,
+                        res_blocks=1, gen_target=1000, gen_overlap=200)
+    d = factories.wavernn_dims("runtimeracer-wavernn", cfg)
+    model = factories.init_wavernn(d, seed=1, device=dev).train()
+    state = {k: t.clone() for k, t in model.state_dict().items()}
+    ds = VocoderDataset(tmp_path / "synthesized.json", tmp_path / "mels_gta", tmp_path / "wav",
+                        cfg)
+    name = COUNT_NAME[d.variant]
+    before = _build.launch_counts[name]
+    gen_testset(model, d, cfg, ds, tmp_path / "samples", 4)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 2
+    assert model.training and all(torch.equal(t, state[k]) for k, t in model.state_dict().items())
+    for i in range(2):
+        for kind in ("target", "griffinlim", "generated"):
+            sr, wav = wavfile.read(tmp_path / "samples" / f"4_{i}_{kind}.wav")
+            assert sr == 16000 and np.isfinite(wav).all() and np.abs(wav).max() > 0, kind
+            assert abs(len(wav) - 30 * 200) <= 200, (kind, len(wav))

@@ -1,8 +1,8 @@
 """The port stands on its own: ``rtvc_tpu_torch`` and ``chip_smoke`` import
 none of ``jax``, ``flax``, ``msgpack`` and ``rtvc_tpu``, and the modules the
 port copied from the JAX package (config, text, the three dataset modules,
-metrics, the duration extractor, the F0 tracker) still say what their
-originals say: equal config fields and values, equal symbol sequences, equal
+metrics, the duration extractor, the F0 tracker, the t-SNE projection) still
+say what their originals say: equal config fields and values, equal symbol sequences, equal
 batches from one tiny on-disk dataset and seed (the non-autoregressive
 synthesizers' batches from a root the alignment pass wrote too), and the
 copied functions' sources equal their originals' but for the imports (their
@@ -47,13 +47,14 @@ for need in ("models.distribution", "ops.stft", "ops.mel_project", "ops.wavernn_
              "demo_cli", "inference.streaming", "inference.pipelined", "profile_stream",
              "models.forward_tacotron", "models.fast_pitch", "inference.attention",
              "data.duration_extractor", "data.synthesizer_preprocess", "ops.pitch",
-             "synthesizer_preprocess_alignments"):
+             "synthesizer_preprocess_alignments", "train.gta", "train.gen_testset",
+             "train.eval_hooks", "utils.plots", "utils.projection", "vocoder_preprocess"):
     assert "rtvc_tpu_torch." + need in names, need
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "rtvc_tpu", "flax", "msgpack"))
 print(len(names), "modules;", "foreign:", bad)
-sys.exit(1 if bad or len(names) < 43 else 0)
+sys.exit(1 if bad or len(names) < 49 else 0)
 """
 
 
@@ -67,7 +68,7 @@ def test_port_sources_name_no_jax_import():
     pattern = ("from rtvc_tpu ", "from rtvc_tpu.", "import rtvc_tpu ", "import rtvc_tpu.",
                "import rtvc_tpu\n", "import jax", "from jax")
     files = sorted((REPO / "rtvc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 48
+    assert len(files) > 54
     for f in files:
         for n, line in enumerate(f.read_text().splitlines(keepends=True), 1):
             code = line.strip()
@@ -150,7 +151,8 @@ def test_synthesizer_dataset_copy_yields_the_same_nar_batches(tmp_path):
 
 @pytest.mark.parametrize("copy,original", [
     ("rtvc_tpu_torch/data/duration_extractor.py", "rtvc_tpu/data/duration_extractor.py"),
-    ("rtvc_tpu_torch/ops/pitch.py", "rtvc_tpu/ops/pitch.py")])
+    ("rtvc_tpu_torch/ops/pitch.py", "rtvc_tpu/ops/pitch.py"),
+    ("rtvc_tpu_torch/utils/projection.py", "rtvc_tpu/utils/projection.py")])
 def test_numpy_copies_equal_their_originals(copy, original):
     def body(path):  # the code after the docstring, the package's name taken out
         text = (REPO / path).read_text()
