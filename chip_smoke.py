@@ -163,6 +163,20 @@
    written exactly where matplotlib imports (the card's machine has none),
    each hook's time.
 
+9. The bf16 training policy (``ops/precision.py``, ``phase_bf16_train``).
+   K3's bf16 instantiation (bf16 streams and W_hh, f32 state), forward with
+   residuals and backward, at the GE2E step's 640 x 160 x 768 and
+   ForwardTacotron's BiLSTM, 16 x 900 x 512; K4's at runtimeracer's 40 x
+   1000 x 256 and the Tacotron CBHG's 112 x 602 x 64: each held to its plain
+   bf16 version (bf16 outputs within torch.testing's bf16 tolerance, f32
+   outputs within 1e-4) and timed beside the f32 kernel, the plain version
+   and cuDNN in bf16. Then three full-width bf16 steps of each trainer
+   through its entry function on the f32 runs' weights and batches (GE2E,
+   Tacotron, ForwardTacotron, FastPitch, runtimeracer): finite losses, f32
+   master weights, the first loss within 5 % of the f32 run's, the launches
+   of the bf16 path only (K5 in f32 for Tacotron), and the ms per step beside
+   the f32 run's.
+
 K1's, K3's and K4's lines also give the times of the earlier kernels (one
 CTA per fold or batch row, the weights re-read from L2 every step) on the
 same card model, K3's its time as a share of its time before K4 and K1 came
@@ -172,7 +186,8 @@ wrapper's.
 Beside each kernel's time it gives the least time the card could take for the
 same work (``bound_ms``: the larger of the bytes the function must move, each
 input read once and each output written once, over the card's memory rate, and
-its operations over the card's f32 rate), and where one PyTorch call computes
+its operations over the card's f32 rate, its bf16 tensor-core rate for the bf16
+instantiations), and where one PyTorch call computes
 the same function (cuDNN's ``nn.LSTM`` / ``nn.GRU``, ``torch.matmul`` for K6's
 product) that call's time.
 
@@ -217,8 +232,10 @@ def cuda_ms(fn, reps=3):
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): f32 outside the tensor
-# cores, and device memory. Every kernel here computes in f32.
+# cores, dense bf16 in them, and device memory. Every kernel here computes in
+# f32; the bf16 instantiations' bounds take the bf16 peak for the same work.
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -226,9 +243,9 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, peak=F32_FLOPS):
     """The least milliseconds the card could take, and which side sets it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
             else "operations"}
 
@@ -315,29 +332,31 @@ def phase_barrier(dev):
     return us
 
 
-def k3_plan(B, H, dev, backward=False):
+def k3_plan(B, H, dev, backward=False, elem=4):
     from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.ops.lstm_seq import plan
 
-    p = plan(B, H, *_build.device_limits(dev), backward=backward)
+    p = plan(B, H, *_build.device_limits(dev), backward=backward, elem=elem)
     return (f"{p.groups} groups x {p.slices} slices of {p.units} units, {p.nb} rows a warp, "
             f"{p.smem} bytes of shared memory")
 
 
-def rnn_ms(rnn, B, T, H, dev, backward=True):
+def rnn_ms(rnn, B, T, H, dev, backward=True, dtype=None):
     """(forward ms, backward ms) of a recurrence module over (B, T,
     ``rnn.input_size``) inputs in f32 (``rtvc_tpu_torch`` switches TF32 off
-    when it is imported): cuDNN's as the yardstick beside K3 and K4, or the
-    port's ``GRU``; it includes the input projection, which the kernels
-    leave to a matmul outside. The backward is the time of forward
-    plus backward less the forward's; with ``backward=False`` the forward
-    runs without a graph and the second value is None."""
+    when it is imported), or in ``dtype`` (module and inputs): cuDNN's as
+    the yardstick beside K3 and K4, or the port's ``GRU``; it includes the
+    input projection, which the kernels leave to a matmul outside. The
+    backward is the time of forward plus backward less the forward's; with
+    ``backward=False`` the forward runs without a graph and the second value
+    is None."""
     import torch
 
+    dtype = dtype or torch.float32
     g = torch.Generator().manual_seed(10)
-    x = torch.randn(B, T, rnn.input_size, generator=g).to(dev).requires_grad_(backward)
-    dys = torch.randn(B, T, H * (2 if rnn.bidirectional else 1), generator=g).to(dev)
-    rnn = rnn.to(dev).train(backward)
+    x = torch.randn(B, T, rnn.input_size, generator=g).to(dev, dtype).requires_grad_(backward)
+    dys = torch.randn(B, T, H * (2 if rnn.bidirectional else 1), generator=g).to(dev, dtype)
+    rnn = rnn.to(dev, dtype).train(backward)
     with torch.set_grad_enabled(backward):
         fwd = cuda_ms(lambda: rnn(x))
     if not backward:
@@ -2013,6 +2032,46 @@ def phase_serve(dev, card, syn, voc):
             "frames": frames, "counts": counts}
 
 
+# torch.testing's tolerance for bf16, the one the CPU tests hold the plain
+# bf16 versions to against the JAX package: a kernel and its plain version
+# round f32 values that their sums in another order may put on two sides of
+# a bf16 rounding boundary
+BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)
+
+
+def bf16_close(name, got, want):
+    """A kernel's bf16 stream against its plain version's within
+    ``BF16_TOL``; returns the largest absolute difference."""
+    diff = (got.float() - want.float()).abs()
+    bad = diff > BF16_TOL["atol"] + BF16_TOL["rtol"] * want.float().abs()
+    check(not bool(bad.any()), f"{name}: {int(bad.sum())} entries past bf16's tolerance "
+          f"{BF16_TOL}, the largest difference {float(diff.max())}")
+    return float(diff.max())
+
+
+def held(label, got, want):
+    """A training kernel's outputs against its plain version's on the same
+    inputs, in the same dtypes: bf16 streams within ``BF16_TOL``, f32
+    outputs (state, dxg, dh0, dc0) within 1e-4 of their largest entry (sums
+    over T in another order). Returns (the largest absolute difference, the
+    largest relative error of the f32 outputs)."""
+    import torch
+
+    from rtvc_tpu_torch.ops import rel_err
+
+    abs_err = rel = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.dtype == b.dtype, f"{label}: output {i} is {a.dtype}, its plain version's "
+              f"{b.dtype}")
+        if a.dtype == torch.bfloat16:
+            abs_err = max(abs_err, bf16_close(f"{label} output {i}", a, b))
+            continue
+        e = rel_err(a, b)
+        check(e <= 1e-4, f"{label}: output {i} rel err {e} from its plain version")
+        rel, abs_err = max(rel, e), max(abs_err, float((a - b).abs().max()))
+    return abs_err, rel
+
+
 def grads_of(fn, leaves, cotangents):
     """Gradients of ``fn(*leaves)`` against ``cotangents``, on fresh leaves."""
     import torch
@@ -2094,6 +2153,11 @@ def phase_lstm_train(dev):
 # frames)
 CBHG_SHAPES = ((1, 64), (1, 512), (112, 160), (112, 602))
 
+# (B, T, H) of K4 in a ForwardTacotron training step: the predictors' BiGRUs
+# (H 64 duration and energy, H 128 pitch) and the prenet CBHG's (H 256) over
+# 160 characters, the postnet CBHG's (H 256) over 900 frames
+NAR_TRAIN_GRU_SHAPES = ((16, 160, 64), (16, 160, 128), (16, 160, 256), (16, 900, 256))
+
 
 def phase_gru(dev):
     """K4 forward and backward at the three vocoder training shapes
@@ -2127,14 +2191,21 @@ def cbhg_gru(dev):
     return m
 
 
-def gru_shape(dev, B, T, H, grad=True):
+def gru_shape(dev, B, T, H, grad=True, dtype=None):
     """K4 forward and backward at one shape, against autograd through the
     plain forward (tolerance as for K3), beside cuDNN's ``nn.GRU(H, H)``,
     one direction as K4 computes it. At the CBHG's H 64 the whole BiGRU is
     timed too: cuDNN's bidirectional ``nn.GRU(128, 64)`` beside the port's
     ``GRU`` module (two K4 launches a pass). The forward's bound writes the
     gates only where its path takes a gradient (``grad``), as only the
-    backward reads them."""
+    backward reads them.
+
+    With ``dtype`` bf16 the bf16 instantiation instead: bf16 streams,
+    weights and dys, its forward and its backward kernel each against its
+    plain bf16 version on the same inputs (``held``: ys and the gates within
+    ``BF16_TOL``, the f32 dxg within 1e-4), the f32 kernel timed beside it
+    on the same values, cuDNN and the port's module in bf16, the plan at
+    2-byte weights and the bound at the bf16 peak."""
     import torch
 
     from rtvc_tpu_torch import _build
@@ -2148,68 +2219,96 @@ def gru_shape(dev, B, T, H, grad=True):
         plan,
     )
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    tag = " bf16" if bf16 else ""
     g = torch.Generator().manual_seed(5)
     s = H ** -0.5
-    xg = torch.randn(B, T, 3 * H, generator=g).to(dev)
-    w_hh = ((torch.rand(3 * H, H, generator=g) * 2 - 1) * s).to(dev)
-    b_hh = ((torch.rand(3 * H, generator=g) * 2 - 1) * s).to(dev)
-    dys = torch.randn(B, T, H, generator=g).to(dev)
+    xg = torch.randn(B, T, 3 * H, generator=g).to(dev, dtype)
+    w_hh = ((torch.rand(3 * H, H, generator=g) * 2 - 1) * s).to(dev, dtype)
+    b_hh = ((torch.rand(3 * H, generator=g) * 2 - 1) * s).to(dev, dtype)
+    dys = torch.randn(B, T, H, generator=g).to(dev, dtype)
     ys, gates = gru_seq_fwd(xg, w_hh, b_hh)
     p_ys, p_gates = gru_seq_fwd_plain(xg, w_hh, b_hh)
     torch.cuda.synchronize()
-    fwd_err = max(rel_err(ys, p_ys), rel_err(gates, p_gates))
-    fwd_abs = max(float((ys - p_ys).abs().max()), float((gates - p_gates).abs().max()))
-    check(fwd_err <= 1e-4, f"K4 forward differs from its plain version: {fwd_err}")
-    k_grads = grads_of(GRUSeqFn.apply, (xg, w_hh, b_hh), (dys,))
-    p_grads = grads_of(lambda *a: gru_seq_fwd_plain(*a)[0], (xg, w_hh, b_hh), (dys,))
+    check(ys.dtype == gates.dtype == dtype, f"K4{tag} forward gave {ys.dtype}, {gates.dtype}")
+    if bf16:
+        fwd_abs, _ = held(f"K4 bf16 forward at B={B} T={T} H={H}", (ys, gates), (p_ys, p_gates))
+        fwd_err = "bf16 tol"
+    else:
+        fwd_err = max(rel_err(ys, p_ys), rel_err(gates, p_gates))
+        fwd_abs = max(float((ys - p_ys).abs().max()), float((gates - p_gates).abs().max()))
+        check(fwd_err <= 1e-4, f"K4 forward differs from its plain version: {fwd_err}")
+        fwd_err = f"rel err {fwd_err:.3e}"
+    bwd_args = (dys, p_gates, p_ys, w_hh)
+    if bf16:
+        # dW_hh and db_hh are one product outside the kernel, from its f32 dxg
+        k_grads, p_grads = (gru_seq_bwd(*bwd_args),), (gru_seq_bwd_plain(*bwd_args),)
+        names = ("dxg",)
+    else:
+        k_grads = grads_of(GRUSeqFn.apply, (xg, w_hh, b_hh), (dys,))
+        p_grads = grads_of(lambda *a: gru_seq_fwd_plain(*a)[0], (xg, w_hh, b_hh), (dys,))
+        names = ("dxg", "dW_hh", "db_hh")
     torch.cuda.synchronize()
-    errs = {n: rel_err(a, b) for n, a, b in zip(("dxg", "dW_hh", "db_hh"), k_grads, p_grads)}
+    errs = {n: rel_err(a, b) for n, a, b in zip(names, k_grads, p_grads)}
+    check(k_grads[0].dtype == torch.float32, f"K4{tag} backward gave dxg in {k_grads[0].dtype}")
     bwd_abs = max(float((a - b).abs().max()) for a, b in zip(k_grads, p_grads))
-    check(max(errs.values()) <= 1e-4, f"K4 backward differs from autograd: {errs}")
+    check(max(errs.values()) <= 1e-4, f"K4{tag} backward differs at B={B} T={T} H={H}: {errs}")
+    check(torch.equal(gru_seq_bwd(*bwd_args), gru_seq_bwd(*bwd_args)),
+          f"K4{tag} backward: two runs on the same inputs differ in their bits")
     ms = cuda_ms(lambda: gru_seq_fwd(xg, w_hh, b_hh))
     plain_ms = cuda_ms(lambda: gru_seq_fwd_plain(xg, w_hh, b_hh), reps=2)
-    bwd_ms = cuda_ms(lambda: gru_seq_bwd(dys, p_gates, p_ys, w_hh))
-    bwd_args = (dys, p_gates, p_ys, w_hh)
-    check(torch.equal(gru_seq_bwd(*bwd_args), gru_seq_bwd(*bwd_args)),
-          "K4 backward: two runs on the same inputs differ in their bits")
-    bwd_plain_ms = cuda_ms(lambda: gru_seq_bwd_plain(dys, p_gates, p_ys, w_hh), reps=2)
+    bwd_ms = cuda_ms(lambda: gru_seq_bwd(*bwd_args))
+    bwd_plain_ms = cuda_ms(lambda: gru_seq_bwd_plain(*bwd_args), reps=2)
+    f32_ms = (None, None)
+    if bf16:  # the f32 kernel on the same values
+        f32_in = (xg.float(), w_hh.float(), b_hh.float())
+        ys32, gates32 = gru_seq_fwd(*f32_in)
+        f32_ms = (cuda_ms(lambda: gru_seq_fwd(*f32_in)),
+                  cuda_ms(lambda: gru_seq_bwd(dys.float(), gates32, ys32, f32_in[1])))
     cbhg = H == 64
-    lib_fwd_ms, lib_bwd_ms = rnn_ms(torch.nn.GRU(H, H, batch_first=True), B, T, H, dev)
-    library = f"nn.GRU({H}, {H}), input projection included"
+    lib_fwd_ms, lib_bwd_ms = rnn_ms(torch.nn.GRU(H, H, batch_first=True), B, T, H, dev,
+                                    dtype=dtype)
+    library = f"nn.GRU({H}, {H}){tag}, input projection included"
     bi_fwd_ms, bi_bwd_ms = (rnn_ms(torch.nn.GRU(128, 64, batch_first=True, bidirectional=True),
-                                   B, T, H, dev) if cbhg else (None, None))
-    mod_fwd_ms, mod_bwd_ms = rnn_ms(cbhg_gru(dev), B, T, H, dev) if cbhg else (None, None)
+                                   B, T, H, dev, dtype=dtype) if cbhg else (None, None))
+    mod_fwd_ms, mod_bwd_ms = (rnn_ms(cbhg_gru(dev), B, T, H, dev, dtype=dtype) if cbhg
+                              else (None, None))
     module = (f"; the whole BiGRU (128 -> 2 x 64, both directions, input products included): "
               f"nn.GRU(128, 64, bidirectional=True) forward {bi_fwd_ms:.3f} ms, backward "
               f"{bi_bwd_ms:.3f} ms, the port's GRU module forward {mod_fwd_ms:.3f} ms, "
               f"backward {mod_bwd_ms:.3f} ms" if cbhg else "")
-    flops = 2 * B * T * 3 * H * H
-    fwd_b = bound(nbytes(xg, w_hh, b_hh, ys, *((gates,) if grad else ())), flops)
-    bwd_b = bound(nbytes(dys, p_gates, p_ys, w_hh, k_grads[0]), flops)
-    limits = _build.device_limits(dev)
-    p_fwd, p_bwd = plan(B, H, *limits), plan(B, H, *limits, backward=True)
-    was = [f" (earlier kernel {t} ms)" if t else ""
+    flops, peak = 2 * B * T * 3 * H * H, BF16_FLOPS if bf16 else F32_FLOPS
+    fwd_b = bound(nbytes(xg, w_hh, b_hh, ys, *((gates,) if grad else ())), flops, peak)
+    bwd_b = bound(nbytes(*bwd_args, k_grads[0]), flops, peak)
+    limits, elem = _build.device_limits(dev), 2 if bf16 else 4
+    p_fwd = plan(B, H, *limits, elem=elem)
+    p_bwd = plan(B, H, *limits, backward=True, elem=elem)
+    was = [f" (earlier kernel {t} ms)" if t and not bf16 else ""
            for t in K4_EARLIER_MS.get((B, T, H), (None, None))]
-    print(f"K4 gru_seq B={B} T={T} H={H}: forward ({p_fwd.groups} groups x {p_fwd.slices} "
-          f"slices of {p_fwd.units} units, {p_fwd.nb} rows a pass) rel err {fwd_err:.3e}, kernel "
-          f"{ms:.3f} ms{was[0]}, plain {plain_ms:.3f} ms, {library} "
+    f32_was = [f", f32 kernel {t:.3f} ms" if t else "" for t in f32_ms]
+    print(f"K4 gru_seq{tag} B={B} T={T} H={H}: forward ({p_fwd.groups} groups x {p_fwd.slices} "
+          f"slices of {p_fwd.units} units, {p_fwd.nb} rows a pass) {fwd_err}, kernel "
+          f"{ms:.3f} ms{was[0]}{f32_was[0]}, plain {plain_ms:.3f} ms, {library} "
           f"{lib_fwd_ms:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by {fwd_b['bound_by']}; "
           f"backward ({p_bwd.groups} groups x {p_bwd.slices} slices of {p_bwd.units} units, "
           f"{p_bwd.nb} rows a pass) rel errs "
           + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-          + f" (tol 1e-4), bits repeat, kernel {bwd_ms:.3f} ms{was[1]}, "
+          + f" (tol 1e-4), bits repeat, kernel {bwd_ms:.3f} ms{was[1]}{f32_was[1]}, "
           f"plain {bwd_plain_ms:.3f} ms, nn.GRU {lib_bwd_ms:.3f} ms, bound "
           f"{bwd_b['bound_ms']:.4f} ms by {bwd_b['bound_by']}{module}")
-    return [{"name": "gru_seq", "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
+    extra = [{"f32_kernel_ms": t} if bf16 else {} for t in f32_ms]
+    return [{"name": "gru_seq" + tag.replace(" ", "_"), "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
              "replaces": "rtvc_tpu/ops/pallas/gru_train_kernel.py:71",
              "max_abs_err": fwd_abs, "ms": ms, "plain_ms": plain_ms, **fwd_b,
              "library_ms": lib_fwd_ms, "plan": list(p_fwd[:5]), "library": library,
-             "bidir_library_ms": bi_fwd_ms, "module_ms": mod_fwd_ms},
-            {"name": "gru_seq_bwd", "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
+             "bidir_library_ms": bi_fwd_ms, "module_ms": mod_fwd_ms, **extra[0]},
+            {"name": "gru_seq_bwd" + tag.replace(" ", "_"),
+             "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
              "replaces": "rtvc_tpu/ops/pallas/gru_train_kernel.py:111",
              "max_abs_err": bwd_abs, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_b,
              "library_ms": lib_bwd_ms, "plan": list(p_bwd[:5]), "library": library,
-             "bidir_library_ms": bi_bwd_ms, "module_ms": mod_bwd_ms}]
+             "bidir_library_ms": bi_bwd_ms, "module_ms": mod_bwd_ms, **extra[1]}]
 
 
 # K5 with one CTA a batch row (before each direction was split over the
@@ -2447,28 +2546,39 @@ def phase_taco_train_kernel(dev):
              "shapes": [{"B": last[0], "n_iters": last[1], **{k: bwd_other[k] for k in keys}}]}]
 
 
-def phase_train_encoder(dev, runs_dir):
-    """GE2E training at full width (64 speakers x 10 utterances x 160 frames,
-    3 x LSTM-768): 3 steps, then a resume from the checkpoint for a 4th."""
+GE2E_SHAPE = (64, 10, 160)  # speakers, utterances a speaker, frames
+
+
+def ge2e_partials(seed, n):
+    """``n`` GE2E batches of (S·U, T, 40) partials: speakers scatter around
+    signatures of their own, as real partials do."""
     import torch
 
+    S, U, T = GE2E_SHAPE
+    g = torch.Generator().manual_seed(seed)
+    for _ in range(n):
+        base = torch.rand(S, 1, 1, 40, generator=g)
+        yield (base + 0.1 * torch.randn(S, U, T, 40, generator=g)).clamp(0, 1).reshape(
+            S * U, T, 40)
+
+
+def ge2e_kw(dev, steps):
+    S, U, _ = GE2E_SHAPE
+    return dict(speakers_per_batch=S, utterances_per_speaker=U, learning_rate=1e-4,
+                eer_every=steps, save_every=0, device=dev, seed=0)
+
+
+def phase_train_encoder(dev, runs_dir):
+    """GE2E training at full width (64 speakers x 10 utterances x 160 frames,
+    3 x LSTM-768): 3 steps, then a resume from the checkpoint for a 4th.
+    Returns the launch counts and the first run's result."""
     from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.train.trainer import train_encoder
 
-    S, U, T, steps = 64, 10, 160, 3
-
-    def partials(seed, n):
-        # speakers scatter around signatures of their own, as real partials do
-        g = torch.Generator().manual_seed(seed)
-        for _ in range(n):
-            base = torch.rand(S, 1, 1, 40, generator=g)
-            yield (base + 0.1 * torch.randn(S, U, T, 40, generator=g)).clamp(0, 1).reshape(
-                S * U, T, 40)
-
-    kw = dict(speakers_per_batch=S, utterances_per_speaker=U, learning_rate=1e-4,
-              eer_every=steps, save_every=0, device=dev, seed=0)
+    (S, U, T), steps = GE2E_SHAPE, 3
+    kw = ge2e_kw(dev, steps)
     _build.launch_counts.clear()
-    out = train_encoder("encoder", partials(6, steps), runs_dir, total_steps=steps, **kw)
+    out = train_encoder("encoder", ge2e_partials(6, steps), runs_dir, total_steps=steps, **kw)
     counts = dict(_build.launch_counts)
     print(f"launches in the encoder training run: {counts}")
     check(out["step"] == steps, f"encoder run ended at step {out['step']}")
@@ -2479,7 +2589,8 @@ def phase_train_encoder(dev, runs_dir):
         check(counts.get(name, 0) == 3 * steps,
               f"{name} launched {counts.get(name, 0)} times in {steps} encoder steps, "
               f"want {3 * steps}")
-    resumed = train_encoder("encoder", partials(7, 1), runs_dir, total_steps=steps + 1, **kw)
+    resumed = train_encoder("encoder", ge2e_partials(7, 1), runs_dir, total_steps=steps + 1,
+                            **kw)
     check(resumed["step"] == steps + 1 and len(resumed["losses"]) == 1,
           f"resume did not start at step {steps}: {resumed['step']}, {resumed['losses']}")
     check(np.isfinite(resumed["losses"][0]), "resumed encoder loss not finite")
@@ -2488,30 +2599,24 @@ def phase_train_encoder(dev, runs_dir):
           f"{resumed['losses']} after the resume, grad norm {out['grad_norm']:.4f}, "
           f"EER {out['eer']:.4f}; ms per step {[round(m, 1) for m in out['step_ms']]}, "
           f"after the resume {round(resumed['step_ms'][0], 1)}")
-    return counts, out["step_ms"]
+    return counts, out
 
 
-def phase_train_vocoder(dev, runs_dir, model_type="runtimeracer-wavernn", steps=5):
-    """WaveRNN training of one variant at full width, in the first session of
-    its schedule (batch 40; runtimeracer: seq_len 1000, four GRUs of 256;
-    fatchord: seq_len 1000, two GRUs of 512; geneing: seq_len 1400, one GRU of
-    256, BITS), for a few steps on one seeded batch repeated."""
+def vocoder_epochs(model_type, steps):
+    """``train_vocoder``'s ``epoch_batches`` for a few steps of the first
+    session: one seeded batch of the session's size, repeated over an epoch
+    long enough that the session (geneing's is a quarter of an epoch) holds
+    every step, with the keys and shapes of
+    ``rtvc_tpu_torch.data.vocoder_dataset.batch_iterator``: tones quantised
+    to the head's classes, x the previous sample's class in [-1, 1]."""
     from rtvc_tpu_torch.config.signal import sp
-    from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.models import factories
-    from rtvc_tpu_torch.ops.wavernn_generate import LAYERS
-    from rtvc_tpu_torch.train.trainer import train_vocoder
 
     cfg = factories.default_config(model_type)
-    n_rnn = len(LAYERS[model_type].rnns)
-    # an epoch long enough that the first session (geneing's is a quarter of
-    # an epoch) holds every step
     n_batches = int(np.ceil(steps / min(cfg.voc_tts_schedule[0][0], 1.0)))
     B, hop = int(cfg.voc_tts_schedule[0][3]), sp.hop_size
     L, C = cfg.seq_len, 2 ** cfg.bits
     rng = np.random.default_rng(8)
-    # keys and shapes of rtvc_tpu_torch.data.vocoder_dataset.batch_iterator: tones
-    # quantised to C classes; x is the previous sample's class in [-1, 1]
     t = np.arange(L + 1)
     wav = 0.8 * np.sin(2 * np.pi * rng.uniform(100, 400, (B, 1)) * t / sp.sample_rate
                        + rng.uniform(0, 6.3, (B, 1)))
@@ -2521,10 +2626,26 @@ def phase_train_vocoder(dev, runs_dir, model_type="runtimeracer-wavernn", steps=
              "y_float": (labels[:, 1:] * 2.0 / (C - 1) - 1).astype(np.float32),
              "mels": rng.uniform(0, 1, (B, sp.num_mels, L // hop + 2 * cfg.pad)).astype(
                  np.float32)}
+    return lambda session: [batch] * n_batches
+
+
+def phase_train_vocoder(dev, runs_dir, model_type="runtimeracer-wavernn", steps=5):
+    """WaveRNN training of one variant at full width, in the first session of
+    its schedule (batch 40; runtimeracer: seq_len 1000, four GRUs of 256;
+    fatchord: seq_len 1000, two GRUs of 512; geneing: seq_len 1400, one GRU of
+    256, BITS), for a few steps on one seeded batch repeated."""
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.ops.wavernn_generate import LAYERS
+    from rtvc_tpu_torch.train.trainer import train_vocoder
+
+    cfg = factories.default_config(model_type)
+    n_rnn = len(LAYERS[model_type].rnns)
+    B, L = int(cfg.voc_tts_schedule[0][3]), cfg.seq_len
     _build.launch_counts.clear()
     out = train_vocoder(f"vocoder_{model_type}", model_type, runs_dir,
-                        lambda session: [batch] * n_batches,
-                        max_steps=steps, save_every=0, device=dev, seed=0)
+                        vocoder_epochs(model_type, steps), max_steps=steps, save_every=0,
+                        device=dev, seed=0)
     counts = dict(_build.launch_counts)
     print(f"launches in the {model_type} training run: {counts}")
     losses = out["losses"]
@@ -2537,7 +2658,20 @@ def phase_train_vocoder(dev, runs_dir, model_type="runtimeracer-wavernn", steps=
               f"want {n_rnn * steps}")
     print(f"{model_type} training {B} x {L}: losses {[round(v, 4) for v in losses]}; ms per step "
           f"{[round(m, 1) for m in out['step_ms']]}")
-    return counts, out["step_ms"]
+    return counts, out
+
+
+def tacotron_epochs():
+    """``train_synthesizer``'s ``epoch_batches`` for Tacotron's first
+    session (r 7, batch 112, 602 frames, 160 characters): one synthetic batch
+    repeated 12 times, the session's length, over which its learning rate
+    falls."""
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.profile_train import synthetic_tacotron_batch
+
+    r, _, B, _, _ = factories.default_config(factories.MODEL_TYPE_TACOTRON).tts_schedule[0]
+    batch = synthetic_tacotron_batch(B, 160, 86 * r, seed=12)
+    return lambda session, r: [batch] * 12
 
 
 def phase_train_synthesizer(dev, runs_dir):
@@ -2548,17 +2682,13 @@ def phase_train_synthesizer(dev, runs_dir):
     checkpoint for a 4th."""
     from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.models import factories
-    from rtvc_tpu_torch.profile_train import synthetic_tacotron_batch
     from rtvc_tpu_torch.train.trainer import train_synthesizer
 
     model_type, steps = factories.MODEL_TYPE_TACOTRON, 3
     cfg = factories.default_config(model_type)
     r, _, B, _, _ = cfg.tts_schedule[0]
     T, frames = 160, 86 * r
-    batch = synthetic_tacotron_batch(B, T, frames, seed=12)
-
-    def epochs(session, r):
-        return [batch] * 12  # the session's length: its learning rate falls over 12 steps
+    epochs = tacotron_epochs()
 
     kw = dict(save_every=0, device=dev, seed=0)
     _build.launch_counts.clear()
@@ -2591,7 +2721,7 @@ def phase_train_synthesizer(dev, runs_dir):
           f"after the resume, grad norm {out['grad_norm']:.4f}; ms per step "
           f"{[round(m, 1) for m in out['step_ms']]}, after the resume "
           f"{round(resumed['step_ms'][0], 1)}")
-    return counts, out["step_ms"]
+    return counts, out
 
 
 # The alignment pass's five utterances: mel frames (80 a second: 2.5, 4, 6
@@ -2778,22 +2908,21 @@ def phase_align(dev, card, syn):
     return counts
 
 
-# the NAR trainer's kernel wrappers where its modules look them up: K3's
-# training halves (LSTMSeqFn) and K4's (GRUSeqFn)
-NAR_TRAIN_KERNELS = (("rtvc_tpu_torch.ops.lstm_seq", "lstm_seq_fwd_train"),
-                     ("rtvc_tpu_torch.ops.lstm_seq", "lstm_seq_bwd"),
-                     ("rtvc_tpu_torch.ops.gru_seq", "gru_seq_fwd"),
-                     ("rtvc_tpu_torch.ops.gru_seq", "_bwd"))
+# the trainers' kernel wrappers where LSTMSeqFn and GRUSeqFn look them up:
+# K3's training halves and K4's, in f32 and in bf16
+TRAIN_KERNELS = (("rtvc_tpu_torch.ops.lstm_seq", "lstm_seq_fwd_train"),
+                 ("rtvc_tpu_torch.ops.lstm_seq", "lstm_seq_bwd"),
+                 ("rtvc_tpu_torch.ops.gru_seq", "gru_seq_fwd"),
+                 ("rtvc_tpu_torch.ops.gru_seq", "_bwd"))
 
 
-def nar_train_kernel_checks(calls):
-    """Every K3 and K4 launch of one ForwardTacotron training step again on
-    the inputs it was given, against its plain version: each output within
-    1e-4 of its largest entry (the training kernels' tolerance: sums over T
-    in another order). Returns a line of the shapes and worst errors."""
+def train_kernel_checks(calls, where):
+    """Every K3 and K4 launch of a training step again on the inputs it was
+    given, against its plain version (``held``: f32 outputs within 1e-4 of
+    their largest entry, bf16 streams within ``BF16_TOL``). Returns a line
+    of the shapes and worst errors."""
     import torch
 
-    from rtvc_tpu_torch.ops import rel_err
     from rtvc_tpu_torch.ops.gru_seq import gru_seq_bwd_plain, gru_seq_fwd_plain
     from rtvc_tpu_torch.ops.lstm_seq import lstm_seq_bwd_plain, lstm_seq_fwd_train_plain
 
@@ -2802,20 +2931,32 @@ def nar_train_kernel_checks(calls):
     parts = []
     with torch.no_grad():
         for name, fn in plain.items():
-            worst, shapes = 0.0, []
+            if not calls[name]:
+                continue
+            worst, worst_abs, shapes = 0.0, 0.0, []
             for args, _, out in calls[name]:
                 got = out[:1] if name == "_bwd" else out
                 want = fn(*args)
                 want = (want,) if name == "_bwd" else want
-                err = max(rel_err(a, b) for a, b in zip(got, want))
                 B, T, G = args[0].shape
-                check(err <= 1e-4, f"{name} at the ForwardTacotron step's B={B} T={T} width {G}: "
-                      f"rel err {err} from its plain version")
-                worst = max(worst, err)
-                shapes.append(f"{B}x{T}x{G}")
+                dt = str(args[0].dtype).replace("torch.", "")
+                abs_err, rel = held(f"{name} at {where}'s B={B} T={T} width {G} in {dt}", got,
+                                    want)
+                worst, worst_abs = max(worst, rel), max(worst_abs, abs_err)
+                shapes.append(f"{B}x{T}x{G} {dt}")
             parts.append(f"{name} ({len(calls[name])}: {', '.join(sorted(set(shapes)))}) "
-                         f"rel {worst:.3e}")
-    return "; ".join(parts)
+                         f"rel {worst:.3e}, max |diff| {worst_abs:.3e}")
+    return "; ".join(parts) or "none"
+
+
+def nar_epochs():
+    """``train_synthesizer``'s ``epoch_batches`` for ForwardTacotron's and
+    FastPitch's first session (batch 16): ``synthetic_nar_batch`` at 160
+    characters and 900 frames, repeated 12 times, the session's length."""
+    from rtvc_tpu_torch.profile_train import synthetic_nar_batch
+
+    batch = synthetic_nar_batch(16, 160, 900, seed=13)
+    return lambda session, r: [batch] * 12
 
 
 def phase_train_nar(dev, card, runs_dir):
@@ -2829,31 +2970,28 @@ def phase_train_nar(dev, card, runs_dir):
       falling loss on the repeated batch, the resume at step 3; K3 forward
       and backward twice a step, K4 forward and backward ten times; every K3
       and K4 launch of the first step held to its plain version on its own
-      inputs (``nar_train_kernel_checks``);
+      inputs (``train_kernel_checks``);
     - one ForwardTacotron step at the schedule's largest batch, 48: its wall
       time and peak memory;
     - FastPitch, 3 steps then a resume: finite, falling losses, none of the
       port's kernels launched.
 
-    Returns ForwardTacotron's launch counts over its 3 steps."""
+    Returns ForwardTacotron's launch counts over its 3 steps, and each
+    type's losses and ms per step."""
     import torch
 
     from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.models import factories
-    from rtvc_tpu_torch.profile_train import nar_step, synthetic_nar_batch
+    from rtvc_tpu_torch.profile_train import nar_step
     from rtvc_tpu_torch.train.trainer import train_synthesizer
 
-    batch = synthetic_nar_batch(16, 160, 900, seed=13)
+    epochs = nar_epochs()
     steps = 3
-
-    def epochs(session, r):
-        return [batch] * 12  # the session's length: its learning rate falls over 12 steps
-
     kw = dict(save_every=0, device=dev, seed=0)
-    out = {}
+    out, runs = {}, {}
     for model_type in (factories.MODEL_TYPE_FORWARD_TACOTRON, factories.MODEL_TYPE_FASTPITCH):
         _build.launch_counts.clear()
-        with recorded_calls(NAR_TRAIN_KERNELS) as calls:
+        with recorded_calls(TRAIN_KERNELS) as calls:
             first = train_synthesizer(model_type, model_type, runs_dir, epochs, max_steps=1, **kw)
         rest = train_synthesizer(model_type, model_type, runs_dir, epochs, max_steps=steps, **kw)
         counts = dict(_build.launch_counts)
@@ -2861,6 +2999,7 @@ def phase_train_nar(dev, card, runs_dir):
                                     max_steps=steps + 1, **kw)
         losses = first["losses"] + rest["losses"]
         step_ms = first["step_ms"] + rest["step_ms"]
+        runs[model_type] = {"losses": losses, "step_ms": step_ms}
         print(f"launches in the {model_type} training run ({steps} steps): {counts}")
         check(rest["step"] == steps and len(losses) == steps,
               f"{model_type} run ended at step {rest['step']} with {len(losses)} losses")
@@ -2878,7 +3017,7 @@ def phase_train_nar(dev, card, runs_dir):
             n_calls = {k: len(v) for k, v in calls.items()}
             check(n_calls == {"lstm_seq_fwd_train": 2, "lstm_seq_bwd": 2, "gru_seq_fwd": 10,
                               "_bwd": 10}, f"the first ForwardTacotron step called {n_calls}")
-            line = nar_train_kernel_checks(calls)
+            line = train_kernel_checks(calls, "the ForwardTacotron step")
             print(f"NAR training: the first ForwardTacotron step's K3 and K4 launches on their "
                   f"own inputs against their plain versions: {line}")
             out = counts
@@ -2901,7 +3040,151 @@ def phase_train_nar(dev, card, runs_dir):
     print(f"{card}: forward-tacotron step at the schedule's largest batch, 48 x 900 frames x 160 "
           f"chars: {ms:.1f} ms (the second), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, loss {float(stats['loss']):.4f}")
+    return out, runs
+
+
+# ---------------------------------------------------------------------------
+# The bf16 training policy (rtvc_tpu_torch/ops/precision.py)
+# ---------------------------------------------------------------------------
+
+# the bf16 instantiations' cells: K3 and K4 bf16 at every training shape
+# the f32 cells hold (B, T, H, cuDNN's input width for K3; B, T, H for K4)
+K3_BF16_SHAPES = ((640, 160, 768, 768, "GE2E training"),
+                  (16, 900, 512, 1280, "forward-tacotron training"),
+                  (48, 900, 512, 1280, "forward-tacotron training"))
+K4_BF16_SHAPES = ((40, 1000, 256), (40, 1000, 512), (40, 1400, 256),
+                  *((B, T, 64) for B, T in CBHG_SHAPES if B > 1), *NAR_TRAIN_GRU_SHAPES)
+K3_REPLACES = ("rtvc_tpu/ops/pallas/lstm_train_kernel.py:115",
+               "rtvc_tpu/ops/pallas/lstm_train_kernel.py:158")
+K4_REPLACES = ("rtvc_tpu/ops/pallas/gru_train_kernel.py:71",
+               "rtvc_tpu/ops/pallas/gru_train_kernel.py:111")
+
+
+def bf16_entries(label, names, replaces, fwd, bwd):
+    """The "kernels" line's two entries (forward, backward) of a bf16
+    instantiation from its cells: the first cell's numbers, the others under
+    ``shapes``."""
+    out = []
+    for name, rep, cells in zip(names, replaces, (fwd, bwd)):
+        cells = [{k: v for k, v in c.items() if k not in ("name", "source", "replaces")}
+                 for c in cells]
+        out.append({"name": name, "source": f"rtvc_tpu_torch/csrc/{label}.cu", "replaces": rep,
+                    **cells[0], "shapes": cells[1:]})
     return out
+
+
+# the bf16 instantiations' launch counters (each wrapper's key for bf16 streams)
+BF16_KERNELS = ("lstm_seq_bf16", "lstm_seq_bwd_bf16", "gru_seq_bf16", "gru_seq_bwd_bf16")
+
+
+def phase_bf16_train(dev, card, runs_dir, f32_runs):
+    """The bf16 training policy on the card. First K3's and K4's bf16
+    instantiations alone at every training shape the f32 cells hold
+    (``k3_train_cell``, ``gru_shape`` with ``dtype`` bf16). Then three
+    full-width bf16 steps of each trainer through its entry function, on
+    the weights and batches of the f32 runs before it (``f32_runs``, by
+    type: their losses and ms per step): GE2E 640 x 160 x 40, Tacotron r 7
+    112 x 602 frames x 160 characters, ForwardTacotron and FastPitch 16 x
+    900 x 160, WaveRNN runtimeracer 40 x 1000. Each run: finite losses,
+    f32 master weights after it, its first loss within 5 % of the f32
+    run's (the gate ``tests/test_learning.py`` holds the JAX package's bf16
+    policy to), every product of its Linear and Conv1d layers in bf16
+    (``precision.product_dtypes``: the policy took effect, FastPitch's run
+    included, which launches none of the port's kernels), and exactly the
+    launches of its path: the bf16 K3 and K4 instantiations, K5 (f32, its
+    inputs widened around it) for Tacotron, no f32 K3 or K4 launch (a bf16
+    tensor never reaches the f32 kernel). Then each run resumes for a
+    fourth step whose every K3 and K4 launch is held to its plain bf16
+    version on its own inputs (``train_kernel_checks``). Returns the
+    "kernels" line's four bf16 entries and the launches of the five runs,
+    in all and by run."""
+    import collections
+
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.ops import precision
+    from rtvc_tpu_torch.train.trainer import train_encoder, train_synthesizer, train_vocoder
+
+    bf16 = torch.bfloat16
+    k3 = [k3_train_cell(dev, card, B, T, H, I, path, dtype=bf16)
+          for B, T, H, I, path in K3_BF16_SHAPES]
+    k4 = [[{"B": B, "T": T, "H": H, **e} for e in gru_shape(dev, B, T, H, dtype=bf16)]
+          for B, T, H in K4_BF16_SHAPES]
+    entries = (bf16_entries("lstm_seq", BF16_KERNELS[:2], K3_REPLACES, *zip(*k3))
+               + bf16_entries("gru_seq", BF16_KERNELS[2:], K4_REPLACES, *zip(*k4)))
+
+    steps = 3
+    kw = dict(save_every=0, device=dev, seed=0, compute_dtype="bf16")
+    rr, ft = factories.MODEL_TYPE_RUNTIMERACER, factories.MODEL_TYPE_FORWARD_TACOTRON
+
+    def encoder(n, partials):
+        return train_encoder("encoder_bf16", partials, runs_dir, total_steps=n,
+                             compute_dtype="bf16", **ge2e_kw(dev, steps))
+
+    def synthesizer(model_type, epochs):
+        return lambda n, _: train_synthesizer(f"{model_type}_bf16", model_type, runs_dir,
+                                              epochs, max_steps=n, **kw)
+
+    # label, run(steps, epochs), its epochs for the first three steps and for
+    # the resumed fourth, its launches in three steps
+    runs = {
+        "ge2e": ("GE2E 640 x 160 x 40", encoder, ge2e_partials(6, steps), ge2e_partials(7, 1),
+                 {"lstm_seq_bf16": 3 * steps, "lstm_seq_bwd_bf16": 3 * steps}),
+        "tacotron": ("Tacotron r 7, 112 x 602 frames x 160 chars",
+                     synthesizer(factories.MODEL_TYPE_TACOTRON, tacotron_epochs()), None, None,
+                     {"gru_seq_bf16": 4 * steps, "gru_seq_bwd_bf16": 4 * steps,
+                      "tacotron_train_fwd": steps, "tacotron_train_bwd": steps}),
+        ft: ("forward-tacotron 16 x 900 frames x 160 chars", synthesizer(ft, nar_epochs()),
+             None, None, {"lstm_seq_bf16": 2 * steps, "lstm_seq_bwd_bf16": 2 * steps,
+                          "gru_seq_bf16": 10 * steps, "gru_seq_bwd_bf16": 10 * steps}),
+        factories.MODEL_TYPE_FASTPITCH: (
+            "fast-pitch 16 x 900 frames x 160 chars",
+            synthesizer(factories.MODEL_TYPE_FASTPITCH, nar_epochs()), None, None, {}),
+        rr: ("runtimeracer-wavernn 40 x 1000",
+             lambda n, epochs: train_vocoder("vocoder_bf16", rr, runs_dir, epochs, max_steps=n,
+                                             **kw),
+             vocoder_epochs(rr, steps), vocoder_epochs(rr, steps + 1),
+             {"gru_seq_bf16": 4 * steps, "gru_seq_bwd_bf16": 4 * steps}),
+    }
+    total, by_run = collections.Counter(), {}
+    for key, (label, run, epochs, resume_epochs, want) in runs.items():
+        _build.launch_counts.clear()
+        with precision.product_dtypes() as products:
+            out = run(steps, epochs)
+        counts = dict(_build.launch_counts)
+        check(counts == want, f"bf16 {label}: launched {counts}, want {want}")
+        check(products[torch.bfloat16] > 0 and set(products) == {torch.bfloat16},
+              f"bf16 {label}: its Linear and Conv1d layers returned {dict(products)}")
+        total.update(counts)
+        by_run[label] = counts
+        losses, f32 = out["losses"], f32_runs[key]
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"bf16 {label}: losses {losses}")
+        dtypes = {p.dtype for p in out["model"].parameters()}
+        check(dtypes == {torch.float32}, f"bf16 {label}: master weights {dtypes}")
+        rel = abs(losses[0] / f32["losses"][0] - 1)
+        check(rel <= 0.05, f"bf16 {label}: first loss {losses[0]} against f32's "
+              f"{f32['losses'][0]}: {rel:.3e} apart, past 5e-2")
+        with recorded_calls(TRAIN_KERNELS) as calls:
+            resumed = run(steps + 1, resume_epochs)
+        check(resumed["step"] == steps + 1 and np.isfinite(resumed["losses"]).all(),
+              f"bf16 {label}: the resumed step {resumed['step']}, losses {resumed['losses']}")
+        n_calls = {name: len(v) for name, v in calls.items()}
+        per_step = {name: want.get(key, 0) // steps for name, key in zip(n_calls, BF16_KERNELS)}
+        check(n_calls == per_step, f"bf16 {label}: the resumed step called {n_calls}, want "
+              f"{per_step}")
+        line = train_kernel_checks(calls, f"the bf16 {label} step")
+        calls.clear()
+        print(f"{card}: bf16 {label}: losses {[round(v, 4) for v in losses]}, the first "
+              f"{rel:.2e} from f32's {f32['losses'][0]:.4f} (limit 5e-2); ms per step bf16 "
+              f"{[round(m, 1) for m in out['step_ms']]}, f32 "
+              f"{[round(m, 1) for m in f32['step_ms'][:steps]]} (the first of each run loads "
+              f"its model); Linear and Conv1d outputs {sum(products.values())}, all bf16; the "
+              f"resumed fourth step's K3 and K4 launches against their plain versions: {line}")
+    print(f"launches in the bf16 training runs: {dict(total)}")
+    return entries, dict(total), by_run
 
 
 def k3_train_candidates_ms(args, backward, dev):
@@ -2948,18 +3231,23 @@ def k3_train_candidates_ms(args, backward, dev):
     return rounds_ms(runs)
 
 
-def k3_train_cell(dev, card, B, T=900, H=512, I=1280):
-    """K3's forward with residuals and its backward at ForwardTacotron's
-    BiLSTM training shape (one direction from a zero state), seeded inputs:
-    each against its plain version (1e-4 of each output's largest entry),
-    the backward twice with equal bits; their times beside their bounds,
-    the plain versions' and cuDNN's ``nn.LSTM(1280, 512)`` (input product
-    included) forward and backward, and every instantiation that fits the
-    shape. Returns the forward's and the backward's cells."""
+def k3_train_cell(dev, card, B, T=900, H=512, I=1280, path="forward-tacotron training",
+                  dtype=None):
+    """K3's forward with residuals and its backward at a training shape (by
+    default ForwardTacotron's BiLSTM, one direction from a zero state),
+    seeded inputs: each against its plain version (``held``: 1e-4 of each
+    f32 output's largest entry), the backward twice with equal bits; their
+    times beside their bounds, the plain versions' and cuDNN's
+    ``nn.LSTM(I, H)`` (input product included) forward and backward. In
+    f32, every instantiation that fits the shape is timed too. With
+    ``dtype`` bf16 the bf16 instantiation: bf16 xg, W_hh and dys with f32
+    state, its bf16 streams within ``BF16_TOL``, the f32 kernel timed
+    beside it on the same values, cuDNN in bf16, the plan at 2-byte weights
+    and the bound at the bf16 peak. Returns the forward's and the
+    backward's cells."""
     import torch
 
     from rtvc_tpu_torch import _build
-    from rtvc_tpu_torch.ops import rel_err
     from rtvc_tpu_torch.ops.lstm_seq import (
         lstm_seq_bwd,
         lstm_seq_bwd_plain,
@@ -2968,63 +3256,67 @@ def k3_train_cell(dev, card, B, T=900, H=512, I=1280):
         plan,
     )
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    tag, elem = (" bf16", 2) if bf16 else ("", 4)
     g = torch.Generator().manual_seed(B)
-    xg = torch.randn(B, T, 4 * H, generator=g).to(dev)
-    w = ((torch.rand(4 * H, H, generator=g) * 2 - 1) * H ** -0.5).to(dev)
+    xg = torch.randn(B, T, 4 * H, generator=g).to(dev, dtype)
+    w = ((torch.rand(4 * H, H, generator=g) * 2 - 1) * H ** -0.5).to(dev, dtype)
     h0 = torch.zeros(B, H, device=dev)
-    dys = torch.randn(B, T, H, generator=g).to(dev)
+    dys = torch.randn(B, T, H, generator=g).to(dev, dtype)
     got, want = lstm_seq_fwd_train(xg, w, h0, h0), lstm_seq_fwd_train_plain(xg, w, h0, h0)
     torch.cuda.synchronize()
-    fwd_err = max(rel_err(a, b) for a, b in zip(got, want))
-    fwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    check(fwd_err <= 1e-4, f"K3 forward with residuals at B {B} x T {T}: rel err {fwd_err}")
+    check([t.dtype for t in got] == [dtype, torch.float32, torch.float32, dtype, dtype],
+          f"K3{tag} forward with residuals returned {[t.dtype for t in got]}")
+    fwd_abs, fwd_err = held(f"K3{tag} forward with residuals at B {B} x T {T}", got, want)
     _, _, _, cs, gates = want
     args = (dys, torch.zeros_like(h0), torch.zeros_like(h0), gates, cs, h0, w)
     kb, pb = lstm_seq_bwd(*args), lstm_seq_bwd_plain(*args)
     torch.cuda.synchronize()
-    bwd_err = max(rel_err(a, b) for a, b in zip(kb, pb))
-    bwd_abs = max(float((a - b).abs().max()) for a, b in zip(kb, pb))
-    check(bwd_err <= 1e-4, f"K3 backward at B {B} x T {T}: rel err {bwd_err}")
+    check(kb[0].dtype == torch.float32, f"K3{tag} backward gave dxg in {kb[0].dtype}")
+    bwd_abs, bwd_err = held(f"K3{tag} backward at B {B} x T {T}", kb, pb)
     check(all(torch.equal(a, b) for a, b in zip(kb, lstm_seq_bwd(*args))),
-          f"K3 backward at B {B} x T {T}: two runs differ in their bits")
+          f"K3{tag} backward at B {B} x T {T}: two runs differ in their bits")
     del got, kb
     fwd_ms = cuda_ms(lambda: lstm_seq_fwd_train(xg, w, h0, h0))
     fwd_plain = cuda_ms(lambda: lstm_seq_fwd_train_plain(xg, w, h0, h0), reps=1)
     bwd_ms = cuda_ms(lambda: lstm_seq_bwd(*args))
     bwd_plain = cuda_ms(lambda: lstm_seq_bwd_plain(*args), reps=1)
-    lib_fwd, lib_bwd = rnn_ms(torch.nn.LSTM(I, H, batch_first=True), B, T, H, dev)
-    fwd_c = k3_train_candidates_ms((xg, w, h0, h0), False, dev)
-    bwd_c = k3_train_candidates_ms(args, True, dev)
-    flops = 2 * B * T * 4 * H * H
-    fwd_b = bound(nbytes(xg, w, h0, h0, *want), flops)
-    bwd_b = bound(nbytes(*args, *pb), flops)
+    lib_fwd, lib_bwd = rnn_ms(torch.nn.LSTM(I, H, batch_first=True), B, T, H, dev, dtype=dtype)
+    flops, peak = 2 * B * T * 4 * H * H, BF16_FLOPS if bf16 else F32_FLOPS
+    fwd_b = bound(nbytes(xg, w, h0, h0, *want), flops, peak)
+    bwd_b = bound(nbytes(*args, *pb), flops, peak)
     limits = _build.device_limits(dev)
-    p_f, p_b = plan(B, H, *limits), plan(B, H, *limits, backward=True)
-    print(f"{card}: K3 at ForwardTacotron's BiLSTM training shape B={B} T={T} H={H}: forward "
-          f"with residuals ({k3_plan(B, H, dev)}) rel err {fwd_err:.3e}, kernel {fwd_ms:.3f} ms "
-          f"({fwd_ms / T * 1e3:.2f} us a step), plain {fwd_plain:.3f} ms, nn.LSTM({I}, {H}) "
-          f"{lib_fwd:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by {fwd_b['bound_by']}, every "
-          f"instantiation: " + ", ".join(f"{u} units a CTA {t:.3f} ms" + (
-              " (plan)" if u == p_f.units else "") for u, t in fwd_c.items())
-          + f"; backward ({k3_plan(B, H, dev, backward=True)}) rel err {bwd_err:.3e} (tol 1e-4), "
-          f"bits repeat, kernel {bwd_ms:.3f} ms ({bwd_ms / T * 1e3:.2f} us a step), plain "
-          f"{bwd_plain:.3f} ms, nn.LSTM backward {lib_bwd:.3f} ms, bound "
-          f"{bwd_b['bound_ms']:.4f} ms by {bwd_b['bound_by']}, every instantiation: "
-          + ", ".join(f"{u} units a CTA {t:.3f} ms" + (" (plan)" if u == p_b.units else "")
-                      for u, t in bwd_c.items()))
-    common = {"B": B, "T": T, "H": H, "path": "forward-tacotron training",
-              "library": f"nn.LSTM({I}, {H}), input projection included"}
+    p_f, p_b = plan(B, H, *limits, elem=elem), plan(B, H, *limits, backward=True, elem=elem)
+    if bf16:  # the f32 kernel on the same values
+        f32 = (xg.float(), w.float(), h0, h0)
+        res = lstm_seq_fwd_train(*f32)
+        f32_bwd = (dys.float(), *args[1:3], res[4], res[3], h0, f32[1])
+        extra = ({"f32_kernel_ms": cuda_ms(lambda: lstm_seq_fwd_train(*f32))},
+                 {"f32_kernel_ms": cuda_ms(lambda: lstm_seq_bwd(*f32_bwd))})
+        del res
+        sweep = [f", f32 kernel {e['f32_kernel_ms']:.3f} ms" for e in extra]
+    else:
+        fwd_c = k3_train_candidates_ms((xg, w, h0, h0), False, dev)
+        bwd_c = k3_train_candidates_ms(args, True, dev)
+        extra = ({"candidates_ms": fwd_c}, {"candidates_ms": bwd_c})
+        sweep = [", every instantiation: " + ", ".join(
+            f"{u} units a CTA {t:.3f} ms" + (" (plan)" if u == p.units else "")
+            for u, t in c.items()) for c, p in ((fwd_c, p_f), (bwd_c, p_b))]
+    print(f"{card}: K3{tag} at the {path} shape B={B} T={T} H={H}: forward with residuals "
+          f"({k3_plan(B, H, dev, elem=elem)}) rel err {fwd_err:.3e}, max |diff| {fwd_abs:.3e}, "
+          f"kernel {fwd_ms:.3f} ms ({fwd_ms / T * 1e3:.2f} us a step), plain {fwd_plain:.3f} ms, "
+          f"nn.LSTM({I}, {H}){tag} {lib_fwd:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by "
+          f"{fwd_b['bound_by']}{sweep[0]}; backward ({k3_plan(B, H, dev, True, elem)}) rel err "
+          f"{bwd_err:.3e} (tol 1e-4), bits repeat, kernel {bwd_ms:.3f} ms "
+          f"({bwd_ms / T * 1e3:.2f} us a step), plain {bwd_plain:.3f} ms, nn.LSTM backward "
+          f"{lib_bwd:.3f} ms, bound {bwd_b['bound_ms']:.4f} ms by {bwd_b['bound_by']}{sweep[1]}")
+    common = {"B": B, "T": T, "H": H, "path": path,
+              "library": f"nn.LSTM({I}, {H}){tag}, input projection included"}
     return ({**common, "max_abs_err": fwd_abs, "ms": fwd_ms, "plain_ms": fwd_plain, **fwd_b,
-             "library_ms": lib_fwd, "plan": list(p_f[:5]), "candidates_ms": fwd_c,
-             "with_residuals": True},
+             "library_ms": lib_fwd, "plan": list(p_f[:5]), **extra[0], "with_residuals": True},
             {**common, "max_abs_err": bwd_abs, "ms": bwd_ms, "plain_ms": bwd_plain, **bwd_b,
-             "library_ms": lib_bwd, "plan": list(p_b[:5]), "candidates_ms": bwd_c})
-
-
-# (B, T, H) of K4 in a ForwardTacotron training step: the predictors' BiGRUs
-# (H 64 duration and energy, H 128 pitch) and the prenet CBHG's (H 256) over
-# 160 characters, the postnet CBHG's (H 256) over 900 frames
-NAR_TRAIN_GRU_SHAPES = ((16, 160, 64), (16, 160, 128), (16, 160, 256), (16, 900, 256))
+             "library_ms": lib_bwd, "plan": list(p_b[:5]), **extra[1]})
 
 
 def phase_nar_train_kernels(dev, card):
@@ -3503,16 +3795,21 @@ def main() -> int:
     runs_dir = _build.BUILD_DIR / "smoke_runs"
     shutil.rmtree(runs_dir, ignore_errors=True)
     try:
-        enc_counts, _ = phase_train_encoder(dev, runs_dir)
+        enc_counts, enc_run = phase_train_encoder(dev, runs_dir)
         lap("train encoder")
-        voc_counts, _ = phase_train_vocoder(dev, runs_dir)
+        voc_counts, voc_run = phase_train_vocoder(dev, runs_dir)
         phase_train_vocoder(dev, runs_dir, factories.MODEL_TYPE_FATCHORD, steps=3)
         phase_train_vocoder(dev, runs_dir, factories.MODEL_TYPE_GENEING, steps=3)
         lap("train vocoders")
-        syn_counts, _ = phase_train_synthesizer(dev, runs_dir)
+        syn_counts, syn_run = phase_train_synthesizer(dev, runs_dir)
         lap("train tacotron")
-        nar_train_counts = phase_train_nar(dev, card, runs_dir)
+        nar_train_counts, nar_runs = phase_train_nar(dev, card, runs_dir)
         lap("train nar")
+        bf16_kernels, bf16_counts, bf16_by_run = phase_bf16_train(
+            dev, card, runs_dir, {"ge2e": enc_run, factories.MODEL_TYPE_RUNTIMERACER: voc_run,
+                                  factories.MODEL_TYPE_TACOTRON: syn_run, **nar_runs})
+        kernels += bf16_kernels
+        lap("train bf16")
     finally:
         shutil.rmtree(runs_dir, ignore_errors=True)
     gta_work = _build.BUILD_DIR / "smoke_gta"
@@ -3532,7 +3829,9 @@ def main() -> int:
                    "lstm_seq_bwd": enc_counts["lstm_seq_bwd"],
                    "gru_seq": voc_counts["gru_seq"], "gru_seq_bwd": voc_counts["gru_seq_bwd"],
                    "tacotron_train_fwd": syn_counts["tacotron_train_fwd"],
-                   "tacotron_train_bwd": syn_counts["tacotron_train_bwd"]}
+                   "tacotron_train_bwd": syn_counts["tacotron_train_bwd"],
+                   # the bf16 instantiations' path: the five bf16 training runs
+                   **{name: bf16_counts[name] for name in BF16_KERNELS}}
     # K4 runs on three paths: the vocoder trainer's count is its "launches"
     by_path = {name: {"clone (5 requests)": counts.get(name, 0),
                       "runtimeracer training (5 steps)": voc_counts[name],
@@ -3551,6 +3850,10 @@ def main() -> int:
     by_path["lstm_seq_bwd"] = {"encoder training (3 steps)": enc_counts["lstm_seq_bwd"]}
     for name in ("lstm_seq", "lstm_seq_bwd", "gru_seq", "gru_seq_bwd"):
         by_path[name]["forward-tacotron training (3 steps)"] = nar_train_counts[name]
+    # the bf16 instantiations' launches by bf16 training run
+    for name in BF16_KERNELS:
+        by_path[name] = {f"bf16 {label} training (3 steps)": c.get(name, 0)
+                         for label, c in bf16_by_run.items()}
     by_path["tacotron_train_fwd"] = {
         "tacotron training (3 steps)": syn_counts["tacotron_train_fwd"],
         "alignment pass (5 utterances)": align_counts["tacotron_train_fwd"]}

@@ -33,11 +33,15 @@ PyTorch twin for CPU tensors; nothing selects a backend otherwise. Models
 are built on the card unless the caller names another device.
 
 The JAX reference computes in float32, so TF32 is switched off for matrix
-products and cuDNN convolutions when this package is imported.
+products and cuDNN convolutions when this package is imported. Under the
+bf16 training policy (``ops.precision``) the bf16 GEMMs accumulate in f32,
+as the policy states: cuBLAS's reduced-precision reduction is switched off
+too.
 """
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"

@@ -46,6 +46,10 @@ SIGNATURES = {
     # dys, dhT, dcT, gates, cs, c0, w_hh, dxg, dh0, dc0, B, T, H, plan, sync,
     # stream
     "rtvc_lstm_seq_bwd": [_P] * 10 + [_I] * 3 + [_IP, _P, _P],
+    # the bf16 instantiations: as above, the forward with its f32 exchange
+    # buffer hx after the outputs
+    "rtvc_lstm_seq_fwd_bf16": [_P] * 10 + [_I] * 3 + [_IP, _P, _P],
+    "rtvc_lstm_seq_bwd_bf16": [_P] * 10 + [_I] * 3 + [_IP, _P, _P],
     # sync (one zeroed word), CTAs, barriers, stream
     "rtvc_grid_barrier_steps": [_P, _I, _I, _P],
     # out: SMs of the current device, shared-memory bytes a block may opt in to
@@ -55,6 +59,10 @@ SIGNATURES = {
     "rtvc_gru_seq_fwd": [_P] * 5 + [_I] * 3 + [_IP, _P, _P],
     # dys, gates, ys, w_hh, dxg, dhg, carry, B, T, H, plan, sync, stream
     "rtvc_gru_seq_bwd": [_P] * 7 + [_I] * 3 + [_IP, _P, _P],
+    # the bf16 instantiations: as above, the forward with its f32 exchange
+    # buffer hx after the outputs
+    "rtvc_gru_seq_fwd_bf16": [_P] * 6 + [_I] * 3 + [_IP, _P, _P],
+    "rtvc_gru_seq_bwd_bf16": [_P] * 7 + [_I] * 3 + [_IP, _P, _P],
     # weights, dims, their count, plan (ops/tacotron_decode.py:Plan.ints), its
     # length, seed, enc_seq, enc_proj, char_mask, mel, attn, stops, work,
     # carry in and out (8 pointers each, or null), done in, flags out, pad,
@@ -162,15 +170,31 @@ def check(err: int, name: str) -> None:
 
 def check_tensors(fn: str, device, **specs) -> None:
     """Raise ValueError unless every ``name=(tensor, shape)`` is a
-    contiguous f32 tensor of that shape on ``device``."""
+    contiguous f32 tensor of that shape on ``device``; ``name=(tensor,
+    shape, dtype)`` asks for that dtype instead (the streams of the bf16
+    instantiations), which must be f32 or bf16."""
     import torch
 
-    for name, (t, shape) in specs.items():
-        if t.device != device or t.dtype != torch.float32:
-            raise ValueError(f"{fn}: {name} must be f32 on {device}")
+    for name, (t, shape, *dtype) in specs.items():
+        want = dtype[0] if dtype else torch.float32
+        elem_bytes(want)
+        if t.device != device or t.dtype != want:
+            label = "f32" if want == torch.float32 else "bf16"
+            raise ValueError(f"{fn}: {name} must be {label} on {device}, got {t.dtype} on "
+                             f"{t.device}")
         if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous {tuple(shape)}, "
                              f"got {tuple(t.shape)}")
+
+
+def elem_bytes(dtype) -> int:
+    """Bytes an element of a kernel stream's dtype takes: f32 or bf16."""
+    import torch
+
+    sizes = {torch.float32: 4, torch.bfloat16: 2}
+    if dtype not in sizes:
+        raise ValueError(f"the kernels take f32 or bf16 streams, not {dtype}")
+    return sizes[dtype]
 
 
 def stream_handle(device) -> int:

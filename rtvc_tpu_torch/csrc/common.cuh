@@ -12,9 +12,42 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace rtvc {
+
+// Element types of a recurrence's streams: f32, or bf16 under the bf16
+// training policy (ops/precision.py), where the arithmetic and the carried
+// state stay f32 and only what is stored is rounded.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename S>
+__device__ __forceinline__ S from_f(float v) {
+  if constexpr (std::is_same<S, float>::value) return v;
+  else return __float2bfloat16_rn(v);
+}
+
+// v as a stream of type S would hold it: the identity for f32, bf16's
+// rounding otherwise.
+template <typename S>
+__device__ __forceinline__ float round_as(float v) { return to_f(from_f<S>(v)); }
+
+// Four consecutive weights from shared memory as floats: one 16-byte load of
+// f32, one 8-byte load of bf16 (the address is a multiple of four elements).
+__device__ __forceinline__ float4 load_w4(const float* w) {
+  return *reinterpret_cast<const float4*>(w);
+}
+__device__ __forceinline__ float4 load_w4(const bf16* w) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(w);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -123,13 +156,13 @@ __device__ __forceinline__ float dot4(const float4 w, const float4 v, float acc)
 }
 
 // out[r * NB + b] = Σ_k W[r * ld + k] · x[b * xs + k] for r < R, b < NB (zero
-// for b >= nb), computed by one warp: W in shared memory, x in device memory,
-// read through L2 (other CTAs wrote it before the last grid barrier). `vec`
-// says that n and xs are multiples of 4 and x is 16-byte aligned. `out` is the
-// warp's own padded(R * NB) floats of shared memory; the caller runs
-// __syncwarp before reading it.
-template <int R, int NB>
-__device__ __forceinline__ void slice_product(const float* W, int ld, int n, const float* x,
+// for b >= nb), computed by one warp: W in shared memory (f32, or bf16 widened
+// at use), x in device memory (f32), read through L2 (other CTAs wrote it
+// before the last grid barrier). `vec` says that n and xs are multiples of 4
+// and x is 16-byte aligned. `out` is the warp's own padded(R * NB) floats of
+// shared memory; the caller runs __syncwarp before reading it.
+template <int R, int NB, typename Tw>
+__device__ __forceinline__ void slice_product(const Tw* W, int ld, int n, const float* x,
                                               size_t xs, int nb, bool vec, float* out) {
   constexpr int N = padded(R * NB);
   const int lane = threadIdx.x & 31;
@@ -153,7 +186,7 @@ __device__ __forceinline__ void slice_product(const float* W, int ld, int n, con
                      : zero;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float4 w = *reinterpret_cast<const float4*>(W + r * ld + k);
+        const float4 w = load_w4(W + r * ld + k);
 #pragma unroll
         for (int b = 0; b < NB; ++b) acc[r * NB + b] = dot4(w, cur[b], acc[r * NB + b]);
       }
@@ -167,7 +200,7 @@ __device__ __forceinline__ void slice_product(const float* W, int ld, int n, con
       for (int b = 0; b < NB; ++b) v[b] = b < nb ? __ldcg(x + b * xs + k) : 0.0f;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float w = W[r * ld + k];
+        const float w = to_f(W[r * ld + k]);
 #pragma unroll
         for (int b = 0; b < NB; ++b) acc[r * NB + b] = fmaf(w, v[b], acc[r * NB + b]);
       }
@@ -210,11 +243,12 @@ struct SeqPlan {
 inline SeqPlan seq_plan(const int* v) { return {v[0], v[1], v[2], v[3], v[4], v[5]}; }
 
 // The plan covers (B, H) and its smem is what a CTA takes: weight_rows rows of
-// weight_ld floats, a warp's padded(weight_rows * nb) sums, and `extra` floats.
+// weight_ld weights of weight_bytes each, a warp's padded(weight_rows * nb)
+// float sums, and `extra` floats.
 inline bool seq_plan_ok(const SeqPlan& p, int B, int H, int weight_rows, int weight_ld,
-                        int extra = 0) {
-  const int smem = (int)sizeof(float) * (weight_rows * weight_ld +
-                                         kRecWarps * padded(weight_rows * p.nb) + extra);
+                        int extra = 0, int weight_bytes = 4) {
+  const int smem = weight_bytes * weight_rows * weight_ld +
+                   (int)sizeof(float) * (kRecWarps * padded(weight_rows * p.nb) + extra);
   return p.groups >= 1 && p.slices * p.units >= H && (p.slices - 1) * p.units < H &&
          (long long)p.groups * p.rows >= B && p.smem == smem;
 }

@@ -43,6 +43,15 @@
 // check it and pick the instantiation. No sum goes through an atomic, so two
 // runs give equal bits. dW_hh and db_hh are batched reductions over (B·T) and
 // stay outside the kernel, as in the JAX package (gru_train_kernel.py:329-343).
+//
+// The bf16 instantiation (the bf16 training policy, ops/precision.py) keeps
+// the JAX kernel's contract under that policy: xg, W_hh, b_hh, ys and the
+// gates are bf16, the arithmetic and the carried h f32 (gru_train_kernel.py:
+// 224, :256); the backward reads the bf16 residuals, h_{t-1} from the bf16
+// ys as the JAX package does, and writes f32 dxg and dhg (:123-127, :340).
+// W_hh is resident at two bytes a weight, widened at use, and the forward's
+// carried h goes between CTAs through an f32 buffer of two (B, H) slots, as
+// in lstm_seq.cu, so that the state is never rounded.
 #include "common.cuh"
 
 namespace {
@@ -53,31 +62,47 @@ using rtvc::padded;
 using rtvc::Part;
 using rtvc::partition;
 using rtvc::slice_product;
+using rtvc::bf16;
+using rtvc::from_f;
+using rtvc::to_f;
 
-template <int U, int NB>
+// S is the streams' element type (f32, or bf16 under the bf16 policy, where
+// W_hh and b_hh are bf16 too). With bf16 streams h_{t-1} goes between CTAs
+// through `hx`, two f32 (B, H) slots (step t writes slot t & 1, reads slot
+// (t - 1) & 1), so the recurrence never rounds its state; ys and the gates
+// are written in bf16 beside it. With f32 streams h is read from ys itself
+// and hx is null.
+template <int U, int NB, typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_seq_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
-               const float* __restrict__ b_hh, float* ys, float* __restrict__ gates, int B,
+gru_seq_kernel(const S* __restrict__ xg, const S* __restrict__ w_hh,
+               const S* __restrict__ b_hh, S* ys, S* __restrict__ gates, float* hx, int B,
                int T, int H, int slices, int rows, unsigned int* sync) {
   constexpr int R = 3 * U;                       // gate rows of W_hh a CTA holds
   constexpr int PP = (U * NB + 31) / 32;         // (row, unit) pairs a lane updates
+  constexpr bool kF32 = std::is_same<S, float>::value;
   extern __shared__ float4 smem4[];
-  float* W = reinterpret_cast<float*>(smem4);    // R x ld, row gate * U + j
+  S* W = reinterpret_cast<S*>(smem4);            // R x ld, row gate * U + j
   const int ld = (H + 3) & ~3;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* out = W + R * ld + warp * padded(R * NB);
-  float* bias = W + R * ld + kWarps * padded(R * NB);  // R: the rows' b_hh
+  float* scratch = reinterpret_cast<float*>(W + R * ld);
+  float* out = scratch + warp * padded(R * NB);
+  float* bias = scratch + kWarps * padded(R * NB);  // R: the rows' b_hh, widened
   const Part p = partition(U, B, H, slices, rows, sync);
   const int G = 3 * H;
   for (int i = threadIdx.x; i < R * ld; i += kThreads) {
     const int r = i / ld, k = i % ld, gate = r / U, j = r % U;
-    W[i] = (j < p.nu && k < H) ? w_hh[(size_t)(gate * H + p.u0 + j) * H + k] : 0.0f;
+    W[i] = (j < p.nu && k < H) ? w_hh[(size_t)(gate * H + p.u0 + j) * H + k] : from_f<S>(0.0f);
   }
   for (int r = threadIdx.x; r < R; r += kThreads)
-    bias[r] = r % U < p.nu ? b_hh[(r / U) * H + p.u0 + r % U] : 0.0f;
+    bias[r] = r % U < p.nu ? to_f(b_hh[(r / U) * H + p.u0 + r % U]) : 0.0f;
   __syncthreads();
   const bool vec = (H & 3) == 0;
-  const size_t hs = (size_t)T * H;
+  // where h_{t-1} of batch row b0 lies, and the stride between rows
+  auto h_of = [&](int t, int b0) -> const float* {
+    if constexpr (kF32) return ys + (size_t)b0 * T * H + (size_t)t * H;
+    else return hx + (size_t)(t & 1) * B * H + (size_t)b0 * H;
+  };
+  const size_t hs = kF32 ? (size_t)T * H : (size_t)H;
   for (int t = 0; t < T; ++t) {
     for (int b0 = p.b_lo + warp * NB; b0 < p.b_hi; b0 += kWarps * NB) {
       const int nb = min(NB, p.b_hi - b0);
@@ -91,14 +116,13 @@ gru_seq_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
           const size_t row = (size_t)(b0 + b), col = p.u0 + j;
 #pragma unroll
           for (int gate = 0; gate < 3; ++gate)
-            x_in[q][gate] = xg[(row * T + t) * G + gate * H + col];
-          h_prev[q] = t == 0 ? 0.0f : ys[(row * T + t - 1) * H + col];
+            x_in[q][gate] = to_f(xg[(row * T + t) * G + gate * H + col]);
+          h_prev[q] = t == 0 ? 0.0f : h_of(t - 1, b0)[b * hs + col];
         }
       }
       // hg = h_{t-1} · W_hhᵀ for the CTA's rows; zero at t = 0
       if (t > 0) {
-        slice_product<R, NB>(W, ld, H, ys + (size_t)b0 * hs + (size_t)(t - 1) * H, hs, nb, vec,
-                             out);
+        slice_product<R, NB>(W, ld, H, h_of(t - 1, b0), hs, nb, vec, out);
         __syncwarp();
       }
 #pragma unroll
@@ -114,12 +138,13 @@ gru_seq_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
           const float z = rtvc::sigmoidf_(x_in[q][1] + hg[1]);
           const float n = tanhf(x_in[q][2] + r * hg[2]);
           const float h = (1.0f - z) * n + z * h_prev[q];
-          ys[bt * H + col] = h;
-          float* gt = gates + bt * 4 * H + col;
-          gt[0] = r;
-          gt[H] = z;
-          gt[2 * H] = n;
-          gt[3 * H] = hg[2];
+          ys[bt * H + col] = from_f<S>(h);
+          if (!kF32) hx[(size_t)(t & 1) * B * H + row * H + col] = h;
+          S* gt = gates + bt * 4 * H + col;
+          gt[0] = from_f<S>(r);
+          gt[H] = from_f<S>(z);
+          gt[2 * H] = from_f<S>(n);
+          gt[3 * H] = from_f<S>(hg[2]);
         }
       }
       __syncwarp();
@@ -131,23 +156,25 @@ gru_seq_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
 // Reverse walk carrying dh, the math of gru_train_kernel.py:122-142. h_{t-1}
 // is ys one step back, zero at t = 0. dhg_t = [dr, dz, dn·r] is written
 // whole every step: the next step (t - 1) multiplies all of it by the CTA's
-// columns of W_hh.
-template <int U, int NB>
+// columns of W_hh. With bf16 streams the residuals (gates, and ys as h_{t-1},
+// as the JAX package reads them) and W_hh are bf16, widened at use; dxg and
+// dhg are f32 in both instantiations, as the JAX kernel's dxg is.
+template <int U, int NB, typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_seq_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ gates,
-                   const float* __restrict__ ys, const float* __restrict__ w_hh,
+gru_seq_bwd_kernel(const S* __restrict__ dys, const S* __restrict__ gates,
+                   const S* __restrict__ ys, const S* __restrict__ w_hh,
                    float* __restrict__ dxg, float* dhg, float* carry, int B, int T, int H,
                    int slices, int rows, unsigned int* sync) {
   constexpr int PP = (U * NB + 31) / 32;
   extern __shared__ float4 smem4[];
-  float* W = reinterpret_cast<float*>(smem4);    // U x 3H: the CTA's columns of W_hh
+  S* W = reinterpret_cast<S*>(smem4);            // U x 3H: the CTA's columns of W_hh
   const int G = 3 * H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* out = W + U * G + warp * padded(U * NB);
+  float* out = reinterpret_cast<float*>(W + U * G) + warp * padded(U * NB);
   const Part p = partition(U, B, H, slices, rows, sync);
   for (int i = threadIdx.x; i < U * G; i += kThreads) {
     const int r = i / U, j = i % U;  // neighbouring threads read neighbouring columns
-    W[j * G + r] = j < p.nu ? w_hh[(size_t)r * H + p.u0 + j] : 0.0f;
+    W[j * G + r] = j < p.nu ? w_hh[(size_t)r * H + p.u0 + j] : from_f<S>(0.0f);
   }
   __syncthreads();
   const bool vec = (G & 3) == 0;
@@ -162,9 +189,10 @@ gru_seq_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ gate
         if (j < p.nu && b < nb) {
           const size_t row = (size_t)(b0 + b), col = p.u0 + j, bt = row * T + t;
 #pragma unroll
-          for (int gate = 0; gate < 4; ++gate) gt[q][gate] = gates[bt * 4 * H + gate * H + col];
-          h_prev[q] = t > 0 ? ys[(bt - 1) * H + col] : 0.0f;
-          dy[q] = dys[bt * H + col];
+          for (int gate = 0; gate < 4; ++gate)
+            gt[q][gate] = to_f(gates[bt * 4 * H + gate * H + col]);
+          h_prev[q] = t > 0 ? to_f(ys[(bt - 1) * H + col]) : 0.0f;
+          dy[q] = to_f(dys[bt * H + col]);
           c[q] = t < T - 1 ? carry[row * H + col] : 0.0f;
         }
       }
@@ -211,22 +239,19 @@ int launch(Kernel kernel, const Plan& plan, void** args, cudaStream_t stream) {
 
 #define RTVC_GRU_CASE(KERNEL, UNITS, NB)                                      \
   if (plan.units == UNITS && plan.nb == NB)                                   \
-    return launch(KERNEL<UNITS, NB>, plan, args, static_cast<cudaStream_t>(stream));
+    return launch(KERNEL<UNITS, NB, S>, plan, args, static_cast<cudaStream_t>(stream));
 
-// xg (B, T, 3H) with b_ih folded in, w_hh (3H, H) in torch layout, b_hh (3H)
-// → from a zero state: ys (B, T, H) and gates (B, T, 4H) = [r, z, n, hn]. All
-// f32, contiguous, on the current device. plan_v = {groups, slices, units,
-// nb, rows, smem} from ops/gru_seq.py:plan; sync is 32 zeroed words per
-// group. Returns the launch's cudaError_t (cudaErrorInvalidValue for a plan
-// that does not cover the shape or has no instantiation).
-extern "C" int rtvc_gru_seq_fwd(const float* xg, const float* w_hh, const float* b_hh,
-                                float* ys, float* gates, int B, int T, int H,
-                                const int* plan_v, unsigned int* sync, void* stream) {
+namespace {
+
+template <typename S>
+int gru_fwd(const S* xg, const S* w_hh, const S* b_hh, S* ys, S* gates, float* hx, int B,
+            int T, int H, const int* plan_v, unsigned int* sync, void* stream) {
   const Plan plan = rtvc::seq_plan(plan_v);
-  if (!rtvc::seq_plan_ok(plan, B, H, 3 * plan.units, (H + 3) & ~3, 3 * plan.units))
+  if (!rtvc::seq_plan_ok(plan, B, H, 3 * plan.units, (H + 3) & ~3, 3 * plan.units,
+                         (int)sizeof(S)))
     return (int)cudaErrorInvalidValue;
   int slices = plan.slices, rows = plan.rows;
-  void* args[] = {&xg, &w_hh, &b_hh, &ys, &gates, &B, &T, &H, &slices, &rows, &sync};
+  void* args[] = {&xg, &w_hh, &b_hh, &ys, &gates, &hx, &B, &T, &H, &slices, &rows, &sync};
   RTVC_GRU_CASE(gru_seq_kernel, 1, 1)
   RTVC_GRU_CASE(gru_seq_kernel, 1, 3)
   RTVC_GRU_CASE(gru_seq_kernel, 1, 5)
@@ -241,17 +266,13 @@ extern "C" int rtvc_gru_seq_fwd(const float* xg, const float* w_hh, const float*
   return (int)cudaErrorInvalidValue;
 }
 
-// dys (B, T, H), the forward's gates (B, T, 4H) and ys (B, T, H), w_hh (3H, H)
-// in torch layout → dxg (B, T, 3H), the cotangent of the input gates
-// [r, z, n], and dhg (B, T, 3H) = [dr, dz, dn·r], that of the hidden-side
-// pre-activations; carry is (B, H) scratch. All f32, contiguous. plan_v and
-// sync as for the forward. Returns the launch's cudaError_t.
-extern "C" int rtvc_gru_seq_bwd(const float* dys, const float* gates, const float* ys,
-                                const float* w_hh, float* dxg, float* dhg, float* carry,
-                                int B, int T, int H, const int* plan_v, unsigned int* sync,
-                                void* stream) {
+template <typename S>
+int gru_bwd(const S* dys, const S* gates, const S* ys, const S* w_hh, float* dxg, float* dhg,
+            float* carry, int B, int T, int H, const int* plan_v, unsigned int* sync,
+            void* stream) {
   const Plan plan = rtvc::seq_plan(plan_v);
-  if (!rtvc::seq_plan_ok(plan, B, H, plan.units, 3 * H)) return (int)cudaErrorInvalidValue;
+  if (!rtvc::seq_plan_ok(plan, B, H, plan.units, 3 * H, 0, (int)sizeof(S)))
+    return (int)cudaErrorInvalidValue;
   int slices = plan.slices, rows = plan.rows;
   void* args[] = {&dys, &gates, &ys, &w_hh, &dxg, &dhg, &carry,
                   &B,   &T,     &H,  &slices, &rows, &sync};
@@ -265,4 +286,48 @@ extern "C" int rtvc_gru_seq_bwd(const float* dys, const float* gates, const floa
   RTVC_GRU_CASE(gru_seq_bwd_kernel, 8, 3)
   RTVC_GRU_CASE(gru_seq_bwd_kernel, 8, 5)
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// xg (B, T, 3H) with b_ih folded in, w_hh (3H, H) in torch layout, b_hh (3H)
+// → from a zero state: ys (B, T, H) and gates (B, T, 4H) = [r, z, n, hn]. All
+// f32, contiguous, on the current device. plan_v = {groups, slices, units,
+// nb, rows, smem} from ops/gru_seq.py:plan; sync is 32 zeroed words per
+// group. Returns the launch's cudaError_t (cudaErrorInvalidValue for a plan
+// that does not cover the shape or has no instantiation).
+extern "C" int rtvc_gru_seq_fwd(const float* xg, const float* w_hh, const float* b_hh,
+                                float* ys, float* gates, int B, int T, int H,
+                                const int* plan_v, unsigned int* sync, void* stream) {
+  return gru_fwd<float>(xg, w_hh, b_hh, ys, gates, nullptr, B, T, H, plan_v, sync, stream);
+}
+
+// The bf16 instantiation: every argument bf16 but hx, (2, B, H) f32 scratch
+// for the carried h. The plan's smem counts W_hh at two bytes a weight.
+extern "C" int rtvc_gru_seq_fwd_bf16(const bf16* xg, const bf16* w_hh, const bf16* b_hh,
+                                     bf16* ys, bf16* gates, float* hx, int B, int T, int H,
+                                     const int* plan_v, unsigned int* sync, void* stream) {
+  return gru_fwd<bf16>(xg, w_hh, b_hh, ys, gates, hx, B, T, H, plan_v, sync, stream);
+}
+
+// dys (B, T, H), the forward's gates (B, T, 4H) and ys (B, T, H), w_hh (3H, H)
+// in torch layout → dxg (B, T, 3H), the cotangent of the input gates
+// [r, z, n], and dhg (B, T, 3H) = [dr, dz, dn·r], that of the hidden-side
+// pre-activations; carry is (B, H) scratch. All f32, contiguous. plan_v and
+// sync as for the forward. Returns the launch's cudaError_t.
+extern "C" int rtvc_gru_seq_bwd(const float* dys, const float* gates, const float* ys,
+                                const float* w_hh, float* dxg, float* dhg, float* carry,
+                                int B, int T, int H, const int* plan_v, unsigned int* sync,
+                                void* stream) {
+  return gru_bwd<float>(dys, gates, ys, w_hh, dxg, dhg, carry, B, T, H, plan_v, sync, stream);
+}
+
+// The bf16 instantiation: dys, gates, ys and w_hh bf16; dxg, dhg and carry f32
+// (the JAX kernel's dxg is f32: the weight gradients are taken from it before
+// it is rounded).
+extern "C" int rtvc_gru_seq_bwd_bf16(const bf16* dys, const bf16* gates, const bf16* ys,
+                                     const bf16* w_hh, float* dxg, float* dhg, float* carry,
+                                     int B, int T, int H, const int* plan_v,
+                                     unsigned int* sync, void* stream) {
+  return gru_bwd<bf16>(dys, gates, ys, w_hh, dxg, dhg, carry, B, T, H, plan_v, sync, stream);
 }

@@ -46,6 +46,21 @@
 // and stays outside the kernel, as in the JAX package. The backward walks
 // exactly t = T-1 … 0; there are no pad steps (the TPU kernel pads T to its
 // time tile and neutralises the pad steps).
+//
+// The bf16 instantiation (the bf16 training policy, ops/precision.py) keeps
+// the JAX kernel's contract under that policy: xg, W_hh, ys and the
+// residuals cs and gates are bf16, the arithmetic and the carried h and c are
+// f32 (lstm_train_kernel.py:222-223), and the backward reads the bf16
+// residuals and writes an f32 dxg, from which the weight gradient is taken
+// before it is rounded (:185, :381). W_hh stays resident at two bytes a
+// weight, widened at use (common.cuh:load_w4), which halves the shared
+// memory a slice takes. A bf16 ys would round the recurrence's state every
+// step if the next step read it, as the f32 kernel reads ys: the carried h
+// goes between CTAs through an f32 buffer of two (B, H) slots instead. Its
+// bound is its bf16 bytes and its products at the tensor cores' bf16 rate;
+// the product here still runs as f32 FMAs on the CUDA cores, with a
+// conversion a weight (PERF.md section 6 has its time beside the f32
+// kernel's).
 #include "common.cuh"
 
 namespace {
@@ -56,31 +71,53 @@ using rtvc::padded;
 using rtvc::Part;
 using rtvc::partition;
 using rtvc::slice_product;
+using rtvc::bf16;
+using rtvc::from_f;
+using rtvc::round_as;
+using rtvc::to_f;
 
-template <int U, int NB>
+// S is the streams' element type (f32, or bf16 under the bf16 policy, where
+// W_hh is held in bf16 too). With bf16 streams the carried h goes between
+// CTAs through `hx`, an f32 buffer of two (B, H) slots (step t writes slot
+// t & 1 and reads slot (t - 1) & 1; the barrier between steps keeps the
+// slots apart), so the recurrence never rounds its state; ys is written in
+// bf16 beside it. With f32 streams h is read from ys itself and hx is null.
+template <int U, int NB, typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_seq_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
-                const float* __restrict__ h0, const float* __restrict__ c0, float* ys,
-                float* hT, float* cT, float* __restrict__ cs, float* __restrict__ gates,
+lstm_seq_kernel(const S* __restrict__ xg, const S* __restrict__ w_hh,
+                const float* __restrict__ h0, const float* __restrict__ c0, S* ys,
+                float* hT, float* cT, S* __restrict__ cs, S* __restrict__ gates, float* hx,
                 int B, int T, int H, int slices, int rows, unsigned int* sync) {
   constexpr int R = 4 * U;                       // gate rows of W_hh a CTA holds
   constexpr int PP = (U * NB + 31) / 32;         // (row, unit) pairs a lane updates
+  constexpr bool kF32 = std::is_same<S, float>::value;
   extern __shared__ float4 smem4[];
-  float* W = reinterpret_cast<float*>(smem4);    // R x ld, row gate * U + j
+  S* W = reinterpret_cast<S*>(smem4);            // R x ld, row gate * U + j
   const int ld = (H + 3) & ~3;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* out = W + R * ld + warp * padded(R * NB);
+  float* out = reinterpret_cast<float*>(W + R * ld) + warp * padded(R * NB);
   const Part p = partition(U, B, H, slices, rows, sync);
   const int G = 4 * H;
   for (int i = threadIdx.x; i < R * ld; i += kThreads) {
     const int r = i / ld, k = i % ld, gate = r / U, j = r % U;
-    W[i] = (j < p.nu && k < H) ? w_hh[(size_t)(gate * H + p.u0 + j) * H + k] : 0.0f;
+    W[i] = (j < p.nu && k < H) ? w_hh[(size_t)(gate * H + p.u0 + j) * H + k] : from_f<S>(0.0f);
   }
   __syncthreads();
   const bool vec = (H & 3) == 0;
   for (int t = 0; t < T; ++t) {
-    const float* hprev = t == 0 ? h0 : ys + (size_t)(t - 1) * H;
-    const size_t hs = t == 0 ? (size_t)H : (size_t)T * H;
+    const float* hprev;
+    size_t hs;
+    if (t == 0) {
+      hprev = h0;
+      hs = H;
+    } else if constexpr (kF32) {
+      hprev = ys + (size_t)(t - 1) * H;
+      hs = (size_t)T * H;
+    } else {
+      hprev = hx + (size_t)((t - 1) & 1) * B * H;
+      hs = H;
+    }
+    float* hnext = kF32 ? nullptr : hx + (size_t)(t & 1) * B * H;
     for (int b0 = p.b_lo + warp * NB; b0 < p.b_hi; b0 += kWarps * NB) {
       const int nb = min(NB, p.b_hi - b0);
       // this lane's pairs: their input gates and previous cell, fetched
@@ -93,7 +130,7 @@ lstm_seq_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
           const size_t row = (size_t)(b0 + b), col = p.u0 + j;
 #pragma unroll
           for (int gate = 0; gate < 4; ++gate)
-            x_in[q][gate] = xg[(row * T + t) * G + gate * H + col];
+            x_in[q][gate] = to_f(xg[(row * T + t) * G + gate * H + col]);
           c_prev[q] = t == 0 ? c0[row * H + col] : cT[row * H + col];
         }
       }
@@ -110,16 +147,17 @@ lstm_seq_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
           const float o_g = rtvc::sigmoidf_(out[(3 * U + j) * NB + b] + x_in[q][3]);
           const float c = f_g * c_prev[q] + i_g * g_g;
           const float h = o_g * tanhf(c);
-          ys[bt * H + col] = h;
+          ys[bt * H + col] = from_f<S>(h);
+          if (!kF32) hnext[row * H + col] = h;
           cT[row * H + col] = c;
           if (t == T - 1) hT[row * H + col] = h;
           if (cs) {  // training residuals: the cell and the activated gates
-            cs[bt * H + col] = c;
-            float* gt = gates + bt * G + col;
-            gt[0] = i_g;
-            gt[H] = f_g;
-            gt[2 * H] = g_g;
-            gt[3 * H] = o_g;
+            cs[bt * H + col] = from_f<S>(c);
+            S* gt = gates + bt * G + col;
+            gt[0] = from_f<S>(i_g);
+            gt[H] = from_f<S>(f_g);
+            gt[2 * H] = from_f<S>(g_g);
+            gt[3 * H] = from_f<S>(o_g);
           }
         }
       }
@@ -130,24 +168,28 @@ lstm_seq_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
 }
 
 // Reverse walk carrying (dh, dc), the math of lstm_train_kernel.py:172-191.
-// c_{t-1} is read from cs one step back, and from c0 at t = 0.
-template <int U, int NB>
+// c_{t-1} is read from cs one step back, and from c0 at t = 0 (rounded as
+// cs is, as the JAX package stacks it with cs). With bf16 streams the
+// residuals and W_hh are bf16, widened at use; dxg is f32 in both
+// instantiations, as the JAX kernel writes it, and the dh chain reads the
+// whole of the step before from it.
+template <int U, int NB, typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_seq_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ dhT,
-                    const float* __restrict__ dcT, const float* __restrict__ gates,
-                    const float* __restrict__ cs, const float* __restrict__ c0,
-                    const float* __restrict__ w_hh, float* dxg, float* dh0, float* dc0,
+lstm_seq_bwd_kernel(const S* __restrict__ dys, const float* __restrict__ dhT,
+                    const float* __restrict__ dcT, const S* __restrict__ gates,
+                    const S* __restrict__ cs, const float* __restrict__ c0,
+                    const S* __restrict__ w_hh, float* dxg, float* dh0, float* dc0,
                     int B, int T, int H, int slices, int rows, unsigned int* sync) {
   constexpr int PP = (U * NB + 31) / 32;
   extern __shared__ float4 smem4[];
-  float* W = reinterpret_cast<float*>(smem4);    // U x 4H: the CTA's columns of W_hh
+  S* W = reinterpret_cast<S*>(smem4);            // U x 4H: the CTA's columns of W_hh
   const int G = 4 * H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* out = W + U * G + warp * padded(U * NB);
+  float* out = reinterpret_cast<float*>(W + U * G) + warp * padded(U * NB);
   const Part p = partition(U, B, H, slices, rows, sync);
   for (int i = threadIdx.x; i < U * G; i += kThreads) {
     const int r = i / U, j = i % U;  // neighbouring threads read neighbouring columns
-    W[j * G + r] = j < p.nu ? w_hh[(size_t)r * H + p.u0 + j] : 0.0f;
+    W[j * G + r] = j < p.nu ? w_hh[(size_t)r * H + p.u0 + j] : from_f<S>(0.0f);
   }
   __syncthreads();
   const size_t xs = (size_t)T * G;
@@ -161,10 +203,11 @@ lstm_seq_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ dhT
         if (j < p.nu && b < nb) {
           const size_t row = (size_t)(b0 + b), col = p.u0 + j, bt = row * T + t;
 #pragma unroll
-          for (int gate = 0; gate < 4; ++gate) gt[q][gate] = gates[bt * G + gate * H + col];
-          c[q] = cs[bt * H + col];
-          c_prev[q] = t > 0 ? cs[(bt - 1) * H + col] : c0[row * H + col];
-          dy[q] = dys[bt * H + col];
+          for (int gate = 0; gate < 4; ++gate)
+            gt[q][gate] = to_f(gates[bt * G + gate * H + col]);
+          c[q] = to_f(cs[bt * H + col]);
+          c_prev[q] = t > 0 ? to_f(cs[(bt - 1) * H + col]) : round_as<S>(c0[row * H + col]);
+          dy[q] = to_f(dys[bt * H + col]);
           dc[q] = t == T - 1 ? dcT[row * H + col] : dc0[row * H + col];
         }
       }
@@ -248,7 +291,47 @@ extern "C" int rtvc_grid_barrier_steps(unsigned int* sync, int ctas, int steps, 
 
 #define RTVC_LSTM_CASE(KERNEL, UNITS, NB)                                     \
   if (plan.units == UNITS && plan.nb == NB)                                   \
-    return launch(KERNEL<UNITS, NB>, plan, args, static_cast<cudaStream_t>(stream));
+    return launch(KERNEL<UNITS, NB, S>, plan, args, static_cast<cudaStream_t>(stream));
+
+namespace {
+
+template <typename S>
+int lstm_fwd(const S* xg, const S* w_hh, const float* h0, const float* c0, S* ys, float* hT,
+             float* cT, S* cs, S* gates, float* hx, int B, int T, int H, const int* plan_v,
+             unsigned int* sync, void* stream) {
+  const Plan plan = rtvc::seq_plan(plan_v);
+  if (!rtvc::seq_plan_ok(plan, B, H, 4 * plan.units, (H + 3) & ~3, 0, (int)sizeof(S)))
+    return (int)cudaErrorInvalidValue;
+  int slices = plan.slices, rows = plan.rows;
+  void* args[] = {&xg, &w_hh, &h0, &c0, &ys, &hT, &cT, &cs, &gates, &hx,
+                  &B,  &T,    &H,  &slices, &rows, &sync};
+  RTVC_LSTM_CASE(lstm_seq_kernel, 6, 1)
+  RTVC_LSTM_CASE(lstm_seq_kernel, 6, 4)
+  RTVC_LSTM_CASE(lstm_seq_kernel, 10, 1)
+  RTVC_LSTM_CASE(lstm_seq_kernel, 10, 2)
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename S>
+int lstm_bwd(const S* dys, const float* dhT, const float* dcT, const S* gates, const S* cs,
+             const float* c0, const S* w_hh, float* dxg, float* dh0, float* dc0, int B, int T,
+             int H, const int* plan_v, unsigned int* sync, void* stream) {
+  const Plan plan = rtvc::seq_plan(plan_v);
+  if (!rtvc::seq_plan_ok(plan, B, H, plan.units, 4 * H, 0, (int)sizeof(S)))
+    return (int)cudaErrorInvalidValue;
+  int slices = plan.slices, rows = plan.rows;
+  void* args[] = {&dys, &dhT, &dcT, &gates, &cs, &c0, &w_hh, &dxg, &dh0, &dc0,
+                  &B,   &T,   &H,   &slices, &rows, &sync};
+  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 12, 1)
+  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 12, 8)
+  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 10, 1)
+  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 10, 8)
+  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 4, 1)
+  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 4, 2)
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 // xg (B, T, 4H), w_hh (4H, H) in torch layout, h0/c0 (B, H) → ys (B, T, H),
 // hT/cT (B, H), and, when cs is not null, the training residuals cs (B, T, H)
@@ -261,17 +344,19 @@ extern "C" int rtvc_lstm_seq_fwd(const float* xg, const float* w_hh, const float
                                  const float* c0, float* ys, float* hT, float* cT,
                                  float* cs, float* gates, int B, int T, int H,
                                  const int* plan_v, unsigned int* sync, void* stream) {
-  const Plan plan = rtvc::seq_plan(plan_v);
-  if (!rtvc::seq_plan_ok(plan, B, H, 4 * plan.units, (H + 3) & ~3))
-    return (int)cudaErrorInvalidValue;
-  int slices = plan.slices, rows = plan.rows;
-  void* args[] = {&xg, &w_hh, &h0, &c0, &ys, &hT, &cT, &cs, &gates,
-                  &B,  &T,    &H,  &slices, &rows, &sync};
-  RTVC_LSTM_CASE(lstm_seq_kernel, 6, 1)
-  RTVC_LSTM_CASE(lstm_seq_kernel, 6, 4)
-  RTVC_LSTM_CASE(lstm_seq_kernel, 10, 1)
-  RTVC_LSTM_CASE(lstm_seq_kernel, 10, 2)
-  return (int)cudaErrorInvalidValue;
+  return lstm_fwd<float>(xg, w_hh, h0, c0, ys, hT, cT, cs, gates, nullptr, B, T, H, plan_v,
+                         sync, stream);
+}
+
+// The bf16 instantiation: xg, w_hh, ys, cs and gates bf16; h0, c0, hT and cT
+// f32, and hx (2, B, H) f32 scratch for the carried h. The plan's smem counts
+// W_hh at two bytes a weight.
+extern "C" int rtvc_lstm_seq_fwd_bf16(const bf16* xg, const bf16* w_hh, const float* h0,
+                                      const float* c0, bf16* ys, float* hT, float* cT,
+                                      bf16* cs, bf16* gates, float* hx, int B, int T, int H,
+                                      const int* plan_v, unsigned int* sync, void* stream) {
+  return lstm_fwd<bf16>(xg, w_hh, h0, c0, ys, hT, cT, cs, gates, hx, B, T, H, plan_v, sync,
+                        stream);
 }
 
 // dys (B, T, H), dhT/dcT (B, H), the forward's residuals gates (B, T, 4H) and
@@ -283,16 +368,18 @@ extern "C" int rtvc_lstm_seq_bwd(const float* dys, const float* dhT, const float
                                  const float* w_hh, float* dxg, float* dh0, float* dc0,
                                  int B, int T, int H, const int* plan_v, unsigned int* sync,
                                  void* stream) {
-  const Plan plan = rtvc::seq_plan(plan_v);
-  if (!rtvc::seq_plan_ok(plan, B, H, plan.units, 4 * H)) return (int)cudaErrorInvalidValue;
-  int slices = plan.slices, rows = plan.rows;
-  void* args[] = {&dys, &dhT, &dcT, &gates, &cs, &c0, &w_hh, &dxg, &dh0, &dc0,
-                  &B,   &T,   &H,   &slices, &rows, &sync};
-  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 12, 1)
-  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 12, 8)
-  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 10, 1)
-  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 10, 8)
-  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 4, 1)
-  RTVC_LSTM_CASE(lstm_seq_bwd_kernel, 4, 2)
-  return (int)cudaErrorInvalidValue;
+  return lstm_bwd<float>(dys, dhT, dcT, gates, cs, c0, w_hh, dxg, dh0, dc0, B, T, H, plan_v,
+                         sync, stream);
+}
+
+// The bf16 instantiation: dys, gates, cs and w_hh bf16; dhT, dcT, c0, dxg,
+// dh0 and dc0 f32 (the JAX kernel's dxg is f32: the weight gradient is
+// taken from it before it is rounded).
+extern "C" int rtvc_lstm_seq_bwd_bf16(const bf16* dys, const float* dhT, const float* dcT,
+                                      const bf16* gates, const bf16* cs, const float* c0,
+                                      const bf16* w_hh, float* dxg, float* dh0, float* dc0,
+                                      int B, int T, int H, const int* plan_v,
+                                      unsigned int* sync, void* stream) {
+  return lstm_bwd<bf16>(dys, dhT, dcT, gates, cs, c0, w_hh, dxg, dh0, dc0, B, T, H, plan_v,
+                        sync, stream);
 }

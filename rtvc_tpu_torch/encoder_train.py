@@ -37,7 +37,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Ignore any saved model for this run_id and restart from scratch.")
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--compute_dtype", choices=["auto", "f32", "bf16"], default="auto",
-                        help="auto and f32 train in f32; bf16 is not ported yet.")
+                        help="auto = f32 on the card (the JAX package picks bf16 only "
+                             "on a TPU); bf16 = the mixed-precision policy "
+                             "(ops/precision.py): bf16 parameters and "
+                             "activations in the forward, f32 master weights, "
+                             "optimizer state, losses and softmaxes.")
     parser.add_argument("--device", default="cuda", help="The torch device to train on.")
     parser.add_argument("--seed", type=int, default=0, help="Seed of the initial weights.")
     return parser.parse_args(argv)
@@ -46,10 +50,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None):
     args = parse_args(argv)
     from rtvc_tpu_torch.data.ge2e_sampler import SpeakerVerificationDataset, speaker_batch_iterator
-    from rtvc_tpu_torch.train.steps import check_compute_dtype
+    from rtvc_tpu_torch.ops import precision
     from rtvc_tpu_torch.train.trainer import train_encoder
 
-    check_compute_dtype(args.compute_dtype)
+    precision.resolve(args.compute_dtype)
     dataset = SpeakerVerificationDataset(args.clean_data_root, process_index=0, process_count=1)
     it = speaker_batch_iterator(dataset, args.speakers_per_batch, args.utterances_per_speaker,
                                 n_frames=160)

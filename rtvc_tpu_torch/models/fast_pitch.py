@@ -10,7 +10,8 @@ projection is added to the embedded characters of the trunk and of every
 predictor (the reference FastPitch has no speaker conditioning).
 
 No recurrence and no kernel of its own: the attention is written out as
-products and a softmax in f32, as the JAX package writes it.
+products and a softmax in f32, as the JAX package writes it; the softmax and
+the layer norms stay f32 under the bf16 training policy.
 :func:`fastpitch_forward` is the training forward (ground-truth durations,
 pitch and energy; dropout in the FFT blocks and the predictors, drawn from
 the step's generator).
@@ -26,6 +27,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from rtvc_tpu_torch.config.synthesizer import FastPitchParams
@@ -37,6 +39,7 @@ from rtvc_tpu_torch.models.layers import (
     always_dropout,
     length_regulate,
 )
+from rtvc_tpu_torch.ops.precision import widen
 
 Tensor = torch.Tensor
 
@@ -104,6 +107,13 @@ def positional_encoding_table(d_model: int, max_len: int = 5000) -> np.ndarray:
     return _pe_table(d_model, max_len).copy()
 
 
+def layer_norm(norm: nn.LayerNorm, x: Tensor) -> Tensor:
+    """``norm(x)`` with its moments and affine map in f32 under any policy,
+    the result in ``x``'s dtype (``rtvc_tpu/models/fast_pitch.py:layer_norm``)."""
+    return F.layer_norm(widen(x), norm.normalized_shape, widen(norm.weight), widen(norm.bias),
+                        norm.eps).to(x.dtype)
+
+
 class MultiheadAttention(nn.Module):
     """``torch.nn.MultiheadAttention``'s parameters: packed ``in_proj`` and
     ``out_proj``; see :meth:`forward`."""
@@ -161,10 +171,10 @@ class FFTBlock(nn.Module):
             def remask(v):
                 return v
         T = x.shape[1]
-        x = remask(self.norm1(x + drop(self.self_attn(x, key_padding_mask))))
+        x = remask(layer_norm(self.norm1, x + drop(self.self_attn(x, key_padding_mask))))
         h = remask(torch.relu(self.conv1(x)[:, :T]))
         h = self.conv2(h)[:, :T]
-        return remask(self.norm2(x + drop(h)))
+        return remask(layer_norm(self.norm2, x + drop(h)))
 
 
 class PositionalEncoding(nn.Module):
@@ -195,7 +205,7 @@ class ForwardTransformer(nn.Module):
             x = always_dropout(x, dropout, generator)
         for layer in self.layers:
             x = layer(x, key_padding_mask, exact_lengths, dropout, generator)
-        return self.norm(x)
+        return layer_norm(self.norm, x)
 
 
 class SeriesPredictor(nn.Module):

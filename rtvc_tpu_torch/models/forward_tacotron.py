@@ -175,7 +175,8 @@ def _lstm_dir(lstm: BiLSTM, sfx: str, x: Tensor) -> Tensor:
     w_ih = getattr(lstm, f"weight_ih_l0{sfx}")
     b = getattr(lstm, f"bias_ih_l0{sfx}") + getattr(lstm, f"bias_hh_l0{sfx}")
     xg = (x @ w_ih.t() + b).contiguous()
-    h0 = x.new_zeros((x.shape[0], lstm.hidden_size))
+    h0 = torch.zeros((x.shape[0], lstm.hidden_size), device=x.device,
+                     dtype=torch.promote_types(x.dtype, torch.float32))  # f32 state under bf16
     seq = LSTMSeqFn.apply if torch.is_grad_enabled() else lstm_seq
     return seq(xg, getattr(lstm, f"weight_hh_l0{sfx}").contiguous(), h0, h0)[0]
 

@@ -18,6 +18,12 @@ width 64, where the JAX package scans because its TPU kernel wants a
 multiple of 128, ForwardTacotron's five BiGRUs, and the WaveRNN trainer's
 GRUs. :func:`length_regulate` is the non-autoregressive synthesizers'
 length regulator.
+
+Under the bf16 training policy (``ops.precision``: bf16 parameters and
+activations) the recurrences stream bf16 through K3's and K4's bf16
+instantiations with their state in f32, BatchNorm takes its statistics in
+f32, and :class:`Linear` and :class:`Conv1d` round a product before adding
+its bias, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -28,12 +34,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from rtvc_tpu_torch.ops.gru_seq import GRUSeqFn, gru_seq_fwd
+from rtvc_tpu_torch.ops import precision
 from rtvc_tpu_torch.ops.lstm_seq import LSTMSeqFn, lstm_seq
 
 Tensor = torch.Tensor
 
-Linear = nn.Linear
 Embedding = nn.Embedding
+
+
+class Linear(nn.Linear):
+    """``torch.nn.Linear`` through ``precision.linear``: under the bf16
+    policy the product is rounded to the compute dtype before the bias is
+    added, as the JAX package's ``_matmul(x, w.T) + bias`` rounds it."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return precision.linear(x, self.weight, self.bias)
 
 
 def always_dropout(x: Tensor, p: float, generator: Optional[torch.Generator]) -> Tensor:
@@ -87,8 +102,12 @@ class LSTM(nn.Module):
                     f"{name}_l{k}", nn.Parameter(torch.empty(shape, device=device)))
 
     def forward(self, x: Tensor) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
-        """Zero initial state → (ys, (h_T, c_T) stacked over layers)."""
-        h0 = x.new_zeros((x.shape[0], self.hidden_size))
+        """Zero initial state → (ys, (h_T, c_T) stacked over layers). Under
+        the bf16 policy (bf16 ``x`` and weights) K3 streams bf16 and carries
+        its state in f32 from an f32 h0 and c0; the final states come back
+        in ``x``'s dtype, as the JAX package returns them."""
+        h0 = torch.zeros((x.shape[0], self.hidden_size), device=x.device,
+                         dtype=torch.promote_types(x.dtype, torch.float32))
         seq = LSTMSeqFn.apply if torch.is_grad_enabled() else lstm_seq
         h_last, c_last = [], []
         for k in range(self.num_layers):
@@ -99,7 +118,7 @@ class LSTM(nn.Module):
             x, h_T, c_T = seq(xg.contiguous(), w_hh.contiguous(), h0, h0)
             h_last.append(h_T)
             c_last.append(c_T)
-        return x, (torch.stack(h_last), torch.stack(c_last))
+        return x, (torch.stack(h_last).to(x.dtype), torch.stack(c_last).to(x.dtype))
 
 
 class GRU(nn.Module):
@@ -177,10 +196,15 @@ class GRU(nn.Module):
 
 
 class Conv1d(nn.Conv1d):
-    """``torch.nn.Conv1d`` applied to (B, T, C) sequences."""
+    """``torch.nn.Conv1d`` applied to (B, T, C) sequences. Under the bf16
+    policy the bias is added after the product is rounded
+    (``precision.biased``), as in :class:`Linear`."""
 
     def forward(self, x: Tensor) -> Tensor:
-        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+        if precision.fused(x, self.weight):
+            return super().forward(x.transpose(1, 2)).transpose(1, 2)
+        y = self._conv_forward(x.transpose(1, 2), self.weight, None).transpose(1, 2)
+        return precision.biased(y, self.bias)
 
 
 class BatchNorm1d(nn.Module):
@@ -200,12 +224,12 @@ class BatchNorm1d(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         inv = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * inv * self.weight + self.bias
+        return ((x - self.running_mean) * inv * self.weight + self.bias).to(x.dtype)
 
     def forward_train(self, x: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
-        """Batch statistics in f32 → (y, {"running_mean", "running_var"})
-        with momentum 0.1; the running variance takes the unbiased batch
-        variance n/(n-1)."""
+        """Batch statistics in f32 under any policy → (y in ``x``'s dtype,
+        {"running_mean", "running_var"}) with momentum 0.1; the running
+        variance takes the unbiased batch variance n/(n-1)."""
         xf = x.float()
         axes = tuple(range(x.ndim - 1))
         mean = xf.mean(dim=axes)

@@ -31,8 +31,10 @@ class SpeakerEncoder(nn.Module):
         self.similarity_bias = nn.Parameter(torch.empty(1, device=device))
 
     def forward(self, utterances: torch.Tensor) -> torch.Tensor:
+        """The embeddings, L2-normalised in f32 under any policy (the GE2E
+        similarity downstream is f32)."""
         _, (hidden, _) = self.lstm(utterances)
-        embeds_raw = torch.relu(self.linear(hidden[-1]))
+        embeds_raw = torch.relu(self.linear(hidden[-1])).float()
         return embeds_raw / torch.linalg.norm(embeds_raw, dim=1, keepdim=True)
 
 

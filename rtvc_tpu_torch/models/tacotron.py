@@ -31,6 +31,7 @@ from rtvc_tpu_torch.models.layers import (
     gru_step,
     lstm_cell_step,
 )
+from rtvc_tpu_torch.ops import precision
 from rtvc_tpu_torch.ops.tacotron_train import prepare_train_weights, taco_decoder_train
 
 Tensor = torch.Tensor
@@ -326,6 +327,12 @@ def tacotron_forward(model: Tacotron, d: TacotronDims, chars: Tensor, mels: Tens
     prenet's. The GTA pass turns both off, as the JAX package's
     ``dropout=0.0`` does, so that its mels are deterministic. Under no grad
     the chain is one K5 forward launch, and autograd keeps no residual of it.
+
+    Under the bf16 policy (bf16 parameters and batch, ``ops.precision``) K5
+    runs in f32 on widened inputs, as the JAX kernel does: the attention, its
+    context and cumulative scores, and the zoneout masks stay f32, and the
+    mel and stop projections take the f32 decoder states into the compute
+    dtype (``precision.matmul``).
     """
     B, _, steps = mels.shape
     n_iters = steps // r
@@ -362,8 +369,10 @@ def tacotron_forward(model: Tacotron, d: TacotronDims, chars: Tensor, mels: Tens
     # mel_proj keeps only the columns j with j % max_r < r
     keep = (torch.arange(d.n_mels, device=mels.device)[:, None] * d.max_r
             + torch.arange(r, device=mels.device)).reshape(-1)
-    mel_steps = (x_all @ dec.mel_proj.weight[keep].t()).reshape(n_iters, B, d.n_mels, r)
-    stops = torch.sigmoid(dec.stop_proj(torch.cat([x_all, ctx_all], dim=-1)))  # (n_iters, B, 1)
+    mel_steps = precision.matmul(x_all, dec.mel_proj.weight[keep].t()).reshape(
+        n_iters, B, d.n_mels, r)
+    stops = torch.sigmoid(precision.linear(torch.cat([x_all, ctx_all], dim=-1),
+                                           dec.stop_proj.weight, dec.stop_proj.bias))
     mel_out = mel_steps.permute(1, 2, 0, 3).reshape(B, d.n_mels, steps)
     stop_out = stops[..., 0].transpose(0, 1).repeat_interleave(r, dim=1)
     post = model.postnet(mel_out.transpose(1, 2), new_stats=batch_stats, prefix="postnet.")

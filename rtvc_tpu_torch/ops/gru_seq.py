@@ -16,6 +16,13 @@ version for CPU tensors:
 - ``GRUSeqFn``: both halves as a ``torch.autograd.Function``. ``dW_hh`` and
   ``db_hh`` are reductions over the flattened (B·T) axis outside the
   kernels, as in the JAX package (gru_train_kernel.py:329-343).
+
+Each kernel has an f32 and a bf16 instantiation, picked by the streams'
+dtype: the bf16 one is the JAX kernel's contract under the bf16 training
+policy (``ops.precision``), with f32 arithmetic, an f32 carried h, f32
+cotangents out of the backward, and W_hh resident at two bytes a weight,
+which the plan counts. A bf16 CUDA tensor reaches the bf16 kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -24,17 +31,22 @@ from typing import NamedTuple, Tuple
 import torch
 
 from rtvc_tpu_torch import _build
+from rtvc_tpu_torch.ops.precision import widen
 
 Tensor = torch.Tensor
 
 
 def gru_seq_fwd_plain(xg: Tensor, w_hh: Tensor, b_hh: Tensor) -> Tuple[Tensor, Tensor]:
     """xg (B, T, 3H), w_hh (3H, H), b_hh (3H) → (ys (B, T, H), gates
-    (B, T, 4H) = [r, z, n, hn]) from a zero initial state."""
+    (B, T, 4H) = [r, z, n, hn]) from a zero initial state. All f32, or all
+    bf16: then the arithmetic and the carried h stay f32 and ys and the
+    gates are rounded where they are stored (the JAX kernel's contract under
+    the bf16 policy)."""
+    dt = xg.dtype
     B, T, _ = xg.shape
     H = w_hh.shape[1]
+    xg, w_t, b_hh = widen(xg), widen(w_hh).t(), widen(b_hh)
     h = xg.new_zeros((B, H))
-    w_t = w_hh.t()
     ys, gates = [], []
     for t in range(T):
         hg = h @ w_t + b_hh
@@ -46,26 +58,29 @@ def gru_seq_fwd_plain(xg: Tensor, w_hh: Tensor, b_hh: Tensor) -> Tuple[Tensor, T
         h = (1.0 - z) * n + z * h
         ys.append(h)
         gates.append(torch.cat([r, z, n, hn], dim=-1))
-    return torch.stack(ys, dim=1), torch.stack(gates, dim=1)
+    return torch.stack(ys, dim=1).to(dt), torch.stack(gates, dim=1).to(dt)
 
 
 def gru_seq_bwd_plain(dys: Tensor, gates: Tensor, ys: Tensor, w_hh: Tensor) -> Tensor:
     """The reverse dh chain (gru_train_kernel.py:122-142): cotangent of ys,
     the forward's gates and ys, w_hh (3H, H) → dxg (B, T, 3H), the cotangent
     of the input gates [r, z, n]. h_{t-1} is ys one step back, zero at
-    t = 0."""
+    t = 0. All f32, or all bf16: then the chain runs in f32 on the widened
+    residuals and dxg comes back f32, as the JAX kernel writes it (the
+    weight gradients are taken from it unrounded)."""
     H = w_hh.shape[1]
-    dh = torch.zeros_like(dys[:, 0])
+    w = widen(w_hh)
+    dh = widen(dys.new_zeros(dys[:, 0].shape))
     dxg = []
     for t in range(dys.shape[1] - 1, -1, -1):
-        r, z, n, hn = gates[:, t].split(H, dim=-1)
-        h_prev = ys[:, t - 1] if t > 0 else torch.zeros_like(dh)
-        dh = dys[:, t] + dh
+        r, z, n, hn = widen(gates[:, t]).split(H, dim=-1)
+        h_prev = widen(ys[:, t - 1]) if t > 0 else torch.zeros_like(dh)
+        dh = widen(dys[:, t]) + dh
         dz = dh * (h_prev - n) * z * (1.0 - z)
         dn = dh * (1.0 - z) * (1.0 - n * n)
         dr = dn * hn * r * (1.0 - r)
         dxg.append(torch.cat([dr, dz, dn], dim=-1))
-        dh = dh * z + torch.cat([dr, dz, dn * r], dim=-1) @ w_hh
+        dh = dh * z + torch.cat([dr, dz, dn * r], dim=-1) @ w
     return torch.stack(dxg[::-1], dim=1)
 
 
@@ -115,10 +130,12 @@ def _weights(H: int, units: int, backward: bool) -> Tuple[int, int]:
     return (units, 3 * H) if backward else (3 * units, -(-H // 4) * 4)
 
 
-def _smem(H: int, units: int, nb: int, backward: bool) -> int:
+def _smem(H: int, units: int, nb: int, backward: bool, elem: int = 4) -> int:
+    """Bytes of shared memory a CTA takes: W_hh at ``elem`` bytes a weight,
+    then f32 sums (and the forward's f32 biases)."""
     w_rows, ld = _weights(H, units, backward)
     scratch = WARPS * (-(-w_rows * nb // 32) * 32)
-    return 4 * (w_rows * ld + scratch + (0 if backward else w_rows))
+    return elem * w_rows * ld + 4 * (scratch + (0 if backward else w_rows))
 
 
 def cost(p: Plan, H: int, backward: bool) -> float:
@@ -132,10 +149,12 @@ def cost(p: Plan, H: int, backward: bool) -> float:
     return max(warp, p.rows * n * 4 / L2_BYTES_PER_CYCLE)
 
 
-def candidates(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False):
+def candidates(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False,
+               elem: int = 4):
     """Every plan of a (B, T, H) sequence that the kernels have an
     instantiation for and the card can hold: its slices and groups resident
-    at once (one CTA a SM) and its weights in one SM's shared memory."""
+    at once (one CTA a SM) and its weights, at ``elem`` bytes each (4 for
+    f32 streams, 2 for bf16), in one SM's shared memory."""
     if B < 1 or H < 1 or sm_count < 1:
         raise ValueError(f"gru_seq: B {B}, H {H} and the SM count {sm_count} must be positive")
     out = []
@@ -148,86 +167,96 @@ def candidates(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = 
             if -(-B // rows) != groups:
                 continue
             for nb in nbs:
-                smem = _smem(H, units, nb, backward)
+                smem = _smem(H, units, nb, backward, elem)
                 if smem <= smem_limit:
                     out.append(Plan(groups, slices, units, nb, rows, smem))
     return out
 
 
-def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False) -> Plan:
+def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False,
+         elem: int = 4) -> Plan:
     """The partition of a (B, T, H) sequence for a card with ``sm_count`` SMs
     whose blocks may take ``smem_limit`` bytes of shared memory: of the
     :func:`candidates`, the one of least :func:`cost`; on a tie the fewer
     rows a group, then the more rows a warp pass. Raises ValueError, naming the
     widest H the card takes, for a hidden width past it."""
-    found = candidates(B, H, sm_count, smem_limit, backward)
+    found = candidates(B, H, sm_count, smem_limit, backward, elem)
     if found:
         return min(found, key=lambda p: (cost(p, H, backward), p.rows, -p.nb))
     widest = 0
     for units, nbs in (BWD_SLICES if backward else FWD_SLICES).items():
         fits = [w for w in range(units * sm_count, 0, -1)
-                if _smem(w, units, min(nbs), backward) <= smem_limit]
+                if _smem(w, units, min(nbs), backward, elem) <= smem_limit]
         widest = max(widest, fits[0] if fits else 0)
     raise ValueError(
         f"gru_seq: hidden width {H} is past the limit of {widest} for {sm_count} SMs with "
         f"{smem_limit} bytes of shared memory each (W_hh must fit the card's shared memory)")
 
 
-def _plan_args(B: int, H: int, device, backward: bool):
-    """The plan for this device as the C entry points take it, and the
-    zeroed barrier counters (one 128-byte line a group)."""
-    p = plan(B, H, *_build.device_limits(device), backward=backward)
+def _plan_args(B: int, H: int, device, backward: bool, dtype: torch.dtype):
+    """The plan for this device and stream dtype as the C entry points take
+    it, and the zeroed barrier counters (one 128-byte line a group)."""
+    p = plan(B, H, *_build.device_limits(device), backward=backward,
+             elem=_build.elem_bytes(dtype))
     return _build.int_array(p), torch.zeros(32 * p.groups, device=device, dtype=torch.int32)
 
 
 def gru_seq_fwd(xg: Tensor, w_hh: Tensor, b_hh: Tensor) -> Tuple[Tensor, Tensor]:
     """Same contract as :func:`gru_seq_fwd_plain`; CUDA tensors go through
-    the kernel (f32, contiguous), CPU tensors through the plain version."""
+    the kernel (contiguous; f32 streams the f32 instantiation, bf16 streams
+    the bf16 one), CPU tensors through the plain version."""
     if not xg.is_cuda:
         return gru_seq_fwd_plain(xg, w_hh, b_hh)
     B, T, _ = xg.shape
     H = w_hh.shape[1]
-    _build.check_tensors("gru_seq", xg.device, xg=(xg, (B, T, 3 * H)),
-                         w_hh=(w_hh, (3 * H, H)), b_hh=(b_hh, (3 * H,)))
+    dt, dev = xg.dtype, xg.device
+    _build.check_tensors("gru_seq", dev, xg=(xg, (B, T, 3 * H), dt),
+                         w_hh=(w_hh, (3 * H, H), dt), b_hh=(b_hh, (3 * H,), dt))
     if B < 1 or T < 1:
         raise ValueError(f"gru_seq: B and T must be at least 1, got {B} and {T}")
     lib = _build.library()
-    plan_v, sync = _plan_args(B, H, xg.device, backward=False)
-    ys = torch.empty((B, T, H), device=xg.device, dtype=torch.float32)
-    gates = torch.empty((B, T, 4 * H), device=xg.device, dtype=torch.float32)
-    err = lib.rtvc_gru_seq_fwd(xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                               ys.data_ptr(), gates.data_ptr(), B, T, H, plan_v,
-                               sync.data_ptr(), _build.stream_handle(xg.device))
-    _build.check(err, "rtvc_gru_seq_fwd")
-    _build.launch_counts["gru_seq"] += 1
+    plan_v, sync = _plan_args(B, H, dev, backward=False, dtype=dt)
+    ys = torch.empty((B, T, H), device=dev, dtype=dt)
+    gates = torch.empty((B, T, 4 * H), device=dev, dtype=dt)
+    ptrs = [xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), ys.data_ptr(), gates.data_ptr()]
+    if dt == torch.float32:
+        name = "rtvc_gru_seq_fwd"
+    else:  # the bf16 instantiation carries h through an f32 exchange
+        name = "rtvc_gru_seq_fwd_bf16"
+        ptrs.append(torch.empty((2, B, H), device=dev, dtype=torch.float32).data_ptr())
+    err = getattr(lib, name)(*ptrs, B, T, H, plan_v, sync.data_ptr(),
+                             _build.stream_handle(dev))
+    _build.check(err, name)
+    _build.launch_counts["gru_seq" if dt == torch.float32 else "gru_seq_bf16"] += 1
     return ys, gates
 
 
 def _bwd(dys: Tensor, gates: Tensor, ys: Tensor, w_hh: Tensor) -> Tuple[Tensor, Tensor]:
-    """The backward kernel → (dxg, dhg), dhg = [dr, dz, dn·r] (B, T, 3H)."""
+    """The backward kernel → (dxg, dhg), dhg = [dr, dz, dn·r] (B, T, 3H),
+    both f32."""
     B, T, H = dys.shape
-    _build.check_tensors("gru_seq_bwd", dys.device, dys=(dys, (B, T, H)),
-                         gates=(gates, (B, T, 4 * H)), ys=(ys, (B, T, H)),
-                         w_hh=(w_hh, (3 * H, H)))
+    dt, dev = dys.dtype, dys.device
+    _build.check_tensors("gru_seq_bwd", dev, dys=(dys, (B, T, H), dt),
+                         gates=(gates, (B, T, 4 * H), dt), ys=(ys, (B, T, H), dt),
+                         w_hh=(w_hh, (3 * H, H), dt))
     if B < 1 or T < 1:
         raise ValueError(f"gru_seq_bwd: B and T must be at least 1, got {B} and {T}")
     lib = _build.library()
-    plan_v, sync = _plan_args(B, H, dys.device, backward=True)
-    dxg = torch.empty((B, T, 3 * H), device=dys.device, dtype=torch.float32)
-    dhg = torch.empty((B, T, 3 * H), device=dys.device, dtype=torch.float32)
-    carry = torch.empty((B, H), device=dys.device, dtype=torch.float32)
-    err = lib.rtvc_gru_seq_bwd(dys.data_ptr(), gates.data_ptr(), ys.data_ptr(),
-                               w_hh.data_ptr(), dxg.data_ptr(), dhg.data_ptr(),
-                               carry.data_ptr(), B, T, H, plan_v, sync.data_ptr(),
-                               _build.stream_handle(dys.device))
-    _build.check(err, "rtvc_gru_seq_bwd")
-    _build.launch_counts["gru_seq_bwd"] += 1
+    plan_v, sync = _plan_args(B, H, dev, backward=True, dtype=dt)
+    dxg, dhg = (torch.empty((B, T, 3 * H), device=dev, dtype=torch.float32) for _ in range(2))
+    carry = torch.empty((B, H), device=dev, dtype=torch.float32)
+    name = "rtvc_gru_seq_bwd" if dt == torch.float32 else "rtvc_gru_seq_bwd_bf16"
+    err = getattr(lib, name)(dys.data_ptr(), gates.data_ptr(), ys.data_ptr(), w_hh.data_ptr(),
+                             dxg.data_ptr(), dhg.data_ptr(), carry.data_ptr(), B, T, H, plan_v,
+                             sync.data_ptr(), _build.stream_handle(dev))
+    _build.check(err, name)
+    _build.launch_counts["gru_seq_bwd" if dt == torch.float32 else "gru_seq_bwd_bf16"] += 1
     return dxg, dhg
 
 
 def gru_seq_bwd(dys: Tensor, gates: Tensor, ys: Tensor, w_hh: Tensor) -> Tensor:
     """Same contract as :func:`gru_seq_bwd_plain`; CUDA tensors go through
-    the kernel, CPU tensors through the plain version."""
+    the kernel of their dtype, CPU tensors through the plain version."""
     if not dys.is_cuda:
         return gru_seq_bwd_plain(dys, gates, ys, w_hh)
     return _bwd(dys, gates, ys, w_hh)[0]
@@ -235,17 +264,20 @@ def gru_seq_bwd(dys: Tensor, gates: Tensor, ys: Tensor, w_hh: Tensor) -> Tensor:
 
 class GRUSeqFn(torch.autograd.Function):
     """Differentiable GRU sequence: (xg, w_hh, b_hh) → ys. Both halves are K4
-    kernels for CUDA tensors and plain PyTorch for CPU tensors."""
+    kernels for CUDA tensors and plain PyTorch for CPU tensors. With bf16
+    streams the backward's f32 dxg gives ``dW_hh`` and ``db_hh`` in f32
+    before all three are rounded to their inputs' dtype, as in the JAX
+    package."""
 
     @staticmethod
     def forward(ctx, xg, w_hh, b_hh):
         ys, gates = gru_seq_fwd(xg, w_hh, b_hh)
-        ctx.save_for_backward(w_hh, ys, gates)
+        ctx.save_for_backward(w_hh, b_hh, ys, gates)
         return ys
 
     @staticmethod
     def backward(ctx, dys):
-        w_hh, ys, gates = ctx.saved_tensors
+        w_hh, b_hh, ys, gates = ctx.saved_tensors
         H = w_hh.shape[1]
         dys = dys.contiguous()
         if dys.is_cuda:
@@ -253,7 +285,8 @@ class GRUSeqFn(torch.autograd.Function):
         else:
             dxg = gru_seq_bwd_plain(dys, gates, ys, w_hh)
             # hidden-side pre-activation cotangent: the n slice regains its ·r
-            dhg = torch.cat([dxg[..., :2 * H], dxg[..., 2 * H:] * gates[..., :H]], dim=-1)
-        h_prev = torch.cat([torch.zeros_like(ys[:, :1]), ys[:, :-1]], dim=1)
+            dhg = torch.cat([dxg[..., :2 * H], dxg[..., 2 * H:] * widen(gates[..., :H])],
+                            dim=-1)
+        h_prev = widen(torch.cat([torch.zeros_like(ys[:, :1]), ys[:, :-1]], dim=1))
         dw_hh = dhg.reshape(-1, 3 * H).t() @ h_prev.reshape(-1, H)
-        return dxg, dw_hh, dhg.sum(dim=(0, 1))
+        return dxg.to(ys.dtype), dw_hh.to(w_hh.dtype), dhg.sum(dim=(0, 1)).to(b_hh.dtype)

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from rtvc_tpu_torch import _build
+from rtvc_tpu_torch.ops.precision import widen
 
 Tensor = torch.Tensor
 
@@ -95,21 +96,27 @@ def prepare_train_weights(decoder, E: int) -> TrainWeights:
     """``models.tacotron.Decoder`` parameters → :class:`TrainWeights`
     (``tacotron_train_kernel.py:prepare_train_weights``). The location term
     ``L(conv(cum))`` is linear in ``cum``, so conv and ``L`` fold into one
-    (KS, D) matrix and the conv bias into the query bias."""
+    (KS, D) matrix and the conv bias into the query bias. Every parameter is
+    widened to f32 first, as the JAX package's is: under the bf16 policy the
+    chain runs in f32, and its weight gradients reach the bf16 casts through
+    the widening."""
     cell, lsa = decoder.attn_rnn, decoder.attn_net
-    conv_w = lsa.conv.weight[:, 0, :]                      # (F, KS)
-    mloc = conv_w.t() @ lsa.L.weight.t()                   # (KS, D)
-    bq = lsa.W.bias
+    conv_w = widen(lsa.conv.weight)[:, 0, :]                  # (F, KS)
+    L_w = widen(lsa.L.weight)
+    mloc = conv_w.t() @ L_w.t()                            # (KS, D)
+    bq = widen(lsa.W.bias)
     if lsa.conv.bias is not None:
-        bq = bq + lsa.L.weight @ lsa.conv.bias
+        bq = bq + L_w @ widen(lsa.conv.bias)
     l1, l2 = decoder.res_rnn1, decoder.res_rnn2
     return TrainWeights(
-        gwh=cell.weight_hh.t(), gbh=cell.bias_hh, wq=lsa.W.weight.t(), bq=bq, mloc=mloc,
-        vv=lsa.v.weight.reshape(-1), wri=decoder.rnn_input.weight.t(),
-        bri=decoder.rnn_input.bias,
-        l1wi=l1.weight_ih.t(), l1wh=l1.weight_hh.t(), l1b=l1.bias_ih + l1.bias_hh,
-        l2wi=l2.weight_ih.t(), l2wh=l2.weight_hh.t(), l2b=l2.bias_ih + l2.bias_hh,
-        gwi_ctx=cell.weight_ih[:, :E].t())
+        gwh=widen(cell.weight_hh).t(), gbh=widen(cell.bias_hh), wq=widen(lsa.W.weight).t(), bq=bq,
+        mloc=mloc, vv=widen(lsa.v.weight).reshape(-1), wri=widen(decoder.rnn_input.weight).t(),
+        bri=widen(decoder.rnn_input.bias),
+        l1wi=widen(l1.weight_ih).t(), l1wh=widen(l1.weight_hh).t(),
+        l1b=widen(l1.bias_ih) + widen(l1.bias_hh),
+        l2wi=widen(l2.weight_ih).t(), l2wh=widen(l2.weight_hh).t(),
+        l2b=widen(l2.bias_ih) + widen(l2.bias_hh),
+        gwi_ctx=widen(cell.weight_ih)[:, :E].t())
 
 
 def _al4(n: int) -> int:
@@ -998,5 +1005,12 @@ def taco_decoder_train(w: TrainWeights, xg_pre: Tensor, enc_seq: Tensor, enc_pro
                        char_mask: Tensor, zo1: Tensor, zo2: Tensor
                        ) -> Tuple[Tensor, Tensor, Tensor]:
     """:class:`TacoDecoderTrainFn` with the weights as one argument. Under
-    no grad autograd builds no graph, so no residual outlives the call."""
-    return TacoDecoderTrainFn.apply(xg_pre, enc_seq, enc_proj, char_mask, zo1, zo2, *w)
+    no grad autograd builds no graph, so no residual outlives the call.
+
+    K5 has no bf16 instantiation, as the JAX kernel has none: bf16 inputs
+    (the bf16 policy's streams) are widened to f32 around the launch
+    (``tacotron_train_kernel.py:_fwd_rule``), the f32 kernel runs, its
+    outputs stay f32 (the attention's f32 island), and autograd returns each
+    input's cotangent in that input's dtype through the widening."""
+    return TacoDecoderTrainFn.apply(
+        *(widen(t) for t in (xg_pre, enc_seq, enc_proj, char_mask, zo1, zo2, *w)))

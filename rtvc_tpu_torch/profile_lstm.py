@@ -35,7 +35,7 @@ from rtvc_tpu_torch.ops.lstm_seq import plan
 
 FIRST_LOAD = "__ldcg(reinterpret_cast<const float4*>(x + b * xs + lane * 4))"
 NEXT_LOAD = "__ldcg(reinterpret_cast<const float4*>(x + b * xs + k + 128))"
-WEIGHT_LOAD = "const float4 w = *reinterpret_cast<const float4*>(W + r * ld + k);"
+WEIGHT_LOAD = "const float4 w = load_w4(W + r * ld + k);"
 CONST_WEIGHT = "const float4 w = make_float4(k, r, 1.f, 2.f);"
 FWD_SETUP = "  const int G = 4 * H;\n  for (int i = threadIdx.x; i < R * ld;"
 FWD_BARRIER = ("    if (t + 1 < T) rtvc::grid_barrier(p.counter, p.slices * (unsigned int)(t + 1));\n"

@@ -1,6 +1,6 @@
 """Where a full-width training step spends its time on one NVIDIA GPU.
 
-    python -m rtvc_tpu_torch.profile_train
+    python -m rtvc_tpu_torch.profile_train [--compute_dtype {auto,f32,bf16}]
 
 Takes GE2E steps (64 speakers x 10 utterances x 160 frames, 3 x LSTM-768),
 WaveRNN steps of the three variants at the first session of their schedules
@@ -18,11 +18,15 @@ table's top rows may leave out, and that of cuDNN's convolution backward.
 Then it times the recurrences alone, forward plus backward at the same
 shapes, through ``LSTMSeqFn`` / ``GRUSeqFn`` and through cuDNN's
 ``nn.LSTM`` / ``nn.GRU`` (TF32 off) as a bar to measure against.
+``--compute_dtype bf16`` takes every step under the bf16 training policy
+(``ops/precision.py``) and times the recurrences alone on bf16 streams,
+cuDNN's in bf16 too; ``auto`` (the default) and ``f32`` in f32.
 
 Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import re
 import subprocess
 import sys
@@ -36,6 +40,7 @@ from torch.profiler import ProfilerActivity, profile
 from rtvc_tpu_torch import _build
 from rtvc_tpu_torch.config.signal import sp
 from rtvc_tpu_torch.models import factories
+from rtvc_tpu_torch.ops import precision
 from rtvc_tpu_torch.ops.gru_seq import GRUSeqFn
 from rtvc_tpu_torch.ops.lstm_seq import LSTMSeqFn
 from rtvc_tpu_torch.train import steps, trainer
@@ -117,23 +122,23 @@ def fwd_bwd_ms(fn, args, reps=5):
     return start.elapsed_time(stop) / reps
 
 
-def encoder_step(dev):
+def encoder_step(dev, compute_dtype="f32"):
     S, U, T = 64, 10, 160
     model = factories.init_encoder_model(seed=0, device=dev).train()
     step = steps.make_encoder_train_step(
-        model, trainer.make_optimizer(model.parameters(), 1e-4), S, U)
+        model, trainer.make_optimizer(model.parameters(), 1e-4), S, U, compute_dtype)
     g = torch.Generator().manual_seed(6)
     base = torch.rand(S, 1, 1, 40, generator=g)
     x = (base + 0.1 * torch.randn(S, U, T, 40, generator=g)).clamp(0, 1)
     return step, x.reshape(S * U, T, 40).to(dev)
 
 
-def vocoder_step(dev, model_type=factories.MODEL_TYPE_RUNTIMERACER):
+def vocoder_step(dev, model_type=factories.MODEL_TYPE_RUNTIMERACER, compute_dtype="f32"):
     cfg = factories.default_config(model_type)
     d = factories.wavernn_dims(model_type, cfg)
     model = factories.init_wavernn(d, seed=0, device=dev).train()
     step = steps.make_wavernn_train_step(
-        model, d, trainer.make_optimizer(model.parameters(), 1e-3))
+        model, d, trainer.make_optimizer(model.parameters(), 1e-3), compute_dtype)
     B, L = int(cfg.voc_tts_schedule[0][3]), cfg.seq_len
     rng = np.random.default_rng(8)
     batch = {"x": rng.uniform(-1, 1, (B, L)).astype(np.float32),
@@ -163,14 +168,14 @@ def synthetic_tacotron_batch(batch_size, n_chars, frames, seed, speaker_dims=768
             "stop": (np.arange(frames)[None, :] >= spec_lens[:, None] - 1).astype(np.float32)}
 
 
-def synthesizer_step(dev):
+def synthesizer_step(dev, compute_dtype="f32"):
     cfg = factories.default_config(factories.MODEL_TYPE_TACOTRON)
     bundle = factories.init_syn_model(factories.MODEL_TYPE_TACOTRON, seed=0, device=dev)
     model = bundle.model.train()
     r, _, B, lr, _ = cfg.tts_schedule[0]
     raw = steps.make_tacotron_train_step(model, bundle.dims,
                                          trainer.make_optimizer(model.parameters(), lr), r,
-                                         cfg.tts_clip_grad_norm)
+                                         cfg.tts_clip_grad_norm, compute_dtype)
     batch = synthetic_tacotron_batch(B, 160, 86 * r, seed=12)
     generator = torch.Generator(device=dev).manual_seed(0)
     return (lambda b: raw(b, generator)), {k: torch.from_numpy(v).to(dev)
@@ -202,7 +207,7 @@ def synthetic_nar_batch(batch_size, n_chars, frames, seed, speaker_dims=768):
     return out
 
 
-def nar_step(dev, model_type, batch_size, n_chars=160, frames=900):
+def nar_step(dev, model_type, batch_size, n_chars=160, frames=900, compute_dtype="f32"):
     """A ForwardTacotron or FastPitch step at full width (the config's
     defaults) and the first session's learning rate, on
     ``synthetic_nar_batch``, as the trainer feeds it."""
@@ -210,41 +215,49 @@ def nar_step(dev, model_type, batch_size, n_chars=160, frames=900):
     model = factories.init_syn_model(model_type, seed=0, device=dev).model.train()
     raw = steps.make_nar_synth_train_step(
         model_type, model, trainer.make_optimizer(model.parameters(), cfg.tts_schedule[0][2]),
-        cfg)
+        cfg, compute_dtype)
     batch = synthetic_nar_batch(batch_size, n_chars, frames, seed=13)
     generator = torch.Generator(device=dev).manual_seed(0)
     return (lambda b: raw(b, generator)), {k: trainer.batch_tensor(batch[src], dev)
                                            for k, src in trainer.NAR_BATCH_KEYS.items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--compute_dtype", choices=["auto", "f32", "bf16"], default="auto",
+                        help="the steps' policy (train/steps.py); auto = f32 on the card")
+    cdt_name = parser.parse_args(argv).compute_dtype
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    cdt = precision.resolve(cdt_name)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    profile_step("GE2E step 640 x 160 x 40", *encoder_step(dev), n=2)
+    print(f"compute dtype: {cdt}")
+    profile_step("GE2E step 640 x 160 x 40", *encoder_step(dev, cdt_name), n=2)
     for model_type in (factories.MODEL_TYPE_RUNTIMERACER, factories.MODEL_TYPE_FATCHORD,
                        factories.MODEL_TYPE_GENEING):
         cfg = factories.default_config(model_type)
         profile_step(f"WaveRNN {model_type} step {cfg.voc_tts_schedule[0][3]} x {cfg.seq_len}",
-                     *vocoder_step(dev, model_type), n=3)
-    profile_step("Tacotron step 112 x 602 frames x 160 chars, r 7", *synthesizer_step(dev), n=2)
+                     *vocoder_step(dev, model_type, cdt_name), n=3)
+    profile_step("Tacotron step 112 x 602 frames x 160 chars, r 7",
+                 *synthesizer_step(dev, cdt_name), n=2)
     for model_type, B in ((factories.MODEL_TYPE_FORWARD_TACOTRON, 16),
                           (factories.MODEL_TYPE_FORWARD_TACOTRON, 48),
                           (factories.MODEL_TYPE_FASTPITCH, 16)):
         profile_step(f"{model_type} step {B} x 900 frames x 160 chars",
-                     *nar_step(dev, model_type, B), n=2)
+                     *nar_step(dev, model_type, B, compute_dtype=cdt_name), n=2)
 
     def leaf(*shape, scale=1.0):
-        return (torch.randn(*shape, device=dev) * scale).requires_grad_()
+        return (torch.randn(*shape, device=dev) * scale).to(cdt).requires_grad_()
 
     H = 768
-    zero = torch.zeros(640, H, device=dev)
+    zero = torch.zeros(640, H, device=dev)  # the state stays f32 under either policy
     port = fwd_bwd_ms(LSTMSeqFn.apply,
                       (leaf(640, 160, 4 * H), leaf(4 * H, H, scale=H ** -0.5), zero, zero))
-    cudnn = fwd_bwd_ms(torch.nn.LSTM(H, H, batch_first=True, device=dev), (leaf(640, 160, H),))
+    cudnn = fwd_bwd_ms(torch.nn.LSTM(H, H, batch_first=True, device=dev, dtype=cdt),
+                       (leaf(640, 160, H),))
     print(f"fwd+bwd 640 x 160, H {H}: LSTMSeqFn {port:.3f} ms (recurrence only), "
           f"cuDNN nn.LSTM {cudnn:.3f} ms (input projection included)")
     for B in (16, 48):
@@ -252,7 +265,7 @@ def main() -> int:
         zero = torch.zeros(B, H, device=dev)
         port = fwd_bwd_ms(LSTMSeqFn.apply,
                           (leaf(B, 900, 4 * H), leaf(4 * H, H, scale=H ** -0.5), zero, zero))
-        cudnn = fwd_bwd_ms(torch.nn.LSTM(1280, H, batch_first=True, device=dev),
+        cudnn = fwd_bwd_ms(torch.nn.LSTM(1280, H, batch_first=True, device=dev, dtype=cdt),
                            (leaf(B, 900, 1280),))
         print(f"fwd+bwd {B} x 900, H {H} (ForwardTacotron's BiLSTM, one direction): LSTMSeqFn "
               f"{port:.3f} ms (recurrence only), cuDNN nn.LSTM(1280, {H}) {cudnn:.3f} ms "
@@ -260,7 +273,8 @@ def main() -> int:
     for T, H in ((1000, 256), (1000, 512), (1400, 256)):
         port = fwd_bwd_ms(GRUSeqFn.apply,
                           (leaf(40, T, 3 * H), leaf(3 * H, H, scale=H ** -0.5), leaf(3 * H)))
-        cudnn = fwd_bwd_ms(torch.nn.GRU(H, H, batch_first=True, device=dev), (leaf(40, T, H),))
+        cudnn = fwd_bwd_ms(torch.nn.GRU(H, H, batch_first=True, device=dev, dtype=cdt),
+                           (leaf(40, T, H),))
         print(f"fwd+bwd 40 x {T}, H {H}: GRUSeqFn {port:.3f} ms (recurrence only), "
               f"cuDNN nn.GRU {cudnn:.3f} ms (input projection included)")
     print(f"jax imported: {'jax' in sys.modules}")

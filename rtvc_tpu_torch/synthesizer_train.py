@@ -3,10 +3,10 @@
     python -m rtvc_tpu_torch.synthesizer_train <run_id> [model_type] <syn_dir> [options]
 
 The arguments are those of the JAX package's ``synthesizer_train.py`` except
-its dashboard, multi-process launch and ``--compute_dtype`` options (the
-port trains in f32; bf16 is a later slice), plus ``--device`` and
-``--seed``. ``model_type`` is ``tacotron`` (the default),
-``forward-tacotron`` or ``fast-pitch``. ``syn_dir`` is the directory the
+its dashboard and multi-process launch options, plus ``--device`` and
+``--seed``; ``--compute_dtype bf16`` trains under the bf16 policy
+(``ops/precision.py``), and ``auto`` is f32 on the card. ``model_type`` is
+``tacotron`` (the default), ``forward-tacotron`` or ``fast-pitch``. ``syn_dir`` is the directory the
 synthesizer preprocessing writes (``train.json``, ``mels/``, ``embeds/``;
 for the non-autoregressive synthesizers also the alignment pass's
 ``duration/``, ``attention/``, ``alignment/``, ``phoneme_pitch/`` and
@@ -39,6 +39,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--max_steps", type=int, default=None)
     parser.add_argument("-f", "--force_restart", action="store_true",
                         help="Ignore any saved model for this run_id and restart from scratch.")
+    parser.add_argument("--compute_dtype", choices=["auto", "f32", "bf16"], default="auto",
+                        help="auto = f32 on the card (the JAX package picks bf16 only "
+                             "on a TPU); bf16 = the mixed-precision policy "
+                             "(ops/precision.py): bf16 parameters and "
+                             "activations in the forward, f32 master weights, "
+                             "optimizer state, losses and softmaxes.")
     parser.add_argument("--device", default="cuda", help="The torch device to train on.")
     parser.add_argument("--seed", type=int, default=0, help="Seed of the initial weights.")
     return parser.parse_args(argv)
@@ -66,7 +72,7 @@ def main(argv=None):
         resume=not args.force_restart, device=args.device, seed=args.seed,
         eval_hook=make_synthesizer_eval_hook(args.models_dir / args.run_id / "samples",
                                              args.model_type),
-        eval_interval=cfg.eval_interval,
+        eval_interval=cfg.eval_interval, compute_dtype=args.compute_dtype,
     )
 
 

@@ -6,7 +6,13 @@ Each ``make_*_train_step`` returns a closure over the model and its
 optimizer that runs one step in place: forward, loss, backward, the
 gradient operations of the reference, and the optimizer's update. After a
 step every parameter's ``.grad`` holds the gradient the optimizer applied.
-All steps run in f32; the bf16 autocast policy is a later slice.
+
+``compute_dtype`` ("auto" and "f32": f32; "bf16": the mixed-precision policy
+of ``ops.precision``) applies the policy as the JAX package's ``_policy``
+does: the forward runs on bf16 casts of the parameters and of the batch's
+float leaves, the losses are taken in f32 against the f32 batch, and the
+gradients reach the f32 master parameters in f32, where the clip and the
+optimizer (whose state stays f32) act on them.
 """
 from __future__ import annotations
 
@@ -19,20 +25,10 @@ from rtvc_tpu_torch.models.tacotron import Tacotron, TacotronDims, tacotron_forw
 from rtvc_tpu_torch.config.vocoder import MODE_BITS, MODE_MOL, MODE_RAW
 from rtvc_tpu_torch.models.distribution import discretized_mix_logistic_loss
 from rtvc_tpu_torch.models.wavernn import VOC_GENEING, WaveRNN, WaveRNNDims, wavernn_forward
+from rtvc_tpu_torch.ops import precision
 from rtvc_tpu_torch.train.losses import cross_entropy_bits, nll_from_log_probs, tacotron_loss
 
 Tensor = torch.Tensor
-
-
-def check_compute_dtype(compute_dtype: str) -> None:
-    """Accept ``auto`` and ``f32`` (both run f32 here); refuse ``bf16``."""
-    if compute_dtype in ("auto", "f32"):
-        return
-    if compute_dtype == "bf16":
-        raise NotImplementedError(
-            "compute_dtype='bf16' is not ported yet: the bf16 autocast policy is "
-            "a later slice (ROADMAP Queue 1, \"The bf16 policy\"); use 'f32' or 'auto'")
-    raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
 
 
 def global_norm(grads: Iterable[Tensor]) -> Tensor:
@@ -48,14 +44,17 @@ def make_encoder_train_step(model: SpeakerEncoder, optimizer: torch.optim.Optimi
     × 0.01 → global-norm clip to 3 by ``min(1, 3 / (‖g‖ + 1e-6))`` → the
     optimizer. ``step(utterances (S·U, T, n_mels))`` returns (loss, the
     gradient norm before clipping, the (S·U, S) similarity matrix, embeds
-    (S, U, E)), all detached."""
-    check_compute_dtype(compute_dtype)
+    (S, U, E)), all detached. Under the bf16 policy the embeddings come out
+    f32 and the similarity and loss use the f32 similarity parameters."""
+    cdt = precision.resolve(compute_dtype)
     params = [p for p in model.parameters() if p.requires_grad]
     sim_params = (model.similarity_weight, model.similarity_bias)
 
     def step(inputs: Tensor):
         optimizer.zero_grad(set_to_none=True)
-        embeds = model(inputs).float().reshape(speakers_per_batch, utterances_per_speaker, -1)
+        with precision.policy(model, cdt):
+            embeds = model(precision.cast_floats(inputs, cdt))
+        embeds = embeds.float().reshape(speakers_per_batch, utterances_per_speaker, -1)
         loss, sim = ge2e_loss(embeds, model.similarity_weight, model.similarity_bias)
         loss.backward()
         with torch.no_grad():
@@ -73,7 +72,7 @@ def make_encoder_train_step(model: SpeakerEncoder, optimizer: torch.optim.Optimi
 
 def make_tacotron_train_step(model: Tacotron, d: TacotronDims,
                              optimizer: torch.optim.Optimizer, r: int,
-                             clip_grad_norm: Optional[float] = 1.0
+                             clip_grad_norm: Optional[float] = 1.0, compute_dtype: str = "f32"
                              ) -> Callable[..., Tuple[Dict[str, Tensor], Tensor]]:
     """Teacher-forced Tacotron step at reduction factor ``r``: forward (the
     decoder chain through K5) → ``tacotron_loss`` → backward → global-norm
@@ -84,16 +83,21 @@ def make_tacotron_train_step(model: Tacotron, d: TacotronDims,
     ({"loss", "grad_norm" (before clipping), "m1", "m2", "stop"}, attention
     (B, steps // r, T_text)), all detached. ``generator`` feeds the prenets'
     dropout and the zoneout masks; ``prenet_dropout`` and ``zoneout_masks``
-    pass through to :func:`tacotron_forward` so that a test can share them."""
+    pass through to :func:`tacotron_forward` so that a test can share them.
+    Under the bf16 policy the decoder chain (K5) runs in f32 on widened
+    inputs, and the attention comes out f32."""
+    cdt = precision.resolve(compute_dtype)
     params = [p for p in model.parameters() if p.requires_grad]
     buffers = dict(model.named_buffers())
 
     def step(batch: Dict[str, Tensor], generator: Optional[torch.Generator] = None,
              prenet_dropout: bool = True, zoneout_masks=None):
         optimizer.zero_grad(set_to_none=True)
-        m1, m2, attn, stop_pred, new_stats = tacotron_forward(
-            model, d, batch["chars"], batch["mels"], batch["embeds"], r, generator,
-            prenet_dropout=prenet_dropout, zoneout_masks=zoneout_masks)
+        b = precision.cast_floats(batch, cdt)
+        with precision.policy(model, cdt):
+            m1, m2, attn, stop_pred, new_stats = tacotron_forward(
+                model, d, b["chars"], b["mels"], b["embeds"], r, generator,
+                prenet_dropout=prenet_dropout, zoneout_masks=zoneout_masks)
         loss, parts = tacotron_loss(m1.float(), m2.float(), stop_pred.float(), batch["mels"],
                                     batch["stop"])
         loss.backward()
@@ -145,7 +149,7 @@ def make_nar_synth_train_step(model_type: str, model, optimizer: torch.optim.Opt
     from rtvc_tpu_torch.models.fast_pitch import fastpitch_forward
     from rtvc_tpu_torch.models.forward_tacotron import forward_tacotron_forward
 
-    check_compute_dtype(compute_dtype)
+    cdt = precision.resolve(compute_dtype)
     forward = (forward_tacotron_forward if model_type == factories.MODEL_TYPE_FORWARD_TACOTRON
                else fastpitch_forward)
     pitch_zoneout = getattr(cfg, "pitch_zoneout", 0.0)
@@ -159,11 +163,13 @@ def make_nar_synth_train_step(model_type: str, model, optimizer: torch.optim.Opt
     def step(batch: Dict[str, Tensor], generator: Optional[torch.Generator] = None):
         optimizer.zero_grad(set_to_none=True)
         pitch, energy = batch["pitch"], batch["energy"]
-        pitch_in = zoneout(pitch, pitch_zoneout, generator)
-        energy_in = zoneout(energy, energy_zoneout, generator)
-        mel_hat, mel_post, dur_hat, pitch_hat, energy_hat, new_stats = forward(
-            model, batch["chars"], batch["mels"], batch["durations"], batch["embeds"],
-            batch["spec_lens"], pitch_in, energy_in, generator)
+        b = precision.cast_floats({**batch, "pitch_in": zoneout(pitch, pitch_zoneout, generator),
+                                   "energy_in": zoneout(energy, energy_zoneout, generator)},
+                                  cdt)
+        with precision.policy(model, cdt):
+            mel_hat, mel_post, dur_hat, pitch_hat, energy_hat, new_stats = forward(
+                model, b["chars"], b["mels"], b["durations"], b["embeds"], b["spec_lens"],
+                b["pitch_in"], b["energy_in"], generator)
         mels, spec_lens, x_lens = batch["mels"], batch["spec_lens"], batch["x_lens"]
         parts = {
             "m1": masked_l1_lastdim(mel_hat.float(), mels, spec_lens),
@@ -204,7 +210,7 @@ def make_wavernn_train_step(model: WaveRNN, d: WaveRNNDims,
 
     geneing's RAW mode has a beta head of two columns; a cross entropy over
     them is not its likelihood, so training that cell raises."""
-    check_compute_dtype(compute_dtype)
+    cdt = precision.resolve(compute_dtype)
     if d.variant == VOC_GENEING and d.mode == MODE_RAW:
         raise NotImplementedError(
             "training geneing-wavernn in RAW mode (the beta head) is not supported: a "
@@ -222,7 +228,9 @@ def make_wavernn_train_step(model: WaveRNN, d: WaveRNNDims,
 
     def step(batch: Dict[str, Tensor]) -> Tensor:
         optimizer.zero_grad(set_to_none=True)
-        out, new_stats = wavernn_forward(model, d, batch["x"], batch["mels"])
+        b = precision.cast_floats(batch, cdt)
+        with precision.policy(model, cdt):
+            out, new_stats = wavernn_forward(model, d, b["x"], b["mels"])
         loss = loss_of(out.float(), batch)
         loss.backward()
         optimizer.step()

@@ -265,10 +265,11 @@ def train_synthesizer(
     resume: bool = True,
     eval_hook: Optional[Callable] = None,
     eval_interval: int = 500,
+    compute_dtype: str = "f32",
     *,
     device,
 ) -> Dict[str, Any]:
-    """Synthesizer training (f32) over the config's session schedule:
+    """Synthesizer training over the config's session schedule:
     Tacotron's ``(r, loops, batch_size, init_lr, end_lr)``, ForwardTacotron's
     and FastPitch's ``(loops, batch_size, init_lr, end_lr)`` at r 1.
 
@@ -286,12 +287,21 @@ def train_synthesizer(
     session takes up that session's learning-rate decay where it stood and
     ends the session at its own step count. ``eval_hook(step, model, r)``
     runs after every ``eval_interval``-th step's save (``train.eval_hooks``).
+    ``compute_dtype`` is the steps' policy (``train.steps``: "auto" and
+    "f32" train in f32, "bf16" under the bf16 policy); the checkpoints hold
+    the f32 master weights either way, so a run resumes under either.
 
     Returns the final step, the model, the last step's statistics, and every
     step's loss, learning rate and wall milliseconds (``losses``, ``lrs``,
     ``step_ms``)."""
     from rtvc_tpu_torch.models import factories
-    from rtvc_tpu_torch.train.steps import make_nar_synth_train_step, make_tacotron_train_step
+    from rtvc_tpu_torch.ops import precision
+    from rtvc_tpu_torch.train.steps import (
+        make_nar_synth_train_step,
+        make_tacotron_train_step,
+    )
+
+    precision.resolve(compute_dtype)
 
     is_tacotron = model_type == factories.MODEL_TYPE_TACOTRON
     device = torch.device(device)
@@ -336,12 +346,13 @@ def train_synthesizer(
                       ("Steps", session_steps)])
         if is_tacotron:
             tacotron_step = make_tacotron_train_step(model, dims, optimizer, r,
-                                                     cfg.tts_clip_grad_norm)
+                                                     cfg.tts_clip_grad_norm, compute_dtype)
 
             def step_fn(batch, generator):
                 return tacotron_step(batch, generator)[0]
         else:
-            step_fn = make_nar_synth_train_step(model_type, model, optimizer, cfg)
+            step_fn = make_nar_synth_train_step(model_type, model, optimizer, cfg,
+                                                compute_dtype)
         t_last = time.perf_counter()
         for _ in range(n_epochs):
             for batch in session_batches:

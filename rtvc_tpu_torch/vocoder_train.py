@@ -45,7 +45,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("-b", "--backup_every", type=int, default=25000)
     parser.add_argument("--max_steps", type=int, default=None)
     parser.add_argument("--compute_dtype", choices=["auto", "f32", "bf16"], default="auto",
-                        help="auto and f32 train in f32; bf16 is not ported yet.")
+                        help="auto = f32 on the card (the JAX package picks bf16 only "
+                             "on a TPU); bf16 = the mixed-precision policy "
+                             "(ops/precision.py): bf16 parameters and "
+                             "activations in the forward, f32 master weights, "
+                             "optimizer state, losses and softmaxes.")
     parser.add_argument("-f", "--force_restart", action="store_true",
                         help="Ignore any saved model for this run_id and restart from scratch.")
     parser.add_argument("--device", default="cuda", help="The torch device to train on.")
@@ -70,11 +74,11 @@ def sample_hook(model_type: str, cfg, dataset, sample_dir):
 def main(argv=None):
     args = parse_args(argv)
     from rtvc_tpu_torch.data.vocoder_dataset import VocoderDataset, batch_iterator
-    from rtvc_tpu_torch.train.steps import check_compute_dtype
+    from rtvc_tpu_torch.ops import precision
     from rtvc_tpu_torch.train.trainer import train_vocoder
 
     cfg = CONFIGS[args.model_type]
-    check_compute_dtype(args.compute_dtype)
+    precision.resolve(args.compute_dtype)
     syn_dir = args.syn_dir or args.datasets_root / "SV2TTS" / "synthesizer"
     voc_dir = args.voc_dir or args.datasets_root / "SV2TTS" / "vocoder"
     if args.ground_truth:

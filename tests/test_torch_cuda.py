@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 small widths and, for the training kernels, at the trainers' shapes (both
-on the GPU, f32). Every test needs an NVIDIA GPU and
+on the GPU, f32; the bf16 instantiations of K3 and K4 on bf16 streams
+against their plain bf16 versions). Every test needs an NVIDIA GPU and
 skips without one. This file imports no JAX, so it runs on a machine that
 has only PyTorch:
 
@@ -454,6 +455,108 @@ def test_train_kernels_reject_bad_input(dev):
     with pytest.raises(ValueError, match="f32"):
         gru_seq_fwd(torch.zeros(2, 5, 48, device=dev, dtype=torch.float64),
                     torch.zeros(48, 16, device=dev), torch.zeros(48, device=dev))
+
+
+# The bf16 instantiations (the bf16 training policy's streams, f32 state):
+# each at a ragged width and at a trainer's shape, against its plain bf16
+# version on the same inputs. The bf16 outputs are held within
+# torch.testing's bf16 defaults (the tolerance the CPU tests hold the plain
+# versions to against the JAX package: sums in another order may put an f32
+# value on the other side of a bf16 rounding boundary), the f32 outputs
+# within 1e-4 of their largest entry, as the f32 kernels are.
+BF16 = dict(rtol=1.6e-2, atol=1e-5)
+
+
+def _launches(name):
+    return _build.launch_counts.get(name, 0)
+
+
+@pytest.mark.parametrize("B,T,H", [(3, 20, 40), (640, 160, 768)])
+def test_lstm_bf16_kernels_match_plain(dev, B, T, H):
+    g = torch.Generator().manual_seed(3)
+    xg = torch.randn(B, T, 4 * H, generator=g).to(dev, torch.bfloat16)
+    w = ((torch.rand(4 * H, H, generator=g) - 0.5) * 2 * H ** -0.5).to(dev, torch.bfloat16)
+    h0, c0, dhT, dcT = (torch.randn(B, H, generator=g).to(dev) * 0.5 for _ in range(4))
+    dys = torch.randn(B, T, H, generator=g).to(dev, torch.bfloat16)
+    before = (_launches("lstm_seq_bf16"), _launches("lstm_seq"))
+    got = lstm_seq_fwd_train(xg, w, h0, c0)
+    assert (_launches("lstm_seq_bf16"), _launches("lstm_seq")) == (before[0] + 1, before[1])
+    want = lstm_seq_fwd_train_plain(xg, w, h0, c0)
+    for i in (0, 3, 4):
+        assert got[i].dtype == torch.bfloat16
+        torch.testing.assert_close(got[i], want[i], **BF16)
+    for i in (1, 2):
+        assert got[i].dtype == torch.float32 and rel_err(got[i], want[i]) <= 1e-4
+    args = (dys, dhT, dcT, want[4], want[3], c0, w)
+    before = (_launches("lstm_seq_bwd_bf16"), _launches("lstm_seq_bwd"))
+    k = lstm_seq_bwd(*args)
+    assert (_launches("lstm_seq_bwd_bf16"), _launches("lstm_seq_bwd")) == (before[0] + 1,
+                                                                          before[1])
+    for a, b in zip(k, lstm_seq_bwd_plain(*args)):
+        assert a.dtype == torch.float32 and rel_err(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("B,T,H", [(3, 20, 40), (112, 602, 64)])
+def test_gru_bf16_kernels_match_plain(dev, B, T, H):
+    g = torch.Generator().manual_seed(4)
+    xg = torch.randn(B, T, 3 * H, generator=g).to(dev, torch.bfloat16)
+    w = ((torch.rand(3 * H, H, generator=g) - 0.5) * 2 * H ** -0.5).to(dev, torch.bfloat16)
+    b = ((torch.rand(3 * H, generator=g) - 0.5) * 2 * H ** -0.5).to(dev, torch.bfloat16)
+    dys = torch.randn(B, T, H, generator=g).to(dev, torch.bfloat16)
+    before = (_launches("gru_seq_bf16"), _launches("gru_seq"))
+    ys, gates = gru_seq_fwd(xg, w, b)
+    assert (_launches("gru_seq_bf16"), _launches("gru_seq")) == (before[0] + 1, before[1])
+    p_ys, p_gates = gru_seq_fwd_plain(xg, w, b)
+    for a, want in ((ys, p_ys), (gates, p_gates)):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a, want, **BF16)
+    before = (_launches("gru_seq_bwd_bf16"), _launches("gru_seq_bwd"))
+    dxg = gru_seq_bwd(dys, p_gates, p_ys, w)
+    assert (_launches("gru_seq_bwd_bf16"), _launches("gru_seq_bwd")) == (before[0] + 1,
+                                                                        before[1])
+    assert dxg.dtype == torch.float32
+    assert rel_err(dxg, gru_seq_bwd_plain(dys, p_gates, p_ys, w)) <= 1e-4
+    # the autograd functions return each cotangent in its input's dtype
+    leaves = [t.clone().requires_grad_() for t in (xg, w, b)]
+    GRUSeqFn.apply(*leaves).backward(dys)
+    assert [t.grad.dtype for t in leaves] == [torch.bfloat16] * 3
+
+
+def test_bf16_tensors_reach_the_bf16_kernel_or_raise(dev, monkeypatch):
+    """A bf16 CUDA tensor launches the bf16 instantiation: never the f32
+    kernel (nothing widens it) and never the plain version (which raises
+    here); a call that mixes bf16 and f32 streams raises."""
+    from rtvc_tpu_torch.ops import gru_seq as k4
+    from rtvc_tpu_torch.ops import lstm_seq as k3
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, names in ((k3, ("lstm_seq_plain", "lstm_seq_fwd_train_plain", "lstm_seq_bwd_plain")),
+                       (k4, ("gru_seq_fwd_plain", "gru_seq_bwd_plain"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    B, T, H = 4, 9, 32
+    g = torch.Generator().manual_seed(5)
+    bf = lambda *s: torch.randn(*s, generator=g).to(dev, torch.bfloat16)  # noqa: E731
+    h = torch.zeros(B, H, device=dev)
+    _build.launch_counts.clear()
+    xg, w = bf(B, T, 4 * H).requires_grad_(), (bf(4 * H, H) * 0.1).requires_grad_()
+    ys, _, _ = k3.LSTMSeqFn.apply(xg, w, h, h)
+    ys.float().sum().backward()
+    with torch.no_grad():
+        k3.lstm_seq(xg, w, h, h)
+    x3, w3, b3 = (bf(B, T, 3 * H).requires_grad_(), (bf(3 * H, H) * 0.1).requires_grad_(),
+                  bf(3 * H).requires_grad_())
+    k4.GRUSeqFn.apply(x3, w3, b3).float().sum().backward()
+    assert dict(_build.launch_counts) == {"lstm_seq_bf16": 2, "lstm_seq_bwd_bf16": 1,
+                                          "gru_seq_bf16": 1, "gru_seq_bwd_bf16": 1}
+    with pytest.raises(ValueError, match="w_hh"):  # bf16 streams, an f32 W_hh
+        k3.lstm_seq(xg.detach(), w.detach().float(), h, h)
+    with pytest.raises(ValueError, match="h0"):  # the state stays f32
+        k3.lstm_seq(xg.detach(), w.detach(), h.bfloat16(), h)
+    with pytest.raises(ValueError, match="b_hh"):
+        k4.gru_seq_fwd(x3.detach(), w3.detach(), b3.detach().float())
 
 
 def _taco(dev, B, T=16, max_r=4):

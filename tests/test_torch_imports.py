@@ -48,7 +48,8 @@ for need in ("models.distribution", "ops.stft", "ops.mel_project", "ops.wavernn_
              "models.forward_tacotron", "models.fast_pitch", "inference.attention",
              "data.duration_extractor", "data.synthesizer_preprocess", "ops.pitch",
              "synthesizer_preprocess_alignments", "train.gta", "train.gen_testset",
-             "train.eval_hooks", "utils.plots", "utils.projection", "vocoder_preprocess"):
+             "train.eval_hooks", "utils.plots", "utils.projection", "vocoder_preprocess",
+             "ops.precision"):
     assert "rtvc_tpu_torch." + need in names, need
 import chip_smoke
 bad = sorted(m for m in sys.modules

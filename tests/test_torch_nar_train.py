@@ -196,13 +196,6 @@ def test_nar_step_matches_jax(model_type):
         np.testing.assert_allclose(buf.numpy(), new[name].numpy(), atol=2e-5, err_msg=name)
 
 
-def test_nar_step_refuses_bf16():
-    _, _, tcfg, _, model, _ = _setup("fast-pitch")
-    opt = ttrain.make_optimizer(model.parameters())
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tsteps.make_nar_synth_train_step("fast-pitch", model, opt, tcfg, compute_dtype="bf16")
-
-
 def test_bilstm_input_gradient_is_zero_on_pad_frames():
     _, _, _, _, model, _ = _setup("forward-tacotron")
     g = torch.Generator().manual_seed(3)
