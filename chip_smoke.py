@@ -177,6 +177,26 @@
    of the bf16 path only (K5 in f32 for Tacotron), and the ms per step beside
    the f32 run's.
 
+10. The vocoder's generation options (``phase_vocoder_options``, after the
+   inference kernels). K1's three instantiations beside f32 / f32, (f32
+   weights, bf16 streams), (bf16, bf16) and (bf16 weights, f32 streams), in
+   all seven variant x head cells at 8 folds x 512 steps, greedy, against
+   their plain versions at the same pair (head inputs within 1e-4 with f32
+   weights, within 1e-3 with bf16 weights, whose rounded states part at
+   bf16 midpoints; labels equal up to a near-tie) and timed beside the f32
+   kernel on the same values; each at the 5 s clone's 13 folds x 8000
+   steps, (bf16, bf16) held there too. Then ``set_generation_options``
+   through the clone's vocode stage: f32, bf16 streams, bf16 weights and
+   streams, bf16 weights, five requests each in turns (every launch on its
+   instantiation's counter; ``stream_dtype=None`` returns to f32); what bf16
+   does to the audio through the port's ``utils/genquality.py`` (greedy
+   agreement, ``bench_quality.py``'s sampled mel divergence beside two
+   seeds', ``fold_fidelity`` at the checkpoint's window and at 400 / 160,
+   the mel-cepstral distortion; printed readings); a streamed clone and a
+   ``vocode_pipelined`` batch at bf16 streams beside f32. After the GE2E
+   training run, ``utils/dashboard.serve`` over its directory answers
+   ``GET /`` and ``GET /data.json`` with the run's loss.
+
 K1's, K3's and K4's lines also give the times of the earlier kernels (one
 CTA per fold or batch row, the weights re-read from L2 every step) on the
 same card model, K3's its time as a share of its time before K4 and K1 came
@@ -700,6 +720,16 @@ def phase_tacotron_chunks(dev, syn):
 # folds) and its fold blocks.
 K1_MAIN_FOLDS = {"runtimeracer-wavernn": (13, 39), "fatchord-wavernn": (20,),
                  "geneing-wavernn": (20,)}
+# K1's instantiations beside f32 / f32 (the vocoder's generation options):
+# (compute_dtype, stream_dtype), and the head inputs' tolerance against the
+# plain version by compute dtype. bf16 weights round the carried states and
+# the fed-back sample, and the kernel's and the plain version's f32 sums, a
+# few units apart, round to different bf16 values where they lie that close
+# to a midpoint: a state moves by one bf16 unit there (measured on an H100
+# at 8 folds x 512 steps: up to 1.2e-4). tests/test_torch_cuda.py's rounding
+# probe holds each rounding point to 1e-4 where no sum's order matters.
+K1_PAIRS = (("f32", "bf16"), ("bf16", "bf16"), ("bf16", "f32"))
+K1_PAIR_TOL = {"f32": 1e-4, "bf16": 1e-3}
 K1_CELLS = (("fatchord-wavernn", "RAW"), ("fatchord-wavernn", "MOL"),
             ("geneing-wavernn", "BITS"), ("geneing-wavernn", "RAW"), ("geneing-wavernn", "MOL"),
             ("runtimeracer-wavernn", "RAW"), ("runtimeracer-wavernn", "MOL"))
@@ -727,23 +757,34 @@ def k1_streams(voc, B, T, seed, dev):
         return {k: v.contiguous() for k, v in wrn.hoist_aux(voc.model, d, mels_up, aux).items()}
 
 
-def k1_check(d, w, streams):
-    """Greedy K1 against its plain version on the same streams. Categorical
-    heads: equal class labels (a fold is cut at a near-tie of the two top
-    logits), logits within 1e-4, samples within 1e-6. MOL and beta heads feed
-    a continuous sample back: samples and head inputs within 1e-4 over all
-    steps (MOL: up to a near-tie of the two most likely components). Returns
-    the kernel's samples, the head inputs' and the samples' largest errors,
-    the samples' tolerance and the folds cut at a near-tie."""
+def k1_check(d, w, streams, tol=1e-4):
+    """Greedy K1 against its plain version on the same streams (at their
+    dtypes: the instantiation they pick). Categorical heads: equal class
+    labels (a fold is cut at a near-tie of the two top logits), logits
+    within ``tol``, samples within 1e-6. MOL and beta heads feed a
+    continuous sample back: samples and head inputs within ``tol`` over all
+    steps (MOL: up to a near-tie of the two most likely components).
+    ``tol`` is 1e-4, and 1e-3 for bf16 weights (``K1_PAIR_TOL``). Under
+    bf16 weights the fed-back sample is rounded to bf16 and the beta head's
+    greedy sample, the mode (α − 1)/(α + β − 2) or the mean past α, β = 1,
+    moves by more than ``tol`` for head inputs within it where α + β nears 2
+    or at the branch: there a beta fold is cut where its head inputs still
+    agree within ``tol`` and the kernel's sample is the plain head's on the
+    kernel's own head inputs (within 1e-5), the beta head's counterpart of
+    a near-tie. Returns the kernel's samples, the head inputs' and the
+    samples' largest errors, the samples' tolerance and the folds cut at a
+    near-tie."""
     import torch
 
     from rtvc_tpu_torch.ops.wavernn_generate import (
+        _head_sample,
         wavernn_generate_core,
         wavernn_generate_core_plain,
     )
 
     cell = f"{d.variant} {d.mode}"
     kw = dict(variant=d.variant, head=d.head)
+    rounded = w["i_col"].dtype == torch.bfloat16
     with torch.no_grad():
         got, k_logits = wavernn_generate_core(w, streams, 0, argmax=True, return_logits=True,
                                               **kw)
@@ -752,7 +793,9 @@ def k1_check(d, w, streams):
         torch.cuda.synchronize()
     B, T = got.shape
     where = f"K1 {cell} at {B} folds x {T} steps"
-    C = d.n_classes
+    if w["i_col"].dtype != torch.float32 or streams["i_cond"].dtype != torch.float32:
+        where += f" ({w['i_col'].dtype}, {streams['i_cond'].dtype})"
+    C, head_tol = d.n_classes, tol
     err, sample_err, flips = 0.0, 0.0, 0
     for b in range(B):
         if d.head == "categorical":
@@ -762,8 +805,8 @@ def k1_check(d, w, streams):
                 (ref[b] + 1) * (C - 1) / 2)
             choice, tol = p_logits[b], 1e-6
         else:
-            differ = (got[b] - ref[b]).abs() > 1e-4
-            choice, tol = p_logits[b, :, :C // 3], 1e-4
+            differ = (got[b] - ref[b]).abs() > head_tol
+            choice, tol = p_logits[b, :, :C // 3], head_tol
         idx = torch.nonzero(differ)
         t_end = int(idx[0]) if len(idx) else T
         if t_end < T:
@@ -772,27 +815,51 @@ def k1_check(d, w, streams):
                       for t in range(0, t_end + 1, max(t_end // 8, 1))]
             print(f"{where}, fold {b}: samples differ first at step {t_end}, head input "
                   f"difference {noise:.3e}; sample difference by step {growth}")
-            check(d.head != "beta", f"{where}: greedy samples differ at fold {b} step {t_end}")
-            # a near-tie: the plain version's top-2 gap (classes, or mixture
-            # components) is within the two versions' disagreement there
-            top2 = torch.topk(choice[t_end], 2).values
-            gap = float(top2[0] - top2[1])
-            check(gap <= 2 * noise, f"{where}: greedy decode differs at fold {b} step {t_end} "
-                  f"with a gap of {gap}, above twice the head input difference {noise}")
+            check(d.head != "beta" or rounded,
+                  f"{where}: greedy samples differ at fold {b} step {t_end}")
+            if d.head == "beta":
+                again = _head_sample("beta", k_logits[b, t_end][None], True, None)
+                off = abs(float(again[0]) - float(got[b, t_end]))
+                check(noise <= head_tol and off <= 1e-5,
+                      f"{where}: the beta sample parts at fold {b} step {t_end} with head "
+                      f"inputs {noise} apart and {off} from the plain head's on them")
+            else:
+                # a near-tie: the plain version's top-2 gap (classes, or
+                # mixture components) is within the two versions'
+                # disagreement there
+                top2 = torch.topk(choice[t_end], 2).values
+                gap = float(top2[0] - top2[1])
+                check(gap <= 2 * noise, f"{where}: greedy decode differs at fold {b} step "
+                      f"{t_end} with a gap of {gap}, above twice the head input difference "
+                      f"{noise}")
             flips += 1
         t_cmp = min(t_end + 1, T)
         err = max(err, float((k_logits[b, :t_cmp] - p_logits[b, :t_cmp]).abs().max()))
         if t_end:
             sample_err = max(sample_err, float((got[b, :t_end] - ref[b, :t_end]).abs().max()))
-    check(err <= 1e-4, f"{where}: head inputs differ from the plain version's: {err}")
+    check(err <= head_tol, f"{where}: head inputs differ from the plain version's: {err}")
     check(sample_err <= tol, f"{where}: greedy samples differ: {sample_err}")
     check(bool(torch.isfinite(got).all()) and float(got.std()) > 0, f"{where}: output")
     return got, err, sample_err, tol, flips
 
 
-def k1_greedy_cell(dev, voc, B=8, T=512):
+def k1_pair(w, streams, pair):
+    """Weights and streams cast to a (compute_dtype, stream_dtype) pair of
+    names, as ``models.wavernn.generate_core`` casts them."""
+    from rtvc_tpu_torch.ops import precision
+
+    compute, stream = (precision.resolve(n) for n in pair)
+    return ({k: v.to(compute) for k, v in w.items()},
+            {k: v.to(stream).contiguous() for k, v in streams.items()})
+
+
+def k1_greedy_cell(dev, voc, B=8, T=512, pair=None):
     """One variant x head cell of K1 at full width, greedy, kernel against
-    plain (``k1_check``), timed. Returns the cell's errors, times and bound."""
+    plain (``k1_check``), timed. With ``pair`` (compute_dtype, stream_dtype)
+    the instantiation of that pair on the cell's weights and streams cast to
+    it, at its tolerance, its plan and its bound, with the f32 kernel timed
+    beside it on the values before the cast. Returns the cell's errors,
+    times and bound, and the cell's f32 weights and streams."""
     import torch
 
     from rtvc_tpu_torch.models import wavernn as wrn
@@ -804,24 +871,33 @@ def k1_greedy_cell(dev, voc, B=8, T=512):
     d, model = voc.dims, voc.model
     cell = f"{d.variant} {d.mode}"
     kw = dict(variant=d.variant, head=d.head)
-    streams = k1_streams(voc, B, T, 2, dev)
+    f32_streams = k1_streams(voc, B, T, 2, dev)
     with torch.no_grad():
-        w = wrn.step_weights(model, d)
-    got, err, sample_err, tol, flips = k1_check(d, w, streams)
+        f32_w = wrn.step_weights(model, d)
+    pair = pair or ("f32", "f32")
+    w, streams = k1_pair(f32_w, f32_streams, pair)
+    head_tol = K1_PAIR_TOL[pair[0]]
+    got, err, sample_err, tol, flips = k1_check(d, w, streams, head_tol)
     with torch.no_grad():
         ms = cuda_ms(lambda: wavernn_generate_core(w, streams, 0, argmax=True, **kw))
         plain_ms = cuda_ms(lambda: wavernn_generate_core_plain(w, streams, 0, argmax=True, **kw),
                            reps=1)
+        f32_ms = ms if pair == ("f32", "f32") else cuda_ms(
+            lambda: wavernn_generate_core(f32_w, f32_streams, 0, argmax=True, **kw))
     b = k1_bound(w, streams, got)
-    p = k1_plan(d, B, dev)
-    print(f"K1 {cell} greedy {B} folds x {T} steps ({p.ctas} CTAs: {p.units} units of each GRU, "
-          f"{p.fc_rows} rows of each FC, {p.last_rows} of the last; {p.nb} folds an item; "
-          f"{p.smem} bytes of shared memory): head input max_abs_err {err:.3e} (tol 1e-4), "
-          f"sample err {sample_err:.3e} (tol {tol:g}), {flips} folds cut at a near-tie; kernel "
-          f"{ms:.3f} ms ({ms / T * 1e3:.2f} us a step; earlier kernel {K1_EARLIER_MS[cell]} ms), "
+    p = k1_plan(d, B, dev, elem=w["i_col"].element_size())
+    tag, beside = "", f"earlier kernel {K1_EARLIER_MS[cell]} ms"
+    if pair != ("f32", "f32"):
+        tag = f" at {pair[0]} weights, {pair[1]} streams"
+        beside = f"the f32 kernel on the same values {f32_ms:.3f} ms"
+    print(f"K1 {cell}{tag} greedy {B} folds x {T} steps ({p.ctas} CTAs: {p.units} units of each "
+          f"GRU, {p.fc_rows} rows of each FC, {p.last_rows} of the last; {p.nb} folds an item; "
+          f"{p.fb} a fold block; {p.smem} bytes of shared memory): head input max_abs_err "
+          f"{err:.3e} (tol {head_tol:g}), sample err {sample_err:.3e} (tol {tol:g}), {flips} "
+          f"folds cut at a near-tie; kernel {ms:.3f} ms ({ms / T * 1e3:.2f} us a step; {beside}), "
           f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {"cell": cell, "max_abs_err": max(err, sample_err), "ms": ms, "plain_ms": plain_ms,
-            **b, "plan": list(p[:6])}, w, streams
+            **b, "plan": list(p[:6]), **({"f32_ms": f32_ms} if tag else {})}, f32_w, f32_streams
 
 
 def k1_main_folds(dev, voc, w, T=512):
@@ -842,18 +918,22 @@ def k1_main_folds(dev, voc, w, T=512):
 
 def k1_bound(w, streams, samples):
     """K1's bound: every weight applied once to every fold and step; the
-    weights, the streams and the samples moved once."""
+    weights, the streams and the samples moved once (at their dtypes' bytes);
+    the operations at the f32 peak, or at the bf16 peak for bf16 weights."""
+    import torch
+
     B, T = samples.shape
     flops = 2 * B * T * sum(v.numel() for v in w.values() if v.ndim == 2)
-    return bound(nbytes(*w.values(), *streams.values(), samples), flops)
+    peak = BF16_FLOPS if w["i_col"].dtype == torch.bfloat16 else F32_FLOPS
+    return bound(nbytes(*w.values(), *streams.values(), samples), flops, peak)
 
 
-def k1_plan(d, B, dev):
+def k1_plan(d, B, dev, elem=4):
     from rtvc_tpu_torch import _build
     from rtvc_tpu_torch.ops.wavernn_generate import plan
 
     return plan(d.variant, d.rnn_dims, d.fc_dims, d.n_classes, B, *_build.device_limits(dev),
-                head=d.head)
+                head=d.head, elem=elem)
 
 
 def k1_fold_sweep(dev, voc, folds=(8, 13, 39, 132, 264), T=512):
@@ -999,6 +1079,284 @@ def phase_wavernn(dev):
         del voc, w, streams
         torch.cuda.empty_cache()
     return list(entries.values())
+
+
+# the vocoder's generation options through the API, in turns: the options
+# set and the launch counter its K1 launch adds to
+VOC_OPTIONS = (({"stream_dtype": None}, "wavernn_generate_runtimeracer"),
+               ({"stream_dtype": "bf16"}, "wavernn_generate_bf16_streams"),
+               ({"compute_dtype": "bf16", "stream_dtype": "bf16"}, "wavernn_generate_bf16"),
+               ({"compute_dtype": "bf16", "stream_dtype": None}, "wavernn_generate_bf16_weights"))
+VOC_OPTION_RUNS = 5
+QUALITY_FRAMES = 160  # bench_quality.py's divergence mel
+
+
+def k1_pairs_at_the_clone_shape(dev, voc, entries, T=8000, B=13):
+    """runtimeracer RAW at the 5 s clone's 13 folds x 8000 steps under each
+    pair, the kernel timed beside the f32 kernel on the values before the
+    cast; (bf16, bf16) also held to its plain version there (``k1_check``)."""
+    import torch
+
+    from rtvc_tpu_torch.models import wavernn as wrn
+    from rtvc_tpu_torch.ops.wavernn_generate import wavernn_generate_core
+
+    d = voc.dims
+    kw = dict(variant=d.variant, head=d.head)
+    base = k1_streams(voc, B, 512, 9, dev)
+    f32_streams = {k: v.repeat(1, -(-T // 512), 1)[:, :T].contiguous() for k, v in base.items()}
+    with torch.no_grad():
+        f32_w = wrn.step_weights(voc.model, d)
+        f32_ms = cuda_ms(lambda: wavernn_generate_core(f32_w, f32_streams, 0, argmax=True, **kw),
+                         reps=2)
+    for pair in K1_PAIRS:
+        w, streams = k1_pair(f32_w, f32_streams, pair)
+        err = None
+        if pair == ("bf16", "bf16"):
+            _, err, sample_err, _, flips = k1_check(d, w, streams, K1_PAIR_TOL[pair[0]])
+            err = max(err, sample_err)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: wavernn_generate_core(w, streams, 0, argmax=True, **kw), reps=2)
+        e = entries[pair]
+        e["clone_shape"] = {"folds": B, "steps": T, "ms": ms, "f32_ms": f32_ms,
+                            **k1_bound(w, streams, torch.empty(B, T))}
+        if err is not None:
+            e["clone_shape"]["max_abs_err"] = err
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+        print(f"K1 runtimeracer RAW at {pair[0]} weights, {pair[1]} streams, the 5 s clone's "
+              f"{B} folds x {T} steps: {ms:.3f} ms against the f32 kernel's {f32_ms:.3f} ms"
+              + ("" if err is None else f"; against the plain version max_abs_err {err:.3e} "
+                 f"(tol {K1_PAIR_TOL[pair[0]]:g}), {flips} near-ties"))
+
+
+def voc_quality_readings(dev, voc, mel):
+    """What bf16 does to the audio, through ``utils/genquality.py`` at full
+    width (printed readings, no gate): the share of equal samples of the
+    greedy decodes of one mel at each pair against f32 (folded at 400 / 160,
+    unfolded); ``bench_quality.py``'s ``bf16_stream_sampled_divergence``
+    (``mel_l2_distance`` between the f32 and the pair's sampled decodes
+    under one seed, beside two f32 seeds' distance); ``fold_fidelity`` at
+    the checkpoint's window and at 400 / 160, f32 and bf16 streams; the
+    mel-cepstral distortion between the f32 and the pair's greedy decodes.
+    Returns the readings."""
+    import torch
+    import torch.nn.functional as F
+
+    from rtvc_tpu_torch.config import preprocessing, sp
+    from rtvc_tpu_torch.models import wavernn as wrn
+    from rtvc_tpu_torch.utils import genquality
+
+    d, model, cfg = voc.dims, voc.model, voc.config
+    mels = F.pad(torch.as_tensor(mel, device=dev)[None], (d.pad, d.pad))
+    with torch.no_grad():
+        mels_up, aux, _ = wrn.upsample_forward(model, d, mels)
+
+    def greedy(pair):
+        return genquality._argmax_decode_batched(model, d, mels_up, aux, 400, 160, *pair)[0]
+
+    def sampled(pair, seed):
+        return wrn.wavernn_generate(model, d, mel, seed, target=400, overlap=160,
+                                    mu_law=cfg.mu_law, compute_dtype=pair[0],
+                                    stream_dtype=pair[1])
+
+    out = {}
+    ref, ref_wav, other = greedy(("f32", "f32")), sampled(("f32", "f32"), 0), None
+    for pair in K1_PAIRS:
+        got = greedy(pair)
+        wav = sampled(pair, 0)
+        other = sampled(("f32", "f32"), 1) if other is None else other
+        d_pair = genquality.mel_l2_distance(ref_wav, wav, sp, preprocessing, device=dev)
+        d_seed = genquality.mel_l2_distance(ref_wav, other, sp, preprocessing, device=dev)
+        r = {"greedy_agreement": float((got == ref).mean()),
+             "sampled_divergence": d_pair, "different_seed_floor": d_seed,
+             "ratio": d_pair / max(d_seed, 1e-9),
+             "greedy_mcd_db": genquality.mel_cepstral_distortion(ref, got, sp, preprocessing,
+                                                                 device=dev)}
+        check(all(np.isfinite(v) for v in r.values()) and all(np.isfinite(x).all()
+              for x in (got, wav)), f"non-finite quality readings at {pair}: {r}")
+        out["/".join(pair)] = r
+        print(f"bf16 and the audio, {pair[0]} weights and {pair[1]} streams against f32, "
+              f"runtimeracer RAW, a {mel.shape[1]}-frame mel at 400 / 160: greedy samples equal "
+              f"{r['greedy_agreement']:.5f}; sampled (one seed) mel_l2_distance {d_pair:.3e} "
+              f"beside two f32 seeds' {d_seed:.4f}, ratio {r['ratio']:.3e}; greedy mel-cepstral "
+              f"distortion {r['greedy_mcd_db']:.4f} dB")
+    for stream in ("f32", "bf16"):
+        ff = genquality.fold_fidelity(model, d, mel, [(cfg.gen_target, cfg.gen_overlap),
+                                                      (400, 160)], stream_dtype=stream)
+        out[f"fold_fidelity/{stream} streams"] = ff
+        check(all(np.isfinite(x["aligned_rms"]) and np.isfinite(x["join_click_ratio"])
+                  for x in ff), f"fold_fidelity at {stream} streams: {ff}")
+        print(f"fold_fidelity at {stream} streams (greedy, against the unbatched decode): "
+              + "; ".join(f"{x['target']} / {x['overlap']}: {x['num_folds']} folds, aligned_rms "
+                          f"{x['aligned_rms']:.3e}, join_click_ratio {x['join_click_ratio']:.3f}"
+                          for x in ff))
+    return out
+
+
+def phase_vocoder_options(dev, card, syn, voc):
+    """The vocoder's generation options (``inference.vocoder.
+    set_generation_options`` and the streaming functions' ``stream_dtype`` /
+    ``compute_dtype``) and K1's three new instantiations, (f32 weights, bf16
+    streams), (bf16, bf16) and (bf16 weights, f32 streams):
+
+    1. each in all seven variant x head cells at full width, 8 folds x 512
+       steps, greedy, against its plain version at the same pair
+       (``k1_greedy_cell``: ``k1_check`` at ``K1_PAIR_TOL``), timed beside
+       the f32 kernel on the same values, with its bound and its plan;
+    2. each at the 5 s clone's 13 folds x 8000 steps (runtimeracer RAW);
+    3. through the API: the clone's vocode stage (the Tacotron's 400-frame
+       mel of the 3 s prompt's clone, runtimeracer) under f32, bf16 streams,
+       bf16 weights and streams, and bf16 weights, five requests each in
+       turns; every launch counted on its instantiation's counter; then
+       ``stream_dtype=None`` and no ``compute_dtype`` return the next launch
+       to the f32 kernel;
+    4. what bf16 does to the audio (``voc_quality_readings``);
+    5. one streamed clone and one ``vocode_pipelined`` batch at bf16 streams
+       beside f32: as many chunks and samples, each launch on the pair's
+       counter, TTFA printed.
+
+    Returns the "kernels" line's three entries (with their launches on the
+    API path and by path) and the readings."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.inference import encoder, synthesizer, vocoder
+    from rtvc_tpu_torch.inference.pipelined import vocode_pipelined
+    from rtvc_tpu_torch.inference.streaming import stream_clone
+    from rtvc_tpu_torch.ops import precision
+    from rtvc_tpu_torch.ops.wavernn_generate import count_name
+    from rtvc_tpu_torch.profile_stream import TEXT, line, stats
+    from rtvc_tpu_torch.serve import voiced_prompt
+
+    entries = {pair: {"name": count_name("runtimeracer-wavernn",
+                                         *(precision.resolve(n) for n in pair)),
+                      "source": "rtvc_tpu_torch/csrc/wavernn_generate.cu",
+                      "replaces": "rtvc_tpu/ops/pallas/wavernn_kernel.py:309", "max_abs_err": 0.0,
+                      "library_ms": None, "cells": []} for pair in K1_PAIRS}
+    for model_type, mode in K1_CELLS:
+        cell_voc = voc_model(model_type, mode, dev)
+        for pair in K1_PAIRS:
+            cell, _, _ = k1_greedy_cell(dev, cell_voc, pair=pair)
+            e = entries[pair]
+            e["cells"].append(cell)
+            e["max_abs_err"] = max(e["max_abs_err"], cell["max_abs_err"])
+            if (model_type, mode) == ("runtimeracer-wavernn", "RAW"):
+                e.update({k: cell[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+        del cell_voc
+        torch.cuda.empty_cache()
+    k1_pairs_at_the_clone_shape(dev, voc, entries)
+
+    encoder.init_random_model(seed=0, device=dev)
+    synth = synthesizer.Synthesizer()
+    synth.load_bundle(syn, r=2)
+    vocoder.load_bundle(voc)
+    vocoder.set_seed(0)
+    embed = encoder.embed_utterance(encoder.preprocess_wav(voiced_prompt(0)))
+    mel = synth.synthesize_spectrograms([TEXT], [embed])[0]
+    check(mel.shape[1] == CLONE_FRAMES, f"the options' clone mel has {mel.shape[1]} frames")
+    vocoder.set_generation_options(stream_dtype=None)
+    check(vocoder._gen_backend() == (torch.float32, torch.float32),
+          f"the options start at {vocoder._gen_backend()}, want f32")
+    times = {name: [] for _, name in VOC_OPTIONS}
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    for _ in range(VOC_OPTION_RUNS):
+        for options, name in VOC_OPTIONS:
+            vocoder.set_generation_options(**options)
+            before = _build.launch_counts[name]
+            wav, ms = timed_ms(lambda: vocoder.infer_waveform(mel))
+            check(_build.launch_counts[name] == before + 1,
+                  f"infer_waveform under {options} did not launch {name}")
+            check(wav.shape == ((mel.shape[1] - 1) * 200,) and np.isfinite(wav).all()
+                  and float(np.abs(wav).max()) > 0, f"the vocode under {options}: {wav.shape}")
+            times[name].append(ms)
+    counts = dict(_build.launch_counts)
+    want = {name: VOC_OPTION_RUNS for _, name in VOC_OPTIONS}
+    check(counts == want, f"the options' vocodes launched {counts}, want {want}")
+    vocoder.set_generation_options(stream_dtype=None)
+    vocoder.infer_waveform(mel)
+    check(_build.launch_counts["wavernn_generate_runtimeracer"] == VOC_OPTION_RUNS + 1
+          and dict(_build.launch_counts) == {**want, "wavernn_generate_runtimeracer":
+                                             VOC_OPTION_RUNS + 1},
+          f"after set_generation_options(stream_dtype=None) the launch was {_build.launch_counts}")
+    f32_median = float(np.median(times["wavernn_generate_runtimeracer"]))
+    for options, name in VOC_OPTIONS:
+        med = float(np.median(times[name]))
+        print(f"{card}: the clone's vocode stage ({mel.shape[1]} frames, runtimeracer, window "
+              f"{voc.config.gen_target} / {voc.config.gen_overlap}) under {options or 'f32'}: "
+              f"median {med:.1f} ms of {VOC_OPTION_RUNS} in turns ("
+              + ", ".join(f"{t:.1f}" for t in times[name]) + f"), {med / f32_median:.3f} of f32")
+    for pair in K1_PAIRS:
+        entries[pair]["vocode_median_ms"] = float(np.median(times[entries[pair]["name"]]))
+    entries_counts = {entries[p]["name"]: counts[entries[p]["name"]] for p in K1_PAIRS}
+
+    readings = voc_quality_readings(dev, voc, mel[:, :QUALITY_FRAMES])
+
+    # a streamed clone and a pipelined batch at bf16 streams, beside f32
+    streams, stream_counts = {}, {}
+    for stream in ("f32", "bf16"):
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        chunks = list(stream_clone(synth, voc, TEXT, embed, stream_dtype=stream, **STREAM_KW))
+        streams[stream] = stats(chunks, t0, time.perf_counter(), voc.dims.hop_length,
+                                synth.sample_rate)
+        stream_counts[stream] = dict(_build.launch_counts)
+        print(f"{card}: stream at {stream} streams: {line(streams[stream])}")
+    n = len(streams["f32"]["emit_ms"])
+    check(len(streams["bf16"]["emit_ms"]) == n
+          and streams["bf16"]["samples"] == streams["f32"]["samples"]
+          and streams["bf16"]["frames"] == streams["f32"]["frames"],
+          f"the bf16-stream clone streamed {streams['bf16']} against f32's {streams['f32']}")
+    check(stream_counts["bf16"].get("wavernn_generate_bf16_streams") == n
+          and "wavernn_generate_runtimeracer" not in stream_counts["bf16"],
+          f"the bf16-stream clone launched {stream_counts['bf16']} for {n} chunks")
+    batch = [mel, mel[:, :250], mel[:, :96]]
+    piped = {}
+    for stream in ("f32", "bf16"):
+        _build.launch_counts.clear()
+        piped[stream], ms = timed_ms(lambda: list(vocode_pipelined(voc, batch, seed=3,
+                                                                   stream_dtype=stream)))
+        check(dict(_build.launch_counts) == {count_name(
+            "runtimeracer-wavernn", torch.float32, precision.resolve(stream)): len(batch)},
+            f"vocode_pipelined at {stream} streams launched {dict(_build.launch_counts)}")
+        print(f"vocode_pipelined of {[m.shape[1] for m in batch]} frames at {stream} streams: "
+              f"{[len(x) for x in piped[stream]]} samples in {ms:.1f} ms")
+    check([len(x) for x in piped["bf16"]] == [len(x) for x in piped["f32"]]
+          == [(m.shape[1] - 1) * 200 for m in batch]
+          and all(np.isfinite(x).all() for x in piped["bf16"]), "vocode_pipelined at bf16")
+    for pair in K1_PAIRS:
+        e = entries[pair]
+        e["launches_by_path"] = {f"clone vocode stage ({VOC_OPTION_RUNS} requests)":
+                                 entries_counts[e["name"]]}
+        if pair == ("f32", "bf16"):
+            e["launches_by_path"][f"stream (1, {n} chunks)"] = n
+            e["launches_by_path"]["vocode_pipelined (3 utterances)"] = len(batch)
+    return list(entries.values()), entries_counts, readings
+
+
+def dashboard_check(run_dir):
+    """``utils/dashboard.serve`` over a training run's directory in the
+    background: ``GET /`` answers 200 with the page, ``GET /data.json``
+    holds the run's metrics (its loss among them) with their points."""
+    import urllib.request
+
+    from rtvc_tpu_torch.utils.dashboard import serve
+
+    server = serve(run_dir, port=0, background=True)
+    try:
+        port = server.server_address[1]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=10) as r:
+            status, page = r.status, r.read()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/data.json", timeout=10) as r:
+            data = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+    metrics = data.get("metrics", {})
+    check(status == 200 and b"dashboard" in page, f"the dashboard's page answered {status}")
+    check("loss" in metrics and len(metrics["loss"]) > 0,
+          f"the dashboard over {run_dir} holds {sorted(metrics)}")
+    print(f"dashboard over {run_dir.name}: GET / 200 ({len(page)} bytes), data.json metrics "
+          f"{ {k: len(v) for k, v in metrics.items()} } points")
 
 
 # the frames of the clone's mel (the decoder's 200 iterations at r 2: the
@@ -3781,6 +4139,9 @@ def main() -> int:
     kernels = [phase_lstm(dev), phase_tacotron(dev, syn), phase_tacotron_chunks(dev, syn),
                *phase_wavernn(dev), phase_mel(dev)]
     lap("inference kernels")
+    option_kernels, option_counts, _ = phase_vocoder_options(dev, card, syn, voc)
+    kernels += option_kernels
+    lap("vocoder options")
     counts = phase_clone(dev, syn, voc)
     stream_counts, _ = phase_stream(dev, card, syn, voc)
     lap("clone and stream")
@@ -3796,6 +4157,7 @@ def main() -> int:
     shutil.rmtree(runs_dir, ignore_errors=True)
     try:
         enc_counts, enc_run = phase_train_encoder(dev, runs_dir)
+        dashboard_check(runs_dir / "encoder")
         lap("train encoder")
         voc_counts, voc_run = phase_train_vocoder(dev, runs_dir)
         phase_train_vocoder(dev, runs_dir, factories.MODEL_TYPE_FATCHORD, steps=3)
@@ -3831,7 +4193,9 @@ def main() -> int:
                    "tacotron_train_fwd": syn_counts["tacotron_train_fwd"],
                    "tacotron_train_bwd": syn_counts["tacotron_train_bwd"],
                    # the bf16 instantiations' path: the five bf16 training runs
-                   **{name: bf16_counts[name] for name in BF16_KERNELS}}
+                   **{name: bf16_counts[name] for name in BF16_KERNELS},
+                   # K1's bf16 pairs: the clone's vocode stage under the options
+                   **option_counts}
     # K4 runs on three paths: the vocoder trainer's count is its "launches"
     by_path = {name: {"clone (5 requests)": counts.get(name, 0),
                       "runtimeracer training (5 steps)": voc_counts[name],
@@ -3880,6 +4244,7 @@ def main() -> int:
             k.setdefault("shapes", []).extend(nar["cells"][k["name"]])
         k["route"] = "cuda"
         k["launches"] = path_counts[k["name"]]
+        check(k["launches"] > 0, f"{k['name']} was launched no time on its path")
         if k["name"] in by_path:
             k["launches_by_path"] = by_path[k["name"]]
     print(f"wall seconds by part: {json.dumps(laps)}")

@@ -18,9 +18,11 @@
 
 namespace rtvc {
 
-// Element types of a recurrence's streams: f32, or bf16 under the bf16
-// training policy (ops/precision.py), where the arithmetic and the carried
-// state stay f32 and only what is stored is rounded.
+// Element types of a recurrence's streams and weights: f32, or bf16. Under
+// the bf16 training policy (ops/precision.py) K3's and K4's arithmetic and
+// carried state stay f32 and only what is stored is rounded; K1's bf16
+// instantiations (the vocoder's generation options) also round the state
+// they carry, as the JAX kernel does.
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -47,6 +49,24 @@ __device__ __forceinline__ float4 load_w4(const bf16* w) {
   const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Four consecutive values of a vector in device memory as floats, read
+// through L2 (other CTAs may have written them before the last grid
+// barrier): one 16-byte load of f32, one 8-byte load of bf16 (the address is
+// a multiple of four elements); and one value.
+__device__ __forceinline__ float4 ldcg4(const float* x) {
+  return __ldcg(reinterpret_cast<const float4*>(x));
+}
+__device__ __forceinline__ float4 ldcg4(const bf16* x) {
+  const uint2 raw = __ldcg(reinterpret_cast<const uint2*>(x));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float ldcg1(const float* x) { return __ldcg(x); }
+__device__ __forceinline__ float ldcg1(const bf16* x) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(x))));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -157,12 +177,13 @@ __device__ __forceinline__ float dot4(const float4 w, const float4 v, float acc)
 
 // out[r * NB + b] = Σ_k W[r * ld + k] · x[b * xs + k] for r < R, b < NB (zero
 // for b >= nb), computed by one warp: W in shared memory (f32, or bf16 widened
-// at use), x in device memory (f32), read through L2 (other CTAs wrote it
-// before the last grid barrier). `vec` says that n and xs are multiples of 4
-// and x is 16-byte aligned. `out` is the warp's own padded(R * NB) floats of
-// shared memory; the caller runs __syncwarp before reading it.
-template <int R, int NB, typename Tw>
-__device__ __forceinline__ void slice_product(const Tw* W, int ld, int n, const float* x,
+// at use), x in device memory (f32, or a bf16 stream widened at use), read
+// through L2 (other CTAs wrote it before the last grid barrier). `vec` says
+// that n and xs are multiples of 4 and x is aligned to four elements. `out`
+// is the warp's own padded(R * NB) floats of shared memory; the caller runs
+// __syncwarp before reading it.
+template <int R, int NB, typename Tw, typename Tx>
+__device__ __forceinline__ void slice_product(const Tw* W, int ld, int n, const Tx* x,
                                               size_t xs, int nb, bool vec, float* out) {
   constexpr int N = padded(R * NB);
   const int lane = threadIdx.x & 31;
@@ -174,16 +195,12 @@ __device__ __forceinline__ void slice_product(const Tw* W, int ld, int n, const 
     float4 cur[NB];
 #pragma unroll
     for (int b = 0; b < NB; ++b)
-      cur[b] = (b < nb && lane * 4 < n)
-                   ? __ldcg(reinterpret_cast<const float4*>(x + b * xs + lane * 4))
-                   : zero;
+      cur[b] = (b < nb && lane * 4 < n) ? ldcg4(x + b * xs + lane * 4) : zero;
     for (int k = lane * 4; k < n; k += 128) {
       float4 nxt[NB];
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        nxt[b] = (b < nb && k + 128 < n)
-                     ? __ldcg(reinterpret_cast<const float4*>(x + b * xs + k + 128))
-                     : zero;
+        nxt[b] = (b < nb && k + 128 < n) ? ldcg4(x + b * xs + k + 128) : zero;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float4 w = load_w4(W + r * ld + k);
@@ -197,7 +214,7 @@ __device__ __forceinline__ void slice_product(const Tw* W, int ld, int n, const 
     for (int k = lane; k < n; k += 32) {
       float v[NB];
 #pragma unroll
-      for (int b = 0; b < NB; ++b) v[b] = b < nb ? __ldcg(x + b * xs + k) : 0.0f;
+      for (int b = 0; b < NB; ++b) v[b] = b < nb ? ldcg1(x + b * xs + k) : 0.0f;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float w = to_f(W[r * ld + k]);

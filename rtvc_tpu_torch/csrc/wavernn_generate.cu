@@ -53,6 +53,22 @@
 // Each CTA keeps every fold's previous sample in shared memory; CTA 0 writes
 // the samples out. `argmax` turns the noise off (greedy decode); `logits_out`
 // (a test hook) receives the head's inputs at each step.
+//
+// Types (the vocoder's generation options, inference/vocoder.py:
+// set_generation_options): the weights, biases and i_col in Tw, the
+// conditioning streams in Ts, each f32 or bf16, the four (compute_dtype,
+// stream_dtype) pairs of the JAX kernel (wavernn_kernel.py:317-330). A bf16
+// weight takes two bytes of shared memory (so more folds fit the phase
+// buffer beside them), a bf16 stream entry two bytes of device memory; both
+// are widened where they are read, and every product and elementwise part
+// runs in f32. As in the JAX kernel's body (:103-296), Tw is also the type
+// of the carried GRU states, which are rounded to it where they are written
+// (h_scr, :133: the buffer s.h holds the rounded values, which every CTA's
+// next step reads), while the residual x + h adds the new state before that
+// rounding (:141-142); and of the fed-back sample, rounded before it
+// multiplies i_col in the next step (prev_scr, :295). The samples written
+// out, the head's inputs and the sampler stay f32. The f32/f32
+// instantiation is the kernel as it was before the others came.
 #include <cfloat>
 
 #include "common.cuh"
@@ -67,21 +83,25 @@ constexpr int kRowBlock = 8;  // weight rows an item of a layer's product takes
 
 enum Head { kCategorical = 0, kMol = 1, kBeta = 2 };
 
-// The step's layers. A GRU with a conditioning stream has rnn_aux set and
-// rnn_bih null (b_ih is folded into the stream), and its rnn_wih holds only
-// the state's columns; likewise fc_aux / fc_b / fc_w. FC k maps
-// (k == 0 ? R : F) inputs to (k == n_fc - 1 ? C : F) outputs.
+using rtvc::bf16;
+using rtvc::to_f;
+
+// The step's layers: weights in Tw, streams in Ts. A GRU with a conditioning
+// stream has rnn_aux set and rnn_bih null (b_ih is folded into the stream),
+// and its rnn_wih holds only the state's columns; likewise fc_aux / fc_b /
+// fc_w. FC k maps (k == 0 ? R : F) inputs to (k == n_fc - 1 ? C : F) outputs.
+template <typename Tw, typename Ts>
 struct Layers {
-  const float* i_col;
-  const float* rnn_wih[kMaxRnn];
-  const float* rnn_bih[kMaxRnn];
-  const float* rnn_whh[kMaxRnn];
-  const float* rnn_bhh[kMaxRnn];
-  const float* fc_w[kMaxFc];
-  const float* fc_b[kMaxFc];
-  const float* i_cond;
-  const float* rnn_aux[kMaxRnn];
-  const float* fc_aux[kMaxFc];
+  const Tw* i_col;
+  const Tw* rnn_wih[kMaxRnn];
+  const Tw* rnn_bih[kMaxRnn];
+  const Tw* rnn_whh[kMaxRnn];
+  const Tw* rnn_bhh[kMaxRnn];
+  const Tw* fc_w[kMaxFc];
+  const Tw* fc_b[kMaxFc];
+  const Ts* i_cond;
+  const Ts* rnn_aux[kMaxRnn];
+  const Ts* fc_aux[kMaxFc];
   int n_rnn, n_fc;
   int fc_relu[kMaxFc];
 };
@@ -112,17 +132,24 @@ __host__ __device__ constexpr int blocks_of(int n) {
   return (n + kRowBlock - 1) / kRowBlock * kRowBlock;
 }
 
-// Offsets (in floats) of a CTA's shared memory; the same arithmetic as
-// ops/wavernn_generate.py:_smem_floats.
+// A CTA's shared memory: first the weight region, `elem` (sizeof(Tw)) bytes
+// an entry, which holds every layer's weight rows and biases and the i_col
+// units (offsets in entries), rounded up to 16 bytes; then the f32 region
+// (offsets in floats from its start): the first GRU's W_ih·i_col rows, the
+// warps' sums, the phase buffer, the categorical partials, the previous
+// samples. The same arithmetic as ops/wavernn_generate.py:_smem_bytes.
 struct Layout {
   int g_rows;                // rows a GRU weight block keeps (3U, padded)
   int wih[kMaxRnn], whh[kMaxRnn], bih[kMaxRnn], bhh[kMaxRnn];
-  int v, col;                // the first GRU's W_ih·i_col rows and i_col units
+  int col;                   // i_col's units
   int fc_w[kMaxFc], fc_b[kMaxFc];
-  int scratch, phase, phase_rows, red, prev, total;
+  int wbytes;                // bytes of the weight region
+  int v;                     // the first GRU's W_ih·i_col rows
+  int scratch, phase, phase_rows, red, prev;
+  int total;                 // bytes in all
 };
 
-__host__ __device__ inline Layout layout(const Dims& d, int n_rnn, int n_fc) {
+__host__ __device__ inline Layout layout(const Dims& d, int n_rnn, int n_fc, int elem) {
   Layout l{};
   const int ldR = al4(d.R), ldF = al4(d.F);
   l.g_rows = blocks_of(3 * d.units);
@@ -137,8 +164,6 @@ __host__ __device__ inline Layout layout(const Dims& d, int n_rnn, int n_fc) {
     l.bhh[k] = o;
     o += al4(3 * d.units);
   }
-  l.v = o;
-  o += al4(3 * d.units);
   l.col = o;
   o += al4(d.units);
   int widest = 0;
@@ -150,6 +175,10 @@ __host__ __device__ inline Layout layout(const Dims& d, int n_rnn, int n_fc) {
     l.fc_b[k] = o;
     o += al4(q);
   }
+  l.wbytes = (o * elem + 15) / 16 * 16;
+  o = 0;
+  l.v = o;
+  o += al4(3 * d.units);
   l.scratch = o;
   o += kWarps * rtvc::padded(kRowBlock * d.nb);
   l.phase_rows = 2 * l.g_rows > blocks_of(widest) ? 2 * l.g_rows : blocks_of(widest);
@@ -159,7 +188,7 @@ __host__ __device__ inline Layout layout(const Dims& d, int n_rnn, int n_fc) {
   if (d.head == kCategorical) o += al4(2 * (d.last_rows / 4) * d.fb);
   l.prev = o;
   o += al4(d.B);
-  l.total = o;
+  l.total = l.wbytes + o * (int)sizeof(float);
   return l;
 }
 
@@ -219,25 +248,34 @@ __device__ float gamma_draw(float a, const float* u) {
 }
 
 // Copies `rows` rows of a (.., n) weight matrix into shared memory as
-// blocks_of(rows) rows of ld floats, zero past the matrix; row r of the block
-// is the matrix's row `row_of(r)` (or zero where that is negative).
-template <typename RowOf>
-__device__ void load_rows(float* dst, const float* src, int rows, int n, int ld, RowOf row_of) {
+// blocks_of(rows) rows of ld entries, zero past the matrix; row r of the
+// block is the matrix's row `row_of(r)` (or zero where that is negative).
+template <typename T, typename RowOf>
+__device__ void load_rows(T* dst, const T* src, int rows, int n, int ld, RowOf row_of) {
   const int total = blocks_of(rows) * ld;
   for (int i = threadIdx.x; i < total; i += kThreads) {
     const int r = i / ld, k = i % ld;
     const int row = r < rows ? row_of(r) : -1;
-    dst[i] = (row >= 0 && k < n) ? src[(size_t)row * n + k] : 0.0f;
+    dst[i] = (row >= 0 && k < n) ? src[(size_t)row * n + k] : rtvc::from_f<T>(0.0f);
   }
+}
+
+// Whether `slice_product` may read x (of type T, row stride xs, n long) four
+// entries at a time.
+template <typename T>
+__device__ __forceinline__ bool vec_ok(const T* x, size_t xs, int n) {
+  return (n & 3) == 0 && (xs & 3) == 0 &&
+         (reinterpret_cast<uintptr_t>(x) & (4 * sizeof(T) - 1)) == 0;
 }
 
 // P[r * fb + b] = Σ_k W[r * ld + k] · x[b * xs + k] for the `rows` (a
 // multiple of kRowBlock) rows of one or two weight blocks and the `nf` folds
 // of a fold block: items of kRowBlock rows x NB folds, dealt out over the
 // warps. The second block (W2 over x2, stride xs2) lands in rows
-// [rows, 2 rows) of P.
-template <int NB>
-__device__ void layer_product(const float* W, const float* x, size_t xs, const float* W2,
+// [rows, 2 rows) of P. x is f32 (the activations) or a bf16 stream (the
+// first GRU's i_cond), x2 always f32 (the GRU state).
+template <int NB, typename Tw, typename Tx>
+__device__ void layer_product(const Tw* W, const Tx* x, size_t xs, const Tw* W2,
                               const float* x2, size_t xs2, int rows, int ld, int n, int nf,
                               int fb, float* P, float* scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -247,12 +285,19 @@ __device__ void layer_product(const float* W, const float* x, size_t xs, const f
     const int mat = item / (chunks * groups), rest = item % (chunks * groups);
     const int chunk = rest / groups, g = rest % groups;
     const int nb = min(NB, nf - g * NB);
-    const float* in = mat ? x2 : x;
-    const size_t stride = mat ? xs2 : xs;
-    const bool vec = (n & 3) == 0 && (stride & 3) == 0 &&
-                     (reinterpret_cast<uintptr_t>(in) & 15) == 0;
-    rtvc::slice_product<kRowBlock, NB>((mat ? W2 : W) + chunk * kRowBlock * ld, ld, n,
-                                       in + (size_t)g * NB * stride, stride, nb, vec, scratch);
+    const Tw* w = (mat ? W2 : W) + chunk * kRowBlock * ld;
+    if constexpr (std::is_same<Tx, float>::value) {
+      const float* in = mat ? x2 : x;
+      const size_t stride = mat ? xs2 : xs;
+      rtvc::slice_product<kRowBlock, NB>(w, ld, n, in + (size_t)g * NB * stride, stride, nb,
+                                         vec_ok(in, stride, n), scratch);
+    } else if (mat) {
+      rtvc::slice_product<kRowBlock, NB>(w, ld, n, x2 + (size_t)g * NB * xs2, xs2, nb,
+                                         vec_ok(x2, xs2, n), scratch);
+    } else {
+      rtvc::slice_product<kRowBlock, NB>(w, ld, n, x + (size_t)g * NB * xs, xs, nb,
+                                         vec_ok(x, xs, n), scratch);
+    }
     __syncwarp();
     for (int i = lane; i < kRowBlock * NB; i += 32) {
       const int r = i / NB, b = i % NB;
@@ -262,14 +307,15 @@ __device__ void layer_product(const float* W, const float* x, size_t xs, const f
   }
 }
 
-template <int HEAD, int NB>
+template <int HEAD, int NB, typename Tw, typename Ts>
 __global__ void __launch_bounds__(kThreads, 1)
-wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
+wavernn_kernel(Layers<Tw, Ts> L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
                float* __restrict__ logits_out) {
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
   const int n_rnn = L.n_rnn, n_fc = L.n_fc;
-  const Layout lay = layout(d, n_rnn, n_fc);
+  const Layout lay = layout(d, n_rnn, n_fc, (int)sizeof(Tw));
+  Tw* smw = reinterpret_cast<Tw*>(smem4);
+  float* sm = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + lay.wbytes);
   const int B = d.B, T = d.T, R = d.R, F = d.F, C = d.C, U = d.units, FB = d.fb;
   const int ldR = al4(R), ldF = al4(F), W = al4(R > F ? R : F);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -280,17 +326,18 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
 
   // ---- the CTA's weights, once a launch ----
   const int u0 = cta * U, nu = max(0, min(U, R - u0));
+  const Tw zero = rtvc::from_f<Tw>(0.0f);
   for (int k = 0; k < n_rnn; ++k) {
     auto row_of = [&](int r) { return r % U < nu ? (r / U) * R + u0 + r % U : -1; };
-    load_rows(sm + lay.wih[k], L.rnn_wih[k], 3 * U, R, ldR, row_of);
-    load_rows(sm + lay.whh[k], L.rnn_whh[k], 3 * U, R, ldR, row_of);
+    load_rows(smw + lay.wih[k], L.rnn_wih[k], 3 * U, R, ldR, row_of);
+    load_rows(smw + lay.whh[k], L.rnn_whh[k], 3 * U, R, ldR, row_of);
     for (int r = tid; r < 3 * U; r += kThreads) {
       const int row = row_of(r);
-      sm[lay.bih[k] + r] = (row >= 0 && L.rnn_bih[k]) ? L.rnn_bih[k][row] : 0.0f;
-      sm[lay.bhh[k] + r] = row >= 0 ? L.rnn_bhh[k][row] : 0.0f;
+      smw[lay.bih[k] + r] = (row >= 0 && L.rnn_bih[k]) ? L.rnn_bih[k][row] : zero;
+      smw[lay.bhh[k] + r] = row >= 0 ? L.rnn_bhh[k][row] : zero;
     }
   }
-  for (int j = tid; j < U; j += kThreads) sm[lay.col + j] = j < nu ? L.i_col[u0 + j] : 0.0f;
+  for (int j = tid; j < U; j += kThreads) smw[lay.col + j] = j < nu ? L.i_col[u0 + j] : zero;
   int fc_r0[kMaxFc], fc_nr[kMaxFc];
   for (int k = 0; k < n_fc; ++k) {
     const bool last = k == n_fc - 1;
@@ -299,17 +346,18 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
     fc_r0[k] = cta * q;
     fc_nr[k] = max(0, min(q, rows - fc_r0[k]));
     const int r0 = fc_r0[k], nr = fc_nr[k];
-    load_rows(sm + lay.fc_w[k], L.fc_w[k], q, n_in, k == 0 ? ldR : ldF,
+    load_rows(smw + lay.fc_w[k], L.fc_w[k], q, n_in, k == 0 ? ldR : ldF,
               [&](int r) { return r < nr ? r0 + r : -1; });
     for (int r = tid; r < q; r += kThreads)
-      sm[lay.fc_b[k] + r] = (r < nr && L.fc_b[k]) ? L.fc_b[k][r0 + r] : 0.0f;
+      smw[lay.fc_b[k] + r] = (r < nr && L.fc_b[k]) ? L.fc_b[k][r0 + r] : zero;
   }
   for (int b = tid; b < B; b += kThreads) prev[b] = 0.0f;
   __syncthreads();
   // the first GRU's W_ih · i_col, for its input's prev · i_col term
   for (int r = tid; r < 3 * U; r += kThreads) {
     float acc = 0.0f;
-    for (int k = 0; k < R; ++k) acc = fmaf(sm[lay.wih[0] + r * ldR + k], L.i_col[k], acc);
+    for (int k = 0; k < R; ++k)
+      acc = fmaf(to_f(smw[lay.wih[0] + r * ldR + k]), to_f(L.i_col[k]), acc);
     sm[lay.v + r] = acc;
   }
   __syncthreads();
@@ -323,17 +371,18 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
     int phase = 0;
     // ---- the GRUs: h_k ← GRU(x, h_k), x ← x + h_k ----
     for (int k = 0; k < n_rnn; ++k, ++phase) {
+      // the states as the last step rounded them to Tw (f32 storage)
       const float* h_read = s.h + ((size_t)(2 * k + ((t + 1) & 1)) * B) * R;
       float* h_write = s.h + ((size_t)(2 * k + (t & 1)) * B) * R;
-      const float* x_in =
-          k == 0 ? L.i_cond + (size_t)t * R : s.act + (size_t)((phase + 1) & 1) * B * W;
+      const float* act_in = s.act + (size_t)((phase + 1) & 1) * B * W;
+      const Ts* cond = L.i_cond + (size_t)t * R;
       const size_t xs = k == 0 ? (size_t)T * R : (size_t)W;
       float* x_out = s.act + (size_t)(phase & 1) * B * W;
-      const float* aux = L.rnn_aux[k];
-      const float* wih = sm + lay.wih[k];
-      const float* whh = sm + lay.whh[k];
-      const float* bih = sm + lay.bih[k];
-      const float* bhh = sm + lay.bhh[k];
+      const Ts* aux = L.rnn_aux[k];
+      const Tw* wih = smw + lay.wih[k];
+      const Tw* whh = smw + lay.whh[k];
+      const Tw* bih = smw + lay.bih[k];
+      const Tw* bhh = smw + lay.bhh[k];
       if (nu > 0) {
         for (int f0 = 0; f0 < B; f0 += FB) {
           const int nf = min(FB, B - f0), pairs = nu * nf;
@@ -345,15 +394,26 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
             const size_t ft = (size_t)fold * T + t;
             GruIn in;
 #pragma unroll
-            for (int g = 0; g < 3; ++g) in.aux[g] = aux ? aux[ft * 3 * R + g * R + u] : 0.0f;
+            for (int g = 0; g < 3; ++g)
+              in.aux[g] = aux ? to_f(aux[ft * 3 * R + g * R + u]) : 0.0f;
             in.h = __ldcg(h_read + (size_t)fold * R + u);
-            in.x = k == 0 ? L.i_cond[ft * R + u] : __ldcg(x_in + (size_t)fold * W + u);
+            in.x = k == 0 ? to_f(L.i_cond[ft * R + u]) : __ldcg(act_in + (size_t)fold * W + u);
             return in;
           };
           GruIn first{};
           if (tid < pairs) first = load_in(tid);
-          layer_product<NB>(wih, x_in + (size_t)f0 * xs, xs, whh, h_read + (size_t)f0 * R, R,
-                            lay.g_rows, ldR, R, nf, FB, P, scratch);
+          const float* hf = h_read + (size_t)f0 * R;
+          if constexpr (std::is_same<Ts, float>::value) {
+            const float* x_in = k == 0 ? cond : act_in;
+            layer_product<NB>(wih, x_in + (size_t)f0 * xs, xs, whh, hf, R, lay.g_rows, ldR, R,
+                              nf, FB, P, scratch);
+          } else if (k == 0) {
+            layer_product<NB>(wih, cond + (size_t)f0 * xs, xs, whh, hf, R, lay.g_rows, ldR, R,
+                              nf, FB, P, scratch);
+          } else {
+            layer_product<NB>(wih, act_in + (size_t)f0 * xs, xs, whh, hf, R, lay.g_rows, ldR,
+                              R, nf, FB, P, scratch);
+          }
           __syncthreads();
           for (int i = tid; i < pairs; i += kThreads) {
             const GruIn in = i == tid ? first : load_in(i);
@@ -365,16 +425,17 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
               const int r = g * U + j;
               float v = P[r * FB + b];
               if (k == 0) v += p * sm[lay.v + r];
-              xg[g] = v + (aux ? in.aux[g] : bih[r]);
-              hg[g] = P[(lay.g_rows + r) * FB + b] + bhh[r];
+              xg[g] = v + (aux ? in.aux[g] : to_f(bih[r]));
+              hg[g] = P[(lay.g_rows + r) * FB + b] + to_f(bhh[r]);
             }
             const float r_ = rtvc::sigmoidf_(xg[0] + hg[0]);
             const float z = rtvc::sigmoidf_(xg[1] + hg[1]);
             const float n = tanhf(xg[2] + r_ * hg[2]);
             const float hn = (1.0f - z) * n + z * in.h;
-            h_write[(size_t)fold * R + u] = hn;
-            const float xv = k == 0 ? __fadd_rn(in.x, __fmul_rn(p, sm[lay.col + j])) : in.x;
-            x_out[(size_t)fold * W + u] = xv + hn;
+            h_write[(size_t)fold * R + u] = rtvc::round_as<Tw>(hn);
+            const float xv =
+                k == 0 ? __fadd_rn(in.x, __fmul_rn(p, to_f(smw[lay.col + j]))) : in.x;
+            x_out[(size_t)fold * W + u] = xv + hn;  // the state before its rounding
           }
           __syncthreads();
         }
@@ -388,8 +449,8 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
       const int rows = last ? C : F;
       const float* x_in = s.act + (size_t)((phase + 1) & 1) * B * W;
       float* f_out = s.act + (size_t)(phase & 1) * B * W;
-      const float* aux = L.fc_aux[k];
-      const float* bias = sm + lay.fc_b[k];
+      const Ts* aux = L.fc_aux[k];
+      const Tw* bias = smw + lay.fc_b[k];
       const int q = last ? d.last_rows : d.fc_rows;
       if (nr > 0) {
         for (int f0 = 0; f0 < B; f0 += FB) {
@@ -400,7 +461,7 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
           // Gumbel noise of four classes
           const int nq = (nr + 3) / 4;
           auto load_aux = [&](int i) {
-            return aux ? aux[((size_t)(f0 + i / nr) * T + t) * rows + r0 + i % nr] : 0.0f;
+            return aux ? to_f(aux[((size_t)(f0 + i / nr) * T + t) * rows + r0 + i % nr]) : 0.0f;
           };
           auto noise = [&](int i) {
             const int qd = i % nq, fold = f0 + i / nq;
@@ -417,14 +478,16 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
           float4 first_noise = make_float4(0.f, 0.f, 0.f, 0.f);
           if (!gumbel && tid < nr * nf) first_aux = load_aux(tid);
           if (gumbel && tid < nq * nf) first_noise = noise(tid);
-          layer_product<NB>(sm + lay.fc_w[k], x_in + (size_t)f0 * W, W, nullptr, nullptr, 0,
-                            blocks_of(q), k == 0 ? ldR : ldF, n_in, nf, FB, P, scratch);
+          layer_product<NB>(smw + lay.fc_w[k], x_in + (size_t)f0 * W, W,
+                            static_cast<const Tw*>(nullptr), nullptr, 0, blocks_of(q),
+                            k == 0 ? ldR : ldF, n_in, nf, FB, P, scratch);
           __syncthreads();
           if (!gumbel) {
             for (int i = tid; i < nr * nf; i += kThreads) {
               const int j = i % nr, b = i / nr, fold = f0 + b, row = r0 + j;
               const size_t ft = (size_t)fold * T + t;
-              float v = P[j * FB + b] + (aux ? (i == tid ? first_aux : load_aux(i)) : bias[j]);
+              float v =
+                  P[j * FB + b] + (aux ? (i == tid ? first_aux : load_aux(i)) : to_f(bias[j]));
               if (L.fc_relu[k]) v = fmaxf(v, 0.0f);
               if (!last) {
                 f_out[(size_t)fold * W + row] = v;
@@ -448,7 +511,7 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
               for (int e = 0; e < 4; ++e) {
                 const int j = qd * 4 + e, c = r0 + j;
                 if (j < nr) {
-                  float v = P[j * FB + b] + (aux ? aux[ft * rows + c] : bias[j]);
+                  float v = P[j * FB + b] + (aux ? to_f(aux[ft * rows + c]) : to_f(bias[j]));
                   if (L.fc_relu[k]) v = fmaxf(v, 0.0f);
                   if (logits_out) logits_out[ft * C + c] = v;
                   if (!d.argmax) v -= e4[e];
@@ -499,7 +562,7 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
         warp_argmax(best, best_i);
         if (lane == 0) {
           const float sample = 2.0f * (float)best_i / ((float)C - 1.0f) - 1.0f;
-          prev[fold] = sample;
+          prev[fold] = rtvc::round_as<Tw>(sample);
           if (cta == 0) out[(size_t)fold * T + t] = sample;
         }
       }
@@ -537,7 +600,7 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
                                                  __fsub_rn(logf(u), logf(1.0f - u))));
           }
           sample = clampf(sample, -1.0f, 1.0f);
-          prev[fold] = sample;
+          prev[fold] = rtvc::round_as<Tw>(sample);
           if (cta == 0) out[(size_t)fold * T + t] = sample;
         }
       }
@@ -569,7 +632,7 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
           m = __fdiv_rn(ga, __fadd_rn(ga, gb));
         }
         const float sample = clampf(__fsub_rn(__fmul_rn(2.0f, m), 1.0f), -1.0f, 1.0f);
-        prev[fold] = sample;
+        prev[fold] = rtvc::round_as<Tw>(sample);
         if (cta == 0) out[(size_t)fold * T + t] = sample;
       }
     }
@@ -577,37 +640,24 @@ wavernn_kernel(Layers L, Dims d, Scratch s, uint2 key, float* __restrict__ out,
   }
 }
 
-// The instantiations: NB folds an item of a layer's product.
-template <int HEAD>
+// The instantiations: NB folds an item of a layer's product, the head, the
+// weight and stream types.
+template <int HEAD, typename Tw, typename Ts>
 const void* kernel_for(int nb) {
-  if (nb == 4) return (const void*)wavernn_kernel<HEAD, 4>;
-  if (nb == 8) return (const void*)wavernn_kernel<HEAD, 8>;
+  if (nb == 4) return (const void*)wavernn_kernel<HEAD, 4, Tw, Ts>;
+  if (nb == 8) return (const void*)wavernn_kernel<HEAD, 8, Tw, Ts>;
   return nullptr;
 }
 
-}  // namespace
-
-// weights: 1 + 4·kMaxRnn + 2·kMaxFc device pointers: i_col, then for each of
-// kMaxRnn GRU slots (wih, bih, whh, bhh), then for each of kMaxFc FC slots
-// (w, b); null for an absent layer and for the bias of a layer that takes a
-// stream. streams: 1 + kMaxRnn + kMaxFc pointers: i_cond (B, T, R), then one
-// per GRU slot (B, T, 3R) and one per FC slot (B, T, F), null where the layer
-// has its own bias. dims: B, T, R, F, C, n_rnn, n_fc, head (0 categorical,
-// 1 MOL, 2 beta), then kMaxFc relu flags, then the plan: ctas, units,
-// fc_rows, last_rows, nb, fb, smem (ops/wavernn_generate.py:plan). scratch:
-// zeroed floats, n_rnn·2·B·R (GRU states), then 2·B·W (activations, W = R
-// and F's larger, rounded up to 4), B·C (head inputs), 2·ctas·B (partials);
-// sync: 32 zeroed words. out: (B, T) samples in [-1, 1]; logits_out: null,
-// or (B, T, C) for the head's inputs at each step. Returns the launch's
-// cudaError_t (cudaErrorInvalidValue for a plan that does not cover the
-// widths or has no instantiation).
-extern "C" int rtvc_wavernn_generate(const void* const* weights, const void* const* streams,
-                                     const int* dims, int argmax, unsigned long long seed,
-                                     float* scratch, unsigned int* sync, float* out,
-                                     float* logits_out, void* stream) {
-  Layers L;
-  auto w = [&](int i) { return static_cast<const float*>(weights[i]); };
-  auto st = [&](int i) { return static_cast<const float*>(streams[i]); };
+// One launch with the weights in Tw and the streams in Ts (the entry point
+// below has checked the widths and the head).
+template <typename Tw, typename Ts>
+int launch_typed(const void* const* weights, const void* const* streams, const int* dims,
+                 Dims d, unsigned long long seed, float* scratch, unsigned int* sync,
+                 float* out, float* logits_out, cudaStream_t stream) {
+  Layers<Tw, Ts> L;
+  auto w = [&](int i) { return static_cast<const Tw*>(weights[i]); };
+  auto st = [&](int i) { return static_cast<const Ts*>(streams[i]); };
   L.i_col = w(0);
   L.i_cond = st(0);
   for (int k = 0; k < kMaxRnn; ++k) {
@@ -623,39 +673,13 @@ extern "C" int rtvc_wavernn_generate(const void* const* weights, const void* con
     L.fc_aux[k] = st(1 + kMaxRnn + k);
     L.fc_relu[k] = dims[8 + k];
   }
-  Dims d;
-  d.B = dims[0];
-  d.T = dims[1];
-  d.R = dims[2];
-  d.F = dims[3];
-  d.C = dims[4];
   L.n_rnn = dims[5];
   L.n_fc = dims[6];
-  d.head = dims[7];
-  d.argmax = argmax;
-  const int* pl = dims + 8 + kMaxFc;
-  d.ctas = pl[0];
-  d.units = pl[1];
-  d.fc_rows = pl[2];
-  d.last_rows = pl[3];
-  d.nb = pl[4];
-  d.fb = pl[5];
-  d.smem = pl[6];
-  const int head = d.head;
-  if (L.n_rnn < 1 || L.n_rnn > kMaxRnn || L.n_fc < 2 || L.n_fc > kMaxFc || head < 0 ||
-      head > 2 || (head == kMol && (d.C % 3 != 0 || d.C < 3)) || (head == kBeta && d.C != 2) ||
-      d.B < 1 || d.T < 1 || d.fb < 1 || d.ctas < 1)
+  if ((int)layout(d, L.n_rnn, L.n_fc, (int)sizeof(Tw)).total != d.smem)
     return (int)cudaErrorInvalidValue;
-  // the plan must cover every layer and match the layout's bytes
-  const bool covers = (long long)d.ctas * d.units >= d.R &&
-                      (long long)d.ctas * d.fc_rows >= d.F &&
-                      (long long)d.ctas * d.last_rows >= d.C &&
-                      (head != kCategorical || d.last_rows % 4 == 0);
-  if (!covers || (int)(layout(d, L.n_rnn, L.n_fc).total * sizeof(float)) != d.smem)
-    return (int)cudaErrorInvalidValue;
-  const void* kernel = head == kCategorical ? kernel_for<kCategorical>(d.nb)
-                       : head == kMol       ? kernel_for<kMol>(d.nb)
-                                            : kernel_for<kBeta>(d.nb);
+  const void* kernel = d.head == kCategorical ? kernel_for<kCategorical, Tw, Ts>(d.nb)
+                       : d.head == kMol       ? kernel_for<kMol, Tw, Ts>(d.nb)
+                                              : kernel_for<kBeta, Tw, Ts>(d.nb);
   if (!kernel) return (int)cudaErrorInvalidValue;
   const int W = al4(d.R > d.F ? d.R : d.F);
   Scratch s;
@@ -667,6 +691,71 @@ extern "C" int rtvc_wavernn_generate(const void* const* weights, const void* con
   s.sync = sync;
   const uint2 key = make_uint2((uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32));
   void* args[] = {&L, &d, &s, const_cast<uint2*>(&key), &out, &logits_out};
-  return rtvc::launch_cooperative(kernel, d.ctas, d.smem, args,
-                                  static_cast<cudaStream_t>(stream));
+  return rtvc::launch_cooperative(kernel, d.ctas, d.smem, args, stream);
+}
+
+}  // namespace
+
+// weights: 1 + 4·kMaxRnn + 2·kMaxFc device pointers: i_col, then for each of
+// kMaxRnn GRU slots (wih, bih, whh, bhh), then for each of kMaxFc FC slots
+// (w, b); null for an absent layer and for the bias of a layer that takes a
+// stream. streams: 1 + kMaxRnn + kMaxFc pointers: i_cond (B, T, R), then one
+// per GRU slot (B, T, 3R) and one per FC slot (B, T, F), null where the layer
+// has its own bias. dims: B, T, R, F, C, n_rnn, n_fc, head (0 categorical,
+// 1 MOL, 2 beta), then kMaxFc relu flags, then the plan: ctas, units,
+// fc_rows, last_rows, nb, fb, smem (ops/wavernn_generate.py:plan), then the
+// bytes of a weight and of a stream entry (4 for f32, 2 for bf16). scratch:
+// zeroed floats, n_rnn·2·B·R (GRU states), then 2·B·W (activations, W = R
+// and F's larger, rounded up to 4), B·C (head inputs), 2·ctas·B (partials);
+// sync: 32 zeroed words. out: (B, T) f32 samples in [-1, 1]; logits_out:
+// null, or (B, T, C) f32 for the head's inputs at each step. Returns the
+// launch's cudaError_t (cudaErrorInvalidValue for a plan that does not cover
+// the widths or has no instantiation, or for another type).
+extern "C" int rtvc_wavernn_generate(const void* const* weights, const void* const* streams,
+                                     const int* dims, int argmax, unsigned long long seed,
+                                     float* scratch, unsigned int* sync, float* out,
+                                     float* logits_out, void* stream) {
+  Dims d;
+  d.B = dims[0];
+  d.T = dims[1];
+  d.R = dims[2];
+  d.F = dims[3];
+  d.C = dims[4];
+  const int n_rnn = dims[5], n_fc = dims[6];
+  d.head = dims[7];
+  d.argmax = argmax;
+  const int* pl = dims + 8 + kMaxFc;
+  d.ctas = pl[0];
+  d.units = pl[1];
+  d.fc_rows = pl[2];
+  d.last_rows = pl[3];
+  d.nb = pl[4];
+  d.fb = pl[5];
+  d.smem = pl[6];
+  const int w_bytes = pl[7], s_bytes = pl[8];
+  const int head = d.head;
+  if (n_rnn < 1 || n_rnn > kMaxRnn || n_fc < 2 || n_fc > kMaxFc || head < 0 || head > 2 ||
+      (head == kMol && (d.C % 3 != 0 || d.C < 3)) || (head == kBeta && d.C != 2) || d.B < 1 ||
+      d.T < 1 || d.fb < 1 || d.ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  // the plan must cover every layer (and match the layout's bytes: launch_typed)
+  const bool covers = (long long)d.ctas * d.units >= d.R &&
+                      (long long)d.ctas * d.fc_rows >= d.F &&
+                      (long long)d.ctas * d.last_rows >= d.C &&
+                      (head != kCategorical || d.last_rows % 4 == 0);
+  if (!covers) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (w_bytes == 4 && s_bytes == 4)
+    return launch_typed<float, float>(weights, streams, dims, d, seed, scratch, sync, out,
+                                      logits_out, st);
+  if (w_bytes == 4 && s_bytes == 2)
+    return launch_typed<float, bf16>(weights, streams, dims, d, seed, scratch, sync, out,
+                                     logits_out, st);
+  if (w_bytes == 2 && s_bytes == 2)
+    return launch_typed<bf16, bf16>(weights, streams, dims, d, seed, scratch, sync, out,
+                                    logits_out, st);
+  if (w_bytes == 2 && s_bytes == 4)
+    return launch_typed<bf16, float>(weights, streams, dims, d, seed, scratch, sync, out,
+                                     logits_out, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,7 @@
     python -m rtvc_tpu_torch.encoder_train <run_id> <clean_data_root> [options]
 
 The arguments are those of the JAX package's ``encoder_train.py`` except
-its dashboard and multi-process launch options, plus ``--device``. The
+its multi-process launch options, plus ``--device``. The
 dataset is the one ``encoder_preprocess.py`` writes, read through
 ``rtvc_tpu_torch.data.ge2e_sampler``. A run of the JAX package's trainer
 (``<run_id>.ckpt`` in ``<models_dir>/<run_id>``) is taken up where the
@@ -42,6 +42,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "(ops/precision.py): bf16 parameters and "
                              "activations in the forward, f32 master weights, "
                              "optimizer state, losses and softmaxes.")
+    parser.add_argument("--dashboard", type=int, default=None, metavar="PORT",
+                        help="Serve a live metrics dashboard on this port "
+                             "(visdom replacement; 8097 = visdom default)")
     parser.add_argument("--device", default="cuda", help="The torch device to train on.")
     parser.add_argument("--seed", type=int, default=0, help="Seed of the initial weights.")
     return parser.parse_args(argv)
@@ -49,6 +52,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.dashboard is not None:
+        from rtvc_tpu_torch.utils.dashboard import serve as _serve_dashboard
+
+        _serve_dashboard(args.models_dir / args.run_id, port=args.dashboard, background=True)
+        print(f"Dashboard: http://localhost:{args.dashboard}")
     from rtvc_tpu_torch.data.ge2e_sampler import SpeakerVerificationDataset, speaker_batch_iterator
     from rtvc_tpu_torch.ops import precision
     from rtvc_tpu_torch.train.trainer import train_encoder

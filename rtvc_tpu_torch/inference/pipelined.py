@@ -24,7 +24,8 @@ from rtvc_tpu_torch.models.wavernn import bucket_pad, generate_pipeline
 
 @torch.no_grad()
 def vocode_pipelined(voc, mels: Iterable[np.ndarray], seed: int = 0, depth: int = 8,
-                     target: int = 400, overlap: int = 160, argmax: bool = False
+                     target: int = 400, overlap: int = 160, argmax: bool = False,
+                     compute_dtype=torch.float32, stream_dtype=torch.float32
                      ) -> Iterator[np.ndarray]:
     """Vocode a stream of normalised mels (n_mels, T_i) with the vocoder
     bundle ``voc`` (None: the one installed in ``inference.vocoder``);
@@ -34,7 +35,9 @@ def vocode_pipelined(voc, mels: Iterable[np.ndarray], seed: int = 0, depth: int 
     draws from ``streaming.derive_seed(seed, i)`` (the JAX package folds i
     into its key). mu-law decoding and de-emphasis follow the vocoder's
     config and the signal config, as in ``vocoder.infer_waveform``.
-    ``argmax=True`` is the deterministic (greedy) test hook."""
+    ``argmax=True`` is the deterministic (greedy) test hook. Each K1 launch
+    takes ``compute_dtype`` and ``stream_dtype`` (f32 by default; the JAX
+    function takes ``compute_dtype`` and streams its kernel's default)."""
     voc = _vocoder(voc)
     d = voc.dims
     dev = voc.model.I.weight.device
@@ -47,7 +50,7 @@ def vocode_pipelined(voc, mels: Iterable[np.ndarray], seed: int = 0, depth: int 
             raise ValueError(f"mel {i}: need at least 2 frames")
         wav = generate_pipeline(voc.model, d, bucket_pad(torch.as_tensor(mel, device=dev)[None]),
                                 derive_seed(seed, i), True, target, overlap, voc.config.mu_law,
-                                sp.preemphasize, argmax)
+                                sp.preemphasize, argmax, compute_dtype, stream_dtype)
         return _HostCopy(wav, (mel.shape[-1] - 1) * d.hop_length)
 
     def finish(copy):

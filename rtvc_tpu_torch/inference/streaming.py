@@ -21,9 +21,11 @@ vocoder seed is :func:`chunk_seed` ``(voc_seed, index)``, derived from
 ``voc_seed ^ 0x5EED`` and the chunk's index (:func:`derive_seed`), as the
 JAX package folds the index into ``PRNGKey(seed ^ 0x5EED)``.
 
-The context buffers stay on the device. The conditioning streams are f32,
-as ``inference.vocoder.infer_waveform``'s are (the JAX package streams bf16
-by default, a choice made for the TPU). The non-autoregressive
+The context buffers stay on the device. The vocoder's sample loop takes
+``stream_dtype`` and ``compute_dtype`` keywords, as the JAX functions do;
+both default to f32, as ``inference.vocoder``'s options do (the JAX
+package's stream default, bf16, is a choice made for its TPU kernel). The
+non-autoregressive
 synthesizers (ForwardTacotron, FastPitch) make their whole mel in one
 parallel pass, so their stream is that mel through :func:`stream_vocode`,
 as in the JAX package.
@@ -83,14 +85,16 @@ def _vocoder(voc):
     return vocoder._bundle
 
 
-def vocode_window(voc, cond: Tensor, seed: int, target: int, overlap: int) -> Tensor:
+def vocode_window(voc, cond: Tensor, seed: int, target: int, overlap: int,
+                  compute_dtype=torch.float32, stream_dtype=torch.float32) -> Tensor:
     """One conditioning window (n_mels, W) in the synthesizer's scale → the
     generate path's samples on the device, untrimmed (the first (W − 1)·hop
-    are the window's): one K1 launch on a card. mu-law decoding and
-    de-emphasis follow the vocoder's config and the signal config, as in
-    ``vocoder.infer_waveform``."""
+    are the window's): one K1 launch on a card, at the two dtypes. mu-law
+    decoding and de-emphasis follow the vocoder's config and the signal
+    config, as in ``vocoder.infer_waveform``."""
     return generate_pipeline(voc.model, voc.dims, cond[None] / _sp.max_abs_value, seed, True,
-                             target, overlap, voc.config.mu_law, _sp.preemphasize)
+                             target, overlap, voc.config.mu_law, _sp.preemphasize,
+                             compute_dtype=compute_dtype, stream_dtype=stream_dtype)
 
 
 class _HostCopy:
@@ -170,14 +174,16 @@ def vocode_schedule(T: int, chunk_frames: int, first_chunk_frames: Optional[int]
 @torch.no_grad()
 def stream_vocode(voc, mel: np.ndarray, seed: int = 0, chunk_frames: int = 48,
                   voc_ctx: int = 12, xfade_frames: int = 2, voc_target: int = 400,
-                  voc_overlap: int = 160, first_chunk_frames: Optional[int] = None
+                  voc_overlap: int = 160, first_chunk_frames: Optional[int] = None,
+                  stream_dtype=torch.float32, compute_dtype=torch.float32
                   ) -> Iterator[StreamChunk]:
     """Chunked vocoding of a complete mel (n_mels, T) in the synthesizer's
     scale with the vocoder bundle ``voc`` (None: the installed one): yields
     playable chunks with ``voc_ctx`` frames of conditioning before every
     splice and an equal-power crossfade at the joins, (T − 1)·hop samples in
     all, as ``vocoder.infer_waveform`` gives for the same mel. Chunk i+1's
-    vocode is launched before the host takes chunk i's samples."""
+    vocode is launched before the host takes chunk i's samples. Each chunk's
+    K1 launch takes ``stream_dtype`` and ``compute_dtype``."""
     voc = _vocoder(voc)
     hop = voc.dims.hop_length
     xfade_frames = max(xfade_frames, 0)
@@ -194,7 +200,7 @@ def stream_vocode(voc, mel: np.ndarray, seed: int = 0, chunk_frames: int = 48,
         s, n = starts[i], sizes[i]
         lo = max(s - voc_ctx, 0)
         wav = vocode_window(voc, mel_dev[:, lo:s + n], chunk_seed(seed, i), voc_target,
-                            voc_overlap)
+                            voc_overlap, compute_dtype, stream_dtype)
         return _HostCopy(wav, (s + n - lo - 1) * hop)
 
     pending = dispatch(0)
@@ -226,12 +232,13 @@ class _ChunkPost:
     over [postnet context | postnet chunk]."""
 
     def __init__(self, model, voc, post_ctx: int, voc_ctx: int, pad_value: float, n_mels: int,
-                 dev, voc_target: int, voc_overlap: int):
+                 dev, voc_target: int, voc_overlap: int,
+                 dtypes: Tuple = (torch.float32, torch.float32)):
         self.model, self.voc = model, voc
         self.post_ctx, self.voc_ctx = post_ctx, voc_ctx
         self.raw_hist = torch.full((n_mels, post_ctx), pad_value, device=dev)
         self.post_hist = torch.full((n_mels, voc_ctx), pad_value, device=dev)
-        self.window = (voc_target, voc_overlap)
+        self.window = (voc_target, voc_overlap, *dtypes)
 
     def postnet(self, mel_chunk: Tensor, valid_frames: int) -> Tensor:
         """(n_mels, n) of postnet frames for the chunk's (1, n_mels, n) raw
@@ -255,7 +262,8 @@ def stream_clone(synth, voc, text: str, embed: np.ndarray, seed: int = 0,
                  chunk_frames: int = 48, post_ctx: int = 32, voc_ctx: int = 12,
                  xfade_frames: int = 2, voc_target: int = 400, voc_overlap: int = 160,
                  min_frames: int = 0, first_chunk_frames: Optional[int] = None,
-                 voc_seed: Optional[int] = None) -> Iterator[StreamChunk]:
+                 voc_seed: Optional[int] = None, stream_dtype=torch.float32,
+                 compute_dtype=torch.float32) -> Iterator[StreamChunk]:
     """Clone ``text`` in ``embed``'s voice, yielding playable chunks of
     ``chunk_frames`` mel frames (rounded up to a multiple of r; 0.6 s at the
     default hop). ``synth`` is a ``Synthesizer`` with its model, ``voc`` a
@@ -270,7 +278,8 @@ def stream_clone(synth, voc, text: str, embed: np.ndarray, seed: int = 0,
     later chunks run at ``chunk_frames``. ``min_frames`` holds the stop token
     off until that many frames. The decoder draws from ``seed``, as
     ``synthesize_spectrograms(..., seed=seed)`` does; the vocoder's chunks
-    from ``voc_seed`` (``seed`` unless given; :func:`chunk_seed`).
+    from ``voc_seed`` (``seed`` unless given; :func:`chunk_seed`), its K1
+    launches at ``stream_dtype`` and ``compute_dtype``.
 
     The stream's waveform has (Σ frames − 1)·hop samples, Σ frames the valid
     decoder frames, as the batch clone of the same frames has; like the
@@ -285,7 +294,8 @@ def stream_clone(synth, voc, text: str, embed: np.ndarray, seed: int = 0,
         mel = synth.synthesize_spectrograms([text], [np.asarray(embed, np.float32)],
                                             seed=seed)[0]
         yield from stream_vocode(voc, mel, voc_seed, chunk_frames, voc_ctx, xfade_frames,
-                                 voc_target, voc_overlap, first_chunk_frames)
+                                 voc_target, voc_overlap, first_chunk_frames,
+                                 stream_dtype=stream_dtype, compute_dtype=compute_dtype)
         return
     from rtvc_tpu_torch.inference.synthesizer import text_ids
 
@@ -324,7 +334,7 @@ def stream_clone(synth, voc, text: str, embed: np.ndarray, seed: int = 0,
                                      done, start, n_iters, min_iters, pad_value, True, g_dec)
 
     post = _ChunkPost(model, voc, post_ctx, voc_ctx, pad_value, d.n_mels, dev, voc_target,
-                      voc_overlap)
+                      voc_overlap, (compute_dtype, stream_dtype))
     join = _Joiner(xfade_frames * hop, hop)
     start_i, index = 0, 0
     pending = decode(taco.init_decoder_carry(d, 1, chars.shape[1], device=dev),

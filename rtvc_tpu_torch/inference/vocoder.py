@@ -5,9 +5,11 @@ with any of the three WaveRNN variants and heads.
 launch of the sample loop. Both fold the mel with the model's own window
 (``gen_target`` / ``gen_overlap`` of its config: 3000 / 1500 for fatchord
 and geneing, 6000 / 1000 for runtimeracer) unless the caller passes
-another; a window tuned for the card is not derived yet. The sample loop
-runs through the K1 kernel on a card, and a launch that fails raises: there
-is no second path to retry on.
+another or sets one with :func:`set_generation_options`; a window tuned for
+the card is not derived yet. The sample loop runs through the K1 kernel on
+a card, and a launch that fails raises: there is no second path to retry
+on, so the JAX package's ``use_pallas`` knob and its fallback to an XLA
+scan have no counterpart here.
 
 ``load_model`` reads a checkpoint in any of the formats of
 ``train/checkpoints.py:read_model`` and rebuilds the variant at the widths
@@ -21,15 +23,69 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+import torch
+
 from rtvc_tpu_torch import _build
 from rtvc_tpu_torch.config import signal as _sig
 from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.models.wavernn import wavernn_generate, wavernn_generate_batch
+from rtvc_tpu_torch.ops import precision
 from rtvc_tpu_torch.train.checkpoints import read_model
 
 _bundle: Optional[factories.VocModel] = None
 _seed: int = 0
 _gen_counter: int = 0
+
+# The generation options (set_generation_options). The JAX package's module
+# default window, 400 / 160, is tuned for a TPU and applies only there; the
+# port keeps the checkpoint's window unless a caller sets one, per knob
+# (None: the checkpoint's).
+_default_target: Optional[int] = None
+_default_overlap: Optional[int] = None
+_compute_dtype: torch.dtype = torch.float32
+_stream_dtype: torch.dtype = torch.float32
+
+_UNSET = object()
+
+
+def set_generation_options(compute_dtype=None, target=_UNSET, overlap=_UNSET,
+                           stream_dtype=_UNSET) -> None:
+    """Override the generation defaults, as the JAX package's
+    ``set_generation_options`` does (without its ``use_pallas``: K1 is the
+    one path on the card). ``compute_dtype``: the sample loop's resident
+    weights and carried state, ``"f32"`` or ``"bf16"`` (or a torch dtype,
+    through ``ops.precision.resolve``); every call sets it, None and
+    ``"auto"`` giving f32. ``target`` / ``overlap``: the fold window, each
+    kept once set until set again; None restores the checkpoint's
+    ``gen_target`` / ``gen_overlap``. ``stream_dtype``: the per-step
+    conditioning streams, kept once set; None gives f32.
+
+    The defaults are f32 weights and f32 streams. The JAX package defaults
+    its streams to bf16, but that default reaches only its Pallas kernel,
+    which runs only on a TPU: off a TPU its scan ignores ``stream_dtype``.
+    Whether bf16 should be the default on the card is for a measured change
+    to decide. Raises ValueError for a dtype name ``precision.resolve``
+    does not know."""
+    global _compute_dtype, _stream_dtype, _default_target, _default_overlap
+    _compute_dtype = precision.resolve(compute_dtype)
+    if target is not _UNSET:
+        _default_target = target
+    if overlap is not _UNSET:
+        _default_overlap = overlap
+    if stream_dtype is not _UNSET:
+        _stream_dtype = precision.resolve(stream_dtype)
+
+
+def _gen_backend():
+    """(compute dtype, stream dtype) of the next generation call."""
+    return _compute_dtype, _stream_dtype
+
+
+def _default_window(cfg):
+    """The fold window per knob: a value the caller set wins; otherwise the
+    checkpoint's own (the JAX package's rule off a TPU)."""
+    return (cfg.gen_target if _default_target is None else _default_target,
+            cfg.gen_overlap if _default_overlap is None else _default_overlap)
 
 
 def load_model(weights_fpath, verbose: bool = True, device=None) -> None:
@@ -57,8 +113,9 @@ def warmup(frame_buckets=(64,)) -> int:
     """Vocode a silent mel of each frame count in ``frame_buckets`` before
     the first request, after building the kernels when the model is on the
     card; returns how many were vocoded. Each call takes a seed of the
-    counter, as a request does. One bucket is enough here: a kernel is
-    built once for every shape, and the first launch pays for loading it."""
+    counter, as a request does, and the dtypes :func:`set_generation_options`
+    set. One bucket is enough here: a kernel is built once for every shape,
+    and the first launch pays for loading it."""
     if _bundle is None:
         raise Exception("Please load Wave-RNN in memory before using it")
     if _bundle.model.I.weight.is_cuda:
@@ -85,14 +142,18 @@ def next_seed() -> int:
 
 
 def _next_call(target: Optional[int], overlap: Optional[int]):
-    """(config, target, overlap, seed) of the next generation call: the
-    window defaults to the config's, and each call gets a seed of its own."""
+    """(config, target, overlap, seed, dtypes) of the next generation call:
+    the window defaults to :func:`_default_window`'s, each call gets a seed
+    of its own, and the dtypes are the options'."""
     if _bundle is None:
         raise Exception("Please load Wave-RNN in memory before using it")
     cfg = _bundle.config
-    target = cfg.gen_target if target is None else target
-    overlap = cfg.gen_overlap if overlap is None else overlap
-    return cfg, target, overlap, next_seed()
+    default_t, default_o = _default_window(cfg)
+    target = default_t if target is None else target
+    overlap = default_o if overlap is None else overlap
+    compute_dtype, stream_dtype = _gen_backend()
+    return cfg, target, overlap, next_seed(), dict(compute_dtype=compute_dtype,
+                                                   stream_dtype=stream_dtype)
 
 
 def infer_waveform(mel: np.ndarray, normalize: bool = True, batched: bool = True,
@@ -100,14 +161,14 @@ def infer_waveform(mel: np.ndarray, normalize: bool = True, batched: bool = True
                    progress_callback=None, argmax: bool = False) -> np.ndarray:
     """Mel (synthesizer format, (80, T)) → float64 waveform of (T-1)·200
     samples. ``argmax=True`` is the deterministic (greedy) test hook."""
-    cfg, target, overlap, seed = _next_call(target, overlap)
+    cfg, target, overlap, seed, dtypes = _next_call(target, overlap)
     sp = _sig.sp
     if normalize:
         mel = mel / sp.max_abs_value
     wav = wavernn_generate(_bundle.model, _bundle.dims, np.asarray(mel, np.float32),
                            seed, batched=batched, target=target, overlap=overlap,
                            mu_law=cfg.mu_law, apply_preemphasis=sp.preemphasize,
-                           argmax=argmax)
+                           argmax=argmax, **dtypes)
     if progress_callback is not None:
         progress_callback(len(wav), len(wav), 1, 0.0)
     return wav
@@ -119,11 +180,11 @@ def infer_waveforms(mels: Sequence[np.ndarray], normalize: bool = True,
     """Vocode several mels in one batch: every utterance's fold windows share
     the batch axis of one launch of the sample loop. Returns one waveform
     per mel, each of its own (T_i - 1)·200 samples."""
-    cfg, target, overlap, seed = _next_call(target, overlap)
+    cfg, target, overlap, seed, dtypes = _next_call(target, overlap)
     sp = _sig.sp
     if normalize:
         mels = [m / sp.max_abs_value for m in mels]
     return wavernn_generate_batch(_bundle.model, _bundle.dims,
                                   [np.asarray(m, np.float32) for m in mels], seed,
                                   target=target, overlap=overlap, mu_law=cfg.mu_law,
-                                  apply_preemphasis=sp.preemphasize, argmax=argmax)
+                                  apply_preemphasis=sp.preemphasize, argmax=argmax, **dtypes)

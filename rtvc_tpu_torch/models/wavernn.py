@@ -10,7 +10,11 @@ every conditioning projection into full-sequence matmuls, run the
 autoregressive sample loop through the K1 kernel (``ops.wavernn_generate``),
 then cross-fade the folds back together, mu-law decode and de-emphasise.
 ``wavernn_generate_batch`` vocodes several utterances in one launch of the
-loop: every utterance's folds share the batch axis.
+loop: every utterance's folds share the batch axis. The generate functions
+take the JAX package's two dtype knobs: ``compute_dtype`` (the loop's
+weights and carried state) and ``stream_dtype`` (its conditioning streams),
+each ``"f32"`` (the default) or ``"bf16"`` or a torch dtype
+(``ops.precision.resolve``); they pick K1's instantiation.
 
 Training: ``wavernn_forward`` is the teacher-forced forward over the
 previous samples; its GRUs run through the K4 kernels
@@ -29,6 +33,7 @@ from torch import nn
 from rtvc_tpu_torch.config.vocoder import MODE_BITS, MODE_MOL, MODE_RAW, WaveRNNParams
 from rtvc_tpu_torch.models.layers import GRU, BatchNorm1d, Linear
 from rtvc_tpu_torch.ops import audio as audio_ops
+from rtvc_tpu_torch.ops import precision
 from rtvc_tpu_torch.ops.wavernn_generate import (  # noqa: F401  (VOC_* are re-exported)
     HEAD_BETA,
     HEAD_CATEGORICAL,
@@ -348,14 +353,18 @@ def step_weights(model: WaveRNN, d: WaveRNNDims) -> Dict[str, Tensor]:
 
 
 def generate_core(model: WaveRNN, d: WaveRNNDims, mels_up: Tensor, aux: Tensor,
-                  seed: int, argmax: bool = False) -> Tensor:
+                  seed: int, argmax: bool = False, compute_dtype=None,
+                  stream_dtype=None) -> Tensor:
     """Autoregressive sample loop over upsampled conditioning (B, T, ·) →
-    samples (B, T) in [-1, 1]. ``argmax=True`` is the deterministic (greedy)
-    test hook: the most likely class, the most likely mixture component's
-    clipped mean, or the beta's mode (its mean where it has none)."""
-    streams = {k: v.contiguous() for k, v in hoist_aux(model, d, mels_up, aux).items()}
-    return wavernn_generate_core(step_weights(model, d), streams, seed, argmax,
-                                 variant=d.variant, head=d.head)
+    f32 samples (B, T) in [-1, 1]. ``argmax=True`` is the deterministic
+    (greedy) test hook: the most likely class, the most likely mixture
+    component's clipped mean, or the beta's mode (its mean where it has
+    none). The f32 streams are cast to ``stream_dtype`` and the step weights
+    to ``compute_dtype`` once a call, before the launch (f32 for None)."""
+    sdt, cdt = precision.resolve(stream_dtype), precision.resolve(compute_dtype)
+    streams = {k: v.to(sdt).contiguous() for k, v in hoist_aux(model, d, mels_up, aux).items()}
+    weights = {k: v.to(cdt) for k, v in step_weights(model, d).items()}
+    return wavernn_generate_core(weights, streams, seed, argmax, variant=d.variant, head=d.head)
 
 
 def _check_mels(d: WaveRNNDims, n_frames: int, n_mels: int) -> None:
@@ -389,11 +398,13 @@ def _finish(d: WaveRNNDims, output: Tensor, wave_len: int, fade_out: bool) -> np
 def generate_pipeline(model: WaveRNN, d: WaveRNNDims, mels: Tensor, seed: int,
                       batched: bool = True, target: int = 6000, overlap: int = 1000,
                       mu_law: bool = True, apply_preemphasis: bool = True,
-                      argmax: bool = False) -> Tensor:
+                      argmax: bool = False, compute_dtype=None,
+                      stream_dtype=None) -> Tensor:
     """The generate path on the model's device, as the JAX package's
     ``_generate_pipeline``: mels (1, n_mels, n) → pad → upsample → fold → AR
-    loop → cross-fade/unfold → mu-law decode (RAW only) → de-emphasis. The
-    samples stay on the device, untrimmed: the first (n - 1)·hop are the
+    loop (at ``compute_dtype`` / ``stream_dtype``, :func:`generate_core`) →
+    cross-fade/unfold → mu-law decode (RAW only) → de-emphasis. The samples
+    stay on the device, untrimmed: the first (n - 1)·hop are the
     waveform's."""
     mu_law = mu_law if d.mode == MODE_RAW else False
     mels = F.pad(mels, (d.pad, d.pad))
@@ -401,7 +412,7 @@ def generate_pipeline(model: WaveRNN, d: WaveRNNDims, mels: Tensor, seed: int,
     if batched:
         mels_up, _ = fold_with_overlap(mels_up, target, overlap)
         aux, _ = fold_with_overlap(aux, target, overlap)
-    samples = generate_core(model, d, mels_up, aux, seed, argmax)
+    samples = generate_core(model, d, mels_up, aux, seed, argmax, compute_dtype, stream_dtype)
     output = xfade_and_unfold(samples, target, overlap) if batched else samples[0]
     return _decode(d, output, mu_law, apply_preemphasis)
 
@@ -411,11 +422,13 @@ def wavernn_generate(model: WaveRNN, d: WaveRNNDims, mels, seed: int,
                      batched: bool = True, target: int = 6000,
                      overlap: int = 1000, mu_law: bool = True,
                      apply_preemphasis: bool = True, argmax: bool = False,
-                     fade_out: bool = True) -> np.ndarray:
+                     fade_out: bool = True, compute_dtype=None,
+                     stream_dtype=None) -> np.ndarray:
     """pad → upsample → fold → AR loop → cross-fade/unfold → mu-law decode →
     de-emphasis → fade-out. ``mels`` (n_mels, n) or (1, n_mels, n); returns
     a float64 numpy waveform of (n - 1)·hop samples. ``mu_law`` applies to
     the RAW mode only: the BITS and MOL heads emit linear samples.
+    ``compute_dtype`` / ``stream_dtype``: :func:`generate_core`.
 
     The frame count is padded to a 64-frame bucket (:func:`bucket_pad`) and
     the pad trimmed off at the end."""
@@ -426,7 +439,7 @@ def wavernn_generate(model: WaveRNN, d: WaveRNNDims, mels, seed: int,
     n_frames = mels.shape[-1]
     _check_mels(d, n_frames, mels.shape[1])
     output = generate_pipeline(model, d, bucket_pad(mels), seed, batched, target, overlap,
-                               mu_law, apply_preemphasis, argmax)
+                               mu_law, apply_preemphasis, argmax, compute_dtype, stream_dtype)
     return _finish(d, output, (n_frames - 1) * d.hop_length, fade_out)
 
 
@@ -441,8 +454,8 @@ def bucket_pad(mels: Tensor) -> Tensor:
 @torch.no_grad()
 def wavernn_generate_batch(model: WaveRNN, d: WaveRNNDims, mels_list: Sequence, seed: int,
                            target: int = 1000, overlap: int = 400, mu_law: bool = True,
-                           apply_preemphasis: bool = True, argmax: bool = False
-                           ) -> List[np.ndarray]:
+                           apply_preemphasis: bool = True, argmax: bool = False,
+                           compute_dtype=None, stream_dtype=None) -> List[np.ndarray]:
     """Vocode several utterances in one launch of the sample loop: all are
     padded with -1.0 to one 64-frame bucket (the longest's), each is folded
     with the same geometry, and every utterance's folds share the batch
@@ -450,7 +463,7 @@ def wavernn_generate_batch(model: WaveRNN, d: WaveRNNDims, mels_list: Sequence, 
 
     ``mels_list``: (n_mels, T_i) normalised mels. Returns one float64
     waveform per utterance, trimmed to its own (T_i - 1)·hop samples, with
-    the fade-out."""
+    the fade-out. ``compute_dtype`` / ``stream_dtype``: :func:`generate_core`."""
     mu_law = mu_law if d.mode == MODE_RAW else False
     dev = model.I.weight.device
     frames = [int(np.shape(m)[-1]) for m in mels_list]
@@ -467,7 +480,8 @@ def wavernn_generate_batch(model: WaveRNN, d: WaveRNNDims, mels_list: Sequence, 
               for i in range(len(frames))]
     n_folds = folded[0][0].shape[0]
     samples = generate_core(model, d, torch.cat([m for m, _ in folded]),
-                            torch.cat([a for _, a in folded]), seed, argmax)
+                            torch.cat([a for _, a in folded]), seed, argmax, compute_dtype,
+                            stream_dtype)
     return [_finish(d, _decode(d, xfade_and_unfold(samples[i * n_folds:(i + 1) * n_folds],
                                                    target, overlap), mu_law, apply_preemphasis),
                     (n - 1) * d.hop_length, fade_out=True)

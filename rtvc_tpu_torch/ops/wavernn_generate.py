@@ -28,6 +28,18 @@ in the kernel, a ``torch.Generator`` in the plain version. The two give
 different noise, so they agree in distribution; ``argmax=True`` (no noise:
 the most likely class, the most likely component's clipped mean, the beta's
 mode or mean) makes them agree sample for sample.
+
+Types: the weights' dtype is the JAX kernel's ``compute_dtype`` and the
+streams' its ``stream_dtype`` (``generate_core_pallas``:317-330), each f32
+or bf16, and the pair picks the kernel's instantiation. bf16 streams are
+widened where they are read; bf16 weights are resident at two bytes each
+(:func:`plan` counts them so), and the carried GRU states and the fed-back
+sample are rounded to bf16 where they are stored, while the residual
+``x + h`` takes the new state before its rounding, as in the JAX kernel's
+body. Every product accumulates in f32 and the samples come out f32. The
+f32 kernel's launches are counted by variant (``COUNT_NAME``), the other
+three instantiations' by pair (``PAIR_COUNT_NAME``), whatever the variant.
+A bf16 CUDA tensor reaches its instantiation or raises.
 """
 from __future__ import annotations
 
@@ -38,6 +50,7 @@ import torch
 from rtvc_tpu_torch import _build
 from rtvc_tpu_torch.models import distribution
 from rtvc_tpu_torch.models.layers import gru_step
+from rtvc_tpu_torch.ops.precision import widen
 
 Tensor = torch.Tensor
 
@@ -84,8 +97,31 @@ LAYERS: Dict[str, LayerList] = {
          Fc("fc4", relu=True), Fc("fc5"))),
 }
 
-# the launch count's name, one per variant
+# the launch count's name, one per variant (the f32 kernel) and one per
+# (weights, streams) dtype pair of the other instantiations
 COUNT_NAME = {v: "wavernn_generate_" + v.split("-")[0] for v in LAYERS}
+PAIR_COUNT_NAME = {(torch.float32, torch.bfloat16): "wavernn_generate_bf16_streams",
+                   (torch.bfloat16, torch.bfloat16): "wavernn_generate_bf16",
+                   (torch.bfloat16, torch.float32): "wavernn_generate_bf16_weights"}
+
+
+def count_name(variant: str, weight_dtype: torch.dtype, stream_dtype: torch.dtype) -> str:
+    """The launch count a launch of these dtypes adds to."""
+    if weight_dtype == stream_dtype == torch.float32:
+        return COUNT_NAME[variant]
+    return PAIR_COUNT_NAME[(weight_dtype, stream_dtype)]
+
+
+def dtypes(weights: Dict[str, Tensor], streams: Dict[str, Tensor]
+           ) -> Tuple[torch.dtype, torch.dtype]:
+    """(the weights' dtype, the streams' dtype): each set must share one.
+    Raises ValueError otherwise."""
+    w = {t.dtype for t in weights.values()}
+    s = {t.dtype for t in streams.values()}
+    if len(w) != 1 or len(s) != 1:
+        raise ValueError(f"wavernn_generate: the weights must share one dtype and the streams "
+                         f"one, got {sorted(map(str, w))} and {sorted(map(str, s))}")
+    return w.pop(), s.pop()
 
 WARPS = 8        # warps of a CTA (csrc/common.cuh:kRecWarps)
 ROW_BLOCK = 8    # weight rows an item of a layer's product takes (kRowBlock)
@@ -118,29 +154,31 @@ def _blocks(n: int) -> int:
     return -(-n // ROW_BLOCK) * ROW_BLOCK
 
 
-def _smem_floats(variant: str, R: int, F: int, head: str, B: int, units: int,
-                 fc_rows: int, last_rows: int, nb: int, fb: int) -> int:
-    """Floats of a CTA's shared memory: the arithmetic of
-    ``csrc/wavernn_generate.cu:layout``."""
+def _smem_bytes(variant: str, R: int, F: int, head: str, B: int, units: int,
+                fc_rows: int, last_rows: int, nb: int, fb: int, elem: int = 4) -> int:
+    """Bytes of a CTA's shared memory: the arithmetic of
+    ``csrc/wavernn_generate.cu:layout``. The weight rows, the biases and
+    i_col's units take ``elem`` bytes an entry (4 for f32 weights, 2 for
+    bf16), rounded up to 16 bytes; the rest is f32."""
     layers = LAYERS[variant]
     g_rows = _blocks(3 * units)
-    n = len(layers.rnns) * (2 * g_rows * _al4(R) + 2 * _al4(3 * units))
-    n += _al4(3 * units) + _al4(units)
+    w = len(layers.rnns) * (2 * g_rows * _al4(R) + 2 * _al4(3 * units)) + _al4(units)
     qs = [fc_rows] * (len(layers.fcs) - 1) + [last_rows]
     for k, q in enumerate(qs):
-        n += _blocks(q) * _al4(R if k == 0 else F) + _al4(q)
-    n += WARPS * (-(-ROW_BLOCK * nb // 32) * 32)
+        w += _blocks(q) * _al4(R if k == 0 else F) + _al4(q)
+    n = _al4(3 * units) + WARPS * (-(-ROW_BLOCK * nb // 32) * 32)
     n += max(2 * g_rows, _blocks(max(qs))) * fb
     if head == HEAD_CATEGORICAL:
         n += _al4(2 * (last_rows // 4) * fb)
-    return n + _al4(B)
+    return -(-elem * w // 16) * 16 + 4 * (n + _al4(B))
 
 
 def plan(variant: str, R: int, F: int, C: int, B: int, sm_count: int, smem_limit: int,
-         head: str = HEAD_CATEGORICAL) -> Plan:
+         head: str = HEAD_CATEGORICAL, elem: int = 4) -> Plan:
     """The partition of a variant's sample loop for B folds on a card with
     ``sm_count`` SMs whose blocks may take ``smem_limit`` bytes of shared
-    memory: every layer's rows cut evenly over at most ``sm_count`` CTAs (one
+    memory, the weights resident at ``elem`` bytes each (4 for f32, 2 for
+    bf16): every layer's rows cut evenly over at most ``sm_count`` CTAs (one
     a SM, all resident at once), items of 4 folds below ``WIDE_FOLDS`` folds
     and 8 from there on, and the phase buffer as many folds wide as fit (at
     most B, at most ``MAX_FOLD_BLOCK``). Raises ValueError, naming the limit,
@@ -155,14 +193,14 @@ def plan(variant: str, R: int, F: int, C: int, B: int, sm_count: int, smem_limit
         last_rows = _al4(last_rows)
     ctas = max(-(-R // units), -(-F // fc_rows), -(-C // last_rows))
     nb = FOLD_PASSES[1] if B >= WIDE_FOLDS else FOLD_PASSES[0]
-    least = 4 * _smem_floats(variant, R, F, head, 1, units, fc_rows, last_rows, nb, nb)
+    least = _smem_bytes(variant, R, F, head, 1, units, fc_rows, last_rows, nb, nb, elem)
     if least > smem_limit:
         raise ValueError(
             f"wavernn_generate: {variant} at R {R}, F {F}, C {C} needs {least} bytes of shared "
             f"memory a CTA on {sm_count} SMs, past the limit of {smem_limit} (its weights must "
             f"fit the card's shared memory)")
     for fb in range(min(-(-B // nb), MAX_FOLD_BLOCK // nb) * nb, 0, -nb):
-        smem = 4 * _smem_floats(variant, R, F, head, B, units, fc_rows, last_rows, nb, fb)
+        smem = _smem_bytes(variant, R, F, head, B, units, fc_rows, last_rows, nb, fb, elem)
         if smem <= smem_limit:
             return Plan(ctas, units, fc_rows, last_rows, nb, fb, smem)
     widest = (smem_limit - least) // 4 + 1  # each fold beyond the first takes a float
@@ -233,8 +271,18 @@ def wavernn_generate_core_plain(weights: Dict[str, Tensor], streams: Dict[str, T
                                 variant: str = VOC_RUNTIMERACER,
                                 head: str = HEAD_CATEGORICAL):
     """Plain PyTorch sample loop → samples (B, T) in [-1, 1] (and, with
-    ``return_logits``, the head's inputs (B, T, C) at each step)."""
-    w, s = weights, streams
+    ``return_logits``, the head's inputs (B, T, C) at each step). bf16
+    weights or streams are widened to f32 for the arithmetic; under bf16
+    weights the carried GRU states and the fed-back sample are rounded to
+    bf16 where the kernel stores them (the residual takes the state before
+    its rounding)."""
+    w = {k: widen(v) for k, v in weights.items()}
+    s = {k: widen(v) for k, v in streams.items()}
+    weight_dtype, _ = dtypes(weights, streams)
+
+    def stored(v: Tensor) -> Tensor:  # v as a carried value of the weights' dtype holds it
+        return v.to(weight_dtype).to(v.dtype) if weight_dtype == torch.bfloat16 else v
+
     layers = LAYERS[variant]
     i_cond = s["i_cond"]
     B, T, R = i_cond.shape
@@ -253,8 +301,9 @@ def wavernn_generate_core_plain(weights: Dict[str, Tensor], streams: Dict[str, T
                 xg = x @ w[f"{rnn.name}_wx"].t() + s[f"{rnn.name}_aux"][:, t]
             else:
                 xg = x @ w[f"{rnn.name}_wih"].t() + w[f"{rnn.name}_bih"]
-            h[k] = gru_step(xg, h[k], w[f"{rnn.name}_whh"], w[f"{rnn.name}_bhh"])
-            x = x + h[k]
+            h_new = gru_step(xg, h[k], w[f"{rnn.name}_whh"], w[f"{rnn.name}_bhh"])
+            x = x + h_new
+            h[k] = stored(h_new)
         f = x
         for fc in layers.fcs:
             if fc.aux:
@@ -265,8 +314,9 @@ def wavernn_generate_core_plain(weights: Dict[str, Tensor], streams: Dict[str, T
                 f = torch.relu(f)
         if trace is not None:
             trace[:, t] = f
-        prev = _head_sample(head, f, argmax, g)
-        out[:, t] = prev
+        sample = _head_sample(head, f, argmax, g)
+        out[:, t] = sample
+        prev = stored(sample)
     return (out, trace) if return_logits else out
 
 
@@ -309,12 +359,12 @@ def wavernn_generate_core(weights: Dict[str, Tensor], streams: Dict[str, Tensor]
                           seed: int, argmax: bool = False, return_logits: bool = False,
                           variant: str = VOC_RUNTIMERACER, head: str = HEAD_CATEGORICAL):
     """Same contract as :func:`wavernn_generate_core_plain`; CUDA tensors go
-    through the kernel."""
+    through the kernel's instantiation for their dtypes."""
     if not streams["i_cond"].is_cuda:
         return wavernn_generate_core_plain(weights, streams, seed, argmax, return_logits,
                                            variant, head)
     out = launch(_build.library(), weights, streams, seed, argmax, return_logits, variant, head)
-    _build.launch_counts[COUNT_NAME[variant]] += 1
+    _build.launch_counts[count_name(variant, *dtypes(weights, streams))] += 1
     return out
 
 
@@ -322,7 +372,8 @@ def launch(lib, weights: Dict[str, Tensor], streams: Dict[str, Tensor], seed: in
            argmax: bool, return_logits: bool, variant: str, head: str):
     """One launch of ``lib``'s ``rtvc_wavernn_generate`` (the package's
     library, or a variant of it that ``profile_wavernn`` builds) on CUDA
-    tensors, after the shape checks and with this device's plan."""
+    tensors, after the shape and dtype checks and with this device's plan
+    for the weights' dtype. The samples (and head inputs) come out f32."""
     i_cond = streams["i_cond"]
     layers = LAYERS[variant]
     B, T, R = i_cond.shape
@@ -334,15 +385,18 @@ def launch(lib, weights: Dict[str, Tensor], streams: Dict[str, Tensor], seed: in
     if head == HEAD_BETA and C != 2:
         raise ValueError(f"wavernn_generate: the beta head needs 2 columns, got {C}")
     dev = i_cond.device
+    wdt, sdt = dtypes(weights, streams)
     _build.check_tensors("wavernn_generate", dev, **{
-        name: (weights[name], shape) for name, shape in weight_shapes(variant, R, F, C).items()})
+        name: (weights[name], shape, wdt)
+        for name, shape in weight_shapes(variant, R, F, C).items()})
     _build.check_tensors("wavernn_generate", dev, **{
-        name: (streams[name], (B, T, width))
+        name: (streams[name], (B, T, width), sdt)
         for name, width in stream_widths(variant, R, F).items()})
     w, s, relu = _slots(variant, weights, streams)
-    p = plan(variant, R, F, C, B, *_build.device_limits(dev), head=head)
+    w_bytes, s_bytes = _build.elem_bytes(wdt), _build.elem_bytes(sdt)
+    p = plan(variant, R, F, C, B, *_build.device_limits(dev), head=head, elem=w_bytes)
     out = torch.empty((B, T), device=dev, dtype=torch.float32)
-    trace = torch.empty((B, T, C), device=dev) if return_logits else None
+    trace = torch.empty((B, T, C), device=dev, dtype=torch.float32) if return_logits else None
     # GRU states (two a layer), activations (two), head inputs, partials
     scratch = torch.zeros(len(layers.rnns) * 2 * B * R + 2 * B * _al4(max(R, F)) + B * C
                           + 2 * p.ctas * B, device=dev, dtype=torch.float32)
@@ -350,7 +404,7 @@ def launch(lib, weights: Dict[str, Tensor], streams: Dict[str, Tensor], seed: in
     err = lib.rtvc_wavernn_generate(
         _build.pointer_array(w), _build.pointer_array(s),
         _build.int_array([B, T, R, F, C, len(layers.rnns), len(layers.fcs),
-                          _HEAD_CODE[head], *relu, *p]),
+                          _HEAD_CODE[head], *relu, *p, w_bytes, s_bytes]),
         int(bool(argmax)), int(seed) & 0xFFFFFFFFFFFFFFFF, scratch.data_ptr(),
         sync.data_ptr(), out.data_ptr(), None if trace is None else trace.data_ptr(),
         _build.stream_handle(dev),

@@ -3,7 +3,7 @@
     python -m rtvc_tpu_torch.synthesizer_train <run_id> [model_type] <syn_dir> [options]
 
 The arguments are those of the JAX package's ``synthesizer_train.py`` except
-its dashboard and multi-process launch options, plus ``--device`` and
+its multi-process launch options, plus ``--device`` and
 ``--seed``; ``--compute_dtype bf16`` trains under the bf16 policy
 (``ops/precision.py``), and ``auto`` is f32 on the card. ``model_type`` is
 ``tacotron`` (the default), ``forward-tacotron`` or ``fast-pitch``. ``syn_dir`` is the directory the
@@ -45,6 +45,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "(ops/precision.py): bf16 parameters and "
                              "activations in the forward, f32 master weights, "
                              "optimizer state, losses and softmaxes.")
+    parser.add_argument("--dashboard", type=int, default=None, metavar="PORT",
+                        help="Serve a live metrics dashboard on this port "
+                             "(visdom replacement; 8097 = visdom default)")
     parser.add_argument("--device", default="cuda", help="The torch device to train on.")
     parser.add_argument("--seed", type=int, default=0, help="Seed of the initial weights.")
     return parser.parse_args(argv)
@@ -52,6 +55,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.dashboard is not None:
+        from rtvc_tpu_torch.utils.dashboard import serve as _serve_dashboard
+
+        _serve_dashboard(args.models_dir / args.run_id, port=args.dashboard, background=True)
+        print(f"Dashboard: http://localhost:{args.dashboard}")
     from rtvc_tpu_torch.data.synthesizer_dataset import SynthesizerDataset, batch_iterator
     from rtvc_tpu_torch.train.eval_hooks import make_synthesizer_eval_hook
     from rtvc_tpu_torch.train.trainer import sessions, train_synthesizer

@@ -3,7 +3,7 @@
     python -m rtvc_tpu_torch.vocoder_train <run_id> [model_type] <datasets_root> [options]
 
 The arguments are those of the JAX package's ``vocoder_train.py`` except
-its dashboard and multi-process launch options, plus ``--device`` and
+its multi-process launch options, plus ``--device`` and
 ``--seed``. The model type is ``fatchord-wavernn``, ``geneing-wavernn`` or
 ``runtimeracer-wavernn`` (the default here), each in its config's mode. The
 dataset is the one the vocoder preprocessing writes (GTA mels, or ground-truth mels with
@@ -52,6 +52,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "optimizer state, losses and softmaxes.")
     parser.add_argument("-f", "--force_restart", action="store_true",
                         help="Ignore any saved model for this run_id and restart from scratch.")
+    parser.add_argument("--dashboard", type=int, default=None, metavar="PORT",
+                        help="Serve a live metrics dashboard on this port "
+                             "(visdom replacement; 8097 = visdom default)")
     parser.add_argument("--device", default="cuda", help="The torch device to train on.")
     parser.add_argument("--seed", type=int, default=0, help="Seed of the initial weights.")
     return parser.parse_args(argv)
@@ -73,6 +76,11 @@ def sample_hook(model_type: str, cfg, dataset, sample_dir):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.dashboard is not None:
+        from rtvc_tpu_torch.utils.dashboard import serve as _serve_dashboard
+
+        _serve_dashboard(args.models_dir / args.run_id, port=args.dashboard, background=True)
+        print(f"Dashboard: http://localhost:{args.dashboard}")
     from rtvc_tpu_torch.data.vocoder_dataset import VocoderDataset, batch_iterator
     from rtvc_tpu_torch.ops import precision
     from rtvc_tpu_torch.train.trainer import train_vocoder

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 small widths and, for the training kernels, at the trainers' shapes (both
 on the GPU, f32; the bf16 instantiations of K3 and K4 on bf16 streams
-against their plain bf16 versions). Every test needs an NVIDIA GPU and
+against their plain bf16 versions, K1's three bf16 (weights, streams) pairs
+against their plain versions at the same pair). Every test needs an NVIDIA GPU and
 skips without one. This file imports no JAX, so it runs on a machine that
 has only PyTorch:
 
@@ -40,9 +41,11 @@ from rtvc_tpu_torch.ops.tacotron_decode import tacotron_decode, tacotron_decode_
 from rtvc_tpu_torch.config import preprocessing, sp
 from rtvc_tpu_torch.ops import audio as taudio
 from rtvc_tpu_torch.ops.mel_project import mel_project_normalize, mel_project_normalize_plain
+from rtvc_tpu_torch.ops import wavernn_generate as wg
 from rtvc_tpu_torch.ops.wavernn_generate import (
     COUNT_NAME,
     LAYERS,
+    count_name,
     wavernn_generate_core,
     wavernn_generate_core_plain,
 )
@@ -1479,3 +1482,185 @@ def test_gen_testset_on_the_card_writes_finite_wavs(dev, tmp_path):
             sr, wav = wavfile.read(tmp_path / "samples" / f"4_{i}_{kind}.wav")
             assert sr == 16000 and np.isfinite(wav).all() and np.abs(wav).max() > 0, kind
             assert abs(len(wav) - 30 * 200) <= 200, (kind, len(wav))
+
+
+# ---------------------------------------------------------------------------
+# K1's (compute_dtype, stream_dtype) pairs: the vocoder's generation options
+# ---------------------------------------------------------------------------
+
+K1_PAIRS = [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+            (torch.bfloat16, torch.float32)]
+
+
+def _as_pair(w, s, compute, stream):
+    return ({k: v.to(compute) for k, v in w.items()},
+            {k: v.to(stream).contiguous() for k, v in s.items()})
+
+
+def _held_greedy(got, kl, ref, pl, head, C, tol):
+    """Greedy kernel samples and head inputs against the plain version's:
+    per fold, up to the first step where the decoded choice parts (labels,
+    or continuous samples beyond ``tol``), head inputs within ``tol`` and
+    samples within 1e-6 (categorical) or ``tol``; where they part, the plain
+    version's two top choices within twice the two versions' head-input
+    difference there (``chip_smoke.py:k1_check``'s near-tie rule; the beta
+    head has no choice to tie). Returns the folds that parted."""
+    T, parted = got.shape[1], 0
+    for b in range(got.shape[0]):
+        if head == "categorical":
+            lab = lambda x: torch.round((x + 1) * (C - 1) / 2)  # noqa: E731
+            differ, choice, stol = lab(got[b]) != lab(ref[b]), pl[b], 1e-6
+        else:
+            differ, choice, stol = (got[b] - ref[b]).abs() > tol, pl[b, :, :C // 3], tol
+        idx = torch.nonzero(differ)
+        t = int(idx[0]) if len(idx) else T
+        if t:
+            assert float((kl[b, :t] - pl[b, :t]).abs().max()) <= tol
+            assert float((got[b, :t] - ref[b, :t]).abs().max()) <= stol
+        if t < T:
+            assert head != "beta", f"fold {b}: beta samples part at step {t}"
+            noise = float((kl[b, t] - pl[b, t]).abs().max())
+            top2 = torch.topk(choice[t], 2).values
+            assert float(top2[0] - top2[1]) <= 2 * noise, f"fold {b} parts at step {t}"
+            parted += 1
+    return parted
+
+
+@pytest.mark.parametrize("compute,stream", K1_PAIRS)
+@pytest.mark.parametrize("variant,mode", CELLS)
+def test_wavernn_kernel_pairs_greedy_match_plain(dev, variant, mode, compute, stream):
+    """Every cell at a small width, 13 folds x 300 steps, at each new pair.
+    bf16 streams over f32 weights: as the f32 kernel (head inputs within
+    1e-5, labels equal, MOL and beta samples within 1e-5). bf16 weights: the
+    carried states and the fed-back sample are rounded to bf16, and two f32
+    sums a few units apart round apart where they lie that close to a bf16
+    midpoint (one bf16 unit of a state): head inputs within 1e-3, up to a
+    near-tie."""
+    w, s, d = _voc(dev, B=13, T=300, variant=variant, mode=mode)
+    last = LAYERS[variant].fcs[-1].name
+    w[f"{last}_w"] = (torch.randn(w[f"{last}_w"].shape,
+                                  generator=torch.Generator().manual_seed(6)) * 2.0).to(dev)
+    w, s = _as_pair(w, s, compute, stream)
+    kw = dict(variant=variant, head=d.head)
+    got, kl = _counted(count_name(variant, compute, stream), lambda: wavernn_generate_core(
+        w, s, 0, argmax=True, return_logits=True, **kw))
+    ref, pl = wavernn_generate_core_plain(w, s, 0, argmax=True, return_logits=True, **kw)
+    assert got.dtype == kl.dtype == torch.float32
+    assert float(pl.std(dim=1).max()) > 1e-3
+    if compute == torch.float32:
+        torch.testing.assert_close(kl, pl, atol=1e-5, rtol=0)
+        torch.testing.assert_close(got, ref, atol=1e-5 if d.head != "categorical" else 1e-6,
+                                   rtol=0)
+    else:
+        _held_greedy(got, kl, ref, pl, d.head, d.n_classes, 1e-3)
+
+
+def _rounding_probe(dev, B=13, T=12, R=16, F=16, C=64, seed=0):
+    """runtimeracer's layers with structured weights, so that each place
+    where a bf16-weight instantiation rounds moves the head's inputs by
+    5e-3 to 2e-2 from the first steps (measured on the plain version with
+    each rounding taken out, or the residual taken after it), while no
+    product's order of summation matters: no GRU reads its input or state
+    through a product (W_ih = W_hh = 0: each unit's state follows its
+    biases, and the first GRU's stream), the FCs pass their inputs' mean on,
+    and the last FC makes class c's input 0.08·c·f − c²/200, so the label
+    follows f and the fed-back sample moves the input through i_col."""
+    g = torch.Generator().manual_seed(seed)
+    w = {k: torch.zeros(shape) for k, shape in
+         wg.weight_shapes(wg.VOC_RUNTIMERACER, R, F, C).items()}
+    w["i_col"] = torch.full((R,), 0.5)
+    for k, name in enumerate(("rnn1", "rnn2", "rnn3", "rnn4")):
+        b = torch.tensor([0.3 + 0.1 * k, -0.4 + 0.2 * k, 0.9 - 0.15 * k]).repeat_interleave(R)
+        w[f"{name}_bhh"] = b
+        if f"{name}_bih" in w:
+            w[f"{name}_bih"] = 0.5 * b
+    w["fc1_wx"] = torch.full((F, R), 1.0 / R)
+    for name in ("fc2_w", "fc3_wx", "fc4_w"):
+        w[name] = torch.full((F, F), 1.0 / F)
+    c = torch.arange(C, dtype=torch.float32)
+    w["fc5_w"] = 0.08 * c[:, None].repeat(1, F) / F
+    w["fc5_b"] = -c * c / 200.0
+
+    def per_fold(width, lo, hi):
+        return (torch.rand(B, T, 1, generator=g) * (hi - lo) + lo).repeat(1, 1, width)
+
+    s = {"i_cond": per_fold(R, -0.1, 0.1), "rnn3_aux": per_fold(3 * R, -0.1, 0.1),
+         "fc1_aux": per_fold(F, 0.0, 0.5), "fc3_aux": per_fold(F, 0.0, 0.5)}
+    return ({k: v.to(dev) for k, v in w.items()},
+            {k: v.to(dev).contiguous() for k, v in s.items()})
+
+
+@pytest.mark.parametrize("compute,stream", K1_PAIRS)
+def test_wavernn_kernel_pairs_round_where_the_plain_version_does(dev, compute, stream):
+    """On the rounding probe the kernel at each pair gives the plain
+    version's head inputs within 1e-4 at every step and its labels, where a
+    kernel that skipped a rounding of the carried states or of the fed-back
+    sample, or took the residual after the rounding, would be 5e-3 to 2e-2
+    off; and the probe tells a bf16-weight pair from f32 weights."""
+    w32, s32 = _rounding_probe(dev)
+    w, s = _as_pair(w32, s32, compute, stream)
+    got, kl = _counted(count_name(VOC["variant"], compute, stream), lambda: wavernn_generate_core(
+        w, s, 0, argmax=True, return_logits=True))
+    ref, pl = wavernn_generate_core_plain(w, s, 0, argmax=True, return_logits=True)
+    torch.testing.assert_close(kl, pl, atol=1e-4, rtol=0)
+    assert torch.equal(torch.round((got + 1) * 63 / 2), torch.round((ref + 1) * 63 / 2))
+    _, p32 = wavernn_generate_core_plain(*_as_pair(w32, s32, torch.float32, stream), 0,
+                                         argmax=True, return_logits=True)
+    assert (float((p32 - pl).abs().max()) > 1e-3) == (compute == torch.bfloat16)
+
+
+def test_wavernn_kernel_bf16_weights_plan_matches_its_layout(dev, monkeypatch):
+    """The wrapper's plan counts bf16 weights at two bytes (``elem`` 2), as
+    the kernel's layout does: the launch with that plan runs; the same
+    launch with the plan at four bytes is refused (the layout's size
+    disagrees); and the two-byte plan needs less shared memory."""
+    w, s, d = _voc(dev, B=13, T=40)
+    w, s = _as_pair(w, s, torch.bfloat16, torch.bfloat16)
+    limits = _build.device_limits(dev)
+    p2, p4 = (k1_plan(d.variant, d.rnn_dims, d.fc_dims, d.n_classes, 13, *limits, head=d.head,
+                      elem=e) for e in (2, 4))
+    assert p2.smem < p4.smem and p2[:5] == p4[:5]
+    wavernn_generate_core(w, s, 0, argmax=True)
+    torch.cuda.synchronize()
+    real = wg.plan
+    monkeypatch.setattr(wg, "plan", lambda *a, **k: real(*a, **{**k, "elem": 4}))
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        wavernn_generate_core(w, s, 0, argmax=True)
+
+
+def test_wavernn_kernel_refuses_mixed_dtypes(dev):
+    w, s, _ = _voc(dev)
+    with pytest.raises(ValueError, match="share one dtype"):
+        wavernn_generate_core(w, {**s, "i_cond": s["i_cond"].to(torch.bfloat16)}, 0)
+    with pytest.raises(ValueError, match="share one dtype"):
+        wavernn_generate_core({**w, "i_col": w["i_col"].to(torch.bfloat16)}, s, 0)
+
+
+def test_generation_options_switch_the_instantiation(dev, monkeypatch):
+    """``set_generation_options`` picks the instantiation the vocoder's next
+    launch takes, counted by pair, and ``stream_dtype=None`` with no
+    ``compute_dtype`` returns the next launch to the f32 kernel."""
+    from rtvc_tpu_torch.inference import vocoder as tvoc
+
+    cfg = factories.default_config(VOC["variant"]).replace(
+        rnn_dims=16, fc_dims=16, compute_dims=8, res_out_dims=16, res_blocks=1)
+    monkeypatch.setattr(tvoc, "_bundle", None)
+    for name in ("_compute_dtype", "_stream_dtype", "_default_target", "_default_overlap"):
+        monkeypatch.setattr(tvoc, name, getattr(tvoc, name))
+    tvoc.load_bundle(factories.init_voc_model(VOC["variant"], seed=1, override_hp=cfg,
+                                              device=dev))
+    mel = np.random.default_rng(0).uniform(-4, 0, (80, 12)).astype(np.float32)
+    f32 = COUNT_NAME[VOC["variant"]]
+    for options, name in (({"stream_dtype": "bf16"}, "wavernn_generate_bf16_streams"),
+                          ({"compute_dtype": "bf16", "stream_dtype": "bf16"},
+                           "wavernn_generate_bf16"),
+                          ({"compute_dtype": "bf16", "stream_dtype": None},
+                           "wavernn_generate_bf16_weights"),
+                          ({"stream_dtype": None}, f32)):
+        tvoc.set_generation_options(target=600, overlap=100, **options)
+        before = {n: _launches(n) for n in (f32, *wg.PAIR_COUNT_NAME.values())}
+        wav = tvoc.infer_waveform(mel)
+        torch.cuda.synchronize()
+        after = {n: _launches(n) for n in before}
+        assert {n: after[n] - before[n] for n in before if after[n] != before[n]} == {name: 1}
+        assert wav.shape == (11 * 200,) and np.isfinite(wav).all()

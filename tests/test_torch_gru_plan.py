@@ -132,8 +132,8 @@ def _check_k1_plan(variant, R, F, C, head, B, sm_count, smem_limit):
     blocks = [f for f0 in range(0, B, p.fb) for f in range(f0, min(f0 + p.fb, B))]
     assert blocks == list(range(B))
     assert 0 < p.smem <= smem_limit
-    assert p.smem == 4 * wg._smem_floats(variant, R, F, head, B, p.units, p.fc_rows,
-                                         p.last_rows, p.nb, p.fb)
+    assert p.smem == wg._smem_bytes(variant, R, F, head, B, p.units, p.fc_rows,
+                                    p.last_rows, p.nb, p.fb)
     return p
 
 

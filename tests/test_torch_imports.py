@@ -6,7 +6,8 @@ say what their originals say: equal config fields and values, equal symbol seque
 batches from one tiny on-disk dataset and seed (the non-autoregressive
 synthesizers' batches from a root the alignment pass wrote too), and the
 copied functions' sources equal their originals' but for the imports (their
-values on seeded inputs: ``test_torch_align.py``)."""
+values on seeded inputs: ``test_torch_align.py``; the trainers' dashboard
+and argument printer: ``test_torch_dashboard.py``)."""
 import dataclasses
 import json
 import random
@@ -49,7 +50,7 @@ for need in ("models.distribution", "ops.stft", "ops.mel_project", "ops.wavernn_
              "data.duration_extractor", "data.synthesizer_preprocess", "ops.pitch",
              "synthesizer_preprocess_alignments", "train.gta", "train.gen_testset",
              "train.eval_hooks", "utils.plots", "utils.projection", "vocoder_preprocess",
-             "ops.precision"):
+             "ops.precision", "utils.argutils", "utils.dashboard", "utils.genquality"):
     assert "rtvc_tpu_torch." + need in names, need
 import chip_smoke
 bad = sorted(m for m in sys.modules
@@ -153,7 +154,9 @@ def test_synthesizer_dataset_copy_yields_the_same_nar_batches(tmp_path):
 @pytest.mark.parametrize("copy,original", [
     ("rtvc_tpu_torch/data/duration_extractor.py", "rtvc_tpu/data/duration_extractor.py"),
     ("rtvc_tpu_torch/ops/pitch.py", "rtvc_tpu/ops/pitch.py"),
-    ("rtvc_tpu_torch/utils/projection.py", "rtvc_tpu/utils/projection.py")])
+    ("rtvc_tpu_torch/utils/projection.py", "rtvc_tpu/utils/projection.py"),
+    ("rtvc_tpu_torch/utils/argutils.py", "rtvc_tpu/utils/argutils.py"),
+    ("rtvc_tpu_torch/utils/dashboard.py", "rtvc_tpu/utils/dashboard.py")])
 def test_numpy_copies_equal_their_originals(copy, original):
     def body(path):  # the code after the docstring, the package's name taken out
         text = (REPO / path).read_text()
