@@ -197,6 +197,25 @@
    training run, ``utils/dashboard.serve`` over its directory answers
    ``GET /`` and ``GET /data.json`` with the run's loss.
 
+11. The SV2TTS preprocessing passes (``phase_preprocess``, after the
+   alignment pass). A seeded corpus of 4 speakers x 4 utterances of 1.5-14 s
+   (voiced segments between pauses, one speaker at 22 050 Hz, one in flac
+   and one utterance in mp3 where the codec shim and libmp3lame are there)
+   and three utterances the audio pass leaves out (past max_mel_frames,
+   under utterance_min_duration, a transcript under min_text_len). Encoder
+   preprocessing on four threads, read back by ``SpeakerVerificationDataset``
+   (a 4 x 4 x 160 x 40 batch through the encoder on the card within 1e-4 of
+   the CPU); the audio pass on the card (one K6 launch an utterance that
+   reaches its mel, each kept one's held to its plain version and timed at
+   its shape; four threads equal to
+   one in bits; the CPU route's files equal, its mels within 2e-4); the
+   embedding pass (three K3 launches an utterance, each held to its plain
+   version, one cell a partial-batch size; four threads equal to one in
+   bits; the CPU encoder within 1e-4); the alignment pass on their output and
+   ``SynthesizerDataset`` serving every element the non-autoregressive
+   trainers read. Each pass's ms an utterance on one and four threads beside
+   its device time and the host's share.
+
 K1's, K3's and K4's lines also give the times of the earlier kernels (one
 CTA per fold or batch row, the weights re-read from L2 every step) on the
 same card model, K3's its time as a share of its time before K4 and K1 came
@@ -3266,6 +3285,405 @@ def phase_align(dev, card, syn):
     return counts
 
 
+# The preprocessing corpus: 4 speakers x 4 utterances of PRE_SECONDS (voiced
+# harmonic segments between pauses of 0.3-1.0 s, leading and trailing
+# silence), speaker 1 written at 22 050 Hz, speaker 2 in flac and one of
+# speaker 3's utterances in mp3 where those codecs are available; and three
+# that the audio pass leaves out: a 17 s utterance past max_mel_frames, a
+# 0.3 s one under utterance_min_duration, and one whose transcript is under
+# min_text_len.
+PRE_SPEAKERS = 4
+PRE_SECONDS = tuple(float(s) for s in np.linspace(1.5, 14.0, 16))
+PRE_THREADS = 4
+PRE_ELEMENTS = ("mel", "embed", "duration", "attention", "alignment", "phoneme_pitch",
+                "phoneme_energy")
+# where the embedding pass looks K3 up (the speaker encoder's LSTM layers)
+PRE_KERNELS = (("rtvc_tpu_torch.models.layers", "lstm_seq"),)
+
+
+def smoke_voice(seconds, sr, f0, rng, pauses=True):
+    """A seeded utterance: harmonic segments (four partials over a slow
+    glide) of 1-3 s between pauses of 0.3-1.0 s, after 0.2-0.4 s of
+    near silence and before as much; ``pauses=False``: voiced throughout."""
+    n = int(round(seconds * sr))
+    wav = 2e-4 * rng.standard_normal(n)
+    lead, tail = rng.uniform(0.2, 0.4, 2) if pauses else (0.05, 0.05)
+    t = lead
+    while t < seconds - tail - 0.2:
+        seg = min(rng.uniform(1.0, 3.0) if pauses else seconds, seconds - tail - t)
+        a, b = int(t * sr), int((t + seg) * sr)
+        tt = np.arange(b - a) / sr
+        f = f0 * (1 + 0.08 * np.sin(2 * np.pi * 0.7 * tt + rng.uniform(0, 6.3)))
+        phase = 2 * np.pi * np.cumsum(f) / sr
+        env = np.sin(np.pi * np.arange(b - a) / (b - a)) ** 0.3
+        wav[a:b] += env * sum(0.3 / k * np.sin(k * phase) for k in range(1, 5))
+        wav[a:b] += 0.004 * rng.standard_normal(b - a)
+        t += seg + (rng.uniform(0.3, 1.0) if pauses else 0.0)
+    return wav.astype(np.float32)
+
+
+def smoke_text(seconds, rng):
+    """A transcript of about 10 characters a second (at most 150)."""
+    chars = min(150, int(10 * seconds))
+    text = " ".join(rng.choice(ALIGN_WORDS, chars))[:chars].strip()
+    return text + "s" * (chars - len(text))
+
+
+def write_preprocess_corpus(speakers_dir, codecs, seed=41):
+    """The corpus of ``PRE_SECONDS`` under ``speakers_dir`` (see above),
+    with the formats ``codecs`` allows ({"flac": bool, "mp3": bool}).
+    Returns {utterance id: (seconds, text, file name)} of the 16 utterances
+    the audio pass should keep."""
+    from rtvc_tpu_torch.utils import libav, mpeg
+    from rtvc_tpu_torch.utils.io import save_wav_float
+
+    rng = np.random.default_rng(seed)
+    kept = {}
+
+    def write(d, stem, wav, sr, text, fmt="wav"):
+        path = d / f"{stem}.{fmt}"
+        if fmt == "flac":
+            libav.encode_audio(path, wav, sr)
+        elif fmt == "mp3":
+            mpeg.encode_mpeg(wav, sr, path)
+        else:
+            save_wav_float(wav, path, sr)
+        (d / f"{stem}.txt").write_text(text)
+        return path.name
+
+    for s in range(PRE_SPEAKERS):
+        d = speakers_dir / f"spk{s}"
+        d.mkdir(parents=True)
+        sr = 22050 if s == 1 else 16000
+        for u in range(4):
+            seconds = PRE_SECONDS[4 * u + s]
+            fmt = ("flac" if s == 2 and codecs["flac"] else
+                   "mp3" if (s, u) == (3, 1) and codecs["mp3"] else "wav")
+            text = smoke_text(seconds, rng)
+            name = write(d, f"utt{u}", smoke_voice(seconds, sr, 100 + 30 * s + 7 * u, rng), sr,
+                         text, fmt)
+            kept[f"spk{s}_utt{u}"] = (seconds, text, name)
+    write(speakers_dir / "spk0", "long", smoke_voice(17.0, 16000, 140, rng, pauses=False),
+          16000, smoke_text(17.0, rng))
+    write(speakers_dir / "spk1", "short", smoke_voice(0.3, 22050, 150, rng, pauses=False),
+          22050, smoke_text(1.0, rng))
+    write(speakers_dir / "spk2", "terse", smoke_voice(3.0, 16000, 160, rng), 16000, "a")
+    return kept
+
+
+@contextlib.contextmanager
+def call_ms(module, name):
+    """Wall ms of every call of ``module.name`` inside, by calling thread
+    ({thread: [ms, ...]} in call order)."""
+    import threading
+
+    mod = importlib.import_module(module)
+    fn = getattr(mod, name)
+    by_thread = {}
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        by_thread.setdefault(threading.get_ident(), []).append(
+            (time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(mod, name, timed)
+    try:
+        yield by_thread
+    finally:
+        setattr(mod, name, fn)
+
+
+def first_apart(by_thread):
+    """(mean ms of each thread's first call, mean ms of the later calls,
+    threads)."""
+    firsts = [v[0] for v in by_thread.values()]
+    rest = [ms for v in by_thread.values() for ms in v[1:]]
+    return float(np.mean(firsts)), float(np.mean(rest)) if rest else float("nan"), len(firsts)
+
+
+def same_files(a, b, sub):
+    names = sorted(p.name for p in (a / sub).iterdir())
+    return names == sorted(p.name for p in (b / sub).iterdir()) and all(
+        (a / sub / n).read_bytes() == (b / sub / n).read_bytes() for n in names)
+
+
+def k6_pass_cell(dev, wav, saved_mel):
+    """K6 at one utterance of the audio pass: its magnitudes made on the
+    card from the pass's wav as ``ops.audio.melspectrogram`` makes them, the
+    kernel's mel equal in bits to the pass's file, within 2e-4 absolute of
+    the plain version's (``phase_mel``'s tolerance), and the kernel, the
+    plain version and ``torch.matmul(basis, mag)`` timed by CUDA events
+    beside the bound over the bands (as in ``phase_mel``)."""
+    import torch
+
+    from rtvc_tpu_torch.config import preprocessing as pp
+    from rtvc_tpu_torch.config import sp
+    from rtvc_tpu_torch.ops import audio
+    from rtvc_tpu_torch.ops import mel_project as mp
+
+    mag = audio._stft_mag(torch.from_numpy(wav).to(dev), sp).contiguous()
+    n_bins, T = mag.shape
+    with torch.no_grad():
+        got = mp.mel_project_normalize(mag, sp, pp)
+        ref = mp.mel_project_normalize_plain(mag, sp, pp)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    check(err <= 2e-4, f"K6 at the audio pass's {T} frames differs from its plain version: {err}")
+    check(got.cpu().numpy().T.tobytes() == saved_mel.tobytes(),
+          f"the audio pass's mel of {T} frames is not K6's on the same magnitudes")
+    basis = mp.mel_basis(sp, dev)
+    bands = mp.mel_bands(basis.cpu().numpy())
+    ms = cuda_ms(lambda: mp.mel_project_normalize(mag, sp, pp), reps=20)
+    plain_ms = cuda_ms(lambda: mp.mel_project_normalize_plain(mag, sp, pp), reps=20)
+    library_ms = cuda_ms(lambda: torch.matmul(basis, mag), reps=20)
+    b = bound(nbytes(mag, got) + 4 * (len(bands.weights) + 4 * sp.num_mels),
+              2 * T * int(bands.width.sum()))
+    return {"T": T, "n_bins": n_bins, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": library_ms, "library": "torch.matmul(basis, mag)",
+            "path": "synthesizer audio pass"}
+
+
+def phase_preprocess(dev, card, syn):
+    """The SV2TTS preprocessing passes at full width on the corpus of
+    ``write_preprocess_corpus``, a corpus to the non-autoregressive
+    trainers' inputs in the port alone. Encoder preprocessing on
+    ``PRE_THREADS`` threads (one ``combined.npz`` a speaker, read back by
+    ``SpeakerVerificationDataset``; a 4 x 4 x 160 x 40 partial batch through
+    the installed encoder on the card within 1e-4 by ``rel_err`` of the same
+    weights on the CPU). The audio pass on the card on one thread (one K6
+    launch an utterance that reaches its mel, the one past
+    ``max_mel_frames`` included, and no other launch) and on four (the files
+    equal in bits), and on the CPU (K6's plain version: ``train.json`` and
+    the wavs equal in bits, the mels within 2e-4); every kept utterance's
+    K6 launch again on its magnitudes (``k6_pass_cell``). The embedding pass
+    on the card on one thread (three K3 launches an utterance), on four
+    (equal bits), and on the CPU (each embedding within 1e-4 by
+    ``rel_err``); every K3 launch of a recorded run against its plain
+    version (1e-4, ``phase_lstm``'s tolerance) and one cell a partial-batch
+    size (``rnn_fwd_cell``). The alignment pass with the Tacotron ``syn``
+    (as ``phase_align``), then ``SynthesizerDataset`` serves
+    ``PRE_ELEMENTS`` for every kept utterance. Prints each pass's ms an
+    utterance on one and four threads (each thread's first utterance apart)
+    beside its device time by the profiler and K6's and K3's by CUDA events,
+    and the host's share. Returns the launch counts and the kernel cells."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.config import preprocessing, sp
+    from rtvc_tpu_torch.data import synthesizer_preprocess as tsp
+    from rtvc_tpu_torch.data.encoder_preprocess import encoder_preprocess_dataset
+    from rtvc_tpu_torch.data.ge2e_sampler import (SpeakerVerificationDataset,
+                                                  speaker_batch_iterator)
+    from rtvc_tpu_torch.data.synthesizer_dataset import SynthesizerDataset
+    from rtvc_tpu_torch.inference import encoder as tenc
+    from rtvc_tpu_torch.inference.attention import TacotronAligner
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_plain
+    from rtvc_tpu_torch.train.checkpoints import save_checkpoint
+    from rtvc_tpu_torch.utils import libav, mpeg
+
+    work = _build.BUILD_DIR / "smoke_preprocess"
+    shutil.rmtree(work, ignore_errors=True)
+    installed = (tenc._model, tenc._model_cfg, tenc._data)
+    codecs = {"flac": libav.libav_supported(),
+              "mp3": mpeg.lame_supported() and (mpeg.mpeg_supported() or libav.libav_supported())}
+    why = {"flac": libav.load_error().splitlines()[0] if not codecs["flac"] else "",
+           "mp3": "" if codecs["mp3"] else
+           f"libmp3lame {mpeg.lame_supported()}, libmpg123 {mpeg.mpeg_supported()}, "
+           f"codec shim {libav.libav_supported()}"}
+    print(f"{card}: preprocessing corpus codecs: " + ", ".join(
+        f"{k} {'available' if v else 'not available (' + why[k] + ')'}"
+        for k, v in codecs.items()))
+    exts = [".wav"] + [f".{k}" for k, v in codecs.items() if v]
+    laps = {}
+    try:
+        datasets = work / "datasets"
+        kept = write_preprocess_corpus(datasets / "Smoke" / "speakers", codecs)
+        n = len(kept)
+
+        # encoder preprocessing, on the host
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        n_enc = encoder_preprocess_dataset(datasets, work / "encoder", ["Smoke/speakers"], "Smoke",
+                                           extensions=exts, n_threads=PRE_THREADS)
+        laps["encoder"] = ((time.perf_counter() - t0) * 1e3, n_enc)
+        check(not _build.launch_counts, f"encoder preprocessing launched {_build.launch_counts}")
+        npz = sorted(p.parent.name for p in (work / "encoder").glob("*/combined.npz"))
+        check(npz == [f"spk{s}" for s in range(PRE_SPEAKERS)]
+              and (work / "encoder" / "Log_Smoke.txt").is_file(),
+              f"encoder preprocessing wrote {npz}")
+        batch = next(speaker_batch_iterator(SpeakerVerificationDataset(work / "encoder"),
+                                            PRE_SPEAKERS, 4, 160, prefetch=0, seed=5))
+        check(batch.shape == (16, 160, 40) and np.isfinite(batch).all(),
+              f"the GE2E partial batch is {batch.shape}")
+        cpu_encoder = factories.init_encoder_model(seed=41, device="cpu")
+        state = {k: v.clone() for k, v in cpu_encoder.state_dict().items()}
+        tenc.load_state(state, device=dev)
+        with torch.no_grad():
+            want = cpu_encoder(torch.from_numpy(batch))
+        got = torch.from_numpy(tenc.embed_frames_batch(batch))
+        enc_err = rel_err(got, want)
+        check(enc_err <= 1e-4, f"the encoder on the card differs from the CPU on the "
+                               f"preprocessed partials: rel err {enc_err}")
+
+        # the audio pass
+        def audio(out, threads, device=dev):
+            return tsp.synthesizer_preprocess_dataset(
+                datasets, work / out, "Smoke", ["speakers"], exts, ".txt",
+                n_processes=threads, device=device)
+
+        a1, a4 = work / "syn1", work / "syn4"
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        with call_ms("rtvc_tpu_torch.data.synthesizer_preprocess", "process_utterance") as t1:
+            (n1, ms1) = timed_ms(lambda: audio("syn1", 1))
+        audio_counts = dict(_build.launch_counts)
+        # one K6 launch an utterance that reaches its mel: the kept ones and
+        # the one past max_mel_frames, dropped after its mel as in the JAX pass
+        check(n1 == n and audio_counts == {"mel_project": n + 1},
+              f"the audio pass kept {n1} of {n} utterances with launches {audio_counts}")
+        meta = json.loads((a1 / "train.json").read_text())
+        lines = {m.split("|")[0]: m.split("|") for v in meta.values() for m in v}
+        check(sorted(lines) == sorted(kept) and all(
+            lines[u][3] == kept[u][1] for u in kept), f"train.json holds {sorted(lines)}")
+        with call_ms("rtvc_tpu_torch.data.synthesizer_preprocess", "process_utterance") as t4:
+            (_, ms4) = timed_ms(lambda: audio("syn4", PRE_THREADS))
+        check(all(same_files(a1, a4, d) for d in ("wav", "mels"))
+              and (a1 / "train.json").read_bytes() == (a4 / "train.json").read_bytes(),
+              f"the audio pass on {PRE_THREADS} threads differs from one thread in its bits")
+        t_cpu = time.perf_counter()
+        audio("syn_cpu", 2, "cpu")
+        cpu_s = time.perf_counter() - t_cpu
+        cpu_root = work / "syn_cpu"
+        mel_err = max(float(np.abs(np.load(a1 / "mels" / f"mel-{u}.npy")
+                                   - np.load(cpu_root / "mels" / f"mel-{u}.npy")).max())
+                      for u in kept)
+        check((a1 / "train.json").read_bytes() == (cpu_root / "train.json").read_bytes()
+              and same_files(a1, cpu_root, "wav") and mel_err <= 2e-4,
+              f"the audio pass on the card differs from its CPU route (mels {mel_err})")
+        k6_cells = [k6_pass_cell(dev, np.load(a1 / "wav" / f"audio-{u}.npy"),
+                                 np.load(a1 / "mels" / f"mel-{u}.npy"))
+                    for u in sorted(kept, key=lambda u: int(lines[u][2]))]
+        by_kernel1 = kernels_device_ms(lambda: audio("syn_prof", 1))
+
+        # the embedding pass
+        def embed(root, threads):
+            return tsp.create_embeddings(root, None, n_processes=threads)
+
+        shutil.copytree(a1, work / "emb4", ignore=shutil.ignore_patterns("embeds"))
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        with call_ms("rtvc_tpu_torch.inference.encoder", "embed_utterance") as e1:
+            (m1, ems1) = timed_ms(lambda: embed(a1, 1))
+        embed_counts = dict(_build.launch_counts)
+        check(m1 == n and embed_counts == {"lstm_seq": 3 * n},
+              f"the embedding pass embedded {m1} utterances with launches {embed_counts}")
+        with call_ms("rtvc_tpu_torch.inference.encoder", "embed_utterance") as e4:
+            (_, ems4) = timed_ms(lambda: embed(work / "emb4", PRE_THREADS))
+        check(same_files(a1, work / "emb4", "embeds"),
+              f"the embedding pass on {PRE_THREADS} threads differs from one thread")
+        shutil.copytree(a1, work / "emb_rec", ignore=shutil.ignore_patterns("embeds"))
+        with recorded_calls(PRE_KERNELS) as calls:
+            embed(work / "emb_rec", 1)
+        check(same_files(a1, work / "emb_rec", "embeds"), "a recorded embedding pass differs")
+        k3_err = 0.0
+        with torch.no_grad():
+            for args, _, _ in calls["lstm_seq"]:
+                k3_err = max(k3_err, max(float((a - b).abs().max())
+                                         for a, b in zip(lstm_seq(*args), lstm_seq_plain(*args))))
+        check(len(calls["lstm_seq"]) == 3 * n and k3_err <= 1e-4,
+              f"{len(calls['lstm_seq'])} K3 launches of the embedding pass, max abs err "
+              f"{k3_err} against the plain version")
+        k3_cells = {}
+        for layer, (args, _, _) in enumerate(calls["lstm_seq"]):
+            B = args[0].shape[0]
+            if layer % 3 == 1 and B not in k3_cells:  # a middle layer: 768 in, 768 out
+                k3_cells[B] = {**rnn_fwd_cell("lstm_seq", args, 768),
+                               "path": "embedding pass (partial batches)"}
+                check(k3_cells[B]["max_abs_err"] <= 1e-4, f"K3 at B {B}: {k3_cells[B]}")
+        k3_per_utt = float(np.mean([k3_cells[calls["lstm_seq"][3 * i][0][0].shape[0]]["ms"] * 3
+                                    for i in range(n)]))
+        by_kernel2 = kernels_device_ms(lambda: embed(work / "emb4", 1))
+        tenc.load_state(state, device="cpu")
+        shutil.copytree(a1, work / "emb_cpu", ignore=shutil.ignore_patterns("embeds"))
+        embed(work / "emb_cpu", 2)
+        emb_err = max(rel_err(torch.from_numpy(np.load(a1 / "embeds" / f"embed-{u}.npy")),
+                              torch.from_numpy(np.load(work / "emb_cpu" / "embeds" /
+                                                       f"embed-{u}.npy"))) for u in kept)
+        check(emb_err <= 1e-4, f"the embedding pass on the card differs from the CPU: {emb_err}")
+
+        # the alignment pass, then the trainers' dataset
+        ckpt = work / "tacotron.pt"
+        save_checkpoint(ckpt, syn.model, 5000, syn.model_type,
+                        extras={"r": 1, "config": syn.config.asdict()})
+        aligner = TacotronAligner(ckpt, device=dev)
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        (n3, ms3) = timed_ms(lambda: tsp.create_align_features(a1, aligner=aligner))
+        align_counts = dict(_build.launch_counts)
+        check(n3 == n and align_counts == {"tacotron_train_fwd": n, "gru_seq": 4 * n},
+              f"the alignment pass aligned {n3} utterances with launches {align_counts}")
+        dataset = SynthesizerDataset(a1, PRE_ELEMENTS)
+        check(len(dataset) == n, f"SynthesizerDataset serves {len(dataset)} of {n} utterances")
+        for i in range(n):
+            item = dataset[i]
+            frames, chars = item["mel"].shape[1], len(item["text"])
+            check(set(PRE_ELEMENTS) <= set(item) and item["mel"].shape[0] == 80
+                  and item["embed"].shape == (768,) and int(item["duration"].sum()) == frames
+                  and item["duration"].shape == item["phoneme_pitch"].shape
+                  == item["phoneme_energy"].shape == (chars,)
+                  and all(np.isfinite(item[k]).all() for k in PRE_ELEMENTS),
+                  f"SynthesizerDataset item {i}: " + ", ".join(
+                      f"{k} {np.shape(item[k])}" for k in PRE_ELEMENTS))
+    finally:
+        tenc._model, tenc._model_cfg, tenc._data = installed
+        shutil.rmtree(work, ignore_errors=True)
+
+    frames = sorted(int(v[2]) for v in lines.values())
+    k6_per_utt = float(np.mean([c["ms"] for c in k6_cells]))
+
+    def rates(label, by_thread, wall_ms):
+        first, rest, threads = first_apart(by_thread)
+        return (f"{label}: {wall_ms / n:.2f} ms an utterance in the pass's wall time, the timed "
+                f"call {rest:.2f} ms (the first call of each of {threads} threads {first:.2f} ms)")
+
+    dev1 = by_kernel1["all"] / n
+    dev2 = by_kernel2["all"] / n
+    print(f"{card}: preprocessing, {n} kept utterances of {len(kept)} + 3 written "
+          f"({min(PRE_SECONDS)}-{max(PRE_SECONDS)} s; {frames[0]}-{frames[-1]} frames): "
+          f"encoder pass {laps['encoder'][0] / laps['encoder'][1]:.2f} ms an utterance on "
+          f"{PRE_THREADS} threads ({laps['encoder'][1]} utterances kept, no launch), its "
+          f"partials through the encoder on the card within {enc_err:.3e} (rel, tol 1e-4) of "
+          f"the CPU; audio pass (process_utterance timed) "
+          + rates("1 thread", t1, ms1) + "; " + rates(f"{PRE_THREADS} threads", t4, ms4)
+          + f"; device {dev1:.3f} ms an utterance by the profiler (K6 "
+          f"{by_kernel1.get('mel_project_kernel', 0.0) / n:.4f}), K6 {k6_per_utt:.4f} ms "
+          f"by CUDA events, host share {1 - dev1 / (ms1 / n):.1%}; launches {audio_counts}; "
+          f"{PRE_THREADS} threads equal to one in bits; the CPU route {cpu_s:.1f} s, "
+          f"train.json and wavs equal in bits, mels within {mel_err:.3e} (tol 2e-4); "
+          f"embedding pass (embed_utterance timed) " + rates("1 thread", e1, ems1) + "; "
+          + rates(f"{PRE_THREADS} threads", e4, ems4)
+          + f"; device {dev2:.3f} ms an utterance by the profiler (K3 "
+          f"{by_kernel2.get('lstm_seq_kernel', 0.0) / n:.3f}), K3 {k3_per_utt:.3f} ms by "
+          f"CUDA events, host share {1 - dev2 / (ems1 / n):.1%}; launches {embed_counts}, "
+          f"each against its plain version max abs err {k3_err:.3e} (tol 1e-4); "
+          f"{PRE_THREADS} threads equal to one in bits; the CPU encoder within "
+          f"{emb_err:.3e} (rel, tol 1e-4); alignment pass {ms3 / n:.1f} ms an utterance, "
+          f"launches {align_counts}; SynthesizerDataset serves {', '.join(PRE_ELEMENTS)} for "
+          f"all {n}")
+    for c in k6_cells + list(k3_cells.values()):
+        shape = " x ".join(f"{k} {c[k]}" for k in ("B", "T", "H", "n_bins") if k in c)
+        print(f"{card}: {'K6 mel_project' if 'n_bins' in c else 'K3 lstm_seq'} on the "
+              f"{c['path']}, {shape}: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
+              f"{c['library']} {c['library_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms by "
+              f"{c['bound_by']}, max abs err {c['max_abs_err']:.3e}")
+    return {"counts": {"mel_project": audio_counts.get("mel_project", 0),
+                       "lstm_seq": embed_counts.get("lstm_seq", 0)},
+            "n": n, "cells": {"mel_project": k6_cells, "lstm_seq": list(k3_cells.values())}}
+
 # the trainers' kernel wrappers where LSTMSeqFn and GRUSeqFn look them up:
 # K3's training halves and K4's, in f32 and in bf16
 TRAIN_KERNELS = (("rtvc_tpu_torch.ops.lstm_seq", "lstm_seq_fwd_train"),
@@ -4149,6 +4567,8 @@ def main() -> int:
     lap("nar")
     align_counts = phase_align(dev, card, syn)
     lap("align")
+    pre = phase_preprocess(dev, card, syn)
+    lap("preprocess")
     kernels += [phase_lstm_train(dev), *phase_gru(dev), *phase_taco_train_kernel(dev)]
     lap("training kernels")
     nar_train_cells = phase_nar_train_kernels(dev, card)
@@ -4230,7 +4650,15 @@ def main() -> int:
     for path, c in hook_counts.items():
         for name, n in c.items():
             by_path.setdefault(name, {})[path] = n
+    # the preprocessing passes: K6 once an utterance in the audio pass, K3
+    # three times an utterance in the embedding pass
+    by_path.setdefault("mel_project", {"clone (5 requests)": counts.get("mel_project", 0)})
+    for name, label in (("mel_project", "synthesizer audio pass"), ("lstm_seq", "embedding pass")):
+        by_path[name][f"{label} ({pre['n']} utterances kept, 1 thread)"] = pre["counts"][name]
     for k in kernels:
+        # K6's cells at the audio pass's shapes, K3's at the embedding pass's
+        if k["name"] in pre["cells"]:
+            k.setdefault("shapes", []).extend(pre["cells"][k["name"]])
         # K3's, K4's and K5's cells at the GTA pass's shapes, K1's and K2's
         # at gen_testset's and the Tacotron hook's
         for cells in (gta["cells"], hook_cells):

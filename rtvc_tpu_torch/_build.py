@@ -8,17 +8,26 @@ the library's file name triggers a rebuild when any source changes. A file
 with a C interface builds in seconds, where an extension that includes
 PyTorch's headers takes minutes.
 
+The same module builds the host's audio codec shim
+(``native/src/audio_codec.c``, over the system FFmpeg libraries) with
+``gcc`` into the same directory, also under a source hash
+(:func:`build_audio_codec`).
+
 Nothing here runs at import time: the CPU path of every wrapper never
-touches this module's build.
+touches this module's build. Both builds and the launch counts are safe to
+use from many threads: the passes of ``data/`` call the kernels from thread
+pools.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -84,11 +93,21 @@ SIGNATURES = {
 }
 
 # Launches per kernel since the last reset; each wrapper adds one where it
-# launches its kernel and nowhere else.
+# launches its kernel and nowhere else, through count_launch.
 launch_counts: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
 
 _lib = None
+_lib_lock = threading.Lock()  # held by library() and build()
 build_log = ""
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``launch_counts[name]``; atomic under threads (a bare
+    ``+=`` on a Counter is a read and a write that two threads can
+    interleave, losing a count)."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def _nvcc() -> str:
@@ -114,9 +133,22 @@ def library_path() -> Path:
     return BUILD_DIR / f"librtvc_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _tmp_name(out: Path) -> Path:
+    """A temporary name beside ``out`` that no other process or thread uses."""
+    return out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless a library for these exact sources
-    exists; returns its path. Raises RuntimeError if nvcc fails."""
+    exists; returns its path. Raises RuntimeError if nvcc fails. A thread
+    that calls it while another builds waits for that build and returns its
+    library; processes each build under names of their own and the last
+    ``os.replace`` wins."""
+    with _lib_lock:
+        return _build_locked()
+
+
+def _build_locked() -> Path:
     global build_log
     out = library_path()
     if out.exists():
@@ -124,7 +156,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
     nvcc = _nvcc()
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = _tmp_name(out)
     objs = [tmp.with_name(f"{tmp.name}.{f.stem}.o") for f in cu]
     try:
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c",
@@ -150,16 +182,79 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; the first callers of
+    many threads wait for one build and one load)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build_locked()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
+
+
+# The audio codec shim: decode and encode through the system FFmpeg
+# libraries, built on first use (utils/libav.py).
+CODEC_SRC = _PKG / "native" / "src" / "audio_codec.c"
+CODEC_FLAGS = ["-O2", "-fPIC", "-Wall", "-shared"]
+CODEC_LIBS = ["-lavformat", "-lavcodec", "-lavutil", "-lswresample"]
+FFMPEG_PROBE = "#include <libavformat/avformat.h>\n"
+_codec_lock = threading.Lock()
+
+
+def codec_library_path() -> Path:
+    h = hashlib.sha256(" ".join(CODEC_FLAGS + CODEC_LIBS).encode())
+    h.update(CODEC_SRC.read_bytes())
+    return BUILD_DIR / f"librtvc_audio_{h.hexdigest()[:16]}.so"
+
+
+def ffmpeg_headers() -> tuple:
+    """(found, the preprocessor's output): whether ``gcc`` finds FFmpeg's
+    headers, the probe ``rtvc_tpu/native/build.sh`` makes."""
+    try:
+        probe = subprocess.run(["gcc", "-E", "-"], input=FFMPEG_PROBE, capture_output=True,
+                               text=True, timeout=60)
+    except OSError as e:  # no gcc
+        return False, str(e)
+    return probe.returncode == 0, probe.stderr[-2000:]
+
+
+def build_audio_codec() -> Path:
+    """Compile ``native/src/audio_codec.c`` with ``gcc`` into
+    ``build/librtvc_audio_<hash>.so`` unless it exists; returns its path.
+    Runs under a thread lock and an ``fcntl`` lock on a file in the build
+    directory, so that threads and processes (test workers) asking at once
+    build it once. Raises RuntimeError with the compiler's output when the
+    FFmpeg headers are missing or the build fails; OSError when the source
+    cannot be read."""
+    out = codec_library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _codec_lock, open(BUILD_DIR / "audio_codec.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # another process built it while this one waited
+            return out
+        found, log = ffmpeg_headers()
+        if not found:
+            raise RuntimeError(f"the FFmpeg headers (libavformat/avformat.h) were not found, "
+                               f"so the audio codec shim was not built:\n{log}")
+        tmp = _tmp_name(out)
+        try:
+            proc = subprocess.run(["gcc", *CODEC_FLAGS, str(CODEC_SRC), *CODEC_LIBS, "-o",
+                                   str(tmp)], capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise RuntimeError(f"building the audio codec shim failed ({proc.returncode}):"
+                                   f"\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        finally:
+            tmp.unlink(missing_ok=True)
+    return out
 
 
 def check(err: int, name: str) -> None:

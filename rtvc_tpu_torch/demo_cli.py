@@ -9,7 +9,8 @@
    on the two mels joined, with a short fold window; with ``--stream`` also
    a streamed clone of a short text (``inference.streaming.stream_clone``),
    its length held to the stream's invariant.
-2. An interactive clone loop: a wav prompt → embedding → text → mel →
+2. An interactive clone loop: a prompt (wav, or mp3, flac, m4a, ogg, ...
+   through ``utils.io.load_wav``) → embedding → text → mel →
    waveform → ``demo_output_NN.wav``; with ``--stream`` the waveform comes
    chunk by chunk from ``stream_clone`` (the first audio after one chunk's
    decode and vocode), and the time to it and each chunk's length are
@@ -22,7 +23,7 @@ of the three present it runs on random weights (small synthesizer and
 vocoder); with only some present it names the missing ones and exits
 with 1. The models run on the card, or on
 the CPU with ``--cpu``. Audio is always written to disk. Not ported: the
-libwavernn backend and mp3 prompts.
+libwavernn backend.
 """
 from __future__ import annotations
 
@@ -137,7 +138,7 @@ def clone_loop(args, synth):
     while True:
         try:
             in_fpath = input("Reference voice: enter an audio filepath of a voice to be "
-                             "cloned (wav):\n")
+                             "cloned (wav, mp3, flac, ...):\n")
             in_fpath = Path(in_fpath.replace("\"", "").replace("'", ""))
             preprocessed_wav = encoder.preprocess_wav(in_fpath)
             print("Loaded file successfully")

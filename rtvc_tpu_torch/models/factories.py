@@ -166,15 +166,15 @@ def _xavier_(model: nn.Module, g: torch.Generator) -> None:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card: ``cuda``, and RuntimeError when there is none.
+    """``None`` means the card: ``cuda``; RuntimeError when a card is asked
+    for (``None`` or a CUDA device) and there is none.
     Nothing carries on on the CPU because it found no GPU; a caller that
     wants the CPU (the tests do) names it."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: rtvc_tpu_torch builds its models on the "
                            "card unless the caller passes device='cpu'")
-    return torch.device("cuda")
+    return device
 
 
 def empty_on_device(module_fn, device=None) -> nn.Module:

@@ -227,7 +227,7 @@ def gru_seq_fwd(xg: Tensor, w_hh: Tensor, b_hh: Tensor) -> Tuple[Tensor, Tensor]
     err = getattr(lib, name)(*ptrs, B, T, H, plan_v, sync.data_ptr(),
                              _build.stream_handle(dev))
     _build.check(err, name)
-    _build.launch_counts["gru_seq" if dt == torch.float32 else "gru_seq_bf16"] += 1
+    _build.count_launch("gru_seq" if dt == torch.float32 else "gru_seq_bf16")
     return ys, gates
 
 
@@ -250,7 +250,7 @@ def _bwd(dys: Tensor, gates: Tensor, ys: Tensor, w_hh: Tensor) -> Tuple[Tensor, 
                              dxg.data_ptr(), dhg.data_ptr(), carry.data_ptr(), B, T, H, plan_v,
                              sync.data_ptr(), _build.stream_handle(dev))
     _build.check(err, name)
-    _build.launch_counts["gru_seq_bwd" if dt == torch.float32 else "gru_seq_bwd_bf16"] += 1
+    _build.count_launch("gru_seq_bwd" if dt == torch.float32 else "gru_seq_bwd_bf16")
     return dxg, dhg
 
 

@@ -202,7 +202,7 @@ def grid_barrier_steps(ctas: int, steps: int, device) -> None:
     err = _build.library().rtvc_grid_barrier_steps(sync.data_ptr(), ctas, steps,
                                                    _build.stream_handle(device))
     _build.check(err, "rtvc_grid_barrier_steps")
-    _build.launch_counts["grid_barrier_steps"] += 1
+    _build.count_launch("grid_barrier_steps")
 
 
 def _fwd_kernel(xg: Tensor, w_hh: Tensor, h0: Tensor, c0: Tensor, residuals: bool):
@@ -230,7 +230,7 @@ def _fwd_kernel(xg: Tensor, w_hh: Tensor, h0: Tensor, c0: Tensor, residuals: boo
     err = getattr(lib, name)(*ptrs, B, T, H, plan_v, sync.data_ptr(),
                              _build.stream_handle(dev))
     _build.check(err, name)
-    _build.launch_counts["lstm_seq" if dt == torch.float32 else "lstm_seq_bf16"] += 1
+    _build.count_launch("lstm_seq" if dt == torch.float32 else "lstm_seq_bf16")
     return (ys, hT, cT, cs, gates) if residuals else (ys, hT, cT)
 
 
@@ -279,7 +279,7 @@ def lstm_seq_bwd(dys: Tensor, dhT: Tensor, dcT: Tensor, gates: Tensor, cs: Tenso
         c0.data_ptr(), w_hh.data_ptr(), dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
         B, T, H, plan_v, sync.data_ptr(), _build.stream_handle(dev))
     _build.check(err, name)
-    _build.launch_counts["lstm_seq_bwd" if dt == torch.float32 else "lstm_seq_bwd_bf16"] += 1
+    _build.count_launch("lstm_seq_bwd" if dt == torch.float32 else "lstm_seq_bwd_bf16")
     return dxg, dh0, dc0
 
 

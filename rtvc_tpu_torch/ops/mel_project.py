@@ -159,5 +159,5 @@ def mel_project_normalize(mag: Tensor, sp: SignalParams, pp: PreprocessingParams
         sp.max_abs_value, pp.symmetric_mels, pp.allow_clipping_in_normalization,
         _build.stream_handle(mag.device))
     _build.check(err, "rtvc_mel_project")
-    _build.launch_counts["mel_project"] += 1
+    _build.count_launch("mel_project")
     return out

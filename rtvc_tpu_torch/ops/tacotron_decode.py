@@ -410,7 +410,7 @@ def tacotron_decode_chunk(model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
     out = launch_chunk(_build.library(), model, d, encoder_seq, encoder_seq_proj, char_mask,
                        seed, r, carry, prev, done, start_iter, n_iters, min_iters, pad_value,
                        dropout)
-    _build.launch_counts["tacotron_decode_chunk"] += 1
+    _build.count_launch("tacotron_decode_chunk")
     return out
 
 
@@ -446,7 +446,7 @@ def tacotron_decode(model: Tacotron, d: TacotronDims, encoder_seq: Tensor,
                                      char_mask, seed, r, max_steps, dropout)
     out = launch(_build.library(), model, d, encoder_seq, encoder_seq_proj, char_mask, seed, r,
                  max_steps, dropout)
-    _build.launch_counts["tacotron_decode"] += 1
+    _build.count_launch("tacotron_decode")
     return out
 
 

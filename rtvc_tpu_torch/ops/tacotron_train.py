@@ -374,7 +374,7 @@ def taco_train_fwd(w: TrainWeights, xg_pre: Tensor, enc_seq: Tensor, enc_proj: T
     if not xg_pre.is_cuda:
         return taco_train_fwd_plain(w, xg_pre, enc_seq, enc_proj, char_mask, zo1, zo2)
     out = fwd_launch(_build.library(), w, xg_pre, enc_seq, enc_proj, char_mask, zo1, zo2)
-    _build.launch_counts["tacotron_train_fwd"] += 1
+    _build.count_launch("tacotron_train_fwd")
     return out
 
 
@@ -890,7 +890,7 @@ def taco_train_bwd(w: TrainWeights, res: TrainResiduals, enc_seq: Tensor, enc_pr
                                     dctx_all, dscores_all)
     out = bwd_launch(_build.library(), w, res, enc_seq, enc_proj, char_mask, zo1, zo2, dx_all,
                      dctx_all, dscores_all)
-    _build.launch_counts["tacotron_train_bwd"] += 1
+    _build.count_launch("tacotron_train_bwd")
     return out
 
 

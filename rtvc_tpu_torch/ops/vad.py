@@ -96,3 +96,31 @@ def trim_long_silences(
     audio_mask = np.repeat(audio_mask, samples_per_window)
     return wav[audio_mask]
 
+
+def trim_silence(
+    wav: np.ndarray,
+    top_db: float = 60.0,
+    frame_length: int = 2048,
+    hop_length: int = 512,
+) -> np.ndarray:
+    """Leading/trailing silence trim relative to peak RMS, matching
+    ``librosa.effects.trim`` semantics (ref: encoder/audio.py:77-78)."""
+    if len(wav) == 0:
+        return wav
+    pad = frame_length // 2
+    padded = np.pad(wav.astype(np.float64), (pad, pad), mode="constant")
+    n_frames = 1 + (len(padded) - frame_length) // hop_length
+    idx = (
+        np.arange(n_frames)[:, None] * hop_length + np.arange(frame_length)[None, :]
+    )
+    rms = np.sqrt(np.mean(padded[idx] ** 2, axis=1))
+    ref = np.max(rms)
+    if ref <= 0:
+        return wav[:0]
+    db = 20.0 * np.log10(np.maximum(rms, 1e-10) / ref)
+    non_silent = np.flatnonzero(db > -top_db)
+    if non_silent.size == 0:
+        return wav[:0]
+    start = int(non_silent[0] * hop_length)
+    end = min(len(wav), int((non_silent[-1] + 1) * hop_length))
+    return wav[start:end]

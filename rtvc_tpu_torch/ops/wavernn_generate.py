@@ -364,7 +364,7 @@ def wavernn_generate_core(weights: Dict[str, Tensor], streams: Dict[str, Tensor]
         return wavernn_generate_core_plain(weights, streams, seed, argmax, return_logits,
                                            variant, head)
     out = launch(_build.library(), weights, streams, seed, argmax, return_logits, variant, head)
-    _build.launch_counts[count_name(variant, *dtypes(weights, streams))] += 1
+    _build.count_launch(count_name(variant, *dtypes(weights, streams)))
     return out
 
 

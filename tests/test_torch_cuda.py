@@ -8,6 +8,8 @@ has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1664,3 +1666,136 @@ def test_generation_options_switch_the_instantiation(dev, monkeypatch):
         after = {n: _launches(n) for n in before}
         assert {n: after[n] - before[n] for n in before if after[n] != before[n]} == {name: 1}
         assert wav.shape == (11 * 200,) and np.isfinite(wav).all()
+
+
+# ---------------------------------------------------------------------------
+# The preprocessing passes on the card: K6 in the audio pass, K3 in the
+# embedding pass, both called from the passes' thread pools
+# ---------------------------------------------------------------------------
+
+
+def _write_preprocess_corpus(root, seed=0):
+    """``<root>/Tiny/speakers/spk{0,1,2}``: three utterances of 1.5-4 s each
+    (voiced segments between pauses), spk2 at 22 050 Hz. Returns ``root``."""
+    from rtvc_tpu_torch.utils.io import save_wav_float
+
+    rng = np.random.default_rng(seed)
+    for s, sr in enumerate((16000, 16000, 22050)):
+        d = root / "Tiny" / "speakers" / f"spk{s}"
+        d.mkdir(parents=True)
+        for u in range(3):
+            parts = [np.zeros(int(0.3 * sr))]
+            for k in range(2 + u):
+                t = np.arange(int(rng.uniform(0.5, 1.2) * sr)) / sr
+                f0 = 110 + 40 * s + 15 * k
+                parts += [0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(2 * np.pi * 3 * f0 * t),
+                          np.zeros(int(rng.uniform(0.3, 0.6) * sr))]
+            wav = np.concatenate(parts) + 0.002 * rng.standard_normal(sum(map(len, parts)))
+            save_wav_float(wav.astype(np.float32), d / f"utt{u}.wav", sr)
+            (d / f"utt{u}.txt").write_text(f"utterance {u} of speaker {s}")
+    return root
+
+
+def _audio_pass(root, out, device, n_processes):
+    from rtvc_tpu_torch.data.synthesizer_preprocess import synthesizer_preprocess_dataset
+
+    return synthesizer_preprocess_dataset(root, out, "Tiny", ["speakers"], [".wav"], ".txt",
+                                          n_processes=n_processes, device=device)
+
+
+def _assert_audio_passes_agree(a, b, mel_tol):
+    """Equal ``train.json`` and ``wav/`` files; mels within ``mel_tol``
+    absolute (0: equal bits)."""
+    assert (a / "train.json").read_text() == (b / "train.json").read_text()
+    names = sorted(p.name for p in (a / "wav").iterdir())
+    assert names == sorted(p.name for p in (b / "wav").iterdir()) and len(names) == 9
+    for n in names:
+        assert (a / "wav" / n).read_bytes() == (b / "wav" / n).read_bytes(), n
+        m = n.replace("audio-", "mel-")
+        if mel_tol == 0:
+            assert (a / "mels" / m).read_bytes() == (b / "mels" / m).read_bytes(), m
+        else:
+            np.testing.assert_allclose(np.load(a / "mels" / m), np.load(b / "mels" / m),
+                                       atol=mel_tol, err_msg=m)
+
+
+def test_audio_pass_on_the_card_matches_its_cpu_route(dev, tmp_path):
+    """One K6 launch an utterance; the mels within K6's tolerance (2e-4 on
+    the normalised scale) of the plain route's, four threads equal to one
+    in bits."""
+    root = _write_preprocess_corpus(tmp_path / "corpus")
+    torch.cuda.synchronize()
+    before = dict(_build.launch_counts)
+    assert _audio_pass(root, tmp_path / "card", dev, 1) == 9
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in _build.launch_counts.items()
+                if v != before.get(k, 0)}
+    assert launched == {"mel_project": 9}
+    assert _audio_pass(root, tmp_path / "card4", dev, 4) == 9
+    _assert_audio_passes_agree(tmp_path / "card", tmp_path / "card4", 0)
+    assert _audio_pass(root, tmp_path / "cpu", "cpu", 1) == 9
+    _assert_audio_passes_agree(tmp_path / "card", tmp_path / "cpu", 2e-4)
+
+
+def test_embedding_pass_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch):
+    """Three K3 launches an utterance (the encoder's three LSTM layers); the
+    embeddings within K3's tolerance (1e-4 by ``rel_err``) of the encoder on
+    the CPU with the same weights, four threads equal to one in bits."""
+    import shutil
+
+    from rtvc_tpu_torch.data.synthesizer_preprocess import create_embeddings
+    from rtvc_tpu_torch.inference import encoder as tenc
+
+    for name in ("_model", "_model_cfg", "_data"):
+        monkeypatch.setattr(tenc, name, getattr(tenc, name))
+    root = _write_preprocess_corpus(tmp_path / "corpus")
+    assert _audio_pass(root, tmp_path / "syn", dev, 2) == 9
+    model = factories.init_encoder_model(seed=4, device="cpu")
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    for label, device, threads in (("card", dev, 1), ("card4", dev, 4), ("cpu", "cpu", 2)):
+        shutil.copytree(tmp_path / "syn", tmp_path / label)
+        tenc.load_state(state, device=device)
+        torch.cuda.synchronize()
+        before = _build.launch_counts["lstm_seq"]
+        assert create_embeddings(tmp_path / label, None, n_processes=threads) == 9
+        torch.cuda.synchronize()
+        if label == "card":
+            assert _build.launch_counts["lstm_seq"] - before == 27
+        out[label] = {p.name: np.load(p) for p in (tmp_path / label / "embeds").iterdir()}
+    assert out["card"].keys() == out["card4"].keys() == out["cpu"].keys()
+    for n, e in out["card"].items():
+        assert e.tobytes() == out["card4"][n].tobytes(), n
+        assert rel_err(torch.from_numpy(e), torch.from_numpy(out["cpu"][n])) <= 1e-4, n
+
+
+def test_audio_pass_builds_the_kernels_once_from_four_threads(dev, tmp_path, monkeypatch):
+    """A cold kernel layer (no library loaded, an empty build directory):
+    the audio pass's four threads reach K6 at once, one nvcc per source and
+    one link build the library, and the files equal a one-thread run's."""
+    from rtvc_tpu_torch.ops import mel_project
+
+    root = _write_preprocess_corpus(tmp_path / "corpus")
+    assert _audio_pass(root, tmp_path / "warm", dev, 1) == 9
+    started, real_popen = [], _build.subprocess.Popen
+
+    def popen(cmd, *args, **kw):  # subprocess.run goes through it too: the link
+        started.append(list(cmd))
+        return real_popen(cmd, *args, **kw)
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_limits", {})
+    monkeypatch.setattr(_build.subprocess, "Popen", popen)
+    mel_project._prepared.cache_clear()
+    try:
+        assert _audio_pass(root, tmp_path / "cold", dev, 4) == 9
+        torch.cuda.synchronize()
+    finally:
+        mel_project._prepared.cache_clear()
+    cu, _ = _build._sources()
+    compiled = sorted(Path(cmd[-1]).name for cmd in started if "-c" in cmd)
+    assert compiled == sorted(f.name for f in cu)
+    assert sum("-shared" in cmd for cmd in started) == 1 and len(started) == len(cu) + 1
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [_build.library_path().name]
+    _assert_audio_passes_agree(tmp_path / "warm", tmp_path / "cold", 0)

@@ -1,8 +1,9 @@
 """The port stands on its own: ``rtvc_tpu_torch`` and ``chip_smoke`` import
 none of ``jax``, ``flax``, ``msgpack`` and ``rtvc_tpu``, and the modules the
-port copied from the JAX package (config, text, the three dataset modules,
-metrics, the duration extractor, the F0 tracker, the t-SNE projection) still
-say what their originals say: equal config fields and values, equal symbol sequences, equal
+port copied from the JAX package (config with the dataset registry, text,
+the three dataset modules, metrics, the duration extractor, the F0 tracker,
+the t-SNE projection, the VAD, log-MMSE, the mpg123 binding and the codec
+shim's C source) still say what their originals say: equal config fields and values, equal symbol sequences, equal
 batches from one tiny on-disk dataset and seed (the non-autoregressive
 synthesizers' batches from a root the alignment pass wrote too), and the
 copied functions' sources equal their originals' but for the imports (their
@@ -50,13 +51,16 @@ for need in ("models.distribution", "ops.stft", "ops.mel_project", "ops.wavernn_
              "data.duration_extractor", "data.synthesizer_preprocess", "ops.pitch",
              "synthesizer_preprocess_alignments", "train.gta", "train.gen_testset",
              "train.eval_hooks", "utils.plots", "utils.projection", "vocoder_preprocess",
-             "ops.precision", "utils.argutils", "utils.dashboard", "utils.genquality"):
+             "ops.precision", "utils.argutils", "utils.dashboard", "utils.genquality",
+             "config.datasets", "ops.logmmse", "utils.mpeg", "utils.libav",
+             "data.encoder_preprocess", "encoder_preprocess", "synthesizer_preprocess_audio",
+             "synthesizer_preprocess_embeds"):
     assert "rtvc_tpu_torch." + need in names, need
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "rtvc_tpu", "flax", "msgpack"))
 print(len(names), "modules;", "foreign:", bad)
-sys.exit(1 if bad or len(names) < 49 else 0)
+sys.exit(1 if bad or len(names) < 55 else 0)
 """
 
 
@@ -70,7 +74,7 @@ def test_port_sources_name_no_jax_import():
     pattern = ("from rtvc_tpu ", "from rtvc_tpu.", "import rtvc_tpu ", "import rtvc_tpu.",
                "import rtvc_tpu\n", "import jax", "from jax")
     files = sorted((REPO / "rtvc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 54
+    assert len(files) > 60
     for f in files:
         for n, line in enumerate(f.read_text().splitlines(keepends=True), 1):
             code = line.strip()
@@ -156,13 +160,25 @@ def test_synthesizer_dataset_copy_yields_the_same_nar_batches(tmp_path):
     ("rtvc_tpu_torch/ops/pitch.py", "rtvc_tpu/ops/pitch.py"),
     ("rtvc_tpu_torch/utils/projection.py", "rtvc_tpu/utils/projection.py"),
     ("rtvc_tpu_torch/utils/argutils.py", "rtvc_tpu/utils/argutils.py"),
-    ("rtvc_tpu_torch/utils/dashboard.py", "rtvc_tpu/utils/dashboard.py")])
+    ("rtvc_tpu_torch/utils/dashboard.py", "rtvc_tpu/utils/dashboard.py"),
+    ("rtvc_tpu_torch/config/datasets.py", "rtvc_tpu/config/datasets.py"),
+    ("rtvc_tpu_torch/ops/vad.py", "rtvc_tpu/ops/vad.py"),
+    ("rtvc_tpu_torch/ops/logmmse.py", "rtvc_tpu/ops/logmmse.py"),
+    ("rtvc_tpu_torch/utils/mpeg.py", "rtvc_tpu/utils/mpeg.py")])
 def test_numpy_copies_equal_their_originals(copy, original):
     def body(path):  # the code after the docstring, the package's name taken out
         text = (REPO / path).read_text()
         return text[text.index('"""', 3) + 3:].replace("rtvc_tpu_torch.", "rtvc_tpu.")
 
     assert body(copy) == body(original)
+
+
+@pytest.mark.parametrize("copy,original", [
+    ("rtvc_tpu_torch/native/src/audio_codec.c", "rtvc_tpu/native/src/audio_codec.c")])
+def test_native_copies_equal_their_originals(copy, original):
+    """The codec shim's C source, byte for byte but for the package's name."""
+    got = (REPO / copy).read_bytes().replace(b"rtvc_tpu_torch/", b"rtvc_tpu/")
+    assert got == (REPO / original).read_bytes()
 
 
 def test_vocoder_dataset_copy_yields_the_same_batches(tmp_path):
