@@ -62,6 +62,25 @@
    first clone after it beside the second, and the replay's times, on lines
    that begin with the card's name and power limit. This phase runs first,
    so that the warm-up pays for the process's first launches.
+4a. The browser toolbox (``phase_toolbox``, after the serve phase): the
+   same checkpoints loaded again (the Tacotron cut to 400 frames), served by
+   ``create_server(..., ui=True)`` over a samples directory of one of the
+   repository's mp3s and a wav; ``GET /``, ``/api/samples``, ``POST
+   /api/load`` by ``?sample=`` (the mp3 where libmpg123 or the codec shim
+   decodes it, else its refusal checked and the wav loaded) and by a WAV
+   body, ``/api/projection``, ``/api/synthesize?seed=3`` twice (equal
+   bytes), ``/api/mel``, ``/api/autotune?n_seeds=3`` and ``GET /api/stream``;
+   the launches counted (K3 three times an embedding, K2, K4 four times and
+   K1 once a synthesis and an autotune seed, the stream's resumed K2, its
+   postnets' K4 and its K1 once a chunk) and every one of them held to its
+   plain version on the inputs it was given; ``/api/synthesize`` and an
+   autotune timed without the recording. Then the native WaveRNN engine
+   (``native/``): built with g++ from the copied sources, the vocoder
+   exported to RTVCNAT1, a 20-frame mel decoded greedily and unfolded on the
+   engine and on K1 (equal labels up to a near-tie, whose step is printed;
+   samples within 2e-4 before it), and the clone's mel vocoded through
+   ``vocoder.load_model(voc_type="libwavernn")`` on every host core, its
+   rate in kHz beside K1's and the host CPU's model name.
 4b. Streams (``inference.streaming.stream_clone``) at the default widths.
    With the kernels of 2., K2 resumed launch by launch at B 1 x T 64 and
    B 2 x T 32 over 200 iterations in launches of 8 and then 24: with
@@ -241,6 +260,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -2143,42 +2163,12 @@ def recorded_calls(targets=SERVED_KERNELS):
 
 def served_kernel_checks(calls, enc_layers, voc_dims):
     """Every kernel launch of one served clone again on the inputs it was
-    given, against its plain version at its phase's tolerance: K3 and K4
-    forward within 1e-4 (absolute; relative for K4), K2 with dropout off
-    (``k2_check``) and K1 greedy (``k1_check``). Returns a line of the
-    shapes and errors."""
-    import torch
-
-    from rtvc_tpu_torch.ops import rel_err
-    from rtvc_tpu_torch.ops.gru_seq import gru_seq_fwd, gru_seq_fwd_plain
-    from rtvc_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_plain
-
+    given, against its plain version (``held_kernel_launches``). Returns a
+    line of the launches and the errors."""
     n = {name: len(c) for name, c in calls.items()}
     check(n == {"lstm_seq": enc_layers, "gru_seq_fwd": 4, "tacotron_decode": 1,
                 "wavernn_generate_core": 1}, f"one served clone called the wrappers {n} times")
-    parts = []
-    with torch.no_grad():
-        for args, _, _ in calls["lstm_seq"]:
-            err = max(float((a - b).abs().max())
-                      for a, b in zip(lstm_seq(*args), lstm_seq_plain(*args)))
-            B, T, _ = args[0].shape
-            check(err <= 1e-4, f"K3 at the served B={B} T={T}: {err} from its plain version")
-            parts.append(f"K3 B={B} T={T} {err:.3e}")
-        for args, _, _ in calls["gru_seq_fwd"]:
-            err = max(rel_err(a, b) for a, b in zip(gru_seq_fwd(*args), gru_seq_fwd_plain(*args)))
-            B, T, _ = args[0].shape
-            check(err <= 1e-4, f"K4 at the served B={B} T={T}: rel err {err} from its plain "
-                  f"version")
-            parts.append(f"K4 B={B} T={T} rel {err:.3e}")
-        [((model, d, seq, proj, mask, _seed, r, max_steps), _, _)] = calls["tacotron_decode"]
-        _, _, _, n_k, err_mel, err_attn = k2_check(model, d, seq, proj, mask, r, max_steps)
-        parts.append(f"K2 B={mask.shape[0]} T={mask.shape[1]} {n_k} iterations of {max_steps // r}"
-                     f" mel {err_mel:.3e} attention {err_attn:.3e}")
-        [((w, streams, *_), _, _)] = calls["wavernn_generate_core"]
-        got, err, sample_err, tol, flips = k1_check(voc_dims, w, streams)
-        parts.append(f"K1 {got.shape[0]} folds x {got.shape[1]} steps head inputs {err:.3e} "
-                     f"samples {sample_err:.3e} (tol {tol:g}), {flips} near-ties")
-    return "; ".join(parts)
+    return held_kernel_launches(calls, voc_dims)
 
 
 STREAM_SEED = 4321
@@ -2407,6 +2397,348 @@ def phase_serve(dev, card, syn, voc):
     return {"served_ms": t_clone, "together_ms": [r[3] for r in together],
             "replay_ms": replay_ms, "warmup_ms": t_warm, "warm_clone_ms": t_warm_clone,
             "frames": frames, "counts": counts}
+
+
+# the toolbox's requests record the served wrappers and the stream's resumed K2
+TOOLBOX_KERNELS = SERVED_KERNELS + (("rtvc_tpu_torch.inference.streaming",
+                                     "tacotron_decode_chunk"),)
+TOOLBOX_TEXT = "Voice cloning on a single graphics card."
+TOOLBOX_SEEDS = 3  # /api/autotune's n_seeds
+TOOLBOX_TIMED = 3  # timed /api/synthesize requests after the checked ones
+ENGINE_FRAMES = 20  # the mel the engine and K1 decode greedily, unfolded
+# the gap of K1's two top logits under which the engine may choose the other
+# class: both sum 512-wide f32 products, in other orders
+ENGINE_TIE = 1e-3
+
+
+def ui_request(port, method, path, body=None):
+    """(status, headers, body, wall ms) of one request to the browser toolbox."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, dict(resp.getheaders()), data, (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def held_kernel_launches(calls, voc_dims):
+    """Every K1, K2, K3 and K4 launch recorded by ``recorded_calls`` again on
+    the inputs it was given, against its plain version: K3 and K4 forward
+    within 1e-4 (absolute; relative for K4), K2 with dropout off
+    (``k2_check``), each resumed K2 launch of a stream from the carry it was
+    given, dropout off, as ``k2_chunk_check`` holds it, and K1 greedy
+    (``k1_check``). A K1 launch whose inputs equal an earlier one's (a second
+    request at the same seed) must give the same samples, and is not held
+    again. Returns a line of the launches and the largest errors."""
+    import torch
+
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops import tacotron_decode as td
+    from rtvc_tpu_torch.ops.gru_seq import gru_seq_fwd, gru_seq_fwd_plain
+    from rtvc_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_plain
+
+    err = dict.fromkeys(("K3", "K4 rel", "K2 mel", "K2 attention", "K2 chunk mel",
+                         "K2 chunk carry rel", "K1 head inputs", "K1 samples"), 0.0)
+    flips, held, k1_seen = 0, 0, []
+    with torch.no_grad():
+        for args, _, _ in calls["lstm_seq"]:
+            e = max(float((a - b).abs().max()) for a, b in zip(lstm_seq(*args),
+                                                                  lstm_seq_plain(*args)))
+            check(e <= 1e-4, f"K3 at B={args[0].shape[0]}: {e} from its plain version")
+            err["K3"] = max(err["K3"], e)
+        for args, _, _ in calls["gru_seq_fwd"]:
+            e = max(rel_err(a, b) for a, b in zip(gru_seq_fwd(*args), gru_seq_fwd_plain(*args)))
+            check(e <= 1e-4, f"K4 at T={args[0].shape[1]}: rel err {e} from its plain version")
+            err["K4 rel"] = max(err["K4 rel"], e)
+        for (model, d, seq, proj, mask, _seed, r, max_steps), _, _ in calls["tacotron_decode"]:
+            *_, e_mel, e_attn = k2_check(model, d, seq, proj, mask, r, max_steps)
+            err["K2 mel"], err["K2 attention"] = (max(err["K2 mel"], e_mel),
+                                                  max(err["K2 attention"], e_attn))
+        for args, _, _ in calls.get("tacotron_decode_chunk", ()):
+            model, d, seq, proj, mask, _seed, r, carry, prev, done, start, n, low, pad = args[:14]
+            chunk = (model, d, seq, proj, mask, 0, r, carry, prev, done, start, n, low, pad, False)
+            out, ref = td.tacotron_decode_chunk(*chunk), td.tacotron_decode_chunk_plain(*chunk)
+            where = f"K2 chunk, iterations {start}-{start + n - 1}"
+            check((int(out.valid), int(out.done)) == (int(ref.valid), int(ref.done)),
+                  f"{where}: valid / done {int(out.valid)} / {int(out.done)}, plain "
+                  f"{int(ref.valid)} / {int(ref.done)}")
+            e_mel = float((out.mel - ref.mel).abs().max())
+            e_carry = max(rel_err(out.attn, ref.attn),
+                          *(rel_err(a, b) for a, b in zip(k2_state(out), k2_state(ref))))
+            check(e_mel <= 1e-6 and e_carry <= 1e-5, f"{where}: mel {e_mel}, attention and "
+                  f"carry {e_carry} (relative) from the plain loop from its carry")
+            err["K2 chunk mel"] = max(err["K2 chunk mel"], e_mel)
+            err["K2 chunk carry rel"] = max(err["K2 chunk carry rel"], e_carry)
+        for (w, streams, seed, *_), _, out in calls["wavernn_generate_core"]:
+            same = [o for w0, s0, seed0, o in k1_seen if seed0 == seed and all(
+                torch.equal(a[k], b[k]) for a, b in ((w, w0), (streams, s0)) for k in b)]
+            if same:
+                check(torch.equal(out, same[0]), "two K1 launches on equal inputs at one seed "
+                      "gave different samples")
+                continue
+            k1_seen.append((w, streams, seed, out))
+            _, e_head, e_samples, _, n_flips = k1_check(voc_dims, w, streams)
+            err["K1 head inputs"] = max(err["K1 head inputs"], e_head)
+            err["K1 samples"] = max(err["K1 samples"], e_samples)
+            flips, held = flips + n_flips, held + 1
+    n = {name: len(c) for name, c in calls.items()}
+    return (f"launches held {n} (K1: {held} on distinct inputs, {flips} folds cut at a "
+            f"near-tie); largest errors " + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+
+
+def engine_checks(dev, card, voc, mel, work):
+    """The native engine beside K1: the engine built from ``native/src``,
+    the vocoder exported with ``native.convert.export_wavernn``, then the
+    first ``ENGINE_FRAMES`` frames of ``mel`` decoded greedily and unfolded
+    on both (one sequence of frames x hop steps): the same class labels up
+    to a near-tie (K1's two top logits within ``ENGINE_TIE``), the samples
+    before it within 2e-4 and under 5 % apart (or within 1e-5); then the
+    whole mel through ``vocoder.load_model(voc_type="libwavernn")`` on every
+    host core, its rate beside K1's ``infer_waveform`` of the same mel.
+    Returns the rates."""
+    import os
+
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.config import sp
+    from rtvc_tpu_torch.inference import vocoder
+    from rtvc_tpu_torch.models import wavernn as tw
+    from rtvc_tpu_torch.native import libwavernn
+    from rtvc_tpu_torch.native.convert import export_wavernn
+    from rtvc_tpu_torch.ops.wavernn_generate import wavernn_generate_core
+
+    t0 = time.perf_counter()
+    built = _build.build_wavernn_engine()
+    t_build = time.perf_counter() - t0
+    d = voc.dims
+    weights = work / "runtimeracer.bin"
+    export_wavernn(voc.model, d, weights)
+    short = np.ascontiguousarray(mel[:, :ENGINE_FRAMES] / sp.max_abs_value, np.float32)
+    inst = libwavernn._Instance(libwavernn._load_lib(), weights)
+    t0 = time.perf_counter()
+    got = inst.mel_to_wav(short, argmax=True)
+    t_inst = time.perf_counter() - t0
+    with torch.no_grad():
+        mels = torch.nn.functional.pad(torch.from_numpy(short[None]).to(dev), (d.pad, d.pad))
+        mu, aux, _ = tw.upsample_forward(voc.model, d, mels)
+        streams = {k: v.contiguous() for k, v in tw.hoist_aux(voc.model, d, mu, aux).items()}
+        k1, logits = wavernn_generate_core(tw.step_weights(voc.model, d), streams, 0, True,
+                                           variant=d.variant, head=d.head, return_logits=True)
+    k1, logits = k1[0].cpu().numpy(), logits[0].float().cpu()
+    check(got.shape == k1.shape == (ENGINE_FRAMES * d.hop_length,),
+          f"the engine gave {got.shape} samples, K1 {k1.shape}")
+    C = d.n_classes
+    labels = [np.round((x.astype(np.float64) + 1) * (C - 1) / 2) for x in (got, k1)]
+    apart = np.nonzero(labels[0] != labels[1])[0]
+    t_end = int(apart[0]) if len(apart) else len(k1)
+    where = f"the engine against K1 at 1 x {len(k1)} steps, greedy"
+    if t_end < len(k1):
+        top2 = torch.topk(logits[t_end], 2).values
+        gap = float(top2[0] - top2[1])
+        growth = [float(np.abs(got[:t + 1] - k1[:t + 1]).max())
+                  for t in range(0, t_end + 1, max(t_end // 8, 1))]
+        print(f"{where}: samples differ first at step {t_end}, K1's top-2 logit gap there "
+              f"{gap:.3e}; sample difference by step {growth}")
+        check(gap <= ENGINE_TIE, f"{where}: the labels part at step {t_end} with a gap of "
+              f"{gap}, above the near-tie bound {ENGINE_TIE}")
+    sample_err = float(np.abs(got[:t_end] - k1[:t_end]).max()) if t_end else 0.0
+    mismatch = float(np.mean(got[:t_end] != k1[:t_end])) if t_end else 0.0
+    check(sample_err <= 2e-4 and (mismatch < 0.05 or sample_err <= 1e-5),
+          f"{where}: samples {sample_err} apart, {mismatch:.1%} not equal")
+
+    bundle = vocoder._bundle
+    vocoder.load_model(weights, voc_type="libwavernn", verbose=False)
+    try:
+        vocoder.set_seed(0)
+        wav_e, t_e = timed_ms(lambda: vocoder.infer_waveform(mel))
+        n_threads = len(vocoder._native._instances)
+    finally:
+        vocoder.load_bundle(bundle)
+    vocoder.set_seed(0)
+    wav_k, t_k = timed_ms(lambda: vocoder.infer_waveform(mel))
+    check(wav_e.shape == wav_k.shape == ((mel.shape[1] - 1) * d.hop_length,)
+          and np.isfinite(wav_e).all(), f"the engine's vocode gave {wav_e.shape}")
+    cpu = next((line.split(":", 1)[1].strip() for line in open("/proc/cpuinfo")
+                if line.startswith("model name")), "unknown")
+    khz_e, khz_k = len(wav_e) / t_e, len(wav_k) / t_k
+    print(f"toolbox: native engine built in {t_build:.1f} s ({built.library.name}, "
+          f"{built.cli.name}); {where}: labels equal through step {t_end} of {len(k1)}, "
+          f"samples {sample_err:.3e} apart before it, {mismatch:.2%} not equal; one instance "
+          f"{len(k1) / t_inst / 1e3:.2f} kHz greedy")
+    print(f"{card}; host CPU {cpu}, {os.cpu_count()} cores: vocoder.load_model(voc_type="
+          f"'libwavernn') vocodes the clone's {mel.shape[1]}-frame mel ({len(wav_e)} samples) in "
+          f"{t_e:.1f} ms on {n_threads} threads: {khz_e:.2f} kHz; K1 (infer_waveform, the "
+          f"checkpoint's window) {t_k:.1f} ms: {khz_k:.2f} kHz")
+    return {"engine_khz": khz_e, "k1_khz": khz_k, "engine_ms": t_e, "k1_ms": t_k,
+            "host_cpu": cpu, "threads": n_threads}
+
+
+def phase_toolbox(dev, card, syn, voc):
+    """The browser toolbox (``webui.py``) through ``serve.create_server(...,
+    ui=True)`` on ``phase_serve``'s checkpoints, loaded through the inference
+    modules' ``load_model`` (the Tacotron cut to ``max_decoder_steps`` 400
+    frames, the clone path's depth), over a samples directory of one of the
+    repository's mp3s and a wav of ``serve.voiced_prompt``. By HTTP, in
+    order: ``GET /``, ``/api/samples``, ``POST /api/load`` by ``?sample=``
+    (the mp3 where a decoder for it exists; else its refusal is checked and
+    the wav is loaded) and by a WAV body, ``GET /api/projection``, ``POST
+    /api/synthesize?seed=3`` twice (equal bytes), ``GET /api/mel``, ``POST
+    /api/autotune?n_seeds=3`` and ``GET /api/stream``, each answer checked,
+    every kernel launch of them counted and held to its plain version
+    (``held_kernel_launches``); then ``/api/synthesize`` and an autotune
+    timed without the recording. Then the native engine beside K1
+    (``engine_checks``). Returns the launches and the times."""
+    import threading
+
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.inference import encoder, synthesizer, vocoder
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.serve import _parse_wav, _wav_bytes, create_server, voiced_prompt
+    from rtvc_tpu_torch.utils import libav, mpeg
+    from rtvc_tpu_torch.utils.io import save_wav
+
+    work = _build.BUILD_DIR / "smoke_toolbox"
+    shutil.rmtree(work, ignore_errors=True)
+    samples = work / "samples"
+    samples.mkdir(parents=True)
+    server = thread = None
+    try:
+        enc = factories.init_encoder_model(0, dev)
+        paths = write_serve_checkpoints(work, enc, syn, voc)
+        encoder.load_model(paths["encoder"], device=dev)
+        synthesizer.load_model(paths["synthesizer"], verbose=False, device=dev)
+        vocoder.load_model(paths["vocoder"], verbose=False, device=dev)
+        synth = synthesizer._model
+        synth.load_bundle(synth._bundle._replace(config=synth._bundle.config.replace(
+            max_decoder_steps=CLONE_FRAMES)), r=synth._r)
+        mp3 = sorted((Path(__file__).resolve().parent / "samples").glob("*.mp3"))[0]
+        shutil.copy(mp3, samples / mp3.name)
+        save_wav(voiced_prompt(1), samples / "prompt.wav", 16000)
+        mp3_decodes = mpeg.mpeg_supported() or libav.libav_supported()
+
+        server = create_server("127.0.0.1", 0, synth=synth, samples_dir=samples)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        text = TOOLBOX_TEXT.replace(" ", "%20")
+        ms = {}
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        with recorded_calls(TOOLBOX_KERNELS) as calls:
+            status, headers, page, ms["page"] = ui_request(port, "GET", "/")
+            check(status == 200 and headers["Content-Type"] == "text/html; charset=utf-8"
+                  and b"/api/autotune" in page, f"GET / answered {status}")
+            status, _, listed, ms["samples"] = ui_request(port, "GET", "/api/samples")
+            check(status == 200 and json.loads(listed) == {
+                "samples": sorted([mp3.name, "prompt.wav"]), "loaded": []},
+                f"/api/samples answered {status}: {listed[:200]}")
+            status, _, loaded, ms["load sample"] = ui_request(
+                port, "POST", f"/api/load?sample={mp3.name}")
+            if not mp3_decodes:
+                check(status == 500 and b"libmpg123" in loaded, f"/api/load of an mp3 without "
+                      f"a decoder answered {status}: {loaded[:200]}")
+                print(f"toolbox: no mp3 decoder on this host (libmpg123 or the FFmpeg codec "
+                      f"shim): /api/load?sample={mp3.name} answered {status} "
+                      f"{json.loads(loaded)['error'][:120]!r}; loading prompt.wav instead")
+                status, _, loaded, ms["load sample"] = ui_request(
+                    port, "POST", "/api/load?sample=prompt.wav")
+            check(status == 200, f"/api/load?sample= answered {status}: {loaded[:200]}")
+            by_sample = json.loads(loaded)
+            body = _wav_bytes(voiced_prompt(0), 16000)
+            status, _, loaded, ms["load body"] = ui_request(port, "POST", "/api/load?name=prompt0",
+                                                            body)
+            check(status == 200, f"/api/load of a WAV body answered {status}: {loaded[:200]}")
+            by_body = json.loads(loaded)
+            for got in (by_sample, by_body):
+                e = np.asarray(got["embed"])
+                check(e.shape == (768,) and abs(float(np.linalg.norm(e)) - 1.0) < 1e-4
+                      and got["seconds"] > 1.0, f"/api/load gave {got['name']} {e.shape}")
+            status, _, points, ms["projection"] = ui_request(port, "GET", "/api/projection")
+            points = json.loads(points)["points"]
+            check(status == 200 and sorted(p["name"] for p in points) == sorted(
+                [by_sample["name"], "prompt0"]) and all(np.isfinite([p["x"], p["y"]]).all()
+                                                        for p in points),
+                  f"/api/projection answered {status}: {points}")
+            utt = "/api/synthesize?utt=prompt0&seed=3&text=" + text
+            synthesized = [ui_request(port, "POST", utt) for _ in range(2)]
+            clone_mel = server.ui_state.last_mel
+            status, _, mel_json, ms["mel"] = ui_request(port, "GET", "/api/mel")
+            mel_json = json.loads(mel_json)
+            tune = f"/api/autotune?utt=prompt0&n_seeds={TOOLBOX_SEEDS}&text=" + text
+            status_t, headers_t, tuned, ms["autotune (recorded)"] = ui_request(port, "POST", tune)
+            streamed = ui_request(port, "GET", "/api/stream?utt=prompt0&text=" + text)
+        counts = dict(_build.launch_counts)
+        frames = clone_mel.shape[1]
+        x, sr = _parse_wav(body)
+        want = encoder.embed_utterance(encoder.preprocess_wav(x, source_sr=sr))
+        check(np.array_equal(np.asarray(by_body["embed"]), want.astype(np.float64)),
+              "/api/load's embedding differs from embed_utterance's")
+        for status, headers, wav, _ in synthesized:
+            check(status == 200 and headers["Content-Type"] == "audio/wav"
+                  and headers["X-Mel-Frames"] == str(frames) and float(headers["X-RTF"]) > 0,
+                  f"/api/synthesize answered {status} {headers}")
+            out, sr_out = _parse_wav(wav)
+            check(sr_out == 16000 and out.shape == ((frames - 1) * 200,)
+                  and np.isfinite(out).all(), f"/api/synthesize gave {out.shape} samples")
+        check(synthesized[0][2] == synthesized[1][2], "two /api/synthesize at seed 3 differ")
+        check(mel_json["n_mels"] == 80 and mel_json["frames"] == frames
+              and len(mel_json["mel"]) == 80, f"/api/mel gave {mel_json['n_mels']} x "
+              f"{mel_json['frames']}")
+        check(status_t == 200 and 0 <= int(headers_t["X-Best-Seed"]) < TOOLBOX_SEEDS
+              and -1.0 <= float(headers_t["X-Similarity"]) <= 1.0,
+              f"/api/autotune answered {status_t} {headers_t}")
+        status, headers, data, ms["stream"] = streamed
+        n_chunks = len(calls["tacotron_decode_chunk"])
+        check(status == 200 and headers.get("Transfer-Encoding") == "chunked"
+              and (len(data) - 44) % 2 == 0 and len(data) > 44 + 2 * 200 * 16,
+              f"/api/stream answered {status}, {len(data)} bytes")
+        layers = encoder._model_cfg.model_num_layers
+        want = {"lstm_seq": layers * (2 + TOOLBOX_SEEDS), "tacotron_decode": 2 + TOOLBOX_SEEDS,
+                "gru_seq": 4 * (2 + TOOLBOX_SEEDS) + 2 + 2 * n_chunks,
+                "wavernn_generate_runtimeracer": 2 + TOOLBOX_SEEDS + n_chunks,
+                "tacotron_decode_chunk": n_chunks}
+        check(counts == want, f"the toolbox's requests launched {counts}, want {want} (two "
+              f"loads, two syntheses, {TOOLBOX_SEEDS} autotune seeds, a stream of {n_chunks} "
+              f"chunks)")
+        kernel_line = held_kernel_launches(calls, vocoder._bundle.dims)
+
+        # the times without the recording's copies
+        t_synth = []
+        for _ in range(TOOLBOX_TIMED):
+            status, _, _, t = ui_request(port, "POST", utt)
+            check(status == 200, f"a timed /api/synthesize answered {status}")
+            t_synth.append(t)
+        status, _, _, t_tune = ui_request(port, "POST", tune)
+        check(status == 200, f"the timed /api/autotune answered {status}")
+        print(f"{card}: toolbox: GET / {ms['page']:.1f} ms, /api/samples {ms['samples']:.1f} ms, "
+              f"/api/load by sample {ms['load sample']:.1f} ms and by body "
+              f"{ms['load body']:.1f} ms, /api/projection {ms['projection']:.1f} ms, /api/mel "
+              f"{ms['mel']:.1f} ms; /api/synthesize ({frames} frames) "
+              + ", ".join(f"{t:.1f}" for t in t_synth) + f" ms (median "
+              f"{float(np.median(t_synth)):.1f}); /api/autotune of {TOOLBOX_SEEDS} seeds "
+              f"{t_tune:.1f} ms ({t_tune / TOOLBOX_SEEDS:.1f} ms a seed; best seed "
+              f"{headers_t['X-Best-Seed']}, similarity {headers_t['X-Similarity']}); "
+              f"/api/stream {n_chunks} chunks in {ms['stream']:.1f} ms; launches {counts}")
+        print(f"toolbox: every kernel launch of the requests on its own inputs against its "
+              f"plain version: {kernel_line}")
+        engine = engine_checks(dev, card, vocoder._bundle, clone_mel, work)
+        return {"counts": counts, "synthesize_ms": t_synth, "autotune_ms": t_tune,
+                "autotune_seed_ms": t_tune / TOOLBOX_SEEDS, "frames": frames, **engine}
+    finally:
+        if thread is not None:
+            server.shutdown()
+            thread.join(30)
+        if server is not None:
+            server.server_close()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # torch.testing's tolerance for bf16, the one the CPU tests hold the plain
@@ -4554,6 +4886,8 @@ def main() -> int:
     phase_serve(dev, card, syn, voc)
     phase_barrier(dev)
     lap("serve")
+    toolbox = phase_toolbox(dev, card, syn, voc)
+    lap("toolbox")
     kernels = [phase_lstm(dev), phase_tacotron(dev, syn), phase_tacotron_chunks(dev, syn),
                *phase_wavernn(dev), phase_mel(dev)]
     lap("inference kernels")
@@ -4652,6 +4986,12 @@ def main() -> int:
             by_path.setdefault(name, {})[path] = n
     # the preprocessing passes: K6 once an utterance in the audio pass, K3
     # three times an utterance in the embedding pass
+    # the browser toolbox's requests: two loads, two syntheses, an autotune
+    # and a stream
+    for name, n in toolbox["counts"].items():
+        by_path.setdefault(name, {})[
+            f"toolbox (2 /api/load, 2 /api/synthesize, /api/autotune of {TOOLBOX_SEEDS} seeds, "
+            f"/api/stream)"] = n
     by_path.setdefault("mel_project", {"clone (5 requests)": counts.get("mel_project", 0)})
     for name, label in (("mel_project", "synthesizer audio pass"), ("lstm_seq", "embedding pass")):
         by_path[name][f"{label} ({pre['n']} utterances kept, 1 thread)"] = pre["counts"][name]

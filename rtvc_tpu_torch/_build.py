@@ -8,10 +8,12 @@ the library's file name triggers a rebuild when any source changes. A file
 with a C interface builds in seconds, where an extension that includes
 PyTorch's headers takes minutes.
 
-The same module builds the host's audio codec shim
-(``native/src/audio_codec.c``, over the system FFmpeg libraries) with
-``gcc`` into the same directory, also under a source hash
-(:func:`build_audio_codec`).
+The same module builds two host libraries into the same directory, each
+under a source hash: the audio codec shim (``native/src/audio_codec.c``,
+over the system FFmpeg libraries) with ``gcc``
+(:func:`build_audio_codec`), and the native WaveRNN engine
+(``native/src/wavernn_engine.cpp``, the vocoder's CPU backend) and its
+command line tool with ``g++`` (:func:`build_wavernn_engine`).
 
 Nothing here runs at import time: the CPU path of every wrapper never
 touches this module's build. Both builds and the launch counts are safe to
@@ -29,6 +31,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
@@ -254,6 +257,79 @@ def build_audio_codec() -> Path:
             os.replace(tmp, out)
         finally:
             tmp.unlink(missing_ok=True)
+    return out
+
+
+# The native WaveRNN engine (native/libwavernn.py): a host CPU engine in C++,
+# the vocoder's second backend, with the flags of rtvc_tpu/native/build.sh.
+ENGINE_SRC_DIR = _PKG / "native" / "src"
+ENGINE_SOURCES = ("wavernn_engine.cpp", "wavernn_engine.h", "vocoder_cli.cpp")
+ENGINE_FLAGS = ["-O3", "-march=native", "-ffast-math", "-std=c++17", "-fPIC", "-Wall"]
+# The library is compiled with ENGINE_FLAGS and linked without -ffast-math:
+# linked with it, g++ adds crtfastmath.o, whose constructor turns on
+# flush-to-zero and denormals-are-zero for the whole process that loads the
+# library, so every later float operation of that process would change.
+ENGINE_LINK_FLAGS = ["-shared", "-fPIC"]
+
+
+class WavernnEngine(NamedTuple):
+    library: Path  # librtvc_wavernn_<hash>.so, the ctypes surface
+    cli: Path  # rtvc_vocoder_<hash>, the standalone command line tool
+
+
+def wavernn_engine_paths() -> WavernnEngine:
+    h = hashlib.sha256(" ".join(ENGINE_FLAGS + ENGINE_LINK_FLAGS).encode())
+    for name in ENGINE_SOURCES:
+        h.update(name.encode())
+        h.update((ENGINE_SRC_DIR / name).read_bytes())
+    tag = h.hexdigest()[:16]
+    return WavernnEngine(BUILD_DIR / f"librtvc_wavernn_{tag}.so", BUILD_DIR / f"rtvc_vocoder_{tag}")
+
+
+def build_wavernn_engine() -> WavernnEngine:
+    """Compile ``native/src/wavernn_engine.cpp`` into a shared library (linked
+    without ``-ffast-math``: ``ENGINE_LINK_FLAGS``) and, with
+    ``vocoder_cli.cpp``, the ``rtvc_vocoder`` command, with ``g++`` into
+    ``build/`` under the sources' and flags' hash, unless both exist; returns
+    their paths. Runs under the kernels' build lock (``library`` and
+    ``build``) and an ``fcntl`` lock on a file in the build directory, so
+    that threads and processes asking at once build it once. Raises
+    RuntimeError with the compiler's output when a build fails. The
+    binaries are for the host that built them (``-march=native``)."""
+    out = wavernn_engine_paths()
+    if out.library.exists() and out.cli.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _lib_lock, open(BUILD_DIR / "wavernn_engine.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        cxx = os.environ.get("CXX", "g++")
+        engine = str(ENGINE_SRC_DIR / "wavernn_engine.cpp")
+        # the library's object and the command, compiled side by side; a
+        # file another process built while this one waited is not built again
+        jobs = [(path, _tmp_name(path), args) for path, args in (
+            (out.library, ["-c", engine]),
+            (out.cli, [engine, str(ENGINE_SRC_DIR / "vocoder_cli.cpp")]))
+            if not path.exists()]
+        linked = _tmp_name(out.library).with_suffix(".so.tmp")
+        try:
+            procs = [subprocess.Popen([cxx, *ENGINE_FLAGS, *args, "-o", str(tmp)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for _, tmp, args in jobs]
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+            for (path, tmp, _), p, log in zip(jobs, procs, logs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"building {path.name} failed ({p.returncode}):\n{log}")
+                if path == out.library:
+                    link = subprocess.run([cxx, *ENGINE_LINK_FLAGS, str(tmp), "-o", str(linked)],
+                                          capture_output=True, text=True, timeout=600)
+                    if link.returncode != 0:
+                        raise RuntimeError(f"linking {path.name} failed ({link.returncode}):\n"
+                                           f"{link.stdout}{link.stderr}")
+                    tmp = linked
+                os.replace(tmp, path)
+        finally:
+            for f in (*(tmp for _, tmp, _ in jobs), linked):
+                f.unlink(missing_ok=True)
     return out
 
 

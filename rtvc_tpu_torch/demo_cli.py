@@ -22,8 +22,9 @@ types (Tacotron, ForwardTacotron, FastPitch: the file names it). With none
 of the three present it runs on random weights (small synthesizer and
 vocoder); with only some present it names the missing ones and exits
 with 1. The models run on the card, or on
-the CPU with ``--cpu``. Audio is always written to disk. Not ported: the
-libwavernn backend.
+the CPU with ``--cpu``. ``--voc_backend libwavernn`` loads ``-v`` as an
+RTVCNAT1 file into the native engine (``native/libwavernn.py``; no
+``--stream`` there). Audio is always written to disk.
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ def config_test(args):
         encoder.load_model(args.enc_model_fpath, device=device)
         synth = synthesizer.Synthesizer(args.syn_model_fpath, device=device)
         synth.load()
-        vocoder.load_model(args.voc_model_fpath, device=device)
+        vocoder.load_model(args.voc_model_fpath, voc_type=args.voc_backend, device=device)
     elif len(missing) == 3:
         modelutils.model_files_missing(missing)
         print("Continuing with RANDOM weights for the self-test.\n")
@@ -183,6 +184,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         default=Path("saved_models/default/vocoder.ckpt"))
     parser.add_argument("--cpu", action="store_true",
                         help="Run the models on the CPU (the default is the card).")
+    parser.add_argument("--voc_backend", type=str, default="pytorch",
+                        choices=["pytorch", "libwavernn"],
+                        help="Vocoder backend: the port's WaveRNN ('pytorch', the reference's "
+                             "name) or the native engine (-v an RTVCNAT1 file).")
     parser.add_argument("--seed", type=int, default=None,
                         help="Optional random number seed for deterministic output.")
     parser.add_argument("--no_sound", action="store_true",

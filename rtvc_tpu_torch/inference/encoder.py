@@ -171,3 +171,31 @@ def embed_speaker(wavs: List[np.ndarray], **kwargs) -> np.ndarray:
     partials = [embed_utterance(w, **kwargs) for w in wavs]
     raw = np.mean(np.stack(partials), axis=0)
     return raw / np.linalg.norm(raw, 2)
+
+
+def plot_embedding_as_heatmap(embed, ax=None, title="", shape=None, color_range=(0, 0.30)):
+    """Draw an embedding as a heatmap on ``ax`` (the current axes by
+    default): rows of 16 values unless ``shape`` says otherwise, with a
+    colour bar clipped to ``color_range``. matplotlib is optional for the
+    port: where it does not import, this raises ImportError naming it."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError("plot_embedding_as_heatmap needs matplotlib, which does not "
+                          "import here") from e
+    import matplotlib.pyplot as plt
+    from matplotlib import cm
+
+    if ax is None:
+        ax = plt.gca()
+    if shape is None:
+        height = int(len(embed) / 16)
+        shape = (height, -1)
+    embed = np.asarray(embed).reshape(shape)
+    cmap = matplotlib.colormaps[matplotlib.rcParams["image.cmap"]]
+    mappable = ax.imshow(embed, cmap=cmap)
+    plt.colorbar(mappable, ax=ax, fraction=0.046, pad=0.04)
+    sm = cm.ScalarMappable(cmap=cmap)
+    sm.set_clim(*color_range)
+    ax.set_xticks([]), ax.set_yticks([])
+    ax.set_title(title)

@@ -14,8 +14,14 @@ scan have no counterpart here.
 ``load_model`` reads a checkpoint in any of the formats of
 ``train/checkpoints.py:read_model`` and rebuilds the variant at the widths
 its config names; ``warmup`` builds the kernels and takes the model's first
-pass through K1 before the first request. The native C++ engine is not
-ported yet.
+pass through K1 before the first request.
+
+The second backend is the native WaveRNN engine, a host CPU engine in C++
+(``native/libwavernn.py``): ``load_model(path, voc_type="libwavernn")``
+loads an RTVCNAT1 file (``native/convert.py``) into it, and
+``infer_waveform`` and ``set_seed`` then go to it, as in the JAX package.
+It runs only where a caller names it: it is never a substitute for K1 when
+there is no card or a launch fails. One backend is installed at a time.
 """
 from __future__ import annotations
 
@@ -32,7 +38,11 @@ from rtvc_tpu_torch.models.wavernn import wavernn_generate, wavernn_generate_bat
 from rtvc_tpu_torch.ops import precision
 from rtvc_tpu_torch.train.checkpoints import read_model
 
+VOC_TYPE_PYTORCH = "pytorch"  # the reference's name for this path: the port's WaveRNN and K1
+VOC_TYPE_CPP = "libwavernn"  # the native engine
+
 _bundle: Optional[factories.VocModel] = None
+_native = None  # a native.libwavernn.Vocoder while the engine is the vocoder
 _seed: int = 0
 _gen_counter: int = 0
 
@@ -88,25 +98,46 @@ def _default_window(cfg):
             cfg.gen_overlap if _default_overlap is None else _default_overlap)
 
 
-def load_model(weights_fpath, verbose: bool = True, device=None) -> None:
+def load_model(weights_fpath, voc_type: str = VOC_TYPE_PYTORCH, verbose: bool = True,
+               device=None, native_batch: int = 1) -> None:
     """Install the vocoder of a checkpoint, on the card unless ``device``
     names another; the variant comes from the file (fatchord when it names
-    none, as the reference does)."""
-    ckpt = read_model(weights_fpath, "vocoder")
-    load_bundle(factories.from_checkpoint(ckpt, "vocoder", device))
-    if verbose:
-        print("Loaded vocoder of model '%s' at path '%s'." % (_bundle.model_type, weights_fpath))
-        print("Model has been trained to step %d." % ckpt.step)
+    none, as the reference does). ``voc_type="libwavernn"`` loads an
+    RTVCNAT1 file into the native engine instead (``device`` does not
+    apply; ``native_batch`` > 1 decodes its fold chunks in lockstep, as the
+    JAX package's ``native_batch`` does)."""
+    global _native
+    if voc_type == VOC_TYPE_PYTORCH:
+        ckpt = read_model(weights_fpath, "vocoder")
+        load_bundle(factories.from_checkpoint(ckpt, "vocoder", device))
+        if verbose:
+            print("Loaded vocoder of model '%s' at path '%s'." % (_bundle.model_type,
+                                                                   weights_fpath))
+            print("Model has been trained to step %d." % ckpt.step)
+    elif voc_type == VOC_TYPE_CPP:
+        from rtvc_tpu_torch.native import libwavernn
+
+        engine = libwavernn.Vocoder(weights_fpath, "runtimeracer-wavernn", verbose,
+                                    batch=native_batch)
+        engine.load()
+        load_bundle(None)
+        _native = engine
+        if verbose:
+            print("Loaded vocoder of model '%s' at path '%s'." % (voc_type, weights_fpath))
+    else:
+        raise NotImplementedError(
+            "Invalid vocoder of type '%s' provided. Aborting..." % voc_type)
 
 
-def load_bundle(bundle: factories.VocModel) -> None:
-    """Install an in-memory vocoder (self-tests, benchmarks)."""
-    global _bundle
-    _bundle = bundle
+def load_bundle(bundle: Optional[factories.VocModel]) -> None:
+    """Install an in-memory vocoder (self-tests, benchmarks); it replaces
+    the native engine where that was loaded."""
+    global _bundle, _native
+    _bundle, _native = bundle, None
 
 
 def is_loaded() -> bool:
-    return _bundle is not None
+    return _bundle is not None or _native is not None
 
 
 def warmup(frame_buckets=(64,)) -> int:
@@ -115,7 +146,11 @@ def warmup(frame_buckets=(64,)) -> int:
     card; returns how many were vocoded. Each call takes a seed of the
     counter, as a request does, and the dtypes :func:`set_generation_options`
     set. One bucket is enough here: a kernel is built once for every shape,
-    and the first launch pays for loading it."""
+    and the first launch pays for loading it. The native engine has nothing
+    to warm: it raises there."""
+    if _native is not None:
+        raise RuntimeError("warmup warms K1 and the port's WaveRNN; the native engine "
+                           "needs none")
     if _bundle is None:
         raise Exception("Please load Wave-RNN in memory before using it")
     if _bundle.model.I.weight.is_cuda:
@@ -127,10 +162,13 @@ def warmup(frame_buckets=(64,)) -> int:
 
 
 def set_seed(seed: int) -> None:
-    """Deterministic generation: same seed → same audio."""
+    """Deterministic generation: same seed → same audio (the native
+    engine's workers are seeded too, ``seed + i`` each)."""
     global _seed, _gen_counter
     _seed = int(seed)
     _gen_counter = 0
+    if _native is not None:
+        _native.setRandomSeed(seed)
 
 
 def next_seed() -> int:
@@ -160,7 +198,12 @@ def infer_waveform(mel: np.ndarray, normalize: bool = True, batched: bool = True
                    target: Optional[int] = None, overlap: Optional[int] = None,
                    progress_callback=None, argmax: bool = False) -> np.ndarray:
     """Mel (synthesizer format, (80, T)) → float64 waveform of (T-1)·200
-    samples. ``argmax=True`` is the deterministic (greedy) test hook."""
+    samples. ``argmax=True`` is the deterministic (greedy) test hook. With
+    the native engine loaded it vocodes there, folded by the engine's worker
+    pool (``batched``, ``target`` and ``overlap`` do not apply)."""
+    if _native is not None:
+        return _native.vocode_mel(mel=mel, normalize=normalize,
+                                  progress_callback=progress_callback, argmax=argmax)
     cfg, target, overlap, seed, dtypes = _next_call(target, overlap)
     sp = _sig.sp
     if normalize:

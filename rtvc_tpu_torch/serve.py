@@ -10,8 +10,12 @@ Stdlib ``http.server`` over the port's inference modules:
     WAV (chunked transfer: a header of the largest data length, then PCM
     chunk by chunk as ``inference.streaming.stream_clone`` yields them)
 
-The browser toolbox (``GET /``, ``/api/*``, the toolbox's ``GET
-/api/stream`` among them) is not ported yet and answers 404.
+With ``ui=True`` (the default) the server also mounts the browser toolbox
+(``webui.py``): ``GET /`` (the page), ``GET /api/samples``, ``/api/mel``,
+``/api/projection`` and ``/api/stream``, and ``POST /api/load``,
+``/api/synthesize`` and ``/api/autotune``; ``--samples_dir`` names the
+audio directory its page lists (the repository's ``samples/`` by
+default), ``--no_ui`` serves the API alone.
 
 Start: ``python -m rtvc_tpu_torch.serve -e enc.ckpt -s syn.pt -v voc.pt``
 (any of the checkpoint formats ``train/checkpoints.py:read_model`` reads,
@@ -121,10 +125,11 @@ def voiced_prompt(seed: int = 0, seconds: float = 3.0, sr: int = 16000) -> np.nd
 
 def _models_device():
     """The device of the installed models (the vocoder's, else the
-    encoder's), or None before any is installed."""
+    encoder's: the native engine runs on the host), or None before any is
+    installed."""
     from rtvc_tpu_torch.inference import encoder, vocoder
 
-    if vocoder.is_loaded():
+    if vocoder._bundle is not None:
         return vocoder._bundle.model.I.weight.device
     return encoder._device() if encoder.is_loaded() else None
 
@@ -168,10 +173,11 @@ class ModelServer(ThreadingHTTPServer):
     models call: a new thread each request pays for it again (measured by
     ``profile_serve``)."""
 
-    def __init__(self, address, handler, synth, stream_kwargs=None):
+    def __init__(self, address, handler, synth, stream_kwargs=None, ui_state=None):
         super().__init__(address, handler)
         self.synth = synth
         self.stream_kwargs = dict(stream_kwargs or {})
+        self.ui_state = ui_state  # the browser toolbox's webui.UIState, or None
         self._models = ThreadPoolExecutor(max_workers=1, thread_name_prefix="models")
 
     def on_models(self, fn, *args):
@@ -200,15 +206,20 @@ class ModelServer(ThreadingHTTPServer):
 
 
 def create_server(host: str = "127.0.0.1", port: int = 0, synth=None,
-                  stream_kwargs=None) -> ModelServer:
+                  stream_kwargs=None, ui: bool = True, samples_dir=None) -> ModelServer:
     """A server over the models installed in the ``rtvc_tpu_torch.inference``
     encoder and vocoder modules and the synthesizer ``synth`` (a
     ``Synthesizer`` with its model). ``stream_kwargs`` go to every
-    ``/stream``'s ``stream_clone`` (chunk sizes and the like)."""
+    ``/stream``'s and ``/api/stream``'s ``stream_clone`` (chunk sizes and
+    the like). ``ui=True`` also mounts the browser toolbox (``webui.py``)
+    over the audio files of ``samples_dir`` (the repository's ``samples/``
+    when None)."""
+    from rtvc_tpu_torch import webui
     from rtvc_tpu_torch.config import sp
     from rtvc_tpu_torch.inference import vocoder
 
     sr = sp.sample_rate
+    ui_state = webui.UIState(samples_dir) if ui else None
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -234,18 +245,33 @@ def create_server(host: str = "127.0.0.1", port: int = 0, synth=None,
             self.end_headers()
             self.wfile.write(body)
 
+        def _read_body(self) -> bytes:
+            return self.rfile.read(int(self.headers.get("Content-Length", 0)))
+
         def _read_wav(self):
-            return _parse_wav(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+            return _parse_wav(self._read_body())
 
         def do_GET(self):  # noqa: N802
-            if urlparse(self.path).path != "/health":
-                return self.send_error(404)
-            dev = _models_device()
-            self._json({"status": "ok",
-                        "platform": None if dev is None else dev.type,
-                        "device": None if dev is None else str(dev),
-                        "synthesizer": synth is not None and synth.is_loaded(),
-                        "vocoder": vocoder.is_loaded()})
+            if urlparse(self.path).path == "/health":
+                dev = _models_device()
+                return self._json({"status": "ok",
+                                   "platform": None if dev is None else dev.type,
+                                   "device": None if dev is None else str(dev),
+                                   "synthesizer": synth is not None and synth.is_loaded(),
+                                   "vocoder": vocoder.is_loaded()})
+            try:
+                handled = ui_state is not None and webui.handle_get(
+                    self, ui_state, synth=synth, stream_kwargs=self.server.stream_kwargs)
+            except BrokenPipeError:
+                return
+            except Exception as e:  # before the headers: answer with the error as JSON
+                try:
+                    self._json({"error": repr(e)[:200]}, 500)
+                except OSError:
+                    pass
+                return
+            if not handled:
+                self.send_error(404)
 
         def do_POST(self):  # noqa: N802
             try:
@@ -258,11 +284,14 @@ def create_server(host: str = "127.0.0.1", port: int = 0, synth=None,
                     self._json({"error": "missing ?text="}, 400)
                 elif url.path == "/clone":
                     self._audio(self.server.on_models(_clone, synth, *self._read_wav(), text))
+                elif url.path == "/stream" and vocoder._bundle is None:
+                    self._json({"error": "streaming needs the port's WaveRNN vocoder (K1) "
+                                         "loaded; the native engine does not stream"}, 400)
                 elif url.path == "/stream":
                     gen = self.server.on_models(_open_stream, synth, *self._read_wav(), text,
                                                 self.server.stream_kwargs)
                     stream_chunked_wav(self, gen, self.server.on_models, sr)
-                else:
+                elif ui_state is None or not webui.handle_post(self, ui_state, synth):
                     self.send_error(404)
             except BrokenPipeError:
                 pass
@@ -272,7 +301,7 @@ def create_server(host: str = "127.0.0.1", port: int = 0, synth=None,
                 except OSError:
                     pass
 
-    return ModelServer((host, port), Handler, synth, stream_kwargs)
+    return ModelServer((host, port), Handler, synth, stream_kwargs, ui_state)
 
 
 def main(argv=None) -> None:
@@ -287,6 +316,11 @@ def main(argv=None) -> None:
     parser.add_argument("--port", type=int, default=8765)
     parser.add_argument("--cpu", action="store_true",
                         help="Run the models on the CPU (the default is the card).")
+    parser.add_argument("--samples_dir", type=Path, default=None,
+                        help="Audio dir the browser toolbox lists "
+                             "(default: the in-repo samples/).")
+    parser.add_argument("--no_ui", action="store_true",
+                        help="API only: don't serve the browser toolbox.")
     args = parser.parse_args(argv)
 
     from rtvc_tpu_torch.inference import encoder, synthesizer, vocoder
@@ -304,11 +338,13 @@ def main(argv=None) -> None:
     synth.load()
     vocoder.load_model(args.voc_model_fpath, device=device)
 
-    server = create_server(args.host, args.port, synth=synth)
+    server = create_server(args.host, args.port, synth=synth, ui=not args.no_ui,
+                           samples_dir=args.samples_dir)
     server.on_models(vocoder.warmup)
     server.warm_clone()
     print(f"Serving on http://{args.host}:{server.server_address[1]} "
-          f"(API: /health /embed /clone /stream)")
+          + ("(API: " if args.no_ui else "(browser toolbox at /, API: ")
+          + "/health /embed /clone /stream)")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -2,14 +2,17 @@
 none of ``jax``, ``flax``, ``msgpack`` and ``rtvc_tpu``, and the modules the
 port copied from the JAX package (config with the dataset registry, text,
 the three dataset modules, metrics, the duration extractor, the F0 tracker,
-the t-SNE projection, the VAD, log-MMSE, the mpg123 binding and the codec
-shim's C source) still say what their originals say: equal config fields and values, equal symbol sequences, equal
+the t-SNE projection, the VAD, log-MMSE, the mpg123 binding, the codec
+shim's C source, the WaveRNN engine's C++ sources, its RTVCNAT1 format
+helpers and ctypes binding, the TUI and the browser toolbox's page) still
+say what their originals say: equal config fields and values, equal symbol sequences, equal
 batches from one tiny on-disk dataset and seed (the non-autoregressive
 synthesizers' batches from a root the alignment pass wrote too), and the
 copied functions' sources equal their originals' but for the imports (their
 values on seeded inputs: ``test_torch_align.py``; the trainers' dashboard
 and argument printer: ``test_torch_dashboard.py``)."""
 import dataclasses
+import inspect
 import json
 import random
 import subprocess
@@ -54,13 +57,15 @@ for need in ("models.distribution", "ops.stft", "ops.mel_project", "ops.wavernn_
              "ops.precision", "utils.argutils", "utils.dashboard", "utils.genquality",
              "config.datasets", "ops.logmmse", "utils.mpeg", "utils.libav",
              "data.encoder_preprocess", "encoder_preprocess", "synthesizer_preprocess_audio",
-             "synthesizer_preprocess_embeds"):
+             "synthesizer_preprocess_embeds", "toolbox", "webui", "tui", "demo_toolbox",
+             "native.convert", "native.libwavernn", "vocoder_convert_model",
+             "vocoder_check_libwavernn"):
     assert "rtvc_tpu_torch." + need in names, need
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "rtvc_tpu", "flax", "msgpack"))
 print(len(names), "modules;", "foreign:", bad)
-sys.exit(1 if bad or len(names) < 55 else 0)
+sys.exit(1 if bad or len(names) < 63 else 0)
 """
 
 
@@ -164,7 +169,8 @@ def test_synthesizer_dataset_copy_yields_the_same_nar_batches(tmp_path):
     ("rtvc_tpu_torch/config/datasets.py", "rtvc_tpu/config/datasets.py"),
     ("rtvc_tpu_torch/ops/vad.py", "rtvc_tpu/ops/vad.py"),
     ("rtvc_tpu_torch/ops/logmmse.py", "rtvc_tpu/ops/logmmse.py"),
-    ("rtvc_tpu_torch/utils/mpeg.py", "rtvc_tpu/utils/mpeg.py")])
+    ("rtvc_tpu_torch/utils/mpeg.py", "rtvc_tpu/utils/mpeg.py"),
+    ("rtvc_tpu_torch/tui.py", "rtvc_tpu/tui.py")])
 def test_numpy_copies_equal_their_originals(copy, original):
     def body(path):  # the code after the docstring, the package's name taken out
         text = (REPO / path).read_text()
@@ -174,11 +180,66 @@ def test_numpy_copies_equal_their_originals(copy, original):
 
 
 @pytest.mark.parametrize("copy,original", [
-    ("rtvc_tpu_torch/native/src/audio_codec.c", "rtvc_tpu/native/src/audio_codec.c")])
+    ("rtvc_tpu_torch/native/src/audio_codec.c", "rtvc_tpu/native/src/audio_codec.c"),
+    ("rtvc_tpu_torch/native/src/wavernn_engine.cpp", "rtvc_tpu/native/src/wavernn_engine.cpp"),
+    ("rtvc_tpu_torch/native/src/wavernn_engine.h", "rtvc_tpu/native/src/wavernn_engine.h"),
+    ("rtvc_tpu_torch/native/src/vocoder_cli.cpp", "rtvc_tpu/native/src/vocoder_cli.cpp")])
 def test_native_copies_equal_their_originals(copy, original):
-    """The codec shim's C source, byte for byte but for the package's name."""
+    """The codec shim's and the WaveRNN engine's C and C++ sources, byte for
+    byte but for the package's name."""
     got = (REPO / copy).read_bytes().replace(b"rtvc_tpu_torch/", b"rtvc_tpu/")
     assert got == (REPO / original).read_bytes()
+
+
+@pytest.mark.parametrize("name", ["MAGIC", "VARIANT_IDS", "MODE_IDS", "_w", "write_vec",
+                                  "_weight_payload", "write_dense", "write_sparse",
+                                  "write_matrix", "fold_batchnorm"])
+def test_native_format_helpers_equal_their_originals(name):
+    """``native/convert.py``'s RTVCNAT1 format helpers: the original's
+    source for each function, the same value for each constant."""
+    from rtvc_tpu.native import convert as jconvert
+    from rtvc_tpu_torch.native import convert as tconvert
+
+    got, want = getattr(tconvert, name), getattr(jconvert, name)
+    if callable(want):
+        assert inspect.getsource(got) == inspect.getsource(want)
+    else:
+        assert got == want
+
+
+def _code_lines(path, drop_from="", drop_to=""):
+    """The code after the docstring without its import lines and blank
+    lines, and without the lines from the one that starts with
+    ``drop_from`` (stripped) through the one that starts with ``drop_to``."""
+    text = (REPO / path).read_text()
+    out, dropping = [], False
+    for line in text[text.index('"""', 3) + 3:].splitlines():
+        code = line.strip()
+        if drop_from and code.startswith(drop_from):
+            dropping = True
+        if not dropping and code and not code.startswith(("import ", "from ")):
+            out.append(line)
+        if dropping and code.startswith(drop_to):
+            dropping = False
+    return out
+
+
+def test_libwavernn_binding_equals_its_original():
+    """``native/libwavernn.py`` is the JAX package's binding but for the
+    imports, the ``jnp`` stand-in and the library's path: ``_load_lib``
+    builds the port's engine instead of reading ``build.sh``'s output."""
+    got = _code_lines("rtvc_tpu_torch/native/libwavernn.py", "class jnp:",
+                      "lib = ctypes.CDLL(str(path))")
+    want = _code_lines("rtvc_tpu/native/libwavernn.py", "_LIB_PATH =",
+                       "lib = ctypes.CDLL(str(path))")
+    assert got == want and len(want) > 200
+
+
+def test_toolbox_page_equals_the_jax_page():
+    from rtvc_tpu import webui as jwebui
+    from rtvc_tpu_torch import webui as twebui
+
+    assert twebui.PAGE == jwebui.PAGE and twebui.AUDIO_SUFFIXES == jwebui.AUDIO_SUFFIXES
 
 
 def test_vocoder_dataset_copy_yields_the_same_batches(tmp_path):

@@ -159,8 +159,12 @@ def test_server_errors(server):
     assert status == 500 and "error" in json.loads(body)
     status, ctype, body = _request(port, "POST", "/stream?text=hi", b"")
     assert status == 500 and ctype == "application/json" and "error" in json.loads(body)
-    assert _request(port, "GET", "/")[0] == 404
-    assert _request(port, "GET", "/api/stream?text=hi")[0] == 404
+    # the browser toolbox is mounted by default: its page, and its stream
+    # route refuses a request without a loaded utterance
+    assert _request(port, "GET", "/")[:2] == (200, "text/html; charset=utf-8")
+    status, ctype, body = _request(port, "GET", "/api/stream?text=hi")
+    assert status == 400 and json.loads(body) == {"error": "need ?text= and a loaded ?utt="}
+    assert _request(port, "GET", "/nothing")[0] == 404
     # the server keeps serving after an error
     assert _request(port, "GET", "/health")[0] == 200
 
