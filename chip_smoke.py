@@ -235,6 +235,32 @@
    trainers read. Each pass's ms an utterance on one and four threads beside
    its device time and the host's share.
 
+12. Multi-GPU and the dataset tools (``phase_dp``, ``phase_dp_nccl``,
+   ``phase_sharded_generation``, ``phase_scripts``, after the GTA phases).
+   Two processes on the one card over gloo (NCCL refuses two ranks on one
+   device; each is this script run as ``--dp-worker``) train GE2E (64 x 10
+   x 160 global), runtimeracer (40 x 1000 global, pruning from step 0) and
+   Tacotron (B 112 global, its first session) for 2 steps each on their
+   rows of the same global batches this process trains on alone: the ranks
+   end bitwise equal, only rank 0 writes a checkpoint, each rank's K3, K4
+   and K5 launches of its first step are held to their plain versions, and
+   each run is held to the one process's (GE2E within atol 1e-5, rtol
+   1e-4; Tacotron and runtimeracer within 2e-4 / 1e-3 but for Adam's sign
+   flips, at most two learning rates a step on at most 0.05 % of the
+   entries (``DP_SHARE``; ``dp_fault_control.py`` reads what a planted
+   fault gives), and, for runtimeracer, pruning groups swapped at a near-tie of their
+   norms: ``dp_against_one``); each rank's ms per step beside the one
+   process's, two processes sharing one card, not a multi-GPU speed. Then
+   one process in an NCCL group of one (``setup_from_args`` with
+   ``RTVC_NUM_PROCESSES=1``) takes the GE2E steps, equal to the run without
+   a group. K1 through ``parallel/generation.py:generate_sharded`` at the
+   clone's 13 folds x 8000 steps over ``[cuda:0]`` and ``[cuda:0, cuda:0]``,
+   greedy, against one launch (within 1e-6, or a near-tie), each launch
+   held to its plain version over 512 steps. ``scripts/ted_project``'s copy
+   on 2 speakers x 3 utterances (18 K3 launches held to their plain
+   versions, the embeddings against the CPU's; its plot raises the port's
+   ImportError where matplotlib is missing).
+
 K1's, K3's and K4's lines also give the times of the earlier kernels (one
 CTA per fold or batch row, the weights re-read from L2 every step) on the
 same card model, K3's its time as a share of its time before K4 and K1 came
@@ -2134,12 +2160,25 @@ SERVED_KERNELS = (("rtvc_tpu_torch.models.layers", "lstm_seq"),
                   ("rtvc_tpu_torch.models.wavernn", "wavernn_generate_core"))
 
 
+def _kept(a):
+    """A copy of a tensor argument, or of each tensor in a tuple (K5's
+    weights and residuals); anything else as it is."""
+    if hasattr(a, "clone"):
+        return a.clone()
+    if isinstance(a, tuple):
+        kept = [_kept(x) for x in a]
+        return type(a)(*kept) if hasattr(a, "_fields") else tuple(kept)
+    return a
+
+
 @contextlib.contextmanager
-def recorded_calls(targets=SERVED_KERNELS):
+def recorded_calls(targets=SERVED_KERNELS, limit=None):
     """Each call of the wrappers ``targets`` ((module, name) where a path
     looks them up) inside, by name: its arguments (copies of its tensor
-    arguments: a training step changes its weights in place) and what it
-    returned. The wrappers run as they are."""
+    arguments and of the tensors in its tuple arguments: a training step
+    changes its weights in place) and a copy of what it returned; with
+    ``limit`` only each wrapper's first ``limit`` calls. The wrappers run as
+    they are."""
     calls = {name: [] for _, name in targets}
     saved = []
     for module, name in targets:
@@ -2148,9 +2187,12 @@ def recorded_calls(targets=SERVED_KERNELS):
         saved.append((mod, name, fn))
 
         def record(*args, _fn=fn, _calls=calls[name], **kwargs):
-            kept = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+            if limit is not None and len(_calls) >= limit:
+                return _fn(*args, **kwargs)
+            kept = tuple(_kept(a) for a in args)
             out = _fn(*args, **kwargs)
-            _calls.append((kept, kwargs, out))
+            # a copy: autograd may sum later cotangents into a returned one
+            _calls.append((kept, kwargs, _kept(out)))
             return out
 
         setattr(mod, name, record)
@@ -3034,6 +3076,28 @@ K5_SHAPES = ((112, 86), (22, 602))
 K5_WIDTHS = dict(T=160, D=256, L=512, E=896, KS=31)
 
 
+def k5_weights(g, dev):
+    """The chain's weights at the full widths, from ``g``."""
+    import torch
+
+    from rtvc_tpu_torch.ops import tacotron_train as tk
+
+    D, L, E, KS = (K5_WIDTHS[k] for k in ("D", "L", "E", "KS"))
+
+    def u(*shape, fan):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * fan ** -0.5).to(dev)
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+
+    return tk.TrainWeights(
+        gwh=u(D, 3 * D, fan=D), gbh=u(3 * D, fan=D), wq=u(D, D, fan=D), bq=u(D, fan=D),
+        mloc=r(KS, D, s=0.1), vv=u(D, fan=D), wri=u(E + D, L, fan=E + D), bri=u(L, fan=E + D),
+        l1wi=u(L, 4 * L, fan=L), l1wh=u(L, 4 * L, fan=L), l1b=u(4 * L, fan=L),
+        l2wi=u(L, 4 * L, fan=L), l2wh=u(L, 4 * L, fan=L), l2b=u(4 * L, fan=L),
+        gwi_ctx=u(E, 3 * D, fan=E))
+
+
 def k5_case(g, dev, B, n):
     """Inputs and cotangents of the chain at the full widths, from ``g``."""
     import torch
@@ -3219,24 +3283,9 @@ def phase_taco_train_kernel(dev):
     plan of each at the first session."""
     import torch
 
-    from rtvc_tpu_torch.ops import tacotron_train as tk
-
-    T, D, L, E, KS = (K5_WIDTHS[k] for k in ("T", "D", "L", "E", "KS"))
     (B, n), last = K5_SHAPES
     g = torch.Generator().manual_seed(11)
-
-    def u(*shape, fan):
-        return ((torch.rand(*shape, generator=g) * 2 - 1) * fan ** -0.5).to(dev)
-
-    def r(*shape, s=1.0):
-        return (torch.randn(*shape, generator=g) * s).to(dev)
-
-    w = tk.TrainWeights(
-        gwh=u(D, 3 * D, fan=D), gbh=u(3 * D, fan=D), wq=u(D, D, fan=D), bq=u(D, fan=D),
-        mloc=r(KS, D, s=0.1), vv=u(D, fan=D), wri=u(E + D, L, fan=E + D), bri=u(L, fan=E + D),
-        l1wi=u(L, 4 * L, fan=L), l1wh=u(L, 4 * L, fan=L), l1b=u(4 * L, fan=L),
-        l2wi=u(L, 4 * L, fan=L), l2wh=u(L, 4 * L, fan=L), l2b=u(4 * L, fan=L),
-        gwi_ctx=u(E, 3 * D, fan=E))
+    w = k5_weights(g, dev)
     x, cots = k5_case(g, dev, B, n)
     fwd_first, p_res = k5_fwd_cell(dev, w, x, candidates=True)
     bwd_first = k5_bwd_cell(dev, w, x, cots, p_res, candidates=True)
@@ -4842,6 +4891,576 @@ def phase_gta_train(dev, card, gta, work):
     return counts, cells
 
 
+# ---------------------------------------------------------------------------
+# Multi-GPU: data-parallel training, the NCCL path, sharded generation, and
+# the dataset tools
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 2
+DP_STAGES = ("ge2e", "runtimeracer", "tacotron")
+# (atol, rtol) of a two-process run against one process on the same global
+# batches, as the JAX package's DP tests hold theirs
+DP_TOL = {"ge2e": (1e-5, 1e-4), "runtimeracer": (2e-4, 1e-3), "tacotron": (2e-4, 1e-3)}
+# the share of Tacotron's and runtimeracer's entries that may part from one
+# process beyond DP_TOL (Adam's sign flips): an H100 read 0.0019 % and 0.0091 %
+DP_SHARE = 5e-4
+# the runtimeracer runs prune from step 0, so that both steps prune
+DP_PRUNE = dict(use_sparsification=True, start_prune=0, prune_steps=4)
+DP_TIMEOUT = 420
+K5_TRAIN_KERNELS = (("rtvc_tpu_torch.ops.tacotron_train", "taco_train_fwd"),
+                    ("rtvc_tpu_torch.ops.tacotron_train", "taco_train_bwd"))
+SCRIPT_UTTS = 3  # utterances a speaker of the ted_project tree, 2 speakers
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def k5_train_checks(calls, where):
+    """Every K5 launch of a training step (``recorded_calls`` of
+    ``K5_TRAIN_KERNELS``) again on the inputs it was given, against its
+    plain version: every output within 1e-4 of its largest entry, as
+    ``gta_kernel_checks`` and ``k5_bwd_cell`` hold them. Returns a line."""
+    import torch
+
+    from rtvc_tpu_torch.ops import rel_err
+    from rtvc_tpu_torch.ops import tacotron_train as tk
+
+    parts = []
+    with torch.no_grad():
+        for name, plain in (("taco_train_fwd", tk.taco_train_fwd_plain),
+                            ("taco_train_bwd", tk.taco_train_bwd_plain)):
+            worst, shapes = 0.0, set()
+            for args, _, got in calls[name]:
+                want = plain(*args)
+                if name == "taco_train_fwd":
+                    got, want = (got[0], *got[1]), (want[0], *want[1])
+                n, B, _ = args[1 if name == "taco_train_fwd" else 7].shape
+                err = max(rel_err(a, b) for a, b in zip(got, want))
+                check(err <= 1e-4, f"{name} at {where}'s B {B} x {n} iterations: rel err "
+                      f"{err} from its plain version")
+                worst = max(worst, err)
+                shapes.add(f"B {B} x {n}")
+            parts.append(f"{name} ({len(calls[name])}: {', '.join(sorted(shapes))}) rel "
+                         f"{worst:.3e}")
+    return "; ".join(parts)
+
+
+def dp_stage(stage, dev, runs_dir, rank=0, world=1, dp=None):
+    """One trainer at full width for ``DP_STEPS`` steps on seeded global
+    batches, through its entry function, on rank ``rank``'s rows of each
+    (every row in one process): GE2E on 64 x 10 x 160 partials, runtimeracer
+    on its schedule's batch of 40 x 1000 with pruning from step 0, Tacotron
+    in its first session (B 112, r 7, 602 frames, 160 characters)."""
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.train.trainer import train_encoder, train_synthesizer, train_vocoder
+
+    def mine(x):  # this rank's rows of a global batch
+        n = x.shape[0] // world
+        return x[rank * n:(rank + 1) * n]
+
+    if stage == "ge2e":
+        return train_encoder("encoder", (mine(b) for b in ge2e_partials(21, DP_STEPS)),
+                             runs_dir, total_steps=DP_STEPS, dp=dp, **ge2e_kw(dev, DP_STEPS))
+    if stage == "runtimeracer":
+        model_type = factories.MODEL_TYPE_RUNTIMERACER
+        epochs = vocoder_epochs(model_type, DP_STEPS)
+        return train_vocoder(
+            "vocoder", model_type, runs_dir,
+            lambda s: [{k: mine(v) for k, v in b.items()} for b in epochs(s)],
+            max_steps=DP_STEPS, save_every=0, device=dev, seed=0, dp=dp,
+            override_hp=factories.default_config(model_type).replace(**DP_PRUNE))
+    epochs = tacotron_epochs()
+    return train_synthesizer(
+        "synthesizer", factories.MODEL_TYPE_TACOTRON, runs_dir,
+        lambda s, r: [{k: mine(v) for k, v in b.items()} for b in epochs(s, r)],
+        max_steps=DP_STEPS, save_every=0, device=dev, seed=0, dp=dp)
+
+
+def pruned_share(model_type, state):
+    """The share of zeros among the weights pruning acts on."""
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.train.pruning import prunable_weights
+
+    dims = factories.wavernn_dims(model_type, factories.default_config(model_type))
+    names = [n for n, _ in prunable_weights(dims)]
+    return sum(int((state[n] == 0).sum()) for n in names) / sum(state[n].numel()
+                                                                for n in names)
+
+
+def prune_swaps(got, want):
+    """The prunable matrices' groups that one of two runtimeracer states
+    pruned and the other kept, by matrix: a mask of their weights and their
+    number. Each run must prune as many groups of a gate section as the
+    other, and a group kept in one run but pruned in the other must be at
+    its section's threshold there (its L1 norm within 1e-3 of the smallest
+    kept group's): two groups swapped at a near-tie of their norms."""
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.train.pruning import prunable_weights
+
+    model_type = factories.MODEL_TYPE_RUNTIMERACER
+    cfg = factories.default_config(model_type)
+    out = {}
+    for name, splits in prunable_weights(factories.wavernn_dims(model_type, cfg)):
+        a, b = got[name].cpu(), want[name].cpu()
+        rows, cols = a.shape
+        group = cfg.sparse_group if cols % cfg.sparse_group == 0 else 1
+        shape = (splits, rows // splits, cols // group, group)
+        ga, gb = a.abs().reshape(shape), b.abs().reshape(shape)
+        za, zb = (ga == 0).all(-1), (gb == 0).all(-1)
+        swapped = za ^ zb
+        if not bool(swapped.any()):
+            continue
+        for sec in range(splits):
+            check(int(za[sec].sum()) == int(zb[sec].sum()),
+                  f"{name} section {sec}: {int(za[sec].sum())} groups pruned under DP, "
+                  f"{int(zb[sec].sum())} in one process")
+            for norms, zero, other in ((ga[sec].sum(-1), za[sec], zb[sec]),
+                                       (gb[sec].sum(-1), zb[sec], za[sec])):
+                kept = ~zero & other
+                if bool(kept.any()):
+                    floor = float(norms[~zero].min())
+                    check(float(norms[kept].max()) <= floor * (1 + 1e-3),
+                          f"{name} section {sec}: a group kept in one run and pruned in the "
+                          f"other has the norm {float(norms[kept].max())}, the section's "
+                          f"threshold {floor}")
+        mask = swapped[..., None].expand(shape).reshape(rows, cols)
+        out[name] = (mask, int(swapped.sum()) // 2)
+    return out
+
+
+def dp_against_one(stage, got, one):
+    """A DP run's final state ``got`` against the one-process run ``one``
+    on the same global batches. GE2E: every entry within ``DP_TOL``.
+    Tacotron and runtimeracer: their Adam updates are ±lr wherever a
+    gradient is well above Adam's ε, and a gradient that is a difference of
+    near-equal sums (the convolutions ahead of a BatchNorm) can change sign
+    with the order of summation (the one-step parity tests hold such
+    updates to lr, ``test_torch_taco_train.py``): an entry may part from one
+    process beyond ``DP_TOL`` by at most two learning rates a step, for at
+    most ``DP_SHARE`` of the entries; runtimeracer's pruning may swap two
+    groups at a near-tie (``prune_swaps``). Returns a line."""
+    from rtvc_tpu_torch.models import factories
+
+    atol, rtol = DP_TOL[stage]
+    want = {k: v.detach().cpu() for k, v in one["model"].state_dict().items()}
+    if stage == "runtimeracer":
+        lr_sum = DP_STEPS * factories.default_config(
+            factories.MODEL_TYPE_RUNTIMERACER).voc_tts_schedule[0][1]
+    else:
+        lr_sum = sum(one.get("lrs", ()))
+    flip = 2.02 * lr_sum
+    swaps = prune_swaps(got, want) if stage == "runtimeracer" else {}
+    beyond, total, worst, where = 0, 0, 0.0, ""
+    for name, v in want.items():
+        diff = (got[name] - v).abs()
+        out = diff > atol + rtol * v.abs()
+        if name in swaps:
+            out &= ~swaps[name][0]
+        total += v.numel()
+        n = int(out.sum())
+        if n:
+            check(stage != "ge2e", f"ge2e under DP: {name} is {float(diff[out].max())} from the "
+                  f"one process's (atol {atol}, rtol {rtol})")
+            check(float(diff[out].max()) <= flip, f"{stage} under DP: {name} is "
+                  f"{float(diff[out].max())} from the one process's, beyond Adam's sign flips "
+                  f"({flip})")
+            beyond += n
+        if name not in swaps and float(diff.max()) >= worst:
+            worst, where = float(diff.max()), name
+    check(beyond <= DP_SHARE * total, f"{stage} under DP: {beyond} of {total} entries beyond "
+          f"atol {atol}, rtol {rtol} from one process (at most {DP_SHARE * total:.0f})")
+    return (f"largest difference {worst:.3e} ({where}); {beyond} of {total} entries beyond atol "
+            f"{atol}, rtol {rtol}" + (f", each within two learning rates a step ({flip:.2e})"
+                                      if beyond else "")
+            + (f"; pruning groups swapped at a near-tie: "
+               f"{ {k: n for k, (_, n) in swaps.items()} }" if swaps else ""))
+
+
+def dp_worker(argv):
+    """One rank of ``phase_dp`` (``chip_smoke.py --dp-worker <rank> <world>
+    <port> <dir> <device>``): joins the group over gloo on the one card, runs each
+    ``dp_stage`` on its rows, holds the K3, K4 and K5 launches of its first
+    step to their plain versions, and writes its final state, step times,
+    losses and launch counts to ``<dir>/<stage>_<rank>.pt``."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.parallel import distributed
+
+    rank, world, port, out = int(argv[0]), int(argv[1]), int(argv[2]), Path(argv[3])
+    dev = torch.device(argv[4])
+    # NCCL refuses two ranks on one card: these two meet over gloo
+    group = distributed.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                                   device=dev)
+    if dev.type == "cuda":
+        _build.library()
+    try:
+        for stage in DP_STAGES:
+            _build.launch_counts.clear()
+            with recorded_calls(TRAIN_KERNELS + K5_TRAIN_KERNELS, limit=4) as calls:
+                res = dp_stage(stage, dev, out / f"rank{rank}", rank, world, group)
+            counts = dict(_build.launch_counts)
+            where = f"rank {rank}'s {stage} step under DP"
+            line = train_kernel_checks(calls, where)
+            if calls["taco_train_fwd"]:
+                line += "; " + k5_train_checks(calls, where)
+            torch.save({"state": {k: v.detach().cpu() for k, v in
+                                  res["model"].state_dict().items()},
+                        "step_ms": res["step_ms"], "losses": res["losses"], "counts": counts,
+                        "held": line}, out / f"{stage}_{rank}.pt")
+            print(f"rank {rank} {stage}: launches {counts}; first step's launches held to "
+                  f"their plain versions: {line}", flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_dp(dev, card, work):
+    """Data-parallel training (``parallel/distributed.py``) in two processes
+    sharing the one card over gloo (NCCL refuses two ranks on one device):
+    ``train_encoder`` (64 x 10 x 160 global, 32 speakers a rank: the GE2E
+    loss over the all-gathered embeddings), ``train_vocoder`` runtimeracer
+    (its global batch of 40, 20 a rank, pruning from step 0) and
+    ``train_synthesizer`` Tacotron (B 112 global, 56 a rank, its first
+    session), ``DP_STEPS`` steps each, beside the same trainers in this
+    process on the same global batches. The ranks end bitwise equal, equal
+    to the one process within ``DP_TOL``; only rank 0 writes a checkpoint;
+    each rank's K3, K4 and K5 launches of its first step are held to their
+    plain versions (``train_kernel_checks``, ``k5_train_checks``). Step times
+    are those of two processes sharing one card, not a multi-GPU speed.
+    Returns the one-process runs and the ranks' launches by path."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.models import factories
+
+    single = {}
+    for stage in DP_STAGES:
+        _build.launch_counts.clear()
+        single[stage] = dp_stage(stage, dev, work / "single")
+        single[stage]["counts"] = dict(_build.launch_counts)
+    out = work / "dp"
+    out.mkdir(parents=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the card's memory is the two ranks' now
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-worker",
+                               str(rank), "2", str(port), str(out), str(dev)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for rank in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_TIMEOUT)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        for line in log.splitlines():
+            if line.startswith("rank "):
+                print(line)
+        check(p.returncode == 0, f"DP rank {rank} exited {p.returncode}:\n{log[-4000:]}")
+    print(f"{card}: two processes on one card over gloo ran the three trainers in {wall:.1f} s "
+          "of wall time, their start-up included")
+    by_path = {}
+    for stage in DP_STAGES:
+        ranks = [torch.load(out / f"{stage}_{r}.pt", weights_only=False) for r in (0, 1)]
+        state0, state1 = ranks[0]["state"], ranks[1]["state"]
+        for name in state0:
+            check(torch.equal(state0[name], state1[name]),
+                  f"{stage} under DP: {name} differs between the ranks")
+        check(ranks[0]["losses"] == ranks[1]["losses"],
+              f"{stage} under DP: the ranks' losses differ: {[r['losses'] for r in ranks]}")
+        np.testing.assert_allclose(ranks[0]["losses"], single[stage]["losses"], rtol=1e-4,
+                                   err_msg=f"{stage} under DP: losses")
+        line = dp_against_one(stage, state0, single[stage])
+        share = ""
+        if stage == "runtimeracer":
+            want = single[stage]["model"].state_dict()
+            got = pruned_share(factories.MODEL_TYPE_RUNTIMERACER, state0)
+            one = pruned_share(factories.MODEL_TYPE_RUNTIMERACER, want)
+            check(got == one and got > 0.1, f"runtimeracer under DP pruned {got} of its "
+                  f"prunable weights, one process {one}")
+            share = f", pruned share {got:.4f} on both ranks and in one process"
+        print(f"{stage} under DP: ranks bitwise equal; against one process: {line}{share}; "
+              f"losses {[round(v, 5) for v in ranks[0]['losses']]}, one process "
+              f"{[round(v, 5) for v in single[stage]['losses']]}")
+        print(f"{card}: {stage} ms per step, two processes sharing one card (not a multi-GPU "
+              f"speed): rank 0 {[round(m, 1) for m in ranks[0]['step_ms']]}, rank 1 "
+              f"{[round(m, 1) for m in ranks[1]['step_ms']]}; one process on the card "
+              f"{[round(m, 1) for m in single[stage]['step_ms']]}")
+        for r, res in enumerate(ranks):
+            for name, n in res["counts"].items():
+                by_path.setdefault(name, {})[
+                    f"{stage} training under DP, rank {r} ({DP_STEPS} steps, 2 processes on one "
+                    f"card)"] = n
+    check((work / "dp" / "rank0" / "encoder" / "encoder.pt").exists()
+          and not (work / "dp" / "rank1" / "encoder" / "encoder.pt").exists(),
+          "the DP encoder run's checkpoint must be rank 0's alone")
+    for name in ("lstm_seq", "lstm_seq_bwd", "gru_seq", "gru_seq_bwd", "tacotron_train_fwd",
+                 "tacotron_train_bwd"):
+        check(any(n > 0 for n in by_path.get(name, {}).values()),
+              f"{name} was launched no time under DP")
+    return {"single": single, "by_path": by_path, "cells": dp_kernel_cells(dev, card)}
+
+
+def dp_kernel_cells(dev, card):
+    """K3, K4 and K5 alone at a DP rank's shapes, the card to themselves:
+    K3 at GE2E's 32 speakers (B 320 x 160 x 768, ``k3_train_cell``), K4 at
+    runtimeracer's 20 rows (B 20 x 1000 x 256) and the Tacotron CBHG's 56
+    (B 56 x 602 x 64, ``gru_shape``), K5 both ways at B 56 x 86
+    (``k5_fwd_cell``, ``k5_bwd_cell``): each against its plain version,
+    timed beside its bound, its plain version and cuDNN where there is one.
+    Returns the cells by kernel name."""
+    import torch
+
+    path = "a DP rank of 2"
+    cells = {}
+    for c in k3_train_cell(dev, card, 320, T=160, H=768, I=768, path=f"GE2E training, {path}"):
+        name = "lstm_seq" if c.pop("with_residuals", False) else "lstm_seq_bwd"
+        cells.setdefault(name, []).append(c)
+    for B, T, H, label in ((20, 1000, 256, "runtimeracer"), (56, 602, 64, "tacotron CBHG")):
+        for c in gru_shape(dev, B, T, H):
+            name = c.pop("name")
+            del c["source"], c["replaces"]
+            cells.setdefault(name, []).append({"B": B, "T": T, "H": H, **c,
+                                               "path": f"{label} training, {path}"})
+    g = torch.Generator().manual_seed(56)
+    w = k5_weights(g, dev)
+    x, cots = k5_case(g, dev, 56, 86)
+    fwd, p_res = k5_fwd_cell(dev, w, x)
+    bwd = k5_bwd_cell(dev, w, x, cots, p_res)
+    for name, c in (("tacotron_train_fwd", fwd), ("tacotron_train_bwd", bwd)):
+        cells.setdefault(name, []).append({"B": 56, "n_iters": 86, **c, "library_ms": None,
+                                           "path": f"tacotron training, {path}"})
+    return cells
+
+
+def phase_dp_nccl(dev, work, want):
+    """The NCCL path: one process joins a group of one through
+    ``setup_from_args`` with ``RTVC_NUM_PROCESSES=1`` (NCCL, since its device
+    is the card) and takes ``DP_STEPS`` GE2E steps, so the NCCL group, its
+    all-reduce and its all-gather run on the card; the result equals
+    ``want`` (the one-process run of ``phase_dp``) within ``DP_TOL``.
+    Returns the launches."""
+    import argparse
+    import os
+
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.parallel import distributed
+
+    env = {distributed.COORD_ENV: f"127.0.0.1:{free_port()}", distributed.NPROC_ENV: "1",
+           distributed.PID_ENV: "0"}
+    os.environ.update(env)
+    try:
+        args = argparse.Namespace(coordinator=None, num_processes=None, process_id=None,
+                                  device="cuda")
+        group = distributed.setup_from_args(args)
+        check(group is not None and torch.distributed.get_backend(group) == "nccl",
+              "setup_from_args did not make an NCCL group on the card")
+        rank_dev = distributed.process_device(args.device)
+        check(rank_dev == dev, f"rank 0's device is {rank_dev}")
+        _build.launch_counts.clear()
+        res = dp_stage("ge2e", rank_dev, work / "nccl", dp=group)
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for name in env:
+            os.environ.pop(name, None)
+    atol, rtol = DP_TOL["ge2e"]
+    got, one = res["model"].state_dict(), want["model"].state_dict()
+    worst = max(float((got[k] - v).abs().max()) for k, v in one.items())
+    for k, v in one.items():
+        check(bool(((got[k] - v).abs() <= atol + rtol * v.abs()).all()),
+              f"GE2E over NCCL: {k} differs from the one-process run")
+    bitwise = all(torch.equal(got[k], v) for k, v in one.items())
+    print(f"GE2E over an NCCL group of one ({DP_STEPS} steps): launches {counts}; largest "
+          f"difference from the run without a group {worst:.3e} ("
+          + ("bit for bit" if bitwise else f"atol {atol}, rtol {rtol}") + "); losses "
+          f"{[round(v, 5) for v in res['losses']]}, ms per step "
+          f"{[round(m, 1) for m in res['step_ms']]}")
+    return counts
+
+
+def phase_sharded_generation(dev, card, voc):
+    """K1 through ``parallel/generation.py:generate_sharded`` at the clone's
+    13 folds x 8000 steps (a 400-frame mel in its 448-frame bucket,
+    runtimeracer f32, its 6000 / 1000 window, greedy) over ``[cuda:0]`` (one
+    launch of 13 folds) and ``[cuda:0, cuda:0]`` (two launches of 7, one
+    after the other on the card's stream), each against one launch of
+    ``generate_core`` over the 13 folds: samples within 1e-6, or each fold
+    that parts does so at a near-tie of its two top classes, printed. Each
+    sharded launch is also held to its plain version over its first 512
+    steps (``k1_check``). Returns the launches by path and the cells."""
+    import torch
+    import torch.nn.functional as F
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.models import wavernn as wrn
+    from rtvc_tpu_torch.ops.wavernn_generate import wavernn_generate_core
+    from rtvc_tpu_torch.parallel.generation import generate_sharded
+
+    d, model = voc.dims, voc.model
+    target, overlap = voc.config.gen_target, voc.config.gen_overlap
+    kw = dict(variant=d.variant, head=d.head)
+    rng = np.random.default_rng(17)
+    mel = wrn.bucket_pad(torch.as_tensor(rng.uniform(0, 1, (1, d.feat_dims, CLONE_FRAMES)),
+                                         dtype=torch.float32, device=dev))
+    with torch.no_grad():
+        mels_up, aux, _ = wrn.upsample_forward(model, d, F.pad(mel, (d.pad, d.pad)))
+        mu_f, n_folds = wrn.fold_with_overlap(mels_up, target, overlap)
+        aux_f, _ = wrn.fold_with_overlap(aux, target, overlap)
+        w = wrn.step_weights(model, d)
+        streams = {k: v.contiguous() for k, v in wrn.hoist_aux(model, d, mu_f, aux_f).items()}
+        ref, ref_logits = wavernn_generate_core(w, streams, 0, argmax=True, return_logits=True,
+                                                **kw)
+        ref_wave = wrn.xfade_and_unfold(ref, target, overlap)
+        one_ms = cuda_ms(lambda: wavernn_generate_core(w, streams, 0, argmax=True, **kw), reps=2)
+    T = mu_f.shape[1]
+    check(n_folds == 13 and T == target + 2 * overlap, f"the clone's mel gave {n_folds} folds of "
+          f"{T} steps")
+    by_path, cells = {}, []
+    for n_dev in (1, 2):
+        devices = [dev] * n_dev
+        label = f"generate_sharded over [{', '.join([str(dev)] * n_dev)}]"
+        _build.launch_counts.clear()
+        with recorded_calls((("rtvc_tpu_torch.models.wavernn", "wavernn_generate_core"),)) \
+                as calls:
+            got = generate_sharded(model, d, mel, 0, devices, target, overlap, argmax=True)
+            torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        launches = counts.get("wavernn_generate_runtimeracer", 0)
+        check(launches == n_dev, f"{label}: {launches} K1 launches, want {n_dev}")
+        by_path[f"{label} (the clone's 13 folds)"] = launches
+        shards = [c[2] for c in calls["wavernn_generate_core"]]
+        per = shards[0].shape[0]
+        check(per == -(-n_folds // n_dev), f"{label}: shards of {per} folds")
+        folded = torch.cat(shards)[:n_folds]
+        diff = float((got - ref_wave).abs().max())
+        ties = []
+        if diff > 1e-6:
+            C = d.n_classes
+            labels = [torch.round((x + 1) * (C - 1) / 2) for x in (folded, ref)]
+            for b in range(n_folds):
+                idx = torch.nonzero(labels[0][b] != labels[1][b])
+                if not len(idx):
+                    continue
+                t = int(idx[0])
+                (sw, ss, seed, *_), _, _ = calls["wavernn_generate_core"][b // per]
+                with torch.no_grad():
+                    _, s_logits = wavernn_generate_core(sw, ss, seed, argmax=True,
+                                                        return_logits=True, **kw)
+                noise = float((s_logits[b % per, t] - ref_logits[b, t]).abs().max())
+                top2 = torch.topk(ref_logits[b, t], 2).values
+                gap = float(top2[0] - top2[1])
+                check(gap <= 2 * noise, f"{label}: fold {b} parts from one launch at step {t} "
+                      f"with a top-2 gap of {gap}, above twice the head input difference {noise}")
+                ties.append(f"fold {b} at step {t} (gap {gap:.2e}, head inputs {noise:.2e} apart)")
+            check(ties, f"{label}: samples {diff} from one launch's with equal labels")
+        held = []
+        for (sw, ss, *_), _, _ in calls["wavernn_generate_core"]:
+            short = {k: v[:, :512].contiguous() for k, v in ss.items()}
+            _, e_head, e_samples, _, flips = k1_check(d, sw, short)
+            held.append(f"head {e_head:.2e}, samples {e_samples:.2e}, {flips} near-ties")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: generate_sharded(model, d, mel, 0, devices, target, overlap,
+                                                  argmax=True), reps=2)
+        (sw, ss, *_), _, out = calls["wavernn_generate_core"][0]
+        cells.append({"path": label, "folds": per, "steps": T, "launches": n_dev, "ms": ms,
+                      "one_launch_ms": one_ms, "max_abs_err_vs_one_launch": diff,
+                      **k1_bound(sw, ss, out)})
+        print(f"{card}: K1 through {label}: {n_dev} launch(es) of {per} folds x {T} steps, "
+              f"samples {diff:.3e} from one launch of {n_folds} folds"
+              + (f" (parted at near-ties: {'; '.join(ties)})" if ties else " (tol 1e-6)")
+              + f"; {ms:.3f} ms for the whole call against one launch's {one_ms:.3f} ms; each "
+              f"launch held to its plain version over 512 steps: {' | '.join(held)}")
+    return {"by_path": by_path, "cells": cells}
+
+
+def phase_scripts(dev, card, work):
+    """The dataset tools' counterparts (``rtvc_tpu_torch/scripts``):
+    ``ted_project`` on a synthetic tree of 2 speakers x 3 utterances of 3-5 s
+    with the encoder's random weights on the card (K3 three times an
+    utterance, every launch held to its plain version by
+    ``held_kernel_launches``; the embeddings within 1e-4 of the same encoder's
+    on the CPU), then ``project_2d`` (finite points) and the plot, which
+    raises the port's ImportError naming matplotlib where it does not
+    import and writes the PNG where it does. Returns the launches."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.inference import encoder as enc
+    from rtvc_tpu_torch.scripts import ted_project
+    from rtvc_tpu_torch.utils import plots
+    from rtvc_tpu_torch.utils.io import save_wav_float
+    from rtvc_tpu_torch.utils.projection import project_2d
+
+    rng = np.random.default_rng(51)
+    root = work / "speakers"
+    for s, f0 in enumerate((120.0, 210.0)):
+        for u in range(SCRIPT_UTTS):
+            path = root / f"spk{s}" / f"utt{u}.wav"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            save_wav_float(smoke_voice(3.0 + u, 16000, f0 * (1 + 0.05 * u), rng), path, 16000)
+    saved = (enc._model, enc._model_cfg, enc._data)
+    try:
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        with recorded_calls((("rtvc_tpu_torch.models.layers", "lstm_seq"),)) as calls:
+            embeds, speakers = ted_project.embed_speakers(root, device=dev)
+            torch.cuda.synchronize()
+        embed_s = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+        n = 2 * SCRIPT_UTTS
+        layers = enc._model_cfg.model_num_layers
+        check(embeds.shape == (n, enc._model_cfg.model_embedding_size)
+              and np.isfinite(embeds).all() and len(speakers) == n,
+              f"ted_project embeddings {embeds.shape}, {len(speakers)} speakers")
+        check(counts.get("lstm_seq", 0) == layers * n == len(calls["lstm_seq"]),
+              f"ted_project launched K3 {counts.get('lstm_seq', 0)} times for {n} utterances")
+        line = held_kernel_launches({"lstm_seq": calls["lstm_seq"], "gru_seq_fwd": [],
+                                     "tacotron_decode": [], "wavernn_generate_core": []}, None)
+        # the first layer's launch of the utterance with the most partials
+        args = max((c[0] for c in calls["lstm_seq"][::layers]), key=lambda a: a[0].shape[0])
+        cell = {**rnn_fwd_cell("lstm_seq", args, enc._data.mel_n_channels),
+                "path": f"ted_project ({n} utterances)"}
+        cpu_embeds, _ = ted_project.embed_speakers(root, device="cpu")
+        cpu_err = float(np.abs(embeds - cpu_embeds).max())
+        check(cpu_err <= 1e-4, f"ted_project: the card's embeddings are {cpu_err} from the CPU's")
+        pts = project_2d(embeds)
+        check(pts.shape == (n, 2) and np.isfinite(pts).all(), f"ted_project points {pts.shape}")
+        png = work / "projections.png"
+        try:
+            ted_project.save_projection(pts, speakers, png)
+            plot = "the PNG written"
+            check(plots.available() and png.exists(), "ted_project wrote a PNG without matplotlib")
+        except ImportError as e:
+            check("matplotlib" in str(e) and not plots.available() and not png.exists(),
+                  f"ted_project's plot raised {e!r}")
+            plot = f"the plot raised ImportError ({e})"
+    finally:
+        enc._model, enc._model_cfg, enc._data = saved
+    print(f"{card}: ted_project embedded {n} utterances of 2 speakers in {embed_s:.2f} s (K3 "
+          f"{counts.get('lstm_seq', 0)} launches; {line}); the CPU's embeddings within "
+          f"{cpu_err:.2e}; {plot}; K3 at its B {cell['B']} x T {cell['T']}: {cell['ms']:.3f} ms, "
+          f"plain {cell['plain_ms']:.3f} ms, {cell['library']} {cell['library_ms']:.3f} ms, "
+          f"bound {cell['bound_ms']:.4f} ms by {cell['bound_by']}")
+    return counts, cell
+
+
 def main() -> int:
     import torch
 
@@ -4938,6 +5557,20 @@ def main() -> int:
         lap("gta train")
     finally:
         shutil.rmtree(gta_work, ignore_errors=True)
+    multi_work = _build.BUILD_DIR / "smoke_multi"
+    shutil.rmtree(multi_work, ignore_errors=True)
+    multi_work.mkdir(parents=True)
+    try:
+        dp = phase_dp(dev, card, multi_work)
+        lap("data parallel (2 processes on one card)")
+        nccl_counts = phase_dp_nccl(dev, multi_work, dp["single"]["ge2e"])
+        lap("nccl")
+        sharded = phase_sharded_generation(dev, card, voc)
+        lap("sharded generation")
+        script_counts, script_cell = phase_scripts(dev, card, multi_work)
+        lap("scripts")
+    finally:
+        shutil.rmtree(multi_work, ignore_errors=True)
     check("jax" not in sys.modules, "the port imported jax")
     # each kernel's launches on the path that runs it: the clone path for the
     # inference kernels, the trainers for the training ones
@@ -4992,6 +5625,16 @@ def main() -> int:
         by_path.setdefault(name, {})[
             f"toolbox (2 /api/load, 2 /api/synthesize, /api/autotune of {TOOLBOX_SEEDS} seeds, "
             f"/api/stream)"] = n
+    # multi-GPU: each DP rank's training launches, the NCCL group's GE2E
+    # steps, generate_sharded's K1 launches and ted_project's K3 launches
+    for name, c in dp["by_path"].items():
+        by_path.setdefault(name, {}).update(c)
+    for name in ("lstm_seq", "lstm_seq_bwd"):
+        by_path[name][f"ge2e training over an NCCL group of one ({DP_STEPS} steps)"] = \
+            nccl_counts.get(name, 0)
+    by_path["wavernn_generate_runtimeracer"].update(sharded["by_path"])
+    by_path["lstm_seq"][f"ted_project ({2 * SCRIPT_UTTS} utterances)"] = \
+        script_counts.get("lstm_seq", 0)
     by_path.setdefault("mel_project", {"clone (5 requests)": counts.get("mel_project", 0)})
     for name, label in (("mel_project", "synthesizer audio pass"), ("lstm_seq", "embedding pass")):
         by_path[name][f"{label} ({pre['n']} utterances kept, 1 thread)"] = pre["counts"][name]
@@ -5010,6 +5653,13 @@ def main() -> int:
         # K3's and K4's cells at ForwardTacotron's shapes
         if k["name"] in nar["cells"]:
             k.setdefault("shapes", []).extend(nar["cells"][k["name"]])
+        # K1's cells through generate_sharded, K3's, K4's and K5's at a DP
+        # rank's shapes, K3's in ted_project
+        if k["name"] == "wavernn_generate_runtimeracer":
+            k.setdefault("shapes", []).extend(sharded["cells"])
+        k.setdefault("shapes", []).extend(dp["cells"].get(k["name"], []))
+        if k["name"] == "lstm_seq":
+            k["shapes"].append(script_cell)
         k["route"] = "cuda"
         k["launches"] = path_counts[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was launched no time on its path")
@@ -5024,4 +5674,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2:]))
     sys.exit(main())

@@ -317,8 +317,11 @@ def create_align_features(synthesizer_root: Path, synthesizer_model_fpath: Optio
     (anything with ``TacotronAligner.attention``'s contract) replaces the
     Tacotron read from ``synthesizer_model_fpath`` on ``device``;
     ``skip_existing`` leaves out utterances whose energy file exists.
-    Returns the number of utterances aligned."""
+    With several processes (``parallel.distributed``) process p of P aligns
+    every P-th utterance from the p-th, as the JAX package splits the pass.
+    Returns the number of utterances this process aligned."""
     from rtvc_tpu_torch.inference.attention import TacotronAligner
+    from rtvc_tpu_torch.parallel.distributed import process_count, process_index
 
     root = Path(synthesizer_root)
     paths = synthesizer_paths
@@ -331,6 +334,7 @@ def create_align_features(synthesizer_root: Path, synthesizer_model_fpath: Optio
     if skip_existing:
         done = {p.name for p in (root / paths.phoneme_energy_dir).glob("phoneme-energy-*.npy")}
         utterances = [(u, t) for u, t in utterances if f"phoneme-energy-{u}.npy" not in done]
+    utterances = utterances[process_index()::process_count()]
 
     aligner = aligner or TacotronAligner(synthesizer_model_fpath, device=device)
     extractor = DurationExtractor(silence_threshold=preprocessing.silence_threshold,

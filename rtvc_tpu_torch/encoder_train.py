@@ -1,9 +1,14 @@
-"""Train the GE2E speaker encoder on one GPU:
+"""Train the GE2E speaker encoder on one GPU, or data-parallel on several
+(one process per card):
 
     python -m rtvc_tpu_torch.encoder_train <run_id> <clean_data_root> [options]
+        [--coordinator HOST:PORT --num_processes N --process_id K]
 
-The arguments are those of the JAX package's ``encoder_train.py`` except
-its multi-process launch options, plus ``--device``. The
+The arguments are those of the JAX package's ``encoder_train.py``, plus
+``--device`` and ``--seed``. Under the launch options (or the ``RTVC_*``
+environment, ``parallel.distributed``) each process reads its own share of
+the speakers, samples speakers_per_batch / N of them a step with its own
+seed, and the GE2E loss is the global batch's. The
 dataset is the one ``encoder_preprocess.py`` writes, read through
 ``rtvc_tpu_torch.data.ge2e_sampler``. A run of the JAX package's trainer
 (``<run_id>.ckpt`` in ``<models_dir>/<run_id>``) is taken up where the
@@ -15,6 +20,7 @@ import argparse
 from pathlib import Path
 
 from rtvc_tpu_torch.config.encoder import encoder_model
+from rtvc_tpu_torch.parallel import distributed
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -47,6 +53,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "(visdom replacement; 8097 = visdom default)")
     parser.add_argument("--device", default="cuda", help="The torch device to train on.")
     parser.add_argument("--seed", type=int, default=0, help="Seed of the initial weights.")
+    distributed.add_launch_args(parser)
     return parser.parse_args(argv)
 
 
@@ -62,9 +69,18 @@ def main(argv=None):
     from rtvc_tpu_torch.train.trainer import train_encoder
 
     precision.resolve(args.compute_dtype)
-    dataset = SpeakerVerificationDataset(args.clean_data_root, process_index=0, process_count=1)
-    it = speaker_batch_iterator(dataset, args.speakers_per_batch, args.utterances_per_speaker,
-                                n_frames=160)
+    dp = distributed.setup_from_args(args)
+    # each process samples its own speakers (a disjoint share of the list,
+    # so no speaker sits in one global batch twice) with its own seed
+    pidx, nproc = distributed.process_index(), distributed.process_count()
+    if args.speakers_per_batch % nproc:
+        raise SystemExit(f"speakers_per_batch={args.speakers_per_batch} must divide by the "
+                         f"number of processes ({nproc})")
+    dataset = SpeakerVerificationDataset(args.clean_data_root, process_index=pidx,
+                                         process_count=nproc)
+    it = speaker_batch_iterator(dataset, args.speakers_per_batch // nproc,
+                                args.utterances_per_speaker, n_frames=160,
+                                seed=None if nproc == 1 else 1234 + pidx)
     return train_encoder(
         args.run_id, it, args.models_dir,
         speakers_per_batch=args.speakers_per_batch,
@@ -73,7 +89,7 @@ def main(argv=None):
         end_after=args.end_after, save_every=args.save_every,
         backup_every=args.backup_every, profile=args.profile,
         resume=not args.force_restart, compute_dtype=args.compute_dtype,
-        device=args.device, seed=args.seed,
+        device=distributed.process_device(args.device), seed=args.seed, dp=dp,
     )
 
 

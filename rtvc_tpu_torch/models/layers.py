@@ -24,10 +24,16 @@ activations) the recurrences stream bf16 through K3's and K4's bf16
 instantiations with their state in f32, BatchNorm takes its statistics in
 f32, and :class:`Linear` and :class:`Conv1d` round a product before adding
 its bias, as the JAX package does.
+
+Under data parallelism (``parallel.distributed``) a training step hands its
+model's BatchNorms the process group for the length of its forward
+(:func:`sync_batch_norms`): they then take the global batch's moments, and
+dropout draws at the global batch's shape from a ``ShardRows`` generator.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import contextlib
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +42,7 @@ from torch import nn
 from rtvc_tpu_torch.ops.gru_seq import GRUSeqFn, gru_seq_fwd
 from rtvc_tpu_torch.ops import precision
 from rtvc_tpu_torch.ops.lstm_seq import LSTMSeqFn, lstm_seq
+from rtvc_tpu_torch.parallel.distributed import all_reduce_sum, uniform
 
 Tensor = torch.Tensor
 
@@ -52,9 +59,10 @@ class Linear(nn.Linear):
 
 
 def always_dropout(x: Tensor, p: float, generator: Optional[torch.Generator]) -> Tensor:
-    """Always-on dropout drawn from an explicit generator: keep with
-    probability 1 - p and scale kept units by 1 / (1 - p)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    """Always-on dropout drawn from an explicit generator (a
+    ``parallel.distributed.ShardRows`` draws for the global batch): keep
+    with probability 1 - p and scale kept units by 1 / (1 - p)."""
+    keep = uniform(x.shape, generator, x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -212,11 +220,14 @@ class BatchNorm1d(nn.Module):
     statistics as buffers. ``forward`` normalises with the running
     statistics; ``forward_train`` with the batch's, and returns the updated
     running statistics instead of writing them (the training step installs
-    them), as ``rtvc_tpu/models/wavernn.py:_bn`` does."""
+    them), as ``rtvc_tpu/models/wavernn.py:_bn`` does. With a
+    ``process_group`` (:func:`sync_batch_norms`) the batch is the global
+    one: its moments are summed over the ranks."""
 
     def __init__(self, features: int, eps: float = 1e-5, device=None):
         super().__init__()
         self.eps = eps
+        self.process_group = None
         self.weight = nn.Parameter(torch.empty(features, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("running_mean", torch.empty(features, device=device))
@@ -232,15 +243,46 @@ class BatchNorm1d(nn.Module):
         variance takes the unbiased batch variance n/(n-1)."""
         xf = x.float()
         axes = tuple(range(x.ndim - 1))
-        mean = xf.mean(dim=axes)
-        var = xf.var(dim=axes, unbiased=False)
-        n = x.numel() / x.shape[-1]
         m = 0.1
+        if self.process_group is None:
+            mean = xf.mean(dim=axes)
+            var = xf.var(dim=axes, unbiased=False)
+            n = x.numel() / x.shape[-1]
+            with torch.no_grad():
+                new_var = m * var * n / max(n - 1, 1)
+        else:
+            # the global batch's moments in two passes (the mean, then the
+            # squares about it), each a differentiable sum over the ranks
+            sums = all_reduce_sum(torch.cat([xf.sum(dim=axes),
+                                             xf.new_full((1,), x.numel() / x.shape[-1])]),
+                                  self.process_group)
+            n = sums[-1]
+            mean = sums[:-1] / n
+            var = all_reduce_sum(((xf - mean) ** 2).sum(dim=axes), self.process_group) / n
+            with torch.no_grad():
+                new_var = m * var * n / (n - 1).clamp_min(1)
         with torch.no_grad():
             new = {"running_mean": (1 - m) * self.running_mean + m * mean,
-                   "running_var": (1 - m) * self.running_var + m * var * n / max(n - 1, 1)}
+                   "running_var": (1 - m) * self.running_var + new_var}
         y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(x.dtype), new
+
+
+@contextlib.contextmanager
+def sync_batch_norms(model: nn.Module, group) -> Iterator[None]:
+    """Within the block, every :class:`BatchNorm1d` of ``model`` takes its
+    training statistics over the global batch of ``group`` (None: this
+    process's batch); after it, its own process's batch again. The group is
+    the step's, not the model's: a model trained under a group trains alone
+    once the group is gone."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm1d)]
+    for m in norms:
+        m.process_group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.process_group = None
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from rtvc_tpu_torch.models.layers import (
 )
 from rtvc_tpu_torch.ops import precision
 from rtvc_tpu_torch.ops.tacotron_train import prepare_train_weights, taco_decoder_train
+from rtvc_tpu_torch.parallel.distributed import uniform
 
 Tensor = torch.Tensor
 
@@ -290,7 +291,7 @@ def draw_zoneout_masks(n_iters: int, batch: int, lstm_dims: int, device,
                        ) -> Tuple[Tensor, Tensor]:
     """Two (n_iters, B, L) masks in {0, 1}: 1 (probability ``ZONEOUT_P``)
     keeps the previous hidden."""
-    u = torch.rand((2, n_iters, batch, lstm_dims), generator=generator, device=device)
+    u = uniform((2, n_iters, batch, lstm_dims), generator, device, dim=2)
     zo = (u < ZONEOUT_P).to(torch.float32)
     return zo[0], zo[1]
 

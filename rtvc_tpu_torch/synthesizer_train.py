@@ -1,10 +1,13 @@
-"""Train a synthesizer on one GPU:
+"""Train a synthesizer on one GPU, or data-parallel on several (one process
+per card):
 
     python -m rtvc_tpu_torch.synthesizer_train <run_id> [model_type] <syn_dir> [options]
+        [--coordinator HOST:PORT --num_processes N --process_id K]
 
-The arguments are those of the JAX package's ``synthesizer_train.py`` except
-its multi-process launch options, plus ``--device`` and
-``--seed``; ``--compute_dtype bf16`` trains under the bf16 policy
+The arguments are those of the JAX package's ``synthesizer_train.py``, plus
+``--device`` and ``--seed``. Under the launch options (or the ``RTVC_*``
+environment, ``parallel.distributed``) every process builds the same
+global batches and trains on its own rows of each; ``--compute_dtype bf16`` trains under the bf16 policy
 (``ops/precision.py``), and ``auto`` is f32 on the card. ``model_type`` is
 ``tacotron`` (the default), ``forward-tacotron`` or ``fast-pitch``. ``syn_dir`` is the directory the
 synthesizer preprocessing writes (``train.json``, ``mels/``, ``embeds/``;
@@ -25,6 +28,7 @@ import argparse
 from pathlib import Path
 
 from rtvc_tpu_torch.models import factories
+from rtvc_tpu_torch.parallel import distributed
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -50,6 +54,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "(visdom replacement; 8097 = visdom default)")
     parser.add_argument("--device", default="cuda", help="The torch device to train on.")
     parser.add_argument("--seed", type=int, default=0, help="Seed of the initial weights.")
+    distributed.add_launch_args(parser)
     return parser.parse_args(argv)
 
 
@@ -64,6 +69,7 @@ def main(argv=None):
     from rtvc_tpu_torch.train.eval_hooks import make_synthesizer_eval_hook
     from rtvc_tpu_torch.train.trainer import sessions, train_synthesizer
 
+    dp = distributed.setup_from_args(args)
     elements = factories.get_model_train_elements(args.model_type)
     cfg = factories.default_config(args.model_type)
     dataset = SynthesizerDataset(args.syn_dir, elements)
@@ -71,13 +77,19 @@ def main(argv=None):
 
     schedule = sessions(args.model_type, cfg.tts_schedule)
 
+    # each process's rows of every global batch (all of them in one process)
+    shard = {} if dp is None else {"process_index": distributed.process_index(),
+                                   "process_count": distributed.process_count()}
+
     def epoch_batches(session_idx, r):
-        return batch_iterator(dataset, batch_size=schedule[session_idx][2], r=r, seed=session_idx)
+        return batch_iterator(dataset, batch_size=schedule[session_idx][2], r=r, seed=session_idx,
+                              **shard)
 
     return train_synthesizer(
         args.run_id, args.model_type, args.models_dir, epoch_batches,
         save_every=args.save_every, backup_every=args.backup_every, max_steps=args.max_steps,
-        resume=not args.force_restart, device=args.device, seed=args.seed,
+        resume=not args.force_restart, device=distributed.process_device(args.device),
+        seed=args.seed, dp=dp,
         eval_hook=make_synthesizer_eval_hook(args.models_dir / args.run_id / "samples",
                                              args.model_type),
         eval_interval=cfg.eval_interval, compute_dtype=args.compute_dtype,

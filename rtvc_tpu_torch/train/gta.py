@@ -10,8 +10,10 @@ both prenets' dropout off and zoneout 0 (one K5 forward launch a batch on
 the card, no residual kept under no grad), ForwardTacotron and FastPitch
 their teacher-forced forwards with ``train=False``.
 
-One process: the JAX package's split of the batches over processes waits
-for the port's multi-GPU slice.
+With several processes (``parallel.distributed``) batch k goes to process
+k mod P; each writes its own lines to ``synthesized.part<p>.json``, and
+process 0 merges them into ``synthesized.json`` once every process is done,
+as the JAX package's pass does.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.models.fast_pitch import fastpitch_forward
 from rtvc_tpu_torch.models.forward_tacotron import forward_tacotron_forward
 from rtvc_tpu_torch.models.tacotron import tacotron_forward
+from rtvc_tpu_torch.parallel import distributed
 
 # the collated batch's keys, in the order the non-autoregressive forwards
 # take them after the model
@@ -67,7 +70,7 @@ def run_synthesis(syn_dir: Path, voc_dir: Path, bundle: factories.SynModel, r: i
     padded to a multiple of ``2 r`` for every type, as the JAX package pads
     them. With ``skip_existing`` a batch whose mels all exist is
     skipped and ``synthesized.json`` is merged into. Returns the number of
-    utterances synthesized."""
+    utterances this process synthesized."""
     syn_dir, voc_dir = Path(syn_dir), Path(voc_dir)
     gta_dir = voc_dir / synthesizer_paths.gta_mel_dir
     gta_dir.mkdir(parents=True, exist_ok=True)
@@ -82,9 +85,12 @@ def run_synthesis(syn_dir: Path, voc_dir: Path, bundle: factories.SynModel, r: i
                                          .read_text()).values()
                  for line in lines}
 
+    pidx, pcount = distributed.process_index(), distributed.process_count()
     count = 0
-    for batch in batch_iterator(dataset, batch_size, r, shuffle=False, drop_last=False,
-                                mel_bucket=2):
+    for k, batch in enumerate(batch_iterator(dataset, batch_size, r, shuffle=False,
+                                             drop_last=False, mel_bucket=2)):
+        if k % pcount != pidx:
+            continue
         ids = [dataset.samples_fnames[i] for i in batch["indices"]]
         if skip_existing and all(u in existing for u in ids):
             continue
@@ -94,6 +100,16 @@ def run_synthesis(syn_dir: Path, voc_dir: Path, bundle: factories.SynModel, r: i
             np.save(gta_dir / f"{utt_id}.npy", mels[b, :, :n].T, allow_pickle=False)
             metadata[utt_id] = src_lines.get(utt_id, f"{utt_id}|{n * 200}|{n}|")
             count += 1
-    meta_out.write_text(json.dumps(metadata))
+    if pcount == 1:
+        meta_out.write_text(json.dumps(metadata))
+    else:
+        (voc_dir / f"synthesized.part{pidx}.json").write_text(json.dumps(metadata))
+        distributed.wait_for_everyone()  # every part written
+        if distributed.is_main_process():
+            merged = {}
+            for p in range(pcount):
+                merged.update(json.loads((voc_dir / f"synthesized.part{p}.json").read_text()))
+            meta_out.write_text(json.dumps(merged))
+        distributed.wait_for_everyone()  # nobody reads synthesized.json before the merge
     print("GTA synthesis wrote %d mels to %s" % (count, gta_dir))
     return count

@@ -13,6 +13,20 @@ does: the forward runs on bf16 casts of the parameters and of the batch's
 float leaves, the losses are taken in f32 against the f32 batch, and the
 gradients reach the f32 master parameters in f32, where the clip and the
 optimizer (whose state stays f32) act on them.
+
+``dp`` (a process group of ``parallel.distributed``, None for one process)
+makes a step the global batch's step while each rank holds its own rows, as
+the JAX package's step jitted over the global sharded batch is: the model's
+BatchNorms take the global batch's moments in the step's forward
+(``layers.sync_batch_norms``), random masks are drawn at the global batch's
+shape and each rank keeps its rows (``distributed.ShardRows``), the
+gradients are averaged over the ranks right after ``backward()`` (before any
+scale or clip, so the norm is the global gradient's), and the returned
+statistics are the global batch's. The
+GE2E loss reads the gathered global embeddings. A loss that is a plain mean
+over the rows of shards of one (globally padded) shape averages over the
+ranks to the global mean; the masked L1 losses of the non-autoregressive
+steps divide by the global mask count instead.
 """
 from __future__ import annotations
 
@@ -25,7 +39,9 @@ from rtvc_tpu_torch.models.tacotron import Tacotron, TacotronDims, tacotron_forw
 from rtvc_tpu_torch.config.vocoder import MODE_BITS, MODE_MOL, MODE_RAW
 from rtvc_tpu_torch.models.distribution import discretized_mix_logistic_loss
 from rtvc_tpu_torch.models.wavernn import VOC_GENEING, WaveRNN, WaveRNNDims, wavernn_forward
+from rtvc_tpu_torch.models.layers import sync_batch_norms
 from rtvc_tpu_torch.ops import precision
+from rtvc_tpu_torch.parallel import distributed
 from rtvc_tpu_torch.train.losses import cross_entropy_bits, nll_from_log_probs, tacotron_loss
 
 Tensor = torch.Tensor
@@ -38,14 +54,21 @@ def global_norm(grads: Iterable[Tensor]) -> Tensor:
 
 def make_encoder_train_step(model: SpeakerEncoder, optimizer: torch.optim.Optimizer,
                             speakers_per_batch: int, utterances_per_speaker: int,
-                            compute_dtype: str = "f32"
+                            compute_dtype: str = "f32", dp=None
                             ) -> Callable[[Tensor], Tuple[Tensor, Tensor, Tensor, Tensor]]:
     """GE2E step: forward → GE2E loss → the similarity scale's gradients
     × 0.01 → global-norm clip to 3 by ``min(1, 3 / (‖g‖ + 1e-6))`` → the
     optimizer. ``step(utterances (S·U, T, n_mels))`` returns (loss, the
     gradient norm before clipping, the (S·U, S) similarity matrix, embeds
     (S, U, E)), all detached. Under the bf16 policy the embeddings come out
-    f32 and the similarity and loss use the f32 similarity parameters."""
+    f32 and the similarity and loss use the f32 similarity parameters.
+
+    With ``dp`` each rank gives its own speakers' utterances (the rows of
+    its speakers_per_batch / ranks speakers); the loss, the similarity
+    matrix and the embeddings are the global batch's on every rank. Every
+    rank's loss reads every rank's embeddings, so each rank's model
+    gradient is the number of ranks times its share of the global one, and
+    the average over the ranks is the global gradient."""
     cdt = precision.resolve(compute_dtype)
     params = [p for p in model.parameters() if p.requires_grad]
     sim_params = (model.similarity_weight, model.similarity_bias)
@@ -54,9 +77,16 @@ def make_encoder_train_step(model: SpeakerEncoder, optimizer: torch.optim.Optimi
         optimizer.zero_grad(set_to_none=True)
         with precision.policy(model, cdt):
             embeds = model(precision.cast_floats(inputs, cdt))
-        embeds = embeds.float().reshape(speakers_per_batch, utterances_per_speaker, -1)
+        embeds = embeds.float().reshape(-1, utterances_per_speaker, embeds.shape[-1])
+        if dp is not None:
+            embeds = distributed.all_gather_rows(embeds, dp)
+        if embeds.shape[0] != speakers_per_batch:
+            raise ValueError(f"the GE2E batch holds {embeds.shape[0]} speakers, not "
+                             f"{speakers_per_batch}")
         loss, sim = ge2e_loss(embeds, model.similarity_weight, model.similarity_bias)
         loss.backward()
+        if dp is not None:
+            distributed.average_gradients(params, dp)
         with torch.no_grad():
             for p in sim_params:
                 p.grad.mul_(0.01)
@@ -72,8 +102,8 @@ def make_encoder_train_step(model: SpeakerEncoder, optimizer: torch.optim.Optimi
 
 def make_tacotron_train_step(model: Tacotron, d: TacotronDims,
                              optimizer: torch.optim.Optimizer, r: int,
-                             clip_grad_norm: Optional[float] = 1.0, compute_dtype: str = "f32"
-                             ) -> Callable[..., Tuple[Dict[str, Tensor], Tensor]]:
+                             clip_grad_norm: Optional[float] = 1.0, compute_dtype: str = "f32",
+                             dp=None) -> Callable[..., Tuple[Dict[str, Tensor], Tensor]]:
     """Teacher-forced Tacotron step at reduction factor ``r``: forward (the
     decoder chain through K5) → ``tacotron_loss`` → backward → global-norm
     clip by ``min(1, c / (‖g‖ + 1e-6))`` → the optimizer; then the
@@ -85,7 +115,8 @@ def make_tacotron_train_step(model: Tacotron, d: TacotronDims,
     dropout and the zoneout masks; ``prenet_dropout`` and ``zoneout_masks``
     pass through to :func:`tacotron_forward` so that a test can share them.
     Under the bf16 policy the decoder chain (K5) runs in f32 on widened
-    inputs, and the attention comes out f32."""
+    inputs, and the attention comes out f32. With ``dp`` the attention is
+    this rank's rows'."""
     cdt = precision.resolve(compute_dtype)
     params = [p for p in model.parameters() if p.requires_grad]
     buffers = dict(model.named_buffers())
@@ -94,44 +125,76 @@ def make_tacotron_train_step(model: Tacotron, d: TacotronDims,
              prenet_dropout: bool = True, zoneout_masks=None):
         optimizer.zero_grad(set_to_none=True)
         b = precision.cast_floats(batch, cdt)
-        with precision.policy(model, cdt):
+        with precision.policy(model, cdt), sync_batch_norms(model, dp):
             m1, m2, attn, stop_pred, new_stats = tacotron_forward(
-                model, d, b["chars"], b["mels"], b["embeds"], r, generator,
-                prenet_dropout=prenet_dropout, zoneout_masks=zoneout_masks)
+                model, d, b["chars"], b["mels"], b["embeds"], r,
+                distributed.shard_rows(generator, dp), prenet_dropout=prenet_dropout,
+                zoneout_masks=zoneout_masks)
+        # plain means over this rank's rows: shards of one padded shape
+        # (``data.synthesizer_dataset``), so the ranks' mean is the global one
         loss, parts = tacotron_loss(m1.float(), m2.float(), stop_pred.float(), batch["mels"],
                                     batch["stop"])
         loss.backward()
-        with torch.no_grad():
-            gnorm = global_norm(p.grad for p in params)
-            if clip_grad_norm is not None:
-                scale = torch.clamp(clip_grad_norm / (gnorm + 1e-6), max=1.0)
-                for p in params:
-                    p.grad.mul_(scale)
+        gnorm = _clip(params, clip_grad_norm, dp)
         optimizer.step()
-        with torch.no_grad():
-            for name, value in new_stats.items():
-                buffers[name].copy_(value)
-        stats = {"loss": loss.detach(), "grad_norm": gnorm,
-                 **{k: v.detach() for k, v in parts.items()}}
-        return stats, attn.detach()
+        _install(buffers, new_stats)
+        return _global_stats({"loss": loss, "grad_norm": gnorm, **parts}, dp), attn.detach()
 
     return step
 
 
-def masked_l1_lastdim(pred: Tensor, target: Tensor, lens: Tensor) -> Tensor:
+def _clip(params, clip_grad_norm: Optional[float], dp) -> Tensor:
+    """The gradients averaged over ``dp``'s ranks, then clipped to
+    ``clip_grad_norm`` by ``min(1, c / (‖g‖ + 1e-6))`` (no clip for None).
+    Returns the norm before clipping."""
+    if dp is not None:
+        distributed.average_gradients(params, dp)
+    with torch.no_grad():
+        gnorm = global_norm(p.grad for p in params)
+        if clip_grad_norm is not None:
+            scale = torch.clamp(clip_grad_norm / (gnorm + 1e-6), max=1.0)
+            for p in params:
+                p.grad.mul_(scale)
+    return gnorm
+
+
+def _install(buffers: Dict[str, Tensor], new_stats: Dict[str, Tensor]) -> None:
+    """The BatchNorms' new running statistics into their buffers."""
+    with torch.no_grad():
+        for name, value in new_stats.items():
+            buffers[name].copy_(value)
+
+
+def _global_stats(stats: Dict[str, Tensor], dp) -> Dict[str, Tensor]:
+    """``stats``, detached; with ``dp`` the losses are averaged over the
+    ranks (the gradient norm is the averaged gradient's already)."""
+    stats = {k: v.detach() for k, v in stats.items()}
+    if dp is None:
+        return stats
+    names = [k for k in stats if k != "grad_norm"]
+    mean = distributed.mean_over_ranks(torch.stack([stats[k].float() for k in names]), dp)
+    return {**stats, **dict(zip(names, mean))}
+
+
+def masked_l1_lastdim(pred: Tensor, target: Tensor, lens: Tensor, dp=None) -> Tensor:
     """L1 over the positions before each row's length on the last (time)
     axis, divided by the mask's sum after it is broadcast to ``pred``'s
-    shape (for mels: n_mels × valid frames), as the JAX package does."""
+    shape (for mels: n_mels × valid frames), as the JAX package does. With
+    ``dp`` the divisor is the global mask sum over the number of ranks, so
+    that the ranks' losses average to the global batch's."""
     t = torch.arange(pred.shape[-1], device=pred.device)
     mask = (t[None, :] < lens[:, None]).to(pred.dtype)
     while mask.ndim < pred.ndim:
         mask = mask[:, None, :]
     mask = mask.expand(pred.shape)
-    return ((pred - target).abs() * mask).sum() / mask.sum().clamp_min(1.0)
+    count = mask.sum()
+    if dp is not None:
+        count = distributed.mean_over_ranks(count, dp)
+    return ((pred - target).abs() * mask).sum() / count.clamp_min(1.0)
 
 
 def make_nar_synth_train_step(model_type: str, model, optimizer: torch.optim.Optimizer, cfg,
-                              compute_dtype: str = "f32"
+                              compute_dtype: str = "f32", dp=None
                               ) -> Callable[..., Dict[str, Tensor]]:
     """ForwardTacotron or FastPitch step: the pitch and energy inputs take
     zoneout (``cfg.pitch_zoneout`` / ``energy_zoneout``: an entry is zeroed
@@ -158,48 +221,44 @@ def make_nar_synth_train_step(model_type: str, model, optimizer: torch.optim.Opt
     buffers = dict(model.named_buffers())
 
     def zoneout(x: Tensor, p: float, generator) -> Tensor:
-        return x * (torch.rand(x.shape, generator=generator, device=x.device) > p)
+        return x * (distributed.uniform(x.shape, generator, x.device) > p)
+
+    def l1(pred, target, lens):
+        return masked_l1_lastdim(pred, target, lens, dp)
 
     def step(batch: Dict[str, Tensor], generator: Optional[torch.Generator] = None):
         optimizer.zero_grad(set_to_none=True)
+        generator = distributed.shard_rows(generator, dp)
         pitch, energy = batch["pitch"], batch["energy"]
         b = precision.cast_floats({**batch, "pitch_in": zoneout(pitch, pitch_zoneout, generator),
                                    "energy_in": zoneout(energy, energy_zoneout, generator)},
                                   cdt)
-        with precision.policy(model, cdt):
+        with precision.policy(model, cdt), sync_batch_norms(model, dp):
             mel_hat, mel_post, dur_hat, pitch_hat, energy_hat, new_stats = forward(
                 model, b["chars"], b["mels"], b["durations"], b["embeds"], b["spec_lens"],
                 b["pitch_in"], b["energy_in"], generator)
         mels, spec_lens, x_lens = batch["mels"], batch["spec_lens"], batch["x_lens"]
         parts = {
-            "m1": masked_l1_lastdim(mel_hat.float(), mels, spec_lens),
-            "m2": masked_l1_lastdim(mel_post.float(), mels, spec_lens),
-            "dur": masked_l1_lastdim(dur_hat.float()[:, None, :], batch["durations"][:, None, :],
-                                     x_lens),
-            "pitch": masked_l1_lastdim(pitch_hat.float(), pitch[:, None, :], x_lens),
-            "energy": masked_l1_lastdim(energy_hat.float(), energy[:, None, :], x_lens)}
+            "m1": l1(mel_hat.float(), mels, spec_lens),
+            "m2": l1(mel_post.float(), mels, spec_lens),
+            "dur": l1(dur_hat.float()[:, None, :], batch["durations"][:, None, :], x_lens),
+            "pitch": l1(pitch_hat.float(), pitch[:, None, :], x_lens),
+            "energy": l1(energy_hat.float(), energy[:, None, :], x_lens)}
         loss = (parts["m1"] + parts["m2"] + cfg.duration_loss_factor * parts["dur"]
                 + cfg.pitch_loss_factor * parts["pitch"]
                 + cfg.energy_loss_factor * parts["energy"])
         loss.backward()
-        with torch.no_grad():
-            gnorm = global_norm(p.grad for p in params)
-            scale = torch.clamp(cfg.clip_grad_norm / (gnorm + 1e-6), max=1.0)
-            for p in params:
-                p.grad.mul_(scale)
+        gnorm = _clip(params, cfg.clip_grad_norm, dp)
         optimizer.step()
-        with torch.no_grad():
-            for name, value in new_stats.items():
-                buffers[name].copy_(value)
-        return {"loss": loss.detach(), "grad_norm": gnorm,
-                **{k: v.detach() for k, v in parts.items()}}
+        _install(buffers, new_stats)
+        return _global_stats({"loss": loss, "grad_norm": gnorm, **parts}, dp)
 
     return step
 
 
 def make_wavernn_train_step(model: WaveRNN, d: WaveRNNDims,
-                            optimizer: torch.optim.Optimizer, compute_dtype: str = "f32"
-                            ) -> Callable[[Dict[str, Tensor]], Tensor]:
+                            optimizer: torch.optim.Optimizer, compute_dtype: str = "f32",
+                            dp=None) -> Callable[[Dict[str, Tensor]], Tensor]:
     """Teacher-forced WaveRNN step: ``step({"x", "y", "y_float", "mels"})``
     runs the forward with batch statistics, the loss, the backward and the
     optimizer, installs the BatchNorms' new running statistics, and returns
@@ -216,6 +275,7 @@ def make_wavernn_train_step(model: WaveRNN, d: WaveRNNDims,
             "training geneing-wavernn in RAW mode (the beta head) is not supported: a "
             "cross entropy over its two columns is not a likelihood of that head; "
             "train it in BITS or MOL mode")
+    params = [p for p in model.parameters() if p.requires_grad]
     buffers = dict(model.named_buffers())
 
     def loss_of(out: Tensor, batch: Dict[str, Tensor]) -> Tensor:
@@ -229,14 +289,16 @@ def make_wavernn_train_step(model: WaveRNN, d: WaveRNNDims,
     def step(batch: Dict[str, Tensor]) -> Tensor:
         optimizer.zero_grad(set_to_none=True)
         b = precision.cast_floats(batch, cdt)
-        with precision.policy(model, cdt):
+        with precision.policy(model, cdt), sync_batch_norms(model, dp):
             out, new_stats = wavernn_forward(model, d, b["x"], b["mels"])
+        # a plain mean over this rank's crops, all of one shape
+        # (``data.vocoder_dataset``): the ranks' mean is the global one
         loss = loss_of(out.float(), batch)
         loss.backward()
+        if dp is not None:
+            distributed.average_gradients(params, dp)
         optimizer.step()
-        with torch.no_grad():
-            for name, value in new_stats.items():
-                buffers[name].copy_(value)
-        return loss.detach()
+        _install(buffers, new_stats)
+        return _global_stats({"loss": loss}, dp)["loss"]
 
     return step

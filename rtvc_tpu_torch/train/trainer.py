@@ -16,7 +16,13 @@ the ``device`` its caller names, and resumes from its own checkpoint
 (``<models_dir>/<run_id>/<run_id>.pt``: model, optimizer and step), or
 takes up a run of the JAX package's trainers from its ``<run_id>.ckpt``
 (:func:`_resume`).
-Multi-GPU data parallelism is a later slice.
+
+With ``dp`` (a process group of ``parallel.distributed``) a trainer runs
+one rank of a data-parallel run: its source yields this rank's rows of
+every global batch, the parameters and buffers start as rank 0's, each step
+is the global batch's step (``train.steps``), the sample hooks run on rank
+0 only, and a checkpoint is written by rank 0 after every rank has reached
+it.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from rtvc_tpu_torch.parallel import distributed
 from rtvc_tpu_torch.utils.metrics import MetricsLogger, ValueWindow, simple_table, stream
 from rtvc_tpu_torch.utils.profiler import Profiler
 from rtvc_tpu_torch.train import checkpoints as ckpt
@@ -82,7 +89,8 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 class CheckpointCadence:
     """A rolling save every ``save_every`` steps and an immutable backup
-    every ``backup_every`` steps."""
+    every ``backup_every`` steps. With several processes every one waits
+    for the others at a save, and only the main process writes."""
 
     def __init__(self, model_dir: Path, run_id: str, model_type: Optional[str],
                  save_every: int = 1000, backup_every: int = 10000):
@@ -97,8 +105,13 @@ class CheckpointCadence:
                    force: bool = False) -> None:
         do_save = force or (self.save_every > 0 and step % self.save_every == 0)
         do_backup = self.backup_every > 0 and step % self.backup_every == 0 and step > 0
-        if do_save or do_backup:
-            ckpt.save_checkpoint(self.path, model, step, self.model_type, optimizer, extras)
+        if not (do_save or do_backup):
+            return
+        # the cadence depends on the step alone, so every process gets here
+        distributed.wait_for_everyone()
+        if not distributed.is_main_process():
+            return
+        ckpt.save_checkpoint(self.path, model, step, self.model_type, optimizer, extras)
         if do_backup:
             ckpt.backup_checkpoint(self.path, self.model_dir / "backups", step)
 
@@ -163,12 +176,16 @@ def train_encoder(
     *,
     device,
     seed: int = 0,
+    dp=None,
 ) -> Dict[str, Any]:
     """GE2E training loop. ``data_iterator`` yields (S·U, T, n_mels) batches
     (numpy or tensors); ``model`` defaults to a ``SpeakerEncoder`` of the
     default widths with weights drawn from ``seed``. Returns the final step,
     the model, the last step's metrics, and every step's loss and wall
-    milliseconds (``losses``, ``step_ms``)."""
+    milliseconds (``losses``, ``step_ms``). With ``dp`` the source yields
+    this rank's speakers (``speakers_per_batch`` / ranks of them); the EER
+    and ``projection_hook`` read the global similarity matrix and
+    embeddings, and the hook runs on rank 0."""
     from rtvc_tpu_torch.models import factories
     from rtvc_tpu_torch.models.speaker_encoder import compute_eer
     from rtvc_tpu_torch.train.steps import make_encoder_train_step
@@ -179,12 +196,14 @@ def train_encoder(
     model.to(device).train()
     optimizer = make_optimizer(model.parameters(), learning_rate)
     step_fn = make_encoder_train_step(model, optimizer, speakers_per_batch,
-                                      utterances_per_speaker, compute_dtype)
+                                      utterances_per_speaker, compute_dtype, dp)
     cadence = CheckpointCadence(Path(models_dir) / run_id, run_id, "speaker_encoder",
                                 save_every, backup_every)
     metrics = MetricsLogger(Path(models_dir) / run_id / "metrics.tsv")
     step = _resume(cadence, model, optimizer, device, f"encoder {run_id}", "encoder") \
         if resume else 0
+    if dp is not None:
+        distributed.replicate_global(model, dp)
     if end_after is not None:
         # a relative stop: end_after more steps from wherever the run resumed
         total_steps = min(total_steps or np.inf, step + end_after)
@@ -216,7 +235,7 @@ def train_encoder(
         metrics.log(step, logged)
         last = logged
         if projection_hook is not None and projection_every > 0 \
-                and step % projection_every == 0:
+                and step % projection_every == 0 and distributed.is_main_process():
             projection_hook(step, embeds.reshape(-1, embeds.shape[-1]).cpu().numpy())
         stream("Step %d | loss %.4f (avg %.4f) | %.2f steps/s "
                % (step, loss, loss_window.average, 1.0 / max(time_window.average, 1e-9)))
@@ -268,6 +287,7 @@ def train_synthesizer(
     compute_dtype: str = "f32",
     *,
     device,
+    dp=None,
 ) -> Dict[str, Any]:
     """Synthesizer training over the config's session schedule:
     Tacotron's ``(r, loops, batch_size, init_lr, end_lr)``, ForwardTacotron's
@@ -290,6 +310,10 @@ def train_synthesizer(
     ``compute_dtype`` is the steps' policy (``train.steps``: "auto" and
     "f32" train in f32, "bf16" under the bf16 policy); the checkpoints hold
     the f32 master weights either way, so a run resumes under either.
+    With ``dp`` the sources yield this rank's rows of every global batch
+    (the schedule's batch sizes are global), each step draws its noise for
+    the global batch from the same generator on every rank, and the
+    evaluation hook runs on rank 0.
 
     Returns the final step, the model, the last step's statistics, and every
     step's loss, learning rate and wall milliseconds (``losses``, ``lrs``,
@@ -314,6 +338,8 @@ def train_synthesizer(
     metrics = MetricsLogger(Path(models_dir) / run_id / "metrics.tsv")
     step = _resume(cadence, model, optimizer, device, f"{model_type} {run_id}",
                    "synthesizer") if resume else 0
+    if dp is not None:
+        distributed.replicate_global(model, dp)
     generator = torch.Generator(device=device)
     loss_window, time_window = ValueWindow(100), ValueWindow(100)
     losses, lrs, step_ms = [], [], []
@@ -346,13 +372,13 @@ def train_synthesizer(
                       ("Steps", session_steps)])
         if is_tacotron:
             tacotron_step = make_tacotron_train_step(model, dims, optimizer, r,
-                                                     cfg.tts_clip_grad_norm, compute_dtype)
+                                                     cfg.tts_clip_grad_norm, compute_dtype, dp)
 
             def step_fn(batch, generator):
                 return tacotron_step(batch, generator)[0]
         else:
             step_fn = make_nar_synth_train_step(model_type, model, optimizer, cfg,
-                                                compute_dtype)
+                                                compute_dtype, dp)
         t_last = time.perf_counter()
         for _ in range(n_epochs):
             for batch in session_batches:
@@ -382,7 +408,8 @@ def train_synthesizer(
                        % (session_idx + 1, step, lr, loss, loss_window.average,
                           1.0 / max(time_window.average, 1e-9)))
                 cadence.maybe_save(step, model, optimizer, extras())
-                if eval_hook is not None and eval_interval > 0 and step % eval_interval == 0:
+                if eval_hook is not None and eval_interval > 0 and step % eval_interval == 0 \
+                        and distributed.is_main_process():
                     eval_hook(step, model, r)
                 done = max_steps is not None and step >= max_steps
                 t_last = time.perf_counter()
@@ -421,6 +448,7 @@ def train_vocoder(
     compute_dtype: str = "f32",
     *,
     device,
+    dp=None,
 ) -> Dict[str, Any]:
     """WaveRNN training over the config's session schedule.
 
@@ -430,7 +458,10 @@ def train_vocoder(
     crops); it is iterated once per epoch. A source without a length raises
     TypeError, rather than being frozen into a list and replayed. Returns
     the final step, the model, the last loss, and every step's loss and wall
-    milliseconds (``losses``, ``step_ms``)."""
+    milliseconds (``losses``, ``step_ms``). With ``dp`` the sources yield
+    this rank's rows of every global batch; the pruning masks come from the
+    replicated weights, so every rank derives the same ones, and
+    ``gen_hook`` runs on rank 0."""
     from rtvc_tpu_torch.models import factories
     from rtvc_tpu_torch.train.pruning import (
         apply_prune_masks,
@@ -444,12 +475,14 @@ def train_vocoder(
     dims = factories.wavernn_dims(model_type, cfg)
     model = factories.init_wavernn(dims, seed=seed, device=device).train()
     optimizer = make_optimizer(model.parameters())
-    step_fn = make_wavernn_train_step(model, dims, optimizer, compute_dtype)
+    step_fn = make_wavernn_train_step(model, dims, optimizer, compute_dtype, dp)
     cadence = CheckpointCadence(Path(models_dir) / run_id, run_id, model_type,
                                 save_every, backup_every)
     metrics = MetricsLogger(Path(models_dir) / run_id / "metrics.tsv")
     step = _resume(cadence, model, optimizer, device, f"{model_type} {run_id}",
                    "vocoder") if resume else 0
+    if dp is not None:
+        distributed.replicate_global(model, dp)
     extras = {"config": cfg.asdict()}
     detector = AnomalyDetector(cfg.anomaly_trigger_multiplier) if cfg.anomaly_detection else None
     loss_window, time_window = ValueWindow(100), ValueWindow(100)
@@ -505,7 +538,8 @@ def train_vocoder(
                        % (session_idx + 1, step, loss, loss_window.average,
                           1.0 / max(time_window.average, 1e-9)))
                 cadence.maybe_save(step, model, optimizer, extras)
-                if gen_hook is not None and gen_every > 0 and step % gen_every == 0:
+                if gen_hook is not None and gen_every > 0 and step % gen_every == 0 \
+                        and distributed.is_main_process():
                     gen_hook(step, model)
                 done = max_steps is not None and step >= max_steps
                 t_last = time.perf_counter()

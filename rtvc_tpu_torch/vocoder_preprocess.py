@@ -41,6 +41,7 @@ def main(argv=None) -> int:
     """Returns the number of utterances synthesized (0 with
     ``--ground_truth``)."""
     from rtvc_tpu_torch.inference.synthesizer import Synthesizer
+    from rtvc_tpu_torch.parallel import distributed
     from rtvc_tpu_torch.train.gta import run_synthesis
 
     args = parse_args(argv)
@@ -49,7 +50,10 @@ def main(argv=None) -> int:
     if args.ground_truth:
         print("--ground_truth set: vocoder will read mels straight from %s" % in_dir)
         return 0
-    synth = Synthesizer(args.syn_model_fpath, device=args.device)
+    # no launch flags, as in the JAX package: the pass splits its batches
+    # over the processes of a group the RTVC_* environment names
+    distributed.maybe_initialize_from_env(args.device)
+    synth = Synthesizer(args.syn_model_fpath, device=distributed.process_device(args.device))
     synth.load()
     return run_synthesis(in_dir, out_dir, synth._bundle, r=synth._r,
                          batch_size=args.batch_size, skip_existing=args.skip_existing)

@@ -1,10 +1,13 @@
-"""Train a WaveRNN vocoder on one GPU:
+"""Train a WaveRNN vocoder on one GPU, or data-parallel on several (one
+process per card):
 
     python -m rtvc_tpu_torch.vocoder_train <run_id> [model_type] <datasets_root> [options]
+        [--coordinator HOST:PORT --num_processes N --process_id K]
 
-The arguments are those of the JAX package's ``vocoder_train.py`` except
-its multi-process launch options, plus ``--device`` and
-``--seed``. The model type is ``fatchord-wavernn``, ``geneing-wavernn`` or
+The arguments are those of the JAX package's ``vocoder_train.py``, plus
+``--device`` and ``--seed``. Under the launch options (or the ``RTVC_*``
+environment, ``parallel.distributed``) every process builds the same
+global batches and trains on its own rows of each. The model type is ``fatchord-wavernn``, ``geneing-wavernn`` or
 ``runtimeracer-wavernn`` (the default here), each in its config's mode. The
 dataset is the one the vocoder preprocessing writes (GTA mels, or ground-truth mels with
 ``-g``), read through ``rtvc_tpu_torch.data.vocoder_dataset``; ``python -m
@@ -22,6 +25,7 @@ from pathlib import Path
 from rtvc_tpu_torch.config import synthesizer_paths
 from rtvc_tpu_torch.config import vocoder as voc_cfg
 from rtvc_tpu_torch.models.wavernn import VOC_FATCHORD, VOC_GENEING, VOC_RUNTIMERACER
+from rtvc_tpu_torch.parallel import distributed
 
 CONFIGS = {
     VOC_FATCHORD: voc_cfg.wavernn_fatchord,
@@ -57,6 +61,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "(visdom replacement; 8097 = visdom default)")
     parser.add_argument("--device", default="cuda", help="The torch device to train on.")
     parser.add_argument("--seed", type=int, default=0, help="Seed of the initial weights.")
+    distributed.add_launch_args(parser)
     return parser.parse_args(argv)
 
 
@@ -87,6 +92,7 @@ def main(argv=None):
 
     cfg = CONFIGS[args.model_type]
     precision.resolve(args.compute_dtype)
+    dp = distributed.setup_from_args(args)
     syn_dir = args.syn_dir or args.datasets_root / "SV2TTS" / "synthesizer"
     voc_dir = args.voc_dir or args.datasets_root / "SV2TTS" / "vocoder"
     if args.ground_truth:
@@ -101,7 +107,8 @@ def main(argv=None):
     def epoch_batches(session_idx):
         batch_size = int(cfg.voc_tts_schedule[session_idx][3])
         return batch_iterator(dataset, batch_size, cfg, seed=session_idx,
-                              process_index=0, process_count=1)
+                              process_index=distributed.process_index(),
+                              process_count=distributed.process_count())
 
     return train_vocoder(
         args.run_id, args.model_type, args.models_dir, epoch_batches,
@@ -110,7 +117,8 @@ def main(argv=None):
         gen_hook=sample_hook(args.model_type, cfg, dataset,
                              args.models_dir / args.run_id / "samples"),
         gen_every=args.save_every,
-        compute_dtype=args.compute_dtype, device=args.device, seed=args.seed,
+        compute_dtype=args.compute_dtype, device=distributed.process_device(args.device),
+        seed=args.seed, dp=dp,
     )
 
 

@@ -1,10 +1,12 @@
-"""The port stands on its own: ``rtvc_tpu_torch`` and ``chip_smoke`` import
+"""The port stands on its own: ``rtvc_tpu_torch``, ``chip_smoke`` and
+``dp_fault_control`` import
 none of ``jax``, ``flax``, ``msgpack`` and ``rtvc_tpu``, and the modules the
 port copied from the JAX package (config with the dataset registry, text,
 the three dataset modules, metrics, the duration extractor, the F0 tracker,
 the t-SNE projection, the VAD, log-MMSE, the mpg123 binding, the codec
 shim's C source, the WaveRNN engine's C++ sources, its RTVCNAT1 format
-helpers and ctypes binding, the TUI and the browser toolbox's page) still
+helpers and ctypes binding, the TUI, the browser toolbox's page, and the
+dataset tools of ``scripts/`` with their STM parser) still
 say what their originals say: equal config fields and values, equal symbol sequences, equal
 batches from one tiny on-disk dataset and seed (the non-autoregressive
 synthesizers' batches from a root the alignment pass wrote too), and the
@@ -59,13 +61,18 @@ for need in ("models.distribution", "ops.stft", "ops.mel_project", "ops.wavernn_
              "data.encoder_preprocess", "encoder_preprocess", "synthesizer_preprocess_audio",
              "synthesizer_preprocess_embeds", "toolbox", "webui", "tui", "demo_toolbox",
              "native.convert", "native.libwavernn", "vocoder_convert_model",
-             "vocoder_check_libwavernn"):
+             "vocoder_check_libwavernn", "parallel", "parallel.distributed",
+             "parallel.generation", "scripts", "scripts.commonvoice_transcript",
+             "scripts.convert_audio", "scripts.ted_project", "scripts.tedlium",
+             "scripts.tedlium_transcript", "scripts.tedx_speakers", "scripts.timit",
+             "scripts.stm"):
     assert "rtvc_tpu_torch." + need in names, need
 import chip_smoke
+import dp_fault_control
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "rtvc_tpu", "flax", "msgpack"))
 print(len(names), "modules;", "foreign:", bad)
-sys.exit(1 if bad or len(names) < 63 else 0)
+sys.exit(1 if bad or len(names) < 75 else 0)
 """
 
 
@@ -78,8 +85,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_port_sources_name_no_jax_import():
     pattern = ("from rtvc_tpu ", "from rtvc_tpu.", "import rtvc_tpu ", "import rtvc_tpu.",
                "import rtvc_tpu\n", "import jax", "from jax")
-    files = sorted((REPO / "rtvc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 60
+    files = sorted((REPO / "rtvc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                             REPO / "dp_fault_control.py"]
+    assert len(files) > 73
     for f in files:
         for n, line in enumerate(f.read_text().splitlines(keepends=True), 1):
             code = line.strip()
@@ -233,6 +241,38 @@ def test_libwavernn_binding_equals_its_original():
     want = _code_lines("rtvc_tpu/native/libwavernn.py", "_LIB_PATH =",
                        "lib = ctypes.CDLL(str(path))")
     assert got == want and len(want) > 200
+
+
+SCRIPTS = ("commonvoice_transcript", "convert_audio", "tedlium", "tedlium_transcript",
+           "tedx_speakers", "timit", "stm")
+
+
+@pytest.mark.parametrize("name", SCRIPTS)
+def test_script_copies_equal_their_originals(name):
+    """``rtvc_tpu_torch/scripts/<name>.py`` is ``scripts/<name>.py`` but for
+    its docstring and its import lines."""
+    got = _code_lines(f"rtvc_tpu_torch/scripts/{name}.py")
+    want = _code_lines(f"scripts/{name}.py")
+    assert got == want and len(want) > 20
+
+
+# the lines of scripts/ted_project.py its copy changes: the device, and the
+# arguments its main parses
+TED_PROJECT_CHANGED = ("encoder.load_model(args.model)", "encoder.init_random_model()",
+                       "args = parser.parse_args()")
+
+
+def test_ted_project_copy_keeps_its_originals_lines():
+    """``ted_project``'s copy cuts the original's body into functions: every
+    code line of the original is in it, as it is or with ``args.`` taken
+    out (the functions' parameters), but for the lines that pass the device
+    and ``argv``."""
+    got = {line.strip() for line in _code_lines("rtvc_tpu_torch/scripts/ted_project.py")}
+    want = [line.strip() for line in _code_lines("scripts/ted_project.py")]
+    assert len(want) > 40
+    missing = [line for line in want if line not in got and line.replace("args.", "") not in got
+               and line not in TED_PROJECT_CHANGED]
+    assert not missing
 
 
 def test_toolbox_page_equals_the_jax_page():
