@@ -391,9 +391,19 @@ K3_EARLIER_MS = {"fwd": 19.201, "fwd_train": 128.434, "bwd": 117.167}
 # limit: this run's K3 lines give their time as a share of these.
 K3_RESIDENT_MS = {"fwd": 0.770, "fwd_train": 17.707, "bwd": 19.388}
 # K4 with one CTA per batch row (W_hh re-read from L2 every step), forward /
-# backward CUDA-event ms on an NVIDIA H100 80GB HBM3 at 700 W, by (B, T, H).
+# backward CUDA-event ms on an NVIDIA H100 80GB HBM3 at 700 W, by (B, T, H);
+# and at the narrow widths (H <= 128) the cooperative plan, before the
+# row-resident mode took them, on the same card model and power limit, from
+# PERF.md section 6 (None where that call timed no backward: the GTA pass's).
+# Printed beside the new times in the phases' own lines only, as an earlier
+# call's: the same call's cooperative time is printed beside them.
 K4_EARLIER_MS = {(40, 1000, 256): (14.695, 11.296), (40, 1000, 512): (45.079, 39.280),
                  (40, 1400, 256): (20.621, 15.835)}
+K4_COOPERATIVE_EARLIER_MS = {
+    (1, 64, 64): (0.265, 0.144), (1, 512, 64): (1.816, 0.939), (112, 160, 64): (0.699, 0.446),
+    (112, 602, 64): (2.581, 1.533), (56, 602, 64): (2.369, 1.408),
+    (16, 160, 64): (0.653, 0.385), (16, 160, 128): (0.401, 0.430),
+    (8, 160, 64): (0.644, None), (8, 160, 128): (0.393, None)}
 # K1 with one CTA per fold (the weights re-read from L2 every step), greedy
 # 8 folds x 512 steps, ms on the same card, by cell.
 K1_EARLIER_MS = {"fatchord-wavernn RAW": 90.739, "fatchord-wavernn MOL": 83.330,
@@ -1812,30 +1822,57 @@ def k3_candidates_ms(xg, w_hh, h0, dev):
 
 
 def k4_candidates_ms(xg, w_hh, b_hh, dev):
-    """K4's forward at one shape under every candidate plan
-    (``ops/gru_seq.py:candidates``), timed in ``profile_gru.rounds_ms``:
+    """K4's forward at one shape under every candidate plan of both modes
+    (``ops/gru_seq.py:row_plan`` and ``candidates``), each launched with an
+    explicit plan (``launch_fwd``), timed in ``profile_gru.rounds_ms``:
     [(ms, plan)], fastest first."""
     import torch
 
     from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.ops.gru_seq import candidates, launch_fwd, row_plan
     from rtvc_tpu_torch.profile_gru import rounds_ms
-    from rtvc_tpu_torch.ops.gru_seq import candidates
 
     B, T, G = xg.shape
     H = G // 3
-    lib, stream = _build.library(), _build.stream_handle(dev)
+    limits = _build.device_limits(dev)
     ys, gates = torch.empty(B, T, H, device=dev), torch.empty(B, T, 4 * H, device=dev)
-    runs = {}
-    for p in candidates(B, H, *_build.device_limits(dev)):
-        def run(p=p):
-            sync = torch.zeros(32 * p.groups, device=dev, dtype=torch.int32)
-            _build.check(lib.rtvc_gru_seq_fwd(
-                xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), ys.data_ptr(),
-                gates.data_ptr(), B, T, H, _build.int_array(p), sync.data_ptr(), stream),
-                "rtvc_gru_seq_fwd")
+    rows = row_plan(B, H, limits[1])
+    runs = {p: (lambda p=p: launch_fwd(p, xg, w_hh, b_hh, ys, gates))
+            for p in [*([rows] if rows else []), *candidates(B, H, *limits)]}
+    return sorted(((ms, p) for p, ms in rounds_ms(runs).items()), key=lambda mp: mp[0])
 
-        runs[p] = run
-    return sorted((ms, p) for p, ms in rounds_ms(runs).items())
+
+def k4_cooperative(xg, w_hh, b_hh, bwd_args, dev):
+    """K4's cooperative kernels (``ops/gru_seq.py:cooperative_plan``) on an
+    explicit plan, the earlier design at a width the row-resident mode now
+    takes: (ys, gates, dxg) of one run and the forward's and the backward's
+    CUDA-event ms, in the streams' dtype."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.ops.gru_seq import cooperative_plan, launch_bwd, launch_fwd
+
+    B, T, G = xg.shape
+    H = G // 3
+    dt = xg.dtype
+    limits, elem = _build.device_limits(dev), _build.elem_bytes(dt)
+    p_fwd = cooperative_plan(B, H, *limits, elem=elem)
+    p_bwd = cooperative_plan(B, H, *limits, backward=True, elem=elem)
+    ys, gates = (torch.empty(B, T, n * H, device=dev, dtype=dt) for n in (1, 4))
+    dxg, dhg = (torch.empty(B, T, 3 * H, device=dev) for _ in range(2))
+    dys, b_gates, b_ys, _ = bwd_args
+
+    def fwd():
+        launch_fwd(p_fwd, xg, w_hh, b_hh, ys, gates)
+
+    def bwd():
+        launch_bwd(p_bwd, dys, b_gates, b_ys, w_hh, dxg, dhg)
+
+    fwd()
+    bwd()
+    torch.cuda.synchronize()
+    out = (ys.clone(), gates.clone(), dxg.clone())
+    return out, cuda_ms(fwd), cuda_ms(bwd)
 
 
 def rnn_fwd_cell(name, args, I):
@@ -1882,6 +1919,8 @@ def nar_kernel_cells(dev, card):
     import torch
 
     from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.ops.gru_seq import describe as k4_describe
+    from rtvc_tpu_torch.ops.gru_seq import mode as k4_mode
     from rtvc_tpu_torch.ops.gru_seq import plan as k4_plan
     from rtvc_tpu_torch.ops.lstm_seq import plan as lstm_plan
 
@@ -1909,15 +1948,18 @@ def nar_kernel_cells(dev, card):
                   f"version")
             p = k4_plan(1, H, *limits)
             others = k4_candidates_ms(xg, w, bias, dev)
-            plans = "; ".join(f"{t:.3f} / {tuple(q[:4])}" + (" (plan)" if q == p else "")
+            plans = "; ".join(f"{t:.3f} / {k4_describe(q)}" + (" (plan)" if q == p else "")
                               for t, q in others)
-        print(f"{card}: NAR {kernel} B=1 T={T} H={H}: plan ({p.groups} groups x {p.slices} "
-              f"slices of {p.units} units) {'abs' if n == 4 else 'rel'} err {err:.3e} (tol "
+        described = (k4_describe(p) if n == 3 else
+                     f"{p.groups} groups x {p.slices} slices of {p.units} units")
+        print(f"{card}: NAR {kernel} B=1 T={T} H={H}: plan ({described}) "
+              f"{'abs' if n == 4 else 'rel'} err {err:.3e} (tol "
               f"1e-4), kernel {c['ms']:.3f} ms ({c['ms'] / T * 1e3:.2f} us a step), plain "
               f"{c['plain_ms']:.3f} ms, {c['library']} {c['library_ms']:.3f} ms, "
-              f"bound {c['bound_ms']:.4f} ms by {c['bound_by']}; every plan, ms / (groups, "
-              f"slices, units, nb): {plans}")
-        out[kernel].append({**c, "plan": list(p[:5]), "path": "forward-tacotron clone"})
+              f"bound {c['bound_ms']:.4f} ms by {c['bound_by']}; every plan, ms / "
+              f"{'plan' if n == 3 else '(groups, slices, units, nb)'}: {plans}")
+        out[kernel].append({**c, "plan": list(p[:5]), "path": "forward-tacotron clone",
+                            **({"mode": k4_mode(p)} if n == 3 else {})})
     return out
 
 
@@ -2910,20 +2952,30 @@ CBHG_SHAPES = ((1, 64), (1, 512), (112, 160), (112, 602))
 NAR_TRAIN_GRU_SHAPES = ((16, 160, 64), (16, 160, 128), (16, 160, 256), (16, 900, 256))
 
 
+# (B, T, H, grad) of K4's other narrow shapes on the port's paths: a DP rank's
+# postnet CBHG, the ForwardTacotron step's predictors, the GTA pass's (no
+# gradient)
+NARROW_GRU_SHAPES = ((56, 602, 64, True), (16, 160, 64, True), (16, 160, 128, True),
+                     (8, 160, 64, False), (8, 160, 128, False))
+
+
 def phase_gru(dev):
     """K4 forward and backward at the three vocoder training shapes
     (runtimeracer, whose numbers are the kernels' entries; fatchord's H 512;
-    geneing's T 1400) and at the four CBHG BiGRU shapes (H 64), each against
-    autograd through the plain forward."""
+    geneing's T 1400), at the four CBHG BiGRU shapes (H 64) and at the other
+    narrow shapes (``NARROW_GRU_SHAPES``), each against autograd through the
+    plain forward; at every narrow shape the row-resident plan beside the
+    cooperative one in the same call (``gru_shape``)."""
     first = gru_shape(dev, 40, 1000, 256)
     for e in first:
         e["shapes"] = []
-    for B, T, H in ((40, 1000, 512), (40, 1400, 256), *((B, T, 64) for B, T in CBHG_SHAPES)):
-        # B 1 is the clone's, which takes no gradient
-        for e, other in zip(first, gru_shape(dev, B, T, H, grad=B > 1)):
+    # B 1 is the clone's, which takes no gradient
+    for B, T, H, grad in ((40, 1000, 512, True), (40, 1400, 256, True),
+                          *((B, T, 64, B > 1) for B, T in CBHG_SHAPES), *NARROW_GRU_SHAPES):
+        for e, other in zip(first, gru_shape(dev, B, T, H, grad=grad)):
             e["shapes"].append({"B": B, "T": T, "H": H, **{k: other[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan",
-                "library", "bidir_library_ms", "module_ms")}})
+                "mode", "cooperative_ms", "library", "bidir_library_ms", "module_ms")}})
     return first
 
 
@@ -2963,10 +3015,12 @@ def gru_shape(dev, B, T, H, grad=True, dtype=None):
     from rtvc_tpu_torch.ops import rel_err
     from rtvc_tpu_torch.ops.gru_seq import (
         GRUSeqFn,
+        describe,
         gru_seq_bwd,
         gru_seq_bwd_plain,
         gru_seq_fwd,
         gru_seq_fwd_plain,
+        mode,
         plan,
     )
 
@@ -3035,15 +3089,24 @@ def gru_shape(dev, B, T, H, grad=True, dtype=None):
     limits, elem = _build.device_limits(dev), 2 if bf16 else 4
     p_fwd = plan(B, H, *limits, elem=elem)
     p_bwd = plan(B, H, *limits, backward=True, elem=elem)
-    was = [f" (earlier kernel {t} ms)" if t and not bf16 else ""
-           for t in K4_EARLIER_MS.get((B, T, H), (None, None))]
+    coop_ms = (None, None)
+    if mode(p_fwd) == "row-resident":
+        # the earlier design on the same inputs, through an explicit plan vector
+        coop_out, *coop_ms = k4_cooperative(xg, w_hh, b_hh, bwd_args, dev)
+        if not bf16:
+            coop_err = max(rel_err(a, b) for a, b in zip(coop_out, (ys, gates, k_grads[0])))
+            check(coop_err <= 1e-4, f"K4 at B={B} T={T} H={H}: the row-resident kernels are "
+                  f"{coop_err} from the cooperative ones")
+    earlier = K4_COOPERATIVE_EARLIER_MS if (B, T, H) in K4_COOPERATIVE_EARLIER_MS else K4_EARLIER_MS
+    what = "cooperative plan" if earlier is K4_COOPERATIVE_EARLIER_MS else "kernel"
+    was = [(f", cooperative plan {c:.3f} ms" if c is not None else "")
+           + (f" (an earlier call's {what} {t} ms)" if t and not bf16 else "")
+           for c, t in zip(coop_ms, earlier.get((B, T, H), (None, None)))]
     f32_was = [f", f32 kernel {t:.3f} ms" if t else "" for t in f32_ms]
-    print(f"K4 gru_seq{tag} B={B} T={T} H={H}: forward ({p_fwd.groups} groups x {p_fwd.slices} "
-          f"slices of {p_fwd.units} units, {p_fwd.nb} rows a pass) {fwd_err}, kernel "
+    print(f"K4 gru_seq{tag} B={B} T={T} H={H}: forward ({describe(p_fwd)}) {fwd_err}, kernel "
           f"{ms:.3f} ms{was[0]}{f32_was[0]}, plain {plain_ms:.3f} ms, {library} "
           f"{lib_fwd_ms:.3f} ms, bound {fwd_b['bound_ms']:.4f} ms by {fwd_b['bound_by']}; "
-          f"backward ({p_bwd.groups} groups x {p_bwd.slices} slices of {p_bwd.units} units, "
-          f"{p_bwd.nb} rows a pass) rel errs "
+          f"backward ({describe(p_bwd)}) rel errs "
           + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
           + f" (tol 1e-4), bits repeat, kernel {bwd_ms:.3f} ms{was[1]}{f32_was[1]}, "
           f"plain {bwd_plain_ms:.3f} ms, nn.GRU {lib_bwd_ms:.3f} ms, bound "
@@ -3052,13 +3115,15 @@ def gru_shape(dev, B, T, H, grad=True, dtype=None):
     return [{"name": "gru_seq" + tag.replace(" ", "_"), "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
              "replaces": "rtvc_tpu/ops/pallas/gru_train_kernel.py:71",
              "max_abs_err": fwd_abs, "ms": ms, "plain_ms": plain_ms, **fwd_b,
-             "library_ms": lib_fwd_ms, "plan": list(p_fwd[:5]), "library": library,
+             "library_ms": lib_fwd_ms, "plan": list(p_fwd[:5]), "mode": mode(p_fwd),
+             "cooperative_ms": coop_ms[0], "library": library,
              "bidir_library_ms": bi_fwd_ms, "module_ms": mod_fwd_ms, **extra[0]},
             {"name": "gru_seq_bwd" + tag.replace(" ", "_"),
              "source": "rtvc_tpu_torch/csrc/gru_seq.cu",
              "replaces": "rtvc_tpu/ops/pallas/gru_train_kernel.py:111",
              "max_abs_err": bwd_abs, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_b,
-             "library_ms": lib_bwd_ms, "plan": list(p_bwd[:5]), "library": library,
+             "library_ms": lib_bwd_ms, "plan": list(p_bwd[:5]), "mode": mode(p_bwd),
+             "cooperative_ms": coop_ms[1], "library": library,
              "bidir_library_ms": bi_bwd_ms, "module_ms": mod_bwd_ms, **extra[1]}]
 
 
@@ -4494,7 +4559,7 @@ def phase_nar_train_kernels(dev, card):
         out["lstm_seq"].append(fwd)
         out["lstm_seq_bwd"].append(bwd)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan",
-            "library")
+            "mode", "cooperative_ms", "library")
     for B, T, H in NAR_TRAIN_GRU_SHAPES:
         for name, e in zip(("gru_seq", "gru_seq_bwd"), gru_shape(dev, B, T, H)):
             out[name].append({"B": B, "T": T, "H": H, "path": "forward-tacotron training",

@@ -75,6 +75,13 @@ SIGNATURES = {
     # buffer hx after the outputs
     "rtvc_gru_seq_fwd_bf16": [_P] * 6 + [_I] * 3 + [_IP, _P, _P],
     "rtvc_gru_seq_bwd_bf16": [_P] * 7 + [_I] * 3 + [_IP, _P, _P],
+    # K4's row-resident mode (H <= 128): xg, w_hh, b_hh, ys, gates, B, T, H,
+    # plan (ops/gru_seq.py:RowPlan), stream; and dys, gates, ys, w_hh, dxg,
+    # dhg, B, T, H, plan, stream; each also in bf16
+    "rtvc_gru_rows_fwd": [_P] * 5 + [_I] * 3 + [_IP, _P],
+    "rtvc_gru_rows_fwd_bf16": [_P] * 5 + [_I] * 3 + [_IP, _P],
+    "rtvc_gru_rows_bwd": [_P] * 6 + [_I] * 3 + [_IP, _P],
+    "rtvc_gru_rows_bwd_bf16": [_P] * 6 + [_I] * 3 + [_IP, _P],
     # weights, dims, their count, plan (ops/tacotron_decode.py:Plan.ints), its
     # length, seed, enc_seq, enc_proj, char_mask, mel, attn, stops, work,
     # carry in and out (8 pointers each, or null), done in, flags out, pad,

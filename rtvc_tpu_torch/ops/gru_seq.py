@@ -2,11 +2,20 @@
 and backward (torch semantics: ``b_hn`` sits inside the reset product).
 
 Replaces ``rtvc_tpu/ops/pallas/gru_train_kernel.py:gru_seq_fused``. The CUDA
-kernels are in ``csrc/gru_seq.cu``: W_hh stays in the shared memory of the
-SMs for the whole sequence, each CTA owning a slice of the hidden units and a
-group of batch rows, with a grid-wide barrier between time steps, as K3's
-(``ops/lstm_seq.py``). :func:`plan` cuts a shape into that grid. Each
-wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
+kernels are in ``csrc/gru_seq.cu``, in two modes, and :func:`plan` picks one
+for a shape:
+
+- *row-resident* (:func:`row_plan`, H <= 128): a CTA (past H 64 a cluster
+  of two) owns every hidden unit of one whole batch row for the whole
+  sequence, with W_hh in its registers and the state on chip, and a
+  step ends with a ``__syncthreads()`` (or the cluster's barrier); an
+  ordinary launch of as many CTAs as the rows need;
+- *cooperative* (:func:`cooperative_plan`, wider): W_hh stays in the shared
+  memory of the SMs for the whole sequence, each CTA owning a slice of the
+  hidden units and a group of batch rows, with a grid-wide barrier between
+  time steps, as K3's (``ops/lstm_seq.py``).
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 version for CPU tensors:
 
 - ``gru_seq_fwd``: ``xg`` (B, T, 3H) with ``b_ih`` folded in, ``w_hh``
@@ -173,32 +182,198 @@ def candidates(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = 
     return out
 
 
-def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False,
-         elem: int = 4) -> Plan:
-    """The partition of a (B, T, H) sequence for a card with ``sm_count`` SMs
-    whose blocks may take ``smem_limit`` bytes of shared memory: of the
-    :func:`candidates`, the one of least :func:`cost`; on a tie the fewer
-    rows a group, then the more rows a warp pass. Raises ValueError, naming the
-    widest H the card takes, for a hidden width past it."""
+def cooperative_plan(B: int, H: int, sm_count: int, smem_limit: int,
+                     backward: bool = False, elem: int = 4) -> Plan:
+    """The cooperative partition of a (B, T, H) sequence for a card with
+    ``sm_count`` SMs whose blocks may take ``smem_limit`` bytes of shared
+    memory: of the :func:`candidates`, the one of least :func:`cost`; on a
+    tie the fewer rows a group, then the more rows a warp pass. Raises
+    ValueError, naming the widest H the card takes in this mode, for a
+    hidden width past it."""
     found = candidates(B, H, sm_count, smem_limit, backward, elem)
     if found:
         return min(found, key=lambda p: (cost(p, H, backward), p.rows, -p.nb))
+    raise _past_limit(H, _cooperative_widest(sm_count, smem_limit, backward, elem), sm_count,
+                      smem_limit)
+
+
+def _cooperative_widest(sm_count: int, smem_limit: int, backward: bool, elem: int) -> int:
     widest = 0
     for units, nbs in (BWD_SLICES if backward else FWD_SLICES).items():
         fits = [w for w in range(units * sm_count, 0, -1)
                 if _smem(w, units, min(nbs), backward, elem) <= smem_limit]
         widest = max(widest, fits[0] if fits else 0)
-    raise ValueError(
+    return widest
+
+
+def _past_limit(H: int, widest: int, sm_count: int, smem_limit: int) -> ValueError:
+    return ValueError(
         f"gru_seq: hidden width {H} is past the limit of {widest} for {sm_count} SMs with "
         f"{smem_limit} bytes of shared memory each (W_hh must fit the card's shared memory)")
 
 
-def _plan_args(B: int, H: int, device, backward: bool, dtype: torch.dtype):
-    """The plan for this device and stream dtype as the C entry points take
-    it, and the zeroed barrier counters (one 128-byte line a group)."""
-    p = plan(B, H, *_build.device_limits(device), backward=backward,
-             elem=_build.elem_bytes(dtype))
-    return _build.int_array(p), torch.zeros(32 * p.groups, device=device, dtype=torch.int32)
+# The row-resident mode (csrc/gru_seq.cu:gru_rows_kernel, gru_rows_bwd_kernel):
+# one batch row a CTA or cluster. Its instantiations, (lanes a unit, chunks a
+# gate, CTAs a cluster), in the order the plan tries them: a lane holds 12 ·
+# chunks weights of W_hh in registers (3 gates x chunks of four values of k),
+# so a unit's lanes cover 4 · lanes · chunks values of k. (2, 8, 1) to H 64;
+# (4, 8, 2) to H 128, where one CTA's lanes could not hold 3H x H weights in
+# registers, so two CTAs of a cluster hold half the units each and share the
+# state through distributed shared memory. Every CTA has one more warp, which
+# stages the input ring. Fewer lanes a unit means fewer warps, each updating
+# more units at once, and ran faster on an H100 (2 lanes of 96 weights 12-14 %
+# faster than 4 of 48 at H 64; 4 x 2 CTAs 13-19 % faster than 8 x 2 at H 128;
+# W_hh in shared memory 17-20 % slower forward than in registers: PERF.md,
+# section 6).
+ROW_KINDS = ((2, 8, 1), (4, 8, 2))
+ROW_WIDEST = 128  # the widest H a kind covers: 4 · lanes · chunks
+ROW_RING = 8  # steps of the input ring (csrc/gru_seq.cu:kRing)
+
+
+class RowPlan(NamedTuple):
+    """A row-resident launch: ``ctas`` CTAs in clusters of ``cluster``, one
+    cluster a batch row and each CTA of it an equal share of the hidden
+    units, ``lanes`` lanes a unit each holding ``chunks`` chunks of four
+    weights a gate in registers; ``threads`` threads a CTA (the lanes of its
+    units, padded to whole warps, and the producer warp) and ``smem`` bytes
+    of shared memory."""
+    ctas: int
+    lanes: int
+    chunks: int
+    cluster: int
+    threads: int
+    smem: int
+
+
+def _pad16(n: int, elem: int) -> int:
+    """n elements rounded up to whole 16-byte pieces."""
+    per = 16 // elem
+    return -(-n // per) * per
+
+
+def row_units(H: int, lanes: int, cluster: int) -> int:
+    """Hidden units a CTA owns: its share of H, rounded up so that its
+    lanes fill whole warps."""
+    per = 32 // lanes
+    return -(-(-(-H // cluster)) // per) * per
+
+
+def row_smem(H: int, lanes: int, chunks: int, backward: bool, elem: int = 4) -> int:
+    """Bytes of shared memory a row-resident CTA takes: the input ring
+    (``ROW_RING`` steps of its row: xg's 3H in the forward, the gates' 4H
+    with dys' and h_{t-1}'s H in the backward, each part padded to 16 bytes)
+    and two f32 buffers of the whole state (h, or the backward's 3H-wide
+    dhg), 4 · lanes · chunks wide a gate."""
+    slot = (_pad16(4 * H, elem) + 2 * _pad16(H, elem)) if backward else _pad16(3 * H, elem)
+    return ROW_RING * slot * elem + 2 * (3 if backward else 1) * 4 * lanes * chunks * 4
+
+
+def row_plan(B: int, H: int, smem_limit: int, backward: bool = False, elem: int = 4):
+    """The row-resident plan of a (B, T, H) sequence whose CTAs may take
+    ``smem_limit`` bytes of shared memory, or None where none fits (H past
+    ``ROW_WIDEST``, or too little shared memory): the first of ``ROW_KINDS``
+    that covers H, one cluster a batch row. One row a CTA ran fastest at
+    every shape timed on an H100 (2 rows 4-18 % slower a launch, 4 rows
+    42-90 %: PERF.md, section 6), and the clusters share nothing, so past the
+    SMs they run in waves."""
+    if B < 1 or H < 1:
+        raise ValueError(f"gru_seq: B {B} and H {H} must be positive")
+    lanes, chunks, cluster = next((k for k in ROW_KINDS if 4 * k[0] * k[1] >= H),
+                                  (None, None, None))
+    if lanes is None:
+        return None
+    smem = row_smem(H, lanes, chunks, backward, elem)
+    if smem > smem_limit:
+        return None
+    return RowPlan(B * cluster, lanes, chunks, cluster,
+                   row_units(H, lanes, cluster) * lanes + 32, smem)
+
+
+def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False,
+         elem: int = 4):
+    """The launch of a (B, T, H) sequence for a card with ``sm_count`` SMs
+    whose blocks may take ``smem_limit`` bytes of shared memory: the
+    :func:`row_plan` wherever one fits (on an H100, every H <= 128), else
+    the :func:`cooperative_plan` (which raises ValueError past the widest
+    H the card takes)."""
+    if B < 1 or H < 1 or sm_count < 1:
+        raise ValueError(f"gru_seq: B {B}, H {H} and the SM count {sm_count} must be positive")
+    p = row_plan(B, H, smem_limit, backward, elem)
+    if p is not None:
+        return p
+    if candidates(B, H, sm_count, smem_limit, backward, elem):
+        return cooperative_plan(B, H, sm_count, smem_limit, backward, elem)
+    row_widest = next((w for w in range(ROW_WIDEST, 0, -1)
+                       if row_plan(1, w, smem_limit, backward, elem)), 0)
+    raise _past_limit(H, max(row_widest,
+                             _cooperative_widest(sm_count, smem_limit, backward, elem)),
+                      sm_count, smem_limit)
+
+
+def describe(p) -> str:
+    """A plan in words, for the scripts' lines."""
+    if isinstance(p, RowPlan):
+        return (f"row-resident: {p.ctas} CTAs "
+                + (f"in clusters of {p.cluster} " if p.cluster > 1 else "")
+                + f"of one row, {p.lanes} lanes a unit of {12 * p.chunks} weights each in "
+                f"registers, {p.threads} threads, {p.smem} bytes of shared memory")
+    return (f"cooperative: {p.groups} groups x {p.slices} slices of {p.units} units, {p.nb} rows "
+            f"a pass, {p.smem} bytes of shared memory")
+
+
+def mode(p) -> str:
+    return "row-resident" if isinstance(p, RowPlan) else "cooperative"
+
+
+def _call(lib, name: str, p, tensors, B: int, T: int, H: int, device) -> None:
+    """One launch through the C entry point ``name`` of ``lib`` (the built
+    library when None) on ``tensors``' memory under the plan ``p``; a
+    cooperative plan gets its zeroed barrier counters, one 128-byte line a
+    group, held until the launch is queued."""
+    sync = (None if isinstance(p, RowPlan)
+            else torch.zeros(32 * p.groups, device=device, dtype=torch.int32))
+    err = getattr(lib or _build.library(), name)(
+        *(t.data_ptr() for t in tensors), B, T, H, _build.int_array(p),
+        *(() if sync is None else (sync.data_ptr(),)), _build.stream_handle(device))
+    _build.check(err, name)
+
+
+def _entry(p, backward: bool, dtype: torch.dtype) -> str:
+    return (f"rtvc_gru_{'rows' if isinstance(p, RowPlan) else 'seq'}_"
+            f"{'bwd' if backward else 'fwd'}{'' if dtype == torch.float32 else '_bf16'}")
+
+
+def launch_fwd(p, xg: Tensor, w_hh: Tensor, b_hh: Tensor, ys: Tensor, gates: Tensor,
+               lib=None) -> None:
+    """The forward kernel of ``p``'s mode (a :class:`RowPlan` or a
+    cooperative :class:`Plan`) and of the streams' dtype, into ``ys`` and
+    ``gates``, through its C entry point in ``lib`` (the built library when
+    None; ``profile_gru`` passes variants of it). Checks no tensor and
+    counts no launch: :func:`gru_seq_fwd` does both, and the scripts reach
+    an explicit plan through this."""
+    B, T, _ = xg.shape
+    H = w_hh.shape[1]
+    name = _entry(p, False, xg.dtype)
+    tensors = [xg, w_hh, b_hh, ys, gates]
+    if name == "rtvc_gru_seq_fwd_bf16":  # the cooperative bf16 kernel carries h through f32
+        tensors.append(torch.empty((2, B, H), device=xg.device, dtype=torch.float32))
+    _call(lib, name, p, tensors, B, T, H, xg.device)
+
+
+def launch_bwd(p, dys: Tensor, gates: Tensor, ys: Tensor, w_hh: Tensor, dxg: Tensor,
+               dhg: Tensor, lib=None) -> None:
+    """The backward kernel of ``p``'s mode and of the streams' dtype, into
+    the f32 ``dxg`` and ``dhg``, as :func:`launch_fwd`."""
+    B, T, H = dys.shape
+    tensors = [dys, gates, ys, w_hh, dxg, dhg]
+    if not isinstance(p, RowPlan):  # the cooperative kernel carries dh·z in device memory
+        tensors.append(torch.empty((B, H), device=dys.device, dtype=torch.float32))
+    _call(lib, _entry(p, True, dys.dtype), p, tensors, B, T, H, dys.device)
+
+
+def _device_plan(B: int, H: int, t: Tensor, backward: bool):
+    return plan(B, H, *_build.device_limits(t.device), backward=backward,
+                elem=_build.elem_bytes(t.dtype))
 
 
 def gru_seq_fwd(xg: Tensor, w_hh: Tensor, b_hh: Tensor) -> Tuple[Tensor, Tensor]:
@@ -214,19 +389,9 @@ def gru_seq_fwd(xg: Tensor, w_hh: Tensor, b_hh: Tensor) -> Tuple[Tensor, Tensor]
                          w_hh=(w_hh, (3 * H, H), dt), b_hh=(b_hh, (3 * H,), dt))
     if B < 1 or T < 1:
         raise ValueError(f"gru_seq: B and T must be at least 1, got {B} and {T}")
-    lib = _build.library()
-    plan_v, sync = _plan_args(B, H, dev, backward=False, dtype=dt)
     ys = torch.empty((B, T, H), device=dev, dtype=dt)
     gates = torch.empty((B, T, 4 * H), device=dev, dtype=dt)
-    ptrs = [xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), ys.data_ptr(), gates.data_ptr()]
-    if dt == torch.float32:
-        name = "rtvc_gru_seq_fwd"
-    else:  # the bf16 instantiation carries h through an f32 exchange
-        name = "rtvc_gru_seq_fwd_bf16"
-        ptrs.append(torch.empty((2, B, H), device=dev, dtype=torch.float32).data_ptr())
-    err = getattr(lib, name)(*ptrs, B, T, H, plan_v, sync.data_ptr(),
-                             _build.stream_handle(dev))
-    _build.check(err, name)
+    launch_fwd(_device_plan(B, H, xg, False), xg, w_hh, b_hh, ys, gates)
     _build.count_launch("gru_seq" if dt == torch.float32 else "gru_seq_bf16")
     return ys, gates
 
@@ -241,15 +406,8 @@ def _bwd(dys: Tensor, gates: Tensor, ys: Tensor, w_hh: Tensor) -> Tuple[Tensor, 
                          w_hh=(w_hh, (3 * H, H), dt))
     if B < 1 or T < 1:
         raise ValueError(f"gru_seq_bwd: B and T must be at least 1, got {B} and {T}")
-    lib = _build.library()
-    plan_v, sync = _plan_args(B, H, dev, backward=True, dtype=dt)
     dxg, dhg = (torch.empty((B, T, 3 * H), device=dev, dtype=torch.float32) for _ in range(2))
-    carry = torch.empty((B, H), device=dev, dtype=torch.float32)
-    name = "rtvc_gru_seq_bwd" if dt == torch.float32 else "rtvc_gru_seq_bwd_bf16"
-    err = getattr(lib, name)(dys.data_ptr(), gates.data_ptr(), ys.data_ptr(), w_hh.data_ptr(),
-                             dxg.data_ptr(), dhg.data_ptr(), carry.data_ptr(), B, T, H, plan_v,
-                             sync.data_ptr(), _build.stream_handle(dev))
-    _build.check(err, name)
+    launch_bwd(_device_plan(B, H, dys, True), dys, gates, ys, w_hh, dxg, dhg)
     _build.count_launch("gru_seq_bwd" if dt == torch.float32 else "gru_seq_bwd_bf16")
     return dxg, dhg
 

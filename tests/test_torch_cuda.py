@@ -174,10 +174,16 @@ def test_lstm_train_kernels_match_plain(dev, B, T, H):
 
 # small widths, odd widths (the kernels' scalar path), the three WaveRNN
 # training shapes (runtimeracer, fatchord, geneing), one row, more rows than
-# SMs at a ragged width, one step, and the CBHG BiGRU's width at its batch
+# SMs at a ragged width, one step, and the CBHG BiGRU's width at its batch;
+# then the row-resident mode's (H <= 128) shapes: the clone's postnet CBHG (B 1
+# x T 512), the GTA pass's and the ForwardTacotron step's predictors (B 8 and
+# 16 x T 160), a DP rank's CBHG (B 56 x T 602), more rows than SMs (B 133 and
+# 600: a CTA a row, in waves), one step at H 128, and an odd narrow width
 @pytest.mark.parametrize("B,T,H", [(3, 20, 128), (2, 9, 13), (40, 1000, 256), (40, 1000, 512),
                                    (40, 1400, 256), (1, 7, 128), (133, 5, 200), (4, 1, 64),
-                                   (112, 50, 64), (5, 6, 13)])
+                                   (112, 50, 64), (5, 6, 13), (1, 512, 64), (8, 160, 64),
+                                   (16, 160, 128), (56, 602, 64), (133, 5, 64), (600, 5, 64),
+                                   (3, 1, 128), (2, 9, 40)])
 def test_gru_kernels_match_plain(dev, B, T, H):
     g = torch.Generator().manual_seed(1)
     s = H ** -0.5
@@ -188,6 +194,7 @@ def test_gru_kernels_match_plain(dev, B, T, H):
     got = _counted("gru_seq", lambda: gru_seq_fwd(xg, w, b))
     ys, gates = gru_seq_fwd_plain(xg, w, b)
     assert rel_err(got[0], ys) <= 1e-5 and rel_err(got[1], gates) <= 1e-5
+    assert all(torch.equal(a, r) for a, r in zip(got, gru_seq_fwd(xg, w, b)))
     dxg = _counted("gru_seq_bwd", lambda: gru_seq_bwd(dys, gates, ys, w))
     assert rel_err(dxg, gru_seq_bwd_plain(dys, gates, ys, w)) <= 1e-4
     # no sum goes through an atomic: a second run gives the same bits
@@ -198,6 +205,94 @@ def test_gru_kernels_match_plain(dev, B, T, H):
     gru_seq_fwd_plain(*ref)[0].backward(dys)
     for a, r in zip(leaves, ref):
         assert rel_err(a.grad, r.grad) <= 1e-4
+
+
+def _gru_case(dev, B, T, H, seed, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    s = H ** -0.5
+    xg = torch.randn(B, T, 3 * H, generator=g).to(dev, dtype)
+    w = ((torch.rand(3 * H, H, generator=g) - 0.5) * 2 * s).to(dev, dtype)
+    b = ((torch.rand(3 * H, generator=g) - 0.5) * 2 * s).to(dev, dtype)
+    dys = torch.randn(B, T, H, generator=g).to(dev, dtype)
+    return xg, w, b, dys
+
+
+def _cooperative_gru(dev, xg, w, b, dys):
+    """K4's cooperative kernels on an explicit plan (ys, gates, dxg, dhg),
+    the way chip_smoke.py reaches the earlier design at a narrow width."""
+    from rtvc_tpu_torch.ops import gru_seq as k4
+
+    B, T, G = xg.shape
+    H = G // 3
+    limits, elem = _build.device_limits(dev), _build.elem_bytes(xg.dtype)
+    ys, gates = (torch.empty(B, T, n * H, device=dev, dtype=xg.dtype) for n in (1, 4))
+    k4.launch_fwd(k4.cooperative_plan(B, H, *limits, elem=elem), xg, w, b, ys, gates)
+    dxg, dhg = (torch.empty(B, T, 3 * H, device=dev) for _ in range(2))
+    k4.launch_bwd(k4.cooperative_plan(B, H, *limits, backward=True, elem=elem), dys, gates, ys,
+                  w, dxg, dhg)
+    torch.cuda.synchronize()
+    return ys, gates, dxg, dhg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H", [(1, 64, 64), (112, 160, 64), (16, 160, 128), (3, 9, 40)])
+def test_gru_row_resident_matches_the_cooperative_plan(dev, B, T, H, dtype):
+    """At a narrow width the plan is row-resident; its outputs equal the
+    earlier cooperative plan's, forced through an explicit plan vector,
+    within 1e-5 (f32; bf16 streams within a bf16 rounding of ys and the
+    gates, the f32 cotangents within 1e-5 of the cooperative kernel's on the
+    same residuals)."""
+    from rtvc_tpu_torch.ops import gru_seq as k4
+    from rtvc_tpu_torch.ops.gru_seq import _bwd
+
+    limits, elem = _build.device_limits(dev), _build.elem_bytes(dtype)
+    for backward in (False, True):
+        assert isinstance(k4.plan(B, H, *limits, backward=backward, elem=elem), k4.RowPlan)
+    xg, w, b, dys = _gru_case(dev, B, T, H, seed=7, dtype=dtype)
+    ys, gates, dxg, dhg = _cooperative_gru(dev, xg, w, b, dys)
+    got = gru_seq_fwd(xg, w, b)
+    # the backward on the cooperative forward's residuals, so that both see the same inputs
+    got_b = _bwd(dys, gates, ys, w)
+    torch.cuda.synchronize()
+    for a, r in zip(got, (ys, gates)):
+        if dtype == torch.float32:
+            assert rel_err(a, r) <= 1e-5
+        else:
+            torch.testing.assert_close(a, r, **BF16)
+    for a, r in zip(got_b, (dxg, dhg)):
+        assert rel_err(a, r) <= 1e-5
+
+
+def test_gru_narrow_width_reaches_the_row_resident_kernel(dev, monkeypatch):
+    """A CUDA tensor at a narrow width launches the row-resident kernel and
+    is counted as K4's launch: the cooperative entry points and the plain
+    versions are made to raise, and neither is reached. A plan vector the
+    row-resident entry does not take is refused with cudaErrorInvalidValue
+    (1), not run another way."""
+    from rtvc_tpu_torch.ops import gru_seq as k4
+
+    def refuse(*a, **k):
+        raise AssertionError("a narrow-width CUDA call left the row-resident kernel")
+
+    lib = _build.library()
+    for name in ("rtvc_gru_seq_fwd", "rtvc_gru_seq_bwd", "rtvc_gru_seq_fwd_bf16",
+                 "rtvc_gru_seq_bwd_bf16"):
+        monkeypatch.setattr(lib, name, refuse)
+    monkeypatch.setattr(k4, "gru_seq_fwd_plain", refuse)
+    monkeypatch.setattr(k4, "gru_seq_bwd_plain", refuse)
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        xg, w, b, dys = _gru_case(dev, 4, 9, 64, seed=8, dtype=dtype)
+        ys, gates = _counted("gru_seq" + tag, lambda: gru_seq_fwd(xg, w, b))
+        _counted("gru_seq_bwd" + tag, lambda: gru_seq_bwd(dys, gates, ys, w))
+    xg, w, b, _ = _gru_case(dev, 4, 9, 64, seed=8)
+    p = k4.plan(4, 64, *_build.device_limits(dev))
+    ys, gates = torch.empty(4, 9, 64, device=dev), torch.empty(4, 9, 256, device=dev)
+    for bad in (p._replace(smem=p.smem + 16), p._replace(chunks=4), p._replace(ctas=p.ctas + 1),
+                p._replace(lanes=8), p._replace(cluster=2), p._replace(threads=p.threads - 32),
+                p._replace(lanes=0), p._replace(cluster=0, ctas=0)):
+        assert lib.rtvc_gru_rows_fwd(xg.data_ptr(), w.data_ptr(), b.data_ptr(), ys.data_ptr(),
+                                     gates.data_ptr(), 4, 9, 64, _build.int_array(bad),
+                                     _build.stream_handle(dev)) == 1
 
 
 def test_gru_seq_kernel_names_its_width_limit(dev):
@@ -501,7 +596,8 @@ def test_lstm_bf16_kernels_match_plain(dev, B, T, H):
         assert a.dtype == torch.float32 and rel_err(a, b) <= 1e-4
 
 
-@pytest.mark.parametrize("B,T,H", [(3, 20, 40), (112, 602, 64)])
+@pytest.mark.parametrize("B,T,H", [(3, 20, 40), (112, 602, 64), (1, 512, 64), (16, 160, 64),
+                                   (16, 160, 128), (2, 9, 13)])
 def test_gru_bf16_kernels_match_plain(dev, B, T, H):
     g = torch.Generator().manual_seed(4)
     xg = torch.randn(B, T, 3 * H, generator=g).to(dev, torch.bfloat16)

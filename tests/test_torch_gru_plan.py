@@ -13,8 +13,7 @@ from rtvc_tpu_torch.ops import wavernn_generate as wg
 H100 = (132, 232448)  # SMs, bytes of shared memory a block may opt in to
 
 
-def _check_gru_plan(B, H, sm_count, smem_limit, backward):
-    p = gs.plan(B, H, sm_count, smem_limit, backward)
+def _check_cooperative_plan(p, B, H, sm_count, smem_limit, backward, elem=4):
     # every hidden unit in exactly one slice, every batch row in exactly one group
     units = [u for s in range(p.slices) for u in range(s * p.units, min((s + 1) * p.units, H))]
     assert units == list(range(H))
@@ -25,13 +24,49 @@ def _check_gru_plan(B, H, sm_count, smem_limit, backward):
     assert 1 <= p.groups * p.slices <= sm_count
     assert 0 < p.smem <= smem_limit
     w_rows, ld = (p.units, 3 * H) if backward else (3 * p.units, -(-H // 4) * 4)
-    assert p.smem >= 4 * w_rows * ld
+    assert p.smem >= elem * w_rows * ld
     # an instantiation the kernels have
     assert p.nb in (gs.BWD_SLICES if backward else gs.FWD_SLICES)[p.units]
     # the least modelled cost of every candidate
     assert gs.cost(p, H, backward) == min(gs.cost(c, H, backward)
                                           for c in gs.candidates(B, H, sm_count, smem_limit,
-                                                                 backward))
+                                                                 backward, elem))
+
+
+def _check_row_plan(p, B, H, sm_count, smem_limit, backward, elem=4):
+    # every batch row in exactly one cluster (or CTA), one cluster a row; the
+    # clusters share nothing, so they need not all be resident at once
+    assert 1 <= p.cluster <= 2 and p.ctas == B * p.cluster
+    # every unit in exactly one CTA of the cluster, its lanes filling whole
+    # warps, plus the producer warp; the lanes of a unit cover H
+    units = gs.row_units(H, p.lanes, p.cluster)
+    assert units * p.cluster >= H and (units - 32 // p.lanes) * p.cluster < H
+    assert p.threads == units * p.lanes + 32 and (p.threads - 32) % 32 == 0
+    assert 4 * p.lanes * p.chunks >= H and H <= gs.ROW_WIDEST
+    kind = (p.lanes, p.chunks, p.cluster)
+    assert kind in gs.ROW_KINDS
+    # the lanes hold the whole W_hh in registers; the input ring and the
+    # state of the row fit each CTA's shared memory
+    assert 12 * p.chunks * p.lanes * units * p.cluster >= 3 * H * H
+    assert p.smem == gs.row_smem(H, p.lanes, p.chunks, backward, elem)
+    assert 0 < p.smem <= smem_limit
+    ring = gs.ROW_RING * (6 if backward else 3) * H * elem
+    state = 2 * 4 * (3 if backward else 1) * H
+    assert p.smem >= ring + state
+    # the first kind that covers H: one CTA to H 64, a cluster of two past it
+    assert kind == next(k for k in gs.ROW_KINDS if 4 * k[0] * k[1] >= H)
+    assert p.cluster == (1 if H <= 64 else 2)
+
+
+def _check_gru_plan(B, H, sm_count, smem_limit, backward, elem=4):
+    p = gs.plan(B, H, sm_count, smem_limit, backward, elem)
+    if isinstance(p, gs.RowPlan):
+        _check_row_plan(p, B, H, sm_count, smem_limit, backward, elem)
+    else:
+        # the cooperative plan wherever no row-resident plan fits
+        assert gs.row_plan(B, H, smem_limit, backward, elem) is None
+        assert p == gs.cooperative_plan(B, H, sm_count, smem_limit, backward, elem)
+        _check_cooperative_plan(p, B, H, sm_count, smem_limit, backward, elem)
     return p
 
 
@@ -41,6 +76,15 @@ def _check_gru_plan_or_limit(B, H, sm_count, smem_limit, backward):
     except ValueError as e:
         assert "past the limit of" in str(e)
         assert H > int(str(e).split("past the limit of ")[1].split()[0])
+    # the cooperative design keeps its own contract at every width, the
+    # narrow ones included (chip_smoke.py and profile_gru reach it there
+    # through an explicit plan vector)
+    try:
+        p = gs.cooperative_plan(B, H, sm_count, smem_limit, backward)
+    except ValueError as e:
+        assert H > int(str(e).split("past the limit of ")[1].split()[0])
+    else:
+        _check_cooperative_plan(p, B, H, sm_count, smem_limit, backward)
 
 
 @pytest.mark.parametrize("backward", [False, True])
@@ -56,7 +100,8 @@ def test_gru_plan_covers_the_shape(B, H, sm_count, backward):
 def test_gru_plan_at_the_wavernn_training_shapes():
     """The three WaveRNN training shapes on an H100: two batch groups where
     they halve what each CTA reads from L2, three rows a warp pass; and the
-    CBHG BiGRU's width at the Tacotron batch."""
+    CBHG BiGRU's width at the Tacotron batch, row-resident: 112 CTAs of one
+    row, 2 lanes a unit."""
     got = {(B, H, bw): tuple(_check_gru_plan(B, H, *H100, bw)[:5])
            for B, H in ((40, 256), (40, 512), (112, 64)) for bw in (False, True)}
     assert got[(40, 256, False)] == (2, 64, 4, 3, 20)
@@ -64,19 +109,42 @@ def test_gru_plan_at_the_wavernn_training_shapes():
     assert got[(40, 512, False)] == (2, 64, 8, 3, 20)
     assert got[(40, 512, True)] == (2, 64, 8, 3, 20)
     for bw in (False, True):
-        p = got[(112, 64, bw)]
-        assert p[0] * p[1] <= 132 and p[0] * p[4] >= 112
+        p = gs.plan(112, 64, *H100, bw)
+        assert isinstance(p, gs.RowPlan) and p[:5] == (112, 2, 8, 1, 160)
 
 
 @pytest.mark.parametrize("H", [64, 128, 256])
 def test_gru_plan_at_one_row(H):
-    """B 1 (ForwardTacotron's BiGRUs, the Tacotron clone's CBHGs): 4 units a
-    CTA, one row a pass, the fastest plan on an H100 at H 64, 128 and 256;
-    a warp pass of fewer than 12 sums (units 1-2, nb 1) is slow there."""
+    """B 1 (ForwardTacotron's BiGRUs, the Tacotron clone's CBHGs): row-resident
+    with W_hh in registers, at H 64 one CTA of 2 lanes a unit, at H 128 a
+    cluster of two CTAs of 4 lanes a unit, 64 units each; at H 256 the
+    cooperative plan of 4 units a CTA, one row a pass.
+    That cooperative plan is the fastest of its mode on an H100 at H 64, 128
+    and 256 alike; a warp pass of fewer than 12 sums (units 1-2, nb 1) is
+    slow there."""
     p = _check_gru_plan(1, H, *H100, False)
-    assert tuple(p[:5]) == (1, H // 4, 4, 1, 1)
+    coop = gs.cooperative_plan(1, H, *H100)
+    assert tuple(coop[:5]) == (1, H // 4, 4, 1, 1)
+    if H <= 128:
+        assert isinstance(p, gs.RowPlan)
+        assert p[:5] == ((1, 2, 8, 1, 160) if H == 64 else (2, 4, 8, 2, 288))
+    else:
+        assert p == coop
     slow = gs.Plan(1, H, 1, 1, 1, gs._smem(H, 1, 1, False))
-    assert gs.cost(slow, H, False) > gs.cost(p, H, False) + gs.SMALL_PASS_CYCLES / 2
+    assert gs.cost(slow, H, False) > gs.cost(coop, H, False) + gs.SMALL_PASS_CYCLES / 2
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("B", [1, 8, 16, 56, 112, 133, 600])
+@pytest.mark.parametrize("H", [1, 13, 40, 64, 65, 100, 128])
+def test_gru_plan_row_resident_on_an_h100(H, B, backward, elem):
+    """On an H100 every H <= 128 is row-resident in both stream dtypes (past
+    H 64 in clusters of two), one cluster a batch row past the SMs too; and
+    one width past it is cooperative."""
+    p = _check_gru_plan(B, H, *H100, backward, elem)
+    assert isinstance(p, gs.RowPlan) and p.ctas == B * (1 if H <= 64 else 2)
+    assert isinstance(_check_gru_plan(B, 256, *H100, backward, elem), gs.Plan)
 
 
 @pytest.mark.parametrize("backward", [False, True])
@@ -194,3 +262,25 @@ def test_profile_variants_match_the_kernel_sources(source):
     assert made["base"] == text and len({*made.values()}) == len(made)
     assert profile_lstm.BARRIER_WAIT not in made["no_wait"]
     assert profile_lstm.WEIGHT_LOAD not in made["no_loads_no_weights"]
+
+
+def test_profile_row_variants_match_the_kernel_source():
+    """``profile_gru``'s row-resident variants (the forward without its xg
+    ring, or without its product; both kernels clocked) replace parts of
+    ``gru_seq.cu`` by their text: every part must still be there, and each
+    variant must differ from the source and from the others. The
+    smem_weights variant keeps no weights in registers and grows the shared
+    memory the entry points check by the compute threads' weights."""
+    from rtvc_tpu_torch import profile_gru, profile_lstm
+
+    text = profile_lstm.flat_source("gru_seq.cu")
+    made = profile_gru.row_variants(text)
+    assert set(made) == {"base", "no_ring", "no_product", "smem_weights", "clock"}
+    assert made["base"] == text and len({*made.values()}) == len(made)
+    assert profile_gru.RING_READ not in made["no_ring"]
+    assert profile_gru.PRODUCT not in made["no_product"]
+    assert made["clock"].count("clock64()") == 2 * 6
+    assert "float4 w[3][KI];" not in made["smem_weights"]
+    assert made["smem_weights"].count("(size_t)12 * KI * nt") == 2
+    p = gs.row_plan(1, 64, H100[1])
+    assert profile_gru.smem_weights_plan(p).smem == p.smem + 3 * 64 * 64 * 4
