@@ -185,11 +185,14 @@
 9. The bf16 training policy (``ops/precision.py``, ``phase_bf16_train``).
    K3's bf16 instantiation (bf16 streams and W_hh, f32 state), forward with
    residuals and backward, at the GE2E step's 640 x 160 x 768 and
-   ForwardTacotron's BiLSTM, 16 x 900 x 512; K4's at runtimeracer's 40 x
-   1000 x 256 and the Tacotron CBHG's 112 x 602 x 64: each held to its plain
-   bf16 version (bf16 outputs within torch.testing's bf16 tolerance, f32
-   outputs within 1e-4) and timed beside the f32 kernel, the plain version
-   and cuDNN in bf16. Then three full-width bf16 steps of each trainer
+   ForwardTacotron's BiLSTM, 16 and 48 x 900 x 512; K4's at runtimeracer's
+   40 x 1000 x 256 and the Tacotron CBHG's 112 x 602 x 64: each held to its
+   plain bf16 version (bf16 outputs within torch.testing's bf16 tolerance,
+   f32 outputs within 1e-4) and timed beside the f32 kernel, the plain
+   version and cuDNN in bf16; K3's plan names its design (the tensor-core
+   mode of ``csrc/lstm_seq_mma.cu`` or the CUDA-core one of
+   ``csrc/lstm_seq.cu``), and both designs are held and timed on the same
+   inputs through explicit plans. Then three full-width bf16 steps of each trainer
    through its entry function on the f32 runs' weights and batches (GE2E,
    Tacotron, ForwardTacotron, FastPitch, runtimeracer): finite losses, f32
    master weights, the first loss within 5 % of the f32 run's, the launches
@@ -429,11 +432,9 @@ def phase_barrier(dev):
 
 def k3_plan(B, H, dev, backward=False, elem=4):
     from rtvc_tpu_torch import _build
-    from rtvc_tpu_torch.ops.lstm_seq import plan
+    from rtvc_tpu_torch.ops.lstm_seq import describe, plan
 
-    p = plan(B, H, *_build.device_limits(dev), backward=backward, elem=elem)
-    return (f"{p.groups} groups x {p.slices} slices of {p.units} units, {p.nb} rows a warp, "
-            f"{p.smem} bytes of shared memory")
+    return describe(plan(B, H, *_build.device_limits(dev), backward=backward, elem=elem))
 
 
 def rnn_ms(rnn, B, T, H, dev, backward=True, dtype=None):
@@ -4285,7 +4286,8 @@ K4_REPLACES = ("rtvc_tpu/ops/pallas/gru_train_kernel.py:71",
 def bf16_entries(label, names, replaces, fwd, bwd):
     """The "kernels" line's two entries (forward, backward) of a bf16
     instantiation from its cells: the first cell's numbers, the others under
-    ``shapes``."""
+    ``shapes``; ``label`` names the first cell's source (K3's bf16 cells
+    say by ``mode`` which design each ran)."""
     out = []
     for name, rep, cells in zip(names, replaces, (fwd, bwd)):
         cells = [{k: v for k, v in c.items() if k not in ("name", "source", "replaces")}
@@ -4334,7 +4336,7 @@ def phase_bf16_train(dev, card, runs_dir, f32_runs):
           for B, T, H, I, path in K3_BF16_SHAPES]
     k4 = [[{"B": B, "T": T, "H": H, **e} for e in gru_shape(dev, B, T, H, dtype=bf16)]
           for B, T, H in K4_BF16_SHAPES]
-    entries = (bf16_entries("lstm_seq", BF16_KERNELS[:2], K3_REPLACES, *zip(*k3))
+    entries = (bf16_entries("lstm_seq_mma", BF16_KERNELS[:2], K3_REPLACES, *zip(*k3))
                + bf16_entries("gru_seq", BF16_KERNELS[2:], K4_REPLACES, *zip(*k4)))
 
     steps = 3
@@ -4453,6 +4455,49 @@ def k3_train_candidates_ms(args, backward, dev):
     return rounds_ms(runs)
 
 
+def k3_bf16_designs(fwd_args, bwd_args, want_fwd, want_bwd, dev):
+    """K3's two bf16 designs on the same inputs, each through an explicit
+    plan (``ops/lstm_seq.py:launch_fwd`` / ``launch_bwd``, no launch
+    counted): the tensor-core mode where an instantiation fits
+    (``mma_plan``) and the CUDA-core design (``cuda_core_plan``). Each
+    design's outputs are held to the plain versions (``held``), then all
+    are timed in ``profile_gru.rounds_ms``. Returns {design: {"fwd_ms",
+    "bwd_ms", "plan"}}."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.ops import lstm_seq as k3
+    from rtvc_tpu_torch.profile_gru import rounds_ms
+
+    xg, w = fwd_args[:2]
+    B, T, _ = xg.shape
+    H = w.shape[1]
+    limits = _build.device_limits(dev)
+    plans = {"cuda-core": (k3.cuda_core_plan(B, H, *limits, elem=2),
+                           k3.cuda_core_plan(B, H, *limits, backward=True, elem=2))}
+    mma = (k3.mma_plan(B, H, *limits), k3.mma_plan(B, H, *limits, backward=True))
+    if all(mma):
+        plans["tensor-core"] = mma
+    bf, f32 = torch.bfloat16, torch.float32
+    outs = [torch.empty(B, T, H, device=dev, dtype=bf), torch.empty(B, H, device=dev),
+            torch.empty(B, H, device=dev), torch.empty(B, T, H, device=dev, dtype=bf),
+            torch.empty(B, T, 4 * H, device=dev, dtype=bf)]
+    grads = [torch.empty(B, T, 4 * H, device=dev, dtype=f32), torch.empty(B, H, device=dev),
+             torch.empty(B, H, device=dev)]
+    runs = {}
+    for name, (pf, pb) in plans.items():
+        k3.launch_fwd(pf, *fwd_args, *outs)
+        k3.launch_bwd(pb, *bwd_args, *grads)
+        torch.cuda.synchronize()
+        held(f"K3 bf16 {name} forward at B {B} x T {T} x H {H}", outs, want_fwd)
+        held(f"K3 bf16 {name} backward at B {B} x T {T} x H {H}", grads, want_bwd)
+        runs[(name, "fwd")] = lambda pf=pf: k3.launch_fwd(pf, *fwd_args, *outs)
+        runs[(name, "bwd")] = lambda pb=pb: k3.launch_bwd(pb, *bwd_args, *grads)
+    ms = rounds_ms(runs)
+    return {name: {"fwd_ms": ms[(name, "fwd")], "bwd_ms": ms[(name, "bwd")],
+                   "plan": [list(pf), list(pb)]} for name, (pf, pb) in plans.items()}
+
+
 def k3_train_cell(dev, card, B, T=900, H=512, I=1280, path="forward-tacotron training",
                   dtype=None):
     """K3's forward with residuals and its backward at a training shape (by
@@ -4465,8 +4510,10 @@ def k3_train_cell(dev, card, B, T=900, H=512, I=1280, path="forward-tacotron tra
     ``dtype`` bf16 the bf16 instantiation: bf16 xg, W_hh and dys with f32
     state, its bf16 streams within ``BF16_TOL``, the f32 kernel timed
     beside it on the same values, cuDNN in bf16, the plan at 2-byte weights
-    and the bound at the bf16 peak. Returns the forward's and the
-    backward's cells."""
+    (its design: the tensor-core mode or the CUDA-core one) and the bound
+    at the bf16 peak; both bf16 designs are held and timed on the same
+    inputs through explicit plans (``k3_bf16_designs``). Returns the
+    forward's and the backward's cells."""
     import torch
 
     from rtvc_tpu_torch import _build
@@ -4475,6 +4522,7 @@ def k3_train_cell(dev, card, B, T=900, H=512, I=1280, path="forward-tacotron tra
         lstm_seq_bwd_plain,
         lstm_seq_fwd_train,
         lstm_seq_fwd_train_plain,
+        mode,
         plan,
     )
 
@@ -4510,14 +4558,20 @@ def k3_train_cell(dev, card, B, T=900, H=512, I=1280, path="forward-tacotron tra
     bwd_b = bound(nbytes(*args, *pb), flops, peak)
     limits = _build.device_limits(dev)
     p_f, p_b = plan(B, H, *limits, elem=elem), plan(B, H, *limits, backward=True, elem=elem)
-    if bf16:  # the f32 kernel on the same values
+    if bf16:  # the f32 kernel on the same values; both bf16 designs
         f32 = (xg.float(), w.float(), h0, h0)
         res = lstm_seq_fwd_train(*f32)
         f32_bwd = (dys.float(), *args[1:3], res[4], res[3], h0, f32[1])
         extra = ({"f32_kernel_ms": cuda_ms(lambda: lstm_seq_fwd_train(*f32))},
                  {"f32_kernel_ms": cuda_ms(lambda: lstm_seq_bwd(*f32_bwd))})
         del res
-        sweep = [f", f32 kernel {e['f32_kernel_ms']:.3f} ms" for e in extra]
+        designs = k3_bf16_designs((xg, w, h0, h0), args, want, pb, dev)
+        for e, p, key in ((extra[0], p_f, "fwd_ms"), (extra[1], p_b, "bwd_ms")):
+            e["mode"] = mode(p)
+            e["designs_ms"] = {name: d[key] for name, d in designs.items()}
+        sweep = [f", f32 kernel {e['f32_kernel_ms']:.3f} ms; by explicit plans "
+                 + ", ".join(f"{name} {t:.3f} ms" + (" (the plan's)" if name == e["mode"] else "")
+                             for name, t in e["designs_ms"].items()) for e in extra]
     else:
         fwd_c = k3_train_candidates_ms((xg, w, h0, h0), False, dev)
         bwd_c = k3_train_candidates_ms(args, True, dev)

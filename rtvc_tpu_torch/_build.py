@@ -62,6 +62,12 @@ SIGNATURES = {
     # buffer hx after the outputs
     "rtvc_lstm_seq_fwd_bf16": [_P] * 10 + [_I] * 3 + [_IP, _P, _P],
     "rtvc_lstm_seq_bwd_bf16": [_P] * 10 + [_I] * 3 + [_IP, _P, _P],
+    # K3's tensor-core mode for bf16 streams (csrc/lstm_seq_mma.cu; plan
+    # ops/lstm_seq.py:MmaPlan): the forward's arguments with the exchange of
+    # h's hi/lo fragments after the outputs; the backward's with the
+    # exchange of dxg's fragments and the f32 partial dh after the outputs
+    "rtvc_lstm_mma_fwd_bf16": [_P] * 10 + [_I] * 3 + [_IP, _P, _P],
+    "rtvc_lstm_mma_bwd_bf16": [_P] * 12 + [_I] * 3 + [_IP, _P, _P],
     # sync (one zeroed word), CTAs, barriers, stream
     "rtvc_grid_barrier_steps": [_P, _I, _I, _P],
     # out: SMs of the current device, shared-memory bytes a block may opt in to

@@ -20,13 +20,20 @@ dtype (xg, W_hh, ys, the residuals, dys): the bf16 one is the JAX kernel's
 contract under the bf16 training policy (``ops.precision``), with f32
 arithmetic, an f32 carried state (h0, c0, h_T, c_T, dh0, dc0 stay f32), an
 f32 dxg, and W_hh resident in shared memory at two bytes a weight, which
-the plan counts. A bf16 CUDA tensor reaches the bf16 kernel or raises.
+the plan counts. For bf16 streams the plan names one of two designs: the
+tensor-core mode (``csrc/lstm_seq_mma.cu``, :class:`MmaPlan`: the recurrent
+product as ``wgmma`` on the resident bf16 W_hh, the f32 operand split into
+two bf16 halves), wherever it fits and is the faster, and otherwise the
+CUDA-core design of ``csrc/lstm_seq.cu`` (:class:`Plan`). A bf16 CUDA
+tensor reaches the kernel its plan names or raises; :func:`launch_fwd` and
+:func:`launch_bwd` take an explicit plan of either design, so that the
+scripts can time both on the same inputs.
 
 Gate order is torch's [i, f, g, o]; both biases are folded into ``xg``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -169,8 +176,8 @@ def candidates(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = 
     return out
 
 
-def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False,
-         elem: int = 4) -> Plan:
+def cuda_core_plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False,
+                   elem: int = 4) -> Plan:
     """The forward's first plan of :func:`candidates`; the backward's with
     the most CTAs, the first of them on a tie (at every backward shape
     timed, more CTAs ran faster; the forward's second instantiation in two
@@ -187,12 +194,196 @@ def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False,
         f"{smem_limit} bytes of shared memory each (W_hh must fit the card's shared memory)")
 
 
-def _plan_args(B: int, H: int, device, backward: bool, dtype: torch.dtype):
-    """The plan for this device and stream dtype as the C entry points take
-    it, and the zeroed barrier counters (one 128-byte line a group)."""
-    p = plan(B, H, *_build.device_limits(device), backward=backward,
-             elem=_build.elem_bytes(dtype))
-    return _build.int_array(p), torch.zeros(32 * p.groups, device=device, dtype=torch.int32)
+# The tensor-core mode (csrc/lstm_seq_mma.cu), for bf16 streams. A CTA owns
+# `tiles` tiles of MMA_TILE batch rows (one warpgroup each: wgmma's 64 rows)
+# and `units` hidden units (4 · units product columns in the forward, i, f,
+# g and o of a unit in one thread), for the whole sequence, and keeps 4 ·
+# units x H weights of W_hh in shared memory. The instantiations (units,
+# tiles): (32, 2) cuts the GE2E step's B 640 x H 768 into 5 groups x 24
+# slices = 120 CTAs; (32, 1) takes half the rows a CTA where two tiles would
+# leave SMs idle (B 320: 5 x 24 against 3 x 24); (8, 1) keeps a small batch
+# at H 512 on 64 CTAs.
+MMA_KINDS = ((32, 2), (32, 1), (8, 1))
+MMA_TILE = 64
+MMA_COLUMNS = 128  # H must be a multiple of this: whole pairs of 4-step batches
+# The backward's K-groups: `kgroup` slices pool their dxg, and each CTA's
+# partial dh covers H / kgroup columns, which its instantiation fixes by
+# its units (csrc/lstm_seq_mma.cu:RTVC_MMA_BWD): 192 (K-groups of 4 at H
+# 768) for 32 units, 128 (4 at H 512) for 8.
+MMA_BWD_COLUMNS = {32: 192, 8: 128}
+MMA_BATCH = 4  # k16 steps a batch of fragment loads (csrc/lstm_seq_mma.cu:kBatch)
+# The least batch at which each direction takes the tensor-core mode:
+# (forward, backward). On an NVIDIA H100 80GB HBM3 at 700 W, bf16 at
+# ForwardTacotron's T 900 x H 512, tensor cores against the CUDA-core
+# design by explicit plans in one call (chip_smoke.py:k3_bf16_designs):
+# B 16 forward 4.261 against 4.118 ms (64 slices of 8 units, one 64-row
+# tile mostly padding: a step is a chain of latencies), backward 5.244
+# against 5.639; B 48 forward 4.606 against 8.766, backward 5.951 against
+# 15.390 (PERF.md section 6). Between 16 and 48 nothing was timed; the
+# forward's threshold sits half way.
+MMA_MIN_ROWS = (32, 1)
+
+
+class MmaPlan(NamedTuple):
+    """A launch of the tensor-core mode: ``groups`` x ``slices`` CTAs; a CTA
+    owns ``units`` hidden units (every slice full: H = slices · units) of
+    ``tiles`` x 64 batch rows (the last group's rows may run past B); the
+    backward's CTAs pool their dxg in K-groups of ``kgroup`` slices (0 for
+    the forward); ``smem`` bytes of shared memory a CTA."""
+    groups: int
+    slices: int
+    units: int
+    tiles: int
+    kgroup: int
+    smem: int
+
+
+def mma_candidates(B: int, H: int, sm_count: int, smem_limit: int,
+                   backward: bool = False) -> list:
+    """Each tensor-core instantiation's :class:`MmaPlan` for a bf16 (B, T, H)
+    sequence where its CTAs fit the SMs (all resident at once), its W slice
+    (4 · units x H bf16) fits a block's shared memory and, for the
+    backward, its K-group divides the slices and feeds the product whole
+    pairs of batches. Empty where H is not a multiple of
+    :data:`MMA_COLUMNS`."""
+    if B < 1 or H < 1 or sm_count < 1:
+        raise ValueError(f"lstm_seq: B {B}, H {H} and the SM count {sm_count} must be positive")
+    out = []
+    if H % MMA_COLUMNS:
+        return out
+    for units, tiles in MMA_KINDS:
+        slices = H // units
+        groups = -(-B // (tiles * MMA_TILE))
+        smem = 2 * 4 * units * H
+        if groups * slices > sm_count or smem > smem_limit:
+            continue
+        kgroup = 0
+        if backward:
+            kgroup, ragged = divmod(H, MMA_BWD_COLUMNS[units])
+            if (ragged or not kgroup or slices % kgroup
+                    or kgroup * units // 4 % (2 * MMA_BATCH)):
+                continue
+        out.append(MmaPlan(groups, slices, units, tiles, kgroup, smem))
+    return out
+
+
+def mma_plan(B: int, H: int, sm_count: int, smem_limit: int,
+             backward: bool = False) -> Optional[MmaPlan]:
+    """The tensor-core plan of the fewest rows x units a CTA (its share of
+    the product and of the state it reads), the most CTAs on a tie; None
+    where no instantiation fits."""
+    fits = mma_candidates(B, H, sm_count, smem_limit, backward)
+    if not fits:
+        return None
+    return min(fits, key=lambda p: (p.tiles * p.units, -p.groups * p.slices))
+
+
+def plan(B: int, H: int, sm_count: int, smem_limit: int, backward: bool = False,
+         elem: int = 4):
+    """The launch of a (B, T, H) sequence whose streams take ``elem`` bytes
+    an element: for bf16 (2) the :func:`mma_plan` wherever there is one and
+    B reaches the direction's :data:`MMA_MIN_ROWS` (below it too where the
+    CUDA-core design does not fit), else (and always for f32) the
+    :func:`cuda_core_plan`, which raises ValueError for a hidden width past
+    what the card can hold."""
+    if elem == 2:
+        p = mma_plan(B, H, sm_count, smem_limit, backward)
+        if p is not None and (B >= MMA_MIN_ROWS[backward] or not any(
+                isinstance(c, Plan) for c in candidates(B, H, sm_count, smem_limit, backward,
+                                                        elem))):
+            return p
+    return cuda_core_plan(B, H, sm_count, smem_limit, backward, elem)
+
+
+def describe(p) -> str:
+    """A plan in words, for the scripts' lines."""
+    if isinstance(p, MmaPlan):
+        pool = f", dxg pooled in K-groups of {p.kgroup}" if p.kgroup else ""
+        return (f"tensor cores: {p.groups} groups x {p.slices} slices of {p.units} units, "
+                f"{p.tiles * MMA_TILE} rows a CTA{pool}, {p.smem} bytes of shared memory")
+    return (f"{p.groups} groups x {p.slices} slices of {p.units} units, {p.nb} rows a warp, "
+            f"{p.smem} bytes of shared memory")
+
+
+def mode(p) -> str:
+    return "tensor-core" if isinstance(p, MmaPlan) else "cuda-core"
+
+
+def device_plan(B: int, H: int, device, backward: bool, dtype: torch.dtype):
+    """:func:`plan` for this device's limits and stream dtype."""
+    return plan(B, H, *_build.device_limits(device), backward=backward,
+                elem=_build.elem_bytes(dtype))
+
+
+def _call(lib, name: str, p, pointers, B: int, T: int, H: int, device, sync=None) -> None:
+    """One launch through the C entry point ``name`` of ``lib`` (the built
+    library when None) under the plan ``p``, with its zeroed barrier
+    counters (:func:`barrier_words`, or ``sync``) held until the launch is
+    queued."""
+    if sync is None:
+        sync = torch.zeros(barrier_words(p), device=device, dtype=torch.int32)
+    err = getattr(lib or _build.library(), name)(
+        *pointers, B, T, H, _build.int_array(p), sync.data_ptr(), _build.stream_handle(device))
+    _build.check(err, name)
+
+
+def barrier_words(p) -> int:
+    """The int32 barrier counters a launch under ``p`` takes: one 128-byte
+    line a batch group, and for the tensor-core backward one more a K-group
+    of every group."""
+    lines = p.groups
+    if isinstance(p, MmaPlan) and p.kgroup:
+        lines += p.groups * (p.slices // p.kgroup)
+    return 32 * lines
+
+
+def launch_fwd(p, xg: Tensor, w_hh: Tensor, h0: Tensor, c0: Tensor, ys: Tensor, hT: Tensor,
+               cT: Tensor, cs: Optional[Tensor] = None, gates: Optional[Tensor] = None,
+               lib=None, sync: Optional[Tensor] = None) -> None:
+    """The forward kernel of ``p``'s design (an :class:`MmaPlan`, or a
+    :class:`Plan` of the CUDA-core design) and of the streams' dtype, into
+    ``ys``, ``hT``, ``cT`` and, when given, the residuals ``cs`` and
+    ``gates``. Checks no tensor and counts no launch: the wrappers do both,
+    and the scripts reach an explicit plan through this. ``sync``, zeroed
+    int32 words (:func:`barrier_words` at least), replaces the barrier
+    counters the launch makes itself (``profile_lstm`` reads its clocks from
+    them)."""
+    B, T, _ = xg.shape
+    H = w_hh.shape[1]
+    dev = xg.device
+    ptrs = [t.data_ptr() if t is not None else None
+            for t in (xg, w_hh, h0, c0, ys, hT, cT, cs, gates)]
+    if isinstance(p, MmaPlan):  # h's hi/lo fragments, 32-bit words, rows past B zero
+        name = "rtvc_lstm_mma_fwd_bf16"
+        hx = torch.zeros((2, 2, p.groups * p.tiles * MMA_TILE, H // 2), device=dev,
+                         dtype=torch.int32)
+        ptrs.append(hx.data_ptr())
+    elif xg.dtype == torch.float32:
+        name = "rtvc_lstm_seq_fwd"
+    else:  # the CUDA-core bf16 design carries h through an f32 exchange
+        name = "rtvc_lstm_seq_fwd_bf16"
+        hx = torch.empty((2, B, H), device=dev, dtype=torch.float32)
+        ptrs.append(hx.data_ptr())
+    _call(lib, name, p, ptrs, B, T, H, dev, sync)
+
+
+def launch_bwd(p, dys: Tensor, dhT: Tensor, dcT: Tensor, gates: Tensor, cs: Tensor,
+               c0: Tensor, w_hh: Tensor, dxg: Tensor, dh0: Tensor, dc0: Tensor,
+               lib=None, sync: Optional[Tensor] = None) -> None:
+    """The backward kernel of ``p``'s design and of the streams' dtype, into
+    the f32 ``dxg``, ``dh0`` and ``dc0``, as :func:`launch_fwd`."""
+    B, T, H = dys.shape
+    dev = dys.device
+    ptrs = [t.data_ptr() for t in (dys, dhT, dcT, gates, cs, c0, w_hh, dxg, dh0, dc0)]
+    if isinstance(p, MmaPlan):  # dxg's hi/lo fragments, the K-groups' partial dh
+        name = "rtvc_lstm_mma_bwd_bf16"
+        rows = p.groups * p.tiles * MMA_TILE
+        dx = torch.empty((2, 2, rows, 2 * H), device=dev, dtype=torch.int32)
+        part = torch.empty((2, p.slices // p.kgroup, rows, H), device=dev, dtype=torch.float32)
+        ptrs += [dx.data_ptr(), part.data_ptr()]
+    else:
+        name = "rtvc_lstm_seq_bwd" if dys.dtype == torch.float32 else "rtvc_lstm_seq_bwd_bf16"
+    _call(lib, name, p, ptrs, B, T, H, dev, sync)
 
 
 def grid_barrier_steps(ctas: int, steps: int, device) -> None:
@@ -213,23 +404,11 @@ def _fwd_kernel(xg: Tensor, w_hh: Tensor, h0: Tensor, c0: Tensor, residuals: boo
                          w_hh=(w_hh, (4 * H, H), dt), h0=(h0, (B, H)), c0=(c0, (B, H)))
     if B < 1 or T < 1:
         raise ValueError(f"lstm_seq: B and T must be at least 1, got {B} and {T}")
-    lib = _build.library()
-    plan_v, sync = _plan_args(B, H, dev, backward=False, dtype=dt)
     f32 = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)  # noqa: E731
     stream = lambda *shape: torch.empty(shape, device=dev, dtype=dt)  # noqa: E731
     ys, hT, cT = stream(B, T, H), f32(B, H), f32(B, H)
     cs, gates = (stream(B, T, H), stream(B, T, 4 * H)) if residuals else (None, None)
-    ptrs = [xg.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-            ys.data_ptr(), hT.data_ptr(), cT.data_ptr(),
-            cs.data_ptr() if residuals else None, gates.data_ptr() if residuals else None]
-    if dt == torch.float32:
-        name = "rtvc_lstm_seq_fwd"
-    else:  # the bf16 instantiation carries h through an f32 exchange
-        name = "rtvc_lstm_seq_fwd_bf16"
-        ptrs.append(f32(2, B, H).data_ptr())
-    err = getattr(lib, name)(*ptrs, B, T, H, plan_v, sync.data_ptr(),
-                             _build.stream_handle(dev))
-    _build.check(err, name)
+    launch_fwd(device_plan(B, H, dev, False, dt), xg, w_hh, h0, c0, ys, hT, cT, cs, gates)
     _build.count_launch("lstm_seq" if dt == torch.float32 else "lstm_seq_bf16")
     return (ys, hT, cT, cs, gates) if residuals else (ys, hT, cT)
 
@@ -268,17 +447,11 @@ def lstm_seq_bwd(dys: Tensor, dhT: Tensor, dcT: Tensor, gates: Tensor, cs: Tenso
                          c0=(c0, (B, H)), w_hh=(w_hh, (4 * H, H), dt))
     if B < 1 or T < 1:
         raise ValueError(f"lstm_seq_bwd: B and T must be at least 1, got {B} and {T}")
-    lib = _build.library()
-    plan_v, sync = _plan_args(B, H, dev, backward=True, dtype=dt)
     dxg = torch.empty((B, T, 4 * H), device=dev, dtype=torch.float32)
     dh0 = torch.empty((B, H), device=dev, dtype=torch.float32)
     dc0 = torch.empty((B, H), device=dev, dtype=torch.float32)
-    name = "rtvc_lstm_seq_bwd" if dt == torch.float32 else "rtvc_lstm_seq_bwd_bf16"
-    err = getattr(lib, name)(
-        dys.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), gates.data_ptr(), cs.data_ptr(),
-        c0.data_ptr(), w_hh.data_ptr(), dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        B, T, H, plan_v, sync.data_ptr(), _build.stream_handle(dev))
-    _build.check(err, name)
+    launch_bwd(device_plan(B, H, dev, True, dt), dys, dhT, dcT, gates, cs, c0, w_hh, dxg, dh0,
+               dc0)
     _build.count_launch("lstm_seq_bwd" if dt == torch.float32 else "lstm_seq_bwd_bf16")
     return dxg, dh0, dc0
 

@@ -19,6 +19,22 @@ does not depend on T) and at the inference shape (8 x 160 x 768):
 
 The variants' outputs are wrong by construction; only their times are read.
 Needs an NVIDIA GPU and nvcc.
+
+    python -m rtvc_tpu_torch.profile_lstm --bf16 [B T H]
+
+does the same for the tensor-core mode of K3's bf16 instantiation
+(``csrc/lstm_seq_mma.cu``, the package's plan for bf16 streams) at the GE2E
+training shape (640 x 160 x 768), beside the earlier CUDA-core bf16 design
+(``csrc/lstm_seq.cu`` through an explicit plan) on the same inputs:
+
+- ``base``: the kernels of the package;
+- ``no_product``: no ``wgmma`` is issued (the fragments are still loaded,
+  the backward's partials still written and read);
+- ``no_exchange``: constants in place of the fragment loads and of the
+  backward's partials: the carried state's traffic through L2 taken away;
+- ``no_wait``: the grid barriers do not wait (each CTA still arrives);
+- ``clock``: the package's kernels with their phase clocks on
+  (``RTVC_MMA_CLOCK``): cycles a step by phase in CTA 0.
 """
 from __future__ import annotations
 
@@ -31,6 +47,7 @@ from pathlib import Path
 import torch
 
 from rtvc_tpu_torch import _build
+from rtvc_tpu_torch.ops import lstm_seq as k3
 from rtvc_tpu_torch.ops.lstm_seq import plan
 
 FIRST_LOAD = "ldcg4(x + b * xs + lane * 4)"
@@ -161,6 +178,91 @@ def profile_shape(libs: dict, B: int, T: int, H: int, dev) -> None:
         print(line)
 
 
+# the tensor-core mode's parts (csrc/lstm_seq_mma.cu), each replaced by
+# profile_lstm --bf16's variants
+MMA_PRODUCT = ("    wgmma_rs(d, a[2 * i], b, 1);\n"
+               "    wgmma_rs(d, a[2 * i + 1], b, 1);\n")
+MMA_FRAGMENTS = "const uint4 h = __ldcg(hi + s), l = __ldcg(lo + s);"
+MMA_PARTIALS = "load_f32<UQ, true>(in + g * part_rows + (size_t)src_rows[rh] * H, v);"
+MMA_FUNCTIONS = ("rtvc_lstm_mma_fwd_bf16", "rtvc_lstm_mma_bwd_bf16")
+# the clock variant's phase clocks (csrc/lstm_seq_mma.cu: RTVC_MMA_CLOCK):
+# thread 0 of CTA 0 sums clock64() differences by phase and writes them,
+# >> 10, to the words from 32 x CTAs + CLOCK_WORD of the barrier counters
+MMA_CLOCK = (
+    "#define RTVC_MMA_CLOCK 1\n"
+    "#define RTVC_MMA_CLOCK_INIT long long clk_sum[5] = {0, 0, 0, 0, 0}; "
+    "long long clk_last = clock64();\n"
+    "#define RTVC_MMA_CLOCK(phase) { const long long now = clock64(); "
+    "clk_sum[phase] += now - clk_last; clk_last = now; }\n"
+    "#define RTVC_MMA_CLOCK_DONE(out) if (blockIdx.x == 0 && threadIdx.x == 0) { "
+    f"_Pragma(\"unroll\") for (int i = 0; i < 5; ++i) (out)[{CLOCK_WORD} + i] = "
+    "(unsigned int)(clk_sum[i] >> 10); }\n")
+# what each direction's clocks end (csrc/lstm_seq_mma.cu), by index
+MMA_PHASES = {"forward": ("xg loads issued", "product: fragment loads and wgmma",
+                          "cell update and stores", "grid barrier", "step start"),
+              "backward": ("partials summed", "cell update, dxg and fragment stores",
+                           "K-group barrier", "product and partial stores", "grid barrier")}
+
+
+def mma_variants(source: str) -> dict:
+    """The tensor-core source as it is and with its product, its exchange of
+    the carried state or its barrier's wait taken away, and with its phase
+    clocks."""
+    no_exchange = replaced(replaced(source, MMA_FRAGMENTS,
+                                    "const uint4 h = make_uint4(s, 1, 2, 3), l = h;"),
+                           MMA_PARTIALS,
+                           "for (int i = 0; i < UQ; ++i) v[i] = 1e-3f * (g + i);")
+    return {"base": source, "no_product": replaced(source, MMA_PRODUCT, ""),
+            "no_exchange": no_exchange, "no_wait": no_wait(source),
+            "clock": MMA_CLOCK + source}
+
+
+def profile_mma(libs: dict, B: int, T: int, H: int, dev) -> None:
+    """Forward with residuals and backward of each tensor-core variant under
+    the package's bf16 plan, and of the CUDA-core bf16 design under its own
+    plan through the package's library, on the same seeded inputs."""
+    g = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    xg = torch.randn(B, T, 4 * H, generator=g).to(dev, bf)
+    w = ((torch.rand(4 * H, H, generator=g) - 0.5) * 2 * H ** -0.5).to(dev, bf)
+    h0 = (torch.randn(B, H, generator=g) * 0.5).to(dev)
+    dys = torch.randn(B, T, H, generator=g).to(dev, bf)
+    outs = [torch.empty(B, T, H, device=dev, dtype=bf), torch.empty(B, H, device=dev),
+            torch.empty(B, H, device=dev), torch.empty(B, T, H, device=dev, dtype=bf),
+            torch.empty(B, T, 4 * H, device=dev, dtype=bf)]
+    k3.launch_fwd(k3.device_plan(B, H, dev, False, bf), xg, w, h0, h0, *outs)
+    bwd_in = (dys, h0, h0, outs[4], outs[3], h0, w)
+    grads = [torch.empty(B, T, 4 * H, device=dev), torch.empty(B, H, device=dev),
+             torch.empty(B, H, device=dev)]
+    limits = _build.device_limits(dev)
+    designs = {"cuda-core": (k3.cuda_core_plan(B, H, *limits, elem=2),
+                             k3.cuda_core_plan(B, H, *limits, backward=True, elem=2), None)}
+    for name, lib in libs.items():
+        designs[name] = (k3.mma_plan(B, H, *limits), k3.mma_plan(B, H, *limits, backward=True),
+                         lib)
+    print(f"B={B} T={T} H={H} bf16: forward {k3.describe(designs['base'][0])}; backward "
+          f"{k3.describe(designs['base'][1])}")
+    for name, (pf, pb, lib) in designs.items():
+        fwd_ms = cuda_ms(lambda: k3.launch_fwd(pf, xg, w, h0, h0, *outs, lib=lib))
+        bwd_ms = cuda_ms(lambda: k3.launch_bwd(pb, *bwd_in, *grads, lib=lib))
+        print(f"  {name}: forward with residuals {fwd_ms:.3f} ms, {fwd_ms / T * 1e3:.2f} us a "
+              f"step; backward {bwd_ms:.3f} ms, {bwd_ms / T * 1e3:.2f} us a step")
+        if name != "clock":
+            continue
+        for label, run, p in (("forward", lambda s: k3.launch_fwd(pf, xg, w, h0, h0, *outs,
+                                                                   lib=lib, sync=s), pf),
+                              ("backward", lambda s: k3.launch_bwd(pb, *bwd_in, *grads,
+                                                                    lib=lib, sync=s), pb)):
+            at = 32 * p.groups * p.slices + CLOCK_WORD
+            sync = torch.zeros(at + 5, device=dev, dtype=torch.int32)
+            run(sync)
+            torch.cuda.synchronize()
+            cycles = [int(v) * 1024 / T for v in sync[at:at + 5].tolist()]
+            print(f"    {label}, thread 0 of CTA 0, cycles a step: "
+                  + ", ".join(f"{n} {c:.0f}" for n, c in zip(MMA_PHASES[label], cycles))
+                  + f"; in all {sum(cycles):.0f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_lstm: no CUDA device", file=sys.stderr)
@@ -168,12 +270,17 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    shapes = [tuple(map(int, sys.argv[1:4]))] if len(sys.argv) >= 4 else [(640, 40, 768),
-                                                                          (8, 160, 768)]
+    args = [a for a in sys.argv[1:] if a != "--bf16"]
+    mma = "--bf16" in sys.argv[1:]
+    default = [(640, 160, 768)] if mma else [(640, 40, 768), (8, 160, 768)]
+    shapes = [tuple(map(int, args[:3]))] if len(args) >= 3 else default
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp), variants(flat_source("lstm_seq.cu")))
+        if mma:
+            libs = build(Path(tmp), mma_variants(flat_source("lstm_seq_mma.cu")), MMA_FUNCTIONS)
+        else:
+            libs = build(Path(tmp), variants(flat_source("lstm_seq.cu")))
         for B, T, H in shapes:
-            profile_shape(libs, B, T, H, dev)
+            (profile_mma if mma else profile_shape)(libs, B, T, H, dev)
     return 0
 
 

@@ -596,6 +596,85 @@ def test_lstm_bf16_kernels_match_plain(dev, B, T, H):
         assert a.dtype == torch.float32 and rel_err(a, b) <= 1e-4
 
 
+def _lstm_bf16_inputs(dev, B, T, H, seed):
+    g = torch.Generator().manual_seed(seed)
+    xg = torch.randn(B, T, 4 * H, generator=g).to(dev, torch.bfloat16)
+    w = ((torch.rand(4 * H, H, generator=g) - 0.5) * 2 * H ** -0.5).to(dev, torch.bfloat16)
+    h0, c0, dhT, dcT = (torch.randn(B, H, generator=g).to(dev) * 0.5 for _ in range(4))
+    dys = torch.randn(B, T, H, generator=g).to(dev, torch.bfloat16)
+    return xg, w, h0, c0, dhT, dcT, dys
+
+
+# K3's tensor-core mode (csrc/lstm_seq_mma.cu) where the plan names it: the
+# GE2E step's B 640 x 160 x 768; B 130 x 768, whose last 64-row tile holds
+# 2 rows; ForwardTacotron's H 512 at B 48 (both directions) and B 16 (the
+# backward; the forward stays on the CUDA-core design below the threshold);
+# one step (T 1) at H 384, K-groups of 2.
+@pytest.mark.parametrize("B,T,H", [(640, 160, 768), (130, 20, 768), (48, 50, 512),
+                                   (16, 30, 512), (64, 1, 384)])
+def test_lstm_bf16_tensor_core_mode_matches_plain(dev, B, T, H):
+    from rtvc_tpu_torch.ops import lstm_seq as k3
+
+    limits = _build.device_limits(dev)
+    pf = k3.plan(B, H, *limits, elem=2)
+    pb = k3.plan(B, H, *limits, backward=True, elem=2)
+    assert isinstance(pb, k3.MmaPlan)
+    assert isinstance(pf, k3.MmaPlan) == (B >= k3.MMA_MIN_ROWS[0])
+    xg, w, h0, c0, dhT, dcT, dys = _lstm_bf16_inputs(dev, B, T, H, 6)
+    before = (_launches("lstm_seq_bf16"), _launches("lstm_seq"))
+    got = lstm_seq_fwd_train(xg, w, h0, c0)
+    assert (_launches("lstm_seq_bf16"), _launches("lstm_seq")) == (before[0] + 1, before[1])
+    want = lstm_seq_fwd_train_plain(xg, w, h0, c0)
+    for i in (0, 3, 4):
+        assert got[i].dtype == torch.bfloat16
+        torch.testing.assert_close(got[i], want[i], **BF16)
+    for i in (1, 2):
+        assert got[i].dtype == torch.float32 and rel_err(got[i], want[i]) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, lstm_seq_fwd_train(xg, w, h0, c0)))
+    # the inference forward, which writes no residuals, gives the same bits
+    assert all(torch.equal(a, b) for a, b in zip(lstm_seq(xg, w, h0, c0), got[:3]))
+    args = (dys, dhT, dcT, want[4], want[3], c0, w)
+    before = (_launches("lstm_seq_bwd_bf16"), _launches("lstm_seq_bwd"))
+    k = lstm_seq_bwd(*args)
+    assert (_launches("lstm_seq_bwd_bf16"), _launches("lstm_seq_bwd")) == (before[0] + 1,
+                                                                          before[1])
+    for a, b in zip(k, lstm_seq_bwd_plain(*args)):
+        assert a.dtype == torch.float32 and rel_err(a, b) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(k, lstm_seq_bwd(*args)))
+
+
+def test_lstm_tensor_core_entries_refuse_a_plan_they_do_not_take(dev):
+    """The tensor-core entry points check the plan they are given: one with
+    no instantiation, a shared-memory size that is not the W slice's, a
+    group of rows past B, or a K-group the backward has no instantiation
+    for (3 at H 384) or that does not divide the slices (5) returns
+    cudaErrorInvalidValue (1), which the wrapper raises; nothing runs the
+    other design instead."""
+    from rtvc_tpu_torch.ops import lstm_seq as k3
+
+    B, T, H = 64, 4, 384
+    limits = _build.device_limits(dev)
+    xg, w, h0, c0, dhT, dcT, dys = _lstm_bf16_inputs(dev, B, T, H, 7)
+    outs = [torch.empty(B, T, H, device=dev, dtype=torch.bfloat16), torch.empty(B, H, device=dev),
+            torch.empty(B, H, device=dev), torch.empty(B, T, H, device=dev, dtype=torch.bfloat16),
+            torch.empty(B, T, 4 * H, device=dev, dtype=torch.bfloat16)]
+    grads = [torch.empty(B, T, 4 * H, device=dev), torch.empty(B, H, device=dev),
+             torch.empty(B, H, device=dev)]
+    pf, pb = k3.mma_plan(B, H, *limits), k3.mma_plan(B, H, *limits, backward=True)
+    k3.launch_fwd(pf, xg, w, h0, c0, *outs)
+    args = (dys, dhT, dcT, outs[4], outs[3], c0, w)
+    k3.launch_bwd(pb, *args, *grads)
+    torch.cuda.synchronize()
+    for bad in (pf._replace(units=16, slices=H // 16, smem=8 * 16 * H),
+                pf._replace(smem=pf.smem + 16), pf._replace(groups=pf.groups + 1),
+                pf._replace(kgroup=2)):
+        with pytest.raises(RuntimeError, match="rtvc_lstm_mma_fwd_bf16.*cudaError_t 1$"):
+            k3.launch_fwd(bad, xg, w, h0, c0, *outs)
+    for bad in (pb._replace(kgroup=3), pb._replace(kgroup=5), pb._replace(smem=pb.smem - 2)):
+        with pytest.raises(RuntimeError, match="rtvc_lstm_mma_bwd_bf16.*cudaError_t 1$"):
+            k3.launch_bwd(bad, *args, *grads)
+
+
 @pytest.mark.parametrize("B,T,H", [(3, 20, 40), (112, 602, 64), (1, 512, 64), (16, 160, 64),
                                    (16, 160, 128), (2, 9, 13)])
 def test_gru_bf16_kernels_match_plain(dev, B, T, H):

@@ -24,10 +24,19 @@ from rtvc_tpu_torch.models.speaker_encoder import SpeakerEncoder
 from rtvc_tpu_torch.ops.lstm_seq import (
     BWD_SLICES,
     FWD_SLICES,
+    MMA_BATCH,
+    MMA_COLUMNS,
+    MMA_KINDS,
+    MMA_MIN_ROWS,
+    MMA_TILE,
     WARPS,
+    MmaPlan,
+    Plan,
     candidates,
+    cuda_core_plan,
     lstm_seq,
     lstm_seq_plain,
+    mma_candidates,
     plan,
 )
 
@@ -139,8 +148,10 @@ def test_encoder_inference_matches(small_encoders):
 H100 = (132, 232448)  # SMs, bytes of shared memory a block may opt in to
 
 
-def _check_plan(B, H, sm_count, smem_limit, backward):
-    p = plan(B, H, sm_count, smem_limit, backward=backward)
+def _check_plan(B, H, sm_count, smem_limit, backward, elem=4):
+    p = plan(B, H, sm_count, smem_limit, backward=backward, elem=elem)
+    if isinstance(p, MmaPlan):
+        return _check_mma_plan(p, B, H, sm_count, smem_limit, backward)
     # every hidden unit is owned by exactly one slice; the last may be ragged
     owners = np.zeros(H, dtype=np.int64)
     for s in range(p.slices):
@@ -154,7 +165,7 @@ def _check_plan(B, H, sm_count, smem_limit, backward):
     assert 0 < p.smem <= smem_limit
     # the weights a CTA keeps, and an instantiation that exists
     w_floats = p.units * 4 * (H if backward else -(-H // 4) * 4)
-    assert p.smem >= 4 * w_floats
+    assert p.smem >= elem * w_floats
     many = dict(BWD_SLICES if backward else FWD_SLICES)
     assert p.nb == (many[p.units] if p.rows > WARPS else 1)
     return p
@@ -170,10 +181,10 @@ def test_lstm_plan_covers_the_shape(B, H, sm_count, backward):
         _check_plan(B, H, sm_count, H100[1], backward)
 
 
-def _check_plan_or_limit(B, H, sm_count, smem_limit, backward):
+def _check_plan_or_limit(B, H, sm_count, smem_limit, backward, elem=4):
     """A plan that covers the shape, or a refusal that names a limit below H."""
     try:
-        _check_plan(B, H, sm_count, smem_limit, backward)
+        _check_plan(B, H, sm_count, smem_limit, backward, elem)
     except ValueError as e:
         assert "past the limit of" in str(e)
         assert H > int(str(e).split("past the limit of ")[1].split()[0])
@@ -254,6 +265,117 @@ def test_profile_lstm_variants_match_the_kernel_source():
 
 @settings(max_examples=300, deadline=None)
 @given(B=st.integers(1, 4096), H=st.integers(1, 1600), sm_count=st.integers(1, 200),
-       smem_kb=st.integers(16, 256), backward=st.booleans())
-def test_lstm_plan_property(B, H, sm_count, smem_kb, backward):
-    _check_plan_or_limit(B, H, sm_count, smem_kb * 1024, backward)
+       smem_kb=st.integers(16, 256), backward=st.booleans(), elem=st.sampled_from([4, 2]))
+def test_lstm_plan_property(B, H, sm_count, smem_kb, backward, elem):
+    _check_plan_or_limit(B, H, sm_count, smem_kb * 1024, backward, elem)
+
+
+# ---------------------------------------------------------------------------
+# K3's tensor-core mode for bf16 streams (csrc/lstm_seq_mma.cu)
+# ---------------------------------------------------------------------------
+
+def _check_mma_plan(p, B, H, sm_count, smem_limit, backward):
+    """A tensor-core plan: every hidden unit in exactly one full slice, every
+    batch row in exactly one 64-row tile of its group, 4 · units a multiple
+    of 8 (whole wgmma column blocks), the W slice at 2 bytes a weight (all
+    the shared memory a CTA takes: the state comes through registers) within
+    the limit, all CTAs resident on the SMs, and the backward's K-groups
+    dividing the slices and feeding the product whole pairs of batches."""
+    assert (p.units, p.tiles) in MMA_KINDS and 4 * p.units % 8 == 0
+    assert H % MMA_COLUMNS == 0 and p.slices * p.units == H
+    owners = np.zeros(H, dtype=np.int64)
+    for s in range(p.slices):
+        owners[s * p.units:(s + 1) * p.units] += 1
+    assert (owners == 1).all()
+    rows = p.tiles * MMA_TILE
+    tiles = np.zeros(B, dtype=np.int64)
+    for g in range(p.groups):
+        for t in range(p.tiles):
+            tiles[g * rows + t * MMA_TILE:g * rows + (t + 1) * MMA_TILE] += 1
+    assert (tiles == 1).all() and (p.groups - 1) * rows < B
+    assert 1 <= p.groups * p.slices <= sm_count
+    assert p.smem == 2 * 4 * p.units * H <= smem_limit
+    if backward:
+        assert p.kgroup >= 1 and p.slices % p.kgroup == 0
+        assert p.kgroup * p.units // 4 % (2 * MMA_BATCH) == 0
+    else:
+        assert p.kgroup == 0
+    return p
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("sm_count", [16, 108, 132])
+@pytest.mark.parametrize("B,H", [(1, 128), (5, 384), (16, 512), (48, 512), (70, 256), (130, 768),
+                                 (320, 768), (640, 768), (641, 768), (640, 512), (8, 200)])
+def test_lstm_bf16_plan_covers_the_shape(B, H, sm_count, backward):
+    """bf16 plans of either design cover their shape; where a tensor-core
+    instantiation fits the plan takes it from the direction's threshold on,
+    and below it where the CUDA-core design does not fit; where neither
+    fits, the plan names the limit."""
+    mma = mma_candidates(B, H, sm_count, H100[1], backward)
+    core = [c for c in candidates(B, H, sm_count, H100[1], backward, 2) if isinstance(c, Plan)]
+    if not mma and not core:
+        with pytest.raises(ValueError, match="past the limit of"):
+            plan(B, H, sm_count, H100[1], backward=backward, elem=2)
+        return
+    p = _check_plan(B, H, sm_count, H100[1], backward, elem=2)
+    assert isinstance(p, MmaPlan) == bool(mma and (B >= MMA_MIN_ROWS[backward] or not core))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_lstm_bf16_plan_takes_the_tensor_cores_at_the_ge2e_shape(backward):
+    """The GE2E step (B 640 x H 768) in bf16: 5 groups of 128 rows x 24
+    slices of 32 units, 120 CTAs, 192 KB of W_hh each; the backward pools dxg
+    in K-groups of 4. A DP rank's half batch keeps 120 CTAs with one tile
+    each. The f32 plan at the same shape stays the CUDA-core design."""
+    p = _check_plan(640, 768, *H100, backward, elem=2)
+    assert isinstance(p, MmaPlan)
+    assert (p.groups, p.slices, p.units, p.tiles, p.kgroup, p.smem) == (
+        5, 24, 32, 2, 4 if backward else 0, 196608)
+    half = _check_plan(320, 768, *H100, backward, elem=2)
+    assert (half.groups, half.slices, half.units, half.tiles) == (5, 24, 32, 1)
+    assert isinstance(plan(640, 768, *H100, backward=backward), Plan)
+
+
+@pytest.mark.parametrize("B", [16, 48])
+def test_lstm_bf16_plan_at_the_forward_tacotron_shapes(B):
+    """ForwardTacotron's BiLSTM (H 512) in bf16: the backward on the tensor
+    cores at both batches (64 slices of 8 units, K-groups of 4), the
+    forward from the threshold on, the CUDA-core plan below it (B 16)."""
+    bwd = _check_plan(B, 512, *H100, True, elem=2)
+    assert isinstance(bwd, MmaPlan)
+    assert (bwd.groups, bwd.slices, bwd.units, bwd.tiles, bwd.kgroup) == (1, 64, 8, 1, 4)
+    fwd = _check_plan(B, 512, *H100, False, elem=2)
+    if B < MMA_MIN_ROWS[0]:
+        assert fwd == cuda_core_plan(B, 512, *H100, elem=2)
+    else:
+        assert isinstance(fwd, MmaPlan) and (fwd.slices, fwd.units, fwd.tiles) == (64, 8, 1)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_lstm_bf16_plan_falls_back_to_the_cuda_core_design(backward):
+    """Where no tensor-core instantiation fits (H not a multiple of 128; a
+    card whose SMs cannot hold the slices), bf16 takes exactly the plan the
+    CUDA-core design gives."""
+    for B, H, sms in ((8, 200, 132), (640, 768, 100), (3, 40, 132)):
+        p = plan(B, H, sms, H100[1], backward=backward, elem=2)
+        assert isinstance(p, Plan) and p == cuda_core_plan(B, H, sms, H100[1], backward, 2)
+
+
+def test_bf16_split_carries_the_f32_state():
+    """The premise of the tensor-core mode, in plain torch on seeded inputs
+    at the GE2E scale: an f32 h in (-1, 1) (640 x 768) and a bf16 W_hh (3072
+    x 768). hi = bf16(h) and lo = bf16(h - hi) give back h within 2^-16 of
+    it; hi·Wᵀ + lo·Wᵀ in f32 gives h·Wᵀ within 1e-5 of its largest entry; a
+    single bf16(h)·Wᵀ does not, which is why the kernels split."""
+    rng = np.random.default_rng(23)
+    h = torch.from_numpy(rng.uniform(-1, 1, (640, 768)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(-768 ** -0.5, 768 ** -0.5, (3072, 768)).astype(np.float32))
+    w = w.bfloat16().float()
+    hi = h.bfloat16().float()
+    lo = (h - hi).bfloat16().float()
+    assert bool(((hi + lo - h).abs() <= 2.0 ** -16 * h.abs()).all())
+    want = h @ w.t()
+    tol = 1e-5 * float(want.abs().max())
+    assert float((hi @ w.t() + lo @ w.t() - want).abs().max()) <= tol
+    assert float((hi @ w.t() - want).abs().max()) > tol

@@ -43,5 +43,5 @@ def test_the_build_reads_the_kernels_the_codec_and_the_engine():
     names = {p.relative_to(PKG).as_posix() for p in build_sources()}
     assert {"native/src/audio_codec.c", "native/src/wavernn_engine.cpp",
             "native/src/wavernn_engine.h", "native/src/vocoder_cli.cpp",
-            "csrc/common.cuh"} <= names
-    assert len([n for n in names if n.endswith(".cu")]) == 6
+            "csrc/common.cuh", "csrc/lstm_seq.cu", "csrc/lstm_seq_mma.cu"} <= names
+    assert len([n for n in names if n.endswith(".cu")]) == 7
