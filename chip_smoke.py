@@ -264,6 +264,19 @@
    versions, the embeddings against the CPU's; its plot raises the port's
    ImportError where matplotlib is missing).
 
+13. The DeepMind dual-softmax WaveRNN (``phase_deepmind``, after the
+   non-autoregressive training runs) at full width (hidden 896,
+   quantisation 256), seeded: K4 alone at B 40 x 1000 x 896 both ways (the
+   cooperative plan, one group of 112 slices of 8 units), held to its plain
+   versions and timed beside cuDNN's ``nn.GRU(3, 896)``; three Adam steps of
+   ``deepmind_loss`` at B 40 x 1001 labels of a harmonic waveform (finite,
+   falling losses, K4 once each way a step, the first step's launches held
+   to their plain versions); ``generate`` at batch 1 and 4 x 16,000 samples
+   (the same seed the same waveform, with and without the loop's CUDA
+   graphs; the drawn labels teacher-forced through K4 give the logits they
+   were drawn from within 1e-3; kHz printed). K4's entries get the H 896
+   cells and the training run's launches.
+
 K1's, K3's and K4's lines also give the times of the earlier kernels (one
 CTA per fold or batch row, the weights re-read from L2 every step) on the
 same card model, K3's its time as a share of its time before K4 and K1 came
@@ -2995,9 +3008,10 @@ def cbhg_gru(dev):
     return m
 
 
-def gru_shape(dev, B, T, H, grad=True, dtype=None):
+def gru_shape(dev, B, T, H, grad=True, dtype=None, library_in=None):
     """K4 forward and backward at one shape, against autograd through the
-    plain forward (tolerance as for K3), beside cuDNN's ``nn.GRU(H, H)``,
+    plain forward (tolerance as for K3), beside cuDNN's ``nn.GRU(H, H)``
+    (``nn.GRU(library_in, H)`` where given: the DeepMind WaveRNN's 3 inputs),
     one direction as K4 computes it. At the CBHG's H 64 the whole BiGRU is
     timed too: cuDNN's bidirectional ``nn.GRU(128, 64)`` beside the port's
     ``GRU`` module (two K4 launches a pass). The forward's bound writes the
@@ -3073,9 +3087,10 @@ def gru_shape(dev, B, T, H, grad=True, dtype=None):
         f32_ms = (cuda_ms(lambda: gru_seq_fwd(*f32_in)),
                   cuda_ms(lambda: gru_seq_bwd(dys.float(), gates32, ys32, f32_in[1])))
     cbhg = H == 64
-    lib_fwd_ms, lib_bwd_ms = rnn_ms(torch.nn.GRU(H, H, batch_first=True), B, T, H, dev,
+    lib_in = library_in or H
+    lib_fwd_ms, lib_bwd_ms = rnn_ms(torch.nn.GRU(lib_in, H, batch_first=True), B, T, H, dev,
                                     dtype=dtype)
-    library = f"nn.GRU({H}, {H}){tag}, input projection included"
+    library = f"nn.GRU({lib_in}, {H}){tag}, input projection included"
     bi_fwd_ms, bi_bwd_ms = (rnn_ms(torch.nn.GRU(128, 64, batch_first=True, bidirectional=True),
                                    B, T, H, dev, dtype=dtype) if cbhg else (None, None))
     mod_fwd_ms, mod_bwd_ms = (rnn_ms(cbhg_gru(dev), B, T, H, dev, dtype=dtype) if cbhg
@@ -5580,6 +5595,148 @@ def phase_scripts(dev, card, work):
     return counts, cell
 
 
+# ---------------------------------------------------------------------------
+# The DeepMind dual-softmax WaveRNN (rtvc_tpu_torch/models/wavernn_deepmind.py)
+# ---------------------------------------------------------------------------
+
+DM_B, DM_T = 40, 1000  # the training batch: 40 rows of 1001 labels, 1000 K4 steps
+DM_STEPS = 3
+DM_SAMPLES = 16000  # a second of 16 kHz audio a generated row
+DM_BATCHES = (1, 4)
+DM_EAGER_SAMPLES = 2048  # the loop launch by launch, without its CUDA graph
+DM_LOGIT_GAP = 1e-3
+
+
+def dm_labels(dev, B, n, seed=24):
+    """(coarse, fine) labels (B, n) of a seeded harmonic waveform: three
+    harmonics of an f0 of 100-300 Hz a row at 16 kHz, through the port's
+    ``encode_16bits`` and ``split_signal``."""
+    import torch
+
+    from rtvc_tpu_torch.ops.audio import encode_16bits, split_signal
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000
+    f0 = rng.uniform(100, 300, (B, 1))
+    wav = sum(0.5 / k * np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 6.3, (B, 1)))
+              for k in (1, 2, 3))
+    return split_signal(encode_16bits(torch.from_numpy(wav.astype(np.float32))).to(dev))
+
+
+def phase_deepmind(dev, card):
+    """The DeepMind WaveRNN at full width (hidden 896, quantisation 256) with
+    seeded weights:
+
+    - K4 alone at its training shape, B 40 x T 1000 x H 896 (the cooperative
+      plan: 112 slices of 8 units, one batch group), forward and backward
+      held to the plain versions and timed beside cuDNN's ``nn.GRU(3, 896)``
+      (``gru_shape``; with the coarse input's weights zero where a coarse
+      gate would see the current sample, the same function);
+    - three Adam steps (lr 3e-3) of ``deepmind_loss`` on 40 x 1001 labels of
+      a harmonic waveform: finite losses, the third below the first, K4 once
+      each way a step, every K4 launch of the first step held to its plain
+      version on its own inputs (``train_kernel_checks``);
+    - ``generate`` at batch 1 and 4 x 16,000 samples: the same seed the same
+      waveform, and the drawn labels teacher-forced through
+      ``deepmind_forward`` (K4) reproduce the logits they were drawn from
+      within ``DM_LOGIT_GAP``; ms per 1000 samples and kHz, beside the
+      loop launched step by step without its CUDA graph over the first
+      ``DM_EAGER_SAMPLES`` samples, which must equal the graph's in bits.
+
+    Returns (K4's cells at this shape, K4's launches in the training run)."""
+    import torch
+
+    from rtvc_tpu_torch import _build
+    from rtvc_tpu_torch.models import factories
+    from rtvc_tpu_torch.models import wavernn_deepmind as dm
+
+    d = dm.DeepMindDims()
+    cells = {e["name"]: [{"B": DM_B, "T": DM_T, "H": d.hidden, "path": "deepmind training",
+                          **{k: e[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms", "plan", "mode",
+                                               "library")}}]
+             for e in gru_shape(dev, DM_B, DM_T, d.hidden, library_in=3)}
+
+    model = factories.init_deepmind(d, seed=0, device=dev).train()
+    coarse, fine = dm_labels(dev, DM_B, DM_T + 1)
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = dm.deepmind_loss(model, d, coarse, fine)
+        loss.backward()
+        opt.step()
+        return float(loss.detach())
+
+    losses, step_ms = [], []
+    _build.launch_counts.clear()
+    for i in range(DM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            with recorded_calls(TRAIN_KERNELS) as calls:
+                losses.append(step())
+        else:
+            losses.append(step())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(_build.launch_counts)
+    n_calls = {k: len(v) for k, v in calls.items()}
+    check(n_calls == {"lstm_seq_fwd_train": 0, "lstm_seq_bwd": 0, "gru_seq_fwd": 1, "_bwd": 1},
+          f"the first DeepMind step called {n_calls}")
+    line = train_kernel_checks(calls, "the DeepMind step")
+    check(counts == {"gru_seq": DM_STEPS, "gru_seq_bwd": DM_STEPS},
+          f"{DM_STEPS} DeepMind steps launched {counts}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"DeepMind losses not finite or not falling: {losses}")
+    print(f"{card}: DeepMind WaveRNN training {DM_B} x {DM_T + 1} labels, Adam 3e-3: losses "
+          f"{[round(v, 4) for v in losses]}; ms per step {[round(m, 1) for m in step_ms]} (the "
+          f"first loads the model and records its launches); the first step's K4 launches on "
+          f"their own inputs against their plain versions: {line}")
+
+    model.eval()
+    for batch in DM_BATCHES:
+        wav, cs, fs, lcs, lfs = dm.generate(model, d, 11, DM_SAMPLES, batch=batch,
+                                            return_logits=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = dm.generate(model, d, 11, DM_SAMPLES, batch=batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(all(torch.equal(a, b) for a, b in zip((wav, cs, fs), again)),
+              f"DeepMind generate at batch {batch}: the same seed gave another waveform")
+        t0 = time.perf_counter()
+        eager = dm.deepmind_generate(model, d, DM_EAGER_SAMPLES, batch,
+                                     torch.Generator(device=dev).manual_seed(11),
+                                     cuda_graph=False)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        check(all(torch.equal(a, b[:, :DM_EAGER_SAMPLES]) for a, b in zip(eager, again)),
+              f"DeepMind generate at batch {batch}: the loop without its CUDA graph drew "
+              f"other samples")
+        check(wav.shape == (batch, DM_SAMPLES) and bool(torch.isfinite(wav).all())
+              and float(wav.abs().max()) <= 1.0, f"DeepMind generate at batch {batch}: "
+              f"{tuple(wav.shape)}, largest |sample| {float(wav.abs().max())}")
+        zero = torch.zeros((batch, 1), dtype=cs.dtype, device=dev)
+        before = _build.launch_counts["gru_seq"]
+        with torch.no_grad():
+            lc, lf = dm.deepmind_forward(model, d, torch.cat([zero, cs], 1),
+                                         torch.cat([zero, fs], 1))
+        torch.cuda.synchronize()
+        check(_build.launch_counts["gru_seq"] == before + 1,
+              "the teacher-forced pass did not launch K4")
+        gap = max(float((lc - lcs).abs().max()), float((lf - lfs).abs().max()))
+        check(gap <= DM_LOGIT_GAP, f"DeepMind generate at batch {batch}: the teacher-forced "
+              f"logits are {gap} from those the labels were drawn from (tol {DM_LOGIT_GAP})")
+        print(f"{card}: DeepMind generate batch {batch} x {DM_SAMPLES} samples: {ms:.1f} ms, "
+              f"{ms / DM_SAMPLES * 1000:.2f} ms per 1000 samples a row, "
+              f"{DM_SAMPLES / ms:.3f} kHz a row, {batch * DM_SAMPLES / ms:.3f} kHz in all "
+              f"(CUDA graphs of {dm.STEP_BLOCK} steps, their capture included); without the "
+              f"graphs {eager_ms / DM_EAGER_SAMPLES * 1000:.2f} ms per 1000 samples a row over "
+              f"{DM_EAGER_SAMPLES}, equal in bits; same seed same waveform; the drawn labels "
+              f"teacher-forced through K4 give the logits within {gap:.3e} (tol {DM_LOGIT_GAP})")
+    return cells, counts
+
+
 def main() -> int:
     import torch
 
@@ -5659,6 +5816,8 @@ def main() -> int:
         lap("train tacotron")
         nar_train_counts, nar_runs = phase_train_nar(dev, card, runs_dir)
         lap("train nar")
+        dm_cells, dm_counts = phase_deepmind(dev, card)
+        lap("deepmind")
         bf16_kernels, bf16_counts, bf16_by_run = phase_bf16_train(
             dev, card, runs_dir, {"ge2e": enc_run, factories.MODEL_TYPE_RUNTIMERACER: voc_run,
                                   factories.MODEL_TYPE_TACOTRON: syn_run, **nar_runs})
@@ -5720,6 +5879,8 @@ def main() -> int:
     by_path["lstm_seq_bwd"] = {"encoder training (3 steps)": enc_counts["lstm_seq_bwd"]}
     for name in ("lstm_seq", "lstm_seq_bwd", "gru_seq", "gru_seq_bwd"):
         by_path[name]["forward-tacotron training (3 steps)"] = nar_train_counts[name]
+    for name in ("gru_seq", "gru_seq_bwd"):
+        by_path[name][f"deepmind training ({DM_STEPS} steps)"] = dm_counts[name]
     # the bf16 instantiations' launches by bf16 training run
     for name in BF16_KERNELS:
         by_path[name] = {f"bf16 {label} training (3 steps)": c.get(name, 0)
@@ -5772,6 +5933,8 @@ def main() -> int:
         # K3's and K4's cells at ForwardTacotron's shapes
         if k["name"] in nar["cells"]:
             k.setdefault("shapes", []).extend(nar["cells"][k["name"]])
+        # K4's cells at the DeepMind WaveRNN's H 896
+        k.setdefault("shapes", []).extend(dm_cells.get(k["name"], []))
         # K1's cells through generate_sharded, K3's, K4's and K5's at a DP
         # rank's shapes, K3's in ted_project
         if k["name"] == "wavernn_generate_runtimeracer":

@@ -2,18 +2,20 @@
 
 The inverse of the JAX package's ``import_torch_state`` functions
 (``models/speaker_encoder.py``, ``models/tacotron.py``, ``models/wavernn.py``,
-``models/forward_tacotron.py``, ``models/fast_pitch.py``):
-the input is a variables tree as nested dicts (and lists) of arrays — numpy,
-anything ``np.asarray`` accepts, or torch tensors — and the output is a
-state_dict under the reference's torch names, which the port's modules load
-with ``load_state_dict(strict=True)``. No JAX import is needed.
+``models/forward_tacotron.py``, ``models/fast_pitch.py``), plus the DeepMind
+WaveRNN's (:func:`deepmind_state`): the input is a variables tree as nested
+dicts (and lists) of arrays — numpy, anything ``np.asarray`` accepts, or
+torch tensors — and the output is a state_dict under the reference's torch
+names, which the port's modules load with ``load_state_dict(strict=True)``.
+No JAX import is needed.
 
 The same functions map a JAX gradient tree (``jax.grad`` of a training
 loss over the same variables) to the names of the port's parameters, so a
 test can compare gradients name by name: the encoder's takes the training
 step's ``{"model", "similarity"}`` layout, and Tacotron's and the WaveRNN's
 a tree without ``batch_stats``. The way back, a state_dict → JAX variables,
-is the JAX package's own ``import_torch_state``.
+is the JAX package's own ``import_torch_state``; the JAX package has none
+for the DeepMind WaveRNN, so :func:`deepmind_variables` is that way here.
 """
 from __future__ import annotations
 
@@ -197,3 +199,36 @@ def fast_pitch_state(variables: Mapping) -> StateDict:
     for name in ("lin", "pitch_proj", "energy_proj"):
         _put(sd, f"{name}.", p[name])
     return sd
+
+
+_DEEPMIND_LINEARS = ("O1", "O2", "O3", "O4", "I_coarse", "I_fine")
+_DEEPMIND_BIASES = ("bias_u", "bias_r", "bias_e")
+
+
+def deepmind_state(variables: Mapping) -> StateDict:
+    """{"params"} (``init_deepmind`` layout), or a gradient tree of the same
+    layout with or without the "params" level → DeepMindWaveRNN
+    state_dict."""
+    p = variables["params"] if "params" in variables else variables
+    sd: StateDict = OrderedDict()
+    sd["R.weight"] = _t(p["R"]["weight"])
+    for name in _DEEPMIND_LINEARS:
+        _put(sd, f"{name}.", p[name])
+    for name in _DEEPMIND_BIASES:
+        sd[name] = _t(p[name])
+    return sd
+
+
+def deepmind_variables(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`deepmind_state`: a DeepMindWaveRNN state_dict
+    → {"params": ...} of float32 numpy arrays, the layout the JAX package's
+    ``deepmind_forward`` and ``deepmind_generate`` take (that package has no
+    importer for this model)."""
+    arr = lambda k: state[k].detach().cpu().numpy().astype(np.float32, copy=True)  # noqa: E731
+    params: Dict = {"R": {"weight": arr("R.weight")}}
+    for name in _DEEPMIND_LINEARS:
+        params[name] = {k: arr(f"{name}.{k}") for k in ("weight", "bias")
+                        if f"{name}.{k}" in state}
+    for name in _DEEPMIND_BIASES:
+        params[name] = arr(name)
+    return {"params": params}

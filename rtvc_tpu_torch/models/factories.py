@@ -1,7 +1,8 @@
 """Model factories (counterpart of ``rtvc_tpu/models/factories.py``) for the
 ported models: the three synthesizers (Tacotron, ForwardTacotron,
 FastPitch), the three WaveRNN variants (fatchord, geneing, runtimeracer)
-with any of their heads, and the speaker encoder. Random
+with any of their heads, the DeepMind dual-softmax WaveRNN and the speaker
+encoder. Random
 weights come from a ``torch.Generator`` seeded by ``seed``;
 modules are built on the meta device and filled once, so no global RNG is
 touched. Every factory builds on the card when ``device`` is left out and
@@ -33,6 +34,7 @@ from rtvc_tpu_torch.models.forward_tacotron import BiLSTM, ForwardTacotron, Forw
 from rtvc_tpu_torch.models.speaker_encoder import SpeakerEncoder
 from rtvc_tpu_torch.models.tacotron import Tacotron, TacotronDims
 from rtvc_tpu_torch.models.wavernn import WaveRNN, WaveRNNDims
+from rtvc_tpu_torch.models.wavernn_deepmind import DeepMindDims, DeepMindWaveRNN
 
 MODEL_TYPE_TACOTRON = "tacotron"
 MODEL_TYPE_FORWARD_TACOTRON = "forward-tacotron"
@@ -299,4 +301,16 @@ def init_wavernn(dims: WaveRNNDims, seed: int = 0, device=None) -> WaveRNN:
     with torch.no_grad():
         for i, s in enumerate(dims.upsample_factors):
             model.upsample.up_layers[2 * i + 1].weight.fill_(1.0 / (2 * s + 1))
+    return model.eval()
+
+
+def init_deepmind(dims: DeepMindDims, seed: int = 0, device=None) -> DeepMindWaveRNN:
+    """A DeepMind dual-softmax WaveRNN of these dims with random weights:
+    every matrix and head bias uniform ±1/√fan_in, the gate biases zero, as
+    the JAX package's ``init_deepmind``."""
+    model = empty_on_device(lambda: DeepMindWaveRNN(dims), device)
+    _init_(model, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for name in ("bias_u", "bias_r", "bias_e"):
+            getattr(model, name).zero_()
     return model.eval()

@@ -4,7 +4,8 @@
   (``melspectrogram``; its projection and normalisation run through the K6
   kernel, ``ops.mel_project``) and the way back by Griffin-Lim
   (``inv_mel_spectrogram``);
-* vocoder path: label / mu-law codecs and de-emphasis;
+* vocoder path: label / mu-law codecs, pre- and de-emphasis, and the
+  16-bit signal as two bytes (``split_signal`` / ``combine_signal``);
 * encoder path: the 40-mel power spectrogram and volume normalisation.
 
 ``sp`` and ``pp`` are ``config.signal``'s ``SignalParams`` and
@@ -84,7 +85,8 @@ def iir_blocks(x: Tensor, k: float) -> Tensor:
     return y.reshape(-1)[:n]
 
 
-# the vocoder side's name for the same filter
+# the vocoder side's names for the same filters
+pre_emphasis = preemphasis
 de_emphasis = inv_preemphasis
 
 
@@ -282,9 +284,48 @@ def label_2_float(x: Tensor, bits: int) -> Tensor:
     return 2.0 * x / (2.0 ** bits - 1.0) - 1.0
 
 
+def float_2_label(x: Tensor, bits: int) -> Tensor:
+    """Float [-1, 1] → label [0, 2^bits - 1] (a float tensor)."""
+    x = (x + 1.0) * (2.0 ** bits - 1.0) / 2.0
+    return torch.clamp(x, 0.0, 2.0 ** bits - 1.0)
+
+
+def encode_mu_law(x: Tensor, mu: int) -> Tensor:
+    """Mu-law companding → integer labels (a float tensor); log1p(mu - 1)
+    taken in float32, as the JAX package takes it."""
+    m = mu - 1
+    fx = torch.sign(x) * torch.log1p(m * torch.abs(x)) / float(np.log1p(np.float32(m)))
+    return torch.floor((fx + 1.0) / 2.0 * m + 0.5)
+
+
 def decode_mu_law(y: Tensor, mu: int, from_labels: bool = True) -> Tensor:
     """Inverse mu-law."""
     if from_labels:
         y = label_2_float(y, int(math.log2(mu)))
     m = mu - 1
     return torch.sign(y) / m * ((1.0 + m) ** torch.abs(y) - 1.0)
+
+
+# ---------------------------------------------------------------------------
+# 16-bit signals as two bytes (the DeepMind WaveRNN's coarse and fine labels)
+# ---------------------------------------------------------------------------
+
+
+def split_signal(x: Tensor):
+    """16-bit integer signal → (coarse, fine): the high and low byte of
+    x + 2^15. A signal narrower than 32 bits is widened to int32 first, so
+    that the offset cannot overflow its dtype."""
+    if x.dtype in (torch.int8, torch.uint8, torch.int16):
+        x = x.to(torch.int32)
+    unsigned = x + 2 ** 15
+    return torch.div(unsigned, 256, rounding_mode="floor"), torch.remainder(unsigned, 256)
+
+
+def combine_signal(coarse: Tensor, fine: Tensor) -> Tensor:
+    """The inverse of :func:`split_signal`."""
+    return coarse * 256 + fine - 2 ** 15
+
+
+def encode_16bits(x: Tensor) -> Tensor:
+    """Float [-1, 1] → int16, clipped to [-2^15, 2^15 - 1]."""
+    return torch.clamp(x * 2 ** 15, -(2 ** 15), 2 ** 15 - 1).to(torch.int16)

@@ -9,7 +9,7 @@ instructions, not a stack trace.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 _STAGE_HELP = {
     "encoder": "python -m rtvc_tpu_torch.encoder_train my_run "
@@ -50,3 +50,17 @@ def model_files_missing(missing: Optional[Dict[str, Path]] = None,
     print("\nOr run `python -m rtvc_tpu_torch.demo_cli --selftest` to exercise the full "
           "pipeline\nwith random weights (no checkpoints needed).")
     print(bar + "\n")
+
+
+def check_model_paths(
+    encoder_path: Path, synthesizer_path: Path, vocoder_path: Path
+) -> List[str]:
+    """Validate the three stage checkpoints; print guidance and raise
+    ``SystemExit`` when NONE exist (the reference's contract,
+    ref: utils/modelutils.py:3-14). Returns the names of individually
+    missing stages so callers can warn on partial installs."""
+    missing = missing_models(encoder_path, synthesizer_path, vocoder_path)
+    if len(missing) == 3:
+        model_files_missing(missing)
+        raise SystemExit(-1)
+    return list(missing)

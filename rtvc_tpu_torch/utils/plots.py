@@ -1,8 +1,9 @@
 """Training and evaluation plots (headless matplotlib), the port's own
 counterpart of ``rtvc_tpu/utils/plots.py``: attention and mel images at
-the synthesizer's evaluation steps, the non-autoregressive synthesizers'
-pitch and energy sweeps, and the vocoder's target / Griffin-Lim / generated
-waveforms.
+the synthesizer's evaluation steps, target and generated mels stacked, the
+non-autoregressive synthesizers' pitch and energy sweeps, and the vocoder's
+target / Griffin-Lim / generated waveforms. ``save_mel_comparison`` is the
+JAX package's function with the port's guard for a missing matplotlib.
 
 matplotlib is optional: it is imported on the first plot, and where it does
 not import (the GPU machine has none) :func:`available` says so and every
@@ -73,6 +74,28 @@ def save_spectrogram(mel: np.ndarray, path, title: str = "") -> Optional[Path]:
     fig.colorbar(im, ax=ax)
     ax.set_title(title)
     return _save(plt, fig, path)
+
+
+def save_mel_comparison(
+    target: np.ndarray, generated: np.ndarray, path: Path, title: str = ""
+) -> Path:
+    """Target vs generated mel, stacked (GTA eval grids,
+    ref: synthesizer/train.py:485-574)."""
+    plt = _plt()
+    if plt is None:
+        return None
+    path = Path(path).with_suffix(".png")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fig, axes = plt.subplots(2, 1, figsize=(8, 6), sharex=True)
+    for ax, m, label in zip(axes, (target, generated), ("target", "generated")):
+        im = ax.imshow(np.asarray(m), aspect="auto", origin="lower",
+                       interpolation="none")
+        fig.colorbar(im, ax=ax)
+        ax.set_ylabel(label)
+    axes[0].set_title(title)
+    fig.savefig(path, dpi=110, bbox_inches="tight")
+    plt.close(fig)
+    return path
 
 
 def save_series_grid(series: Sequence[np.ndarray], labels: Sequence[str], path,

@@ -178,12 +178,15 @@ def test_lstm_train_kernels_match_plain(dev, B, T, H):
 # then the row-resident mode's (H <= 128) shapes: the clone's postnet CBHG (B 1
 # x T 512), the GTA pass's and the ForwardTacotron step's predictors (B 8 and
 # 16 x T 160), a DP rank's CBHG (B 56 x T 602), more rows than SMs (B 133 and
-# 600: a CTA a row, in waves), one step at H 128, and an odd narrow width
+# 600: a CTA a row, in waves), one step at H 128, and an odd narrow width;
+# then the DeepMind WaveRNN's H 896 (112 slices of 8 units, 7 pieces of 128 a
+# row): its training shape (B 40 x T 1000), a few rows, one row, one step
 @pytest.mark.parametrize("B,T,H", [(3, 20, 128), (2, 9, 13), (40, 1000, 256), (40, 1000, 512),
                                    (40, 1400, 256), (1, 7, 128), (133, 5, 200), (4, 1, 64),
                                    (112, 50, 64), (5, 6, 13), (1, 512, 64), (8, 160, 64),
                                    (16, 160, 128), (56, 602, 64), (133, 5, 64), (600, 5, 64),
-                                   (3, 1, 128), (2, 9, 40)])
+                                   (3, 1, 128), (2, 9, 40), (40, 1000, 896), (4, 50, 896),
+                                   (1, 30, 896), (3, 1, 896)])
 def test_gru_kernels_match_plain(dev, B, T, H):
     g = torch.Generator().manual_seed(1)
     s = H ** -0.5
@@ -293,6 +296,78 @@ def test_gru_narrow_width_reaches_the_row_resident_kernel(dev, monkeypatch):
         assert lib.rtvc_gru_rows_fwd(xg.data_ptr(), w.data_ptr(), b.data_ptr(), ys.data_ptr(),
                                      gates.data_ptr(), 4, 9, 64, _build.int_array(bad),
                                      _build.stream_handle(dev)) == 1
+
+
+def test_deepmind_forward_on_the_card_reaches_k4_and_matches_the_cpu(dev, monkeypatch):
+    """The DeepMind WaveRNN at full width (hidden 896) on the card: its loss,
+    the logits and every parameter's gradient within 1e-4 (relative) of the
+    CPU route's on the same weights and labels; K4 launched once each way
+    under grad and once without, its cooperative plan taken (112 slices of
+    8 units), and K4's plain versions never reached."""
+    from rtvc_tpu_torch.models import wavernn_deepmind as tdm
+    from rtvc_tpu_torch.ops import gru_seq as k4
+
+    d = tdm.DeepMindDims()
+    cpu = factories.init_deepmind(d, seed=2, device="cpu")
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(3)
+        for name in ("bias_u", "bias_r", "bias_e"):
+            getattr(cpu, name).uniform_(-0.5, 0.5, generator=g)
+    card = factories.init_deepmind(d, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(4)
+    coarse, fine = (torch.randint(0, 256, (3, 41), generator=g) for _ in range(2))
+    want_loss = tdm.deepmind_loss(cpu, d, coarse, fine)
+    want_loss.backward()
+    with torch.no_grad():
+        want = tdm.deepmind_forward(cpu, d, coarse, fine)
+    p = k4.plan(3, d.hidden, *_build.device_limits(dev))
+    assert isinstance(p, k4.Plan) and (p.slices, p.units) == (112, 8)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA call reached K4's plain version")
+
+    monkeypatch.setattr(k4, "gru_seq_fwd_plain", refuse)
+    monkeypatch.setattr(k4, "gru_seq_bwd_plain", refuse)
+    before = {k: _build.launch_counts[k] for k in ("gru_seq", "gru_seq_bwd")}
+    loss = tdm.deepmind_loss(card, d, coarse.to(dev), fine.to(dev))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert {k: _build.launch_counts[k] - before[k] for k in before} == {
+        "gru_seq": 1, "gru_seq_bwd": 1}
+    assert abs(float(loss.detach()) - float(want_loss.detach())) <= 1e-4 * float(
+        want_loss.detach())
+    for name, param in card.named_parameters():
+        assert rel_err(param.grad.cpu(), dict(cpu.named_parameters())[name].grad) <= 1e-4, name
+    with torch.no_grad():
+        got = _counted("gru_seq", lambda: tdm.deepmind_forward(card, d, coarse.to(dev),
+                                                               fine.to(dev)))
+    for a, b in zip(got, want):
+        assert rel_err(a.cpu(), b) <= 1e-4
+
+
+def test_deepmind_generate_on_the_card(dev):
+    """The sampling loop on the card at full width: finite labels in range,
+    the same seed the same waveform with and without the CUDA graphs, and
+    the drawn labels teacher-forced through K4 reproduce the logits they
+    were drawn from within 1e-3."""
+    from rtvc_tpu_torch.models import wavernn_deepmind as tdm
+
+    d = tdm.DeepMindDims()
+    model = factories.init_deepmind(d, seed=5, device=dev)
+    n = 2 * tdm.STEP_BLOCK + 44  # two CUDA-graph replays and a block launched step by step
+    wav, cs, fs, lcs, lfs = tdm.generate(model, d, 7, seq_len=n, batch=2, return_logits=True)
+    again = tdm.generate(model, d, 7, seq_len=n, batch=2)
+    eager = tdm.deepmind_generate(model, d, n, 2, torch.Generator(device=dev).manual_seed(7),
+                                  cuda_graph=False)
+    assert all(torch.equal(a, b) for a, b in zip((wav, cs, fs), again))
+    assert all(torch.equal(a, b) for a, b in zip((wav, cs, fs), eager))
+    assert wav.is_cuda and wav.shape == (2, n) and float(wav.abs().max()) <= 1.0
+    zero = torch.zeros((2, 1), dtype=cs.dtype, device=dev)
+    with torch.no_grad():
+        lc, lf = _counted("gru_seq", lambda: tdm.deepmind_forward(
+            model, d, torch.cat([zero, cs], 1), torch.cat([zero, fs], 1)))
+    assert float((lc - lcs).abs().max()) <= 1e-3 and float((lf - lfs).abs().max()) <= 1e-3
 
 
 def test_gru_seq_kernel_names_its_width_limit(dev):

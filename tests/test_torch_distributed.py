@@ -56,7 +56,7 @@ ENC_S, ENC_U, ENC_T = 4, 3, 20
 TACO_R, TACO_B = 3, 4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_cpu_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -26,7 +26,7 @@ CFG = dict(embed_dims=16, n_heads=2, conv_dims=24, n_layers_enc=2, n_layers_dec=
 N_CHARS, N_MELS, SPK = 20, 6, 8
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_cpu_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

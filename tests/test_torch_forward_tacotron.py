@@ -28,10 +28,13 @@ CFG = dict(embed_dims=16, series_embed_dims=8, duration_conv_dims=12, duration_r
 N_CHARS, N_MELS, SPK = 20, 6, 8
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_cpu_thread():
-    """One intra-op thread: these models are small, and beside the other
-    test workers more OpenMP threads only wait on each other."""
+    """One intra-op thread for the whole module: these models are small, and
+    beside the other test workers more OpenMP threads only wait on each
+    other. Module-scoped, so that it is set before the module-scoped
+    fixtures compute their reference data: the duration head's bias is
+    picked from predictions whose last bits follow the thread count."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

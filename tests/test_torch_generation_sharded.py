@@ -27,7 +27,7 @@ TARGET, OVERLAP = 100, 40
 FRAMES = 50  # 1000 samples: 7 folds of 100 + 2·40
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_cpu_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -62,7 +62,7 @@ CFGS = {
 }
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_cpu_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

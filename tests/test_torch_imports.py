@@ -10,7 +10,9 @@ dataset tools of ``scripts/`` with their STM parser) still
 say what their originals say: equal config fields and values, equal symbol sequences, equal
 batches from one tiny on-disk dataset and seed (the non-autoregressive
 synthesizers' batches from a root the alignment pass wrote too), and the
-copied functions' sources equal their originals' but for the imports (their
+copied functions' sources equal their originals' but for the imports
+(``utils/modelutils.check_model_paths`` whole, ``utils/plots.
+save_mel_comparison`` but for its guard against a missing matplotlib; their
 values on seeded inputs: ``test_torch_align.py``; the trainers' dashboard
 and argument printer: ``test_torch_dashboard.py``)."""
 import dataclasses
@@ -65,7 +67,7 @@ for need in ("models.distribution", "ops.stft", "ops.mel_project", "ops.wavernn_
              "parallel.generation", "scripts", "scripts.commonvoice_transcript",
              "scripts.convert_audio", "scripts.ted_project", "scripts.tedlium",
              "scripts.tedlium_transcript", "scripts.tedx_speakers", "scripts.timit",
-             "scripts.stm"):
+             "scripts.stm", "models.wavernn_deepmind"):
     assert "rtvc_tpu_torch." + need in names, need
 import chip_smoke
 import dp_fault_control
@@ -213,6 +215,53 @@ def test_native_format_helpers_equal_their_originals(name):
         assert inspect.getsource(got) == inspect.getsource(want)
     else:
         assert got == want
+
+
+def test_check_model_paths_equals_its_original():
+    from rtvc_tpu.utils import modelutils as jmodelutils
+    from rtvc_tpu_torch.utils import modelutils as tmodelutils
+
+    assert (inspect.getsource(tmodelutils.check_model_paths)
+            == inspect.getsource(jmodelutils.check_model_paths))
+
+
+def test_save_mel_comparison_equals_its_original_but_for_the_guard():
+    """The JAX package's function, with the port's two lines for a missing
+    matplotlib (``plots._plt`` gives None there) and nothing else."""
+    from rtvc_tpu.utils import plots as jplots
+    from rtvc_tpu_torch.utils import plots as tplots
+
+    guard = ["    if plt is None:\n", "        return None\n"]
+    got = inspect.getsource(tplots.save_mel_comparison).splitlines(keepends=True)
+    at = got.index(guard[0])
+    assert got[at:at + 2] == guard
+    want = inspect.getsource(jplots.save_mel_comparison).splitlines(keepends=True)
+    assert got[:at] + got[at + 2:] == want
+
+
+def test_check_model_paths_exits_or_names_the_missing(tmp_path, capsys):
+    from rtvc_tpu.utils import modelutils as jmodelutils
+    from rtvc_tpu_torch.utils import modelutils as tmodelutils
+
+    with pytest.raises(SystemExit):
+        tmodelutils.check_model_paths(tmp_path / "e", tmp_path / "s", tmp_path / "v")
+    out = capsys.readouterr().out
+    assert "rtvc_tpu_torch.encoder_train" in out and "--selftest" in out
+    enc = tmp_path / "enc.pt"
+    enc.write_bytes(b"x")
+    for mod in (tmodelutils, jmodelutils):
+        assert mod.check_model_paths(enc, tmp_path / "s", tmp_path / "v") == [
+            "synthesizer", "vocoder"]
+
+
+def test_save_mel_comparison_writes_or_returns_none(tmp_path, monkeypatch):
+    from rtvc_tpu_torch.utils import plots as tplots
+
+    mel = np.random.default_rng(0).uniform(-4, 4, (80, 30))
+    assert tplots.save_mel_comparison(mel, mel * 0.5, tmp_path / "cmp").exists()
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    assert tplots.save_mel_comparison(mel, mel, tmp_path / "none") is None
+    assert not (tmp_path / "none.png").exists()
 
 
 def _code_lines(path, drop_from="", drop_to=""):

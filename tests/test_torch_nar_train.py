@@ -59,7 +59,7 @@ FP_CFG = dict(embed_dims=16, n_heads=2, conv_dims=24, n_layers_enc=2, n_layers_d
 TYPES = ("forward-tacotron", "fast-pitch")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_cpu_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

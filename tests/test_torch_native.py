@@ -56,7 +56,7 @@ def engine():
     return _build.build_wavernn_engine()
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_cpu_thread():
     """One intra-op thread: beside other test workers more OpenMP threads
     only wait on each other."""

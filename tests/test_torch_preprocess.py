@@ -54,7 +54,7 @@ NARROW = EncoderModelParams(model_hidden_size=32, model_embedding_size=768, mode
 KEPT = 6  # utterances the audio pass keeps: three speakers x two
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_cpu_thread():
     """One intra-op thread: the passes' own thread pools beside the other
     test workers make more OpenMP threads only wait on each other."""

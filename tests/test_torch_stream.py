@@ -33,7 +33,7 @@ TEXT = "Stream this voice, chunk by chunk."
 HOP = sp.hop_size
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_cpu_thread():
     """One intra-op thread: these models are small, and beside the other
     test workers more OpenMP threads only wait on each other."""

@@ -38,7 +38,7 @@ VOC_TB = VOC.replace(gen_target=100, gen_overlap=25)
 ENC_STATE = (("_model", "_model_cfg", "_data"), ("_bundle", "_native", "_seed", "_gen_counter"))
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_cpu_thread():
     """One intra-op thread: beside other test workers more OpenMP threads
     only wait on each other."""
