@@ -4,7 +4,7 @@ CUDA kernels for NVIDIA Hopper.
 A port of ``rtvc_tpu`` (JAX/Pallas), which stays the numerical reference;
 this package imports nothing of it and keeps its own copies of the modules
 it shares (``config``, ``text``, ``data``, ``utils.metrics``,
-``utils.profiler``). The clone path runs speaker encoder → synthesizer
+``utils.profiler.Profiler``). The clone path runs speaker encoder → synthesizer
 (Tacotron, ForwardTacotron or FastPitch) → WaveRNN (fatchord, geneing or
 runtimeracer); the encoder, Tacotron and the WaveRNNs train here:
 

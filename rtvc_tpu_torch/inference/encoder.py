@@ -25,6 +25,7 @@ from rtvc_tpu_torch.ops.resample import resample
 from rtvc_tpu_torch.ops.vad import trim_long_silences
 from rtvc_tpu_torch.train.checkpoints import read_model
 from rtvc_tpu_torch.utils.io import load_wav
+from rtvc_tpu_torch.utils.profiler import span
 
 _data = EncoderDataParams()
 _model_cfg = EncoderModelParams()
@@ -79,8 +80,9 @@ def embed_frames_batch(frames_batch: np.ndarray) -> np.ndarray:
     if _model is None:
         raise Exception("Model was not loaded. Call load_model(), load_state() or "
                         "init_random_model() before inference.")
-    frames = torch.as_tensor(np.asarray(frames_batch, np.float32), device=_device())
-    return _model(frames).cpu().numpy()
+    with span("rtvc.encoder.lstm"):
+        frames = torch.as_tensor(np.asarray(frames_batch, np.float32), device=_device())
+        return _model(frames).cpu().numpy()
 
 
 def compute_partial_slices(n_samples: int,
@@ -118,52 +120,55 @@ def wav_to_mel_spectrogram(wav: np.ndarray) -> np.ndarray:
     """Encoder-frontend mel frames (T, 40)."""
     n_fft = int(_data.sampling_rate * _data.mel_window_length / 1000)
     hop = int(_data.sampling_rate * _data.mel_window_step / 1000)
-    mel = encoder_mel_spectrogram(torch.as_tensor(np.asarray(wav, np.float32)),
-                                  _data.sampling_rate, n_fft, hop, _data.mel_n_channels)
-    return mel.numpy().astype(np.float32)
+    with span("rtvc.encoder.mel"):
+        mel = encoder_mel_spectrogram(torch.as_tensor(np.asarray(wav, np.float32)),
+                                      _data.sampling_rate, n_fft, hop, _data.mel_n_channels)
+        return mel.numpy().astype(np.float32)
 
 
 def preprocess_wav(fpath_or_wav: Union[str, Path, np.ndarray],
                    source_sr: Optional[int] = None, normalize: bool = True,
                    trim_silence: bool = True) -> np.ndarray:
     """Load/resample → volume-normalise → VAD silence trim (host side)."""
-    if isinstance(fpath_or_wav, (str, Path)):
-        wav, source_sr = load_wav(fpath_or_wav)
-    else:
-        wav = np.asarray(fpath_or_wav, dtype=np.float32)
-    if source_sr is not None and source_sr != _data.sampling_rate:
-        wav = resample(wav, source_sr, _data.sampling_rate)
-    if normalize:
-        wav = normalize_volume(torch.as_tensor(wav), _data.audio_norm_target_dBFS,
-                               increase_only=True).numpy()
-    if trim_silence:
-        wav = trim_long_silences(wav, _data.sampling_rate, _data.vad_window_length,
-                                 _data.vad_moving_average_width,
-                                 _data.vad_max_silence_length)
-    return wav.astype(np.float32)
+    with span("rtvc.encoder.preprocess"):
+        if isinstance(fpath_or_wav, (str, Path)):
+            wav, source_sr = load_wav(fpath_or_wav)
+        else:
+            wav = np.asarray(fpath_or_wav, dtype=np.float32)
+        if source_sr is not None and source_sr != _data.sampling_rate:
+            wav = resample(wav, source_sr, _data.sampling_rate)
+        if normalize:
+            wav = normalize_volume(torch.as_tensor(wav), _data.audio_norm_target_dBFS,
+                                   increase_only=True).numpy()
+        if trim_silence:
+            wav = trim_long_silences(wav, _data.sampling_rate, _data.vad_window_length,
+                                     _data.vad_moving_average_width,
+                                     _data.vad_max_silence_length)
+        return wav.astype(np.float32)
 
 
 def embed_utterance(wav: np.ndarray, using_partials: bool = True,
                     return_partials: bool = False, **kwargs):
     """Single-utterance embedding: the mean of the partial embeddings,
     renormalised."""
-    if not using_partials:
-        frames = wav_to_mel_spectrogram(wav)
-        embed = embed_frames_batch(frames[None, ...])[0]
-        return (embed, None, None) if return_partials else embed
+    with span("rtvc.encoder.embed"):
+        if not using_partials:
+            frames = wav_to_mel_spectrogram(wav)
+            embed = embed_frames_batch(frames[None, ...])[0]
+            return (embed, None, None) if return_partials else embed
 
-    wave_slices, mel_slices = compute_partial_slices(len(wav), **kwargs)
-    max_wave_length = wave_slices[-1].stop
-    if max_wave_length >= len(wav):
-        wav = np.pad(wav, (0, max_wave_length - len(wav)), "constant")
-    frames = wav_to_mel_spectrogram(wav)
-    frames_batch = np.stack([frames[s] for s in mel_slices])
-    partial_embeds = embed_frames_batch(frames_batch)
-    raw_embed = np.mean(partial_embeds, axis=0)
-    embed = raw_embed / np.linalg.norm(raw_embed, 2)
-    if return_partials:
-        return embed, partial_embeds, wave_slices
-    return embed
+        wave_slices, mel_slices = compute_partial_slices(len(wav), **kwargs)
+        max_wave_length = wave_slices[-1].stop
+        if max_wave_length >= len(wav):
+            wav = np.pad(wav, (0, max_wave_length - len(wav)), "constant")
+        frames = wav_to_mel_spectrogram(wav)
+        frames_batch = np.stack([frames[s] for s in mel_slices])
+        partial_embeds = embed_frames_batch(frames_batch)
+        raw_embed = np.mean(partial_embeds, axis=0)
+        embed = raw_embed / np.linalg.norm(raw_embed, 2)
+        if return_partials:
+            return embed, partial_embeds, wave_slices
+        return embed
 
 
 def embed_speaker(wavs: List[np.ndarray], **kwargs) -> np.ndarray:

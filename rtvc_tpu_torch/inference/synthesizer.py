@@ -49,6 +49,7 @@ from rtvc_tpu_torch.ops import audio as audio_ops
 from rtvc_tpu_torch.ops.tacotron_decode import tacotron_decode
 from rtvc_tpu_torch.train.checkpoints import read_model
 from rtvc_tpu_torch.utils.io import load_wav
+from rtvc_tpu_torch.utils.profiler import count, span
 
 _CHAR_BUCKET = 32
 _FRAME_BUCKET = 128
@@ -127,21 +128,22 @@ class Synthesizer:
         reference keeps prenet dropout on at inference)."""
         if not self.is_loaded():
             self.load()
-        if not isinstance(embeddings, list):
-            embeddings = [embeddings] if np.ndim(embeddings) == 1 else list(embeddings)
-        bs = preprocessing.synthesis_batch_size
-        specs, alignments = [], []
-        for i in range(0, len(texts), bs):
-            chars = text_ids(texts[i:i + bs])
-            embeds = np.stack(embeddings[i:i + bs]).astype(np.float32)
-            if self._bundle.model_type == factories.MODEL_TYPE_TACOTRON:
-                mels, aligns = self._generate(chars, embeds, seed, prenet_dropout)
-            else:
-                mels, aligns = self._generate_forward(chars, embeds, speed_modifier,
-                                                      pitch_function, energy_function)
-            specs.extend(mels)
-            alignments.extend(aligns)
-        return (specs, alignments) if return_alignments else specs
+        with span("rtvc.synth.synthesize"):
+            if not isinstance(embeddings, list):
+                embeddings = [embeddings] if np.ndim(embeddings) == 1 else list(embeddings)
+            bs = preprocessing.synthesis_batch_size
+            specs, alignments = [], []
+            for i in range(0, len(texts), bs):
+                chars = text_ids(texts[i:i + bs])
+                embeds = np.stack(embeddings[i:i + bs]).astype(np.float32)
+                if self._bundle.model_type == factories.MODEL_TYPE_TACOTRON:
+                    mels, aligns = self._generate(chars, embeds, seed, prenet_dropout)
+                else:
+                    mels, aligns = self._generate_forward(chars, embeds, speed_modifier,
+                                                          pitch_function, energy_function)
+                specs.extend(mels)
+                alignments.extend(aligns)
+            return (specs, alignments) if return_alignments else specs
 
     def encode(self, chars: np.ndarray, embeds: np.ndarray, seed: int,
                prenet_dropout: bool = True):
@@ -152,11 +154,12 @@ class Synthesizer:
         clone shares."""
         model = self._bundle.model
         dev = model.post_proj.weight.device
-        chars_t = torch.as_tensor(chars, device=dev)
-        g = torch.Generator(device=dev).manual_seed(seed)
-        enc_seq, enc_proj = taco.encode(model, chars_t, torch.as_tensor(embeds, device=dev), g,
-                                        prenet_dropout)
-        return enc_seq.contiguous(), enc_proj.contiguous(), (chars_t != 0).to(torch.float32)
+        with span("rtvc.synth.encode"):
+            chars_t = torch.as_tensor(chars, device=dev)
+            g = torch.Generator(device=dev).manual_seed(seed)
+            enc_seq, enc_proj = taco.encode(model, chars_t, torch.as_tensor(embeds, device=dev),
+                                            g, prenet_dropout)
+            return enc_seq.contiguous(), enc_proj.contiguous(), (chars_t != 0).to(torch.float32)
 
     def _generate(self, chars: np.ndarray, embeds: np.ndarray, seed: int,
                   prenet_dropout: bool):
@@ -165,43 +168,52 @@ class Synthesizer:
         dev = model.post_proj.weight.device
         max_steps = (cfg.max_decoder_steps // r) * r
         enc_seq, enc_proj, mask = self.encode(chars, embeds, seed, prenet_dropout)
-        mel_buf, attn, stops = tacotron_decode(
-            model, d, enc_seq, enc_proj, mask, seed, r, max_steps, dropout=prenet_dropout)
-        n = max(taco.stop_iterations(stops, r) * r, r)
+        with span("rtvc.synth.decode"):
+            mel_buf, attn, stops = tacotron_decode(
+                model, d, enc_seq, enc_proj, mask, seed, r, max_steps, dropout=prenet_dropout)
+            n = max(taco.stop_iterations(stops, r) * r, r)
 
-        bucket = -(-n // _FRAME_BUCKET) * _FRAME_BUCKET
-        mel_trim = torch.full((chars.shape[0], d.n_mels, bucket), -sp.max_abs_value,
-                              device=dev)
-        mel_trim[:, :, :n] = mel_buf[:, :, :n]
-        linear = taco.postnet(model, mel_trim).transpose(1, 2).cpu().numpy()
+        with span("rtvc.synth.postnet"):
+            bucket = -(-n // _FRAME_BUCKET) * _FRAME_BUCKET
+            mel_trim = torch.full((chars.shape[0], d.n_mels, bucket), -sp.max_abs_value,
+                                  device=dev)
+            mel_trim[:, :, :n] = mel_buf[:, :, :n]
+            linear = taco.postnet(model, mel_trim).transpose(1, 2).cpu().numpy()
 
         # The postnet output is the final mel; trailing frames below the stop
         # threshold are trimmed.
-        mels, aligns = [], []
-        attn_np = attn[:, :n // r].cpu().numpy()
-        for b in range(linear.shape[0]):
-            m = linear[b, :, :n]
-            end = m.shape[1]
-            while end > 1 and np.max(m[:, end - 1]) < cfg.stop_threshold:
-                end -= 1
-            mels.append(m[:, :end].astype(np.float32))
-            aligns.append(attn_np[b])
-        return mels, aligns
+        with span("rtvc.synth.trim"):
+            mels, aligns = [], []
+            attn_np = attn[:, :n // r].cpu().numpy()
+            for b in range(linear.shape[0]):
+                m = linear[b, :, :n]
+                end = m.shape[1]
+                while end > 1 and np.max(m[:, end - 1]) < cfg.stop_threshold:
+                    end -= 1
+                mels.append(m[:, :end].astype(np.float32))
+                aligns.append(attn_np[b])
+            return mels, aligns
 
     def _generate_forward(self, chars: np.ndarray, embeds: np.ndarray, speed_modifier: float,
                           pitch_function: Optional[Callable],
                           energy_function: Optional[Callable]):
         """ForwardTacotron or FastPitch: each mel trimmed to its row's
-        duration sum (at least one frame), the durations as alignments."""
+        duration sum (at least one frame), the durations as alignments.
+        Counts the frames the pad characters (id 0) take inside the
+        returned mels (``rtvc.synth.pad_frames``)."""
         gen = (fastpitch_generate if self._bundle.model_type == factories.MODEL_TYPE_FASTPITCH
                else forward_generate)
         dev = next(self._bundle.model.parameters()).device
-        mel, durs = gen(self._bundle.model, torch.as_tensor(chars, device=dev),
-                        torch.as_tensor(embeds, device=dev), alpha=1.0 / speed_modifier,
-                        pitch_function=pitch_function, energy_function=energy_function)
-        mel = mel.cpu().numpy()
-        return ([mel[b, :, :max(int(durs[b].sum()), 1)].astype(np.float32)
-                 for b in range(mel.shape[0])], list(durs))
+        with span("rtvc.synth.forward"):
+            mel, durs = gen(self._bundle.model, torch.as_tensor(chars, device=dev),
+                            torch.as_tensor(embeds, device=dev), alpha=1.0 / speed_modifier,
+                            pitch_function=pitch_function, energy_function=energy_function)
+        with span("rtvc.synth.copy"):
+            mel = mel.cpu().numpy()
+            mels = [mel[b, :, :max(int(durs[b].sum()), 1)].astype(np.float32)
+                    for b in range(mel.shape[0])]
+        count("rtvc.synth.pad_frames", int(np.sum(np.where(chars == 0, durs, 0))))
+        return mels, list(durs)
 
 
 _model: Optional[Synthesizer] = None

@@ -37,6 +37,7 @@ from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.models.wavernn import wavernn_generate, wavernn_generate_batch
 from rtvc_tpu_torch.ops import precision
 from rtvc_tpu_torch.train.checkpoints import read_model
+from rtvc_tpu_torch.utils.profiler import count, span
 
 VOC_TYPE_PYTORCH = "pytorch"  # the reference's name for this path: the port's WaveRNN and K1
 VOC_TYPE_CPP = "libwavernn"  # the native engine
@@ -200,21 +201,24 @@ def infer_waveform(mel: np.ndarray, normalize: bool = True, batched: bool = True
     """Mel (synthesizer format, (80, T)) → float64 waveform of (T-1)·200
     samples. ``argmax=True`` is the deterministic (greedy) test hook. With
     the native engine loaded it vocodes there, folded by the engine's worker
-    pool (``batched``, ``target`` and ``overlap`` do not apply)."""
-    if _native is not None:
-        return _native.vocode_mel(mel=mel, normalize=normalize,
-                                  progress_callback=progress_callback, argmax=argmax)
-    cfg, target, overlap, seed, dtypes = _next_call(target, overlap)
-    sp = _sig.sp
-    if normalize:
-        mel = mel / sp.max_abs_value
-    wav = wavernn_generate(_bundle.model, _bundle.dims, np.asarray(mel, np.float32),
-                           seed, batched=batched, target=target, overlap=overlap,
-                           mu_law=cfg.mu_law, apply_preemphasis=sp.preemphasize,
-                           argmax=argmax, **dtypes)
-    if progress_callback is not None:
-        progress_callback(len(wav), len(wav), 1, 0.0)
-    return wav
+    pool (``batched``, ``target`` and ``overlap`` do not apply). On K1's
+    path it counts the mel's frames (``rtvc.vocoder.mel_frames``)."""
+    with span("rtvc.vocoder.vocode"):
+        if _native is not None:
+            return _native.vocode_mel(mel=mel, normalize=normalize,
+                                      progress_callback=progress_callback, argmax=argmax)
+        cfg, target, overlap, seed, dtypes = _next_call(target, overlap)
+        count("rtvc.vocoder.mel_frames", int(np.shape(mel)[-1]))
+        sp = _sig.sp
+        if normalize:
+            mel = mel / sp.max_abs_value
+        wav = wavernn_generate(_bundle.model, _bundle.dims, np.asarray(mel, np.float32),
+                               seed, batched=batched, target=target, overlap=overlap,
+                               mu_law=cfg.mu_law, apply_preemphasis=sp.preemphasize,
+                               argmax=argmax, **dtypes)
+        if progress_callback is not None:
+            progress_callback(len(wav), len(wav), 1, 0.0)
+        return wav
 
 
 def infer_waveforms(mels: Sequence[np.ndarray], normalize: bool = True,
@@ -222,12 +226,16 @@ def infer_waveforms(mels: Sequence[np.ndarray], normalize: bool = True,
                     argmax: bool = False) -> List[np.ndarray]:
     """Vocode several mels in one batch: every utterance's fold windows share
     the batch axis of one launch of the sample loop. Returns one waveform
-    per mel, each of its own (T_i - 1)·200 samples."""
-    cfg, target, overlap, seed, dtypes = _next_call(target, overlap)
-    sp = _sig.sp
-    if normalize:
-        mels = [m / sp.max_abs_value for m in mels]
-    return wavernn_generate_batch(_bundle.model, _bundle.dims,
-                                  [np.asarray(m, np.float32) for m in mels], seed,
-                                  target=target, overlap=overlap, mu_law=cfg.mu_law,
-                                  apply_preemphasis=sp.preemphasize, argmax=argmax, **dtypes)
+    per mel, each of its own (T_i - 1)·200 samples. Counts the mels' frames
+    (``rtvc.vocoder.mel_frames``)."""
+    with span("rtvc.vocoder.vocode"):
+        cfg, target, overlap, seed, dtypes = _next_call(target, overlap)
+        count("rtvc.vocoder.mel_frames", sum(int(np.shape(m)[-1]) for m in mels))
+        sp = _sig.sp
+        if normalize:
+            mels = [m / sp.max_abs_value for m in mels]
+        return wavernn_generate_batch(_bundle.model, _bundle.dims,
+                                      [np.asarray(m, np.float32) for m in mels], seed,
+                                      target=target, overlap=overlap, mu_law=cfg.mu_law,
+                                      apply_preemphasis=sp.preemphasize, argmax=argmax,
+                                      **dtypes)

@@ -44,6 +44,7 @@ from rtvc_tpu_torch.ops.wavernn_generate import (  # noqa: F401  (VOC_* are re-e
     VOC_RUNTIMERACER,
     wavernn_generate_core,
 )
+from rtvc_tpu_torch.utils.profiler import span
 
 Tensor = torch.Tensor
 
@@ -362,8 +363,10 @@ def generate_core(model: WaveRNN, d: WaveRNNDims, mels_up: Tensor, aux: Tensor,
     none). The f32 streams are cast to ``stream_dtype`` and the step weights
     to ``compute_dtype`` once a call, before the launch (f32 for None)."""
     sdt, cdt = precision.resolve(stream_dtype), precision.resolve(compute_dtype)
-    streams = {k: v.to(sdt).contiguous() for k, v in hoist_aux(model, d, mels_up, aux).items()}
-    weights = {k: v.to(cdt) for k, v in step_weights(model, d).items()}
+    with span("rtvc.vocoder.prepare"):
+        streams = {k: v.to(sdt).contiguous()
+                   for k, v in hoist_aux(model, d, mels_up, aux).items()}
+        weights = {k: v.to(cdt) for k, v in step_weights(model, d).items()}
     return wavernn_generate_core(weights, streams, seed, argmax, variant=d.variant, head=d.head)
 
 
@@ -407,14 +410,17 @@ def generate_pipeline(model: WaveRNN, d: WaveRNNDims, mels: Tensor, seed: int,
     stay on the device, untrimmed: the first (n - 1)·hop are the
     waveform's."""
     mu_law = mu_law if d.mode == MODE_RAW else False
-    mels = F.pad(mels, (d.pad, d.pad))
-    mels_up, aux, _ = upsample_forward(model, d, mels)
+    with span("rtvc.vocoder.upsample"):
+        mels = F.pad(mels, (d.pad, d.pad))
+        mels_up, aux, _ = upsample_forward(model, d, mels)
     if batched:
-        mels_up, _ = fold_with_overlap(mels_up, target, overlap)
-        aux, _ = fold_with_overlap(aux, target, overlap)
+        with span("rtvc.vocoder.fold"):
+            mels_up, _ = fold_with_overlap(mels_up, target, overlap)
+            aux, _ = fold_with_overlap(aux, target, overlap)
     samples = generate_core(model, d, mels_up, aux, seed, argmax, compute_dtype, stream_dtype)
-    output = xfade_and_unfold(samples, target, overlap) if batched else samples[0]
-    return _decode(d, output, mu_law, apply_preemphasis)
+    with span("rtvc.vocoder.unfold"):
+        output = xfade_and_unfold(samples, target, overlap) if batched else samples[0]
+        return _decode(d, output, mu_law, apply_preemphasis)
 
 
 @torch.no_grad()
@@ -433,14 +439,17 @@ def wavernn_generate(model: WaveRNN, d: WaveRNNDims, mels, seed: int,
     The frame count is padded to a 64-frame bucket (:func:`bucket_pad`) and
     the pad trimmed off at the end."""
     dev = model.I.weight.device
-    mels = torch.as_tensor(np.asarray(mels, dtype=np.float32), device=dev)
-    if mels.ndim == 2:
-        mels = mels[None]
-    n_frames = mels.shape[-1]
-    _check_mels(d, n_frames, mels.shape[1])
-    output = generate_pipeline(model, d, bucket_pad(mels), seed, batched, target, overlap,
+    with span("rtvc.vocoder.upsample"):
+        mels = torch.as_tensor(np.asarray(mels, dtype=np.float32), device=dev)
+        if mels.ndim == 2:
+            mels = mels[None]
+        n_frames = mels.shape[-1]
+        _check_mels(d, n_frames, mels.shape[1])
+        mels = bucket_pad(mels)
+    output = generate_pipeline(model, d, mels, seed, batched, target, overlap,
                                mu_law, apply_preemphasis, argmax, compute_dtype, stream_dtype)
-    return _finish(d, output, (n_frames - 1) * d.hop_length, fade_out)
+    with span("rtvc.vocoder.finish"):
+        return _finish(d, output, (n_frames - 1) * d.hop_length, fade_out)
 
 
 def bucket_pad(mels: Tensor) -> Tensor:
@@ -469,20 +478,25 @@ def wavernn_generate_batch(model: WaveRNN, d: WaveRNNDims, mels_list: Sequence, 
     frames = [int(np.shape(m)[-1]) for m in mels_list]
     for m, n in zip(mels_list, frames):
         _check_mels(d, n, np.shape(m)[-2])
-    bucket = -(-max(frames) // _FRAME_BUCKET) * _FRAME_BUCKET
-    stack = np.full((len(frames), d.feat_dims, bucket), -1.0, np.float32)
-    for i, m in enumerate(mels_list):
-        stack[i, :, :frames[i]] = np.asarray(m, np.float32)
-    mels = F.pad(torch.as_tensor(stack, device=dev), (d.pad, d.pad))
-    mels_up, aux, _ = upsample_forward(model, d, mels)
-    folded = [(fold_with_overlap(mels_up[i:i + 1], target, overlap)[0],
-               fold_with_overlap(aux[i:i + 1], target, overlap)[0])
-              for i in range(len(frames))]
-    n_folds = folded[0][0].shape[0]
-    samples = generate_core(model, d, torch.cat([m for m, _ in folded]),
-                            torch.cat([a for _, a in folded]), seed, argmax, compute_dtype,
-                            stream_dtype)
-    return [_finish(d, _decode(d, xfade_and_unfold(samples[i * n_folds:(i + 1) * n_folds],
-                                                   target, overlap), mu_law, apply_preemphasis),
-                    (n - 1) * d.hop_length, fade_out=True)
-            for i, n in enumerate(frames)]
+    with span("rtvc.vocoder.upsample"):
+        bucket = -(-max(frames) // _FRAME_BUCKET) * _FRAME_BUCKET
+        stack = np.full((len(frames), d.feat_dims, bucket), -1.0, np.float32)
+        for i, m in enumerate(mels_list):
+            stack[i, :, :frames[i]] = np.asarray(m, np.float32)
+        mels = F.pad(torch.as_tensor(stack, device=dev), (d.pad, d.pad))
+        mels_up, aux, _ = upsample_forward(model, d, mels)
+    with span("rtvc.vocoder.fold"):
+        folded = [(fold_with_overlap(mels_up[i:i + 1], target, overlap)[0],
+                   fold_with_overlap(aux[i:i + 1], target, overlap)[0])
+                  for i in range(len(frames))]
+        n_folds = folded[0][0].shape[0]
+        mels_up = torch.cat([m for m, _ in folded])
+        aux = torch.cat([a for _, a in folded])
+    samples = generate_core(model, d, mels_up, aux, seed, argmax, compute_dtype, stream_dtype)
+    with span("rtvc.vocoder.unfold"):
+        outputs = [_decode(d, xfade_and_unfold(samples[i * n_folds:(i + 1) * n_folds],
+                                               target, overlap), mu_law, apply_preemphasis)
+                   for i in range(len(frames))]
+    with span("rtvc.vocoder.finish"):
+        return [_finish(d, out, (n - 1) * d.hop_length, fade_out=True)
+                for out, n in zip(outputs, frames)]

@@ -51,6 +51,7 @@ from rtvc_tpu_torch import _build
 from rtvc_tpu_torch.models import distribution
 from rtvc_tpu_torch.models.layers import gru_step
 from rtvc_tpu_torch.ops.precision import widen
+from rtvc_tpu_torch.utils.profiler import count, span
 
 Tensor = torch.Tensor
 
@@ -359,12 +360,19 @@ def wavernn_generate_core(weights: Dict[str, Tensor], streams: Dict[str, Tensor]
                           seed: int, argmax: bool = False, return_logits: bool = False,
                           variant: str = VOC_RUNTIMERACER, head: str = HEAD_CATEGORICAL):
     """Same contract as :func:`wavernn_generate_core_plain`; CUDA tensors go
-    through the kernel's instantiation for their dtypes."""
-    if not streams["i_cond"].is_cuda:
-        return wavernn_generate_core_plain(weights, streams, seed, argmax, return_logits,
-                                           variant, head)
-    out = launch(_build.library(), weights, streams, seed, argmax, return_logits, variant, head)
-    _build.count_launch(count_name(variant, *dtypes(weights, streams)))
+    through the kernel's instantiation for their dtypes. Counts the samples
+    generated, folds × steps (``rtvc.vocoder.k1_samples``)."""
+    B, T, _ = streams["i_cond"].shape
+    with span("rtvc.vocoder.k1"):
+        if not streams["i_cond"].is_cuda:
+            with span("rtvc.vocoder.k1_launch"):
+                out = wavernn_generate_core_plain(weights, streams, seed, argmax, return_logits,
+                                                  variant, head)
+        else:
+            out = launch(_build.library(), weights, streams, seed, argmax, return_logits,
+                         variant, head)
+            _build.count_launch(count_name(variant, *dtypes(weights, streams)))
+    count("rtvc.vocoder.k1_samples", B * T)
     return out
 
 
@@ -401,13 +409,14 @@ def launch(lib, weights: Dict[str, Tensor], streams: Dict[str, Tensor], seed: in
     scratch = torch.zeros(len(layers.rnns) * 2 * B * R + 2 * B * _al4(max(R, F)) + B * C
                           + 2 * p.ctas * B, device=dev, dtype=torch.float32)
     sync = torch.zeros(32, device=dev, dtype=torch.int32)
-    err = lib.rtvc_wavernn_generate(
-        _build.pointer_array(w), _build.pointer_array(s),
-        _build.int_array([B, T, R, F, C, len(layers.rnns), len(layers.fcs),
-                          _HEAD_CODE[head], *relu, *p, w_bytes, s_bytes]),
-        int(bool(argmax)), int(seed) & 0xFFFFFFFFFFFFFFFF, scratch.data_ptr(),
-        sync.data_ptr(), out.data_ptr(), None if trace is None else trace.data_ptr(),
-        _build.stream_handle(dev),
-    )
+    with span("rtvc.vocoder.k1_launch"):
+        err = lib.rtvc_wavernn_generate(
+            _build.pointer_array(w), _build.pointer_array(s),
+            _build.int_array([B, T, R, F, C, len(layers.rnns), len(layers.fcs),
+                              _HEAD_CODE[head], *relu, *p, w_bytes, s_bytes]),
+            int(bool(argmax)), int(seed) & 0xFFFFFFFFFFFFFFFF, scratch.data_ptr(),
+            sync.data_ptr(), out.data_ptr(), None if trace is None else trace.data_ptr(),
+            _build.stream_handle(dev),
+        )
     _build.check(err, "rtvc_wavernn_generate")
     return (out, trace) if return_logits else out
