@@ -17,8 +17,9 @@
    full width: fatchord RAW and MOL, geneing BITS, RAW (beta) and MOL,
    runtimeracer RAW and MOL; 8 folds x 512 steps, greedy; then sampled from
    fixed head outputs against a chi-square or a Kolmogorov-Smirnov test; and
-   runtimeracer RAW over 8, 13, 39, 132 and 264 folds and at the 5 s clone's
-   13 folds x 8000 steps), K6 mel projection (each mel over its band of
+   runtimeracer RAW over 6, 8, 13, 39, 64, 132, 169 and 264 folds and at the
+   5 s clone's 13 and the paragraph's 169 folds x 8000 steps), K6 mel
+   projection (each mel over its band of
    the filterbank: a minute of audio, 4801 frames x 513 bins, the clone's
    make_spectrogram size, 400 frames, and a 3.77 s utterance, 302 frames;
    the kernel's device time and the wrapper's host work apart).
@@ -1025,12 +1026,13 @@ def k1_plan(d, B, dev, elem=4):
                 head=d.head, elem=elem)
 
 
-def k1_fold_sweep(dev, voc, folds=(8, 13, 39, 132, 264), T=512):
-    """runtimeracer RAW, greedy, at 8 to 264 folds x 512 steps and at the 5 s
-    clone's shape, 13 folds x 8000 steps: every launch against the plain
-    version (``k1_check``); the first 8 folds of every launch also repeat
-    the 8-fold launch's samples (folds are independent, and a fold's sums do
-    not depend on the plan). Prints µs a step at each."""
+def k1_fold_sweep(dev, voc, folds=(8, 6, 13, 39, 64, 132, 169, 264), T=512):
+    """runtimeracer RAW, greedy, at 6 to 264 folds x 512 steps and at the 5 s
+    clone's and the paragraph's shapes, 13 and 169 folds x 8000 steps: every
+    launch against the plain version (``k1_check``); the first 8 folds of
+    every launch also repeat the 8-fold launch's samples (folds are
+    independent, and a fold's sums do not depend on the plan). Prints µs a
+    step at each."""
     import torch
 
     from rtvc_tpu_torch.models import wavernn as wrn
@@ -1057,11 +1059,12 @@ def k1_fold_sweep(dev, voc, folds=(8, 13, 39, 132, 264), T=512):
     for B in folds:
         got = point({k: v[:B].contiguous() for k, v in full.items()})
         first = got[:8] if first is None else first
-        check(torch.equal(got[:8], first), f"K1 at {B} folds: the first 8 folds differ from "
-              f"the 8-fold launch's")
-    clone_T = 8000
-    reps = -(-clone_T // T)
-    point({k: v[:13].repeat(1, reps, 1)[:, :clone_T].contiguous() for k, v in full.items()})
+        check(torch.equal(got[:8], first[:B]), f"K1 at {B} folds: the first 8 folds differ "
+              f"from the 8-fold launch's")
+    long_T = 8000
+    reps = -(-long_T // T)
+    for B in (13, 169):
+        point({k: v[:B].repeat(1, reps, 1)[:, :long_T].contiguous() for k, v in full.items()})
     print("K1 runtimeracer RAW fold sweep, greedy, each launch against the plain version: "
           + "; ".join(f"{e['folds']} folds x {e['steps']} steps {e['ms']:.3f} ms "
                       f"({e['us_a_step']:.2f} us a step, bound {e['bound_ms']:.4f} ms), "

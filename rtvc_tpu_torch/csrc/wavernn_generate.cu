@@ -14,14 +14,19 @@
 // them from L2 every step, ≈ 125 µs a step whatever the fold count, on 13 of
 // the 132 SMs for a 5 s clone. Spread over the card the weights fit in shared
 // memory (runtimeracer ≈ 106 KB a CTA, fatchord ≈ 180 KB, geneing ≈ 30 KB,
-// the padding and the phase buffers included), and a step is then bound by
-// its chain: on an H100 at 700 W (PERF.md, section 6) runtimeracer takes
-// 26.7 µs a step at 8 folds and 32 at 13, of which the waits at its nine grid
-// barriers are ≈ 9 µs and each layer's product, sum over the lanes,
-// elementwise part and stores ≈ 2.5 µs of latency; the layers' inputs from
-// L2 and the weights from shared memory cost 2.5 and 1 µs. The time grows
-// with the folds (59 µs at 39, 200 µs at 264) because every CTA runs every
-// fold of its rows, a layer's items taking one L2 round trip each.
+// the padding and the phase buffers included). On an H100 at 700 W (PERF.md,
+// section 6) runtimeracer then takes 26.8 µs a step at 6 folds, 28.7 at 13,
+// 44.4 at 39, 98.8 at 169 and 145 at 264. CTA 0's cycles by phase (clock64)
+// say what bounds it: at 6-13 folds the chain, the waits at the nine grid
+// barriers a third of the step and each layer's product, elementwise part
+// and stores ≈ 2 µs of latency; from ≈ 40 folds on the products, two thirds
+// of the step at 169 folds (the GRUs' 46 %, the FCs' 23 %), since every CTA
+// runs every fold of its rows: an item takes a warp ≈ 4000 cycles, of which
+// the round trips for its inputs from L2 are ≈ 15 % (84 against 99 µs a
+// step at 169 folds with the loads taken out). The inputs' bytes are not
+// what bounds it: copying each layer's inputs once a cluster into a ring in
+// shared memory (TMA multicast) was slower at every fold count, 237 against
+// 152 µs at 169 folds, its copies' round trips exposed one a tile.
 //
 // Design: one cooperative launch of `ctas` CTAs, all resident, runs every
 // step. A CTA owns U hidden units of every GRU (the 3U rows of W_ih, or of
@@ -29,7 +34,9 @@
 // slice of the rows of every FC, loaded into shared memory with their biases
 // once a launch (ops/wavernn_generate.py:plan cuts them). The layer list is a
 // runtime table in the kernel's parameters (struct Layers). All folds ride in
-// every CTA: a layer's product is cut into items of kRowBlock weight rows x NB folds
+// every CTA: a layer's product is cut into items of kRowBlock weight rows x NB
+// folds, an FC's of its CTA's rows rounded up to 2, 4 or kRowBlock (runtimeracer's
+// take 2: items of 8 were three quarters padding), each item on one warp
 // (common.cuh:slice_product: lanes over the reduction axis, the fold vectors
 // read from L2 one piece ahead, a transposing butterfly for the lanes' sums),
 // dealt out over the warps; the layer's elementwise part then writes the
@@ -44,7 +51,11 @@
 //   classes, Philox-4x32-10 keyed by (class / 4, step, fold, 0) with the
 //   seed's key, so a draw does not depend on the launch shape, takes a local
 //   argmax per fold (ties to the lower index) and writes (value, index);
-//   after the barrier every CTA reduces the partials to the same sample;
+//   after the barrier every CTA reduces the partials to the same sample:
+//   warp w the partials of a slice of the CTAs, a lane a fold, so that one
+//   load reads 32 folds' and a slice's loads are in flight together, then a
+//   thread a fold over the warps' maxima (a warp a fold, one round trip for
+//   each 32 CTAs, took a third of the step at 169 folds);
 // - MOL (30 columns) and beta (2 columns): the last FC's rows go to device
 //   memory, and after the barrier every CTA runs the head for every fold, a
 //   warp (MOL) or a thread (beta) a fold, with the arithmetic of the plain
@@ -80,6 +91,7 @@ constexpr int kWarps = rtvc::kRecWarps;
 constexpr int kMaxRnn = 4;
 constexpr int kMaxFc = 5;
 constexpr int kRowBlock = 8;  // weight rows an item of a layer's product takes
+constexpr int kHeadLoads = 16;  // partials a lane of the categorical head loads at once
 
 enum Head { kCategorical = 0, kMol = 1, kBeta = 2 };
 
@@ -268,43 +280,60 @@ __device__ __forceinline__ bool vec_ok(const T* x, size_t xs, int n) {
          (reinterpret_cast<uintptr_t>(x) & (4 * sizeof(T) - 1)) == 0;
 }
 
-// P[r * fb + b] = Σ_k W[r * ld + k] · x[b * xs + k] for the `rows` (a
-// multiple of kRowBlock) rows of one or two weight blocks and the `nf` folds
-// of a fold block: items of kRowBlock rows x NB folds, dealt out over the
-// warps. The second block (W2 over x2, stride xs2) lands in rows
-// [rows, 2 rows) of P. x is f32 (the activations) or a bf16 stream (the
-// first GRU's i_cond), x2 always f32 (the GRU state).
-template <int NB, typename Tw, typename Tx>
+// P[r * fb + b] = Σ_k W[r * ld + k] · x[b * xs + k] for the first `rows`
+// rows of one or two weight blocks (zero past the layer's rows, to a
+// multiple of kRowBlock) and the `nf` folds of a fold block: items of RB
+// rows x NB folds, dealt out over the warps (RB kRowBlock for the GRUs; for
+// an FC, fc_product's rows a CTA rounded up to 2, 4 or kRowBlock). The
+// second block (W2 over x2, stride xs2) lands in rows [rows, 2 rows) of P.
+// x is f32 (the activations) or a bf16 stream (the first GRU's i_cond), x2
+// always f32 (the GRU state).
+template <int NB, int RB, typename Tw, typename Tx>
 __device__ void layer_product(const Tw* W, const Tx* x, size_t xs, const Tw* W2,
                               const float* x2, size_t xs2, int rows, int ld, int n, int nf,
                               int fb, float* P, float* scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int chunks = rows / kRowBlock, groups = (nf + NB - 1) / NB;
+  const int chunks = (rows + RB - 1) / RB, groups = (nf + NB - 1) / NB;
   const int mats = W2 ? 2 : 1;
   for (int item = warp; item < mats * chunks * groups; item += kWarps) {
     const int mat = item / (chunks * groups), rest = item % (chunks * groups);
     const int chunk = rest / groups, g = rest % groups;
     const int nb = min(NB, nf - g * NB);
-    const Tw* w = (mat ? W2 : W) + chunk * kRowBlock * ld;
+    const Tw* w = (mat ? W2 : W) + chunk * RB * ld;
     if constexpr (std::is_same<Tx, float>::value) {
       const float* in = mat ? x2 : x;
       const size_t stride = mat ? xs2 : xs;
-      rtvc::slice_product<kRowBlock, NB>(w, ld, n, in + (size_t)g * NB * stride, stride, nb,
-                                         vec_ok(in, stride, n), scratch);
+      rtvc::slice_product<RB, NB>(w, ld, n, in + (size_t)g * NB * stride, stride, nb,
+                                  vec_ok(in, stride, n), scratch);
     } else if (mat) {
-      rtvc::slice_product<kRowBlock, NB>(w, ld, n, x2 + (size_t)g * NB * xs2, xs2, nb,
-                                         vec_ok(x2, xs2, n), scratch);
+      rtvc::slice_product<RB, NB>(w, ld, n, x2 + (size_t)g * NB * xs2, xs2, nb,
+                                  vec_ok(x2, xs2, n), scratch);
     } else {
-      rtvc::slice_product<kRowBlock, NB>(w, ld, n, x + (size_t)g * NB * xs, xs, nb,
-                                         vec_ok(x, xs, n), scratch);
+      rtvc::slice_product<RB, NB>(w, ld, n, x + (size_t)g * NB * xs, xs, nb, vec_ok(x, xs, n),
+                                  scratch);
     }
     __syncwarp();
-    for (int i = lane; i < kRowBlock * NB; i += 32) {
+    for (int i = lane; i < RB * NB; i += 32) {
       const int r = i / NB, b = i % NB;
-      if (b < nb) P[(mat * rows + chunk * kRowBlock + r) * fb + g * NB + b] = scratch[i];
+      if (b < nb) P[(mat * rows + chunk * RB + r) * fb + g * NB + b] = scratch[i];
     }
     __syncwarp();
   }
+}
+
+// An FC's product (layer_product without a second block): items of its
+// CTA's `q` rows rounded up to 2, 4 or kRowBlock, so that they are not mostly
+// padding (runtimeracer's FCs but the last take 2 rows a CTA).
+template <int NB, typename Tw>
+__device__ void fc_product(const Tw* W, const float* x, size_t xs, int q, int ld, int n, int nf,
+                           int fb, float* P, float* scratch) {
+  const Tw* none = nullptr;
+  if (q <= 2)
+    layer_product<NB, 2>(W, x, xs, none, nullptr, 0, q, ld, n, nf, fb, P, scratch);
+  else if (q <= 4)
+    layer_product<NB, 4>(W, x, xs, none, nullptr, 0, q, ld, n, nf, fb, P, scratch);
+  else
+    layer_product<NB, kRowBlock>(W, x, xs, none, nullptr, 0, q, ld, n, nf, fb, P, scratch);
 }
 
 template <int HEAD, int NB, typename Tw, typename Ts>
@@ -405,14 +434,14 @@ wavernn_kernel(Layers<Tw, Ts> L, Dims d, Scratch s, uint2 key, float* __restrict
           const float* hf = h_read + (size_t)f0 * R;
           if constexpr (std::is_same<Ts, float>::value) {
             const float* x_in = k == 0 ? cond : act_in;
-            layer_product<NB>(wih, x_in + (size_t)f0 * xs, xs, whh, hf, R, lay.g_rows, ldR, R,
-                              nf, FB, P, scratch);
+            layer_product<NB, kRowBlock>(wih, x_in + (size_t)f0 * xs, xs, whh, hf, R,
+                                         lay.g_rows, ldR, R, nf, FB, P, scratch);
           } else if (k == 0) {
-            layer_product<NB>(wih, cond + (size_t)f0 * xs, xs, whh, hf, R, lay.g_rows, ldR, R,
-                              nf, FB, P, scratch);
+            layer_product<NB, kRowBlock>(wih, cond + (size_t)f0 * xs, xs, whh, hf, R,
+                                         lay.g_rows, ldR, R, nf, FB, P, scratch);
           } else {
-            layer_product<NB>(wih, act_in + (size_t)f0 * xs, xs, whh, hf, R, lay.g_rows, ldR,
-                              R, nf, FB, P, scratch);
+            layer_product<NB, kRowBlock>(wih, act_in + (size_t)f0 * xs, xs, whh, hf, R,
+                                         lay.g_rows, ldR, R, nf, FB, P, scratch);
           }
           __syncthreads();
           for (int i = tid; i < pairs; i += kThreads) {
@@ -478,9 +507,8 @@ wavernn_kernel(Layers<Tw, Ts> L, Dims d, Scratch s, uint2 key, float* __restrict
           float4 first_noise = make_float4(0.f, 0.f, 0.f, 0.f);
           if (!gumbel && tid < nr * nf) first_aux = load_aux(tid);
           if (gumbel && tid < nq * nf) first_noise = noise(tid);
-          layer_product<NB>(smw + lay.fc_w[k], x_in + (size_t)f0 * W, W,
-                            static_cast<const Tw*>(nullptr), nullptr, 0, blocks_of(q),
-                            k == 0 ? ldR : ldF, n_in, nf, FB, P, scratch);
+          fc_product<NB>(smw + lay.fc_w[k], x_in + (size_t)f0 * W, (size_t)W, q,
+                         k == 0 ? ldR : ldF, n_in, nf, FB, P, scratch);
           __syncthreads();
           if (!gumbel) {
             for (int i = tid; i < nr * nf; i += kThreads) {
@@ -548,23 +576,61 @@ wavernn_kernel(Layers<Tw, Ts> L, Dims d, Scratch s, uint2 key, float* __restrict
 
     // ---- the head's second half: every CTA draws every fold's sample ----
     if constexpr (HEAD == kCategorical) {
-      for (int fold = warp; fold < B; fold += kWarps) {
-        float best = -FLT_MAX;
-        int best_i = 0x7fffffff;
-        for (int c = lane; c < n_last; c += 32) {
-          const float v = __ldcg(s.part_val + (size_t)c * B + fold);
-          const int i = __ldcg(s.part_idx + (size_t)c * B + fold);
-          if (v > best || (v == best && i < best_i)) {
-            best = v;
-            best_i = i;
+      // The last FC's n_last CTAs left a (value, class) partial for each
+      // fold. Warp w takes the CTAs of its slice, its lanes a fold each, so
+      // that one load reads 32 consecutive folds of a CTA and the slice's
+      // loads are in flight together: a round trip to L2 for 32 folds, not
+      // one for each CTA of each fold. The warps' maxima meet in the phase
+      // buffer (phase_rows >= 2·kWarps rows), and a thread a fold takes theirs
+      // (the argmax, ties to the lower class, takes them in any order).
+      const int slice = (n_last + kWarps - 1) / kWarps;
+      const int c_lo = warp * slice, c_hi = min(n_last, c_lo + slice);
+      float* best_v = P;
+      int* best_c = reinterpret_cast<int*>(P + kWarps * FB);
+      for (int f0 = 0; f0 < B; f0 += FB) {
+        const int nf = min(FB, B - f0);
+        for (int b = lane; b < nf; b += 32) {
+          const int fold = f0 + b;
+          float best = -FLT_MAX;
+          int best_i = 0x7fffffff;
+          for (int c0 = c_lo; c0 < c_hi; c0 += kHeadLoads) {
+            float v[kHeadLoads];
+            int ix[kHeadLoads];
+#pragma unroll
+            for (int m = 0; m < kHeadLoads; ++m) {
+              const bool in = c0 + m < c_hi;
+              v[m] = in ? __ldcg(s.part_val + (size_t)(c0 + m) * B + fold) : -FLT_MAX;
+              ix[m] = in ? __ldcg(s.part_idx + (size_t)(c0 + m) * B + fold) : 0x7fffffff;
+            }
+#pragma unroll
+            for (int m = 0; m < kHeadLoads; ++m) {
+              if (v[m] > best || (v[m] == best && ix[m] < best_i)) {
+                best = v[m];
+                best_i = ix[m];
+              }
+            }
           }
+          best_v[warp * FB + b] = best;
+          best_c[warp * FB + b] = best_i;
         }
-        warp_argmax(best, best_i);
-        if (lane == 0) {
+        __syncthreads();
+        for (int b = tid; b < nf; b += kThreads) {
+          float best = best_v[b];
+          int best_i = best_c[b];
+          for (int w = 1; w < kWarps; ++w) {
+            const float v = best_v[w * FB + b];
+            const int i = best_c[w * FB + b];
+            if (v > best || (v == best && i < best_i)) {
+              best = v;
+              best_i = i;
+            }
+          }
+          const int fold = f0 + b;
           const float sample = 2.0f * (float)best_i / ((float)C - 1.0f) - 1.0f;
           prev[fold] = rtvc::round_as<Tw>(sample);
           if (cta == 0) out[(size_t)fold * T + t] = sample;
         }
+        if (f0 + FB < B) __syncthreads();  // the next block reuses the buffer
       }
     } else if constexpr (HEAD == kMol) {
       // Columns [logit_probs | means | log_scales] x k_mix: the component by

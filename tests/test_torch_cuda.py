@@ -1051,8 +1051,11 @@ def test_wavernn_kernel_greedy_matches_plain(dev):
     torch.testing.assert_close(k_logits, p_logits, atol=1e-5, rtol=0)
 
 
-def test_wavernn_kernel_sampler_distribution(dev):
-    w, s, d = _voc(dev, B=8, T=500)
+# the categorical head's second half takes 32 folds a load: at 8 folds one
+# ragged chunk, at the paragraph's 169 six chunks, the last ragged
+@pytest.mark.parametrize("B", [8, 169])
+def test_wavernn_kernel_sampler_distribution(dev, B):
+    w, s, d = _voc(dev, B=B, T=500 if B < 100 else 60)
     C = d.n_classes
     logits = torch.randn(C, generator=torch.Generator().manual_seed(3)) * 1.5
     w["fc5_w"] = torch.zeros_like(w["fc5_w"])
@@ -1075,13 +1078,15 @@ CELLS = [("fatchord-wavernn", "RAW"), ("fatchord-wavernn", "MOL"), ("geneing-wav
          ("runtimeracer-wavernn", "RAW"), ("runtimeracer-wavernn", "MOL")]
 
 
-@pytest.mark.parametrize("B", [1, 13, 264])
+@pytest.mark.parametrize("B", [1, 13, 169, 264, 520])
 @pytest.mark.parametrize("variant,mode", CELLS)
 def test_wavernn_kernel_cells_greedy_match_plain(dev, variant, mode, B):
     """Every variant x head cell at a small width, at one fold, at the 5 s
-    clone's 13 and past the SM count: the head's inputs within 1e-5 at every
-    step, the samples within 1e-6 (categorical: equal labels) or 1e-5 (MOL
-    and beta feed a continuous sample back)."""
+    clone's 13, at the paragraph's 169 (the categorical head's chunks of 32
+    folds end ragged), past the SM count and past ``MAX_FOLD_BLOCK`` (two
+    fold blocks): the head's inputs within 1e-5 at every step, the samples
+    within 1e-6 (categorical: equal labels) or 1e-5 (MOL and beta feed a
+    continuous sample back)."""
     w, s, d = _voc(dev, B=B, T=300 if B < 100 else 60, variant=variant, mode=mode)
     last = LAYERS[variant].fcs[-1].name
     # a wide last FC, so that the greedy decode moves
@@ -1190,7 +1195,8 @@ def test_wavernn_kernel_full_width_matches_plain(dev, variant, mode):
 @pytest.mark.parametrize("variant,mode,B", [
     ("fatchord-wavernn", "RAW", 400), ("fatchord-wavernn", "MOL", 400),
     ("geneing-wavernn", "BITS", 600), ("runtimeracer-wavernn", "RAW", 600),
-    ("runtimeracer-wavernn", "MOL", 600)])
+    ("runtimeracer-wavernn", "MOL", 600), ("runtimeracer-wavernn", "RAW", 520),
+    ("geneing-wavernn", "BITS", 520)])
 def test_wavernn_kernel_fold_blocks_match_plain(dev, variant, mode, B):
     """Past the fold block: the kernel loops over blocks of ``fb`` < B folds
     (its partials, reductions and GRU / FC items indexed by block), at
@@ -1778,17 +1784,19 @@ def _held_greedy(got, kl, ref, pl, head, C, tol):
     return parted
 
 
+@pytest.mark.parametrize("B", [13, 169])
 @pytest.mark.parametrize("compute,stream", K1_PAIRS)
 @pytest.mark.parametrize("variant,mode", CELLS)
-def test_wavernn_kernel_pairs_greedy_match_plain(dev, variant, mode, compute, stream):
-    """Every cell at a small width, 13 folds x 300 steps, at each new pair.
+def test_wavernn_kernel_pairs_greedy_match_plain(dev, variant, mode, compute, stream, B):
+    """Every cell at a small width, 13 folds x 300 steps and 169 x 60, at
+    each new pair.
     bf16 streams over f32 weights: as the f32 kernel (head inputs within
     1e-5, labels equal, MOL and beta samples within 1e-5). bf16 weights: the
     carried states and the fed-back sample are rounded to bf16, and two f32
     sums a few units apart round apart where they lie that close to a bf16
     midpoint (one bf16 unit of a state): head inputs within 1e-3, up to a
     near-tie."""
-    w, s, d = _voc(dev, B=13, T=300, variant=variant, mode=mode)
+    w, s, d = _voc(dev, B=B, T=300 if B < 100 else 60, variant=variant, mode=mode)
     last = LAYERS[variant].fcs[-1].name
     w[f"{last}_w"] = (torch.randn(w[f"{last}_w"].shape,
                                   generator=torch.Generator().manual_seed(6)) * 2.0).to(dev)

@@ -264,6 +264,21 @@ def test_profile_variants_match_the_kernel_sources(source):
     assert profile_lstm.WEIGHT_LOAD not in made["no_loads_no_weights"]
 
 
+def test_profile_wavernn_clock_marks_match_the_kernel_source():
+    """``profile_wavernn``'s clock build finds every mark it names in K1's
+    source (``replaced`` raises where one is gone): each phase's sum once,
+    the GRUs' before the FCs', and CTA 0's sums written where its samples
+    go."""
+    from rtvc_tpu_torch import profile_lstm, profile_wavernn
+
+    text = profile_lstm.flat_source("wavernn_generate.cu")
+    made = profile_wavernn.clocked(text)
+    sums = [made.index(f"cyc[{i}] += c - c0") for i in range(len(profile_wavernn.PHASES))]
+    assert sums == sorted(sums)
+    assert all(made.count(f"cyc[{i}] +=") == 1 for i in range(len(sums)))
+    assert "out[i] = (float)cyc[i]" in made and "cyc[" not in text
+
+
 def test_profile_row_variants_match_the_kernel_source():
     """``profile_gru``'s row-resident variants (the forward without its xg
     ring, or without its product; both kernels clocked) replace parts of

@@ -26,6 +26,7 @@ from rtvc_tpu_torch.models import distribution as tdist
 from rtvc_tpu_torch.models import factories
 from rtvc_tpu_torch.models import wavernn as tw
 from rtvc_tpu_torch.ops import audio as taudio
+from rtvc_tpu_torch.ops import wavernn_generate as wg
 from rtvc_tpu_torch.ops.wavernn_generate import (
     LAYERS,
     wavernn_generate_core,
@@ -444,3 +445,63 @@ def test_beta_sampler_distribution():
     x = _fixed_head("geneing-wavernn", "RAW", np.log([alpha, beta]).astype(np.float32))
     assert x.size >= 15000
     assert stats.kstest((x + 1.0) / 2.0, stats.beta(alpha, beta).cdf).pvalue > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# K1's plan (pure Python; an H100's limits)
+# ---------------------------------------------------------------------------
+
+H100 = (132, 232448)
+# (variant, R, F, C, head) of the seven cells at their default widths
+K1_CELLS = [(wg.VOC_FATCHORD, 512, 512, 1024, wg.HEAD_CATEGORICAL),
+            (wg.VOC_FATCHORD, 512, 512, 30, wg.HEAD_MOL),
+            (wg.VOC_GENEING, 256, 128, 1024, wg.HEAD_CATEGORICAL),
+            (wg.VOC_GENEING, 256, 128, 2, wg.HEAD_BETA),
+            (wg.VOC_GENEING, 256, 128, 30, wg.HEAD_MOL),
+            (wg.VOC_RUNTIMERACER, 256, 256, 1024, wg.HEAD_CATEGORICAL),
+            (wg.VOC_RUNTIMERACER, 256, 256, 30, wg.HEAD_MOL)]
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("B", [1, 13, 169, 520, 2000])
+@pytest.mark.parametrize("variant,R,F,C,head", K1_CELLS)
+def test_k1_phase_buffer_holds_the_head_maxima(variant, R, F, C, head, B, elem):
+    """The categorical head's second half leaves each warp's maxima, a value
+    and a class for each fold of a block, in the phase buffer
+    (``csrc/wavernn_generate.cu``): every plan's phase buffer has at least
+    2·WARPS rows of ``fb`` folds, its GRUs' two weight blocks of at least
+    ROW_BLOCK rows each."""
+    p = wg.plan(variant, R, F, C, B, *H100, head=head, elem=elem)
+    rows = max(2 * wg._blocks(3 * p.units), wg._blocks(max(p.fc_rows, p.last_rows)))
+    assert rows >= 2 * wg.WARPS
+    # the buffer as _smem_bytes counts it: one fold more of the block takes
+    # a float a row, and a categorical head's partials (two a class quad)
+    grown = wg._smem_bytes(variant, R, F, head, B, *p[1:5], p.fb + p.nb, elem=elem)
+    quads = 2 * (p.last_rows // 4) if head == wg.HEAD_CATEGORICAL else 0
+    assert grown - p.smem == 4 * p.nb * (rows + quads)
+
+
+def test_k1_layout_by_hand():
+    """runtimeracer RAW f32 on an H100 against the kernel's layout worked by
+    hand. Weights: 4 GRUs × (W_ih and W_hh of 8 rows × 256 + 2 × 8 biases)
+    + 4 i_col units + 4 FCs × (8 rows × 256 + 4) + the last FC's 8 rows ×
+    256 + 8 = 26716 floats, 106864 bytes. At the paragraph's 169 folds
+    (items of 8, one block of 176): W_ih·i_col 8, the warps' sums 8 × 64 =
+    512, the phase buffer 16 × 176 = 2816 (the head's maxima take all 16
+    rows), the partials 2 × 2 × 176 = 704, the previous samples 172: 4212
+    floats, 16848 bytes. At the clone's 13 (items of 4, one block of 16):
+    8 + 8 × 32 + 16 × 16 + 64 + 16 = 600 floats, 2400 bytes."""
+    args = (wg.VOC_RUNTIMERACER, 256, 256, 1024)
+    assert wg.plan(*args, 169, *H100) == (128, 2, 2, 8, 8, 176, 106864 + 16848)
+    assert wg.plan(*args, 13, *H100) == (128, 2, 2, 8, 4, 16, 106864 + 2400)
+
+
+def test_k1_plan_errors_keep_their_messages():
+    with pytest.raises(ValueError, match="past the limit of 232448"):
+        wg.plan(wg.VOC_FATCHORD, 1024, 1024, 1024, 169, *H100)
+    with pytest.raises(ValueError, match="past the limit of 48000"):
+        wg.plan(wg.VOC_RUNTIMERACER, 256, 256, 1024, 169, 132, 48000)
+    with pytest.raises(ValueError, match="folds are past the limit of"):
+        wg.plan(wg.VOC_GENEING, 256, 128, 1024, 200000, 132, 48000 + 4 * 4096)
+    with pytest.raises(ValueError, match="bad plan inputs"):
+        wg.plan(wg.VOC_GENEING, 256, 128, 1024, 0, *H100)
